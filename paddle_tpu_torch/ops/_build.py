@@ -10,7 +10,8 @@ version for a CUDA tensor.
 
 ``torch.utils.cpp_extension`` is deliberately not used: a source that
 includes PyTorch's headers takes minutes to compile, a plain C one
-seconds.
+seconds.  :func:`load_libraries` starts one ``nvcc`` per source at once,
+so the set builds in the time of its slowest member.
 """
 from __future__ import annotations
 
@@ -21,10 +22,15 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["NVCC_FLAGS", "load_library", "build_log", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "load_library", "load_libraries",
+           "build_log", "nvcc_path"]
+
+# every kernel source of the port, by library name (csrc/<name>.cu)
+KERNEL_SOURCES = ("paged_attention", "quantized_matmul")
 
 _OPS_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _OPS_DIR / "csrc"
@@ -34,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds", "cached", "path", "ptxas"}: what each build did,
 # read by chip_smoke.py to report build time and register use
@@ -69,8 +76,11 @@ def _compile(name: str, src: Path, out: Path) -> List[str]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Builds of different sources may run concurrently."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -89,3 +99,12 @@ def load_library(name: str) -> ctypes.CDLL:
                            "ptxas": ptxas}
         _LIBS[name] = lib
         return lib
+
+
+def load_libraries(names=KERNEL_SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Build and load several sources, one ``nvcc`` each, all started
+    together; raises the first build error."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = list(pool.map(load_library, names))
+    return dict(zip(names, libs))

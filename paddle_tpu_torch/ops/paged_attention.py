@@ -7,6 +7,12 @@ chunked-prefill lane a chunk) and row ``r`` attends to positions
 ``s < row_lens[g, r]`` of its lane.  Page id 0 is the trash page: padding
 entries point at it, so every table entry is a valid index.
 
+Int8 pools (the quantized serving arm) come with per-page-per-head f32
+scales ``k_scales, v_scales [N, H]``; the plain versions dequantize after
+the gather, the kernel in registers (``fused_dequant`` 1, the contract
+default: scale after the q·k dot and on the p·v contribution; 0: before
+the dots).
+
 - :func:`ragged_paged_attention` — the routing entry the serving step
   calls: a CUDA tensor launches the hand-written kernel
   (``csrc/paged_attention.cu``), a CPU tensor runs the plain version.
@@ -18,9 +24,10 @@ entries point at it, so every table entry is a valid index.
 - :func:`ragged_paged_attention_cuda` — the kernel wrapper.
 
 ``PAGED_ROUTE_STATS`` counts routing decisions per call, the twin of the
-reference's trace-time counter: ``"cuda"`` is incremented by the kernel
-wrapper once per launch and nowhere else, ``"ref"`` by the routing entry
-once per plain-version call.
+reference's trace-time counter: ``"cuda"`` (f32/bf16 pools) and
+``"cuda_int8"`` (int8 pools) are incremented by the kernel wrapper once
+per launch and nowhere else, ``"ref"`` by the routing entry once per
+plain-version call.
 """
 from __future__ import annotations
 
@@ -29,26 +36,45 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "paged_attention_ref",
+__all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT",
+           "paged_attention_ref",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
            "ragged_paged_attention"]
 
 NEG_INF = -1e30
 
-PAGED_ROUTE_STATS = {"cuda": 0, "ref": 0}
+PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "ref": 0}
+
+# the contract default of the int8 body (paddle_tpu's PAGED_RAGGED_INT8
+# ``fused_dequant``): scales applied after the dots
+FUSED_DEQUANT = 1
 
 _MAX_HEAD_DIM = 128
-_KERNEL_FNS = {torch.float32: "ptt_ragged_paged_attention_f32",
-               torch.bfloat16: "ptt_ragged_paged_attention_bf16"}
+# (q dtype, int8 pools) -> C entry point
+_KERNEL_FNS = {(torch.float32, False): "ptt_ragged_paged_attention_f32",
+               (torch.bfloat16, False): "ptt_ragged_paged_attention_bf16",
+               (torch.float32, True): "ptt_ragged_paged_attention_int8_f32",
+               (torch.bfloat16, True): "ptt_ragged_paged_attention_int8_bf16"}
 
 
-def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens):
+def _require_scales(k_pages, k_scales, v_scales):
+    if k_pages.dtype == torch.int8 and (k_scales is None
+                                        or v_scales is None):
+        raise ValueError("int8 KV pages require k_scales/v_scales")
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
+                        k_scales=None, v_scales=None):
     """Plain twin of ``paged_attention_xla``: gather each sequence's pages
     into a dense ``[B, M*P, H, D]`` view, masked f32 softmax with the
     finite ``NEG_INF`` sentinel, rows with ``seq_len 0`` pinned to 0.
+    Int8 pages are dequantized after the gather with their per-page-per-
+    head scales.
 
     q [B, H, D], pools [N, P, H, D], page_tables [B, M], seq_lens [B]
-    -> [B, H, D] in q's dtype."""
+    (k_scales, v_scales [N, H] f32 iff the pools are int8) -> [B, H, D]
+    in q's dtype."""
+    _require_scales(k_pages, k_scales, v_scales)
     B, H, D = q.shape
     P = k_pages.shape[1]
     M = page_tables.shape[1]
@@ -56,6 +82,11 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens):
     idx = page_tables.long()
     k = k_pages[idx].reshape(B, S, H, D)
     v = v_pages[idx].reshape(B, S, H, D)
+    if k_pages.dtype == torch.int8:
+        ks = torch.repeat_interleave(k_scales[idx], P, dim=1)   # [B, S, H]
+        vs = torch.repeat_interleave(v_scales[idx], P, dim=1)
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
     valid = (torch.arange(S, device=q.device)[None, None, :]
@@ -70,7 +101,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens):
     return ctx.to(q.dtype)
 
 
-def ragged_paged_attention_ref(q, k_pages, v_pages, page_tables, row_lens):
+def ragged_paged_attention_ref(q, k_pages, v_pages, page_tables, row_lens,
+                               k_scales=None, v_scales=None):
     """Plain twin of ``ragged_paged_attention_xla``: flatten the G x Qb
     rows, repeat each lane's page-table row across its queries and
     delegate to :func:`paged_attention_ref`."""
@@ -78,11 +110,12 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, page_tables, row_lens):
     rows_q = q.reshape(G * Qb, H, D)
     rows_pt = torch.repeat_interleave(page_tables, Qb, dim=0)
     rows_len = row_lens.reshape(G * Qb)
-    out = paged_attention_ref(rows_q, k_pages, v_pages, rows_pt, rows_len)
+    out = paged_attention_ref(rows_q, k_pages, v_pages, rows_pt, rows_len,
+                              k_scales, v_scales)
     return out.reshape(G, Qb, H, D)
 
 
-def _check(q, k_pages, v_pages, page_tables, row_lens):
+def _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales):
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q must be [G, Qb, H, D] and the pools "
                          f"[N, P, H, D]; got {tuple(q.shape)} and "
@@ -98,21 +131,35 @@ def _check(q, k_pages, v_pages, page_tables, row_lens):
     if tuple(row_lens.shape) != (G, Qb):
         raise ValueError(f"row_lens must be [{G}, {Qb}], got "
                          f"{tuple(row_lens.shape)}")
-    if q.dtype not in _KERNEL_FNS:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ragged paged attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype} (int8 pools are the "
-                        "quantized serving arm, ROADMAP queue 1 item 6)")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+                        f"bfloat16 queries, got {q.dtype}")
+    quant = k_pages.dtype == torch.int8
+    pool_dtype = torch.int8 if quant else q.dtype
+    if k_pages.dtype != pool_dtype or v_pages.dtype != pool_dtype:
         raise TypeError(f"pools ({k_pages.dtype}, {v_pages.dtype}) must "
-                        f"share q's dtype {q.dtype}")
+                        f"both be int8 or share q's dtype {q.dtype}")
+    scales = ()
+    if quant:
+        _require_scales(k_pages, k_scales, v_scales)
+        N = k_pages.shape[0]
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(t.shape) != (N, H) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 [N={N}, H={H}], "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+        scales = (("k_scales", k_scales), ("v_scales", v_scales))
+    elif k_scales is not None or v_scales is not None:
+        raise ValueError("k_scales/v_scales belong to int8 pools only")
     if D > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {_MAX_HEAD_DIM} is not supported "
                          "by the kernel")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_tables", page_tables), ("row_lens", row_lens)):
+                    ("page_tables", page_tables), ("row_lens", row_lens),
+                    *scales):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    *scales):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -120,25 +167,34 @@ def _check(q, k_pages, v_pages, page_tables, row_lens):
 _BOUND = {}
 
 
-def _kernel(dtype):
-    """The C entry point for ``dtype``, built and bound at first use."""
-    fn = _BOUND.get(dtype)
+def _kernel(dtype, quant: bool):
+    """The C entry point for (q dtype, int8 pools), built and bound at
+    first use."""
+    key = (dtype, quant)
+    fn = _BOUND.get(key)
     if fn is None:
         from ._build import load_library
 
-        fn = getattr(load_library("paged_attention"), _KERNEL_FNS[dtype])
+        fn = getattr(load_library("paged_attention"), _KERNEL_FNS[key])
         # pointers and the stream as c_void_p: a plain int argument would
         # be passed as a 32-bit C int and cut the address
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        if quant:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+                + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+                + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _BOUND[dtype] = fn
+        _BOUND[key] = fn
     return fn
 
 
-def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens):
+def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
+                                k_scales=None, v_scales=None,
+                                fused_dequant: int = FUSED_DEQUANT):
     """Launch the CUDA kernel (``csrc/paged_attention.cu``), which replaces
-    ``paddle_tpu/ops/pallas_ops/paged_attention.py:_ragged_kernel``.
+    ``paddle_tpu/ops/pallas_ops/paged_attention.py:_ragged_kernel`` and,
+    for int8 pools, ``_ragged_kernel_quant``.
 
     The kernel is bound by bytes: a decode row does 4·D flops per K/V
     position it streams, far under the H100's flop-per-byte balance, so
@@ -147,13 +203,19 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens):
     all of the tile's rows against it, and stops at the tile's longest
     row — decode cost follows real tokens, not the page-table width.
 
-    Inputs must be contiguous CUDA tensors on one device (f32 or bf16,
-    D <= 128); page tables and lengths are cast to contiguous int32
-    here.  Raises when the launch is refused."""
-    _check(q, k_pages, v_pages, page_tables, row_lens)
+    Int8 pools stream a quarter of the f32 bytes: rows load as 16-byte
+    vectors and widen to f32 in shared memory; each lane carries its own
+    position's page scales, so a tile may span pages.
+
+    Inputs must be contiguous CUDA tensors on one device (q f32 or bf16;
+    pools of q's dtype, or int8 with f32 ``[N, H]`` scales; D <= 128);
+    page tables and lengths are cast to contiguous int32 here.  Raises
+    when the launch is refused."""
+    _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales)
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
-    fn = _kernel(q.dtype)
+    quant = k_pages.dtype == torch.int8
+    fn = _kernel(q.dtype, quant)
     G, Qb, H, D = q.shape
     P = k_pages.shape[1]
     M = page_tables.shape[1]
@@ -164,29 +226,41 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens):
         return out.zero_()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                pt.data_ptr(), rl.data_ptr(), out.data_ptr(),
-                G, Qb, H, D, P, M, stream)
+        if quant:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    k_scales.data_ptr(), v_scales.data_ptr(), pt.data_ptr(),
+                    rl.data_ptr(), out.data_ptr(), G, Qb, H, D, P, M,
+                    int(bool(fused_dequant)), stream)
+        else:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    pt.data_ptr(), rl.data_ptr(), out.data_ptr(),
+                    G, Qb, H, D, P, M, stream)
     if rc != 0:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: CUDA error {rc} "
-            f"(G={G}, Qb={Qb}, H={H}, D={D}, P={P}, M={M}, {q.dtype})")
-    PAGED_ROUTE_STATS["cuda"] += 1
+            f"(G={G}, Qb={Qb}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, "
+            f"pools {k_pages.dtype})")
+    PAGED_ROUTE_STATS["cuda_int8" if quant else "cuda"] += 1
     return out
 
 
-def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens):
+def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens,
+                           k_scales=None, v_scales=None,
+                           fused_dequant: int = FUSED_DEQUANT):
     """Routing entry for the unified serving step.
 
     q [G, Qb, H, D]; pools [N, P, H, D]; page_tables [G, M] (one row per
     lane, padded with the trash page 0); row_lens [G, Qb] (each row's
-    causal KV horizon, 0 = padded row).  Returns [G, Qb, H, D].
+    causal KV horizon, 0 = padded row); k_scales, v_scales [N, H] f32
+    iff the pools are int8.  Returns [G, Qb, H, D].
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain
-    version.  Softmax scale 1/sqrt(D) is applied inside."""
+    A CUDA tensor launches the kernel (``fused_dequant`` picks the int8
+    body's dequant placement); a CPU tensor runs the plain version.
+    Softmax scale 1/sqrt(D) is applied inside."""
     if q.is_cuda:
         return ragged_paged_attention_cuda(q, k_pages, v_pages,
-                                           page_tables, row_lens)
+                                           page_tables, row_lens, k_scales,
+                                           v_scales, fused_dequant)
     PAGED_ROUTE_STATS["ref"] += 1
     return ragged_paged_attention_ref(q, k_pages, v_pages, page_tables,
-                                      row_lens)
+                                      row_lens, k_scales, v_scales)

@@ -1,0 +1,137 @@
+"""Weight-only int8 matmul ``x @ dequant(w)`` — the counterpart of
+``paddle_tpu/ops/pallas_ops/quantized_matmul.py``.
+
+Weights stay resident as int8 ``w_q [K, N]`` with one fp32 dequant scale
+per output channel ``w_scale [N]`` (the JAX layout, which is also the
+kernel's: no re-layout anywhere); activations stay in their own dtype
+and the product accumulates in f32, the scale applied once after the
+K-sum.
+
+- :func:`quantized_matmul` — the routing entry the serving core calls:
+  a CUDA tensor launches the hand-written kernel
+  (``csrc/quantized_matmul.cu``), a CPU tensor runs the plain version.
+  Leading dims of ``x`` are flattened around the 2-D product.
+- :func:`quantized_matmul_ref` — the plain twin of
+  ``quantized_matmul_xla``.
+- :func:`quantized_matmul_cuda` — the kernel wrapper.
+
+``QMM_ROUTE_STATS`` counts ``"cuda"`` launches (incremented by the
+wrapper, once per launch) and ``"ref"`` plain-version calls (by the
+routing entry).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["QMM_ROUTE_STATS", "quantized_matmul_ref",
+           "quantized_matmul_cuda", "quantized_matmul"]
+
+QMM_ROUTE_STATS = {"cuda": 0, "ref": 0}
+
+_KERNEL_FNS = {torch.float32: "ptt_quantized_matmul_f32",
+               torch.bfloat16: "ptt_quantized_matmul_bf16"}
+_BOUND = {}
+
+
+def quantized_matmul_ref(x, w_q, w_scale):
+    """Plain twin of ``quantized_matmul_xla``: dequantize-then-matmul in
+    f32, the per-channel scale folded after the K-sum, cast to x's
+    dtype.  x [M, K], w_q [K, N] int8, w_scale [N] -> [M, N]."""
+    acc = x.float() @ w_q.float()
+    return (acc * w_scale.float()[None, :]).to(x.dtype)
+
+
+def _check(x, w_q, w_scale):
+    if x.dim() != 2 or w_q.dim() != 2:
+        raise ValueError(f"x must be [M, K] and w_q [K, N]; got "
+                         f"{tuple(x.shape)} and {tuple(w_q.shape)}")
+    M, K = x.shape
+    Kw, N = w_q.shape
+    if Kw != K:
+        raise ValueError(f"x [{M},{K}] vs w_q [{Kw},{N}]: K mismatch")
+    if tuple(w_scale.shape) != (N,):
+        raise ValueError(f"w_scale must be [N={N}], got "
+                         f"{tuple(w_scale.shape)}")
+    if x.dtype not in _KERNEL_FNS:
+        raise TypeError(f"quantized matmul kernel takes float32 or "
+                        f"bfloat16 activations, got {x.dtype}")
+    if w_q.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise TypeError(f"w_q must be int8 and w_scale float32, got "
+                        f"{w_q.dtype} and {w_scale.dtype}")
+    for name, t in (("w_q", w_q), ("w_scale", w_scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("w_q", w_q), ("w_scale", w_scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel(dtype):
+    """The C entry point for ``dtype``, built and bound at first use."""
+    fn = _BOUND.get(dtype)
+    if fn is None:
+        from ._build import load_library
+
+        fn = getattr(load_library("quantized_matmul"), _KERNEL_FNS[dtype])
+        # pointers and the stream as c_void_p (a plain int would be cut
+        # to a 32-bit C int)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BOUND[dtype] = fn
+    return fn
+
+
+def quantized_matmul_cuda(x, w_q, w_scale):
+    """Launch the CUDA kernel (``csrc/quantized_matmul.cu``), which
+    replaces ``paddle_tpu/ops/pallas_ops/quantized_matmul.py:_qmm_kernel``.
+
+    At decode (M = a few lane rows) the product is bound by the int8
+    weight bytes; at a prefill chunk (M up to 512) by f32 FMAs.  The
+    design streams each weight tile once per row tile, widens it to f32
+    in shared memory and accumulates each output in one thread in
+    sequential K order, so an output row does not depend on which other
+    rows share the launch.
+
+    Inputs: contiguous CUDA tensors on one device, x f32 or bf16 [M, K],
+    w_q int8 [K, N], w_scale f32 [N].  Raises when the launch is
+    refused."""
+    _check(x, w_q, w_scale)
+    if not x.is_cuda:
+        raise ValueError("quantized_matmul_cuda needs CUDA tensors")
+    fn = _kernel(x.dtype)
+    M, K = x.shape
+    N = w_q.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                out.data_ptr(), M, K, N, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"quantized matmul kernel launch failed: CUDA error {rc} "
+            f"(M={M}, K={K}, N={N}, {x.dtype})")
+    QMM_ROUTE_STATS["cuda"] += 1
+    return out
+
+
+def quantized_matmul(x, w_q, w_scale):
+    """Routing entry (the serving transformer core calls this).
+
+    x [..., K] activations, w_q [K, N] int8, w_scale [N] f32; returns
+    [..., N] in x's dtype.  A CUDA tensor launches the kernel; a CPU
+    tensor runs the plain version."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        out = quantized_matmul_cuda(x2.contiguous(), w_q, w_scale)
+    else:
+        QMM_ROUTE_STATS["ref"] += 1
+        out = quantized_matmul_ref(x2, w_q, w_scale)
+    return out.reshape(*lead, w_q.shape[1])

@@ -36,6 +36,13 @@ Execution model
   ``-1 - tok`` in-band; the request is quarantined (failed, pages
   scrubbed and freed, surfaced through ``take_faulted``) within the
   step that consumed it.
+- **Int8 serving** (``kv_cache_dtype="int8"``, ``weight_dtype="int8"``):
+  int8 pages with ``[N, H]`` f32 scale rows per layer and side, and
+  int8 projection/MLP weights.  ``quant_scales`` (an export of either
+  package's ``slim.export_serving_quant``) supplies calibrated KV scales
+  (static mode) and the int8 weights; without KV scales the pages run
+  dynamic per-page scales, reset whenever a page is (re)allocated, and
+  without weights they are quantized here, data-free.
 
 Knobs of the JAX engine that this slice does not carry raise
 ``InvalidArgumentError`` naming the ROADMAP item that will bring them.
@@ -53,13 +60,14 @@ from .. import resolve_device
 from ..framework.errors import (AlreadyExistsError, InternalError,
                                 InvalidArgumentError)
 from ..ops.paged_attention import PAGED_ROUTE_STATS
+from ..ops.quantized_matmul import QMM_ROUTE_STATS
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
                                         EV_PREFILL_CHUNK)
 from ..profiler.flight_recorder import recorder as flight
 from ..testing.chaos import chaos_site
 from ..text.generation import RAGGED_NO_LIMIT, make_gpt_paged_ragged_step
 from ..utils.bucketing import chunk_schedule, smallest_bucket
-from .kv_cache import PagedKVCache
+from .kv_cache import KV_SCALE_EPS, PagedKVCache
 from .metrics import ServingMetrics
 from .scheduler import Request, Scheduler, Sequence
 
@@ -126,11 +134,20 @@ class ServingEngine:
         if mesh_axes is not None:
             raise _not_ported("mesh_axes (mesh-sharded replicas)",
                               "item 12")
-        for value, knob in ((kv_cache_dtype, "kv_cache_dtype"),
-                            (weight_dtype, "weight_dtype"),
-                            (quant_scales, "quant_scales")):
-            if value is not None:
-                raise _not_ported(f"{knob} (int8 serving)", "item 6")
+        for d, knob in ((kv_cache_dtype, "kv_cache_dtype"),
+                        (weight_dtype, "weight_dtype")):
+            if d not in (None, "int8"):
+                # no silent degradation: the pools/weights stay in the
+                # model's native dtype unless int8 is asked for
+                raise InvalidArgumentError(
+                    f"{knob} must be None or 'int8', got {d!r}")
+        if quant_scales is not None and kv_cache_dtype is None \
+                and weight_dtype is None:
+            # an export without the knobs would silently run native
+            raise InvalidArgumentError(
+                "quant_scales was provided but kv_cache_dtype and "
+                "weight_dtype are both unset — pass kv_cache_dtype='int8' "
+                "and/or weight_dtype='int8' to activate the quantized path")
         if not isinstance(prefix_cache, bool):
             raise InvalidArgumentError(
                 f"prefix_cache must be a bool, got {prefix_cache!r}")
@@ -185,8 +202,29 @@ class ServingEngine:
         # chaos key for the "engine.step" site
         self.chaos_key: Optional[str] = None
 
+        # --- int8 serving ---------------------------------------------
+        self.kv_cache_dtype = kv_cache_dtype
+        self.weight_dtype = weight_dtype
+        qs = quant_scales or {}
+        kv_scales = qs.get("kv_scales") if kv_cache_dtype == "int8" else None
+        # calibrated static rows, kept for the quarantine scrub (a
+        # poisoned static row is healed by restoring these values)
+        self._static_kv_scales = kv_scales
+        # dynamic per-page scales reset when pages are (re)allocated, so
+        # results never depend on page-reuse history
+        self._kv_dynamic = kv_cache_dtype == "int8" and kv_scales is None
+        self._weight_quant = None
+        if weight_dtype == "int8":
+            self._weight_quant = qs.get("weights")
+            if self._weight_quant is None:
+                from ..slim.serving_export import quantize_gpt_weights
+
+                self._weight_quant = quantize_gpt_weights(model)
+
         self._ragged_fn, init_pages = make_gpt_paged_ragged_step(
             model, self.page_size, self.pages_per_seq,
+            kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
+            weight_quant=self._weight_quant,
             with_guard=self.numeric_guards)
         self._kv = init_pages(num_pages)
 
@@ -310,9 +348,11 @@ class ServingEngine:
         self._sync_pending()
         if seq.done or seq not in sched.running:
             return False
+        page_ids = self.cache.seq_page_ids(seq.seq_id)
         sched.finish(seq)
         seq.done = True
         seq.epoch += 1
+        self._reset_page_scales(page_ids)
         self._forget(request_id)
         self._release_lane(seq)
         self.metrics.on_abort()
@@ -344,7 +384,10 @@ class ServingEngine:
 
     def _scrub_pages(self, page_ids):
         """Zero the payload of pages a quarantine frees, so the NaN they
-        carry never reaches a future owner."""
+        carry never reaches a future owner.  Int8 static scale rows are
+        restored to their calibrated values (a ``nan_logits`` poison
+        writes NaN into the row, and static mode has no other reset);
+        dynamic rows are reset by ``_reset_page_scales``."""
         if not page_ids:
             return
         rows = torch.as_tensor(page_ids, dtype=torch.long,
@@ -352,6 +395,23 @@ class ServingEngine:
         for side in ("k", "v"):
             for pool in self._kv[side]:
                 pool[rows] = 0
+        if self._static_kv_scales is not None:
+            for side in ("k", "v"):
+                for sc, static in zip(self._kv[f"{side}_scale"],
+                                      self._static_kv_scales[side]):
+                    sc[rows] = torch.as_tensor(
+                        np.asarray(static, np.float32), device=self.device)
+
+    def _reset_page_scales(self, page_ids):
+        """Dynamic int8 KV only: return (re)allocated pages' scales to
+        the eps floor BEFORE anything is written through them, so their
+        quantization depends only on the owning sequence's tokens."""
+        if not self._kv_dynamic or not page_ids:
+            return
+        rows = self._dput(np.asarray(page_ids, np.int64))
+        for side in ("k_scale", "v_scale"):
+            for sc in self._kv[side]:
+                sc[rows] = KV_SCALE_EPS
 
     def _quarantine(self, seq: Sequence):
         """Fail one guard-flagged request NOW (pipeline collapsed)."""
@@ -363,7 +423,9 @@ class ServingEngine:
         seq.done = True
         seq.epoch += 1
         # scrub only pages that returned to the free list
-        self._scrub_pages([p for p in page_ids if self.cache.is_free(p)])
+        freed = [p for p in page_ids if self.cache.is_free(p)]
+        self._scrub_pages(freed)
+        self._reset_page_scales(freed)
         self._forget(rid)
         self._release_lane(seq)
         self._faulted.append(rid)
@@ -383,17 +445,26 @@ class ServingEngine:
                 self._quarantine(seq)
 
     def _poison_lane(self, seq: Sequence):
-        """Chaos ``serving.logits`` ``nan_logits``: write NaN over the K
-        page holding the lane's last written position, in every layer,
-        so the next dispatch's logits for exactly this lane are
-        non-finite."""
+        """Chaos ``serving.logits`` ``nan_logits``: drive the next
+        dispatch's logits for exactly this lane non-finite on the device.
+        Native KV gets NaN over the K page holding the lane's last
+        written position, in every layer; int8 KV (whose payload cannot
+        hold NaN) gets NaN in that page's K scale row, which makes every
+        dequant of the page NaN."""
         table = self.cache.seq_page_ids(seq.seq_id)
         if not table:
             return
         pos = max(seq.pos - 1, 0)
         page = table[min(pos // self.page_size, len(table) - 1)]
-        for pool in self._kv["k"]:
+        for pool in self._kv.get("k_scale", self._kv["k"]):
             pool[page] = float("nan")
+
+    def kv_mode(self) -> str:
+        """The KV pools' mode: ``native``, ``int8_static`` or
+        ``int8_dynamic``."""
+        if self.kv_cache_dtype != "int8":
+            return "native"
+        return "int8_dynamic" if self._kv_dynamic else "int8_static"
 
     # --- device-resident lane state ---------------------------------------
     def _grow_state(self, new_bucket: int):
@@ -427,6 +498,8 @@ class ServingEngine:
         self._lanes[lane] = seq
         self._tokens[lane] = seq.next_token
         self._pos[lane] = seq.pos
+        # freshly allocated pages quantize from scratch (dynamic int8)
+        self._reset_page_scales(self.cache.seq_page_ids(seq.seq_id))
         self._tables[lane] = self._dput(
             self.cache.page_table_row(seq.seq_id))
         self._uploaded_pages[seq.seq_id] = self.cache.seq_pages(seq.seq_id)
@@ -441,10 +514,15 @@ class ServingEngine:
     def _sync_rows(self, active: List[Tuple[int, Sequence]]):
         """Re-upload every device table row whose host allocation grew
         since its last upload — MUST run between any page allocation and
-        the dispatch that writes into the new pages."""
+        the dispatch that writes into the new pages.  In dynamic int8
+        mode the grown pages' scales are reset first (another sequence
+        may have freed them with a larger scale)."""
         for lane, seq in active:
-            n = self.cache.seq_pages(seq.seq_id)
+            table = self.cache.seq_page_ids(seq.seq_id)
+            n = len(table)
             if n != self._uploaded_pages.get(seq.seq_id):
+                self._reset_page_scales(
+                    table[self._uploaded_pages.get(seq.seq_id, 0):])
                 self._tables[lane] = self._dput(
                     self.cache.page_table_row(seq.seq_id))
                 self._uploaded_pages[seq.seq_id] = n
@@ -782,12 +860,24 @@ class ServingEngine:
         return self.outputs.pop(request_id, None)
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV page pools."""
+        """Device bytes of the KV page pools, int8 scale rows included."""
         return int(sum(t.numel() * t.element_size()
                        for side in self._kv.values() for t in side))
 
+    def kv_bytes_per_token(self) -> float:
+        """K+V bytes one cached token costs across all layers (scale rows
+        amortized over their page)."""
+        return self.kv_cache_bytes() / (self.cache.num_pages
+                                        * self.page_size)
+
     def stats(self) -> dict:
-        """Engine + cache + metrics snapshot."""
+        """Engine + cache + metrics snapshot.  The route counters
+        (``attention_route``, ``quant.matmul_route``) are process-wide."""
+        weight_bytes = None
+        if self._weight_quant is not None:
+            weight_bytes = int(sum(
+                np.asarray(q).nbytes + np.asarray(s).nbytes
+                for q, s in self._weight_quant.values()))
         return {
             "metrics": self.metrics.snapshot(),
             "cache": self.cache.stats(self.scheduler.seq_lens()),
@@ -803,6 +893,17 @@ class ServingEngine:
             },
             "kv_cache_bytes": self.kv_cache_bytes(),
             "attention_route": dict(PAGED_ROUTE_STATS),
+            "quant": {
+                "kv_cache_dtype": self.kv_cache_dtype or "native",
+                "weight_dtype": self.weight_dtype or "native",
+                "kv_scale_mode": ("dynamic" if self._kv_dynamic else
+                                  "static" if self.kv_cache_dtype
+                                  else None),
+                "kv_cache_bytes": self.kv_cache_bytes(),
+                "kv_bytes_per_token": self.kv_bytes_per_token(),
+                "quant_weight_bytes": weight_bytes,
+                "matmul_route": dict(QMM_ROUTE_STATS),
+            },
         }
 
 

@@ -19,9 +19,15 @@ resident page into several tables and ``free`` only DECREFS;
 ``pages_in_use + free_pages == allocatable_pages`` always holds (the leak
 invariant).
 
+Int8 pages (the quantized serving arm) keep one fp32 scale per (page,
+head) beside the int8 payload, so a page costs ``P * H * D`` bytes plus
+``4 * H``.  ``quantize_kv_page`` / ``dequantize_kv_page`` are the numpy
+reference for that layout (symmetric, zero-point-free, qmax 127); the
+device write path lives in ``text/generation.py`` and the dequant in the
+attention kernel.
+
 Not in this slice: the prefix-cache residency hooks (``cow_page``,
-``pin_cached``, the reclaimer; ROADMAP queue 1 item 7) and the int8
-page quantization helpers (item 6).
+``pin_cached``, the reclaimer; ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -32,7 +38,56 @@ import numpy as np
 from ..framework.errors import InvalidArgumentError
 from ..testing.chaos import chaos_site
 
-__all__ = ["PagedKVCache"]
+__all__ = ["PagedKVCache", "KV_SCALE_EPS", "kv_page_bytes",
+           "quantize_kv_page", "dequantize_kv_page"]
+
+# floor for per-page scales: keeps ratio math finite on never-written
+# pages (dynamic mode initializes scales to this)
+KV_SCALE_EPS = 1e-8
+
+_KV_ITEMSIZE = {"int8": 1, "bfloat16": 2, "bf16": 2, "float16": 2,
+                "fp16": 2, "float32": 4, "fp32": 4}
+
+
+def kv_page_bytes(page_size: int, num_heads: int, head_dim: int,
+                  dtype: str = "bfloat16") -> int:
+    """Bytes one K **or** V page occupies on device, including its
+    per-page-per-head fp32 scale row when int8."""
+    try:
+        itemsize = _KV_ITEMSIZE[str(dtype)]
+    except KeyError:
+        raise InvalidArgumentError(
+            f"unknown KV cache dtype {dtype!r}; one of "
+            f"{sorted(_KV_ITEMSIZE)}")
+    n = page_size * num_heads * head_dim * itemsize
+    if itemsize == 1:
+        n += num_heads * 4            # fp32 scale per head
+    return n
+
+
+def quantize_kv_page(page: np.ndarray, scales: Optional[np.ndarray] = None):
+    """Numpy reference for the device write path: quantize one [P, H, D]
+    float page to (int8 page, [H] fp32 scales).
+
+    ``scales=None`` derives per-head abs-max scales from the page itself
+    (what the dynamic write path converges to once every slot is
+    written); passing calibrated scales reproduces the static path
+    (values CLIP at ±127 instead of rescaling).
+    """
+    page = np.asarray(page, np.float32)
+    if scales is None:
+        amax = np.abs(page).max(axis=(0, 2))          # [H]
+        scales = np.maximum(amax / 127.0, KV_SCALE_EPS)
+    scales = np.asarray(scales, np.float32)
+    q = np.clip(np.round(page / scales[None, :, None]), -127, 127)
+    return q.astype(np.int8), scales
+
+
+def dequantize_kv_page(qpage: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Inverse of ``quantize_kv_page``: [P, H, D] int8 + [H] scales →
+    f32 (round-trip error ≤ scale/2 per element)."""
+    return qpage.astype(np.float32) * np.asarray(
+        scales, np.float32)[None, :, None]
 
 
 class PagedKVCache:

@@ -17,8 +17,9 @@ Instrumented sites in this package
 ``serving.logits``    ServingEngine step, once per active lane before the
                       dispatch (key: the lane's request id) —
                       ``nan_logits`` poisons the lane's last written KV
-                      page with NaN on the device, so the next dispatch's
-                      logits for exactly that lane are non-finite and the
+                      page with NaN on the device (under int8 KV: that
+                      page's K scale row), so the next dispatch's logits
+                      for exactly that lane are non-finite and the
                       numeric guard quarantines the request.
 
 Sites check ``chaos_site(site, key)``, which is a single global read when

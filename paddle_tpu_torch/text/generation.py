@@ -1,5 +1,6 @@
 """Incremental (KV-cache) decoding for GPT — twin of
-``paddle_tpu/text/generation.py`` for the native-KV serving slice.
+``paddle_tpu/text/generation.py`` for the ragged serving path, native and
+int8.
 
 Two cores, both holding the JAX package's math step for step:
 
@@ -18,10 +19,23 @@ Where the JAX package threads pools functionally (and the engine donates
 them), the port updates them IN PLACE with ``index_put_`` — a step
 mutates the ``kv`` dict it is given and returns the same object.
 
+Quantization (the JAX package's "Quantized serving"):
+
+- ``weight_quant`` maps a parameter name (``layers.0.attn.q_proj.weight``)
+  to ``(int8 [K, N], f32 [N])`` as ``slim.export_serving_quant`` makes
+  it; matmuls against a quantized name go through
+  ``ops.quantized_matmul`` (the CUDA kernel on the card).  Biases,
+  LayerNorm and the embeddings stay float.
+- ``kv_cache_dtype="int8"`` stores pages (and the dense ring) as int8
+  with f32 scales.  Static mode: calibrated per-layer-per-head
+  ``kv_scales``; writes clip at ±127 and no scale changes.  Dynamic mode
+  (paged core only): per-page ``[N, H]`` scales grow by scatter-max at
+  write time and the page's earlier content is requantized under the new
+  scale; the engine resets a page's scales when it is (re)allocated.
+
 Not in this slice (each raises where a caller could ask for it): the
 split paged programs (``make_gpt_paged_{decode,prefill,fused_decode,
-spec_verify}_step``), int8 KV and weight-only int8, the mesh-sharded
-core, beam search.
+spec_verify}_step``), the mesh-sharded core, beam search.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import torch
 
 from ..framework.errors import InvalidArgumentError
 from ..ops.paged_attention import ragged_paged_attention
+from ..ops.quantized_matmul import quantized_matmul
 
 __all__ = ["make_gpt_decode_step", "make_gpt_paged_ragged_step",
            "RAGGED_NO_LIMIT", "prefill", "generate"]
@@ -62,18 +77,89 @@ def _unsupported(knob: str, item: str):
         f"{knob} is not ported yet (ROADMAP queue 1 {item})")
 
 
-def _check_native(kv_cache_dtype, kv_scales, weight_quant):
-    if kv_cache_dtype is not None or kv_scales is not None:
-        _unsupported("int8 KV (kv_cache_dtype/kv_scales)", "item 6")
-    if weight_quant is not None:
-        _unsupported("weight-only int8 (weight_quant)", "item 6")
+_KV_QMAX = 127.0
+
+
+def _check_kv_dtype(kv_cache_dtype):
+    if kv_cache_dtype not in (None, "int8"):
+        raise ValueError(f"kv_cache_dtype must be None or 'int8', got "
+                         f"{kv_cache_dtype!r}")
+    return kv_cache_dtype == "int8"
+
+
+def _make_mm(params, weight_quant, device):
+    """``mm(x, name)`` computing the JAX package's ``x @ W`` — through
+    the weight-only int8 kernel when ``name`` is quantized.  The int8
+    weights move to the device once, here, in their ``[K, N]`` layout."""
+    wq = {name: (torch.as_tensor(np.asarray(q), device=device),
+                 torch.as_tensor(np.asarray(s, np.float32), device=device))
+          for name, (q, s) in (weight_quant or {}).items()}
+
+    def mm(x, name):
+        ent = wq.get(name)
+        if ent is None:
+            return x @ params[name].t()      # nn.Linear stores [out, in]
+        return quantized_matmul(x, ent[0], ent[1])
+
+    return mm
+
+
+def _quant_write_page(pages, scales, page_idx, slot, val, static_scale):
+    """Scatter one new [N, H, D] K or V slab into int8 pages, in place.
+
+    ``static_scale`` is the calibrated [H] scale (static mode) or None
+    (dynamic mode: grow the written pages' [N, H] scales by abs-max and
+    requantize their earlier content under the new scale).  The JAX
+    package's operation order (``val / scale``, round half to even,
+    clip) is kept, so the int8 bytes match it exactly.  The pages' old
+    content and scales are gathered BEFORE any write; duplicate page
+    indices (a prefill chunk writing several slots of one page) are safe
+    because the scale update is a scatter-max that includes the old value
+    and every duplicate writes identical rescaled content."""
+    valf = val.float()
+    if static_scale is not None:
+        q = torch.clamp(torch.round(valf / static_scale[None, :, None]),
+                        -_KV_QMAX, _KV_QMAX).to(torch.int8)
+        pages[page_idx, slot] = q
+        return pages, scales
+    amax = valf.abs().amax(dim=-1)                           # [N, H]
+    cand = torch.maximum(amax / _KV_QMAX, amax.new_tensor(1e-8))
+    s_old = scales[page_idx]                                 # [N, H]
+    old = pages[page_idx].float()                            # [N, P, H, D]
+    scales.scatter_reduce_(0, page_idx[:, None].expand_as(cand), cand,
+                           "amax", include_self=True)
+    s_new = scales[page_idx]
+    resc = torch.round(old * (s_old / s_new)[:, None, :, None])
+    pages[page_idx] = resc.to(torch.int8)
+    q = torch.clamp(torch.round(valf / s_new[:, :, None]),
+                    -_KV_QMAX, _KV_QMAX).to(torch.int8)
+    pages[page_idx, slot] = q
+    return pages, scales
+
+
+def _as_layer_scales(kv_scales, L, H, device):
+    """Normalize a slim kv-scale export ({"k": [L x [H]], "v": ...}) to
+    per-layer f32 tensors; None stays None (dynamic mode)."""
+    if kv_scales is None:
+        return None, None
+    out = []
+    for side in ("k", "v"):
+        arrs = [np.asarray(kv_scales[side][i], np.float32) for i in range(L)]
+        for arr in arrs:
+            if arr.shape != (H,):
+                raise ValueError(
+                    f"kv_scales entries must be [{H}] per layer, got "
+                    f"{arr.shape}")
+        out.append([torch.as_tensor(a, device=device) for a in arrs])
+    return out[0], out[1]
 
 
 class _Weights:
     """Detached parameters plus the JAX package's ``x @ W`` product
-    (``nn.Linear`` stores ``W`` as ``[out, in]``)."""
+    (``nn.Linear`` stores ``W`` as ``[out, in]``), through the int8
+    kernel for the names in ``weight_quant``."""
 
-    def __init__(self, model):
+    def __init__(self, model, weight_quant=None):
         self.p: Dict[str, torch.Tensor] = {
             n: t.detach() for n, t in model.named_parameters()}
         self.L = len(model.layers)
@@ -82,9 +168,7 @@ class _Weights:
         self.D = self.hidden // self.H
         self.wte = self.p["wte.weight"]
         self.wpe = self.p["wpe.weight"]
-
-    def mm(self, x, name):
-        return x @ self.p[name].t()
+        self.mm = _make_mm(self.p, weight_quant, self.wte.device)
 
     def lp(self, i, name):
         return self.p[f"layers.{i}.{name}"]
@@ -114,26 +198,50 @@ class _Weights:
 
 def make_gpt_decode_step(model, max_len: int, *, kv_cache_dtype=None,
                          kv_scales=None, weight_quant=None):
-    """Build ``(step_fn, init_state)`` for a GPTModel (native KV only).
+    """Build ``(step_fn, init_state)`` for a GPTModel.
 
     ``step_fn(tokens [N], state) -> (logits [N, vocab], state)`` — one
     decode position per call.  The state is ``{"k": [L x [N, max_len, H,
     D]], "v": [...], "pos": [N] int32}``; the caches are updated in
-    place."""
-    _check_native(kv_cache_dtype, kv_scales, weight_quant)
-    w = _Weights(model)
+    place.
+
+    ``kv_cache_dtype="int8"`` stores the ring as int8 with the calibrated
+    per-layer-per-head ``kv_scales`` (required: the dense ring has no
+    per-page scale state, so only the static mode applies) — the same
+    write-time quantization as the paged serving path, so greedy tokens
+    match the quantized engine's.  ``weight_quant`` routes the
+    projection/MLP matmuls through the weight-only int8 kernel."""
+    quant_kv = _check_kv_dtype(kv_cache_dtype)
+    if quant_kv and kv_scales is None:
+        raise ValueError("the dense decode cache supports int8 only with "
+                         "calibrated kv_scales (slim.export_serving_quant)")
+    w = _Weights(model, weight_quant)
     L, H, D = w.L, w.H, w.D
     scale = 1.0 / np.sqrt(D)
     device = w.wte.device
+    k_sc, v_sc = _as_layer_scales(kv_scales, L, H, device)
 
     def init_state(batch: int):
         def z():
-            return torch.zeros((batch, max_len, H, D), dtype=w.wte.dtype,
+            return torch.zeros((batch, max_len, H, D),
+                               dtype=torch.int8 if quant_kv else w.wte.dtype,
                                device=device)
 
         return {"k": [z() for _ in range(L)], "v": [z() for _ in range(L)],
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
+
+    def _store(val, sc):
+        """Cache-dtype conversion of one new [N, H, D] slab."""
+        if not quant_kv:
+            return val
+        return torch.clamp(torch.round(val.float() / sc[None, :, None]),
+                           -_KV_QMAX, _KV_QMAX).to(torch.int8)
+
+    def _load(cache, sc):
+        if not quant_kv:
+            return cache
+        return cache.float() * sc[None, None, :, None]
 
     @torch.no_grad()
     def step_fn(tokens, state):
@@ -146,8 +254,10 @@ def make_gpt_decode_step(model, max_len: int, *, kv_cache_dtype=None,
         for i in range(L):
             q, k1, v1 = w.qkv(i, x, N)
             kc, vc = state["k"][i], state["v"][i]
-            kc[rows, pos] = k1
-            vc[rows, pos] = v1
+            kc[rows, pos] = _store(k1, k_sc[i] if quant_kv else None)
+            vc[rows, pos] = _store(v1, v_sc[i] if quant_kv else None)
+            kc = _load(kc, k_sc[i] if quant_kv else None)
+            vc = _load(vc, v_sc[i] if quant_kv else None)
             # attend over the cache's valid prefix (<= pos)
             logits = torch.einsum("nhd,nshd->nhs", q, kc) * scale
             logits = torch.where(valid, logits,
@@ -181,23 +291,43 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
 
     The JAX core's ``qgroup=None`` form (one table row per query row,
     the split decode program) is ``qgroup=1`` here: by construction the
-    ragged reference is the flat decode reference row by row."""
-    _check_native(kv_cache_dtype, kv_scales, weight_quant)
+    ragged reference is the flat decode reference row by row.
+
+    ``kv_cache_dtype="int8"``: ``init_pages`` adds ``k_scale``/``v_scale``
+    lists of ``[N, H]`` f32 per layer — the calibrated scale broadcast per
+    page (static ``kv_scales``, never mutated) or ``KV_SCALE_EPS`` grown
+    by the writes (dynamic).  ``weight_quant`` routes every projection and
+    MLP matmul through the weight-only int8 kernel."""
     if mesh_layout is not None:
         _unsupported("the mesh-sharded core (mesh_layout)", "item 12")
-    w = _Weights(model)
+    quant_kv = _check_kv_dtype(kv_cache_dtype)
+    w = _Weights(model, weight_quant)
     L, H, D = w.L, w.H, w.D
     max_pos = w.wpe.shape[0]
     device = w.wte.device
+    k_sc, v_sc = _as_layer_scales(kv_scales, L, H, device)
 
     def init_pages(num_pages: int):
         # one distinct buffer per layer and side (each is updated in
         # place by every step)
         def z():
             return torch.zeros((num_pages, page_size, H, D),
-                               dtype=w.wte.dtype, device=device)
+                               dtype=torch.int8 if quant_kv else w.wte.dtype,
+                               device=device)
 
-        return {"k": [z() for _ in range(L)], "v": [z() for _ in range(L)]}
+        kv = {"k": [z() for _ in range(L)], "v": [z() for _ in range(L)]}
+        if quant_kv:
+            from ..serving.kv_cache import KV_SCALE_EPS
+
+            def sc(static):
+                if static is None:
+                    return torch.full((num_pages, H), KV_SCALE_EPS,
+                                      dtype=torch.float32, device=device)
+                return static[None, :].expand(num_pages, H).clone()
+
+            kv["k_scale"] = [sc(k_sc[i] if k_sc else None) for i in range(L)]
+            kv["v_scale"] = [sc(v_sc[i] if v_sc else None) for i in range(L)]
+        return kv
 
     @torch.no_grad()
     def core(tokens, pos, page_tables, kv, valid_len=None, with_head=True,
@@ -228,15 +358,23 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
         for i in range(L):
             q, k1, v1 = w.qkv(i, x, N)
             kc, vc = kv["k"][i], kv["v"][i]
-            # scatter BEFORE the attention read.  Duplicate indices only
-            # ever come from padded rows and land on the trash page 0;
-            # index_put_ on CUDA leaves their order unspecified, which is
-            # harmless because page 0 is never read unmasked.
-            kc[page_idx, slot] = k1
-            vc[page_idx, slot] = v1
+            # scatter BEFORE the attention read.  Duplicate (page, slot)
+            # pairs only ever come from padded rows and land on the trash
+            # page 0; index_put_ on CUDA leaves their order unspecified,
+            # which is harmless because page 0 is never read unmasked.
+            if quant_kv:
+                _quant_write_page(kc, kv["k_scale"][i], page_idx, slot, k1,
+                                  k_sc[i] if k_sc else None)
+                _quant_write_page(vc, kv["v_scale"][i], page_idx, slot, v1,
+                                  v_sc[i] if v_sc else None)
+                scales = (kv["k_scale"][i], kv["v_scale"][i])
+            else:
+                kc[page_idx, slot] = k1
+                vc[page_idx, slot] = v1
+                scales = ()
             ctx = ragged_paged_attention(
                 q.reshape(G, qgroup, H, D), kc, vc, page_tables,
-                row_lens).reshape(N, w.hidden)
+                row_lens, *scales).reshape(N, w.hidden)
             x = w.block_tail(i, x, ctx)
         if not with_head:
             return None, kv
@@ -312,12 +450,18 @@ def prefill(step_fn, state, prompt):
 
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
-             decode_strategy: str = "greedy"):
+             decode_strategy: str = "greedy", quant=None):
     """Greedy GPT generation on the model's device.
 
     ``input_ids`` [B, P] (numpy or tensor).  Returns ``(ids [B, T] int32,
     scores [B])``, T = max_new_tokens; a lane that emits ``end_id`` keeps
-    emitting it.  Beam search is not ported yet."""
+    emitting it.  Beam search is not ported yet.
+
+    ``quant``: an export from ``slim.export_serving_quant`` (of either
+    package) — decodes with the int8 KV cache and/or weight-only int8
+    matmuls it describes; int8 KV here needs the export's calibrated
+    ``kv_scales``.  This is the reference stream of the quantized
+    serving engine."""
     from ..nn.decode import greedy_search_decode
 
     if decode_strategy != "greedy":
@@ -336,8 +480,15 @@ def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
         raise InvalidArgumentError(
             f"prompt ({P}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"the model's max_seq_len ({max_pos})")
+    qkw = {}
+    if quant is not None:
+        if quant.get("kv_cache_dtype") == "int8":
+            qkw.update(kv_cache_dtype="int8",
+                       kv_scales=quant.get("kv_scales"))
+        if quant.get("weight_dtype") == "int8":
+            qkw.update(weight_quant=quant.get("weights"))
     step_fn, init_state = make_gpt_decode_step(
-        model, P + max_new_tokens + 1)
+        model, P + max_new_tokens + 1, **qkw)
     state = init_state(B)
     # prefill all but the last prompt token; the decode loop's first
     # step consumes the last one and emits new token #1

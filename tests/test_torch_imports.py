@@ -70,6 +70,9 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] == len(_modules()) and res["bad"] == []
+    for mod in ("paddle_tpu_torch.slim", "paddle_tpu_torch.slim.serving_export",
+                "paddle_tpu_torch.ops.quantized_matmul"):
+        assert mod in _modules()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

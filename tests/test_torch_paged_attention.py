@@ -110,6 +110,6 @@ def test_kernel_wrapper_rejects_cpu_tensors_and_bad_shapes():
         pa.ragged_paged_attention_cuda(q, kp, vp, pt, rl)
     with pytest.raises(ValueError, match="row_lens"):
         pa.ragged_paged_attention_cuda(q, kp, vp, pt, rl[:, :0])
-    with pytest.raises(TypeError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         pa.ragged_paged_attention_cuda(q, kp.to(torch.int8),
                                        vp.to(torch.int8), pt, rl)

@@ -8,8 +8,10 @@ paddle_tpu and vs the port's own dense ``generate``.
   ``ServingEngine`` stream, with no page leaked;
 - recompute preemption, abort, deadlines and the numeric-guard
   quarantine keep every surviving stream equal to ``generate``;
-- knobs this slice does not carry raise ``InvalidArgumentError``, and the
-  default device (the CUDA card) raises where there is none.
+- knobs this slice does not carry, and knob values no slice takes (an
+  unknown KV or weight dtype, ``quant_scales`` without an int8 knob),
+  raise ``InvalidArgumentError``, and the default device (the CUDA card)
+  raises where there is none.
 
 Streams are compared token for token (greedy, f32 on the CPU).
 """
@@ -223,7 +225,7 @@ def test_request_validation(port):
 @pytest.mark.parametrize("knob", [
     {"prefix_cache": True}, {"kv_tiering": True}, {"spec_decode": True},
     {"spec_drafter": object()}, {"mesh_axes": {"tp": 2}},
-    {"kv_cache_dtype": "int8"}, {"weight_dtype": "int8"},
+    {"kv_cache_dtype": "int4"}, {"weight_dtype": "fp8"},
     {"quant_scales": {}}, {"fused_steps": 2}, {"ragged": False},
     {"ragged": "yes"}, {"prefix_cache": "yes"}, {"numeric_guards": 1}],
     ids=lambda k: next(iter(k)))
