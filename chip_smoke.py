@@ -40,6 +40,26 @@ Phases, one result line each (or more):
 7. e2e_int8_dynamic: no KV calibration (dynamic per-page scales); 4 of
    the requests, synchronous and pipelined: streams byte-identical, no
    page leaked.
+8. kernel_flash: the flash attention forward, dK/dV and dQ kernels
+   against their plain versions in f32 and bf16 at the training shape
+   (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
+   non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
+   D 80 and 256; the dropout bits of all three kernels read back and
+   compared with ``_keep_mask`` bit for bit; each kernel timed at the
+   training shape beside its bound, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (forward; its autograd backward for
+   the pair).
+9. train: GPT-2-small widths, all 12 layers, f32 with TF32 off, seeded
+   weights, ``AdamW(6e-4, weight_decay=0.1)`` on one seeded B 8 x S 1024
+   batch: a warm-up step, then 5 steps of ``loss.backward(); opt.step();
+   opt.clear_grad()``.  Every loss finite, the first within 0.5 of
+   ln(vocab), the loss falling; every attention call on the flash
+   kernels (12 x 5 launches of each, the plain and sdpa routes 0); one
+   more step under ``torch.profiler`` gives the device time by kernel
+   family and the device's busy share.
+10. train_parity: 2 layers at the same widths, B 2 x S 1024: one step's
+   loss and every gradient on the card against the same step on the CPU
+   through the plain flash route, then the weights after one AdamW step.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -427,6 +447,453 @@ def qmm_phase(rng, flush) -> dict:
     return timings
 
 
+def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p):
+    """The dropout keep bits each flash kernel applied, read back
+    exactly: ``{"fwd", "dkv", "dq"}`` -> bool ``[B·H, S, S]`` (row, col).
+
+    With q = 0 every visible score is 0, so each probability is 1/n over
+    a row's n visible keys (the backward kernels get lse = log n).  A
+    one-hot operand then copies column ``c0 + d`` of the dropped
+    probabilities into output column ``d``, which is > 0 exactly where
+    the bit is kept: v for the forward (o = P'v), dO for dK/dV (dV =
+    P'ᵀdO, read transposed) and k for dQ (with dO = v = e0 and delta 0,
+    dQ = dS·k and dS = P'·1).  Masked keys read as dropped.  f32, on the
+    card, not causal."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B = kv_mask.shape[0]
+    dev = kv_mask.device
+    mask = kv_mask.float().contiguous()
+    n = mask.sum(dim=-1)                                        # [B]
+    lse = torch.log(n)[:, None, None].expand(B, H, S).reshape(
+        B * H, S, 1).contiguous()
+    zero_rows = torch.zeros(B * H, S, 1, device=dev)
+    zeros = torch.zeros(B, H, S, D, device=dev)
+    e0 = zeros.clone()
+    e0[..., 0] = 1.0
+    bits = {name: torch.zeros(B * H, S, S, dtype=torch.bool, device=dev)
+            for name in ("fwd", "dkv", "dq")}
+    for c0 in range(0, S, D):
+        w = min(D, S - c0)
+        onehot = zeros.clone()
+        onehot[:, :, c0:c0 + w, :w] = torch.eye(w, device=dev)
+        o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, mask, seed, 1.0,
+                                 False, dropout_p)
+        bits["fwd"][:, :, c0:c0 + w] = o.reshape(B * H, S, D)[..., :w] > 0
+        _, dv = fa.flash_dkv_cuda(zeros, zeros, zeros, onehot, lse,
+                                  zero_rows, mask, seed, 1.0, False,
+                                  dropout_p)
+        bits["dkv"][:, c0:c0 + w, :] = (
+            dv.reshape(B * H, S, D)[..., :w] > 0).transpose(1, 2)
+        dq = fa.flash_dq_cuda(zeros, onehot, e0, e0, lse, zero_rows, mask,
+                              seed, 1.0, False, dropout_p)
+        bits["dq"][:, :, c0:c0 + w] = dq.reshape(B * H, S, D)[..., :w] > 0
+    return bits
+
+
+def flash_keep_reference(kv_mask, H, S, seed, dropout_p):
+    """``_keep_mask``'s bits for every (b·h, row, col), masked keys
+    dropped: what :func:`flash_keep_bits` must read back."""
+    from paddle_tpu_torch.ops.flash_attention import _keep_mask
+
+    B = kv_mask.shape[0]
+    dev = kv_mask.device
+    bh = torch.arange(B * H, device=dev)[:, None, None]
+    idx = torch.arange(S, device=dev)
+    keep = _keep_mask(seed, bh, idx[:, None], idx[None, :], dropout_p)
+    valid = (kv_mask > 0).repeat_interleave(H, dim=0)[:, None, :]
+    return keep & valid
+
+
+# flash kernels vs their plain versions: f32 sums over up to 1024 keys
+# or queries in another order (1e-4); bf16 outputs rounded to 8 mantissa
+# bits (2e-2) — both times max(1, the largest reference value)
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BF16_FLOPS_PER_S = 989e12
+# (name, B, H, S, D, causal, kv mask with padded tails, dropout_p):
+# (a) the training shape, (b) a BERT-base shape, (c) unaligned S and D
+FLASH_CASES = [("train", 8, 12, 1024, 64, True, False, 0.0),
+               ("bert", 8, 12, 512, 64, False, True, 0.1),
+               ("unaligned_d80", 2, 4, 1000, 80, True, True, 0.1),
+               ("unaligned_d256", 2, 4, 1000, 256, True, True, 0.1)]
+FLASH_SEED = 20240611
+FLASH_TIMED = "train"
+
+
+def flash_inputs(rng, B, H, S, D, masked, dtype):
+    q, k, v, g = (torch.from_numpy(rng.randn(B, H, S, D).astype(
+        np.float32)).to(DEVICE, dtype) for _ in range(4))
+    mask = torch.ones(B, S)
+    if masked:
+        for b in range(B):
+            mask[b, rng.randint(S // 2, S + 1):] = 0.0
+    return q, k, v, g, mask.to(DEVICE)
+
+
+def flash_bound_ms(kernel, B, H, S, D, causal, item):
+    """Least time on an H100 for one kernel call: the larger of its bytes
+    (each input read once, each output written once) over 3.35 TB/s and
+    its operations over the peak of the input type (67 TFLOP/s f32,
+    989 TFLOP/s bf16).  Operations, the standard accounting: the forward
+    is 4·B·H·S²·D (its two products, 2·S²·D each), the backward pair
+    2.5× the forward — its five products, of which dK/dV owns three
+    (S = QKᵀ, dV, dK: 1.5× the forward) and dQ two (dP, dQ: 1.0×); the
+    products each backward kernel recomputes for itself are not counted
+    twice.  Causal halves every count."""
+    tensor = B * H * S * D * item
+    rows = B * H * S * 4                         # lse or delta, f32
+    mask = B * S * 4
+    fwd_ops = 4.0 * B * H * S * S * D * (0.5 if causal else 1.0)
+    nbytes, ops = {"fwd": (4 * tensor + rows + mask, fwd_ops),
+                   "dkv": (6 * tensor + 2 * rows + mask, 1.5 * fwd_ops),
+                   "dq": (5 * tensor + 2 * rows + mask, 1.0 * fwd_ops)}[
+        kernel]
+    peak = F32_FLOPS_PER_S if item == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_check(tag, name, got, want, tol):
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    limit = tol * max(1.0, float(want.abs().max()))
+    ok = math.isfinite(err) and err <= limit
+    log("kernel_flash", case=tag, output=name, max_abs_err=err, limit=limit,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"flash {name} kernel disagrees with its plain "
+                             f"version on {tag}: max_abs_err {err} > "
+                             f"{limit}")
+    return err
+
+
+def flash_kernel_phase(rng, flush) -> dict:
+    """Bodies #5, #6 and #7 against their plain versions on the card in
+    f32 and bf16 at FLASH_CASES, the dropout bits of all three read back
+    exactly at the BERT shape, and each kernel timed at the training
+    shape beside its bound, its plain version and PyTorch's SDPA
+    (forward; its autograd backward for the pair)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    errs, timings = {}, {}
+    for name, B, H, S, D, causal, masked, p in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}/{str(dtype).split('.')[-1]}"
+            q, k, v, g, mask = flash_inputs(rng, B, H, S, D, masked, dtype)
+            scale = 1.0 / math.sqrt(D)
+            qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+            common = (mask, FLASH_SEED, scale, causal, p)
+            ref_o, ref_lse = fa.flash_fwd_ref(qf, kf, vf, *common)
+            delta = (gf * ref_o).sum(-1).reshape(B * H, S, 1)
+            o, lse = fa.flash_fwd_cuda(q, k, v, *common)
+            bwd = (ref_lse, delta) + common
+            dk, dv = fa.flash_dkv_cuda(q, k, v, g, *bwd)
+            dq = fa.flash_dq_cuda(q, k, v, g, *bwd)
+            torch.cuda.synchronize()
+            rdk, rdv = fa.flash_dkv_ref(qf, kf, vf, gf, *bwd)
+            rdq = fa.flash_dq_ref(qf, kf, vf, gf, *bwd)
+            tol = FLASH_TOL[dtype]
+            errs[tag] = {
+                "fwd": max(_flash_check(tag, "o", o, ref_o, tol),
+                           _flash_check(tag, "lse", lse, ref_lse, 1e-4)),
+                "dkv": max(_flash_check(tag, "dk", dk, rdk, tol),
+                           _flash_check(tag, "dv", dv, rdv, tol)),
+                "dq": _flash_check(tag, "dq", dq, rdq, tol)}
+            del ref_o, rdk, rdv, rdq
+            if name != FLASH_TIMED:
+                continue
+            item = q.element_size()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            lib_out = sdpa(ql, kl, vl, is_causal=causal)
+            lib_err = float((lib_out.detach().float() - o.float())
+                            .abs().max())
+            calls = {
+                "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, *common),
+                        lambda: fa.flash_fwd_ref(q, k, v, *common),
+                        lambda: sdpa(q, k, v, is_causal=causal)),
+                "dkv": (lambda: fa.flash_dkv_cuda(q, k, v, g, *bwd),
+                        lambda: fa.flash_dkv_ref(q, k, v, g, *bwd),
+                        lambda: torch.autograd.grad(
+                            lib_out, (ql, kl, vl), g, retain_graph=True)),
+                "dq": (lambda: fa.flash_dq_cuda(q, k, v, g, *bwd),
+                       lambda: fa.flash_dq_ref(q, k, v, g, *bwd), None)}
+            for kname, (kern, plain, lib) in calls.items():
+                t = {"max_abs_err": errs[tag][kname],
+                     "ms": time_ms(kern, flush),
+                     "plain_ms": time_ms(plain, flush),
+                     "library_ms": (time_ms(lib, flush) if lib is not None
+                                    else None)}
+                t["bound_ms"], t["bound_by"] = flash_bound_ms(
+                    kname, B, H, S, D, causal, item)
+                if kname == "fwd":
+                    t["library_max_abs_err"] = lib_err
+                if kname == "dkv":
+                    # SDPA's autograd backward computes dq, dk and dv in
+                    # one call: it is the yardstick of the pair
+                    t["library_is"] = "sdpa backward (dq, dk, dv)"
+                log("kernel_flash_time", case=tag, kernel=kname, **t)
+                timings[f"{kname}/{tag}"] = t
+            del ql, kl, vl, lib_out
+            torch.cuda.empty_cache()
+
+    # (b)'s dropout bits, exactly, from every kernel
+    _, B, H, S, D, _, _, p = FLASH_CASES[1]
+    _, _, _, _, mask = flash_inputs(rng, B, H, S, D, True, torch.float32)
+    bits = flash_keep_bits(mask, H, S, D, FLASH_SEED, p)
+    want = flash_keep_reference(mask, H, S, FLASH_SEED, p)
+    exact = {name: bool(torch.equal(got, want)) for name, got in
+             bits.items()}
+    log("kernel_flash_bits", case="bert", bits=int(want.numel()),
+        kept=int(want.sum()), exact=exact)
+    if not all(exact.values()):
+        raise AssertionError(f"flash dropout bits differ from _keep_mask: "
+                             f"{exact}")
+    return {"max_abs_err": errs, "bits_exact": exact, **timings}
+
+
+# --------------------------------------------------------------------------
+# training phases
+# --------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_LR, TRAIN_WD = 6e-4, 0.1
+# the 2-layer card step vs the same step on the CPU: gradients within
+# 1e-4 of each parameter's largest |g| (plus 1e-6 of the model's, for
+# parameters whose exact gradient is 0, like the key projection's bias):
+# cuBLAS and the CPU's BLAS sum 2048 tokens' products in another order;
+# the loss 1e-5 relative
+GRAD_TOL, GRAD_FLOOR, LOSS_RTOL = 1e-4, 1e-6, 1e-5
+
+
+def reset_flash_counts():
+    from paddle_tpu_torch.ops.attention import ROUTE_STATS
+    from paddle_tpu_torch.ops.flash_attention import FLASH_ROUTE_STATS
+
+    for stats in (ROUTE_STATS, FLASH_ROUTE_STATS):
+        for key in stats:
+            stats[key] = 0
+
+
+def read_flash_counts():
+    from paddle_tpu_torch.ops.attention import ROUTE_STATS
+    from paddle_tpu_torch.ops.flash_attention import FLASH_ROUTE_STATS
+
+    return ({f"flash_{k}": v for k, v in FLASH_ROUTE_STATS.items()}
+            | {f"route_{k}": v for k, v in ROUTE_STATS.items()})
+
+
+def train_step(model, opt, x, y):
+    """One step of the paddle dygraph loop; returns the loss."""
+    from paddle_tpu_torch.nn import functional as F
+
+    logits = model(x)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return float(loss.detach())
+
+
+def profile_step(model, opt, x, y) -> dict:
+    """One more training step under ``torch.profiler``: device time by
+    kernel family (the three flash kernels, matrix products, the rest),
+    the costliest other kernels, and the device's busy share of the
+    step's wall time (one stream: kernel times add up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, x, y)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"flash_fwd": 0.0, "flash_dkv": 0.0, "flash_dq": 0.0,
+           "matmul": 0.0, "other": 0.0}
+    other, n_kernels = [], 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        n_kernels += evt.count
+        name = evt.key
+        key = next((f"flash_{k}" for k in ("dkv", "dq", "fwd")
+                    if f"{k}_kernel<" in name), None)
+        if key is None and "gemm" in name.lower():
+            key = "matmul"
+        if key is None:
+            key = "other"
+            other.append((ms, evt.count, name[:90]))
+        fam[key] += ms
+    busy = sum(fam.values())
+    other.sort(reverse=True)
+    return {"loss": loss, "wall_ms": wall_ms, "device_ms": busy,
+            "device_busy_share": busy / wall_ms if busy else None,
+            "device_kernels": n_kernels, "device_ms_by_family": fam,
+            "top_other_kernels": [
+                {"ms": ms, "launches": c, "name": n} for ms, c, n in
+                other[:8]]}
+
+
+def train_phase(rng) -> dict:
+    """GPT-2-small widths, all 12 layers, f32, AdamW(6e-4, wd 0.1), one
+    seeded B 8 x S 1024 batch repeated: one warm-up step, then
+    TRAIN_STEPS steps with every count set to 0 just before and read
+    just after, then one more step under the profiler."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import GPTModel
+
+    t0 = time.perf_counter()
+    model = GPTModel(**GPT2_SMALL, device=DEVICE, seed=1234)
+    opt = AdamW(TRAIN_LR, parameters=list(model.parameters()),
+                weight_decay=TRAIN_WD)
+    ids = torch.from_numpy(rng.randint(
+        0, GPT2_SMALL["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(
+        np.int64)).to(DEVICE)
+    x, y = ids[:, :-1], ids[:, 1:]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [train_step(model, opt, x, y)]
+    warmup_s = time.perf_counter() - t0
+    reset_counts()
+    reset_flash_counts()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(train_step(model, opt, x, y))   # float(): syncs
+        step_s.append(time.perf_counter() - t0)
+    counts = read_flash_counts() | read_counts()
+    L = len(model.layers)
+    want = {"flash_fwd": L * TRAIN_STEPS, "flash_dkv": L * TRAIN_STEPS,
+            "flash_dq": L * TRAIN_STEPS, "flash_ref": 0,
+            "route_pallas": L * TRAIN_STEPS, "route_xla": 0}
+    expect_counts("train", counts, want)
+    prof = profile_step(model, opt, x, y)
+    ln_v = math.log(GPT2_SMALL["vocab_size"])
+    result = {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "losses": losses, "ln_vocab": ln_v, "init_s": init_s,
+        "warmup_step_s": warmup_s, "step_s": step_s,
+        "step_ms_p50": float(np.percentile(step_s, 50) * 1e3),
+        "step_ms_p95": float(np.percentile(step_s, 95) * 1e3),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / sum(step_s),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        **counts, "profile": prof}
+    log("train", **result)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if abs(losses[0] - ln_v) > 0.5:
+        raise AssertionError(f"train: first loss {losses[0]} is not within "
+                             f"0.5 of ln(vocab) {ln_v}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall on the repeated "
+                             f"batch: {losses}")
+    return result
+
+
+def _off_noise(diff, g_ref, global_max, limit):
+    """Entries off ``limit`` whose reference gradient is not at the noise
+    floor (where Adam's normalized first step is ±1 either way)."""
+    noise = (g_ref.abs() < 1e-4 * g_ref.abs().max()) | (
+        g_ref.abs() < GRAD_FLOOR * global_max)
+    off = diff > limit
+    return off, off & ~noise
+
+
+def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
+    """2 layers at GPT-2-small widths (or ``cfg``), B 2 x S 1024: one
+    step's loss and every gradient through the kernels on the card
+    against the same step on the CPU through the port's plain flash route
+    (PADDLE_TPU_FORCE_FLASH=1), then the weights after one AdamW step."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import GPTModel
+
+    cfg = cfg or dict(GPT2_SMALL, num_layers=2)
+    seq = seq or TRAIN_SEQ
+    L = cfg["num_layers"]
+    card = GPTModel(**cfg, device=DEVICE, seed=1234)
+    cpu = GPTModel(**cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = rng.randint(0, cfg["vocab_size"], (batch, seq + 1)).astype(
+        np.int64)
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = model.device
+        x = torch.from_numpy(ids[:, :-1]).to(dev)
+        y = torch.from_numpy(ids[:, 1:]).to(dev)
+        forced = os.environ.get("PADDLE_TPU_FORCE_FLASH")
+        if name == "cpu":
+            os.environ["PADDLE_TPU_FORCE_FLASH"] = "1"
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        try:
+            logits = model(x)
+            loss = F.cross_entropy(logits.reshape(-1, cfg["vocab_size"]),
+                                   y.reshape(-1))
+            loss.backward()
+        finally:
+            if forced is None:
+                os.environ.pop("PADDLE_TPU_FORCE_FLASH", None)
+            else:
+                os.environ["PADDLE_TPU_FORCE_FLASH"] = forced
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in model.named_parameters()}
+        opt = AdamW(TRAIN_LR, parameters=list(model.parameters()),
+                    weight_decay=TRAIN_WD)
+        opt.step()
+        opt.clear_grad()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[name] = {"loss": float(loss.detach()), "grads": grads,
+                      "weights": {n: p.detach().float().cpu() for n, p in
+                                  model.named_parameters()},
+                      "counts": read_flash_counts(),
+                      "s": time.perf_counter() - t0}
+    a, b = runs["card"], runs["cpu"]
+    expect_counts("train_parity card", a["counts"], {
+        "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0})
+    expect_counts("train_parity cpu", b["counts"], {
+        "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L})
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    gmax = max(float(g.abs().max()) for g in b["grads"].values())
+    grad_worst, w_worst, w_noise, n_w, bad = 0.0, 0.0, 0, 0, []
+    for name, gb in b["grads"].items():
+        err = float((a["grads"][name] - gb).abs().max())
+        limit = GRAD_TOL * float(gb.abs().max()) + GRAD_FLOOR * gmax
+        grad_worst = max(grad_worst, err / limit)
+        if err > limit:
+            bad.append(f"grad {name}: {err} > {limit}")
+        diff = (a["weights"][name] - b["weights"][name]).abs()
+        off, off_signal = _off_noise(diff, gb, gmax, 2e-3 * TRAIN_LR)
+        w_noise += int(off.sum())
+        n_w += diff.numel()
+        w_worst = max(w_worst, float(diff[~off].max()) if (~off).any()
+                      else 0.0)
+        if off_signal.any() or bool((diff > 2 * TRAIN_LR).any()):
+            bad.append(f"weight {name}: {int(off_signal.sum())} entries "
+                       f"off {2e-3 * TRAIN_LR} with a gradient above the "
+                       f"noise floor")
+    result = {"layers": L, "batch": batch, "seq": seq,
+              "loss_card": a["loss"], "loss_cpu": b["loss"],
+              "loss_rel_err": loss_err,
+              "grad_worst_err_over_limit": grad_worst,
+              "weights_max_abs_err_off_noise": w_worst,
+              "weights_noise_entries": w_noise, "weights": n_w,
+              "card_s": a["s"], "cpu_s": b["s"],
+              "card_counts": a["counts"], "cpu_counts": b["counts"]}
+    log("train_parity", **result)
+    if loss_err > LOSS_RTOL or bad or w_noise > 0.01 * n_w:
+        raise AssertionError(f"train_parity: loss rel err {loss_err} (tol "
+                             f"{LOSS_RTOL}), noise entries {w_noise} of "
+                             f"{n_w}; {bad[:5]}")
+    return result
+
+
 # --------------------------------------------------------------------------
 # end-to-end phases
 # --------------------------------------------------------------------------
@@ -687,7 +1154,15 @@ def main(argv=None) -> int:
     report["kernel"] = native_t = kernel_phase(rng, flush)
     report["kernel_int8"] = int8_t = int8_kernel_phase(rng, flush)
     report["kernel_qmm"] = qmm_t = qmm_phase(rng, flush)
+    report["kernel_flash"] = flash_t = flash_kernel_phase(rng, flush)
     del flush
+    torch.cuda.empty_cache()
+    # the training drive's batch comes from its own seed, so its loss
+    # trajectory does not depend on what the phases before it drew
+    report["train"] = train = train_phase(np.random.RandomState(0))
+    torch.cuda.empty_cache()
+    report["train_parity"] = train_parity_phase(rng)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     model = GPTModel(**GPT2_SMALL, device="cuda", seed=1234)
@@ -705,6 +1180,8 @@ def main(argv=None) -> int:
     dec = native_t["gpt2_decode/float32/Qb1"]
     idec = int8_t["gpt2_decode/float32/Qb1/fused_dequant=1"]
     qdec = qmm_t["fc1_768x3072/M8/float32"]
+    flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    flash_tpu = "paddle_tpu/ops/pallas_ops/flash_attention.py"
     kernels = [
         record("ragged_paged_attention",
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -724,7 +1201,15 @@ def main(argv=None) -> int:
                "paddle_tpu/ops/pallas_ops/quantized_matmul.py:104",
                st["qmm_cuda"], qdec, case="fc1_768x3072/M8/float32",
                cases=qmm_t),
-    ]
+    ] + [
+        record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",
+               train[f"flash_{kname}"], flash_t[f"{kname}/train/float32"],
+               case="B8 H12 S1024 D64 causal, float32",
+               bfloat16=flash_t[f"{kname}/train/bfloat16"],
+               max_abs_err_by_case={c: e[kname] for c, e in
+                                    flash_t["max_abs_err"].items()},
+               dropout_bits_exact=flash_t["bits_exact"][kname])
+        for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

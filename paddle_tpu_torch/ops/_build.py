@@ -30,7 +30,7 @@ __all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "load_library", "load_libraries",
            "build_log", "nvcc_path"]
 
 # every kernel source of the port, by library name (csrc/<name>.cu)
-KERNEL_SOURCES = ("paged_attention", "quantized_matmul")
+KERNEL_SOURCES = ("paged_attention", "quantized_matmul", "flash_attention")
 
 _OPS_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _OPS_DIR / "csrc"

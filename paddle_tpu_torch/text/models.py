@@ -1,5 +1,7 @@
-"""GPT as a ``torch.nn.Module`` — the parameter holder of the serving
-slice, twin of ``paddle_tpu/text/models.py:125-180``.
+"""GPT as a ``torch.nn.Module`` — twin of
+``paddle_tpu/text/models.py:125-180`` (``GPTDecoderLayer``,
+``GPTModel``) and of the self-attention path of
+``paddle_tpu/nn/transformer.py`` ``MultiHeadAttention``.
 
 Parameter names match the JAX package's ``get_state`` names exactly
 (``wte.weight``, ``wpe.weight``,
@@ -9,9 +11,13 @@ are ``torch.nn.Linear`` and so store ``[out, in]``; the JAX package
 stores ``[in, out]`` and computes ``x @ W`` — :func:`load_numpy_state`
 transposes on the way in.
 
-The model carries weights only: the math that runs them lives in
-``text/generation.py`` (the functions that make the serving steps).  The full-sequence
-``forward`` belongs to the training slice, with the flash kernel.
+``GPTModel.forward(input_ids)`` is the full-sequence causal forward of
+the training slice: every layer's attention goes through
+``ops.attention.scaled_dot_product_attention`` (the flash kernels on the
+card), LayerNorm and GELU are the serving path's ``_ln`` and ``_gelu``.
+The parameters are trainable, as a paddle ``Layer``'s are; the serving
+steps (``text/generation.py``) run under ``torch.no_grad()`` on detached
+weights and build no graph.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..nn import functional as F
 
 __all__ = ["GPTModel", "load_numpy_state", "numpy_state"]
 
@@ -40,6 +47,23 @@ class _Attention(nn.Module):
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
 
+    def forward(self, x, attn_mask=None, is_causal=False):
+        """``MultiHeadAttention.forward`` as self-attention without a
+        cache: project, split heads to ``[B, S, H, D]``, attend
+        (``is_causal`` combines with a padding mask), merge heads,
+        ``out_proj``.  No attention dropout (the slice trains with
+        ``dropout=0.0``)."""
+        B, S, E = x.shape
+        H = self.num_heads
+
+        def heads(proj):
+            return proj(x).reshape(B, S, H, E // H)
+
+        out = F.scaled_dot_product_attention(
+            heads(self.q_proj), heads(self.k_proj), heads(self.v_proj),
+            attn_mask=attn_mask, is_causal=is_causal, training=self.training)
+        return self.out_proj(out.reshape(B, S, E))
+
 
 class GPTDecoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, ffn: int):
@@ -49,6 +73,19 @@ class GPTDecoderLayer(nn.Module):
         self.ln2 = nn.LayerNorm(hidden)
         self.fc1 = nn.Linear(hidden, ffn)
         self.fc2 = nn.Linear(ffn, hidden)
+
+    def forward(self, x, mask=None, causal=False):
+        """Pre-LN block: ``x + attn(ln1(x))``, then
+        ``x + fc2(gelu(fc1(ln2(x))))``."""
+        h = _layer_norm(self.ln1, x)
+        x = x + self.attn(h, attn_mask=mask,
+                          is_causal=causal and mask is None)
+        h = _layer_norm(self.ln2, x)
+        return x + self.fc2(F.gelu(self.fc1(h)))
+
+
+def _layer_norm(ln: nn.LayerNorm, x):
+    return F.layer_norm(x, x.shape[-1], ln.weight, ln.bias, ln.eps)
 
 
 class GPTModel(nn.Module):
@@ -78,7 +115,6 @@ class GPTModel(nn.Module):
             self.ln_f = nn.LayerNorm(hidden_size)
         self.to_empty(device=dev)
         self.to(dtype)
-        self.requires_grad_(False)
         self.reset_parameters(seed)
 
     @torch.no_grad()
@@ -96,6 +132,21 @@ class GPTModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.wte.weight.device
+
+    def forward(self, input_ids):
+        """Full-sequence causal logits ``[B, S, vocab]`` for ``input_ids``
+        ``[B, S]``: ``wte + wpe``, the causal layers, ``ln_f`` and the
+        head tied to ``wte``."""
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        S = ids.shape[1]
+        pos = torch.arange(S, device=self.device)
+        x = self.wte(ids) + self.wpe(pos)
+        # causal masking rides the attention op (is_causal: the flash
+        # route), never a materialized S x S mask
+        for layer in self.layers:
+            x = layer(x, causal=True)
+        x = _layer_norm(self.ln_f, x)
+        return torch.matmul(x, self.wte.weight.t())
 
 
 def _is_linear_weight(name: str) -> bool:

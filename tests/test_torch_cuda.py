@@ -1,6 +1,6 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-PyTorch versions, and the engine's streams against the dense
-``generate``, native and int8.
+PyTorch versions, the engine's streams against the dense ``generate``,
+native and int8, and a training step against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX (the
@@ -14,13 +14,18 @@ summed in another order, online softmax over up to 1024 positions; int8
 pools add the scale multiply before or after the dot) and 2e-2 in bf16
 (the kernel rounds its f32 result to bf16, 8 mantissa bits).  The
 weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
-over K <= 3072 in another order), 1e-2 in bf16.  Streams must be equal
-token for token.
+over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
+kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
+reference value) (f32 sums over up to 1024 keys or queries in another
+order; bf16 outputs rounded to 8 mantissa bits); their dropout bits must
+equal ``_keep_mask``'s exactly.  Streams must be equal token for token.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quantized_matmul as qm
 
@@ -270,3 +275,144 @@ def test_int8_engine_streams_equal_generate_quant_on_the_card():
         want = generate(m, p[None], max_new_tokens=12, end_id=-1,
                         quant=quant)[0][0].cpu().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# flash attention (bodies #5, #6, #7)
+# --------------------------------------------------------------------------
+def _flash_case(seed, B, H, S, D, dtype, masked):
+    """Random q, k, v, dO [B, H, S, D] and a [B, S] kv mask (padded
+    tails of random length when ``masked``, at least half kept)."""
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(B, H, S, D).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    mask = torch.ones(B, S)
+    if masked:
+        for b in range(B):
+            mask[b, rng.randint(max(1, S // 2), S + 1):] = 0.0
+    return q, k, v, g, mask.cuda()
+
+
+def _close(got, want, tol, what):
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    limit = tol * max(1.0, float(want.abs().max()))
+    assert err <= limit, f"{what}: max_abs_err {err} > {limit}"
+
+
+@pytest.mark.parametrize("variant", ["plain", "mask_dropout"])
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("S", [1, 100, 1000, 1024])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_match_plain_versions(dtype, causal, S, D, variant):
+    B, H = 2, 3
+    masked = variant == "mask_dropout"
+    p, seed = (0.1, -77) if masked else (0.0, 0)
+    q, k, v, g, mask = _flash_case(S + D, B, H, S, D, dtype, masked)
+    scale = 1.0 / np.sqrt(D)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ref_o, ref_lse = fa.flash_fwd_ref(qf, kf, vf, mask, seed, scale, causal,
+                                      p)
+    delta = (gf * ref_o).sum(-1).reshape(B * H, S, 1)
+    fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
+    o, lse = fa._flash_fwd_bhsd(q, k, v, mask, seed, scale, causal, p)
+    dk, dv = fa._flash_dkv_bhsd(q, k, v, g, ref_lse, delta, mask, seed,
+                                scale, causal, p)
+    dq = fa._flash_dq_bhsd(q, k, v, g, ref_lse, delta, mask, seed, scale,
+                           causal, p)
+    torch.cuda.synchronize()
+    assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1, "ref": 0}
+    rdk, rdv = fa.flash_dkv_ref(qf, kf, vf, gf, ref_lse, delta, mask, seed,
+                                scale, causal, p)
+    rdq = fa.flash_dq_ref(qf, kf, vf, gf, ref_lse, delta, mask, seed, scale,
+                          causal, p)
+    tol = TOL[dtype]
+    for name, got, want in (("o", o, ref_o), ("dk", dk, rdk),
+                            ("dv", dv, rdv), ("dq", dq, rdq)):
+        assert got.dtype == dtype and got.shape == q.shape, name
+        _close(got, want, tol, name)
+    assert lse.dtype == torch.float32 and lse.shape == (B * H, S, 1)
+    _close(lse, ref_lse, 1e-4, "lse")
+
+
+@pytest.mark.parametrize("seed", [0, 123456789, -2 ** 31])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_kernels_regenerate_the_keep_mask_bit_for_bit(seed, p):
+    B, H, S, D = 2, 3, 200, 64
+    mask = torch.ones(B, S, device="cuda")
+    mask[1, 150:] = 0.0
+    bits = chip_smoke.flash_keep_bits(mask, H, S, D, seed, p)
+    want = chip_smoke.flash_keep_reference(mask, H, S, seed, p)
+    assert 0 < int(want.sum()) < want.numel()
+    for name, got in bits.items():
+        assert torch.equal(got, want), name
+
+
+def test_flash_autograd_on_the_card_matches_the_plain_route():
+    """FlashAttentionCore through the kernels (one launch of each) against
+    the same function on the CPU's plain route, values and gradients."""
+    rng = np.random.RandomState(5)
+    B, S, H, D = 2, 300, 4, 64
+    x = [rng.randn(B, S, H, D).astype(np.float32) for _ in range(4)]
+    kv_mask = np.ones((B, S), np.float32)
+    kv_mask[0, 250:] = 0.0
+
+    def run(device):
+        q, k, v = (torch.tensor(a, device=device, requires_grad=True)
+                   for a in x[:3])
+        out = fa.flash_attention_bshd(
+            q, k, v, causal=True, kv_mask=torch.tensor(kv_mask,
+                                                       device=device),
+            dropout_p=0.2, seed=99)
+        (out * torch.tensor(x[3], device=device)).sum().backward()
+        return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1, "ref": 0}
+    want = run("cpu")
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(a, b, 1e-4, name)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 2, 8, 16, device="cuda")
+    mask = torch.ones(1, 8, device="cuda")
+    lse = torch.zeros(2, 8, 1, device="cuda")
+    args = (0, 0.25, False, 0.0)
+    strided = torch.zeros(1, 2, 8, 32, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_cuda(strided, q, q, mask, *args)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(1, 2, 8, 260, device="cuda")
+        fa.flash_fwd_cuda(big, big, big, mask, *args)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        h = q.half()
+        fa.flash_fwd_cuda(h, h, h, mask, *args)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_fwd_cuda(q, q, q, mask[:, :4].contiguous(), *args)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fa.flash_fwd_cuda(q, q, q, mask.cpu(), *args)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq_cuda(q, q, q, q, lse[:1], lse, mask, *args)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_dkv_cuda(q, q, q, q.bfloat16(), lse, lse, mask, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        c = q.cpu()
+        fa.flash_fwd_cuda(c, c, c, mask.cpu(), *args)
+
+
+def test_training_step_on_the_card_equals_the_cpu_step():
+    """A 2-layer GPT step through the flash kernels on the card: loss,
+    every gradient and the weights after one AdamW step against the same
+    step on the CPU's plain flash route (chip_smoke's train_parity phase
+    at a small width; it raises on any difference past its tolerances)."""
+    cfg = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+               ffn_size=256, max_seq_len=256)
+    res = chip_smoke.train_parity_phase(np.random.RandomState(3), cfg=cfg,
+                                        batch=2, seq=256)
+    assert res["card_counts"]["flash_fwd"] == 2
+    assert res["cpu_counts"]["flash_ref"] == 6

@@ -50,7 +50,7 @@ def test_bridge_round_trip_and_linear_layout(state, port):
     assert tuple(port.layers[0].fc1.weight.shape) == (64, 32)
     x = np.random.RandomState(0).randn(3, 32).astype(np.float32)
     got = torch.nn.functional.linear(
-        torch.from_numpy(x), port.layers[0].fc1.weight).numpy()
+        torch.from_numpy(x), port.layers[0].fc1.weight).detach().numpy()
     np.testing.assert_allclose(got, x @ w, rtol=1e-5, atol=1e-6)
 
 

@@ -71,7 +71,13 @@ def test_importing_every_module_loads_no_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] == len(_modules()) and res["bad"] == []
     for mod in ("paddle_tpu_torch.slim", "paddle_tpu_torch.slim.serving_export",
-                "paddle_tpu_torch.ops.quantized_matmul"):
+                "paddle_tpu_torch.ops.quantized_matmul",
+                "paddle_tpu_torch.ops.flash_attention",
+                "paddle_tpu_torch.ops.attention",
+                "paddle_tpu_torch.nn.functional",
+                "paddle_tpu_torch.nn.functional.loss",
+                "paddle_tpu_torch.optimizer",
+                "paddle_tpu_torch.optimizer.optimizer"):
         assert mod in _modules()
 
 
