@@ -60,6 +60,26 @@ Phases, one result line each (or more):
 10. train_parity: 2 layers at the same widths, B 2 x S 1024: one step's
    loss and every gradient on the card against the same step on the CPU
    through the plain flash route, then the weights after one AdamW step.
+11. kernel_decode: the per-row paged attention kernel (one table row and
+   one length per query row) and its int8 body against their plain
+   version, f32 (and once bf16), at the test shapes, GPT-2-small decode
+   rows and a GPT-2-small prefill chunk (64 rows of one sequence sharing
+   its table row), both ``fused_dequant`` settings and a NaN scale row;
+   timed beside its bound, the plain version, SDPA over the gathered
+   dense KV and the ragged kernel at one row per lane on the same inputs.
+12. e2e_split: the requests of phase 5 through the split programs —
+   ``ragged=False`` pipelined and synchronous, ``fused_steps=4``, and
+   ``ragged=False`` with int8 KV and weights and phase 6's export; every
+   attention call on the per-row kernel, no page leaked, every stream
+   equal to ``generate`` (``generate(quant=export)``) except at a
+   reported near-tie.
+13. e2e_spec: prompts with repeated spans, ``spec_decode=4`` on the
+   default ragged engine (verify folded into the ragged kernel), on
+   ``ragged=False`` (the split verify on the per-row kernel) and on the
+   ragged engine with uncalibrated int8 KV (the sequential split verify
+   and its rollback on the int8 per-row body); every stream equal to the
+   same engine's with speculation off except at a reported near-tie,
+   drafts proposed, launches counted per route.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -379,6 +399,200 @@ def int8_kernel_phase(rng, flush) -> dict:
             t["bound_ms"], t["bound_by"] = bound_ms(q, kq, pt, rl)
             log("kernel_int8_time", case=tag, **t)
             timings[tag] = t
+    return timings
+
+
+# the per-row kernel's cases: the test width, GPT-2-small decode rows
+# (one table row each) and a GPT-2-small prefill chunk: 64 rows of one
+# sequence at positions 448..511 sharing its table row, the tail padded
+# past the prompt's 500 positions
+DECODE_CASES = [
+    ("test", dict(H=2, D=16, P=4, M=5, lens=[0, 1, 7, 19, 20])),
+    ("gpt2_decode", dict(H=12, D=64, P=16, M=64,
+                         lens=[0, 1, 17, 100, 255, 512, 777, 1024])),
+    ("gpt2_chunk", dict(H=12, D=64, P=16, M=64, chunk=(448, 64, 500)))]
+DECODE_TIMED = ("gpt2_decode", "gpt2_chunk")
+
+
+def make_rows(rng, *, H, D, P, M, lens=None, chunk=None,
+              dtype=torch.float32):
+    """Per-row inputs: q [B, H, D], random pools (trash page 0 included),
+    one table row and one length per row.  ``lens``: one sequence per
+    row with distinct pages; ``chunk=(off, C, valid)``: C rows of one
+    sequence sharing its table row, row r seeing min(off + r + 1, valid)
+    positions."""
+    if chunk is not None:
+        off, C, valid = chunk
+        seq_lens = np.minimum(off + np.arange(C) + 1, valid)
+        seqs = [valid]
+    else:
+        seq_lens = np.asarray(lens)
+        seqs = list(lens)
+    need = [-(-min(n, M * P) // P) for n in seqs]
+    N = 1 + sum(need) + 3
+    perm = rng.permutation(np.arange(1, N))
+    pt = np.zeros((len(seqs), M), np.int32)
+    at = 0
+    for b, n in enumerate(need):
+        pt[b, :n] = perm[at:at + n]
+        at += n
+    if chunk is not None:
+        pt = np.repeat(pt, len(seq_lens), axis=0)
+    B = len(seq_lens)
+    q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32))
+    kp = torch.from_numpy(rng.randn(N, P, H, D).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(N, P, H, D).astype(np.float32))
+    return (q.to(DEVICE, dtype), kp.to(DEVICE, dtype), vp.to(DEVICE, dtype),
+            torch.from_numpy(pt).to(DEVICE),
+            torch.from_numpy(seq_lens.astype(np.int32)).to(DEVICE))
+
+
+def rows_bound_ms(q, k_pages, page_tables, seq_lens):
+    """Least time for a per-row call on an H100: the larger of its bytes
+    (q and out once; each distinct (page, slot) some row reads below its
+    length once, K and V — rows sharing a table row read the same
+    positions — with int8 pools each distinct page's two [H] f32 scale
+    rows; the lengths and the used table entries) over HBM bandwidth,
+    and its f32 flops (4*D per visible position, row and head) over the
+    f32 CUDA-core peak."""
+    B, H, D = q.shape
+    P = k_pages.shape[1]
+    M = page_tables.shape[1]
+    pt = page_tables.cpu().numpy()
+    lens = seq_lens.clamp(max=M * P).cpu().numpy().astype(np.int64)
+    slots, pages = set(), set()
+    for b in range(B):
+        for j in range(-(-int(lens[b]) // P)):
+            n = min(P, int(lens[b]) - j * P)
+            slots.update((int(pt[b, j]), s) for s in range(n))
+            pages.add(int(pt[b, j]))
+    kv_bytes = len(slots) * H * D * k_pages.element_size() * 2
+    if k_pages.dtype == torch.int8:
+        kv_bytes += len(pages) * H * 4 * 2
+    table_bytes = int(sum(-(-int(n) // P) for n in lens)) * 4
+    io_bytes = 2 * q.numel() * q.element_size() + B * 4
+    t_bytes = (kv_bytes + table_bytes + io_bytes) / HBM_BYTES_PER_S
+    t_ops = int(lens.sum()) * H * D * 4 / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _decode_timings(pa, tag, args, kernel, plain, err, flush):
+    """One timed case of the per-row kernel: its time beside its bound,
+    the plain version, SDPA over each row's gathered dense KV, and the
+    ragged kernel on the same inputs at one row per lane (and, for a
+    shared table row, as one lane of B rows)."""
+    q, kp, vp, pt, sl = args[:5]
+    scales = args[5:]
+    if scales:
+        kd = kp.float() * scales[0][:, None, :, None]
+        vd = vp.float() * scales[1][:, None, :, None]
+    else:
+        kd, vd = kp, vp
+    q_d, k_d, v_d, mask = sdpa_inputs(q[:, None], kd, vd, pt, sl[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = {"max_abs_err": err, "ms": time_ms(kernel, flush),
+         "plain_ms": time_ms(plain, flush),
+         "library_ms": time_ms(lambda: sdpa(q_d, k_d, v_d, attn_mask=mask),
+                               flush),
+         "ragged_qb1_ms": time_ms(
+             lambda: pa.ragged_paged_attention_cuda(
+                 q[:, None], kp, vp, pt, sl[:, None], *scales), flush)}
+    if bool((pt == pt[:1]).all()):
+        t["ragged_one_lane_ms"] = time_ms(
+            lambda: pa.ragged_paged_attention_cuda(
+                q[None], kp, vp, pt[:1], sl[None], *scales), flush)
+    t["bound_ms"], t["bound_by"] = rows_bound_ms(q, kp, pt, sl)
+    log("kernel_decode_time", case=tag, **t)
+    return t
+
+
+def decode_kernel_phase(rng, flush) -> dict:
+    """Bodies #2 and #2q against their plain version: f32 at every case
+    (#2q in both fused_dequant settings), bf16 once at decode, NaN scale
+    rows at decode and in the chunk; then the timed cases."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    checked = {}
+    for name, kw in DECODE_CASES:
+        dtypes = ((torch.float32, torch.bfloat16) if name == "gpt2_decode"
+                  else (torch.float32,))
+        for dtype in dtypes:
+            args = make_rows(rng, dtype=dtype, **kw)
+            dt = str(dtype).split(".")[-1]
+            ref = pa.paged_attention_ref(
+                *(a.float() if a.is_floating_point() else a for a in args))
+            out = pa.paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            tag = f"{name}/{dt}"
+            checked[tag] = (args, _check_close(
+                "kernel_decode", tag, out, ref, args[4], KERNEL_TOL[dtype]))
+            q, kq, vq, ks, vs = (args[0],) + quantize_pools(*args[1:3])
+            iargs = (q, kq, vq, args[3], args[4], ks, vs)
+            ref = pa.paged_attention_ref(q.float(), *iargs[1:])
+            for fused in (1, 0):
+                out = pa.paged_attention_cuda(*iargs, fused_dequant=fused)
+                torch.cuda.synchronize()
+                itag = f"{tag}/int8/fused_dequant={fused}"
+                checked[itag] = (iargs, _check_close(
+                    "kernel_decode", itag, out, ref, args[4],
+                    KERNEL_TOL[dtype]))
+
+    # a NaN in one K scale row: non-finite exactly on the rows that read
+    # that page below their length — decode row 5 (length 512) reads its
+    # page 3; chunk rows read page 30 (positions 480..495) from row 32 on
+    nan_ok = {}
+    for name, pick, readers in (
+            ("gpt2_decode", lambda pt: int(pt[5, 3]), lambda sl: (
+                torch.arange(len(sl), device=sl.device) == 5)),
+            ("gpt2_chunk", lambda pt: int(pt[0, 30]), lambda sl: sl > 480)):
+        for fused in (1, 0):
+            args = list(checked[f"{name}/float32/int8/fused_dequant="
+                                f"{fused}"][0])
+            ks = args[5].clone()
+            head = 7
+            ks[pick(args[3]), head] = float("nan")
+            args[5] = ks
+            out = pa.paged_attention_cuda(*args, fused_dequant=fused)
+            ref = pa.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            bad = ~torch.isfinite(out).all(dim=-1)             # [B, H]
+            want = torch.zeros_like(bad)
+            want[:, head] = readers(args[4])
+            fin = ~bad[..., None].expand_as(out)
+            err = float((out[fin] - ref[fin]).abs().max())
+            ok = (bool(want.any()) and torch.equal(bad, want)
+                  and torch.equal(~torch.isfinite(ref).all(dim=-1), want)
+                  and err <= KERNEL_TOL[torch.float32])
+            log("kernel_decode", case=f"{name}/nan_k_scale",
+                fused_dequant=fused, non_finite_rows=int(bad.sum()),
+                readers=int(want.sum()), max_abs_err_elsewhere=err, ok=ok)
+            if not ok:
+                raise AssertionError(
+                    f"NaN k_scale ({name}, fused_dequant={fused}): "
+                    f"non-finite at {bad.nonzero().tolist()}, expected "
+                    f"{want.nonzero().tolist()}; error elsewhere {err}")
+            nan_ok[f"{name}/fused_dequant={fused}"] = ok
+
+    timings = {"nan_scale_ok": all(nan_ok.values()),
+               "bf16_max_abs_err": checked["gpt2_decode/bfloat16"][1],
+               "int8_bf16_max_abs_err": max(
+                   checked[f"gpt2_decode/bfloat16/int8/fused_dequant={f}"][1]
+                   for f in (1, 0))}
+    for name in DECODE_TIMED:
+        tag = f"{name}/float32"
+        args, err = checked[tag]
+        timings[tag] = _decode_timings(
+            pa, tag, args, lambda: pa.paged_attention_cuda(*args),
+            lambda: pa.paged_attention_ref(*args), err, flush)
+        for fused in (1, 0):
+            itag = f"{tag}/int8/fused_dequant={fused}"
+            iargs, err = checked[itag]
+            timings[itag] = _decode_timings(
+                pa, itag, iargs,
+                lambda: pa.paged_attention_cuda(*iargs,
+                                                fused_dequant=fused),
+                lambda: pa.paged_attention_ref(*iargs), err, flush)
     return timings
 
 
@@ -965,31 +1179,49 @@ def expect_counts(phase, counts, want):
                              f"at every layer of every dispatch")
 
 
-def check_streams(phase, model, prompts, streams, quant=None):
-    """Every stream against the port's dense generate (int8 per
-    ``quant``) on the card; a divergence is allowed only at a near tie of
-    the reference's top-2 logits."""
+_REFERENCES = {}
+
+
+def reference_streams(model, prompts, quant=None):
+    """The port's dense ``generate`` (int8 per ``quant``) for every
+    prompt, computed once per (model, export, prompts) on the card."""
     from paddle_tpu_torch.text.generation import generate
 
-    gap_limit = NEAR_TIE_GAP if quant is None else INT8_NEAR_TIE_GAP
+    key = (id(model), id(quant), tuple(p.tobytes() for p in prompts))
+    if key not in _REFERENCES:
+        _REFERENCES[key] = [
+            generate(model, p[None], max_new_tokens=NEW_TOKENS, end_id=-1,
+                     quant=quant)[0][0].cpu().numpy() for p in prompts]
+    return _REFERENCES[key]
+
+
+def check_streams(phase, model, prompts, streams, quant=None, want=None,
+                  int8=None):
+    """Every stream against the port's dense generate (int8 per
+    ``quant``) on the card, or against ``want``; a divergence is allowed
+    only at a near tie of the dense reference's top-2 logits, teacher-
+    forced through the prompt and the common prefix (the int8 limit when
+    ``int8``, default: when ``quant`` is given)."""
+    if want is None:
+        want = reference_streams(model, prompts, quant)
+    if int8 is None:
+        int8 = quant is not None
+    gap_limit = INT8_NEAR_TIE_GAP if int8 else NEAR_TIE_GAP
     near_ties = []
-    for i, (p, got) in enumerate(zip(prompts, streams)):
-        want, _ = generate(model, p[None], max_new_tokens=NEW_TOKENS,
-                           end_id=-1, quant=quant)
-        want = want[0].cpu().numpy()
-        if not np.isfinite(got).all() or got.shape != want.shape:
+    for i, (p, got, ref) in enumerate(zip(prompts, streams, want)):
+        if not np.isfinite(got).all() or got.shape != ref.shape:
             raise AssertionError(f"{phase} request {i}: bad output {got}")
-        diff = np.nonzero(got != want)[0]
+        diff = np.nonzero(got != ref)[0]
         if diff.size:
             k = int(diff[0])
-            gap = logit_gap(model, p, want, k, quant)
+            gap = logit_gap(model, p, ref, k, quant)
             case = {"request": i, "prompt_len": int(p.size), "position": k,
-                    "engine": int(got[k]), "reference": int(want[k]),
+                    "engine": int(got[k]), "reference": int(ref[k]),
                     "top2_gap": gap, "gap_limit": gap_limit}
             log(f"{phase}_near_tie", **case)
             if gap >= gap_limit:
                 raise AssertionError(
-                    f"{phase} request {i} diverges from generate at "
+                    f"{phase} request {i} diverges from its reference at "
                     f"position {k} where the reference's top-2 gap {gap} "
                     f">= {gap_limit}")
             near_ties.append(case)
@@ -1029,6 +1261,8 @@ def e2e_phase(model, prompts, device="cuda") -> dict:
     L = len(model.layers)
     expect_counts("e2e", counts, {"attention_cuda": L * dispatches,
                                   "attention_cuda_int8": 0,
+                                  "attention_cuda_decode": 0,
+                                  "attention_cuda_decode_int8": 0,
                                   "attention_ref": 0, "qmm_cuda": 0,
                                   "qmm_ref": 0})
     t0 = time.perf_counter()
@@ -1039,10 +1273,10 @@ def e2e_phase(model, prompts, device="cuda") -> dict:
     return result
 
 
-def e2e_int8_static_phase(model, prompts, rng, native,
-                          device="cuda") -> dict:
+def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
     """int8 KV with scales calibrated on the card, int8 weights: every
-    attention call on body #1q, every projection/MLP matmul on body #4."""
+    attention call on body #1q, every projection/MLP matmul on body #4.
+    Returns (result, the export)."""
     from paddle_tpu_torch.serving import create_serving_engine
     from paddle_tpu_torch.slim import export_serving_quant
 
@@ -1059,6 +1293,7 @@ def e2e_int8_static_phase(model, prompts, rng, native,
     L = len(model.layers)
     expect_counts("e2e_int8_static", counts, {
         "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
+        "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
         "attention_ref": 0, "qmm_cuda": 6 * L * dispatches, "qmm_ref": 0})
     # the same page count as the native engine, a quarter of its bytes
     ratio = eng.kv_cache_bytes() / native["kv_cache_bytes"]
@@ -1077,7 +1312,7 @@ def e2e_int8_static_phase(model, prompts, rng, native,
                   quant_weight_bytes=eng.stats()["quant"][
                       "quant_weight_bytes"])
     log("e2e_int8_static", **result)
-    return result
+    return result, export
 
 
 def e2e_int8_dynamic_phase(model, prompts, device="cuda") -> dict:
@@ -1097,6 +1332,7 @@ def e2e_int8_dynamic_phase(model, prompts, device="cuda") -> dict:
         streams, counts, wall, dispatches = drive(eng, prompts)
         expect_counts("e2e_int8_dynamic", counts, {
             "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
+            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
             "attention_ref": 0, "qmm_cuda": 6 * L * dispatches,
             "qmm_ref": 0})
         runs[sync_mode] = (streams, summary(eng, prompts, wall, dispatches,
@@ -1110,6 +1346,137 @@ def e2e_int8_dynamic_phase(model, prompts, device="cuda") -> dict:
     if not same:
         raise AssertionError("int8_dynamic: synchronous and pipelined "
                              "streams differ")
+    return result
+
+
+def split_forwards(eng) -> int:
+    """Core forwards the engine ran through the split programs (each one
+    attention launch per layer): decode and prefill dispatches, K per
+    fused dispatch, 1 per one-forward verify and K per sequential one."""
+    calls = eng.stats()["programs"]
+    verify = eng.spec.k if eng.spec is not None and eng.spec.sequential \
+        else 1
+    return (calls["decode"] + calls["prefill"]
+            + eng.fused_steps * calls["decode_fused"]
+            + verify * calls["spec_verify"])
+
+
+# the split drives: (name, engine knobs, int8 KV and weights)
+SPLIT_DRIVES = (("split", dict(ragged=False), False),
+                ("split_sync", dict(ragged=False, sync_mode=True), False),
+                ("fused4", dict(fused_steps=4), False),
+                ("split_int8", dict(ragged=False, kv_cache_dtype="int8",
+                                    weight_dtype="int8"), True))
+
+
+def e2e_split_phase(model, prompts, export, ragged_step_ms,
+                    device="cuda") -> dict:
+    """The split programs on the e2e requests: every attention call on
+    the per-row kernel (#2, or #2q with int8 KV), every int8 projection
+    on body #4; streams equal to ``generate`` (``generate(quant=
+    export)``) except at a reported near-tie; step time beside the
+    ragged engine's (``ragged_step_ms``, phase 5's p50)."""
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    result = {}
+    for name, knobs, int8 in SPLIT_DRIVES:
+        qs = dict(quant_scales=export) if int8 else {}
+        eng = create_serving_engine(model, device=device, **ENGINE, **knobs,
+                                    **qs)
+        streams, counts, wall, _ = drive(eng, prompts)
+        fwd = split_forwards(eng)
+        calls = eng.stats()["programs"]
+        expect_counts(f"e2e_split/{name}", counts, {
+            "attention_cuda": 0, "attention_cuda_int8": 0,
+            "attention_cuda_decode": 0 if int8 else L * fwd,
+            "attention_cuda_decode_int8": L * fwd if int8 else 0,
+            "attention_ref": 0, "qmm_cuda": 6 * L * fwd if int8 else 0,
+            "qmm_ref": 0})
+        if calls["ragged_step"] or (name == "fused4"
+                                    and not calls["decode_fused"]):
+            raise AssertionError(f"e2e_split/{name}: programs {calls}")
+        near = check_streams(f"e2e_split/{name}", model, prompts, streams,
+                             export if int8 else None)
+        res = summary(eng, prompts, wall, 0, counts, near)
+        res.update(programs=calls, split_forwards=fwd,
+                   step_ms_p50_vs_ragged=(res["step_ms"]["p50"]
+                                          / ragged_step_ms))
+        log("e2e_split", drive=name, **res)
+        result[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    return result
+
+
+def spec_prompts(rng, n=8):
+    """Prompts made of a short random pattern repeated — the n-gram
+    drafter proposes from the prompt's own repeats."""
+    out = []
+    for i in range(n):
+        pat = rng.randint(1, GPT2_SMALL["vocab_size"], (3 + i,))
+        out.append(np.tile(pat, 4 + 3 * i).astype(np.int32))
+    return out
+
+
+# the speculative drives: (name, engine knobs); each against the same
+# engine with speculation off
+SPEC_DRIVES = (("ragged", {}),
+               ("split", dict(ragged=False)),
+               ("ragged_int8_dynamic", dict(kv_cache_dtype="int8")))
+
+
+def e2e_spec_phase(model, prompts, device="cuda") -> dict:
+    """``spec_decode=4`` on the ragged engine (verify folded into body
+    #1), on the split engine (verify on #2) and on the ragged engine with
+    uncalibrated int8 KV (the sequential verify and its rollback on #2q,
+    the rest on #1q); each drive's streams against the same engine with
+    speculation off, a divergence allowed only at a reported near-tie."""
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    result = {}
+    for name, knobs in SPEC_DRIVES:
+        int8 = "kv_cache_dtype" in knobs
+        off = create_serving_engine(model, device=device, **ENGINE, **knobs)
+        want, _, wall_off, _ = drive(off, prompts)
+        off_step = off.stats()["metrics"]["step_latency_ms"]["p50"]
+        del off
+        eng = create_serving_engine(model, device=device, spec_decode=4,
+                                    **ENGINE, **knobs)
+        streams, counts, wall, _ = drive(eng, prompts)
+        calls = eng.stats()["programs"]
+        ragged = L * calls["ragged_step"]
+        split = L * split_forwards(eng)
+        expect_counts(f"e2e_spec/{name}", counts, {
+            "attention_cuda": 0 if int8 else ragged,
+            "attention_cuda_int8": ragged if int8 else 0,
+            "attention_cuda_decode": 0 if int8 else split,
+            "attention_cuda_decode_int8": split if int8 else 0,
+            "attention_ref": 0, "qmm_cuda": 0, "qmm_ref": 0})
+        spec = eng.stats()["spec"]
+        bad = [] if spec["drafted"] > 0 else ["no drafts"]
+        if name == "ragged" and calls["spec_verify"]:
+            bad.append("the ragged engine ran the split verifier")
+        if name != "ragged" and not calls["spec_verify"]:
+            bad.append("no split verify dispatch")
+        if int8 and not spec["rollbacks"]:
+            bad.append("no rollback")
+        if bad:
+            raise AssertionError(f"e2e_spec/{name}: {bad}; spec {spec}, "
+                                 f"programs {calls}")
+        near = check_streams(f"e2e_spec/{name}", model, prompts, streams,
+                             want=want, int8=int8)
+        res = summary(eng, prompts, wall, calls["ragged_step"], counts,
+                      near)
+        res.update(programs=calls, spec={k: spec[k] for k in (
+            "steps", "drafted", "accepted", "rejected", "rollbacks",
+            "degraded", "accept_rate")}, spec_off_wall_s=wall_off,
+            spec_off_step_ms_p50=off_step)
+        log("e2e_spec", drive=name, **res)
+        result[name] = res
+        del eng
+        torch.cuda.empty_cache()
     return result
 
 
@@ -1155,6 +1522,7 @@ def main(argv=None) -> int:
     report["kernel_int8"] = int8_t = int8_kernel_phase(rng, flush)
     report["kernel_qmm"] = qmm_t = qmm_phase(rng, flush)
     report["kernel_flash"] = flash_t = flash_kernel_phase(rng, flush)
+    report["kernel_decode"] = decode_t = decode_kernel_phase(rng, flush)
     del flush
     torch.cuda.empty_cache()
     # the training drive's batch comes from its own seed, so its loss
@@ -1172,10 +1540,15 @@ def main(argv=None) -> int:
         np.int32) for n in PROMPT_LENS]
     report["e2e"] = e2e = e2e_phase(model, prompts)
     torch.cuda.empty_cache()
-    report["e2e_int8_static"] = st = e2e_int8_static_phase(
+    report["e2e_int8_static"], export = e2e_int8_static_phase(
         model, prompts, rng, e2e)
+    st = report["e2e_int8_static"]
     torch.cuda.empty_cache()
     report["e2e_int8_dynamic"] = e2e_int8_dynamic_phase(model, prompts[:4])
+    torch.cuda.empty_cache()
+    report["e2e_split"] = split = e2e_split_phase(
+        model, prompts, export, e2e["step_ms"]["p50"])
+    report["e2e_spec"] = e2e_spec_phase(model, spec_prompts(rng))
 
     dec = native_t["gpt2_decode/float32/Qb1"]
     idec = int8_t["gpt2_decode/float32/Qb1/fused_dequant=1"]
@@ -1209,7 +1582,29 @@ def main(argv=None) -> int:
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()},
                dropout_bits_exact=flash_t["bits_exact"][kname])
-        for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))]
+        for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))] + [
+        record("paged_attention",
+               "paddle_tpu_torch/ops/csrc/paged_decode.cu",
+               "paddle_tpu/ops/pallas_ops/paged_attention.py:122",
+               split["split"]["attention_cuda_decode"],
+               decode_t["gpt2_decode/float32"],
+               case="gpt2_decode/float32",
+               prefill_chunk=decode_t["gpt2_chunk/float32"],
+               bf16_max_abs_err=decode_t["bf16_max_abs_err"],
+               launches_by_drive={k: v["attention_cuda_decode"]
+                                  for k, v in split.items()}),
+        record("paged_attention_int8",
+               "paddle_tpu_torch/ops/csrc/paged_decode.cu",
+               "paddle_tpu/ops/pallas_ops/paged_attention.py:173",
+               split["split_int8"]["attention_cuda_decode_int8"],
+               decode_t["gpt2_decode/float32/int8/fused_dequant=1"],
+               case="gpt2_decode/float32/int8", fused_dequant=1,
+               settings={k: v for k, v in decode_t.items()
+                         if "/int8/" in k},
+               nan_scale_ok=decode_t["nan_scale_ok"],
+               bf16_max_abs_err=decode_t["int8_bf16_max_abs_err"],
+               launches_spec_int8_dynamic=report["e2e_spec"][
+                   "ragged_int8_dynamic"]["attention_cuda_decode_int8"])]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

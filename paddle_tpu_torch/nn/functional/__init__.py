@@ -1,10 +1,11 @@
-"""paddle_tpu_torch.nn.functional — the functionals the GPT training
-slice runs, twins of ``paddle_tpu/nn/functional``.
+"""paddle_tpu_torch.nn.functional — the functionals the GPT serving and
+training slices run, twins of ``paddle_tpu/nn/functional``.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
 variance) are the serving path's ``_gelu`` and ``_ln`` from
 ``text/generation.py``; the attention entries are
-``ops/attention.py``'s, re-exported as the JAX package re-exports them.
+``ops/attention.py``'s (flash and paged), re-exported as the JAX package
+re-exports them.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from ...text.generation import _gelu, _ln
 from .loss import cross_entropy
 
 __all__ = ["gelu", "layer_norm", "cross_entropy",
-           "scaled_dot_product_attention", "flash_attention"]
+           "scaled_dot_product_attention", "flash_attention",
+           "paged_attention"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -59,3 +61,14 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
     return _fa(query, key, value, dropout=dropout, causal=causal,
                return_softmax=return_softmax)
+
+
+def paged_attention(query, key_pages, value_pages, page_tables, seq_lens,
+                    key_scales=None, value_scales=None, name=None):
+    """Decode-time paged attention over a block-paged KV cache; see
+    ``ops/attention.py`` for the contract.  Pass per-page-per-head
+    ``key_scales``/``value_scales`` when the page pools are int8."""
+    from ...ops.attention import paged_attention as _pa
+
+    return _pa(query, key_pages, value_pages, page_tables, seq_lens,
+               key_scales, value_scales)

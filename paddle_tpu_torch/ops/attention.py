@@ -1,6 +1,4 @@
-"""Attention ops — twin of ``paddle_tpu/ops/attention.py`` (full-sequence
-attention; the paged serving primitive lives in
-``ops/paged_attention.py``).
+"""Attention ops — twin of ``paddle_tpu/ops/attention.py``.
 
 - :func:`scaled_dot_product_attention` — ``[B, S, H, D]`` in and out.
   When the mask is padding-style (or absent) and :func:`_pallas_ok`
@@ -10,6 +8,10 @@ attention; the paged serving primitive lives in
 - :func:`flash_attention` — the flash kernels (forward and backward,
   ``ops/flash_attention.py``) on the route's terms, else the
   :func:`scaled_dot_product_attention` fallback with a boolean mask.
+- :func:`paged_attention` — decode-time attention over a block-paged KV
+  cache, one query row per sequence: ``ops/paged_attention.py``'s
+  routing entry (the per-row CUDA kernel on a CUDA tensor, its plain
+  version on a CPU tensor).
 
 Routing (:func:`_pallas_ok`): the flash route needs a CUDA tensor (the
 JAX package says "on TPU"), self-attention shapes, S >= 128 and
@@ -29,7 +31,8 @@ import torch
 
 from .flash_attention import NEG_INF, flash_attention_bshd
 
-__all__ = ["ROUTE_STATS", "scaled_dot_product_attention", "flash_attention"]
+__all__ = ["ROUTE_STATS", "scaled_dot_product_attention", "flash_attention",
+           "paged_attention"]
 
 ROUTE_STATS = {"pallas": 0, "xla": 0}
 
@@ -152,3 +155,30 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     if return_softmax:
         return out, None
     return out
+
+
+def paged_attention(query, key_pages, value_pages, page_tables, seq_lens,
+                    key_scales=None, value_scales=None, name=None):
+    """Decode-time paged attention over a block-paged KV cache (the split
+    serving programs' attention primitive).
+
+    query        [B, H, D]    one query per row
+    key_pages    [N, P, H, D] global K page pool (P = page size)
+    value_pages  [N, P, H, D] global V page pool
+    page_tables  [B, M] int32 per-row page ids (pad with 0, the trash
+                              page)
+    seq_lens     [B] int32    valid KV length per row (0 = inactive)
+    key_scales   [N, H] f32   per-page-per-head dequant scales, required
+                              (with value_scales) when the pools are int8
+    value_scales [N, H] f32
+
+    Returns [B, H, D]; scale 1/sqrt(D) applied inside.  Routes through
+    ``ops.paged_attention.paged_attention``: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    from .paged_attention import paged_attention as _core
+
+    if (key_scales is None) != (value_scales is None):
+        raise ValueError("key_scales and value_scales must be passed "
+                         "together (per-page-per-head [N, H] fp32)")
+    return _core(query, key_pages, value_pages, page_tables, seq_lens,
+                 key_scales, value_scales)

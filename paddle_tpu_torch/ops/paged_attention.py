@@ -1,33 +1,43 @@
-"""Ragged paged attention over a block-paged KV cache — the counterpart of
-``paddle_tpu/ops/pallas_ops/paged_attention.py`` for the ragged kernel.
+"""Paged attention over a block-paged KV cache — the counterpart of
+``paddle_tpu/ops/pallas_ops/paged_attention.py``: the per-row decode
+kernel and the ragged kernel.
 
-Each serving lane owns one page-table row into global page pools
-``[N, P, H, D]``; a lane carries ``Qb`` query rows (a decode lane one, a
-chunked-prefill lane a chunk) and row ``r`` attends to positions
-``s < row_lens[g, r]`` of its lane.  Page id 0 is the trash page: padding
-entries point at it, so every table entry is a valid index.
+Page id 0 is the trash page: padding entries point at it, so every
+table entry is a valid index.  Two layouts read the same pools
+``[N, P, H, D]``:
+
+- per row (the split decode, prefill-chunk, fused and spec-verify
+  programs): ``B`` query rows, each with its OWN page-table row and
+  length; row ``b`` attends to positions ``s < seq_lens[b]``.
+- ragged (the unified serving step): each serving lane owns one
+  page-table row and carries ``Qb`` query rows (a decode lane one, a
+  chunked-prefill lane a chunk); row ``r`` attends to positions
+  ``s < row_lens[g, r]`` of its lane.
 
 Int8 pools (the quantized serving arm) come with per-page-per-head f32
 scales ``k_scales, v_scales [N, H]``; the plain versions dequantize after
-the gather, the kernel in registers (``fused_dequant`` 1, the contract
+the gather, the kernels in registers (``fused_dequant`` 1, the contract
 default: scale after the q·k dot and on the p·v contribution; 0: before
 the dots).
 
-- :func:`ragged_paged_attention` — the routing entry the serving step
-  calls: a CUDA tensor launches the hand-written kernel
-  (``csrc/paged_attention.cu``), a CPU tensor runs the plain version.
-  There is no other branch and no fallback on the card.
-- :func:`ragged_paged_attention_ref` / :func:`paged_attention_ref` —
-  the plain PyTorch twins of ``ragged_paged_attention_xla`` and
-  ``paged_attention_xla``: gather the pages into a dense view and run a
-  masked f32 softmax.
-- :func:`ragged_paged_attention_cuda` — the kernel wrapper.
+- :func:`paged_attention` / :func:`ragged_paged_attention` — the routing
+  entries: a CUDA tensor launches the hand-written kernel
+  (``csrc/paged_decode.cu`` / ``csrc/paged_attention.cu``), a CPU tensor
+  runs the plain version.  There is no other branch and no fallback on
+  the card.
+- :func:`paged_attention_ref` / :func:`ragged_paged_attention_ref` —
+  the plain PyTorch twins of ``paged_attention_xla`` and
+  ``ragged_paged_attention_xla``: gather the pages into a dense view and
+  run a masked f32 softmax.
+- :func:`paged_attention_cuda` / :func:`ragged_paged_attention_cuda` —
+  the kernel wrappers.
 
 ``PAGED_ROUTE_STATS`` counts routing decisions per call, the twin of the
-reference's trace-time counter: ``"cuda"`` (f32/bf16 pools) and
-``"cuda_int8"`` (int8 pools) are incremented by the kernel wrapper once
-per launch and nowhere else, ``"ref"`` by the routing entry once per
-plain-version call.
+reference's trace-time counter: ``"cuda_decode"`` / ``"cuda_decode_int8"``
+(the per-row kernel, f32/bf16 or int8 pools) and ``"cuda"`` /
+``"cuda_int8"`` (the ragged kernel) are incremented by their kernel
+wrapper once per launch and nowhere else, ``"ref"`` by a routing entry
+once per plain-version call.
 """
 from __future__ import annotations
 
@@ -37,24 +47,34 @@ import math
 import torch
 
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT",
-           "paged_attention_ref",
+           "paged_attention_ref", "paged_attention_cuda", "paged_attention",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
            "ragged_paged_attention"]
 
 NEG_INF = -1e30
 
-PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "ref": 0}
+PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "cuda_decode": 0,
+                     "cuda_decode_int8": 0, "ref": 0}
 
 # the contract default of the int8 body (paddle_tpu's PAGED_RAGGED_INT8
 # ``fused_dequant``): scales applied after the dots
 FUSED_DEQUANT = 1
 
 _MAX_HEAD_DIM = 128
-# (q dtype, int8 pools) -> C entry point
-_KERNEL_FNS = {(torch.float32, False): "ptt_ragged_paged_attention_f32",
-               (torch.bfloat16, False): "ptt_ragged_paged_attention_bf16",
-               (torch.float32, True): "ptt_ragged_paged_attention_int8_f32",
-               (torch.bfloat16, True): "ptt_ragged_paged_attention_int8_bf16"}
+# (library, q dtype, int8 pools) -> C entry point
+_KERNEL_FNS = {
+    ("paged_attention", torch.float32, False):
+        "ptt_ragged_paged_attention_f32",
+    ("paged_attention", torch.bfloat16, False):
+        "ptt_ragged_paged_attention_bf16",
+    ("paged_attention", torch.float32, True):
+        "ptt_ragged_paged_attention_int8_f32",
+    ("paged_attention", torch.bfloat16, True):
+        "ptt_ragged_paged_attention_int8_bf16",
+    ("paged_decode", torch.float32, False): "ptt_paged_attention_f32",
+    ("paged_decode", torch.bfloat16, False): "ptt_paged_attention_bf16",
+    ("paged_decode", torch.float32, True): "ptt_paged_attention_int8_f32",
+    ("paged_decode", torch.bfloat16, True): "ptt_paged_attention_int8_bf16"}
 
 
 def _require_scales(k_pages, k_scales, v_scales):
@@ -116,23 +136,52 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, page_tables, row_lens,
 
 
 def _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales):
+    """The ragged kernel's terms: q [G, Qb, H, D], row_lens [G, Qb]."""
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q must be [G, Qb, H, D] and the pools "
                          f"[N, P, H, D]; got {tuple(q.shape)} and "
                          f"{tuple(k_pages.shape)}")
-    G, Qb, H, D = q.shape
-    if k_pages.shape != v_pages.shape or tuple(k_pages.shape[2:]) != (H, D):
-        raise ValueError(f"k/v pools {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q heads/dim "
-                         f"({H}, {D})")
+    G, Qb = q.shape[:2]
     if page_tables.dim() != 2 or page_tables.shape[0] != G:
         raise ValueError(f"page_tables must be [G={G}, M], got "
                          f"{tuple(page_tables.shape)}")
     if tuple(row_lens.shape) != (G, Qb):
         raise ValueError(f"row_lens must be [{G}, {Qb}], got "
                          f"{tuple(row_lens.shape)}")
+    _check_pools(q, k_pages, v_pages, k_scales, v_scales,
+                 (("page_tables", page_tables), ("row_lens", row_lens)))
+
+
+def _check_decode(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
+                  v_scales):
+    """The per-row kernel's terms: q [B, H, D], seq_lens [B]."""
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(f"q must be [B, H, D] and the pools "
+                         f"[N, P, H, D]; got {tuple(q.shape)} and "
+                         f"{tuple(k_pages.shape)}")
+    B = q.shape[0]
+    if page_tables.dim() != 2 or page_tables.shape[0] != B:
+        raise ValueError(f"page_tables must be [B={B}, M], got "
+                         f"{tuple(page_tables.shape)}")
+    if tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"seq_lens must be [{B}], got "
+                         f"{tuple(seq_lens.shape)}")
+    _check_pools(q, k_pages, v_pages, k_scales, v_scales,
+                 (("page_tables", page_tables), ("seq_lens", seq_lens)))
+
+
+def _check_pools(q, k_pages, v_pages, k_scales, v_scales, index_tensors):
+    """What both kernels take: pools [N, P, H, D] matching q's trailing
+    (H, D), f32 or bf16 q with pools of its dtype or int8 with f32
+    [N, H] scales, D <= 128, one device, contiguous q, pools and
+    scales."""
+    H, D = q.shape[-2:]
+    if k_pages.shape != v_pages.shape or tuple(k_pages.shape[2:]) != (H, D):
+        raise ValueError(f"k/v pools {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q heads/dim "
+                         f"({H}, {D})")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ragged paged attention kernel takes float32 or "
+        raise TypeError(f"paged attention kernels take float32 or "
                         f"bfloat16 queries, got {q.dtype}")
     quant = k_pages.dtype == torch.int8
     pool_dtype = torch.int8 if quant else q.dtype
@@ -154,8 +203,7 @@ def _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales):
         raise ValueError(f"head_dim {D} > {_MAX_HEAD_DIM} is not supported "
                          "by the kernel")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_tables", page_tables), ("row_lens", row_lens),
-                    *scales):
+                    *index_tensors, *scales):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
@@ -167,26 +215,98 @@ def _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales):
 _BOUND = {}
 
 
-def _kernel(dtype, quant: bool):
-    """The C entry point for (q dtype, int8 pools), built and bound at
-    first use."""
-    key = (dtype, quant)
+def _kernel(library: str, dtype, quant: bool):
+    """The C entry point of ``csrc/<library>.cu`` for (q dtype, int8
+    pools), built and bound at first use."""
+    key = (library, dtype, quant)
     fn = _BOUND.get(key)
     if fn is None:
         from ._build import load_library
 
-        fn = getattr(load_library("paged_attention"), _KERNEL_FNS[key])
+        fn = getattr(load_library(library), _KERNEL_FNS[key])
         # pointers and the stream as c_void_p: a plain int argument would
         # be passed as a 32-bit C int and cut the address
+        n_ptr, n_int = {"paged_attention": (6, 6),
+                        "paged_decode": (6, 5)}[library]
         if quant:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-                + [ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
+            n_ptr, n_int = n_ptr + 2, n_int + 1     # scales, fused_dequant
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return fn
+
+
+def paged_attention_cuda(q, k_pages, v_pages, page_tables, seq_lens,
+                         k_scales=None, v_scales=None,
+                         fused_dequant: int = FUSED_DEQUANT):
+    """Launch the per-row CUDA kernel (``csrc/paged_decode.cu``), which
+    replaces ``paddle_tpu/ops/pallas_ops/paged_attention.py:_decode_kernel``
+    and, for int8 pools, ``_decode_kernel_quant``.
+
+    The kernel is bound by bytes: a row does 4·D flops per K/V position
+    it reads, far under the H100's flop-per-byte balance.  One block per
+    (row, head) walks only the row's pages below its length; rows that
+    share a table row (a prefill chunk) each read the pages again, out of
+    L2.
+
+    Inputs must be contiguous CUDA tensors on one device (q [B, H, D] f32
+    or bf16; pools of q's dtype, or int8 with f32 ``[N, H]`` scales;
+    D <= 128); page tables and lengths are cast to contiguous int32 here.
+    Raises when the launch is refused."""
+    _check_decode(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
+                  v_scales)
+    if not q.is_cuda:
+        raise ValueError("paged_attention_cuda needs CUDA tensors")
+    quant = k_pages.dtype == torch.int8
+    fn = _kernel("paged_decode", q.dtype, quant)
+    B, H, D = q.shape
+    P = k_pages.shape[1]
+    M = page_tables.shape[1]
+    pt = page_tables.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0 or M == 0:
+        return out.zero_()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if quant:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    k_scales.data_ptr(), v_scales.data_ptr(), pt.data_ptr(),
+                    sl.data_ptr(), out.data_ptr(), B, H, D, P, M,
+                    int(bool(fused_dequant)), stream)
+        else:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    pt.data_ptr(), sl.data_ptr(), out.data_ptr(),
+                    B, H, D, P, M, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"paged attention kernel launch failed: CUDA error {rc} "
+            f"(B={B}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, pools "
+            f"{k_pages.dtype})")
+    PAGED_ROUTE_STATS["cuda_decode_int8" if quant else "cuda_decode"] += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
+                    k_scales=None, v_scales=None,
+                    fused_dequant: int = FUSED_DEQUANT):
+    """Routing entry for the per-row layout (the split serving programs).
+
+    q [B, H, D]; pools [N, P, H, D]; page_tables [B, M] (one row per
+    query row, padded with the trash page 0); seq_lens [B] (0 = inactive
+    row); k_scales, v_scales [N, H] f32 iff the pools are int8.  Returns
+    [B, H, D] in q's dtype; softmax scale 1/sqrt(D) applied inside.
+
+    A CUDA tensor launches the kernel (``fused_dequant`` picks the int8
+    body's dequant placement); a CPU tensor runs the plain version."""
+    if q.is_cuda:
+        return paged_attention_cuda(q, k_pages, v_pages, page_tables,
+                                    seq_lens, k_scales, v_scales,
+                                    fused_dequant)
+    PAGED_ROUTE_STATS["ref"] += 1
+    return paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
+                               k_scales, v_scales)
 
 
 def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
@@ -215,7 +335,7 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
     quant = k_pages.dtype == torch.int8
-    fn = _kernel(q.dtype, quant)
+    fn = _kernel("paged_attention", q.dtype, quant)
     G, Qb, H, D = q.shape
     P = k_pages.shape[1]
     M = page_tables.shape[1]

@@ -22,19 +22,20 @@ from ..framework.monitor import stat_registry
 
 __all__ = [
     "FlightRecorder", "RequestTrace", "recorder",
-    "EV_ADMITTED", "EV_PREFILL_CHUNK", "EV_FIRST_TOKEN", "EV_PREEMPTED",
-    "EV_TERMINAL", "LIFECYCLE_EVENTS",
+    "EV_ADMITTED", "EV_PREFILL_CHUNK", "EV_FIRST_TOKEN", "EV_SPECULATED",
+    "EV_PREEMPTED", "EV_TERMINAL", "LIFECYCLE_EVENTS",
 ]
 
 # the request lifecycle event taxonomy this slice records
 EV_ADMITTED = "admitted"          # engine admitted it into the batch
 EV_PREFILL_CHUNK = "prefill_chunk"  # one chunked-prefill dispatch {size}
 EV_FIRST_TOKEN = "first_token"    # first decode token consumed
+EV_SPECULATED = "speculated"      # one verify dispatch {drafted, accepted}
 EV_PREEMPTED = "preempted"        # evicted mid-decode (replays later)
 EV_TERMINAL = "terminal"          # exactly-once final outcome {status}
 LIFECYCLE_EVENTS = frozenset({
-    EV_ADMITTED, EV_PREFILL_CHUNK, EV_FIRST_TOKEN, EV_PREEMPTED,
-    EV_TERMINAL})
+    EV_ADMITTED, EV_PREFILL_CHUNK, EV_FIRST_TOKEN, EV_SPECULATED,
+    EV_PREEMPTED, EV_TERMINAL})
 
 
 def _now_ns() -> int:

@@ -1,34 +1,51 @@
-"""ServingEngine — continuous batching over a paged KV cache, ragged mode
-(twin of ``paddle_tpu/serving/engine.py``).
+"""ServingEngine — continuous batching over a paged KV cache (twin of
+``paddle_tpu/serving/engine.py``).
 
 ``add_request`` enqueues, ``step`` runs one scheduler iteration,
-``drain`` steps until idle.  Every step issues ONE mixed ragged dispatch
-(``text.generation.make_gpt_paged_ragged_step``): steady-decode rows of
-every running lane plus one prefill CHUNK per lane that is still working
-through its prompt, so decode ticks never stall behind a long prompt.
-Every layer of that dispatch runs the ragged paged-attention kernel on
-the card.
+``drain`` steps until idle.  Two dispatch modes:
+
+- **ragged** (the default): every step issues ONE mixed dispatch
+  (``text.generation.make_gpt_paged_ragged_step``) — steady-decode rows
+  of every running lane plus one prefill CHUNK per lane that is still
+  working through its prompt, so decode ticks never stall behind a long
+  prompt.  Attention runs the ragged kernel on the card.
+- **split** (``ragged=False``, forced by ``fused_steps > 1``): admission
+  teacher-forces the prompt through the prefill program in chunks
+  (``make_gpt_paged_prefill_step``), then each step dispatches the decode
+  program (``make_gpt_paged_decode_step``) — or, with ``fused_steps=K``,
+  no admission waiting and K tokens of budget left on every lane, the
+  fused program (``make_gpt_paged_fused_decode_step``) that advances
+  every lane K positions in one dispatch.  Attention runs the per-row
+  kernel on the card.
+
+**Speculative decoding** (``spec_decode=K``): a host-side n-gram drafter
+(``serving/spec_decode.py``) proposes up to K-1 tokens per lane, and one
+dispatch teacher-forces them; the accept rule keeps the stream exactly
+the greedy one.  A split engine verifies through the split verify
+program (``make_gpt_paged_spec_verify_step``); a ragged engine folds the
+verify rows into the ragged step — except under int8_dynamic KV, which
+keeps the split SEQUENTIAL verifier and rolls rejected drafts back
+(restore the touched pages, replay the accepted tokens one at a time).
 
 Execution model
 ---------------
 - **Device-resident state**: tokens, positions and page tables live on
-  the device between steps and the step itself advances them (argmax
-  feedback, pos + 1).  Host events touch only deltas: an admission writes
-  one lane (token, pos, table row), retirement/preemption zeroes one
-  lane, page growth re-uploads one table row.  Steady decode reuses
-  per-bucket cached row inputs and uploads nothing.
+  the device between steps and the decode programs advance them (argmax
+  feedback, pos + 1).  Host events touch only deltas, written in place:
+  an admission writes one lane (token, pos, table row),
+  retirement/preemption zeroes one lane, page growth re-uploads one table
+  row.  Steady decode uploads nothing.
 - **KV pools** ``[N, P, H, D]`` per layer and side are updated IN PLACE
-  by each dispatch (the JAX engine donates them to its jitted step
-  instead).
+  by each dispatch (the JAX engine donates them to its jitted programs
+  instead).  On the card the programs are eager PyTorch.
 - **Dispatch-ahead**: one step stays in flight.  Each dispatch enqueues a
-  non-blocking device-to-host copy of its decode tokens into pinned
-  memory and records an event; ``step`` dispatches step N and only then
-  waits on step N-1's event, so host scheduling overlaps device compute.
-  EOS and budget retirement lag one step (the lagged lane decodes one
-  junk token into its still-allocated pages — dropped on the host).
-  ``sync_mode=True`` consumes every dispatch immediately; the token
-  streams are identical either way, and equal to
-  ``text.generation.generate`` (greedy).
+  non-blocking device-to-host copy of its tokens into pinned memory and
+  records an event; ``step`` dispatches step N and only then waits on
+  step N-1's event, so host scheduling overlaps device compute.  EOS and
+  budget retirement lag one step (the lagged lane decodes junk into its
+  still-allocated pages — dropped on the host).  ``sync_mode=True``
+  consumes every dispatch immediately; the token streams are identical
+  in every mode, and equal to ``text.generation.generate`` (greedy).
 - The lane batch is padded to a pow2 bucket; inactive lanes carry pos 0
   and an all-trash page table, so no per-lane branching exists on the
   device.
@@ -62,14 +79,20 @@ from ..framework.errors import (AlreadyExistsError, InternalError,
 from ..ops.paged_attention import PAGED_ROUTE_STATS
 from ..ops.quantized_matmul import QMM_ROUTE_STATS
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
-                                        EV_PREFILL_CHUNK)
+                                        EV_PREFILL_CHUNK, EV_SPECULATED)
 from ..profiler.flight_recorder import recorder as flight
 from ..testing.chaos import chaos_site
-from ..text.generation import RAGGED_NO_LIMIT, make_gpt_paged_ragged_step
+from ..text.generation import (RAGGED_NO_LIMIT, _guard_pack,
+                               make_gpt_paged_decode_step,
+                               make_gpt_paged_fused_decode_step,
+                               make_gpt_paged_prefill_step,
+                               make_gpt_paged_ragged_step,
+                               make_gpt_paged_spec_verify_step)
 from ..utils.bucketing import chunk_schedule, smallest_bucket
 from .kv_cache import KV_SCALE_EPS, PagedKVCache
 from .metrics import ServingMetrics
 from .scheduler import Request, Scheduler, Sequence
+from .spec_decode import SpecDecoder
 
 __all__ = ["ServingEngine", "create_serving_engine"]
 
@@ -80,23 +103,40 @@ def _not_ported(knob: str, item: str):
         f"{item})")
 
 
+def _split_decode(step_fn, numeric_guards: bool):
+    """The split decode program over ``make_gpt_paged_decode_step``'s
+    step: ``decode(tokens, pos, page_tables, kv) -> ((clean, packed),
+    pos + 1, kv)``.  It advances its own state — the clean argmax feeds
+    back as the next input token — and ``packed`` is the copy the host
+    consumes, with the numeric guard's verdict in-band (a non-finite row
+    comes back ``-1 - tok``)."""
+    def decode(tokens, pos, page_tables, kv):
+        logits, kv = step_fn(tokens, pos, page_tables, kv)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return (nxt, _guard_pack(nxt, logits, numeric_guards)), pos + 1, kv
+
+    return decode
+
+
 class _Pending:
     """One in-flight dispatch: the host copy of its decode tokens, the
-    event that marks the copy done (None on the CPU) and the lane binding
-    (seq, epoch) it was dispatched against — the epoch drops results a
-    preemption has since invalidated."""
+    event that marks the copy done (None on the CPU), the number of
+    positions it advanced every lane (K for a fused dispatch) and the
+    lane binding (seq, epoch) it was dispatched against — the epoch drops
+    results a preemption has since invalidated."""
 
-    __slots__ = ("tokens", "event", "lanes")
+    __slots__ = ("tokens", "event", "steps", "lanes")
 
-    def __init__(self, tokens, event,
+    def __init__(self, tokens, event, steps: int,
                  lanes: Tuple[Optional[Tuple[Sequence, int]], ...]):
-        self.tokens = tokens        # [B] int32 host tensor
+        self.tokens = tokens        # [B] or [steps, B] int32 host tensor
         self.event = event
+        self.steps = steps
         self.lanes = lanes
 
 
 class ServingEngine:
-    """Continuous-batching serving over a paged KV cache (ragged mode)."""
+    """Continuous-batching serving over a paged KV cache."""
 
     def __init__(self, model, *, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -122,15 +162,6 @@ class ServingEngine:
                                                    None]] = None,
                  device=None):
         # --- knobs of the reference engine this slice does not carry ---
-        if ragged is not None and not isinstance(ragged, bool):
-            raise InvalidArgumentError(
-                f"ragged must be a bool, got {ragged!r}")
-        if ragged is False:
-            raise _not_ported("ragged=False (the split decode/prefill "
-                              "programs)", "item 3")
-        if int(fused_steps) > 1:
-            raise _not_ported("fused_steps > 1 (the fused K-step split "
-                              "program)", "item 3")
         if mesh_axes is not None:
             raise _not_ported("mesh_axes (mesh-sharded replicas)",
                               "item 12")
@@ -152,14 +183,45 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"prefix_cache must be a bool, got {prefix_cache!r}")
         for value, knob in ((prefix_cache, "prefix_cache"),
-                            (kv_tiering, "kv_tiering"),
-                            (spec_decode, "spec_decode"),
-                            (spec_drafter is not None, "spec_drafter")):
+                            (kv_tiering, "kv_tiering")):
             if value:
                 raise _not_ported(knob, "item 7")
         if not isinstance(numeric_guards, bool):
             raise InvalidArgumentError(
                 f"numeric_guards must be a bool, got {numeric_guards!r}")
+        # ragged (one mixed dispatch per step) is the default; the fused
+        # K-step loop is a split-program variant
+        self.fused_steps = max(1, int(fused_steps))
+        if ragged is None:
+            ragged = self.fused_steps == 1
+        if not isinstance(ragged, bool):
+            raise InvalidArgumentError(
+                f"ragged must be a bool, got {ragged!r}")
+        if ragged and self.fused_steps > 1:
+            raise InvalidArgumentError(
+                "ragged=True is incompatible with fused_steps > 1 — the "
+                "fused K-step loop is a split-program variant; pass "
+                "ragged=False (or drop fused_steps)")
+        # speculative decoding: True = the default horizon K of 4, an int
+        # the K-token verify horizon
+        if not isinstance(spec_decode, (bool, int)):
+            raise InvalidArgumentError(
+                f"spec_decode must be a bool or an int K-token verify "
+                f"horizon, got {spec_decode!r}")
+        if isinstance(spec_decode, bool):
+            spec_k = 4 if spec_decode else 0
+        else:
+            spec_k = int(spec_decode)
+            if spec_k < 2:
+                raise InvalidArgumentError(
+                    f"spec_decode={spec_k} — the int form is the "
+                    "K-token verify horizon and must be >= 2 (K=1 is "
+                    "plain decode; pass False to disable)")
+        if spec_drafter is not None and not spec_k:
+            raise InvalidArgumentError(
+                "spec_drafter was provided but spec_decode is off — "
+                "pass spec_decode=True (or an int horizon) to enable "
+                "speculative decoding")
 
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -186,7 +248,7 @@ class ServingEngine:
         self.eos_id = int(eos_id)
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.sync_mode = bool(sync_mode)
-        self.ragged = True
+        self.ragged = ragged
         self.numeric_guards = numeric_guards
         self.outputs: Dict[str, np.ndarray] = {}
         self._ttft_recorded = set()      # per REQUEST, preemption-proof
@@ -213,20 +275,61 @@ class ServingEngine:
         # dynamic per-page scales reset when pages are (re)allocated, so
         # results never depend on page-reuse history
         self._kv_dynamic = kv_cache_dtype == "int8" and kv_scales is None
-        self._weight_quant = None
+        weight_quant = None
         if weight_dtype == "int8":
-            self._weight_quant = qs.get("weights")
-            if self._weight_quant is None:
+            weight_quant = qs.get("weights")
+            if weight_quant is None:
                 from ..slim.serving_export import quantize_gpt_weights
 
-                self._weight_quant = quantize_gpt_weights(model)
+                weight_quant = quantize_gpt_weights(model)
+            # ONE device copy shared by every program below
+            weight_quant = {
+                name: (torch.as_tensor(np.asarray(q), device=self.device),
+                       torch.as_tensor(np.asarray(sc, np.float32),
+                                       device=self.device))
+                for name, (q, sc) in weight_quant.items()}
+        self._weight_quant = weight_quant
 
+        # --- speculative decoding ---------------------------------------
+        self.spec = None
+        if spec_k:
+            self.spec = SpecDecoder(spec_k, drafter=spec_drafter,
+                                    metrics=self.metrics,
+                                    sequential=self._kv_dynamic)
+
+        # --- the programs: eager functions over the shared weights -------
+        qkw = dict(kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
+                   weight_quant=weight_quant)
+        geometry = (model, self.page_size, self.pages_per_seq)
         self._ragged_fn, init_pages = make_gpt_paged_ragged_step(
-            model, self.page_size, self.pages_per_seq,
-            kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
-            weight_quant=self._weight_quant,
-            with_guard=self.numeric_guards)
+            *geometry, with_guard=self.numeric_guards, **qkw)
         self._kv = init_pages(num_pages)
+        # the split decode and prefill programs (the prefill one also
+        # replays accepted tokens after an int8_dynamic spec rollback)
+        self._decode_fn = _split_decode(
+            make_gpt_paged_decode_step(*geometry, **qkw)[0],
+            self.numeric_guards)
+        self._prefill_fn, _ = make_gpt_paged_prefill_step(*geometry, **qkw)
+        self._fused_fn = None
+        if self.fused_steps > 1:
+            self._fused_fn, _ = make_gpt_paged_fused_decode_step(
+                *geometry, self.fused_steps,
+                with_guard=self.numeric_guards, **qkw)
+        # a ragged engine folds spec verify into the ragged step (a verify
+        # lane IS a ragged-query lane) — except int8_dynamic, which keeps
+        # the split SEQUENTIAL verifier: its rollback replays progressive
+        # per-page scale growth, which one ragged forward cannot
+        self._spec_fn = None
+        if self.spec is not None and not (self.ragged
+                                          and not self._kv_dynamic):
+            self._spec_fn, _ = make_gpt_paged_spec_verify_step(
+                *geometry, spec_k, sequential=self._kv_dynamic,
+                with_guard=self.numeric_guards, **qkw)
+        # dispatches per program (one forward of the core each, K for the
+        # fused and the sequential verify programs)
+        self.program_calls = {"ragged_step": 0, "decode": 0,
+                              "decode_fused": 0, "prefill": 0,
+                              "spec_verify": 0}
 
         # device-resident lane state (grown/rebuilt lazily)
         self._tokens: Optional[torch.Tensor] = None    # [bucket] int32
@@ -260,7 +363,9 @@ class ServingEngine:
         """Start the device->host copy of a dispatch's tokens: (host
         tensor, event to wait on — None when already on the host)."""
         if self.device.type != "cuda":
-            return t, None
+            # a copy: the decode programs' outputs may alias the lane
+            # state that later in-place lane writes change
+            return t.clone(), None
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
@@ -362,6 +467,8 @@ class ServingEngine:
         self._ttft_recorded.discard(request_id)
         self._uploaded_pages.pop(request_id, None)
         self._prefill_plans.pop(request_id, None)
+        if self.spec is not None:
+            self.spec.on_drop(request_id)
 
     def _release_lane(self, seq: Sequence):
         for i, lane_seq in enumerate(self._lanes):
@@ -498,8 +605,6 @@ class ServingEngine:
         self._lanes[lane] = seq
         self._tokens[lane] = seq.next_token
         self._pos[lane] = seq.pos
-        # freshly allocated pages quantize from scratch (dynamic int8)
-        self._reset_page_scales(self.cache.seq_page_ids(seq.seq_id))
         self._tables[lane] = self._dput(
             self.cache.page_table_row(seq.seq_id))
         self._uploaded_pages[seq.seq_id] = self.cache.seq_pages(seq.seq_id)
@@ -558,26 +663,68 @@ class ServingEngine:
         self._lanes = active + [None] * (desired - len(active))
         self._state_bucket = desired
 
-    # --- unified ragged dispatch ------------------------------------------
-    def _plan_prefill(self, seq: Sequence):
-        """Admission: BUILD the chunk plan (host arrays only) — each
-        following step pops one chunk into the mixed dispatch.  Chunks
-        follow ``chunk_schedule`` (full chunks + one pow2 tail); padded
-        tail rows carry valid_len n and write the trash page."""
-        prompt = seq.request.prompt
+    # --- prefill ----------------------------------------------------------
+    def _prefill_chunks(self, prompt) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """prompt[:-1] as (tokens, positions) chunks of up to
+        ``prefill_chunk`` rows (``chunk_schedule``: full chunks + one pow2
+        tail); padded tail rows sit past the prompt, where the valid
+        length sends their writes to the trash page."""
         n = prompt.size - 1
-        if n == 0:
-            return
-        chunks: Deque[Tuple[np.ndarray, np.ndarray, int]] = deque()
+        chunks = []
         for off, size in chunk_schedule(n, self.prefill_chunk):
             ctok = np.zeros((size,), np.int32)
             valid = min(off + size, n) - off
             ctok[:valid] = prompt[off:off + valid]
-            cpos = (off + np.arange(size)).astype(np.int32)
-            chunks.append((ctok, cpos, n))
+            chunks.append((ctok, (off + np.arange(size)).astype(np.int32)))
+        return chunks
+
+    def _prefill_seq(self, seq: Sequence):
+        """Split-mode admission: teacher-force prompt[:-1] through the
+        prefill program chunk by chunk, then wait for the device once,
+        inside the timed window — the decode that follows needs this KV
+        anyway."""
+        prompt = seq.request.prompt
+        n = prompt.size - 1
+        if n == 0:
+            return
+        chunks = self._prefill_chunks(prompt)
+        row = self._dput(self.cache.page_table_row(seq.seq_id))
+        n_dev = self._dput(np.int32(n))
+        t0 = time.perf_counter()
+        for ctok, cpos in chunks:
+            flight.request_event(seq.seq_id, EV_PREFILL_CHUNK,
+                                 replica=self.chaos_key, size=ctok.size)
+            self._kv = self._prefill_fn(self._dput(ctok), self._dput(cpos),
+                                        row, n_dev, self._kv)
+            self.program_calls["prefill"] += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        dt = time.perf_counter() - t0
+        self.metrics.on_prefill(dt)
+        self.metrics.on_prefill_chunks(len(chunks), n, dt)
+
+    # --- unified ragged dispatch ------------------------------------------
+    def _plan_prefill(self, seq: Sequence):
+        """Ragged-mode admission: BUILD the chunk plan (host arrays only)
+        — each following step pops one chunk into the mixed dispatch; the
+        chunk rows carry valid_len n."""
+        prompt = seq.request.prompt
+        n = prompt.size - 1
+        if n == 0:
+            return
+        chunks: Deque[Tuple[np.ndarray, np.ndarray, int]] = deque(
+            (ctok, cpos, n) for ctok, cpos in self._prefill_chunks(prompt))
         self._prefill_plans[seq.seq_id] = {
             "chunks": chunks, "t0": time.perf_counter(),
             "count": len(chunks), "tokens": n}
+
+    def _mark_dispatch(self):
+        """Record the host gap since the previous dispatch (the
+        inter-token latency in steady decode)."""
+        t = time.perf_counter()
+        if self._last_dispatch is not None:
+            self.metrics.on_dispatch_gap(t - self._last_dispatch)
+        self._last_dispatch = t
 
     def _steady_rows(self, bucket: int):
         """Steady-decode ragged inputs for one lane bucket (Q=1, every
@@ -609,10 +756,7 @@ class ServingEngine:
             if not plan["chunks"]:
                 done_plans.append(self._prefill_plans.pop(seq.seq_id))
         self._sync_rows(active)
-        t = time.perf_counter()
-        if self._last_dispatch is not None:
-            self.metrics.on_dispatch_gap(t - self._last_dispatch)
-        self._last_dispatch = t
+        self._mark_dispatch()
         prefill_rows = 0
         if not chunks:
             Q = 1
@@ -644,6 +788,7 @@ class ServingEngine:
          self._kv) = self._ragged_fn(
             self._tokens, self._pos, self._tables, rows_tok, rows_pos,
             row_valid, advance, self._kv)
+        self.program_calls["ragged_step"] += 1
         # chunk lanes did not decode this step: their out_dec entry is
         # junk and their host mirror must not advance
         snapshot = tuple(
@@ -653,7 +798,7 @@ class ServingEngine:
             if lane not in chunks:
                 s.pos += 1
         host, event = self._to_host(out_dec)
-        self._pending.append(_Pending(host, event, snapshot))
+        self._pending.append(_Pending(host, event, 1, snapshot))
         self.metrics.on_ragged(
             decode_rows=sum(1 for lane, _ in active if lane not in chunks),
             prefill_rows=prefill_rows, q_bucket=Q)
@@ -663,6 +808,47 @@ class ServingEngine:
             dt = time.perf_counter() - plan["t0"]
             self.metrics.on_prefill(dt)
             self.metrics.on_prefill_chunks(plan["count"], plan["tokens"], dt)
+
+    # --- split dispatch ---------------------------------------------------
+    def _dispatch(self, active: List[Tuple[int, Sequence]]) -> int:
+        """Issue one decode dispatch against the device-resident state —
+        the ragged step, or the split decode program (the fused K-step
+        one when no admission waits and every lane has K tokens of
+        budget and page reservation left); returns the positions it
+        advanced every lane."""
+        if self.ragged:
+            self._dispatch_ragged(active)
+            return 1
+        k = 1
+        if (self._fused_fn is not None and not self.sync_mode
+                and not self.scheduler.waiting
+                and min(self._remaining(s) for _, s in active)
+                >= self.fused_steps):
+            # reserve pages covering pos+K for every lane WITHOUT
+            # preemption; partial reservations are kept (they are used
+            # within K steps)
+            if all(self.scheduler.reserve(s, s.pos + self.fused_steps)
+                   for _, s in active):
+                k = self.fused_steps
+        # the device rows must cover every position this program writes,
+        # or the writes fall into the trash page
+        self._sync_rows(active)
+        self._mark_dispatch()
+        if k == 1:
+            (self._tokens, out), self._pos, self._kv = self._decode_fn(
+                self._tokens, self._pos, self._tables, self._kv)
+            self.program_calls["decode"] += 1
+        else:
+            out, self._tokens, self._pos, self._kv = self._fused_fn(
+                self._tokens, self._pos, self._tables, self._kv)
+            self.program_calls["decode_fused"] += 1
+        snapshot = tuple((s, s.epoch) if s is not None else None
+                         for s in self._lanes)
+        for _, s in active:
+            s.pos += k                   # host mirror: dispatch-advanced
+        host, event = self._to_host(out)
+        self._pending.append(_Pending(host, event, k, snapshot))
+        return k
 
     # --- pipelined consume ------------------------------------------------
     def _remaining(self, seq: Sequence) -> int:
@@ -679,31 +865,38 @@ class ServingEngine:
             ent.event.synchronize()
         toks = ent.tokens.numpy()
         self.metrics.on_decode(time.perf_counter() - t0)
+        rows = toks if ent.steps > 1 else toks[None, :]
         now = time.monotonic()
         emitted = 0
-        for lane, binding in enumerate(ent.lanes):
-            if binding is None:
-                continue
-            seq, epoch = binding
-            # retired (one-step lag), preempted since (epoch bump) or
-            # already guard-flagged: the device token is junk
-            if seq.done or seq.epoch != epoch or seq.numeric_fault:
-                continue
-            tok = int(toks[lane])
-            if tok < 0:
-                # the in-band guard verdict (-1 - tok): never emitted;
-                # the request is quarantined at the end of the step
-                self.metrics.on_nan_lane()
-                seq.numeric_fault = True
-                self._quarantine_pending.append(seq)
-                continue
-            emitted += 1
-            self._emit_token(seq, lane, tok, now)
+        for krow in rows:
+            for lane, binding in enumerate(ent.lanes):
+                if binding is None:
+                    continue
+                seq, epoch = binding
+                # retired (one-step lag), preempted since (epoch bump) or
+                # already guard-flagged: the device token is junk
+                if seq.done or seq.epoch != epoch or seq.numeric_fault:
+                    continue
+                tok = int(krow[lane])
+                if tok < 0:
+                    # the in-band guard verdict (-1 - tok): never
+                    # emitted; the request is quarantined at the end of
+                    # the step
+                    self.metrics.on_nan_lane()
+                    seq.numeric_fault = True
+                    self._quarantine_pending.append(seq)
+                    continue
+                emitted += 1
+                self._emit_token(seq, lane, tok, now)
         return emitted
 
-    def _emit_token(self, seq: Sequence, lane: int, tok: int, now: float):
-        """Apply ONE consumed token to a live sequence: TTFT bookkeeping,
-        stream callback, EOS/budget retirement."""
+    def _emit_token(self, seq: Sequence, lane: int, tok: int,
+                    now: float) -> bool:
+        """Apply ONE consumed token to a live sequence — the single
+        emission path of the consume loop and the spec-decode accept
+        loop: TTFT bookkeeping, drafter observation, stream callback,
+        EOS/budget retirement.  Returns True when the token retired the
+        sequence."""
         if seq.first_token_time is None:
             seq.first_token_time = now
             if seq.seq_id not in self._ttft_recorded:
@@ -713,15 +906,23 @@ class ServingEngine:
                                      replica=self.chaos_key)
         seq.generated.append(tok)
         seq.next_token = tok
+        if self.spec is not None:
+            self.spec.on_token(seq.seq_id, tok)
         if self.token_callback is not None:
             self.token_callback(seq.seq_id, seq.num_generated - 1, tok)
         if (tok == self.eos_id
                 or seq.num_generated >= seq.request.max_new_tokens):
             self._retire(seq, lane)
+            return True
+        return False
 
     def _retire(self, seq: Sequence, lane: int):
         """EOS / budget retirement: final — the id never reappears."""
         self.outputs[seq.seq_id] = np.asarray(seq.generated, np.int32)
+        if self.spec is not None:
+            # publish the finished stream into the drafter's shared
+            # n-gram corpus and drop the lane state
+            self.spec.on_retire(seq)
         self.scheduler.finish(seq)
         seq.done = True
         self._ttft_recorded.discard(seq.seq_id)
@@ -741,11 +942,209 @@ class ServingEngine:
             emitted += self._consume_one()
         return emitted
 
+    # --- speculative decoding -----------------------------------------------
+    def _page_gather(self, rows: torch.Tensor) -> dict:
+        """A device copy of pages ``rows`` of every pool (scale rows
+        included) — the pre-dispatch save of an int8_dynamic spec
+        rollback."""
+        return {side: [pool.index_select(0, rows) for pool in pools]
+                for side, pools in self._kv.items()}
+
+    def _page_put(self, rows: torch.Tensor, payload: dict):
+        """Write a :meth:`_page_gather` copy back into pages ``rows``."""
+        for side, pools in self._kv.items():
+            for pool, saved in zip(pools, payload[side]):
+                pool.index_copy_(0, rows, saved)
+
+    def _spec_touched_pages(self, seq: Sequence) -> List[int]:
+        """The allocated pages a spec dispatch can write for ``seq``:
+        pages covering positions [pos, pos + K) that exist in its table
+        (junk past the allocation lands in the trash page)."""
+        P = self.page_size
+        table = self.cache.seq_page_ids(seq.seq_id)
+        p0 = seq.pos // P
+        p1 = min((seq.pos + self.spec.k - 1) // P, len(table) - 1)
+        return table[p0: p1 + 1] if p1 >= p0 else []
+
+    def _spec_rollback(self, seq: Sequence, saved, inputs, pos0: int,
+                       took: int):
+        """int8_dynamic rollback: junk writes past the accepted prefix
+        grew per-page scales and requantized page content — restore the
+        dispatch's touched pages from the pre-dispatch copy, then replay
+        the ``took`` emitted positions ONE AT A TIME through the prefill
+        program, so per-page scale growth is progressive exactly like the
+        plain decode loop's.  Native and int8_static KV never get here:
+        their junk is inert until overwritten."""
+        rows, payload = saved
+        self._page_put(rows, payload)
+        row = self._dput(self.cache.page_table_row(seq.seq_id))
+        for j in range(took):
+            self._kv = self._prefill_fn(
+                self._dput(np.asarray([inputs[j]], np.int32)),
+                self._dput(np.asarray([pos0 + j], np.int32)),
+                row, self._dput(np.int32(pos0 + j + 1)), self._kv)
+            self.program_calls["prefill"] += 1
+
+    def _spec_step(self, active) -> Optional[dict]:
+        """Attempt one drafter/verifier speculation step.  Returns None
+        when nothing was touched (the caller runs the plain dispatch: no
+        drafts plausible, chaos ``spec.draft`` denial, a prefill plan in
+        flight, or a lane too close to its position ceiling); otherwise a
+        ``{"emitted", "bucket", "lanes"}`` dict — including the degraded
+        case where drafts evaporated after the pipeline collapse and a
+        plain dispatch ran instead.
+
+        Synchronous by design: the accept decision gates the NEXT
+        dispatch's positions, so the pipeline is collapsed first and the
+        verify dispatch is consumed immediately."""
+        spec = self.spec
+        K = spec.k
+        if self._prefill_plans:
+            # ragged mode: a lane mid-prefill-plan carries chunk rows
+            # every step — speculation resumes once the plans drain
+            return None
+        # the verify writes K positions per lane; past max_seq_len the
+        # core's clamps would fold junk into a live page — degrade
+        if any(s.pos + K > self.max_seq_len for _, s in active):
+            return None
+        fault = chaos_site("spec.draft", key=self.chaos_key)
+        if fault is not None and fault.action == "deny":
+            spec.on_degraded()
+            return None
+        # cheap probe on the (possibly one-dispatch-stale) host mirror
+        # BEFORE collapsing the pipeline: a draftless steady state keeps
+        # dispatch-ahead.  The probe ticks the drafter's throttle clock
+        if not any(len(d) for d in
+                   spec.propose(active, tick=True).values()):
+            return None
+        emitted = self._sync_pending()
+        active = [(i, s) for i, s in enumerate(self._lanes)
+                  if s is not None]
+        if not active:
+            return {"emitted": emitted, "bucket": 0, "lanes": 0}
+        # real proposals against the now-current history, then reserve
+        # each drafted lane's K-token horizon WITHOUT preemption — denial
+        # degrades that lane to a plain ride-along in the same dispatch
+        drafts = spec.propose(active, tick=False)
+        for lane, seq in active:
+            d = drafts.get(lane)
+            if d is not None and len(d) \
+                    and not self.scheduler.reserve(seq, seq.pos + K):
+                spec.on_degraded()
+                drafts[lane] = d[:0]
+        if not any(len(d) for d in drafts.values()):
+            # the probe's candidates evaporated: plain dispatch, so the
+            # step still makes progress
+            self._dispatch(active)
+            return {"emitted": emitted, "bucket": self._state_bucket,
+                    "lanes": len(active)}
+        bucket = self._state_bucket
+        self._sync_rows(active)
+        saved = {}
+        if self._kv_dynamic:
+            # pre-dispatch device copy of the write-span pages: junk
+            # writes grow per-page scales irreversibly
+            for lane, seq in active:
+                rows = self._spec_touched_pages(seq)
+                if rows:
+                    rows_dev = self._dput(np.asarray(rows, np.int64))
+                    saved[lane] = (rows_dev, self._page_gather(rows_dev))
+        # [K, bucket] teacher-forcing inputs: row 0 every lane's real next
+        # token, rows 1.. the draft (junk-padded to K; outputs past the
+        # real draft are ignored here, their writes land in reserved
+        # pages or the trash page)
+        draft_mat = np.zeros((K, bucket), np.int32)
+        for lane, seq in active:
+            draft_mat[0, lane] = seq.next_token
+            d = drafts.get(lane)
+            if d is not None and len(d):
+                draft_mat[1: 1 + len(d), lane] = d
+        self._mark_dispatch()
+        if self._spec_fn is not None:
+            out, self._kv = self._spec_fn(self._dput(draft_mat), self._pos,
+                                          self._tables, self._kv)
+            self.program_calls["spec_verify"] += 1
+            t0 = time.perf_counter()
+            toks = out.cpu().numpy()                       # [K, bucket]
+        else:
+            # ragged fold-in: K teacher-forcing rows per lane, advance 0
+            # everywhere (the accept decision below uploads the surviving
+            # state wholesale, as on the split path)
+            rows_pos = np.zeros((bucket, K), np.int32)
+            rows_val = np.zeros((bucket, K), np.int32)
+            for lane, seq in active:
+                rows_pos[lane] = seq.pos + np.arange(K)
+                rows_val[lane] = RAGGED_NO_LIMIT
+            (out_rows, _dec, self._tokens, self._pos,
+             self._kv) = self._ragged_fn(
+                self._tokens, self._pos, self._tables,
+                self._dput(np.ascontiguousarray(draft_mat.T)),
+                self._dput(rows_pos), self._dput(rows_val),
+                self._dput(np.zeros((bucket,), np.int32)), self._kv)
+            self.program_calls["ragged_step"] += 1
+            self.metrics.on_ragged(spec_rows=K * len(active), q_bucket=K)
+            t0 = time.perf_counter()
+            toks = np.ascontiguousarray(out_rows.cpu().numpy().T)
+        self.metrics.on_decode(time.perf_counter() - t0)
+        now = time.monotonic()
+        results = []
+        for lane, seq in active:
+            d = drafts.get(lane)
+            dn = len(d) if d is not None else 0
+            col = toks[:, lane]
+            # prefix-match-then-take-the-verifier's-next-token: exact
+            # greedy identity whatever the drafter proposed
+            a = spec.accept_len(d if dn else col[:0], col)
+            e = min(a, self._remaining(seq))
+            pos0 = seq.pos
+            took = 0
+            done = False
+            for i in range(e):
+                if col[i] < 0:
+                    # the guard's in-band verdict: non-finite logits at
+                    # this position — quarantine, emit nothing at or past
+                    # it (a packed token never equals a draft token)
+                    self.metrics.on_nan_lane()
+                    seq.numeric_fault = True
+                    self._quarantine_pending.append(seq)
+                    break
+                seq.pos += 1
+                took += 1
+                emitted += 1
+                done = self._emit_token(seq, lane, int(col[i]), now)
+                if done:
+                    break
+            if dn:
+                results.append((seq.seq_id, dn, a - 1))
+                flight.request_event(seq.seq_id, EV_SPECULATED,
+                                     replica=self.chaos_key,
+                                     drafted=dn, accepted=a - 1)
+            if self._kv_dynamic and not done and not seq.numeric_fault \
+                    and lane in saved \
+                    and min(pos0 + K, self.cache.allocated_tokens(
+                        seq.seq_id)) > pos0 + took:
+                self._spec_rollback(seq, saved[lane], draft_mat[:, lane],
+                                    pos0, took)
+        spec.on_verify(results)
+        # one wholesale upload of the surviving lanes' (token, pos): the
+        # verify advances nothing on the device, the accept decision
+        # lives here on the host
+        tokens = np.zeros((self._state_bucket,), np.int32)
+        pos = np.zeros((self._state_bucket,), np.int32)
+        for i, s in enumerate(self._lanes):
+            if s is not None:
+                tokens[i] = s.next_token
+                pos[i] = s.pos
+        self._tokens = self._dput(tokens)
+        self._pos = self._dput(pos)
+        return {"emitted": emitted, "bucket": bucket, "lanes": len(active)}
+
     # --- one scheduler iteration -----------------------------------------
     def step(self) -> dict:
-        """Admit waiting requests (planning their prefill chunks), then
-        issue one mixed dispatch and consume the previous one.  Returns
-        the step's stats.
+        """Admit waiting requests (planning their prefill chunks, or
+        prefilling them in split mode), then issue one dispatch — a
+        speculative verify when drafts are plausible — and consume the
+        previous one.  Returns the step's stats.
 
         Chaos site ``engine.step``: ``delay`` injects step latency,
         ``raise`` throws InternalError mid-step."""
@@ -778,8 +1177,17 @@ class ServingEngine:
             for seq in admitted:
                 flight.request_event(seq.seq_id, EV_ADMITTED,
                                      replica=self.chaos_key)
-                self._plan_prefill(seq)
+                # freshly allocated pages quantize from scratch (dynamic
+                # int8), before anything is written through them
+                self._reset_page_scales(self.cache.seq_page_ids(seq.seq_id))
+                if self.ragged:
+                    # chunks ride the following mixed ragged steps
+                    self._plan_prefill(seq)
+                else:
+                    self._prefill_seq(seq)
                 self._bind_lane(seq)
+                if self.spec is not None:
+                    self.spec.on_admit(seq)
             self.metrics.on_admission(len(admitted))
 
         bucket = 0
@@ -796,6 +1204,8 @@ class ServingEngine:
                 for victim in preempted:
                     self._uploaded_pages.pop(victim.seq_id, None)
                     self._prefill_plans.pop(victim.seq_id, None)
+                    if self.spec is not None:
+                        self.spec.on_drop(victim.seq_id)
                     self._release_lane(victim)
             active = [(i, s) for i, s in enumerate(self._lanes)
                       if s is not None]
@@ -806,9 +1216,16 @@ class ServingEngine:
                     fault = chaos_site("serving.logits", key=s.seq_id)
                     if fault is not None and fault.action == "nan_logits":
                         self._poison_lane(s)
-                bucket = self._state_bucket
-                dispatched_lanes = len(active)
-                self._dispatch_ragged(active)
+                spec_res = (self._spec_step(active)
+                            if self.spec is not None else None)
+                if spec_res is not None:
+                    emitted += spec_res["emitted"]
+                    bucket = spec_res["bucket"]
+                    dispatched_lanes = spec_res["lanes"]
+                else:
+                    bucket = self._state_bucket
+                    dispatched_lanes = len(active)
+                    self._dispatch(active)
 
         # dispatch-ahead: keep ONE step in flight (none in sync_mode or
         # when nothing was dispatched — then drain fully so retirements
@@ -876,14 +1293,15 @@ class ServingEngine:
         weight_bytes = None
         if self._weight_quant is not None:
             weight_bytes = int(sum(
-                np.asarray(q).nbytes + np.asarray(s).nbytes
-                for q, s in self._weight_quant.values()))
+                t.numel() * t.element_size()
+                for pair in self._weight_quant.values() for t in pair))
         return {
             "metrics": self.metrics.snapshot(),
             "cache": self.cache.stats(self.scheduler.seq_lens()),
             "preemptions": self.scheduler.num_preemptions,
             "pipeline": {
                 "sync_mode": self.sync_mode,
+                "fused_steps": self.fused_steps,
                 "ragged": self.ragged,
                 "prefill_chunk": self.prefill_chunk,
                 "in_flight": len(self._pending),
@@ -891,6 +1309,9 @@ class ServingEngine:
                 "numeric_guards": self.numeric_guards,
                 "device": str(self.device),
             },
+            "spec": (self.spec.stats() if self.spec is not None
+                     else {"enabled": False}),
+            "programs": dict(self.program_calls),
             "kv_cache_bytes": self.kv_cache_bytes(),
             "attention_route": dict(PAGED_ROUTE_STATS),
             "quant": {

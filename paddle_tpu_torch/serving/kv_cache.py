@@ -163,6 +163,12 @@ class PagedKVCache:
     def seq_pages(self, seq_id: str) -> int:
         return len(self._tables.get(seq_id, ()))
 
+    def allocated_tokens(self, seq_id: str) -> int:
+        """KV positions ``seq_id``'s current page table can hold —
+        writes at positions >= this land in the trash page (the
+        spec-decode junk-containment boundary)."""
+        return self.seq_pages(seq_id) * self.page_size
+
     # --- allocation -------------------------------------------------------
     def allocate(self, seq_id: str, num_tokens: int) -> bool:
         """Grow ``seq_id``'s page table to cover ``num_tokens`` positions.

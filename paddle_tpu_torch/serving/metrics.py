@@ -12,8 +12,8 @@ ServingMetrics resets them.
 Not in this slice: ``FrontendMetrics`` and ``FleetMetrics`` (the
 frontend and router, ROADMAP queue 1 item 7), the recent-window
 histograms that their SLO tracker and healthz read, and the prefix-cache,
-speculative, snapshot and mesh counters of the engine features that are
-not ported yet.
+snapshot and mesh counters of the engine features that are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -34,7 +34,10 @@ class ServingMetrics:
               "serving.kv_pages_in_use", "serving.batch_bucket",
               "serving.kv_cache_bytes", "serving.batch_occupancy",
               # per-lane query-row bucket (Q) of the latest ragged step
-              "serving.ragged.row_bucket")
+              "serving.ragged.row_bucket",
+              # speculative decoding: lifetime fraction of drafted
+              # tokens the verifier accepted
+              "serving.spec.accept_rate")
     COUNTERS = ("serving.steps", "serving.tokens_generated",
                 "serving.requests_admitted", "serving.requests_completed",
                 "serving.preemptions", "serving.prefill_chunks",
@@ -46,7 +49,12 @@ class ServingMetrics:
                 # unified ragged dispatch: mixed-batch dispatches and the
                 # rows they carried per kind
                 "serving.ragged.steps", "serving.ragged.decode_rows",
-                "serving.ragged.prefill_rows")
+                "serving.ragged.prefill_rows", "serving.ragged.spec_rows",
+                # speculative decoding: drafted tokens submitted to the
+                # verifier, the split into accepted and rejected, and the
+                # lanes whose draft was cut short
+                "serving.spec.drafted", "serving.spec.accepted",
+                "serving.spec.rejected", "serving.spec.rollbacks")
     HISTOGRAMS = ("serving.step_latency_ms", "serving.prefill_latency_ms",
                   "serving.decode_latency_ms", "serving.ttft_ms",
                   "serving.dispatch_gap_ms")
@@ -101,10 +109,12 @@ class ServingMetrics:
         stat_registry.get("serving.deadline_miss").add(n)
 
     def on_ragged(self, *, decode_rows: int = 0, prefill_rows: int = 0,
-                  q_bucket: int = 0):
+                  spec_rows: int = 0, q_bucket: int = 0):
         """One ragged dispatch's row mix: ``decode_rows`` lanes advanced
         one position, ``prefill_rows`` prompt positions rode along as
-        chunk rows; ``q_bucket`` is the step's per-lane row bucket Q."""
+        chunk rows, ``spec_rows`` positions were teacher-forced for
+        speculative verify; ``q_bucket`` is the step's per-lane row
+        bucket Q."""
         stat_registry.get("serving.ragged.steps").add(1)
         if decode_rows:
             stat_registry.get("serving.ragged.decode_rows").add(
@@ -112,8 +122,30 @@ class ServingMetrics:
         if prefill_rows:
             stat_registry.get("serving.ragged.prefill_rows").add(
                 int(prefill_rows))
+        if spec_rows:
+            stat_registry.get("serving.ragged.spec_rows").add(int(spec_rows))
         if q_bucket:
             stat_registry.get("serving.ragged.row_bucket").set(int(q_bucket))
+
+    def on_spec(self, drafted: int, accepted: int, rejected: int,
+                rollbacks: int):
+        """One verify dispatch's outcome: ``drafted`` tokens were
+        teacher-forced, ``accepted`` of them emitted, ``rejected``
+        discarded, and ``rollbacks`` lanes had their draft cut short.
+        The ``serving.spec.accept_rate`` gauge is the lifetime ratio
+        accepted / drafted."""
+        stat_registry.get("serving.spec.drafted").add(int(drafted))
+        if accepted:
+            stat_registry.get("serving.spec.accepted").add(int(accepted))
+        if rejected:
+            stat_registry.get("serving.spec.rejected").add(int(rejected))
+        if rollbacks:
+            stat_registry.get("serving.spec.rollbacks").add(int(rollbacks))
+        total_d = stat_registry.get("serving.spec.drafted").get()
+        total_a = stat_registry.get("serving.spec.accepted").get()
+        if total_d:
+            stat_registry.get("serving.spec.accept_rate").set(
+                total_a / total_d)
 
     def on_nan_lane(self, n: int = 1):
         """A dispatch returned non-finite logits for a lane."""
@@ -206,10 +238,14 @@ class ServingMetrics:
         snap["guard"] = {
             short: stat_registry.get(f"serving.guard.{short}").get()
             for short in ("nan_lanes", "quarantines")}
+        snap["spec"] = {
+            short: stat_registry.get(f"serving.spec.{short}").get()
+            for short in ("drafted", "accepted", "rejected", "rollbacks",
+                          "accept_rate")}
         snap["ragged"] = {
             short: stat_registry.get(f"serving.ragged.{short}").get()
             for short in ("steps", "decode_rows", "prefill_rows",
-                          "row_bucket")}
+                          "spec_rows", "row_bucket")}
         for name in self.HISTOGRAMS:
             h = stat_registry.histogram(name).snapshot()
             snap[name[len("serving."):]] = {

@@ -19,8 +19,12 @@ deadline     a request may carry an absolute ``deadline`` (monotonic
              before admission, and the engine aborts expired running
              ones.
 
+reservation  ``reserve`` grows a table WITHOUT preemption, for capacity
+             that may be rolled back (the fused K-step horizon, spec-decode
+             draft windows).
+
 Not in this slice: snapshot resume requests and prefix-cache admission
-(ROADMAP queue 1 item 7), speculative page reservation (item 7).
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -185,6 +189,15 @@ class Scheduler:
                 self.preempt(victim)
                 preempted.append(victim)
         return preempted
+
+    def reserve(self, seq: Sequence, num_tokens: int) -> bool:
+        """Reserve pages covering ``num_tokens`` KV positions WITHOUT
+        preemption — speculative capacity (the fused K-step horizon,
+        spec-decode draft windows) must never evict a live sequence to
+        make room for tokens that may be rolled back.  Partial growth
+        is kept on failure (the pages are real and get used within the
+        horizon); the caller degrades to plain decode for the step."""
+        return self.cache.allocate(seq.seq_id, num_tokens)
 
     def _pick_victim(self, exclude: Sequence) -> Optional[Sequence]:
         # an already-expired sequence is a free victim: the engine aborts

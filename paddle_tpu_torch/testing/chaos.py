@@ -21,6 +21,12 @@ Instrumented sites in this package
                       page's K scale row), so the next dispatch's logits
                       for exactly that lane are non-finite and the
                       numeric guard quarantines the request.
+``spec.draft``        ServingEngine._spec_step, before the drafter is
+                      consulted — ``deny`` makes that step degrade to
+                      plain decode (no drafts verified, nothing
+                      reserved; the request stream is unchanged).
+                      Evaluated once per spec-capable engine step.
+                      Key: the engine's chaos key.
 
 Sites check ``chaos_site(site, key)``, which is a single global read when
 no plan is installed — production paths pay nothing.

@@ -1,6 +1,6 @@
 """Incremental (KV-cache) decoding for GPT — twin of
-``paddle_tpu/text/generation.py`` for the ragged serving path, native and
-int8.
+``paddle_tpu/text/generation.py`` for the serving paths, ragged and
+split, native and int8.
 
 Two cores, both holding the JAX package's math step for step:
 
@@ -8,12 +8,18 @@ Two cores, both holding the JAX package's math step for step:
   cache per layer and side, attention masked with ``-1e9`` past each
   lane's position.  :func:`prefill` and :func:`generate` (greedy) run on
   it; it is the port's own oracle for the serving engine.
-- the paged core (:func:`_make_gpt_paged_core`) under the unified ragged
-  step (:func:`make_gpt_paged_ragged_step`): per-layer page pools
+- the paged core (:func:`_make_gpt_paged_core`): per-layer page pools
   ``[N, P, H, D]``, every row's K/V scattered into
   ``(page_tables[row, pos // P], pos % P)`` BEFORE attention reads the
-  pool, attention through ``ops.paged_attention.ragged_paged_attention``
-  (the CUDA kernel on the card).
+  pool.  Under the unified ragged step
+  (:func:`make_gpt_paged_ragged_step`) attention goes through
+  ``ops.paged_attention.ragged_paged_attention``; under the split
+  programs (:func:`make_gpt_paged_decode_step`,
+  :func:`make_gpt_paged_prefill_step`,
+  :func:`make_gpt_paged_fused_decode_step`,
+  :func:`make_gpt_paged_spec_verify_step`) through
+  ``ops.paged_attention.paged_attention``, one table row per query row
+  — each the CUDA kernel on the card.
 
 Where the JAX package threads pools functionally (and the engine donates
 them), the port updates them IN PLACE with ``index_put_`` — a step
@@ -34,8 +40,7 @@ Quantization (the JAX package's "Quantized serving"):
   scale; the engine resets a page's scales when it is (re)allocated.
 
 Not in this slice (each raises where a caller could ask for it): the
-split paged programs (``make_gpt_paged_{decode,prefill,fused_decode,
-spec_verify}_step``), the mesh-sharded core, beam search.
+mesh-sharded core, beam search.
 """
 from __future__ import annotations
 
@@ -46,10 +51,12 @@ import numpy as np
 import torch
 
 from ..framework.errors import InvalidArgumentError
-from ..ops.paged_attention import ragged_paged_attention
+from ..ops.paged_attention import paged_attention, ragged_paged_attention
 from ..ops.quantized_matmul import quantized_matmul
 
-__all__ = ["make_gpt_decode_step", "make_gpt_paged_ragged_step",
+__all__ = ["make_gpt_decode_step", "make_gpt_paged_decode_step",
+           "make_gpt_paged_prefill_step", "make_gpt_paged_fused_decode_step",
+           "make_gpt_paged_spec_verify_step", "make_gpt_paged_ragged_step",
            "RAGGED_NO_LIMIT", "prefill", "generate"]
 
 # per-row KV-horizon sentinel for the unified ragged step: a decode row
@@ -90,9 +97,15 @@ def _check_kv_dtype(kv_cache_dtype):
 def _make_mm(params, weight_quant, device):
     """``mm(x, name)`` computing the JAX package's ``x @ W`` — through
     the weight-only int8 kernel when ``name`` is quantized.  The int8
-    weights move to the device once, here, in their ``[K, N]`` layout."""
-    wq = {name: (torch.as_tensor(np.asarray(q), device=device),
-                 torch.as_tensor(np.asarray(s, np.float32), device=device))
+    weights move to the device here, in their ``[K, N]`` layout; weights
+    already on the device (the engine converts them once for all its
+    programs) are used as they are."""
+    def on_device(t, dtype=None):
+        if not isinstance(t, torch.Tensor):
+            t = torch.as_tensor(np.asarray(t))
+        return t.to(device, dtype)
+
+    wq = {name: (on_device(q), on_device(s, torch.float32))
           for name, (q, s) in (weight_quant or {}).items()}
 
     def mm(x, name):
@@ -275,23 +288,30 @@ def make_gpt_decode_step(model, max_len: int, *, kv_cache_dtype=None,
 def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
                          kv_cache_dtype=None, kv_scales=None,
                          weight_quant=None, mesh_layout=None):
-    """Paged-KV transformer core behind the ragged serving step (the
-    single-device native-KV branch of the JAX package's core).
+    """Paged-KV transformer core behind the serving step builders (the
+    single-device branch of the JAX package's core).
 
     Returns ``(core, init_pages)``; ``core(tokens [N], pos [N],
-    page_tables [G, M], kv, valid_len=None, with_head=True, qgroup=1)``
-    runs one forward over N query rows grouped as G = N // qgroup lanes of
-    ``qgroup`` rows, each lane with ONE page-table row.  Row n's new k/v
-    is scattered into page ``page_tables[n // qgroup, pos // P]`` slot
-    ``pos % P`` of every layer's pool, then attention over positions
-    ``< pos + 1`` of its lane's table reads the pool — a prefill chunk
-    therefore gets causal masking within itself.  ``valid_len`` (per row)
-    masks padding: rows with ``pos >= valid_len`` write to the trash page
-    0 and attend to ``min(pos + 1, valid_len)`` positions.
+    page_tables, kv, valid_len=None, with_head=True, qgroup=None)`` runs
+    one forward over N query rows.  Row n's new k/v is scattered into
+    page ``table(n)[pos // P]`` slot ``pos % P`` of every layer's pool,
+    then attention over positions ``< pos + 1`` of that table reads the
+    pool — a prefill chunk therefore gets causal masking within itself.
+    Two layouts of ``page_tables``:
 
-    The JAX core's ``qgroup=None`` form (one table row per query row,
-    the split decode program) is ``qgroup=1`` here: by construction the
-    ragged reference is the flat decode reference row by row.
+    - ``qgroup=None`` (the split programs): ``[N, M]``, one table row per
+      query row, attention through ``paged_attention`` (the per-row
+      kernel).  A prefill chunk passes its sequence's row broadcast N
+      times.
+    - ``qgroup=Q`` (the ragged step): ``[G, M]`` with G = N // Q lanes of
+      Q rows, each lane with ONE table row, attention through
+      ``ragged_paged_attention`` (each lane's pages read once for all its
+      rows).
+
+    ``valid_len`` (a scalar, or one per row) masks padding: rows with
+    ``pos >= valid_len`` write to the trash page 0 and attend to
+    ``min(pos + 1, valid_len)`` positions.  ``with_head=False`` skips the
+    logits product (prefill discards logits).
 
     ``kv_cache_dtype="int8"``: ``init_pages`` adds ``k_scale``/``v_scale``
     lists of ``[N, H]`` f32 per layer — the calibrated scale broadcast per
@@ -331,14 +351,15 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
 
     @torch.no_grad()
     def core(tokens, pos, page_tables, kv, valid_len=None, with_head=True,
-             qgroup: int = 1):
+             qgroup=None):
         N = tokens.shape[0]
-        G = N // qgroup
         pos = pos.long()
-        # the scatter addresses rows; attention takes one table row per
-        # lane (the kernel reads each lane's pages once for all its rows)
-        row_tables = torch.repeat_interleave(page_tables.long(), qgroup,
-                                             dim=0)
+        # the scatter addresses rows; ragged attention takes one table row
+        # per lane (the kernel reads each lane's pages once for all its
+        # rows)
+        row_tables = page_tables.long()
+        if qgroup is not None:
+            row_tables = torch.repeat_interleave(row_tables, qgroup, dim=0)
         # clamp junk rows (bucket padding) instead of relying on gather
         # clipping: their output is discarded
         pos_c = torch.clamp(pos, max=max_pos - 1)
@@ -354,7 +375,7 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
             page_idx = torch.where(pos < vl, page_idx,
                                    torch.zeros_like(page_idx))
             seq_lens = torch.minimum(seq_lens, vl)
-        row_lens = seq_lens.to(torch.int32).reshape(G, qgroup)
+        seq_lens = seq_lens.to(torch.int32)
         for i in range(L):
             q, k1, v1 = w.qkv(i, x, N)
             kc, vc = kv["k"][i], kv["v"][i]
@@ -372,15 +393,158 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
                 kc[page_idx, slot] = k1
                 vc[page_idx, slot] = v1
                 scales = ()
-            ctx = ragged_paged_attention(
-                q.reshape(G, qgroup, H, D), kc, vc, page_tables,
-                row_lens, *scales).reshape(N, w.hidden)
+            if qgroup is None:
+                ctx = paged_attention(q, kc, vc, page_tables, seq_lens,
+                                      *scales).reshape(N, w.hidden)
+            else:
+                G = N // qgroup
+                ctx = ragged_paged_attention(
+                    q.reshape(G, qgroup, H, D), kc, vc, page_tables,
+                    seq_lens.reshape(G, qgroup), *scales).reshape(N, w.hidden)
             x = w.block_tail(i, x, ctx)
         if not with_head:
             return None, kv
         return w.head(x), kv
 
     return core, init_pages
+
+
+def make_gpt_paged_decode_step(model, page_size: int, pages_per_seq: int, *,
+                               kv_cache_dtype=None, kv_scales=None,
+                               weight_quant=None):
+    """The split decode step: ``step_fn(tokens [B], pos [B], page_tables
+    [B, M], kv) -> (logits [B, V], kv)`` — one position per row, row b's
+    k/v scattered into ``page_tables[b, pos // P]`` slot ``pos % P`` and
+    attention over its pages masked to ``pos + 1``.  ``init_pages
+    (num_pages)`` builds the pools.  Inactive rows (pos 0, all-trash
+    table) scatter into the trash page and are never attended to.
+    ``kv_cache_dtype``/``kv_scales``/``weight_quant`` as for the core."""
+    core, init_pages = _make_gpt_paged_core(
+        model, page_size, pages_per_seq, kv_cache_dtype=kv_cache_dtype,
+        kv_scales=kv_scales, weight_quant=weight_quant)
+
+    def step_fn(tokens, pos, page_tables, kv):
+        return core(tokens, pos, page_tables, kv)
+
+    return step_fn, init_pages
+
+
+def make_gpt_paged_prefill_step(model, page_size: int, pages_per_seq: int, *,
+                                kv_cache_dtype=None, kv_scales=None,
+                                weight_quant=None):
+    """Chunked parallel prefill: ``chunk_fn(tokens [C], positions [C],
+    page_table_row [M], valid_len, kv) -> kv`` teacher-forces one chunk
+    of a sequence.  All C k/v pairs are scattered first, then every
+    position attends over the sequence's pages with ``seq_lens = pos +
+    1`` (causal within the chunk and over earlier chunks) — the table row
+    is broadcast to C rows, so the per-row kernel reads the sequence's
+    pages once per row.  ``valid_len`` (a scalar) masks bucket padding:
+    positions at or past it write the trash page.  No logits head."""
+    core, init_pages = _make_gpt_paged_core(
+        model, page_size, pages_per_seq, kv_cache_dtype=kv_cache_dtype,
+        kv_scales=kv_scales, weight_quant=weight_quant)
+
+    def chunk_fn(tokens, positions, page_table_row, valid_len, kv):
+        C = tokens.shape[0]
+        tables = page_table_row[None, :].expand(C, page_table_row.shape[0])
+        _, kv = core(tokens, positions, tables, kv, valid_len=valid_len,
+                     with_head=False)
+        return kv
+
+    return chunk_fn, init_pages
+
+
+def _guard_pack(nxt, logits, with_guard: bool):
+    """The numeric guard's in-band verdict: a row whose logits are not
+    all finite comes back as ``-1 - tok``."""
+    if not with_guard:
+        return nxt
+    return torch.where(torch.isfinite(logits).all(dim=-1), nxt, -1 - nxt)
+
+
+def make_gpt_paged_fused_decode_step(model, page_size: int,
+                                     pages_per_seq: int, num_steps: int, *,
+                                     kv_cache_dtype=None, kv_scales=None,
+                                     weight_quant=None,
+                                     with_guard: bool = False):
+    """Fused K-step greedy decode: ``fused_fn(tokens [B], pos [B],
+    page_tables [B, M], kv) -> (out [K, B], tokens' [B], pos' [B], kv)``
+    runs K = ``num_steps`` single-position core calls, the argmax fed
+    back on the device, every row of ``out`` filled on the device (no
+    host sync inside) — the stream equals K single steps.  The caller
+    must have reserved pages covering ``pos + K`` for every live row.
+    ``with_guard=True`` negative-packs a non-finite row (``-1 - tok``)
+    in ``out``; the clean argmax still feeds back."""
+    if num_steps < 1:
+        raise ValueError("num_steps must be >= 1")
+    core, init_pages = _make_gpt_paged_core(
+        model, page_size, pages_per_seq, kv_cache_dtype=kv_cache_dtype,
+        kv_scales=kv_scales, weight_quant=weight_quant)
+    K = int(num_steps)
+
+    @torch.no_grad()
+    def fused_fn(tokens, pos, page_tables, kv):
+        out = torch.empty((K, tokens.shape[0]), dtype=torch.int32,
+                          device=tokens.device)
+        tok, p = tokens, pos
+        for j in range(K):
+            logits, kv = core(tok, p, page_tables, kv)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            out[j] = _guard_pack(nxt, logits, with_guard)
+            tok, p = nxt, p + 1
+        return out, tok, p, kv
+
+    return fused_fn, init_pages
+
+
+def make_gpt_paged_spec_verify_step(model, page_size: int,
+                                    pages_per_seq: int, num_steps: int, *,
+                                    sequential: bool = False,
+                                    kv_cache_dtype=None, kv_scales=None,
+                                    weight_quant=None,
+                                    with_guard: bool = False):
+    """Speculative-decoding verifier: ``verify_fn(tokens [K, B], pos [B],
+    page_tables [B, M], kv) -> (out [K, B], kv)`` teacher-forces
+    ``tokens[j]`` at position ``pos + j`` of every row and returns the
+    greedy argmax at each (``serving/spec_decode.py`` owns the accept
+    rule).  K/V for all K positions is written into the rows' pages;
+    positions past the accepted prefix hold junk that ``seq_lens`` masks
+    until the next real write overwrites it.
+
+    ``sequential=False`` runs ONE forward over B·K rows (tables repeated
+    K times); ``sequential=True`` runs K single-position core calls, the
+    schedule int8_dynamic KV needs (per-page scale growth must replay
+    the plain decode loop's progressive quantization).
+    ``with_guard=True`` negative-packs non-finite positions in ``out``."""
+    if num_steps < 2:
+        raise ValueError("num_steps must be >= 2 (1 is plain decode)")
+    core, init_pages = _make_gpt_paged_core(
+        model, page_size, pages_per_seq, kv_cache_dtype=kv_cache_dtype,
+        kv_scales=kv_scales, weight_quant=weight_quant)
+    K = int(num_steps)
+
+    @torch.no_grad()
+    def verify_fn(tokens, pos, page_tables, kv):
+        B = pos.shape[0]
+        if sequential:
+            out = torch.empty((K, B), dtype=torch.int32, device=pos.device)
+            for j in range(K):
+                logits, kv = core(tokens[j], pos + j, page_tables, kv)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                out[j] = _guard_pack(nxt, logits, with_guard)
+            return out, kv
+        # row (b, j) consumes tokens[j, b] at position pos[b] + j against
+        # row b's table; all K slabs scatter before any attention reads
+        toks = tokens.t().reshape(-1)
+        posf = (pos[:, None] + torch.arange(K, dtype=pos.dtype,
+                                            device=pos.device)).reshape(-1)
+        tables = torch.repeat_interleave(page_tables, K, dim=0)
+        logits, kv = core(toks, posf, tables, kv)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = _guard_pack(nxt, logits, with_guard)
+        return out.reshape(B, K).t().contiguous(), kv
+
+    return verify_fn, init_pages
 
 
 def make_gpt_paged_ragged_step(model, page_size: int, pages_per_seq: int, *,
@@ -424,11 +588,7 @@ def make_gpt_paged_ragged_step(model, page_size: int, pages_per_seq: int, *,
                           page_tables, kv, valid_len=row_valid.reshape(-1),
                           qgroup=Q)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        out = nxt
-        if with_guard:
-            fin = torch.isfinite(logits).all(dim=-1)
-            out = torch.where(fin, nxt, -1 - nxt)
-        out = out.reshape(B, Q)
+        out = _guard_pack(nxt, logits, with_guard).reshape(B, Q)
         clean0 = nxt.reshape(B, Q)[:, 0]
         new_tok = torch.where(live, clean0, state_tok)
         new_pos = torch.where(live, state_pos + 1, state_pos)

@@ -1,6 +1,7 @@
 """paddle_tpu_torch on the card: the CUDA kernels against their plain
-PyTorch versions, the engine's streams against the dense ``generate``,
-native and int8, and a training step against the same step on the CPU.
+PyTorch versions, the engine's streams against the dense ``generate``
+(ragged, split and speculative, native and int8), and a training step
+against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is False.  The file imports no JAX (the
@@ -9,10 +10,11 @@ conftest, which imports JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: kernel vs plain version 1e-4 in f32 (the same f32 products
-summed in another order, online softmax over up to 1024 positions; int8
-pools add the scale multiply before or after the dot) and 2e-2 in bf16
-(the kernel rounds its f32 result to bf16, 8 mantissa bits).  The
+Tolerances: the paged attention kernels (ragged and per row) vs their
+plain version 1e-4 in f32 (the same f32 products summed in another
+order, online softmax over up to 1024 positions; int8 pools add the scale
+multiply before or after the dot) and 2e-2 in bf16 (the kernel rounds its
+f32 result to bf16, 8 mantissa bits).  The
 weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
 over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
 kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
@@ -225,12 +227,11 @@ def test_engine_streams_equal_generate_on_the_card():
         eng = create_serving_engine(m, page_size=4, max_batch_size=4,
                                     prefill_chunk=8, eos_id=-1,
                                     sync_mode=sync_mode)
-        pa.PAGED_ROUTE_STATS.update(cuda=0, cuda_int8=0, ref=0)
+        _zero_counts()
         ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
         outs = eng.drain()
         dispatches = eng.stats()["metrics"]["ragged"]["steps"]
-        assert pa.PAGED_ROUTE_STATS == {"cuda": 2 * dispatches,
-                                        "cuda_int8": 0, "ref": 0}
+        assert pa.PAGED_ROUTE_STATS == _counts(cuda=2 * dispatches)
         assert eng.cache.pages_in_use == 0
         for p, rid in zip(prompts, ids):
             want = generate(m, p[None], max_new_tokens=12,
@@ -257,14 +258,12 @@ def test_int8_engine_streams_equal_generate_quant_on_the_card():
                 m, page_size=4, max_batch_size=4, prefill_chunk=8,
                 eos_id=-1, sync_mode=sync_mode, kv_cache_dtype="int8",
                 weight_dtype="int8", quant_scales=qs)
-            pa.PAGED_ROUTE_STATS.update(cuda=0, cuda_int8=0, ref=0)
+            _zero_counts()
             qm.QMM_ROUTE_STATS.update(cuda=0, ref=0)
             ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
             outs = eng.drain()
             dispatches = eng.stats()["metrics"]["ragged"]["steps"]
-            assert pa.PAGED_ROUTE_STATS == {"cuda": 0,
-                                            "cuda_int8": 2 * dispatches,
-                                            "ref": 0}
+            assert pa.PAGED_ROUTE_STATS == _counts(cuda_int8=2 * dispatches)
             assert qm.QMM_ROUTE_STATS == {"cuda": 12 * dispatches, "ref": 0}
             assert eng.cache.pages_in_use == 0
             streams[mode, sync_mode] = [outs[r] for r in ids]
@@ -275,6 +274,211 @@ def test_int8_engine_streams_equal_generate_quant_on_the_card():
         want = generate(m, p[None], max_new_tokens=12, end_id=-1,
                         quant=quant)[0][0].cpu().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the per-row paged attention kernel (bodies #2, #2q)
+# --------------------------------------------------------------------------
+def _zero_counts():
+    for key in pa.PAGED_ROUTE_STATS:
+        pa.PAGED_ROUTE_STATS[key] = 0
+
+
+def _counts(**nonzero):
+    return {key: nonzero.get(key, 0) for key in pa.PAGED_ROUTE_STATS}
+
+
+def _rows(args):
+    """A Qb=1 ragged case as per-row inputs: q [B, H, D], seq_lens [B]."""
+    q, kp, vp, pt, rl = args
+    return q[:, 0].contiguous(), kp, vp, pt, rl[:, 0].contiguous()
+
+
+def _chunk_rows(seed, C, H, D, P, M, dtype):
+    """A prefill chunk: C rows (at most what M - 1 pages hold) of one
+    sequence sharing its table row, row r at position off + r seeing
+    min(off + r + 1, valid_len) positions (the chunk's tail is padding
+    past valid_len)."""
+    rng = np.random.RandomState(seed)
+    N = 1 + M + 2
+    row = np.zeros((M,), np.int32)
+    row[:M - 1] = rng.permutation(np.arange(1, N))[:M - 1]
+    cap = (M - 1) * P               # positions the allocated pages hold
+    C = min(C, cap - 2)
+    off = cap - C - 2
+    valid = off + C - C // 8
+    lens = np.minimum(off + np.arange(C) + 1, valid).astype(np.int32)
+    dev = "cuda"
+    return (torch.from_numpy(rng.randn(C, H, D).astype(np.float32)).to(
+                dev, dtype),
+            torch.from_numpy(rng.randn(N, P, H, D).astype(np.float32)).to(
+                dev, dtype),
+            torch.from_numpy(rng.randn(N, P, H, D).astype(np.float32)).to(
+                dev, dtype),
+            torch.from_numpy(np.tile(row, (C, 1))).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+_DECODE_SHAPES = pytest.mark.parametrize(
+    "H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8), (4, 128, 16, 4),
+                (3, 48, 5, 7), (2, 20, 4, 5)],
+    ids=["test-shape", "gpt2", "d128", "odd", "bytewise-d20"])
+
+
+def _decode_inputs(kind, H, D, P, M, dtype):
+    if kind == "chunk":
+        return _chunk_rows(5, 64, H, D, P, M, dtype)
+    return _rows(_case(0, {"rows1": 4, "rows33": 33}[kind], 1, H, D, P, M,
+                       dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rows1", "rows33", "chunk"])
+@_DECODE_SHAPES
+def test_decode_kernel_matches_plain_version(H, D, P, M, kind, dtype):
+    args = _decode_inputs(kind, H, D, P, M, dtype)
+    _zero_counts()
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda_decode=1)
+    ref = pa.paged_attention_ref(
+        *(a.float() if a.is_floating_point() else a for a in args))
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=TOL[dtype])
+    assert (out[args[4] == 0] == 0).all()
+    assert out.dtype == dtype and out.shape == args[0].shape
+
+
+@pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rows1", "rows33", "chunk"])
+@_DECODE_SHAPES
+def test_int8_decode_kernel_matches_plain_version(H, D, P, M, kind, dtype,
+                                                  fused):
+    q, kp, vp, pt, sl = _decode_inputs(kind, H, D, P, M, dtype)
+    _, kq, vq, _, _, ks, vs = _int8((q, kp, vp, pt, sl))
+    _zero_counts()
+    out = pa.paged_attention(q, kq, vq, pt, sl, ks, vs, fused_dequant=fused)
+    torch.cuda.synchronize()
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda_decode_int8=1)
+    ref = pa.paged_attention_ref(q.float(), kq, vq, pt, sl, ks, vs)
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=TOL[dtype])
+    assert (out[sl == 0] == 0).all()
+    assert out.dtype == dtype and out.shape == q.shape
+
+
+@pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
+def test_int8_decode_kernel_nan_scale_reaches_exactly_its_readers(fused):
+    q, kp, vp, pt, sl = _chunk_rows(7, 64, 12, 64, 16, 8, torch.float32)
+    _, kq, vq, _, _, ks, vs = _int8((q, kp, vp, pt, sl))
+    page = int(pt[0, 3])                 # positions 48..63
+    ks[page, 5] = float("nan")
+    out = pa.paged_attention(q, kq, vq, pt, sl, ks, vs, fused_dequant=fused)
+    ref = pa.paged_attention_ref(q, kq, vq, pt, sl, ks, vs)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(out).all(dim=-1)                 # [C, H]
+    want = ~torch.isfinite(ref).all(dim=-1)
+    assert want.any() and torch.equal(bad, want)
+    # the readers: head 5 of the rows that see past position 48
+    assert torch.equal(bad[:, 5], sl > 48) and not bad[:2, 5].any()
+    assert not bad[:, [h for h in range(12) if h != 5]].any()
+    ok = ~want[..., None].expand_as(out)
+    torch.testing.assert_close(out[ok], ref[ok], rtol=0, atol=1e-4)
+
+
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
+    q, kp, vp, pt, sl = _rows(_case(1, 4, 1, 2, 16, 4, 6, torch.float32))
+    _, kq, vq, _, _, ks, vs = _int8((q, kp, vp, pt, sl))
+    strided = torch.zeros(q.shape[0], q.shape[1], 2 * q.shape[2],
+                          device="cuda")[..., ::2]      # same shape
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(strided, kp, vp, pt, sl)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pa.paged_attention(q.half(), kp.half(), vp.half(), pt, sl)
+    with pytest.raises(TypeError, match="pools"):
+        pa.paged_attention(q, kp.bfloat16(), vp.bfloat16(), pt, sl)
+    with pytest.raises(ValueError, match="seq_lens"):
+        pa.paged_attention(q, kp, vp, pt, sl[:2])
+    with pytest.raises(ValueError, match="page_tables"):
+        pa.paged_attention(q, kp, vp, pt[:2], sl)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pa.paged_attention(q, kp, vp, pt.cpu(), sl)
+    with pytest.raises(ValueError, match="k_scales"):
+        pa.paged_attention(q, kq, vq, pt, sl)
+    with pytest.raises(ValueError, match="head_dim 160 > 128"):
+        big = torch.zeros(4, 1, 160, device="cuda")
+        pools = torch.zeros(8, 4, 1, 160, device="cuda")
+        pa.paged_attention(big, pools, pools, pt, sl)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_attention_cuda(q.cpu(), kp.cpu(), vp.cpu(), pt.cpu(),
+                                sl.cpu())
+    with pytest.raises(ValueError, match="q must be"):
+        pa.paged_attention_cuda(q[:, None], kp, vp, pt, sl)
+
+
+def _engine_case():
+    from paddle_tpu_torch.text.models import GPTModel
+
+    m = GPTModel(vocab_size=64, hidden_size=64, num_layers=2, num_heads=4,
+                 ffn_size=128, max_seq_len=128, device="cuda", seed=7)
+    rng = np.random.RandomState(2)
+    pat = rng.randint(1, 64, (5,)).astype(np.int32)
+    prompts = [rng.randint(1, 64, (n,)).astype(np.int32)
+               for n in (1, 3, 9, 17, 30)] + [np.tile(pat, 4)]
+    return m, prompts
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(ragged=False), dict(ragged=False, sync_mode=True),
+    dict(fused_steps=4), dict(ragged=False, spec_decode=4)],
+    ids=["split", "split-sync", "fused4", "split-spec4"])
+def test_split_engine_streams_equal_generate_on_the_card(knobs):
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.text.generation import generate
+
+    m, prompts = _engine_case()
+    eng = create_serving_engine(m, page_size=4, max_batch_size=4,
+                                prefill_chunk=8, eos_id=-1, **knobs)
+    _zero_counts()
+    ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+    outs = eng.drain()
+    calls = eng.stats()["programs"]
+    forwards = (calls["decode"] + calls["prefill"] + calls["spec_verify"]
+                + eng.fused_steps * calls["decode_fused"])
+    assert forwards > 0 and calls["ragged_step"] == 0
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda_decode=2 * forwards)
+    if "fused_steps" in knobs:
+        assert calls["decode_fused"] > 0
+    if "spec_decode" in knobs:
+        assert calls["spec_verify"] > 0
+    assert eng.cache.pages_in_use == 0
+    for p, rid in zip(prompts, ids):
+        want = generate(m, p[None], max_new_tokens=12,
+                        end_id=-1)[0][0].cpu().numpy()
+        np.testing.assert_array_equal(outs[rid], want)
+
+
+def test_spec_engine_streams_equal_generate_on_the_card():
+    """The default ragged engine with speculation: the verify rows fold
+    into the ragged step (body #1 only)."""
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.text.generation import generate
+
+    m, prompts = _engine_case()
+    eng = create_serving_engine(m, page_size=4, max_batch_size=4,
+                                prefill_chunk=8, eos_id=-1, spec_decode=4)
+    _zero_counts()
+    ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+    outs = eng.drain()
+    steps = eng.stats()["programs"]["ragged_step"]
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda=2 * steps)
+    assert eng.stats()["spec"]["drafted"] > 0
+    assert eng.cache.pages_in_use == 0
+    for p, rid in zip(prompts, ids):
+        want = generate(m, p[None], max_new_tokens=12,
+                        end_id=-1)[0][0].cpu().numpy()
+        np.testing.assert_array_equal(outs[rid], want)
 
 
 # --------------------------------------------------------------------------

@@ -77,7 +77,10 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.nn.functional",
                 "paddle_tpu_torch.nn.functional.loss",
                 "paddle_tpu_torch.optimizer",
-                "paddle_tpu_torch.optimizer.optimizer"):
+                "paddle_tpu_torch.optimizer.optimizer",
+                "paddle_tpu_torch.serving.spec_decode",
+                "paddle_tpu_torch.ops.paged_attention",
+                "paddle_tpu_torch.text.generation"):
         assert mod in _modules()
 
 

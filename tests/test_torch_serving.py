@@ -8,10 +8,11 @@ paddle_tpu and vs the port's own dense ``generate``.
   ``ServingEngine`` stream, with no page leaked;
 - recompute preemption, abort, deadlines and the numeric-guard
   quarantine keep every surviving stream equal to ``generate``;
-- knobs this slice does not carry, and knob values no slice takes (an
-  unknown KV or weight dtype, ``quant_scales`` without an int8 knob),
-  raise ``InvalidArgumentError``, and the default device (the CUDA card)
-  raises where there is none.
+- knobs the port does not carry yet, and knob values no slice takes (an
+  unknown KV or weight dtype, ``quant_scales`` without an int8 knob,
+  ``ragged=True`` with ``fused_steps``, a ``spec_decode`` horizon below
+  2), raise ``InvalidArgumentError``, and the default device (the CUDA
+  card) raises where there is none.
 
 Streams are compared token for token (greedy, f32 on the CPU).
 """
@@ -220,14 +221,17 @@ def test_request_validation(port):
 
 
 # =============================================================================
-# knobs this slice does not carry, and the device default
+# knobs the port does not carry yet, invalid knob values, and the device
+# default
 # =============================================================================
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True}, {"kv_tiering": True}, {"spec_decode": True},
+    {"prefix_cache": True}, {"kv_tiering": True}, {"spec_decode": 1},
     {"spec_drafter": object()}, {"mesh_axes": {"tp": 2}},
     {"kv_cache_dtype": "int4"}, {"weight_dtype": "fp8"},
-    {"quant_scales": {}}, {"fused_steps": 2}, {"ragged": False},
-    {"ragged": "yes"}, {"prefix_cache": "yes"}, {"numeric_guards": 1}],
+    {"quant_scales": {}}, {"fused_steps": 2, "ragged": True},
+    {"ragged": True, "fused_steps": 4},
+    {"ragged": "yes"}, {"prefix_cache": "yes"}, {"numeric_guards": 1},
+    pytest.param({"spec_decode": "yes"}, id="spec_decode_str")],
     ids=lambda k: next(iter(k)))
 def test_unsupported_knobs_raise(port, knob):
     with pytest.raises(InvalidArgumentError):
