@@ -80,6 +80,26 @@ Phases, one result line each (or more):
    and its rollback on the int8 per-row body); every stream equal to the
    same engine's with speculation off except at a reported near-tie,
    drafts proposed, launches counted per route.
+14. kernel_stats: the stats form of the ragged kernel (a sequence shard's
+   attention over the pages it owns, returning the context and its
+   log-sum-exp) and its int8 body in both ``fused_dequant`` settings
+   against their plain version, f32 and bf16, at GPT-2-small shard
+   shapes (H 12 and 6, D 64, page 16, 64 pages a lane; 8 decode lanes,
+   8 lanes of 64 prefill rows), every second page owned, a lane that
+   owns nothing and an empty lane (zeros, lse -1e30), NaN K scales on an
+   owned page (exactly its readers) and an unowned one (nobody); timed
+   beside its bound over the owned pages, the plain version, the
+   memory-efficient SDPA kernel with its log-sum-exp on the gathered
+   owned KV, and the ragged kernel over all pages.
+15. e2e_mesh: ``force_device_count(4)``, then ``mesh_axes={"tp": 2,
+   "sp": 2}`` at GPT-2-small width on 4 long prompts (600-990 tokens, 32
+   new tokens) in a 260-page pool, native and with int8 KV and weights
+   (phase 6's export), and ``spec_decode=4`` at ``{"tp": 2}``; each
+   against the single-device engine with the same knobs, at most one
+   recorded near-tie; the stats kernel (the ragged one at sp 1) launched
+   once per layer, shard and dispatch, one shard step per dispatch, a
+   sequence on both page shards, no page leaked.  Its step times are 4
+   (or 2) slots on one card: the replicated work runs once per slot.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -593,6 +613,236 @@ def decode_kernel_phase(rng, flush) -> dict:
                 lambda: pa.paged_attention_cuda(*iargs,
                                                 fused_dequant=fused),
                 lambda: pa.paged_attention_ref(*iargs), err, flush)
+    return timings
+
+
+# the stats form's cases (a sequence shard of the serving mesh): GPT-2-small
+# shard shapes — H 6 (12 heads at tp 2) and 12 — decode 8 lanes x 1 row,
+# prefill 8 lanes x 64 rows; every second table entry owned, lane 2 owns
+# nothing, lane 0 is empty
+STATS_CASES = [
+    (f"{kind}_h{H}", dict(G=8, Qb=Qb, H=H, D=64, P=16, M=64,
+                          lane_lens=lens, row_gaps=gaps))
+    for H in (12, 6)
+    for kind, Qb, lens, gaps in (
+        ("decode", 1, [0, 1, 300, 100, 255, 512, 777, 1024], None),
+        ("prefill", 64, [0, 63, 400, 250, 401, 600, 900, 1024],
+         {1: range(40, 64), 3: [5, 6, 7]}))]
+STATS_TIMED = ("decode_h12", "prefill_h12")
+# the stats kernel vs its plain version: o within 1e-6 in f32 (the same
+# f32 products over at most 512 owned positions in another order; the
+# int8 body scales after the dot where the plain version dequantizes
+# before it) and 2e-2 in bf16 (the kernel rounds o to bf16), both times
+# max(1, the largest reference value); lse within 1e-5
+STATS_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-5
+STATS_NO_OWNER = 2
+
+
+def stats_page_ok(page_tables):
+    """Every second table entry owned; lane STATS_NO_OWNER owns none."""
+    ok = (torch.arange(page_tables.shape[1], device=page_tables.device)
+          % 2 == 0).to(torch.int32)[None, :].repeat(page_tables.shape[0], 1)
+    ok[STATS_NO_OWNER] = 0
+    return ok.contiguous()
+
+
+def stats_bound_ms(q, k_pages, page_tables, row_lens, page_ok):
+    """Least time for a stats call on an H100: the larger of its bytes (q
+    and o once, lse, each lane's K and V positions below its horizon on
+    OWNED pages once — with int8 pools each such page's two [H] f32
+    scale rows — the row lengths, the table and ownership entries) over
+    HBM bandwidth, and its f32 flops (4*D per visible position, row and
+    head) over the f32 CUDA-core peak."""
+    G, Qb, H, D = q.shape
+    P = k_pages.shape[1]
+    M = page_tables.shape[1]
+    rl = row_lens.clamp(max=M * P).cpu().numpy().astype(np.int64)
+    ok = page_ok.cpu().numpy() != 0
+    pos_owned = np.repeat(ok, P, axis=1)                      # [G, M*P]
+    horizon = rl.max(axis=1)
+    below = np.arange(M * P)[None, :] < horizon[:, None]
+    positions = int((pos_owned & below).sum())
+    pages = int(sum(ok[g, :-(-int(h) // P)].sum() for g, h in
+                    enumerate(horizon)))
+    kv_bytes = positions * H * D * k_pages.element_size() * 2
+    if k_pages.dtype == torch.int8:
+        kv_bytes += pages * H * 4 * 2
+    io_bytes = (2 * q.numel() * q.element_size() + G * Qb * H * 4
+                + row_lens.numel() * 4 + 2 * int(sum(
+                    -(-int(h) // P) for h in horizon)) * 4)
+    visible = int(sum(((np.arange(M * P)[None, :] < rl[g][:, None])
+                       & pos_owned[g][None, :]).sum() for g in range(G)))
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
+    t_ops = visible * H * D * 4 / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stats_library_inputs(q, k_pages, v_pages, page_tables, row_lens,
+                         page_ok):
+    """The yardstick's inputs: each lane's owned pages (the even table
+    entries) gathered into dense [G, H, S, D] K/V, and an additive
+    [G, H, Qb, S] bias hiding the positions a row does not see."""
+    G, Qb, H, D = q.shape
+    P = k_pages.shape[1]
+    idx = page_tables[:, ::2].long()
+    S = idx.shape[1] * P
+    k = k_pages[idx].reshape(G, S, H, D).transpose(1, 2).contiguous()
+    v = v_pages[idx].reshape(G, S, H, D).transpose(1, 2).contiguous()
+    pos = (torch.arange(idx.shape[1], device=q.device)[:, None] * 2 * P
+           + torch.arange(P, device=q.device)[None, :]).reshape(-1)
+    own = page_ok[:, ::2].repeat_interleave(P, dim=1) != 0      # [G, S]
+    see = (pos[None, None, :] < row_lens.long()[:, :, None]) \
+        & own[:, None, :]                                       # [G, Qb, S]
+    bias = torch.where(see, 0.0, -1e30).to(q.dtype)[:, None].expand(
+        G, H, Qb, S).contiguous()
+    return q.transpose(1, 2).contiguous(), k, v, bias
+
+
+def _check_stats(tag, o, lse, ref_o, ref_lse, row_lens, page_ok, tol,
+                 **extra):
+    err = float((o.float() - ref_o.float()).abs().max())
+    limit = tol * max(1.0, float(ref_o.abs().max()))
+    lse_err = float((lse - ref_lse).abs().max())
+    empty = (row_lens == 0) | ~(page_ok != 0).any(dim=1)[:, None]
+    zeros_exact = bool((o[empty] == 0).all())
+    neg_inf = bool((lse[empty] == -1e30).all())
+    ok = (math.isfinite(err) and err <= limit and lse_err <= LSE_TOL
+          and zeros_exact and neg_inf and bool(empty.any()))
+    log("kernel_stats", case=tag, max_abs_err=err, lse_max_abs_err=lse_err,
+        limit=limit, lse_tol=LSE_TOL, empty_rows=int(empty.sum()),
+        empty_rows_exact_zero=zeros_exact, empty_rows_lse_neg_inf=neg_inf,
+        ok=ok, **extra)
+    if not ok:
+        raise AssertionError(
+            f"kernel_stats: the stats kernel disagrees with its plain "
+            f"version on {tag} {extra}: o err {err} (limit {limit}), lse err "
+            f"{lse_err} (tol {LSE_TOL}), empty rows zero {zeros_exact}, "
+            f"lse -1e30 {neg_inf}")
+    return err
+
+
+def stats_kernel_phase(rng, flush) -> dict:
+    """Bodies #3 and #3q against their plain version: f32 and bf16 at
+    every case, #3q in both fused_dequant settings, NaN K scale rows on an
+    owned and on an unowned page; then the timed cases beside their
+    bound, the plain version and the memory-efficient SDPA kernel with
+    its log-sum-exp on the gathered owned KV."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    checked = {}
+    for name, kw in STATS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, pt, rl = make_case(rng, dtype=dtype, **kw)
+            ok = stats_page_ok(pt)
+            dt = str(dtype).split(".")[-1]
+            args = (q, kp, vp, pt, rl, ok)
+            o, lse = pa.ragged_paged_attention_stats_cuda(*args)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(
+                *(a.float() if a.is_floating_point() else a for a in args))
+            tag = f"{name}/{dt}"
+            checked[tag] = (args, _check_stats(tag, o, lse, ref_o, ref_lse,
+                                               rl, ok, STATS_TOL[dtype]))
+            kq, vq, ks, vs = quantize_pools(kp, vp)
+            iargs = (q, kq, vq, pt, rl, ok, ks, vs)
+            ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(
+                q.float(), *iargs[1:])
+            for fused in (1, 0):
+                o, lse = pa.ragged_paged_attention_stats_cuda(
+                    *iargs, fused_dequant=fused)
+                torch.cuda.synchronize()
+                itag = f"{tag}/int8/fused_dequant={fused}"
+                checked[itag] = (iargs, _check_stats(
+                    itag, o, lse, ref_o, ref_lse, rl, ok, STATS_TOL[dtype]))
+
+    # NaN K scale rows: on lane 4's owned entry 2 (positions 32..47) the
+    # NaN reaches exactly the rows that read it; on its unowned entry 3
+    # nobody (the kernel never reads a page its shard does not own)
+    nan_ok = {}
+    for name in ("decode_h12", "prefill_h12"):
+        for fused in (1, 0):
+            args = list(checked[f"{name}/float32/int8/fused_dequant="
+                                f"{fused}"][0])
+            pt, rl = args[3], args[4]
+            ks = args[6].clone()
+            head = 7
+            ks[int(pt[4, 2]), head] = float("nan")
+            ks[int(pt[4, 3]), head + 1] = float("nan")
+            args[6] = ks
+            o, lse = pa.ragged_paged_attention_stats_cuda(
+                *args, fused_dequant=fused)
+            ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(*args)
+            torch.cuda.synchronize()
+            bad = ~torch.isfinite(o).all(dim=-1)               # [G, Qb, H]
+            want = torch.zeros_like(bad)
+            want[4, :, head] = rl[4] > 32
+            fin = ~bad[..., None].expand_as(o)
+            err = float((o[fin] - ref_o[fin]).abs().max())
+            limit = STATS_TOL[torch.float32] * max(
+                1.0, float(ref_o[fin].abs().max()))
+            good = (bool(want.any()) and torch.equal(bad, want)
+                    and torch.equal(~torch.isfinite(ref_o).all(dim=-1), want)
+                    and err <= limit)
+            log("kernel_stats", case=f"{name}/nan_k_scale",
+                fused_dequant=fused, non_finite_rows=int(bad.sum()),
+                readers=int(want.sum()), max_abs_err_elsewhere=err, ok=good)
+            if not good:
+                raise AssertionError(
+                    f"NaN k_scale ({name}, fused_dequant={fused}): "
+                    f"non-finite at {bad.nonzero().tolist()}, expected "
+                    f"{want.nonzero().tolist()}; error elsewhere {err}")
+            nan_ok[f"{name}/fused_dequant={fused}"] = good
+
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    timings = {"nan_scale_ok": all(nan_ok.values()),
+               "bf16_max_abs_err": max(v[1] for k, v in checked.items()
+                                       if "bfloat16" in k
+                                       and "int8" not in k),
+               "int8_bf16_max_abs_err": max(v[1] for k, v in checked.items()
+                                            if "bfloat16/int8" in k),
+               "max_abs_err_by_case": {k: v[1] for k, v in checked.items()}}
+    for name in STATS_TIMED:
+        for tag in (f"{name}/float32", f"{name}/float32/int8/fused_dequant=1",
+                    f"{name}/float32/int8/fused_dequant=0"):
+            args, err = checked[tag]
+            fused = 0 if tag.endswith("=0") else 1
+            q, kp, vp, pt, rl, ok = args[:6]
+            scales = args[6:]
+            if scales:
+                kd = kp.float() * scales[0][:, None, :, None]
+                vd = vp.float() * scales[1][:, None, :, None]
+            else:
+                kd, vd = kp, vp
+            lq, lk, lv, bias = stats_library_inputs(q, kd, vd, pt, rl, ok)
+            t = {"max_abs_err": err,
+                 "ms": time_ms(lambda: pa.ragged_paged_attention_stats_cuda(
+                     *args, fused_dequant=fused), flush),
+                 "plain_ms": time_ms(
+                     lambda: pa.ragged_paged_attention_stats_ref(*args),
+                     flush),
+                 "library_ms": time_ms(
+                     lambda: efficient(lq, lk, lv, bias, True), flush),
+                 "ragged_all_pages_ms": time_ms(
+                     lambda: pa.ragged_paged_attention_cuda(
+                         q, kp, vp, pt, rl, *scales), flush)}
+            t["bound_ms"], t["bound_by"] = stats_bound_ms(q, kp, pt, rl, ok)
+            # ownership in runs, as the allocator hands a shard its pages:
+            # each lane owns the first half of its table, so whole 32-
+            # position tiles go unread (with every second 16-slot page
+            # owned, every tile holds an owned position)
+            runs = (torch.arange(pt.shape[1], device=pt.device)[None, :]
+                    < pt.shape[1] // 2).to(torch.int32).repeat(
+                        pt.shape[0], 1).contiguous()
+            rargs = (q, kp, vp, pt, rl, runs) + tuple(scales)
+            t["owned_runs_ms"] = time_ms(
+                lambda: pa.ragged_paged_attention_stats_cuda(
+                    *rargs, fused_dequant=fused), flush)
+            t["owned_runs_bound_ms"] = stats_bound_ms(q, kp, pt, rl,
+                                                      runs)[0]
+            log("kernel_stats_time", case=tag, **t)
+            timings[tag] = t
     return timings
 
 
@@ -1171,6 +1421,11 @@ def drive(eng, prompts):
     return streams, counts, wall, eng.stats()["metrics"]["ragged"]["steps"]
 
 
+# the stats kernel's counts, 0 on every single-device drive
+NO_STATS = {"attention_cuda_stats": 0, "attention_cuda_stats_int8": 0,
+            "attention_ref_stats": 0}
+
+
 def expect_counts(phase, counts, want):
     got = {k: counts[k] for k in want}
     if got != want or not any(v > 0 for v in want.values()):
@@ -1264,7 +1519,7 @@ def e2e_phase(model, prompts, device="cuda") -> dict:
                                   "attention_cuda_decode": 0,
                                   "attention_cuda_decode_int8": 0,
                                   "attention_ref": 0, "qmm_cuda": 0,
-                                  "qmm_ref": 0})
+                                  "qmm_ref": 0, **NO_STATS})
     t0 = time.perf_counter()
     near = check_streams("e2e", model, prompts, streams)
     result = summary(eng, prompts, wall, dispatches, counts, near)
@@ -1294,7 +1549,8 @@ def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
     expect_counts("e2e_int8_static", counts, {
         "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
         "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
-        "attention_ref": 0, "qmm_cuda": 6 * L * dispatches, "qmm_ref": 0})
+        "attention_ref": 0, "qmm_cuda": 6 * L * dispatches, "qmm_ref": 0,
+        **NO_STATS})
     # the same page count as the native engine, a quarter of its bytes
     ratio = eng.kv_cache_bytes() / native["kv_cache_bytes"]
     if eng.cache.num_pages != native["num_pages"] or ratio > 0.26:
@@ -1334,7 +1590,7 @@ def e2e_int8_dynamic_phase(model, prompts, device="cuda") -> dict:
             "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
             "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
             "attention_ref": 0, "qmm_cuda": 6 * L * dispatches,
-            "qmm_ref": 0})
+            "qmm_ref": 0, **NO_STATS})
         runs[sync_mode] = (streams, summary(eng, prompts, wall, dispatches,
                                             counts, []))
         del eng
@@ -1392,7 +1648,7 @@ def e2e_split_phase(model, prompts, export, ragged_step_ms,
             "attention_cuda_decode": 0 if int8 else L * fwd,
             "attention_cuda_decode_int8": L * fwd if int8 else 0,
             "attention_ref": 0, "qmm_cuda": 6 * L * fwd if int8 else 0,
-            "qmm_ref": 0})
+            "qmm_ref": 0, **NO_STATS})
         if calls["ragged_step"] or (name == "fused4"
                                     and not calls["decode_fused"]):
             raise AssertionError(f"e2e_split/{name}: programs {calls}")
@@ -1453,7 +1709,7 @@ def e2e_spec_phase(model, prompts, device="cuda") -> dict:
             "attention_cuda_int8": ragged if int8 else 0,
             "attention_cuda_decode": 0 if int8 else split,
             "attention_cuda_decode_int8": split if int8 else 0,
-            "attention_ref": 0, "qmm_cuda": 0, "qmm_ref": 0})
+            "attention_ref": 0, "qmm_cuda": 0, "qmm_ref": 0, **NO_STATS})
         spec = eng.stats()["spec"]
         bad = [] if spec["drafted"] > 0 else ["no drafts"]
         if name == "ragged" and calls["spec_verify"]:
@@ -1477,6 +1733,132 @@ def e2e_spec_phase(model, prompts, device="cuda") -> dict:
         result[name] = res
         del eng
         torch.cuda.empty_cache()
+    return result
+
+
+# the mesh drives: 4 long prompts at tp 2 x sp 2 in a pool of MESH_PAGES
+# pages (130 per sequence shard, fewer than the ~208 the drive holds, so
+# sequences span both page shards); int8 KV and weights on the same; then
+# speculative decoding at tp 2 on repeated-pattern prompts
+MESH_PROMPT_LENS = (600, 730, 860, 990)
+MESH_PAGES = 260
+MESH_SLOTS = 4
+MESH_DRIVES = (("native", {"tp": 2, "sp": 2}, {}),
+               ("int8_static", {"tp": 2, "sp": 2},
+                dict(kv_cache_dtype="int8", weight_dtype="int8")),
+               ("spec_tp2", {"tp": 2}, dict(spec_decode=4)))
+
+
+def mesh_drive(eng, prompts):
+    """Serve ``prompts`` with every count set to 0 just before; on a mesh
+    engine, after the first step (every request admitted) record how many
+    sequence shards each sequence's pages span.  Returns (streams,
+    counts, wall s, spans)."""
+    ids = [eng.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    spans = []
+    mesh = eng.stats()["pipeline"]["mesh"]
+    if mesh is not None:
+        per = eng.cache.num_pages // mesh["sp"]
+        spans = sorted(len({p // per for p in
+                            eng.cache.seq_page_ids(s.seq_id)})
+                       for s in eng.scheduler.running)
+    outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if eng.cache.pages_in_use != 0:
+        raise AssertionError(f"{eng.cache.pages_in_use} KV pages leaked")
+    return [outs[r] for r in ids], counts, wall, spans
+
+
+def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
+    """The mesh-sharded replica at GPT-2-small width on MESH_SLOTS slots of
+    the card: per drive, the single-device engine with the same knobs
+    serves the same prompts first (the reference), then the mesh engine;
+    streams equal except at a recorded near-tie (at most one), every
+    attention launch on the stats kernel at sp 2 (on the ragged kernel at
+    sp 1) once per layer, shard and dispatch, one shard step per
+    dispatch, no page leaked, sequences on both page shards at sp 2."""
+    from paddle_tpu_torch.distributed import force_device_count, get_mesh
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    long_prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], (n,)).astype(
+        np.int32) for n in MESH_PROMPT_LENS]
+    result = {}
+    prev = force_device_count(MESH_SLOTS)
+    try:
+        for name, axes, knobs in MESH_DRIVES:
+            prompts = spec_prompts(rng, 4) if "spec_decode" in knobs \
+                else long_prompts
+            int8 = "kv_cache_dtype" in knobs
+            qs = dict(quant_scales=export) if int8 else {}
+            kw = dict(ENGINE, num_pages=MESH_PAGES, device=device, **knobs,
+                      **qs)
+            single = create_serving_engine(model, **kw)
+            want, _, single_wall, _ = mesh_drive(single, prompts)
+            single_step = single.stats()["metrics"]["step_latency_ms"]
+            del single
+            torch.cuda.empty_cache()
+            eng = create_serving_engine(model, mesh_axes=axes, **kw)
+            slots = [str(d) for d in get_mesh().slots]
+            log("e2e_mesh_slots", drive=name, mesh=dict(axes),
+                slot_to_card=slots)
+            streams, counts, wall, spans = mesh_drive(eng, prompts)
+            st = eng.stats()
+            dispatches = st["programs"]["ragged_step"]
+            sp = st["pipeline"]["mesh"]["sp"]
+            shards = st["pipeline"]["mesh"]["devices"]
+            on = L * shards * dispatches
+            stats_key = "attention_cuda_stats_int8" if int8 \
+                else "attention_cuda_stats"
+            ragged_key = "attention_cuda_int8" if int8 else "attention_cuda"
+            want_counts = {"attention_cuda": 0, "attention_cuda_int8": 0,
+                           "attention_cuda_decode": 0,
+                           "attention_cuda_decode_int8": 0,
+                           "attention_ref": 0, "qmm_ref": 0, **NO_STATS,
+                           "qmm_cuda": 6 * L * shards * dispatches
+                           if int8 else 0}
+            want_counts[stats_key if sp > 1 else ragged_key] = on
+            expect_counts(f"e2e_mesh/{name}", counts, want_counts)
+            shard_steps = st["metrics"]["shard"]["steps"]
+            bad = []
+            if shard_steps != dispatches:
+                bad.append(f"serving.shard.steps {shard_steps} != "
+                           f"{dispatches} dispatches")
+            if sp > 1 and sp not in spans:
+                bad.append(f"no sequence spans all {sp} page shards "
+                           f"(spans {spans})")
+            if "spec_decode" in knobs and not st["spec"]["drafted"]:
+                bad.append("no drafts")
+            if bad:
+                raise AssertionError(f"e2e_mesh/{name}: {bad}")
+            near = check_streams(f"e2e_mesh/{name}", model, prompts,
+                                 streams, quant=export if int8 else None,
+                                 want=want)
+            if len(near) > 1:
+                raise AssertionError(f"e2e_mesh/{name}: {len(near)} "
+                                     f"near-ties, at most one allowed")
+            res = summary(eng, prompts, wall, dispatches, counts, near)
+            res.update(mesh=st["pipeline"]["mesh"], slot_to_card=slots,
+                       page_spans_after_admission=spans,
+                       shard=st["metrics"]["shard"],
+                       single_device_wall_s=single_wall,
+                       single_device_step_ms=single_step,
+                       step_ms_label=f"{shards} slots on one card",
+                       spec=({k: st["spec"][k] for k in (
+                           "drafted", "accepted", "accept_rate")}
+                             if "spec_decode" in knobs else None))
+            log("e2e_mesh", drive=name, **res)
+            result[name] = res
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        force_device_count(prev)
     return result
 
 
@@ -1523,6 +1905,7 @@ def main(argv=None) -> int:
     report["kernel_qmm"] = qmm_t = qmm_phase(rng, flush)
     report["kernel_flash"] = flash_t = flash_kernel_phase(rng, flush)
     report["kernel_decode"] = decode_t = decode_kernel_phase(rng, flush)
+    report["kernel_stats"] = stats_t = stats_kernel_phase(rng, flush)
     del flush
     torch.cuda.empty_cache()
     # the training drive's batch comes from its own seed, so its loss
@@ -1549,6 +1932,8 @@ def main(argv=None) -> int:
     report["e2e_split"] = split = e2e_split_phase(
         model, prompts, export, e2e["step_ms"]["p50"])
     report["e2e_spec"] = e2e_spec_phase(model, spec_prompts(rng))
+    torch.cuda.empty_cache()
+    report["e2e_mesh"] = mesh = e2e_mesh_phase(model, rng, export)
 
     dec = native_t["gpt2_decode/float32/Qb1"]
     idec = int8_t["gpt2_decode/float32/Qb1/fused_dequant=1"]
@@ -1604,7 +1989,35 @@ def main(argv=None) -> int:
                nan_scale_ok=decode_t["nan_scale_ok"],
                bf16_max_abs_err=decode_t["int8_bf16_max_abs_err"],
                launches_spec_int8_dynamic=report["e2e_spec"][
-                   "ragged_int8_dynamic"]["attention_cuda_decode_int8"])]
+                   "ragged_int8_dynamic"]["attention_cuda_decode_int8"]),
+        record("ragged_paged_attention_stats",
+               "paddle_tpu_torch/ops/csrc/paged_attention_stats.cu",
+               "paddle_tpu/ops/pallas_ops/paged_attention.py:681",
+               mesh["native"]["attention_cuda_stats"],
+               stats_t["decode_h12/float32"], case="decode_h12/float32",
+               prefill=stats_t["prefill_h12/float32"],
+               bf16_max_abs_err=stats_t["bf16_max_abs_err"],
+               max_abs_err_by_case={
+                   k: v for k, v in stats_t["max_abs_err_by_case"].items()
+                   if "int8" not in k},
+               library_is="aten._scaled_dot_product_efficient_attention "
+                          "with its log-sum-exp, on the gathered owned KV"),
+        record("ragged_paged_attention_stats_int8",
+               "paddle_tpu_torch/ops/csrc/paged_attention_stats.cu",
+               "paddle_tpu/ops/pallas_ops/paged_attention.py:737",
+               mesh["int8_static"]["attention_cuda_stats_int8"],
+               stats_t["decode_h12/float32/int8/fused_dequant=1"],
+               case="decode_h12/float32/int8", fused_dequant=1,
+               settings={k: v for k, v in stats_t.items()
+                         if "/int8/" in k},
+               nan_scale_ok=stats_t["nan_scale_ok"],
+               bf16_max_abs_err=stats_t["int8_bf16_max_abs_err"],
+               max_abs_err_by_case={
+                   k: v for k, v in stats_t["max_abs_err_by_case"].items()
+                   if "int8" in k},
+               library_is="aten._scaled_dot_product_efficient_attention "
+                          "with its log-sum-exp, on the gathered owned, "
+                          "dequantized KV")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -2,8 +2,9 @@
 
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library under ``ops/build/`` (listed in ``.gitignore``), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads in milliseconds.  The build runs at first use — the
+a hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+in milliseconds.  The build runs at first use — the
 first call of a kernel wrapper on a CUDA tensor — never at import time.
 Without ``nvcc`` it raises: there is no fallback to the plain PyTorch
 version for a CUDA tensor.
@@ -30,8 +31,8 @@ __all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "load_library", "load_libraries",
            "build_log", "nvcc_path"]
 
 # every kernel source of the port, by library name (csrc/<name>.cu)
-KERNEL_SOURCES = ("paged_attention", "paged_decode", "quantized_matmul",
-                  "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "paged_attention_stats", "paged_decode",
+                  "quantized_matmul", "flash_attention")
 
 _OPS_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _OPS_DIR / "csrc"
@@ -86,8 +87,11 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = _SRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(_SRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()
         out = _BUILD_DIR / f"lib{name}_{digest[:16]}.so"
         t0 = time.perf_counter()
         cached = out.exists()

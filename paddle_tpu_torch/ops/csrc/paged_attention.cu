@@ -2,421 +2,12 @@
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas_ops/paged_attention.py
 // ragged_paged_attention_kernel, both of its bodies: _ragged_kernel (f32 or
-// bf16 pools) and _ragged_kernel_quant (int8 pools).  What it computes,
-// per lane g, query row r and head h:
-//
-//   out[g, r, h, :] = softmax_{s < row_lens[g, r]}( q[g,r,h,:] . k[s,h,:] / sqrt(D) ) @ v[s,h,:]
-//
-// where position s of lane g lives in page page_tables[g, s / P], slot
-// s % P, of the pools k_pages / v_pages [N, P, H, D].  Rows with
-// row_len 0 write exact zeros.  q is f32 or bf16; all arithmetic is f32.
-//
-// Int8 pools carry one f32 scale per (page, head), k_scales / v_scales
-// [N, H], and are widened to f32 as a tile is staged.  fused_dequant = 1
-// (the default) scales a position's score by its page's K scale after
-// the q.k dot, and its p.v contribution by its page's V scale (the
-// softmax denominator l stays unscaled); fused_dequant = 0 dequantizes K
-// and V as they are staged, before the dots.  A tile of 32 positions can
-// span pages, so each lane holds the scales of its own position.  A NaN
-// scale reaches every row that reads its page: the score turns NaN, and
-// so do p, l and the accumulator (fmaxf drops a NaN from the running max,
-// but p = exp(NaN - m) carries it on).
-//
-// What bounds it on an H100: bytes.  A decode row does 4*D flops per K/V
-// position it reads (2*D*4 bytes in f32, 2*D bytes in int8), far below
-// the card's flop-per-byte balance, so the time floor is the K/V page
-// stream.  The design reads each page once per (lane, head, row tile) —
-// every query row of the tile is scored against the staged tile — and
-// stops at the longest row of the tile, so a lane's cost follows its real
-// tokens, not the padded page-table width.  Prefill chunks (many rows per
-// lane) are split into row tiles of up to 8 rows; their repeated page
-// reads hit L2.  Int8 rows load as 16-byte vectors (D / 16 lanes per row)
-// when D is a multiple of 16, else byte by byte.
-//
-// Layout of the work (the TPU kernel's sequential page axis becomes a
-// loop inside the block):
-//   grid  = (G lanes, H heads, ceil(Qb / RB) row tiles)
-//   block = 4 warps.  Warp w walks the 32-position KV tiles w, w+4, ...
-//           of the block's horizon; lane j of the warp owns position j of
-//           the tile for the q.k scores and D/32 output columns for p.v.
-//   Each warp keeps an online softmax (running max m, denominator l, f32
-//   accumulator) per row, skips tiles a row cannot see, and the four
-//   warps' partial states merge through shared memory at the end.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-namespace {
-
-constexpr int kWarps = 4;
-constexpr int kTile = 32;             // KV positions per warp tile
-constexpr int kMaxD = 128;
-constexpr float kNegInf = -1e30f;     // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// 16 int8 values (one 16-byte load) widened to f32, times f
-__device__ __forceinline__ void unpack16(const int4 v, float* dst, float f) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      dst[4 * i + b] = (float)((int)((unsigned)w[i] << (24 - 8 * b)) >> 24) * f;
-}
-
-// Stage one 32-position int8 tile of K and V into shared memory as f32.
-// Lane j holds position j's byte offset ``src`` (-1 past the horizon:
-// zeros) and its dequant factors kf / vf (1 when the scales are applied
-// after the dots).  With ``vec`` (D % 16 == 0, 16-byte aligned pools) a
-// row is D / 16 chunks of 16 bytes and each pass loads 32 / (D / 16) rows
-// at once, all passes in flight before any store.
-template <int DC>
-__device__ __forceinline__ void stage_int8(const int8_t* __restrict__ k_pages,
-                                           const int8_t* __restrict__ v_pages,
-                                           long long src, float kf, float vf,
-                                           float* k_s, float* v_s, int ldk,
-                                           int ldv, int D, int lane,
-                                           int vec) {
-  if (vec) {
-    const int n_ch = D >> 4;
-    const int rp = 32 / n_ch;               // rows per pass
-    const int rsub = lane / n_ch;
-    const int ch = lane - rsub * n_ch;
-    constexpr int kPass = 2 * DC;            // >= ceil(32 / rp) for D <= 32 * DC
-    int4 kr[kPass], vr[kPass];
-    float kfs[kPass], vfs[kPass];
-#pragma unroll
-    for (int ps = 0; ps < kPass; ++ps) {
-      const int j = ps * rp + rsub;
-      const int jc = min(j, kTile - 1);
-      const long long off = __shfl_sync(0xffffffffu, src, jc);
-      kfs[ps] = __shfl_sync(0xffffffffu, kf, jc);
-      vfs[ps] = __shfl_sync(0xffffffffu, vf, jc);
-      kr[ps] = vr[ps] = make_int4(0, 0, 0, 0);
-      if (rsub < rp && j < kTile && off >= 0) {
-        kr[ps] = __ldg(reinterpret_cast<const int4*>(k_pages + off) + ch);
-        vr[ps] = __ldg(reinterpret_cast<const int4*>(v_pages + off) + ch);
-      }
-    }
-#pragma unroll
-    for (int ps = 0; ps < kPass; ++ps) {
-      const int j = ps * rp + rsub;
-      if (rsub < rp && j < kTile) {
-        unpack16(kr[ps], k_s + j * ldk + ch * 16, kfs[ps]);
-        unpack16(vr[ps], v_s + j * ldv + ch * 16, vfs[ps]);
-      }
-    }
-  } else {
-    // any D: row by row, one byte per lane and column
-    for (int j = 0; j < kTile; ++j) {
-      const long long off = __shfl_sync(0xffffffffu, src, j);
-      const float kfj = __shfl_sync(0xffffffffu, kf, j);
-      const float vfj = __shfl_sync(0xffffffffu, vf, j);
-      for (int d = lane; d < D; d += 32) {
-        k_s[j * ldk + d] = off < 0 ? 0.f : (float)k_pages[off + d] * kfj;
-        v_s[j * ldv + d] = off < 0 ? 0.f : (float)v_pages[off + d] * vfj;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// KV is T (f32 / bf16 pools) or int8_t (pools with [N, H] scales)
-template <typename T, typename KV, int RB, int DC>
-__global__ void __launch_bounds__(kWarps * 32)
-ragged_paged_attention_kernel(const T* __restrict__ q,
-                              const KV* __restrict__ k_pages,
-                              const KV* __restrict__ v_pages,
-                              const float* __restrict__ k_scales,
-                              const float* __restrict__ v_scales,
-                              const int* __restrict__ page_tables,
-                              const int* __restrict__ row_lens,
-                              T* __restrict__ out, int Qb, int H, int D,
-                              int P, int M, float scale, int fused,
-                              int vec) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  extern __shared__ float smem[];
-  const int g = blockIdx.x;
-  const int h = blockIdx.y;
-  const int r0 = blockIdx.z * RB;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ldk = D + 1;  // padded K rows: lane-strided reads hit distinct banks
-  // int8 tiles are stored 16 columns per lane-row: pad V rows too
-  const int ldv = kQuant ? D + 1 : D;
-
-  float* q_s = smem;                                   // [RB][D], pre-scaled
-  float* kv_s = q_s + RB * D;                          // per-warp tiles
-  float* k_s = kv_s + warp * kTile * (ldk + ldv);      // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;                      // [kTile][ldv]
-
-  // per-row horizons; rows past Qb are empty.  Positions past the page
-  // table (M * P) do not exist.
-  const int cap = M * P;
-  int rl[RB];
-  int horizon = 0;
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int row = r0 + r;
-    int len = row < Qb ? row_lens[(size_t)g * Qb + row] : 0;
-    len = min(max(len, 0), cap);
-    rl[r] = len;
-    horizon = max(horizon, len);
-  }
-  for (int i = threadIdx.x; i < RB * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int row = r0 + r;
-    q_s[i] = row < Qb
-                 ? to_f32(q[(((size_t)g * Qb + row) * H + h) * D + d]) * scale
-                 : 0.f;
-  }
-  __syncthreads();
-
-  float m[RB], l[RB], acc[RB][DC];
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
-
-  const int* pt = page_tables + (size_t)g * M;
-  const size_t slot_stride = (size_t)H * D;
-  const int n_tiles = (horizon + kTile - 1) / kTile;
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const int base = t * kTile;
-    // each lane looks up the slot of ITS position once; the warp then
-    // stages the tile kBatch rows at a time, each row's offset broadcast
-    // by shuffle, consecutive lanes on consecutive d (coalesced).  The
-    // loads are unconditional (a position past the horizon reads slot 0
-    // of the pool and is zeroed after), so all kBatch rows' loads are in
-    // flight together instead of one dependent round trip per row.
-    long long src = -1;
-    float ksl = 1.f, vsl = 1.f;     // int8: the page scales of this lane's position
-    if (base + lane < horizon) {
-      const int pos = base + lane;
-      const int page = pt[pos / P];
-      src = ((long long)page * P + (pos % P)) * slot_stride +
-            (long long)h * D;
-      if constexpr (kQuant) {
-        ksl = k_scales[(size_t)page * H + h];
-        vsl = v_scales[(size_t)page * H + h];
-      }
-    }
-    if constexpr (kQuant) {
-      stage_int8<DC>(k_pages, v_pages, src, fused ? 1.f : ksl,
-                     fused ? 1.f : vsl, k_s, v_s, ldk, ldv, D, lane, vec);
-    } else {
-    constexpr int kBatch = 32 / DC;     // kBatch * DC * 2 = 64 registers
-#pragma unroll 1
-    for (int j0 = 0; j0 < kTile; j0 += kBatch) {
-      float kr[kBatch][DC], vr[kBatch][DC];
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj) {
-        const long long off = __shfl_sync(0xffffffffu, src, j0 + jj);
-        const long long at = off < 0 ? 0 : off;
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = min(lane + 32 * c, D - 1);
-          kr[jj][c] = to_f32(k_pages[at + d]);
-          vr[jj][c] = to_f32(v_pages[at + d]);
-          if (off < 0) kr[jj][c] = vr[jj][c] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) {
-            k_s[(j0 + jj) * ldk + d] = kr[jj][c];
-            v_s[(j0 + jj) * ldv + d] = vr[jj][c];
-          }
-        }
-      }
-    }
-    }
-    __syncwarp();
-
-    float s[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) s[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = k_s[lane * ldk + d];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) s[r] += q_s[r * D + d] * kd;
-    }
-    if (kQuant && fused) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) s[r] *= ksl;   // dequant K after the dot
-    }
-
-    const int pos = base + lane;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      // a row that sees no position of this tile skips it outright
-      // (warp-uniform: rl and base are the same on every lane)
-      if (base >= rl[r]) continue;
-      const bool valid = pos < rl[r];
-      const float m_new = fmaxf(m[r], warp_max(valid ? s[r] : -INFINITY));
-      const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(s[r] - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p);
-      // dequant V on position j's contribution, not on the denominator
-      const float pv = (kQuant && fused) ? p * vsl : p;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
-      const int jn = min(kTile, rl[r] - base);  // visible positions only
-      for (int j = 0; j < jn; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pv, j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) acc[r][c] += pj * v_s[j * ldv + d];
-        }
-      }
-      m[r] = m_new;
-    }
-    __syncwarp();
-  }
-
-  // merge the warps' partial softmax states through shared memory (the
-  // K/V tiles are dead now)
-  __syncthreads();
-  const int ld = D + 2;  // acc[0..D), m, l
-#pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    float* e = kv_s + (size_t)(warp * RB + r) * ld;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) e[d] = acc[r][c];
-    }
-    if (lane == 0) {
-      e[D] = m[r];
-      e[D + 1] = l[r];
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < RB; r += kWarps) {
-    const int row = r0 + r;
-    if (row >= Qb) continue;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w)
-      mx = fmaxf(mx, kv_s[(size_t)(w * RB + r) * ld + D]);
-    float lsum = 0.f;
-    float o[DC];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[c] = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* e = kv_s + (size_t)(w * RB + r) * ld;
-      const float sc = expf(e[D] - mx);
-      lsum += e[D + 1] * sc;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) o[c] += e[d] * sc;
-      }
-    }
-    // an empty row has l == 0 and acc == 0: exact zeros, as on the TPU
-    const float denom = fmaxf(lsum, 1e-30f);
-    T* dst = out + (((size_t)g * Qb + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) store(dst + d, o[c] / denom);
-    }
-  }
-}
-
-template <typename T, typename KV, int RB, int DC>
-int launch_rb(const void* q, const void* k, const void* v, const void* ks,
-              const void* vs, const void* pt, const void* rl, void* out,
-              int G, int Qb, int H, int D, int P, int M, int fused,
-              cudaStream_t stream) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  const int ldv = kQuant ? D + 1 : D;
-  const size_t smem = ((size_t)RB * D +
-                       (size_t)kWarps * kTile * (D + 1 + ldv)) * sizeof(float);
-  const int vec = kQuant && D % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  auto kern = ragged_paged_attention_kernel<T, KV, RB, DC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)G, (unsigned)H, (unsigned)((Qb + RB - 1) / RB));
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(rl), static_cast<T*>(out), Qb, H, D, P, M,
-      1.0f / sqrtf((float)D), fused, vec);
-  return (int)cudaGetLastError();
-}
-
-// rows per block: 1 for decode lanes, 8 for prefill chunks (registers
-// hold RB * DC accumulators per lane)
-template <typename T, typename KV, int DC>
-int launch_dc(const void* q, const void* k, const void* v, const void* ks,
-              const void* vs, const void* pt, const void* rl, void* out,
-              int G, int Qb, int H, int D, int P, int M, int fused,
-              cudaStream_t s) {
-  if (Qb <= 1)
-    return launch_rb<T, KV, 1, DC>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D,
-                                   P, M, fused, s);
-  if (Qb <= 4)
-    return launch_rb<T, KV, 4, DC>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D,
-                                   P, M, fused, s);
-  return launch_rb<T, KV, 8, DC>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P,
-                                 M, fused, s);
-}
-
-template <typename T, typename KV>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pt, const void* rl, void* out, int G,
-           int Qb, int H, int D, int P, int M, int fused, void* stream) {
-  if (G <= 0 || Qb <= 0 || H <= 0 || P <= 0 || M <= 0 || D <= 0 ||
-      D > kMaxD || H > 65535 || Qb > 8 * 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32)
-    return launch_dc<T, KV, 1>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P,
-                               M, fused, s);
-  if (D <= 64)
-    return launch_dc<T, KV, 2>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P,
-                               M, fused, s);
-  return launch_dc<T, KV, 4>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P, M,
-                             fused, s);
-}
-
-}  // namespace
+// bf16 pools) and _ragged_kernel_quant (int8 pools).  The kernel itself,
+// what it computes and how the work is laid out, is in
+// paged_attention.cuh; these entry points launch it without the
+// ownership mask and the lse output (every position below a row's length
+// is visible).
+#include "paged_attention.cuh"
 
 // q [G, Qb, H, D], k/v pools [N, P, H, D] (same dtype as q), page_tables
 // [G, M] int32, row_lens [G, Qb] int32, out [G, Qb, H, D] (q's dtype); all
@@ -427,8 +18,9 @@ extern "C" int ptt_ragged_paged_attention_f32(const void* q, const void* k,
                                               const void* rl, void* out, int G,
                                               int Qb, int H, int D, int P,
                                               int M, void* stream) {
-  return launch<float, float>(q, k, v, nullptr, nullptr, pt, rl, out, G, Qb,
-                              H, D, P, M, 0, stream);
+  return launch<float, float, false>(q, k, v, nullptr, nullptr, pt, rl,
+                                     nullptr, out, nullptr, G, Qb, H, D, P,
+                                     M, 0, stream);
 }
 
 extern "C" int ptt_ragged_paged_attention_bf16(const void* q, const void* k,
@@ -436,9 +28,9 @@ extern "C" int ptt_ragged_paged_attention_bf16(const void* q, const void* k,
                                                const void* rl, void* out,
                                                int G, int Qb, int H, int D,
                                                int P, int M, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, pt,
-                                              rl, out, G, Qb, H, D, P, M, 0,
-                                              stream);
+  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+      q, k, v, nullptr, nullptr, pt, rl, nullptr, out, nullptr, G, Qb, H, D,
+      P, M, 0, stream);
 }
 
 // The int8 body: k/v pools [N, P, H, D] int8 with k_scales / v_scales
@@ -448,14 +40,16 @@ extern "C" int ptt_ragged_paged_attention_int8_f32(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pt, const void* rl, void* out, int G, int Qb,
     int H, int D, int P, int M, int fused_dequant, void* stream) {
-  return launch<float, int8_t>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P,
-                               M, fused_dequant, stream);
+  return launch<float, int8_t, false>(q, k, v, ks, vs, pt, rl, nullptr, out,
+                                      nullptr, G, Qb, H, D, P, M,
+                                      fused_dequant, stream);
 }
 
 extern "C" int ptt_ragged_paged_attention_int8_bf16(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pt, const void* rl, void* out, int G, int Qb,
     int H, int D, int P, int M, int fused_dequant, void* stream) {
-  return launch<__nv_bfloat16, int8_t>(q, k, v, ks, vs, pt, rl, out, G, Qb, H,
-                                       D, P, M, fused_dequant, stream);
+  return launch<__nv_bfloat16, int8_t, false>(q, k, v, ks, vs, pt, rl,
+                                              nullptr, out, nullptr, G, Qb, H,
+                                              D, P, M, fused_dequant, stream);
 }

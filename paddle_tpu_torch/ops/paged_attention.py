@@ -1,6 +1,6 @@
 """Paged attention over a block-paged KV cache — the counterpart of
 ``paddle_tpu/ops/pallas_ops/paged_attention.py``: the per-row decode
-kernel and the ragged kernel.
+kernel, the ragged kernel and its stats form.
 
 Page id 0 is the trash page: padding entries point at it, so every
 table entry is a valid index.  Two layouts read the same pools
@@ -20,24 +20,35 @@ the gather, the kernels in registers (``fused_dequant`` 1, the contract
 default: scale after the q·k dot and on the p·v contribution; 0: before
 the dots).
 
-- :func:`paged_attention` / :func:`ragged_paged_attention` — the routing
-  entries: a CUDA tensor launches the hand-written kernel
-  (``csrc/paged_decode.cu`` / ``csrc/paged_attention.cu``), a CPU tensor
-  runs the plain version.  There is no other branch and no fallback on
-  the card.
-- :func:`paged_attention_ref` / :func:`ragged_paged_attention_ref` —
-  the plain PyTorch twins of ``paged_attention_xla`` and
-  ``ragged_paged_attention_xla``: gather the pages into a dense view and
-  run a masked f32 softmax.
-- :func:`paged_attention_cuda` / :func:`ragged_paged_attention_cuda` —
-  the kernel wrappers.
+The stats form (a sequence shard of the serving mesh) takes a
+``page_ok [G, M]`` ownership mask: a position is visible when it is
+below its row's length AND its page is owned.  It returns ``(o, lse)``:
+``o`` the softmax over the visible positions applied to v (exact zeros
+for a row with nothing visible) and ``lse [G, Qb, H]`` f32 its
+log-sum-exp ``m + log(l)``, or the finite ``NEG_INF`` for such a row, so
+the shards merge in lse space without NaN.
+
+- :func:`paged_attention` / :func:`ragged_paged_attention` /
+  :func:`ragged_paged_attention_stats` — the routing entries: a CUDA
+  tensor launches the hand-written kernel (``csrc/paged_decode.cu`` /
+  ``csrc/paged_attention.cu`` / ``csrc/paged_attention_stats.cu``), a
+  CPU tensor runs the plain version.  There is no other branch and no
+  fallback on the card.
+- :func:`paged_attention_ref` / :func:`ragged_paged_attention_ref` /
+  :func:`ragged_paged_attention_stats_ref` — the plain PyTorch twins of
+  ``paged_attention_xla``, ``ragged_paged_attention_xla`` and
+  ``ragged_paged_attention_stats_xla``: gather the pages into a dense
+  view and run a masked f32 softmax.
+- :func:`paged_attention_cuda` / :func:`ragged_paged_attention_cuda` /
+  :func:`ragged_paged_attention_stats_cuda` — the kernel wrappers.
 
 ``PAGED_ROUTE_STATS`` counts routing decisions per call, the twin of the
 reference's trace-time counter: ``"cuda_decode"`` / ``"cuda_decode_int8"``
-(the per-row kernel, f32/bf16 or int8 pools) and ``"cuda"`` /
-``"cuda_int8"`` (the ragged kernel) are incremented by their kernel
-wrapper once per launch and nowhere else, ``"ref"`` by a routing entry
-once per plain-version call.
+(the per-row kernel, f32/bf16 or int8 pools), ``"cuda"`` /
+``"cuda_int8"`` (the ragged kernel) and ``"cuda_stats"`` /
+``"cuda_stats_int8"`` (its stats form) are incremented by their kernel
+wrapper once per launch and nowhere else; ``"ref"`` and ``"ref_stats"``
+by a routing entry once per plain-version call.
 """
 from __future__ import annotations
 
@@ -49,12 +60,14 @@ import torch
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT",
            "paged_attention_ref", "paged_attention_cuda", "paged_attention",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
-           "ragged_paged_attention"]
+           "ragged_paged_attention", "ragged_paged_attention_stats_ref",
+           "ragged_paged_attention_stats_cuda", "ragged_paged_attention_stats"]
 
 NEG_INF = -1e30
 
 PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "cuda_decode": 0,
-                     "cuda_decode_int8": 0, "ref": 0}
+                     "cuda_decode_int8": 0, "cuda_stats": 0,
+                     "cuda_stats_int8": 0, "ref": 0, "ref_stats": 0}
 
 # the contract default of the int8 body (paddle_tpu's PAGED_RAGGED_INT8
 # ``fused_dequant``): scales applied after the dots
@@ -74,7 +87,15 @@ _KERNEL_FNS = {
     ("paged_decode", torch.float32, False): "ptt_paged_attention_f32",
     ("paged_decode", torch.bfloat16, False): "ptt_paged_attention_bf16",
     ("paged_decode", torch.float32, True): "ptt_paged_attention_int8_f32",
-    ("paged_decode", torch.bfloat16, True): "ptt_paged_attention_int8_bf16"}
+    ("paged_decode", torch.bfloat16, True): "ptt_paged_attention_int8_bf16",
+    ("paged_attention_stats", torch.float32, False):
+        "ptt_ragged_paged_attention_stats_f32",
+    ("paged_attention_stats", torch.bfloat16, False):
+        "ptt_ragged_paged_attention_stats_bf16",
+    ("paged_attention_stats", torch.float32, True):
+        "ptt_ragged_paged_attention_stats_int8_f32",
+    ("paged_attention_stats", torch.bfloat16, True):
+        "ptt_ragged_paged_attention_stats_int8_bf16"}
 
 
 def _require_scales(k_pages, k_scales, v_scales):
@@ -133,6 +154,49 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, page_tables, row_lens,
     out = paged_attention_ref(rows_q, k_pages, v_pages, rows_pt, rows_len,
                               k_scales, v_scales)
     return out.reshape(G, Qb, H, D)
+
+
+def ragged_paged_attention_stats_ref(q, k_pages, v_pages, page_tables,
+                                     row_lens, page_ok, k_scales=None,
+                                     v_scales=None):
+    """Plain twin of ``ragged_paged_attention_stats_xla``: gather each
+    lane's pages, mask by position AND page ownership, and return the
+    locally normalized context with its log-sum-exp.
+
+    q [G, Qb, H, D], pools [N, P, H, D], page_tables / page_ok [G, M],
+    row_lens [G, Qb] (k_scales, v_scales [N, H] f32 iff the pools are
+    int8) -> (o [G, Qb, H, D] in q's dtype, lse [G, Qb, H] f32).  A row
+    with no visible position gets o = 0 and lse = ``NEG_INF``.  Like the
+    reference, a position on a page that is not owned is multiplied by a
+    zero probability, not skipped: a NaN stored there reaches the row."""
+    _require_scales(k_pages, k_scales, v_scales)
+    G, Qb, H, D = q.shape
+    P = k_pages.shape[1]
+    M = page_tables.shape[1]
+    S = M * P
+    idx = page_tables.long()
+    k = k_pages[idx].reshape(G, S, H, D)
+    v = v_pages[idx].reshape(G, S, H, D)
+    if k_pages.dtype == torch.int8:
+        ks = torch.repeat_interleave(k_scales[idx], P, dim=1)   # [G, S, H]
+        vs = torch.repeat_interleave(v_scales[idx], P, dim=1)
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("gqhd,gshd->gqhs", q.float(), k.float()) * scale
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             < row_lens.to(q.device)[:, :, None])             # [G, Qb, S]
+    ok = torch.repeat_interleave(page_ok.to(q.device) != 0, P, dim=1)
+    vmask = (valid & ok[:, None, :])[:, :, None, :]           # [G, Qb, 1, S]
+    s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                        # [G, Qb, H]
+    p = torch.where(vmask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    l_safe = torch.clamp(l, min=1e-30)
+    o = torch.einsum("gqhs,gshd->gqhd", p, v.float()) / l_safe[..., None]
+    lse = torch.where(l > 0, m + torch.log(l_safe),
+                      torch.full_like(l, NEG_INF))
+    return o.to(q.dtype), lse.float()
 
 
 def _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales):
@@ -227,6 +291,7 @@ def _kernel(library: str, dtype, quant: bool):
         # pointers and the stream as c_void_p: a plain int argument would
         # be passed as a 32-bit C int and cut the address
         n_ptr, n_int = {"paged_attention": (6, 6),
+                        "paged_attention_stats": (8, 6),
                         "paged_decode": (6, 5)}[library]
         if quant:
             n_ptr, n_int = n_ptr + 2, n_int + 1     # scales, fused_dequant
@@ -384,3 +449,85 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens,
     PAGED_ROUTE_STATS["ref"] += 1
     return ragged_paged_attention_ref(q, k_pages, v_pages, page_tables,
                                       row_lens, k_scales, v_scales)
+
+
+def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
+                                      row_lens, page_ok, k_scales=None,
+                                      v_scales=None,
+                                      fused_dequant: int = FUSED_DEQUANT):
+    """Launch the stats form of the ragged kernel
+    (``csrc/paged_attention_stats.cu``), which replaces
+    ``paddle_tpu/ops/pallas_ops/paged_attention.py:_ragged_stats_kernel``
+    and, for int8 pools, ``_ragged_stats_kernel_quant``.
+
+    The kernel of :func:`ragged_paged_attention_cuda` with the ownership
+    mask and the lse output: a 32-position tile with no owned position is
+    skipped before any load, so a shard reads only the pages it owns, and
+    lse is written after the block's four warps merge their softmax
+    states.  Bound by bytes, as the ragged kernel.
+
+    Inputs as for :func:`ragged_paged_attention_cuda` plus ``page_ok
+    [G, M]`` (cast to contiguous int32 here).  Returns ``(o, lse)``.
+    Raises when the launch is refused."""
+    _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales)
+    if tuple(page_ok.shape) != tuple(page_tables.shape):
+        raise ValueError(f"page_ok must be {tuple(page_tables.shape)} like "
+                         f"page_tables, got {tuple(page_ok.shape)}")
+    if page_ok.device != q.device:
+        raise ValueError(f"page_ok is on {page_ok.device}, q on {q.device}")
+    if not q.is_cuda:
+        raise ValueError("ragged_paged_attention_stats_cuda needs CUDA "
+                         "tensors")
+    quant = k_pages.dtype == torch.int8
+    fn = _kernel("paged_attention_stats", q.dtype, quant)
+    G, Qb, H, D = q.shape
+    P = k_pages.shape[1]
+    M = page_tables.shape[1]
+    pt = page_tables.to(torch.int32).contiguous()
+    rl = row_lens.to(torch.int32).contiguous()
+    ok = page_ok.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((G, Qb, H), dtype=torch.float32, device=q.device)
+    if out.numel() == 0 or M == 0:
+        return out.zero_(), lse.fill_(NEG_INF)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if quant:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    k_scales.data_ptr(), v_scales.data_ptr(), pt.data_ptr(),
+                    rl.data_ptr(), ok.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), G, Qb, H, D, P, M,
+                    int(bool(fused_dequant)), stream)
+        else:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    pt.data_ptr(), rl.data_ptr(), ok.data_ptr(),
+                    out.data_ptr(), lse.data_ptr(), G, Qb, H, D, P, M,
+                    stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ragged paged attention stats kernel launch failed: CUDA error "
+            f"{rc} (G={G}, Qb={Qb}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, "
+            f"pools {k_pages.dtype})")
+    PAGED_ROUTE_STATS["cuda_stats_int8" if quant else "cuda_stats"] += 1
+    return out, lse
+
+
+def ragged_paged_attention_stats(q, k_pages, v_pages, page_tables, row_lens,
+                                 page_ok, k_scales=None, v_scales=None,
+                                 fused_dequant: int = FUSED_DEQUANT):
+    """Routing entry for a sequence shard of the mesh-sharded serving
+    core: :func:`ragged_paged_attention`'s inputs plus ``page_ok [G, M]``
+    (nonzero = this shard owns the table entry's page); returns
+    ``(o [G, Qb, H, D], lse [G, Qb, H] f32)``, the shard's partial stats
+    for the cross-shard lse merge.
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain
+    version."""
+    if q.is_cuda:
+        return ragged_paged_attention_stats_cuda(
+            q, k_pages, v_pages, page_tables, row_lens, page_ok, k_scales,
+            v_scales, fused_dequant)
+    PAGED_ROUTE_STATS["ref_stats"] += 1
+    return ragged_paged_attention_stats_ref(q, k_pages, v_pages, page_tables,
+                                            row_lens, page_ok, k_scales,
+                                            v_scales)

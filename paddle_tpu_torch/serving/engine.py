@@ -53,6 +53,13 @@ Execution model
   ``-1 - tok`` in-band; the request is quarantined (failed, pages
   scrubbed and freed, surfaced through ``take_faulted``) within the
   step that consumed it.
+- **Mesh-sharded replica** (``mesh_axes={"tp": T, "sp": S}``): one
+  engine spans T x S device slots (``distributed/mesh.py``) — q/k/v/fc1
+  weights and the pools' heads split over tp, the pools' pages over sp
+  (the allocator reserves one trash page per sp shard).  The host side
+  (scheduler, page tables, lane state) is unchanged: one logical
+  replica.  Ragged dispatch only; ``tp = sp = 1`` is the single-device
+  engine.
 - **Int8 serving** (``kv_cache_dtype="int8"``, ``weight_dtype="int8"``):
   int8 pages with ``[N, H]`` f32 scale rows per layer and side, and
   int8 projection/MLP weights.  ``quant_scales`` (an export of either
@@ -82,8 +89,8 @@ from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
                                         EV_PREFILL_CHUNK, EV_SPECULATED)
 from ..profiler.flight_recorder import recorder as flight
 from ..testing.chaos import chaos_site
-from ..text.generation import (RAGGED_NO_LIMIT, _guard_pack,
-                               make_gpt_paged_decode_step,
+from ..text.generation import (RAGGED_NO_LIMIT, ServingMeshLayout,
+                               _guard_pack, make_gpt_paged_decode_step,
                                make_gpt_paged_fused_decode_step,
                                make_gpt_paged_prefill_step,
                                make_gpt_paged_ragged_step,
@@ -162,9 +169,6 @@ class ServingEngine:
                                                    None]] = None,
                  device=None):
         # --- knobs of the reference engine this slice does not carry ---
-        if mesh_axes is not None:
-            raise _not_ported("mesh_axes (mesh-sharded replicas)",
-                              "item 12")
         for d, knob in ((kv_cache_dtype, "kv_cache_dtype"),
                         (weight_dtype, "weight_dtype")):
             if d not in (None, "int8"):
@@ -228,6 +232,7 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"model weights are on {model.device} but the engine runs "
                 f"on {self.device} — build the model with the same device")
+        self._mesh_layout = self._check_mesh_axes(mesh_axes, model)
         self.model = model
         self.page_size = int(page_size)
         model_max = int(model.wpe.weight.shape[0])
@@ -237,11 +242,23 @@ class ServingEngine:
                 f"max_seq_len ({self.max_seq_len}) exceeds the model's "
                 f"position table ({model_max})")
         self.pages_per_seq = -(-self.max_seq_len // self.page_size)
+        layout = self._mesh_layout
         if num_pages is None:
             # roomy default: every slot can hold a full-length sequence
             num_pages = max_batch_size * self.pages_per_seq + 1
-        self.cache = PagedKVCache(num_pages, self.page_size,
-                                  self.pages_per_seq)
+            if layout is not None:
+                # the pool must split evenly across sequence shards
+                num_pages += (-num_pages) % layout.sp
+        elif layout is not None and int(num_pages) % layout.sp:
+            raise InvalidArgumentError(
+                f"num_pages ({num_pages}) must be divisible by mesh sp "
+                f"({layout.sp}) — the page pool splits evenly across "
+                "sequence shards")
+        num_pages = int(num_pages)
+        self.cache = PagedKVCache(
+            num_pages, self.page_size, self.pages_per_seq,
+            reserved_pages=((0,) if layout is None
+                            else layout.reserved_pages(num_pages)))
         self.scheduler = Scheduler(self.cache, max_batch_size,
                                    bucket_sizes=bucket_sizes)
         self.metrics = metrics or ServingMetrics()
@@ -249,6 +266,11 @@ class ServingEngine:
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.sync_mode = bool(sync_mode)
         self.ragged = ragged
+        if layout is not None and not ragged:
+            raise InvalidArgumentError(
+                "mesh_axes requires the unified ragged dispatch — the "
+                "sharded core serves only the ragged layout; drop "
+                "ragged=False (and fused_steps)")
         self.numeric_guards = numeric_guards
         self.outputs: Dict[str, np.ndarray] = {}
         self._ttft_recorded = set()      # per REQUEST, preemption-proof
@@ -291,6 +313,13 @@ class ServingEngine:
         self._weight_quant = weight_quant
 
         # --- speculative decoding ---------------------------------------
+        if spec_k and layout is not None and self._kv_dynamic:
+            # int8_dynamic speculation verifies through the split
+            # sequential program, which the sharded core does not serve
+            raise InvalidArgumentError(
+                "mesh_axes with spec_decode requires native or int8_static "
+                "KV — the int8_dynamic sequential verifier is a split "
+                "program the mesh-sharded core does not serve")
         self.spec = None
         if spec_k:
             self.spec = SpecDecoder(spec_k, drafter=spec_drafter,
@@ -302,15 +331,24 @@ class ServingEngine:
                    weight_quant=weight_quant)
         geometry = (model, self.page_size, self.pages_per_seq)
         self._ragged_fn, init_pages = make_gpt_paged_ragged_step(
-            *geometry, with_guard=self.numeric_guards, **qkw)
+            *geometry, with_guard=self.numeric_guards, mesh_layout=layout,
+            **qkw)
+        # the pools: one dict of per-layer tensors, or on a mesh one such
+        # dict per shard (shard t * sp + s)
         self._kv = init_pages(num_pages)
-        # the split decode and prefill programs (the prefill one also
-        # replays accepted tokens after an int8_dynamic spec rollback)
-        self._decode_fn = _split_decode(
-            make_gpt_paged_decode_step(*geometry, **qkw)[0],
-            self.numeric_guards)
-        self._prefill_fn, _ = make_gpt_paged_prefill_step(*geometry, **qkw)
-        self._fused_fn = None
+        self._decode_fn = self._prefill_fn = self._fused_fn = None
+        if layout is not None:
+            self.metrics.on_shard_config(tp=layout.tp, sp=layout.sp,
+                                         devices=layout.size)
+        else:
+            # the split decode and prefill programs (the prefill one also
+            # replays accepted tokens after an int8_dynamic spec rollback);
+            # a mesh engine runs the ragged step alone
+            self._decode_fn = _split_decode(
+                make_gpt_paged_decode_step(*geometry, **qkw)[0],
+                self.numeric_guards)
+            self._prefill_fn, _ = make_gpt_paged_prefill_step(*geometry,
+                                                              **qkw)
         if self.fused_steps > 1:
             self._fused_fn, _ = make_gpt_paged_fused_decode_step(
                 *geometry, self.fused_steps,
@@ -348,6 +386,46 @@ class ServingEngine:
         self._prefill_plans: Dict[str, dict] = {}
         # per-bucket cached steady-decode row inputs (uploaded once)
         self._ragged_steady: Dict[int, tuple] = {}
+
+    def _check_mesh_axes(self, mesh_axes, model) -> Optional[
+            ServingMeshLayout]:
+        """Validate ``mesh_axes``; the layout of a mesh of more than one
+        slot, or None (``tp = sp = 1`` is the single-device engine)."""
+        if mesh_axes is None:
+            return None
+        if not isinstance(mesh_axes, dict):
+            raise InvalidArgumentError(
+                f"mesh_axes must be a dict of axis degrees (tp=/sp=), got "
+                f"{mesh_axes!r}")
+        unknown = set(mesh_axes) - {"tp", "sp"}
+        if unknown:
+            raise InvalidArgumentError(
+                f"unknown mesh_axes key(s) {sorted(unknown)}; expected tp "
+                "(head sharding) / sp (sequence sharding)")
+        try:
+            tp = int(mesh_axes.get("tp", 1))
+            sp = int(mesh_axes.get("sp", 1))
+        except (TypeError, ValueError):
+            raise InvalidArgumentError(
+                f"mesh_axes degrees must be ints, got {mesh_axes!r}")
+        if tp < 1 or sp < 1:
+            raise InvalidArgumentError(
+                f"mesh_axes degrees must be >= 1, got tp={tp} sp={sp}")
+        if tp * sp == 1:
+            return None
+        heads = int(model.layers[0].attn.num_heads)
+        if heads % tp:
+            raise InvalidArgumentError(
+                f"mesh_axes tp={tp} must divide the model's num_heads "
+                f"({heads})")
+        from ..distributed.mesh import devices
+
+        n_dev = len(devices(self.device.type))
+        if tp * sp > n_dev:
+            raise InvalidArgumentError(
+                f"mesh_axes needs tp*sp = {tp * sp} devices but only "
+                f"{n_dev} are available")
+        return ServingMeshLayout(tp=tp, sp=sp)
 
     # --- host <-> device ----------------------------------------------------
     def _dput(self, x) -> torch.Tensor:
@@ -489,6 +567,78 @@ class ServingEngine:
         out, self._faulted = self._faulted, []
         return out
 
+    # --- page maintenance over the pools (sharded or not) ------------------
+    def _pool_dicts(self) -> List[dict]:
+        """Every pool dict: the engine's, or each mesh shard's."""
+        return self._kv if self._mesh_layout is not None else [self._kv]
+
+    def _page_shards(self, page_ids):
+        """Where global pages live: ``(pools, local rows, positions in
+        page_ids, head slice)`` for each pool dict holding some of them —
+        the engine's own (every id, every head), or on a mesh each shard
+        (t, s) with the ids of sequence shard s as its local rows and
+        tensor shard t's heads."""
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        if self._mesh_layout is None:
+            yield self._kv, self._dput(ids), np.arange(ids.size), slice(None)
+            return
+        lay = self._mesh_layout
+        per = self.cache.num_pages // lay.sp
+        h = self.model.layers[0].attn.num_heads // lay.tp
+        for j, pools in enumerate(self._kv):
+            t, s = divmod(j, lay.sp)
+            at = np.nonzero(ids // per == s)[0]
+            if at.size:
+                rows = self._dput(ids[at] % per).to(pools["k"][0].device)
+                yield pools, rows, at, slice(t * h, (t + 1) * h)
+
+    @staticmethod
+    def _heads(t: torch.Tensor, hs: slice) -> torch.Tensor:
+        """Head slice ``hs`` of a page pool [n, P, H, D] or scale rows
+        [n, H]."""
+        return t[:, hs] if t.dim() == 2 else t[:, :, hs]
+
+    def _global_zeros(self, pool: torch.Tensor, n: int) -> torch.Tensor:
+        """Zeros shaped like ``n`` rows of ``pool`` with all the model's
+        heads (a shard's pool holds H/tp), on the engine's device."""
+        shape = list(pool.shape)
+        shape[0] = n
+        shape[1 if pool.dim() == 2 else 2] = \
+            self.model.layers[0].attn.num_heads
+        return torch.zeros(shape, dtype=pool.dtype, device=self.device)
+
+    def _page_gather(self, page_ids) -> dict:
+        """A device copy of pages ``page_ids`` of every pool (scale rows
+        included), in the global layout — the pre-dispatch save of an
+        int8_dynamic spec rollback.  On a mesh the copy assembles each
+        page from its owning shards (``serving.shard.page_gathers``)."""
+        out = {side: [self._global_zeros(pool, len(page_ids))
+                      for pool in pools]
+               for side, pools in self._pool_dicts()[0].items()}
+        for pools, rows, at, hs in self._page_shards(page_ids):
+            at_dev = self._dput(at)
+            for side, saved in out.items():
+                for dst, pool in zip(saved, pools[side]):
+                    self._heads(dst, hs)[at_dev] = pool.index_select(
+                        0, rows).to(self.device)
+        if self._mesh_layout is not None:
+            self.metrics.on_shard_page_gather()
+        return out
+
+    def _page_put(self, page_ids, payload: dict):
+        """Write global-layout pages ``payload`` (a :meth:`_page_gather`
+        copy, or any subset of its sides) into pages ``page_ids``.  On a
+        mesh each shard takes its pages' rows and heads
+        (``serving.shard.page_scatters``)."""
+        for pools, rows, at, hs in self._page_shards(page_ids):
+            at_dev = self._dput(at)
+            for side, saved in payload.items():
+                for pool, src in zip(pools[side], saved):
+                    part = self._heads(src.index_select(0, at_dev), hs)
+                    pool.index_copy_(0, rows, part.to(pool.device))
+        if self._mesh_layout is not None:
+            self.metrics.on_shard_page_scatter()
+
     def _scrub_pages(self, page_ids):
         """Zero the payload of pages a quarantine frees, so the NaN they
         carry never reaches a future owner.  Int8 static scale rows are
@@ -497,28 +647,29 @@ class ServingEngine:
         dynamic rows are reset by ``_reset_page_scales``."""
         if not page_ids:
             return
-        rows = torch.as_tensor(page_ids, dtype=torch.long,
-                               device=self.device)
-        for side in ("k", "v"):
-            for pool in self._kv[side]:
-                pool[rows] = 0
+        n = len(page_ids)
+        payload = {side: [self._global_zeros(pool, n)
+                          for pool in self._pool_dicts()[0][side]]
+                   for side in ("k", "v")}
         if self._static_kv_scales is not None:
             for side in ("k", "v"):
-                for sc, static in zip(self._kv[f"{side}_scale"],
-                                      self._static_kv_scales[side]):
-                    sc[rows] = torch.as_tensor(
-                        np.asarray(static, np.float32), device=self.device)
+                payload[f"{side}_scale"] = [
+                    torch.as_tensor(np.asarray(static, np.float32),
+                                    device=self.device)[None, :].repeat(n, 1)
+                    for static in self._static_kv_scales[side]]
+        self._page_put(page_ids, payload)
 
     def _reset_page_scales(self, page_ids):
         """Dynamic int8 KV only: return (re)allocated pages' scales to
         the eps floor BEFORE anything is written through them, so their
-        quantization depends only on the owning sequence's tokens."""
+        quantization depends only on the owning sequence's tokens — on a
+        mesh, in the rows of the shards that own them."""
         if not self._kv_dynamic or not page_ids:
             return
-        rows = self._dput(np.asarray(page_ids, np.int64))
-        for side in ("k_scale", "v_scale"):
-            for sc in self._kv[side]:
-                sc[rows] = KV_SCALE_EPS
+        for pools, rows, _at, _hs in self._page_shards(page_ids):
+            for side in ("k_scale", "v_scale"):
+                for sc in pools[side]:
+                    sc[rows] = KV_SCALE_EPS
 
     def _quarantine(self, seq: Sequence):
         """Fail one guard-flagged request NOW (pipeline collapsed)."""
@@ -563,8 +714,9 @@ class ServingEngine:
             return
         pos = max(seq.pos - 1, 0)
         page = table[min(pos // self.page_size, len(table) - 1)]
-        for pool in self._kv.get("k_scale", self._kv["k"]):
-            pool[page] = float("nan")
+        for pools, rows, _at, _hs in self._page_shards([page]):
+            for pool in pools.get("k_scale", pools["k"]):
+                pool[rows] = float("nan")
 
     def kv_mode(self) -> str:
         """The KV pools' mode: ``native``, ``int8_static`` or
@@ -784,11 +936,8 @@ class ServingEngine:
                                      replica=self.chaos_key, size=int(sz))
             rows_tok, rows_pos = self._dput(rt), self._dput(rp)
             row_valid, advance = self._dput(rv), self._dput(adv)
-        (_out_rows, out_dec, self._tokens, self._pos,
-         self._kv) = self._ragged_fn(
-            self._tokens, self._pos, self._tables, rows_tok, rows_pos,
-            row_valid, advance, self._kv)
-        self.program_calls["ragged_step"] += 1
+        _out_rows, out_dec = self._run_ragged(rows_tok, rows_pos, row_valid,
+                                              advance)
         # chunk lanes did not decode this step: their out_dec entry is
         # junk and their host mirror must not advance
         snapshot = tuple(
@@ -808,6 +957,22 @@ class ServingEngine:
             dt = time.perf_counter() - plan["t0"]
             self.metrics.on_prefill(dt)
             self.metrics.on_prefill_chunks(plan["count"], plan["tokens"], dt)
+
+    def _run_ragged(self, rows_tok, rows_pos, row_valid, advance):
+        """One ragged dispatch against the device-resident lane state;
+        returns ``(out_rows, out_dec)``.  On a mesh it is the chaos site
+        ``serving.shard_sync`` (``delay``: a straggler shard holds the
+        step's collectives back; ``raise``: a failed exchange, the step
+        fails as a replica crash) and one ``serving.shard.steps``."""
+        if self._mesh_layout is not None:
+            chaos_site("serving.shard_sync", key=self.chaos_key)
+            self.metrics.on_shard_step()
+        (out_rows, out_dec, self._tokens, self._pos,
+         self._kv) = self._ragged_fn(
+            self._tokens, self._pos, self._tables, rows_tok, rows_pos,
+            row_valid, advance, self._kv)
+        self.program_calls["ragged_step"] += 1
+        return out_rows, out_dec
 
     # --- split dispatch ---------------------------------------------------
     def _dispatch(self, active: List[Tuple[int, Sequence]]) -> int:
@@ -943,19 +1108,6 @@ class ServingEngine:
         return emitted
 
     # --- speculative decoding -----------------------------------------------
-    def _page_gather(self, rows: torch.Tensor) -> dict:
-        """A device copy of pages ``rows`` of every pool (scale rows
-        included) — the pre-dispatch save of an int8_dynamic spec
-        rollback."""
-        return {side: [pool.index_select(0, rows) for pool in pools]
-                for side, pools in self._kv.items()}
-
-    def _page_put(self, rows: torch.Tensor, payload: dict):
-        """Write a :meth:`_page_gather` copy back into pages ``rows``."""
-        for side, pools in self._kv.items():
-            for pool, saved in zip(pools, payload[side]):
-                pool.index_copy_(0, rows, saved)
-
     def _spec_touched_pages(self, seq: Sequence) -> List[int]:
         """The allocated pages a spec dispatch can write for ``seq``:
         pages covering positions [pos, pos + K) that exist in its table
@@ -1047,8 +1199,7 @@ class ServingEngine:
             for lane, seq in active:
                 rows = self._spec_touched_pages(seq)
                 if rows:
-                    rows_dev = self._dput(np.asarray(rows, np.int64))
-                    saved[lane] = (rows_dev, self._page_gather(rows_dev))
+                    saved[lane] = (rows, self._page_gather(rows))
         # [K, bucket] teacher-forcing inputs: row 0 every lane's real next
         # token, rows 1.. the draft (junk-padded to K; outputs past the
         # real draft are ignored here, their writes land in reserved
@@ -1075,13 +1226,10 @@ class ServingEngine:
             for lane, seq in active:
                 rows_pos[lane] = seq.pos + np.arange(K)
                 rows_val[lane] = RAGGED_NO_LIMIT
-            (out_rows, _dec, self._tokens, self._pos,
-             self._kv) = self._ragged_fn(
-                self._tokens, self._pos, self._tables,
+            out_rows, _dec = self._run_ragged(
                 self._dput(np.ascontiguousarray(draft_mat.T)),
                 self._dput(rows_pos), self._dput(rows_val),
-                self._dput(np.zeros((bucket,), np.int32)), self._kv)
-            self.program_calls["ragged_step"] += 1
+                self._dput(np.zeros((bucket,), np.int32)))
             self.metrics.on_ragged(spec_rows=K * len(active), q_bucket=K)
             t0 = time.perf_counter()
             toks = np.ascontiguousarray(out_rows.cpu().numpy().T)
@@ -1277,9 +1425,11 @@ class ServingEngine:
         return self.outputs.pop(request_id, None)
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV page pools, int8 scale rows included."""
+        """Device bytes of the KV page pools (every shard's on a mesh),
+        int8 scale rows included."""
         return int(sum(t.numel() * t.element_size()
-                       for side in self._kv.values() for t in side))
+                       for pools in self._pool_dicts()
+                       for side in pools.values() for t in side))
 
     def kv_bytes_per_token(self) -> float:
         """K+V bytes one cached token costs across all layers (scale rows
@@ -1308,6 +1458,10 @@ class ServingEngine:
                 "state_bucket": self._state_bucket,
                 "numeric_guards": self.numeric_guards,
                 "device": str(self.device),
+                "mesh": (None if self._mesh_layout is None else {
+                    "tp": self._mesh_layout.tp,
+                    "sp": self._mesh_layout.sp,
+                    "devices": self._mesh_layout.size}),
             },
             "spec": (self.spec.stats() if self.spec is not None
                      else {"enabled": False}),

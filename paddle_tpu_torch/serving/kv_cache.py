@@ -230,6 +230,9 @@ class PagedKVCache:
         if seq_id in self._tables or len(page_ids) > self.pages_per_seq:
             return False
         for page in page_ids:
+            if int(page) in self.reserved_pages:
+                raise InvalidArgumentError(
+                    f"shared page id {page} is reserved (a trash page)")
             if int(page) not in self._ref:
                 raise InvalidArgumentError(
                     f"shared page id {page} is not resident")

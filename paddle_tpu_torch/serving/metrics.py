@@ -11,9 +11,8 @@ ServingMetrics resets them.
 
 Not in this slice: ``FrontendMetrics`` and ``FleetMetrics`` (the
 frontend and router, ROADMAP queue 1 item 7), the recent-window
-histograms that their SLO tracker and healthz read, and the prefix-cache,
-snapshot and mesh counters of the engine features that are not ported
-yet.
+histograms that their SLO tracker and healthz read, and the prefix-cache
+and snapshot counters of the engine features that are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +36,12 @@ class ServingMetrics:
               "serving.ragged.row_bucket",
               # speculative decoding: lifetime fraction of drafted
               # tokens the verifier accepted
-              "serving.spec.accept_rate")
+              "serving.spec.accept_rate",
+              # mesh-sharded serving: the replica's mesh shape — tensor
+              # (head) shards, sequence (page) shards and their product
+              # (device slots per replica)
+              "serving.shard.tp", "serving.shard.sp",
+              "serving.shard.devices")
     COUNTERS = ("serving.steps", "serving.tokens_generated",
                 "serving.requests_admitted", "serving.requests_completed",
                 "serving.preemptions", "serving.prefill_chunks",
@@ -54,7 +58,13 @@ class ServingMetrics:
                 # verifier, the split into accepted and rejected, and the
                 # lanes whose draft was cut short
                 "serving.spec.drafted", "serving.spec.accepted",
-                "serving.spec.rejected", "serving.spec.rollbacks")
+                "serving.spec.rejected", "serving.spec.rollbacks",
+                # mesh-sharded serving: ragged dispatches that ran as one
+                # mesh step (every one crosses the tp/sp collectives), and
+                # maintenance traffic that assembled (gather) or
+                # re-distributed (scatter) sharded KV pages
+                "serving.shard.steps", "serving.shard.page_gathers",
+                "serving.shard.page_scatters")
     HISTOGRAMS = ("serving.step_latency_ms", "serving.prefill_latency_ms",
                   "serving.decode_latency_ms", "serving.ttft_ms",
                   "serving.dispatch_gap_ms")
@@ -146,6 +156,33 @@ class ServingMetrics:
         if total_d:
             stat_registry.get("serving.spec.accept_rate").set(
                 total_a / total_d)
+
+    # --- mesh-sharded serving ----------------------------------------------
+    def on_shard_config(self, *, tp: int, sp: int, devices: int):
+        """Published once at engine construction: the replica's mesh
+        shape — ``tp`` head shards x ``sp`` KV-page shards over
+        ``devices`` slots.  Gauged (not counted), so a scrape always reads
+        the live topology."""
+        stat_registry.get("serving.shard.tp").set(int(tp))
+        stat_registry.get("serving.shard.sp").set(int(sp))
+        stat_registry.get("serving.shard.devices").set(int(devices))
+
+    def on_shard_step(self, n: int = 1):
+        """One ragged dispatch ran as a mesh step: its matmuls
+        head-sharded over ``tp`` and/or its paged attention page-sharded
+        over ``sp``, with the partial-softmax exchange inside the step."""
+        stat_registry.get("serving.shard.steps").add(n)
+
+    def on_shard_page_gather(self, n: int = 1):
+        """One maintenance gather assembled sharded KV pages into the
+        global layout (a spec-rollback save) — a cross-shard collect the
+        single-device engine does not need."""
+        stat_registry.get("serving.shard.page_gathers").add(n)
+
+    def on_shard_page_scatter(self, n: int = 1):
+        """One maintenance scatter re-distributed global page payloads
+        across the shards (a quarantine scrub, a spec-rollback restore)."""
+        stat_registry.get("serving.shard.page_scatters").add(n)
 
     def on_nan_lane(self, n: int = 1):
         """A dispatch returned non-finite logits for a lane."""
@@ -246,6 +283,10 @@ class ServingMetrics:
             short: stat_registry.get(f"serving.ragged.{short}").get()
             for short in ("steps", "decode_rows", "prefill_rows",
                           "spec_rows", "row_bucket")}
+        snap["shard"] = {
+            short: stat_registry.get(f"serving.shard.{short}").get()
+            for short in ("tp", "sp", "devices", "steps", "page_gathers",
+                          "page_scatters")}
         for name in self.HISTOGRAMS:
             h = stat_registry.histogram(name).snapshot()
             snap[name[len("serving."):]] = {

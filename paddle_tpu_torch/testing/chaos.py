@@ -27,6 +27,14 @@ Instrumented sites in this package
                       reserved; the request stream is unchanged).
                       Evaluated once per spec-capable engine step.
                       Key: the engine's chaos key.
+``serving.shard_sync``  ServingEngine, before each ragged dispatch of a
+                      mesh engine (never on a single-device engine) —
+                      ``delay`` models a straggler shard holding up the
+                      step's tp/sp collectives (the whole replica
+                      stalls: one mesh replica is one failure domain),
+                      ``raise`` a failed cross-shard exchange, which
+                      fails the step as a replica crash.  Key: the
+                      engine's chaos key.
 
 Sites check ``chaos_site(site, key)``, which is a single global read when
 no plan is installed — production paths pay nothing.

@@ -39,25 +39,37 @@ Quantization (the JAX package's "Quantized serving"):
   write time and the page's earlier content is requantized under the new
   scale; the engine resets a page's scales when it is (re)allocated.
 
-Not in this slice (each raises where a caller could ask for it): the
-mesh-sharded core, beam search.
+The mesh-sharded core (:func:`_make_gpt_paged_sharded_core`, reached
+through ``mesh_layout=`` a :class:`ServingMeshLayout` of more than one
+shard) spans one serving replica over a ``(tp, sp)`` grid of device slots
+(``distributed/mesh.py``): q/k/v/fc1 weights split by column over tp,
+each pool's heads over tp and its pages over sp.  One process drives
+every shard in turn; the collectives are tensor operations over the
+shards' outputs.  A sequence shard attends over the pages it owns through
+the stats form of the ragged kernel, and the shards merge in lse space.
+It serves the ragged layout only.
+
+Not in this slice (each raises where a caller could ask for it): beam
+search.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 import torch
 
 from ..framework.errors import InvalidArgumentError
-from ..ops.paged_attention import paged_attention, ragged_paged_attention
+from ..ops.paged_attention import (paged_attention, ragged_paged_attention,
+                                   ragged_paged_attention_stats)
 from ..ops.quantized_matmul import quantized_matmul
 
 __all__ = ["make_gpt_decode_step", "make_gpt_paged_decode_step",
            "make_gpt_paged_prefill_step", "make_gpt_paged_fused_decode_step",
            "make_gpt_paged_spec_verify_step", "make_gpt_paged_ragged_step",
-           "RAGGED_NO_LIMIT", "prefill", "generate"]
+           "ServingMeshLayout", "RAGGED_NO_LIMIT", "prefill", "generate"]
 
 # per-row KV-horizon sentinel for the unified ragged step: a decode row
 # carries this instead of a real valid_len, making the core's padding
@@ -170,15 +182,19 @@ def _as_layer_scales(kv_scales, L, H, device):
 class _Weights:
     """Detached parameters plus the JAX package's ``x @ W`` product
     (``nn.Linear`` stores ``W`` as ``[out, in]``), through the int8
-    kernel for the names in ``weight_quant``."""
+    kernel for the names in ``weight_quant``.
 
-    def __init__(self, model, weight_quant=None):
-        self.p: Dict[str, torch.Tensor] = {
+    ``params``/``heads`` (a shard of the mesh core): the shard's own
+    parameters, its q/k/v/fc1 cut to ``heads`` of the model's heads."""
+
+    def __init__(self, model, weight_quant=None, *, params=None, heads=None):
+        self.p: Dict[str, torch.Tensor] = params if params is not None else {
             n: t.detach() for n, t in model.named_parameters()}
         self.L = len(model.layers)
-        self.H = model.layers[0].attn.num_heads
+        H = model.layers[0].attn.num_heads
         self.hidden = self.p["wte.weight"].shape[1]
-        self.D = self.hidden // self.H
+        self.D = self.hidden // H
+        self.H = heads or H
         self.wte = self.p["wte.weight"]
         self.wpe = self.p["wpe.weight"]
         self.mm = _make_mm(self.p, weight_quant, self.wte.device)
@@ -186,16 +202,27 @@ class _Weights:
     def lp(self, i, name):
         return self.p[f"layers.{i}.{name}"]
 
+    def attn_out(self, i, x, ctx):
+        """Output projection and residual of layer ``i``."""
+        return x + (self.mm(ctx, f"layers.{i}.attn.out_proj.weight")
+                    + self.lp(i, "attn.out_proj.bias"))
+
+    def ffn_in(self, i, x):
+        """LayerNorm, fc1 and GELU of layer ``i``'s MLP."""
+        h2 = _ln(x, self.lp(i, "ln2.weight"), self.lp(i, "ln2.bias"))
+        return _gelu(self.mm(h2, f"layers.{i}.fc1.weight")
+                     + self.lp(i, "fc1.bias"))
+
+    def ffn_out(self, i, x, ff):
+        """fc2 and residual of layer ``i``'s MLP."""
+        return x + self.mm(ff, f"layers.{i}.fc2.weight") \
+            + self.lp(i, "fc2.bias")
+
     def block_tail(self, i, x, ctx):
         """Output projection, residual and MLP of layer ``i`` (the JAX
         step's exact association order)."""
-        x = x + (self.mm(ctx, f"layers.{i}.attn.out_proj.weight")
-                 + self.lp(i, "attn.out_proj.bias"))
-        h2 = _ln(x, self.lp(i, "ln2.weight"), self.lp(i, "ln2.bias"))
-        ff = _gelu(self.mm(h2, f"layers.{i}.fc1.weight")
-                   + self.lp(i, "fc1.bias"))
-        return x + self.mm(ff, f"layers.{i}.fc2.weight") \
-            + self.lp(i, "fc2.bias")
+        x = self.attn_out(i, x, ctx)
+        return self.ffn_out(i, x, self.ffn_in(i, x))
 
     def qkv(self, i, x, N):
         h = _ln(x, self.lp(i, "ln1.weight"), self.lp(i, "ln1.bias"))
@@ -317,9 +344,16 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
     lists of ``[N, H]`` f32 per layer — the calibrated scale broadcast per
     page (static ``kv_scales``, never mutated) or ``KV_SCALE_EPS`` grown
     by the writes (dynamic).  ``weight_quant`` routes every projection and
-    MLP matmul through the weight-only int8 kernel."""
-    if mesh_layout is not None:
-        _unsupported("the mesh-sharded core (mesh_layout)", "item 12")
+    MLP matmul through the weight-only int8 kernel.
+
+    ``mesh_layout`` (a :class:`ServingMeshLayout` of more than one shard)
+    swaps in :func:`_make_gpt_paged_sharded_core`: the same contract over
+    the layout's device slots."""
+    if mesh_layout is not None and mesh_layout.size > 1:
+        return _make_gpt_paged_sharded_core(
+            model, page_size, pages_per_seq, mesh_layout,
+            kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
+            weight_quant=weight_quant)
     quant_kv = _check_kv_dtype(kv_cache_dtype)
     w = _Weights(model, weight_quant)
     L, H, D = w.L, w.H, w.D
@@ -407,6 +441,315 @@ def _make_gpt_paged_core(model, page_size: int, pages_per_seq: int, *,
         return w.head(x), kv
 
     return core, init_pages
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded serving replica
+# ---------------------------------------------------------------------------
+
+# parameter-name fragments whose weights split by column over tp (output
+# dim = heads * head_dim for q/k/v, ffn for fc1); everything else is
+# replicated
+_TP_COLUMN_SHARDED = (".attn.q_proj.", ".attn.k_proj.", ".attn.v_proj.",
+                      ".fc1.")
+
+
+@dataclass(frozen=True)
+class ServingMeshLayout:
+    """Sharding layout of one mesh-sized serving replica: ``tp`` head
+    shards times ``sp`` page shards, ``size == tp * sp`` device slots.
+
+    In place of the JAX package's PartitionSpecs it cuts full tensors
+    into a shard's part: :meth:`shard_param` and :meth:`shard_weight_quant`
+    by parameter name, :meth:`shard_pool` a page pool ``[N, P, H, D]``
+    (pages over sp, heads over tp: the shard holds ``[N/sp, P, H/tp, D]``)
+    or its scale rows ``[N, H]`` (``[N/sp, H/tp]``)."""
+
+    tp: int = 1
+    sp: int = 1
+    tp_axis: str = "tp"
+    sp_axis: str = "sp"
+    data_axis: str = "data"
+
+    def __post_init__(self):
+        if int(self.tp) < 1 or int(self.sp) < 1:
+            raise ValueError(
+                f"mesh degrees must be >= 1, got tp={self.tp} sp={self.sp}")
+
+    @property
+    def size(self) -> int:
+        return int(self.tp) * int(self.sp)
+
+    def axes(self):
+        """Named axis sizes for ``distributed.mesh.init_mesh``."""
+        return {self.tp_axis: int(self.tp), self.sp_axis: int(self.sp),
+                self.data_axis: 1}
+
+    def reserved_pages(self, num_pages: int):
+        """Global page ids reserved as per-shard trash rows: shard s's
+        local row 0 is global page ``s * (num_pages // sp)`` — non-owned
+        and masked-lane scatters land there, so it never holds live KV.
+        ``(0,)`` (the classic trash page) at sp == 1."""
+        per = int(num_pages) // int(self.sp)
+        return tuple(s * per for s in range(int(self.sp)))
+
+    def column_sharded(self, name: str) -> bool:
+        return any(frag in name for frag in _TP_COLUMN_SHARDED)
+
+    def shard_param(self, name: str, value: torch.Tensor, t: int):
+        """Tensor-shard ``t``'s part of parameter ``name`` in the port's
+        layout: a column-sharded Linear weight ``[out, in]`` keeps its
+        ``t``-th block of output rows (the JAX ``[in, out]`` weight's
+        columns), its bias the same block; the rest is replicated."""
+        if self.tp == 1 or not self.column_sharded(name):
+            return value
+        n = value.shape[0] // self.tp
+        return value[t * n:(t + 1) * n]
+
+    def shard_weight_quant(self, name: str, qweight, scale, t: int):
+        """Tensor-shard ``t``'s part of an int8 weight ``[K, N]`` and its
+        ``[N]`` scale (the export's layout): the scale is cut with its
+        columns."""
+        q = torch.as_tensor(np.asarray(qweight)) \
+            if not isinstance(qweight, torch.Tensor) else qweight
+        sc = torch.as_tensor(np.asarray(scale, np.float32)) \
+            if not isinstance(scale, torch.Tensor) else scale
+        if self.tp == 1 or not self.column_sharded(name):
+            return q, sc
+        n = q.shape[1] // self.tp
+        return q[:, t * n:(t + 1) * n].contiguous(), sc[t * n:(t + 1) * n]
+
+    def shard_pool(self, pool: torch.Tensor, t: int, s: int):
+        """Shard ``(t, s)``'s part of a page pool ``[N, P, H, D]`` or of
+        its scale rows ``[N, H]``."""
+        per = pool.shape[0] // self.sp
+        hd = 2 if pool.dim() == 4 else 1
+        h = pool.shape[hd] // self.tp
+        idx = [slice(s * per, (s + 1) * per)] + [slice(None)] * (hd - 1) \
+            + [slice(t * h, (t + 1) * h)]
+        return pool[tuple(idx)]
+
+    def assemble_pool(self, shards):
+        """The global pool from the shards' parts (shard ``t * sp + s``):
+        pages concatenated over sp, then heads over tp."""
+        hd = 2 if shards[0].dim() == 4 else 1
+        dev = shards[0].device
+        cols = [torch.cat([shards[t * self.sp + s].to(dev)
+                           for s in range(self.sp)], dim=0)
+                for t in range(self.tp)]
+        return torch.cat(cols, dim=hd)
+
+
+def _make_gpt_paged_sharded_core(model, page_size: int, pages_per_seq: int,
+                                 layout: ServingMeshLayout, *,
+                                 kv_cache_dtype=None, kv_scales=None,
+                                 weight_quant=None):
+    """Mesh-sharded twin of ``_make_gpt_paged_core``: the same ``(core,
+    init_pages)`` contract over the layout's ``(tp, sp)`` device slots
+    (``distributed.mesh.init_mesh(layout.axes())``).
+
+    Shard ``(t, s)`` — index ``t * sp + s`` of the per-shard lists — holds
+    tensor shard t of the weights (q/k/v/fc1 by column, int8 scales with
+    their columns, the rest replicated) and the pools' part ``[N/sp, P,
+    H/tp, D]``.  ``init_pages(num_pages)`` returns the list of per-shard
+    pool dicts; ``core`` updates them in place and returns the same list.
+    One call runs every shard in turn, layer by layer, in the JAX
+    program's order:
+
+    - every row's K/V scatters into its shard's pool before any read; a
+      global page id maps to (owner s, local row ``id % (N/sp)``), and a
+      row whose page another shard owns scatters into the shard's local
+      row 0 (a reserved page, never read);
+    - at sp == 1 the ragged kernel runs on the shard's heads; at sp > 1
+      its stats form over the owned pages, then the lse merge across sp:
+      ``M = pmax(lse); w = exp(lse - M); ctx = psum(o w) / max(psum(w),
+      1e-30)``;
+    - at tp > 1 a tiled all-gather of the context and of the fc1
+      activations; out_proj and fc2 run on the full width.
+
+    The replicated work (embedding, out_proj, fc2, the head) runs once
+    per shard, as on each chip of a mesh.  Serves the ragged layout only
+    (``qgroup`` required)."""
+    from ..distributed import mesh as mesh_lib
+
+    quant_kv = _check_kv_dtype(kv_cache_dtype)
+    full = _Weights(model)
+    L, H, D = full.L, full.H, full.D
+    max_pos = full.wpe.shape[0]
+    tp, sp = int(layout.tp), int(layout.sp)
+    if H % tp:
+        raise ValueError(f"num_heads ({H}) must be divisible by tp ({tp})")
+    H_loc = H // tp
+    device = full.wte.device
+    k_sc, v_sc = _as_layer_scales(kv_scales, L, H, device)
+    mesh = mesh_lib.init_mesh(layout.axes(), device_type=device.type)
+    shards = [(t, s, mesh.slot(**{layout.tp_axis: t, layout.sp_axis: s}))
+              for t in range(tp) for s in range(sp)]
+
+    # one weight set per (tensor shard, device): the sp shards of a tensor
+    # shard that share a device share its weights
+    weights = {}
+    for t, _s, dev in shards:
+        if (t, dev) in weights:
+            continue
+        params = {n: layout.shard_param(n, p, t).to(dev)
+                  for n, p in full.p.items()}
+        wq = None
+        if weight_quant:
+            wq = {n: tuple(a.to(dev) for a in layout.shard_weight_quant(
+                n, qv, sv, t)) for n, (qv, sv) in weight_quant.items()}
+        weights[t, dev] = _Weights(model, wq, params=params, heads=H_loc)
+    shard_w = [weights[t, dev] for t, _s, dev in shards]
+
+    def static_rows(scales, t, dev):
+        return [sc[t * H_loc:(t + 1) * H_loc].to(dev) for sc in scales]
+
+    shard_ksc = shard_vsc = None
+    if k_sc is not None:
+        shard_ksc = [static_rows(k_sc, t, dev) for t, _s, dev in shards]
+        shard_vsc = [static_rows(v_sc, t, dev) for t, _s, dev in shards]
+
+    def init_pages(num_pages: int):
+        if num_pages % sp:
+            raise ValueError(
+                f"num_pages ({num_pages}) must be divisible by sp ({sp})")
+        per = num_pages // sp
+        kvs = []
+        for j, (t, _s, dev) in enumerate(shards):
+            def z():
+                return torch.zeros((per, page_size, H_loc, D),
+                                   dtype=torch.int8 if quant_kv
+                                   else full.wte.dtype, device=dev)
+
+            kv = {"k": [z() for _ in range(L)], "v": [z() for _ in range(L)]}
+            if quant_kv:
+                from ..serving.kv_cache import KV_SCALE_EPS
+
+                def sc(static):
+                    if static is None:
+                        return torch.full((per, H_loc), KV_SCALE_EPS,
+                                          dtype=torch.float32, device=dev)
+                    return static[None, :].expand(per, H_loc).clone()
+
+                for side, rows in (("k", shard_ksc), ("v", shard_vsc)):
+                    kv[f"{side}_scale"] = [
+                        sc(rows[j][i] if rows else None) for i in range(L)]
+            kvs.append(kv)
+        return kvs
+
+    @torch.no_grad()
+    def core(tokens, pos, page_tables, kv, valid_len=None, with_head=True,
+             qgroup=None):
+        if qgroup is None:
+            raise NotImplementedError(
+                "the mesh-sharded paged core serves the unified ragged "
+                "layout only (the mesh engine runs ragged=True)")
+        Q = int(qgroup)
+        N = tokens.shape[0]
+        G = N // Q
+        per = kv[0]["k"][0].shape[0]
+        pos = pos.long()
+        tables = page_tables.long()
+        row_tables = torch.repeat_interleave(tables, Q, dim=0)
+        pos_c = torch.clamp(pos, max=max_pos - 1)
+        page_of = torch.clamp(pos // page_size, max=pages_per_seq - 1)
+        page_idx = torch.gather(row_tables, 1, page_of[:, None])[:, 0]
+        slot = pos % page_size
+        seq_lens = pos + 1
+        if valid_len is not None:
+            vl = torch.as_tensor(valid_len, device=pos.device).long()
+            page_idx = torch.where(pos < vl, page_idx,
+                                   torch.zeros_like(page_idx))
+            seq_lens = torch.minimum(seq_lens, vl)
+        seq_lens = seq_lens.to(torch.int32).reshape(G, Q)
+        # the replicated inputs, on every slot (one copy per device), and
+        # each sequence shard's view of the pages: global ids -> local rows
+        # of the shard that owns them, row 0 where another shard does
+        inputs = {}
+        for t, s, dev in shards:
+            if (s, dev) in inputs:
+                continue
+            owner = (page_idx // per) == s
+            pt_owner = (tables // per) == s
+            inputs[s, dev] = dict(
+                tok=tokens.long().to(dev), pos_c=pos_c.to(dev),
+                slot=slot.to(dev), sl=seq_lens.to(dev),
+                local=torch.where(owner, page_idx % per,
+                                  torch.zeros_like(page_idx)).to(dev),
+                pt_local=torch.where(pt_owner, tables % per,
+                                     torch.zeros_like(tables)).to(dev),
+                pt_owner=pt_owner.to(dev))
+        ins = [inputs[s, dev] for _t, s, dev in shards]
+        xs = [w.wte[a["tok"]] + w.wpe[a["pos_c"]]
+              for w, a in zip(shard_w, ins)]
+        for i in range(L):
+            ctx, lse = [], []
+            for j, (w, a, pools) in enumerate(zip(shard_w, ins, kv)):
+                q, k1, v1 = w.qkv(i, xs[j], N)
+                kc, vc = pools["k"][i], pools["v"][i]
+                # scatter BEFORE the attention read (duplicate writes land
+                # only on local row 0, which is never read)
+                if quant_kv:
+                    _quant_write_page(kc, pools["k_scale"][i], a["local"],
+                                      a["slot"], k1,
+                                      shard_ksc[j][i] if shard_ksc else None)
+                    _quant_write_page(vc, pools["v_scale"][i], a["local"],
+                                      a["slot"], v1,
+                                      shard_vsc[j][i] if shard_vsc else None)
+                    scales = (pools["k_scale"][i], pools["v_scale"][i])
+                else:
+                    kc[a["local"], a["slot"]] = k1
+                    vc[a["local"], a["slot"]] = v1
+                    scales = ()
+                qg = q.reshape(G, Q, H_loc, D)
+                if sp == 1:
+                    ctx.append(ragged_paged_attention(
+                        qg, kc, vc, a["pt_local"], a["sl"], *scales))
+                else:
+                    o, l_ = ragged_paged_attention_stats(
+                        qg, kc, vc, a["pt_local"], a["sl"], a["pt_owner"],
+                        *scales)
+                    ctx.append(o)
+                    lse.append(l_)
+            if sp > 1:
+                # the partial-softmax exchange across the sequence shards
+                # of each tensor shard, in lse space
+                for t in range(tp):
+                    grp = range(t * sp, (t + 1) * sp)
+                    mx = mesh_lib.pmax([lse[j] for j in grp])
+                    wts = [torch.exp(lse[j] - m) for j, m in zip(grp, mx)]
+                    num = mesh_lib.psum([ctx[j] * wj[..., None]
+                                         for j, wj in zip(grp, wts)])
+                    den = mesh_lib.psum(wts)
+                    for j, nu, de in zip(grp, num, den):
+                        ctx[j] = nu / torch.clamp(de, min=1e-30)[..., None]
+            ctx = [c.reshape(N, H_loc * D) for c in ctx]
+            if tp > 1:
+                ctx = _gather_tp(ctx, tp, sp)
+            xs = [w.attn_out(i, x, c) for w, x, c in zip(shard_w, xs, ctx)]
+            ff = [w.ffn_in(i, x) for w, x in zip(shard_w, xs)]
+            if tp > 1:
+                ff = _gather_tp(ff, tp, sp)
+            xs = [w.ffn_out(i, x, f) for w, x, f in zip(shard_w, xs, ff)]
+        if not with_head:
+            return None, kv
+        logits = [w.head(x) for w, x in zip(shard_w, xs)]
+        return logits[0].to(device), kv
+
+    return core, init_pages
+
+
+def _gather_tp(parts, tp: int, sp: int):
+    """The tiled all-gather over tp of per-shard ``[N, n]`` activations
+    (shard ``t * sp + s``), along the feature axis."""
+    from ..distributed.mesh import all_gather
+
+    out = list(parts)
+    for s in range(sp):
+        grp = [t * sp + s for t in range(tp)]
+        for j, g in zip(grp, all_gather([parts[j] for j in grp], dim=1)):
+            out[j] = g
+    return out
 
 
 def make_gpt_paged_decode_step(model, page_size: int, pages_per_seq: int, *,

@@ -482,6 +482,177 @@ def test_spec_engine_streams_equal_generate_on_the_card():
 
 
 # --------------------------------------------------------------------------
+# the stats form of the ragged kernel (bodies #3, #3q)
+# --------------------------------------------------------------------------
+# lse vs the plain version: the same f32 scores, exp-summed in another
+# order (values up to ~10)
+LSE_TOL = 1e-5
+
+
+def _page_ok(pt, owner_none=3):
+    """Every second table entry owned; lane ``owner_none`` owns nothing."""
+    ok = (torch.arange(pt.shape[1], device=pt.device)[None, :] % 2 == 0
+          ).expand_as(pt).to(torch.int32).contiguous()
+    ok[owner_none] = 0
+    return ok
+
+
+def _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype):
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=LSE_TOL)
+    # rows with nothing visible: no visible length or no owned page
+    P_any = (ok != 0).any(dim=1)[:, None].expand_as(rl)
+    empty = (rl == 0) | ~P_any
+    assert empty.any() and (o[empty] == 0).all()
+    assert (lse[empty] == pa.NEG_INF).all()
+    assert lse.dtype == torch.float32 and lse.shape == rl.shape + (
+        o.shape[2],)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Qb", [1, 3, 8, 64])
+@pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
+                                     (6, 64, 16, 8), (4, 128, 16, 4),
+                                     (3, 48, 5, 7)],
+                         ids=["test-shape", "gpt2", "gpt2-tp2", "d128",
+                              "odd"])
+def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype):
+    q, kp, vp, pt, rl = _case(0, 5, Qb, H, D, P, M, dtype)
+    ok = _page_ok(pt)
+    _zero_counts()
+    o, lse = pa.ragged_paged_attention_stats(q, kp, vp, pt, rl, ok)
+    torch.cuda.synchronize()
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda_stats=1)
+    ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(
+        q.float(), kp.float(), vp.float(), pt, rl, ok)
+    _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype)
+    assert o.dtype == dtype and o.shape == q.shape
+
+
+@pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Qb", [1, 8, 64])
+@pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
+                                     (6, 64, 16, 8), (3, 48, 5, 7),
+                                     (2, 20, 4, 5)],
+                         ids=["test-shape", "gpt2", "gpt2-tp2", "odd",
+                              "bytewise-d20"])
+def test_int8_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype,
+                                                 fused):
+    q, kq, vq, pt, rl, ks, vs = _int8(_case(0, 5, Qb, H, D, P, M, dtype))
+    ok = _page_ok(pt)
+    _zero_counts()
+    o, lse = pa.ragged_paged_attention_stats(q, kq, vq, pt, rl, ok, ks, vs,
+                                             fused_dequant=fused)
+    torch.cuda.synchronize()
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda_stats_int8=1)
+    ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(
+        q.float(), kq, vq, pt, rl, ok, ks, vs)
+    _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype)
+
+
+@pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
+def test_int8_stats_kernel_nan_scale_reaches_exactly_its_readers(fused):
+    """A NaN K scale on an owned page reaches exactly the rows that read
+    it; one on a page this shard does not own reaches nobody."""
+    q, kq, vq, pt, rl, ks, vs = _int8(_case(3, 5, 8, 12, 64, 16, 8,
+                                            torch.float32))
+    ok = _page_ok(pt, owner_none=0)
+    ks[int(pt[3, 2]), 5] = float("nan")    # lane 3's third page: owned
+    ks[int(pt[3, 1]), 6] = float("nan")    # its second: not owned
+    o, lse = pa.ragged_paged_attention_stats(q, kq, vq, pt, rl, ok, ks, vs,
+                                             fused_dequant=fused)
+    ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(q, kq, vq, pt, rl,
+                                                         ok, ks, vs)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(o).all(dim=-1)                    # [G, Qb, H]
+    want = ~torch.isfinite(ref_o).all(dim=-1)
+    assert want.any() and torch.equal(bad, want)
+    # the readers: head 5 of lane 3's rows that see past position 32
+    assert torch.equal(bad[3, :, 5], rl[3] > 32)
+    assert not bad[:, :, [h for h in range(12) if h != 5]].any()
+    fin = ~want[..., None].expand_as(o)
+    torch.testing.assert_close(o[fin], ref_o[fin], rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse[~want], ref_lse[~want], rtol=0,
+                               atol=LSE_TOL)
+
+
+def test_stats_wrapper_rejects_what_the_kernel_does_not_take():
+    q, kp, vp, pt, rl = _case(1, 4, 1, 2, 16, 4, 6, torch.float32)
+    ok = _page_ok(pt, owner_none=0)
+    with pytest.raises(ValueError, match="page_ok"):
+        pa.ragged_paged_attention_stats(q, kp, vp, pt, rl, ok[:, :2])
+    with pytest.raises(ValueError, match="page_ok is on cpu"):
+        pa.ragged_paged_attention_stats(q, kp, vp, pt, rl, ok.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.ragged_paged_attention_stats_cuda(q.cpu(), kp.cpu(), vp.cpu(),
+                                             pt.cpu(), rl.cpu(), ok.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(4, 1, 1, 160, device="cuda")
+        pools = torch.zeros(8, 4, 1, 160, device="cuda")
+        pa.ragged_paged_attention_stats(big, pools, pools, pt, rl, ok)
+
+
+def test_stats_merge_over_page_shards_equals_the_full_softmax():
+    """Two owners splitting every lane's pages: the lse-space merge of
+    their stats equals the ragged kernel over all pages."""
+    q, kp, vp, pt, rl = _case(4, 5, 8, 12, 64, 16, 8, torch.float32)
+    ok = _page_ok(pt, owner_none=0)
+    ok[0] = 1
+    parts = [pa.ragged_paged_attention_stats(q, kp, vp, pt, rl, o)
+             for o in (ok, (1 - ok).contiguous())]
+    mx = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(lse - mx) for _, lse in parts]
+    ctx = sum(o * wi[..., None] for (o, _), wi in zip(parts, w)) \
+        / torch.clamp(w[0] + w[1], min=1e-30)[..., None]
+    full = pa.ragged_paged_attention(q, kp, vp, pt, rl)
+    torch.testing.assert_close(ctx, full, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"],
+                         ids=["native", "int8_dynamic"])
+def test_mesh_engine_streams_equal_the_single_device_engine_on_the_card(
+        kv_cache_dtype):
+    """tp 2 x sp 2 over 4 slots of cuda:0, in a 16-page pool (8 pages a
+    sequence shard, so sequences span both): every ragged dispatch
+    launches the stats kernel once per shard and layer, and the streams
+    equal the single-device engine's."""
+    from paddle_tpu_torch.distributed import force_device_count
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    m, prompts = _engine_case()
+    base = dict(page_size=4, max_batch_size=4, prefill_chunk=8, eos_id=-1,
+                num_pages=16, kv_cache_dtype=kv_cache_dtype)
+    single = create_serving_engine(m, **base)
+    ids = [single.add_request(p, max_new_tokens=12) for p in prompts]
+    outs = single.drain()
+    want = [outs[r] for r in ids]
+    prev = force_device_count(4)
+    try:
+        eng = create_serving_engine(m, mesh_axes={"tp": 2, "sp": 2}, **base)
+    finally:
+        force_device_count(prev)
+    _zero_counts()
+    ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+    spans = set()
+    while eng.scheduler.has_work() or eng._pending:
+        eng.step()
+        spans.update(len({p // 8 for p in eng.cache.seq_page_ids(s.seq_id)})
+                     for s in eng.scheduler.running)
+    outs = eng.drain()
+    steps = eng.stats()["programs"]["ragged_step"]
+    key = "cuda_stats_int8" if kv_cache_dtype else "cuda_stats"
+    assert pa.PAGED_ROUTE_STATS == _counts(**{key: 2 * 4 * steps})
+    assert eng.stats()["metrics"]["shard"]["steps"] == steps
+    assert 2 in spans and eng.cache.pages_in_use == 0
+    for w, rid in zip(want, ids):
+        np.testing.assert_array_equal(outs[rid], w)
+
+
+# --------------------------------------------------------------------------
 # flash attention (bodies #5, #6, #7)
 # --------------------------------------------------------------------------
 def _flash_case(seed, B, H, S, D, dtype, masked):

@@ -1,7 +1,8 @@
 """paddle_tpu_torch stands alone: no module of the port, not the on-card
 smoke script ``chip_smoke.py`` and not the card-only tests
 ``tests/test_torch_cuda.py`` import JAX or any module of the
-JAX package ``paddle_tpu`` — checked statically (an AST scan of every
+JAX package ``paddle_tpu`` (its ``distributed`` package included: the
+port's single-controller mesh is its own copy) — checked statically (an AST scan of every
 import statement) and at run time (a fresh interpreter imports every
 module and inspects ``sys.modules``)."""
 import ast
@@ -80,7 +81,9 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.serving.spec_decode",
                 "paddle_tpu_torch.ops.paged_attention",
-                "paddle_tpu_torch.text.generation"):
+                "paddle_tpu_torch.text.generation",
+                "paddle_tpu_torch.distributed",
+                "paddle_tpu_torch.distributed.mesh"):
         assert mod in _modules()
 
 

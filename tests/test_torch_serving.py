@@ -11,8 +11,8 @@ paddle_tpu and vs the port's own dense ``generate``.
 - knobs the port does not carry yet, and knob values no slice takes (an
   unknown KV or weight dtype, ``quant_scales`` without an int8 knob,
   ``ragged=True`` with ``fused_steps``, a ``spec_decode`` horizon below
-  2), raise ``InvalidArgumentError``, and the default device (the CUDA
-  card) raises where there is none.
+  2, an unknown mesh axis), raise ``InvalidArgumentError``, and the
+  default device (the CUDA card) raises where there is none.
 
 Streams are compared token for token (greedy, f32 on the CPU).
 """
@@ -226,7 +226,7 @@ def test_request_validation(port):
 # =============================================================================
 @pytest.mark.parametrize("knob", [
     {"prefix_cache": True}, {"kv_tiering": True}, {"spec_decode": 1},
-    {"spec_drafter": object()}, {"mesh_axes": {"tp": 2}},
+    {"spec_drafter": object()}, {"mesh_axes": {"dp": 2}},
     {"kv_cache_dtype": "int4"}, {"weight_dtype": "fp8"},
     {"quant_scales": {}}, {"fused_steps": 2, "ragged": True},
     {"ragged": True, "fused_steps": 4},
