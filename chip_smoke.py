@@ -100,6 +100,20 @@ Phases, one result line each (or more):
    once per layer, shard and dispatch, one shard step per dispatch, a
    sequence on both page shards, no page leaked.  Its step times are 4
    (or 2) slots on one card: the replicated work runs once per slot.
+16. kernel_scale_shift: row t, the custom-op API's worked kernel
+   ``x * scale[0] + shift[0]``, against its plain version bit for bit in
+   f32 and bf16 at [16, 8] (the custom-op net), [4, 8], 1,000,003 and
+   [8192, 8192], no launch at numel 0; timed at [16, 8] and [8192, 8192]
+   beside its bound, the plain version and ``torch.addcmul``.
+17. custom_op: ``register_op("scale_shift", ..., vjp=...)`` in
+   ``tests/test_custom_op.py``'s eager net (Linear 8-8, the scale-shift
+   layer, Linear 8-1), 15 ``Adam(5e-2)`` steps on the card from the
+   weights of the same net built on the CPU under ``seed(0)``: 30 kernel
+   launches (forward and dx each step), no plain call, the loss halves,
+   the losses equal the CPU's.
+18. lenet: dygraph LeNet on the synthetic MNIST, ``Adam(1e-3)``, 30
+   in-order batches of 64, f32: the loss falls, the first 5 losses equal
+   the CPU's from the same weights; step p50 / p95 and images/s.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -1862,6 +1876,255 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
     return result
 
 
+# row t: the custom-op API's worked kernel, x * scale[0] + shift[0]
+SCALE_SHIFT_SHAPES = ((16, 8), (4, 8), (1_000_003,), (8192, 8192))
+SCALE_SHIFT_TIMED = ((16, 8), (8192, 8192))
+CUSTOM_OP_STEPS = 15
+# the custom-op net and LeNet on the card vs the same steps on the CPU
+# from the same weights: f32 products of width <= 400 summed in another
+# order by cuBLAS/cuDNN (TF32 off), which Adam's normalized step carries
+# into the next losses at the level of a few ulps of lr
+TRAIN_CPU_RTOL = 1e-4
+LENET_BATCH = 64
+LENET_STEPS = 30
+LENET_PARITY_STEPS = 5
+
+
+def scale_shift_bound_ms(numel, item):
+    """Least time on an H100: x read once and the output written once
+    over HBM bandwidth (two flops an element are far below the f32
+    peak)."""
+    return 2 * numel * item / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def scale_shift_kernel_phase(rng, flush) -> dict:
+    """Row t's kernel against its plain version at the custom-op net's
+    shape [16, 8], the math test's [4, 8], an odd 1-D size and [8192,
+    8192], f32 and bf16: bit for bit; an empty x launches nothing.
+    Timed at [16, 8] and [8192, 8192] beside the bound, the plain
+    version and ``torch.addcmul(shift, x, scale)``."""
+    from paddle_tpu_torch.ops import scale_shift as ss
+
+    scale = torch.tensor([1.37], device=DEVICE)
+    shift = torch.tensor([-0.21], device=DEVICE)
+    timings = {}
+    for shape in SCALE_SHIFT_SHAPES:
+        xf = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = xf.to(dtype)
+            out = ss.scale_shift_cuda(x, scale, shift)
+            torch.cuda.synchronize()
+            ref = ss.scale_shift_ref(x, scale, shift)
+            err = float((out.float() - ref.float()).abs().max())
+            exact = bool(torch.equal(out, ref))
+            tag = f"{'x'.join(map(str, shape))}/{str(dtype).split('.')[-1]}"
+            log("kernel_scale_shift", case=tag, max_abs_err=err,
+                bit_equal=exact)
+            if not exact:
+                raise AssertionError(f"scale_shift kernel differs from its "
+                                     f"plain version on {tag}: max_abs_err "
+                                     f"{err}")
+            if shape in SCALE_SHIFT_TIMED:
+                t = {"max_abs_err": err,
+                     "ms": time_ms(lambda: ss.scale_shift_cuda(
+                         x, scale, shift), flush),
+                     "plain_ms": time_ms(
+                         lambda: ss.scale_shift_ref(x, scale, shift), flush),
+                     "library_ms": time_ms(
+                         lambda: torch.addcmul(shift, x, scale), flush)}
+                t["bound_ms"], t["bound_by"] = scale_shift_bound_ms(
+                    x.numel(), x.element_size())
+                log("kernel_scale_shift_time", case=tag, **t)
+                timings[tag] = t
+            del x, out, ref
+        del xf
+        torch.cuda.empty_cache()
+    before = ss.SCALE_SHIFT_ROUTE_STATS["cuda"]
+    empty = ss.scale_shift_cuda(torch.empty((0, 8), device=DEVICE), scale,
+                                shift)
+    if ss.SCALE_SHIFT_ROUTE_STATS["cuda"] != before or empty.shape != (0, 8):
+        raise AssertionError("scale_shift launched on an empty x")
+    return timings
+
+
+def _scale_shift_layer_cls():
+    from paddle_tpu_torch import nn
+
+    class ScaleShiftLayer(nn.Layer):
+        """The port's twin of tests/test_custom_op.py's
+        ``_PallasScaleLayer``: 1-element scale and shift, passed 0-d."""
+
+        def __init__(self, op):
+            super().__init__()
+            self._op = op
+            self.scale = self.create_parameter([1])
+            self.shift = self.create_parameter([1], is_bias=True)
+
+        def forward(self, x):
+            return self._op(x, self.scale.reshape([]),
+                            self.shift.reshape([]))
+
+    return ScaleShiftLayer
+
+
+def _on_device(device, build):
+    """``build()`` with ``device`` as the default place, put back after."""
+    from paddle_tpu_torch.framework import place
+
+    prev = place._DEFAULT["device"]
+    place.set_device(device)
+    try:
+        return build()
+    finally:
+        place._DEFAULT["device"] = prev
+
+
+def custom_op_phase(device="cuda") -> dict:
+    """tests/test_custom_op.py's eager drive through the port's
+    ``register_op``: ``Sequential(Linear(8, 8), ScaleShiftLayer(op),
+    Linear(8, 1))`` with the op registered as ``scale_shift`` with its
+    vjp, 15 ``Adam(5e-2)`` steps on the card from the initial weights of
+    the same net built on the CPU under ``seed(0)``, against the same
+    steps on the CPU.  Every count set to 0 just before the card's drive:
+    one forward and one dx launch a step, no plain call; the loss halves;
+    the losses equal the CPU's within TRAIN_CPU_RTOL."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.nn.layer import state_from_numpy
+    from paddle_tpu_torch.ops import scale_shift as ss
+    from paddle_tpu_torch.utils import register_op
+
+    op = register_op("scale_shift", ss.scale_shift, vjp=ss.scale_shift_vjp,
+                     exist_ok=True)
+    layer_cls = _scale_shift_layer_cls()
+    rng = np.random.RandomState(0)
+    xa = rng.randn(16, 8).astype(np.float32)
+    ya = (rng.randn(16, 1) * 0.1 + 1.0).astype(np.float32)
+
+    def build():
+        return nn.Sequential(nn.Linear(8, 8), layer_cls(op), nn.Linear(8, 1))
+
+    def train(net):
+        opt = optimizer.Adam(5e-2, parameters=net.parameters())
+        x, y = pt.to_tensor(xa), pt.to_tensor(ya)
+        losses = []
+        for _ in range(CUSTOM_OP_STEPS):
+            loss = ((net(x) - y) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        return losses
+
+    def cpu_run():
+        pt.seed(0)
+        net = build()
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        return state, train(net)
+
+    def card_run():
+        net = build()
+        net.set_state_dict(state_from_numpy(state, device))
+        for key in ss.SCALE_SHIFT_ROUTE_STATS:
+            ss.SCALE_SHIFT_ROUTE_STATS[key] = 0
+        losses = train(net)
+        return losses, dict(ss.SCALE_SHIFT_ROUTE_STATS)
+
+    state, cpu_losses = _on_device("cpu", cpu_run)
+    losses, counts = _on_device(device, card_run)
+    route = "cuda" if torch.device(device).type == "cuda" else "ref"
+    want = {"cuda": 0, "ref": 0, route: 2 * CUSTOM_OP_STEPS}
+    rel = float(np.max(np.abs(np.subtract(losses, cpu_losses))
+                       / np.abs(cpu_losses)))
+    res = {"losses": losses, "cpu_losses": cpu_losses,
+           "max_rel_diff_vs_cpu": rel, "rtol": TRAIN_CPU_RTOL,
+           "scale_shift_launches": counts}
+    log("custom_op", **res)
+    if counts != want:
+        raise AssertionError(f"custom_op: launches {counts}, want {want}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise AssertionError(f"custom_op: the loss did not halve: {losses}")
+    if not rel <= TRAIN_CPU_RTOL:
+        raise AssertionError(f"custom_op: losses differ from the CPU's by "
+                             f"{rel} relative (rtol {TRAIN_CPU_RTOL})")
+    return res
+
+
+def lenet_phase(device="cuda") -> dict:
+    """Dygraph LeNet (BASELINE.json config 1) through the port's core:
+    ``Adam(1e-3)`` on the synthetic MNIST, the first LENET_STEPS batches
+    of LENET_BATCH in order, f32 (TF32 off).  The weights come from the
+    port's LeNet built on the CPU under ``seed(0)``; the first
+    LENET_PARITY_STEPS losses must equal the same steps on the CPU within
+    TRAIN_CPU_RTOL and the mean of the last 5 losses must be below that
+    of the first 5.  Step times on the host clock, each step ending in a
+    sync (the first step, with cuDNN's set-up, reported apart)."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn.layer import state_from_numpy
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    ds = MNIST(mode="train")
+    batches = [ds.batch(i * LENET_BATCH, LENET_BATCH)
+               for i in range(LENET_STEPS)]
+
+    def run(model, n, sync):
+        opt = optimizer.Adam(1e-3, parameters=model.parameters())
+        data = [(pt.to_tensor(x), pt.to_tensor(y)) for x, y in batches[:n]]
+        losses, step_ms = [], []
+        for x, y in data:
+            sync()
+            t0 = time.perf_counter()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, step_ms
+
+    def cpu_run():
+        pt.seed(0)
+        model = LeNet()
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        return state, run(model, LENET_PARITY_STEPS, lambda: None)[0]
+
+    def card_run():
+        model = LeNet()
+        model.set_state_dict(state_from_numpy(state, device))
+        sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+                else (lambda: None))
+        return run(model, LENET_STEPS, sync)
+
+    state, cpu_losses = _on_device("cpu", cpu_run)
+    losses, step_ms = _on_device(device, card_run)
+    head = losses[:LENET_PARITY_STEPS]
+    rel = float(np.max(np.abs(np.subtract(head, cpu_losses))
+                       / np.abs(cpu_losses)))
+    steady = step_ms[1:]
+    p50 = float(np.percentile(steady, 50))
+    res = {"batch": LENET_BATCH, "steps": LENET_STEPS, "losses": losses,
+           "cpu_losses": cpu_losses, "max_rel_diff_vs_cpu": rel,
+           "rtol": TRAIN_CPU_RTOL, "first_step_ms": step_ms[0],
+           "step_ms_p50": p50,
+           "step_ms_p95": float(np.percentile(steady, 95)),
+           "images_per_s": LENET_BATCH / (p50 / 1e3)}
+    log("lenet", **res)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"lenet: non-finite loss {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"lenet: the loss did not fall: {losses}")
+    if not rel <= TRAIN_CPU_RTOL:
+        raise AssertionError(f"lenet: the first {LENET_PARITY_STEPS} losses "
+                             f"differ from the CPU's by {rel} relative "
+                             f"(rtol {TRAIN_CPU_RTOL})")
+    return res
+
+
 def record(name, source, replaces, launches, t, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1906,6 +2169,10 @@ def main(argv=None) -> int:
     report["kernel_flash"] = flash_t = flash_kernel_phase(rng, flush)
     report["kernel_decode"] = decode_t = decode_kernel_phase(rng, flush)
     report["kernel_stats"] = stats_t = stats_kernel_phase(rng, flush)
+    # row t draws from its own seed, so the phases after it see the same
+    # draws as before it existed
+    report["kernel_scale_shift"] = ss_t = scale_shift_kernel_phase(
+        np.random.RandomState(6), flush)
     del flush
     torch.cuda.empty_cache()
     # the training drive's batch comes from its own seed, so its loss
@@ -1913,6 +2180,9 @@ def main(argv=None) -> int:
     report["train"] = train = train_phase(np.random.RandomState(0))
     torch.cuda.empty_cache()
     report["train_parity"] = train_parity_phase(rng)
+    torch.cuda.empty_cache()
+    report["custom_op"] = custom = custom_op_phase()
+    report["lenet"] = lenet_phase()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2017,7 +2287,14 @@ def main(argv=None) -> int:
                    if "int8" in k},
                library_is="aten._scaled_dot_product_efficient_attention "
                           "with its log-sum-exp, on the gathered owned, "
-                          "dequantized KV")]
+                          "dequantized KV"),
+        record("scale_shift", "paddle_tpu_torch/ops/csrc/scale_shift.cu",
+               "tests/test_custom_op.py:94",
+               custom["scale_shift_launches"]["cuda"],
+               ss_t["16x8/float32"], case="16x8/float32",
+               large={k: v for k, v in ss_t.items() if "8192" in k},
+               bf16=ss_t["16x8/bfloat16"],
+               library_is="torch.addcmul(shift, x, scale)")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

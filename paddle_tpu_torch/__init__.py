@@ -6,6 +6,10 @@ the twin of ``paddle_tpu/text/generation.py``) and imports only ``torch``
 and numpy.  Every Pallas kernel on a ported path has a hand-written
 CUDA twin under ``ops/csrc/``; plain tensor code is PyTorch.
 
+The dygraph core is the paddle API over torch: ``Tensor``,
+``to_tensor``, ``seed``, ``set_device``/``get_device`` here, ``nn.Layer``
+and its layers, ``optimizer`` and ``utils.register_op``.
+
 Device policy: entry points take an explicit ``device``.  The default
 (``None``) means the CUDA card; without one it raises instead of falling
 back to the CPU.  Tests pass ``device="cpu"``, where every kernel wrapper
@@ -17,7 +21,8 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["resolve_device", "__version__", "Tensor", "Parameter",
+           "to_tensor", "seed", "set_device", "get_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,3 +41,8 @@ def resolve_device(device=None) -> torch.device:
         # pin the index, so "cuda" and the tensors' "cuda:0" compare equal
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+from .framework.place import get_device, set_device  # noqa: E402
+from .framework.random import seed  # noqa: E402
+from .tensor import Parameter, Tensor, to_tensor  # noqa: E402

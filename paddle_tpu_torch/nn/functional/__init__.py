@@ -1,5 +1,6 @@
 """paddle_tpu_torch.nn.functional — the functionals the GPT serving and
-training slices run, twins of ``paddle_tpu/nn/functional``.
+training slices and the dygraph core run, twins of
+``paddle_tpu/nn/functional``.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
 variance) are the serving path's ``_gelu`` and ``_ln`` from
@@ -10,11 +11,15 @@ re-exports them.
 from __future__ import annotations
 
 from ...text.generation import _gelu, _ln
+from .activation import relu
+from .common import linear
+from .conv import conv2d
 from .loss import cross_entropy
+from .pooling import max_pool2d
 
-__all__ = ["gelu", "layer_norm", "cross_entropy",
-           "scaled_dot_product_attention", "flash_attention",
-           "paged_attention"]
+__all__ = ["gelu", "layer_norm", "cross_entropy", "linear", "conv2d",
+           "max_pool2d", "relu", "scaled_dot_product_attention",
+           "flash_attention", "paged_attention"]
 
 
 def gelu(x, approximate=False, name=None):

@@ -1,7 +1,9 @@
 """Loss functionals — twin of ``paddle_tpu/nn/functional/loss.py``, the
-hard-label softmax cross entropy the GPT training slice needs."""
+hard-label softmax cross entropy the GPT training slice and the dygraph
+core need."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...framework.errors import InvalidArgumentError
@@ -22,7 +24,23 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     divides by the count of valid labels (at least 1), ``"sum"`` sums,
     ``"none"`` returns the per-label losses.  A label tensor with the
     logits' rank is squeezed along ``axis``.  ``weight``, ``soft_label``
-    and ``use_softmax=False`` are not ported (ROADMAP queue 1 item 9)."""
+    and ``use_softmax=False`` are not ported (ROADMAP queue 1 item 9).
+
+    On a port ``Tensor`` (the dygraph core) it dispatches as
+    "cross_entropy" (AMP black list) and returns a Tensor; the label may
+    be a Tensor or an array, ``[N, 1]`` int64 as paddle's.  On torch
+    tensors it is the plain function."""
+    from ...tensor import Tensor
+
+    if isinstance(input, Tensor):
+        from ...ops.dispatch import apply
+
+        if not isinstance(label, Tensor):
+            label = Tensor(torch.as_tensor(np.asarray(label),
+                                           device=input.place))
+        return apply("cross_entropy", lambda x, y: cross_entropy(
+            x, y, weight, ignore_index, reduction, soft_label, axis,
+            use_softmax, label_smoothing), input, label)
     if weight is not None or soft_label or not use_softmax:
         raise InvalidArgumentError(
             "cross_entropy with weight, soft_label or use_softmax=False is "

@@ -1,0 +1,222 @@
+"""nn.Layer — twin of ``paddle_tpu/nn/layer.py:34``, the paddle module
+base class over the port's ``Parameter``.
+
+Parameters and sublayers register by assignment (``self.w = Parameter``,
+``self.fc = Layer``) or by ``add_parameter``/``add_sublayer``;
+``named_parameters`` and ``state_dict`` use paddle's structured names
+(``"fc.0.weight"``), so a paddle_tpu ``state_dict`` loads unchanged.
+``set_state_dict`` copies into each parameter IN PLACE (the optimizer
+and the layer keep holding the same tensors); with
+:func:`state_from_numpy` it is the weight bridge from paddle_tpu::
+
+    state = {k: np.asarray(v._value) for k, v in jax_layer.state_dict().items()}
+    port_layer.set_state_dict(state_from_numpy(state, "cuda"))
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..framework.dtype import convert_dtype
+from ..framework.errors import InvalidArgumentError
+from ..framework.place import default_device
+from ..tensor import Parameter, Tensor
+
+__all__ = ["Layer", "state_from_numpy"]
+
+
+def state_from_numpy(state: dict, device=None) -> "OrderedDict":
+    """``{name: array}`` (a paddle_tpu ``state_dict`` read out with
+    ``np.asarray``) as ``{name: torch tensor on device}``, for
+    :meth:`Layer.set_state_dict`; ``device=None`` is the default place."""
+    from ..framework.place import to_device
+
+    dev = to_device(device)
+    return OrderedDict((k, torch.from_numpy(np.array(v, copy=True)).to(dev))
+                       for k, v in state.items())
+
+
+class Layer:
+    def __init__(self, name_scope: Optional[str] = None, dtype="float32"):
+        self.training = True
+        self._dtype = convert_dtype(dtype)
+        self._parameters: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._sub_layers: "OrderedDict[str, Layer]" = OrderedDict()
+
+    # --- construction helpers -------------------------------------------
+    def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
+                         default_initializer=None) -> Optional[Parameter]:
+        """A new Parameter on the default place, filled by
+        ``default_initializer`` or else by paddle's default (zeros for a
+        bias, XavierNormal otherwise).  ``attr=False`` means no
+        parameter; other ``ParamAttr`` settings are not ported (ROADMAP
+        queue 1 item 8)."""
+        from . import initializer as init
+
+        if attr is False:
+            return None
+        if attr is not None:
+            raise InvalidArgumentError(
+                "ParamAttr is not ported yet (ROADMAP queue 1 item 8)")
+        dtype = convert_dtype(dtype) if dtype is not None else self._dtype
+        p = Parameter(torch.zeros(tuple(int(s) for s in shape), dtype=dtype,
+                                  device=default_device()))
+        initializer = default_initializer
+        if initializer is None:
+            initializer = init.Constant(0.0) if is_bias else init.XavierNormal()
+        initializer(p)
+        return p
+
+    def add_parameter(self, name: str, parameter: Optional[Parameter]):
+        self._parameters[name] = parameter
+        return parameter
+
+    def add_sublayer(self, name: str, sublayer: "Layer"):
+        self._sub_layers[str(name)] = sublayer
+        return sublayer
+
+    # --- attribute plumbing ---------------------------------------------
+    def __setattr__(self, name, value):
+        params = self.__dict__.get("_parameters")
+        layers = self.__dict__.get("_sub_layers")
+        if isinstance(value, Parameter):
+            if params is None:
+                raise RuntimeError(
+                    "call Layer.__init__ before assigning parameters")
+            params[name] = value
+        elif isinstance(value, Layer):
+            if layers is None:
+                raise RuntimeError(
+                    "call Layer.__init__ before assigning sublayers")
+            layers[name] = value
+        else:
+            if params is not None and name in params:
+                if value is None:
+                    params[name] = None
+                    return
+                del params[name]
+            if layers is not None and name in layers:
+                del layers[name]
+            object.__setattr__(self, name, value)
+
+    def __getattr__(self, name):
+        for store in ("_parameters", "_sub_layers"):
+            d = self.__dict__.get(store)
+            if d is not None and name in d:
+                return d[name]
+        raise AttributeError(
+            f"'{type(self).__name__}' object has no attribute '{name}'")
+
+    # --- traversal ------------------------------------------------------
+    def children(self) -> Iterator["Layer"]:
+        for _, layer in self.named_children():
+            yield layer
+
+    def named_children(self):
+        seen = set()
+        for name, layer in self._sub_layers.items():
+            if layer is not None and id(layer) not in seen:
+                seen.add(id(layer))
+                yield name, layer
+
+    def sublayers(self, include_self=False):
+        return [layer for _, layer in
+                self.named_sublayers(include_self=include_self)]
+
+    def named_sublayers(self, prefix="", include_self=False,
+                        layers_set=None):
+        if layers_set is None:
+            layers_set = set()
+        if id(self) in layers_set:
+            return
+        layers_set.add(id(self))
+        if include_self:
+            yield prefix, self
+        for name, layer in self.named_children():
+            sub = prefix + ("." if prefix else "") + name
+            yield from layer.named_sublayers(prefix=sub, include_self=True,
+                                             layers_set=layers_set)
+
+    def parameters(self, include_sublayers=True):
+        return [p for _, p in self.named_parameters(
+            include_sublayers=include_sublayers)]
+
+    def named_parameters(self, prefix="", include_sublayers=True):
+        seen = set()
+        layers = (self.named_sublayers(prefix=prefix, include_self=True)
+                  if include_sublayers else [(prefix, self)])
+        for lp, layer in layers:
+            for name, p in layer._parameters.items():
+                if p is None or id(p) in seen:
+                    continue
+                seen.add(id(p))
+                yield lp + ("." if lp else "") + name, p
+
+    # --- mode switches --------------------------------------------------
+    def train(self):
+        for layer in self.sublayers(include_self=True):
+            layer.training = True
+        return self
+
+    def eval(self):
+        for layer in self.sublayers(include_self=True):
+            layer.training = False
+        return self
+
+    # --- call -----------------------------------------------------------
+    def forward(self, *inputs, **kwargs):
+        raise NotImplementedError
+
+    def __call__(self, *inputs, **kwargs):
+        return self.forward(*inputs, **kwargs)
+
+    # --- state dict -----------------------------------------------------
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix="", use_hook=True):
+        """``{structured name: Parameter}`` in registration order (the
+        port's layers have no buffers yet)."""
+        dest = OrderedDict() if destination is None else destination
+        for name, p in self.named_parameters(
+                include_sublayers=include_sublayers):
+            dest[structured_name_prefix + name] = p
+        return dest
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Copy each entry (a Tensor, a torch tensor or an array) into
+        the parameter of that name, in place, cast to its
+        dtype; returns ``(missing, unexpected)`` names.  A shape
+        mismatch raises ``ValueError``."""
+        own = self.state_dict()
+        missing = [k for k in own if k not in state_dict]
+        unexpected = [k for k in state_dict if k not in own]
+        for k, v in state_dict.items():
+            if k not in own:
+                continue
+            target = own[k]._value
+            if isinstance(v, Tensor):
+                v = v._value
+            src = (v if isinstance(v, torch.Tensor)
+                   else torch.from_numpy(np.array(v, copy=True)))
+            if tuple(src.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"shape mismatch for {k}: checkpoint "
+                    f"{tuple(src.shape)} vs model {tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(src.to(target.dtype))
+        return missing, unexpected
+
+    def extra_repr(self):
+        return ""
+
+    def __repr__(self):
+        lines = []
+        for name, layer in self.named_children():
+            sub = "\n  ".join(repr(layer).split("\n"))
+            lines.append(f"({name}): {sub}")
+        main = type(self).__name__ + "(" + self.extra_repr()
+        if lines:
+            main += "\n  " + "\n  ".join(lines) + "\n"
+        return main + ")"

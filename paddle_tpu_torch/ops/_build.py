@@ -32,7 +32,7 @@ __all__ = ["NVCC_FLAGS", "KERNEL_SOURCES", "load_library", "load_libraries",
 
 # every kernel source of the port, by library name (csrc/<name>.cu)
 KERNEL_SOURCES = ("paged_attention", "paged_attention_stats", "paged_decode",
-                  "quantized_matmul", "flash_attention")
+                  "quantized_matmul", "flash_attention", "scale_shift")
 
 _OPS_DIR = Path(__file__).resolve().parent
 _SRC_DIR = _OPS_DIR / "csrc"

@@ -1,6 +1,11 @@
 """Optimizers — twin of ``paddle_tpu/optimizer/optimizer.py`` for the
 paddle dygraph loop ``loss.backward(); opt.step(); opt.clear_grad()``.
 
+``parameters`` may be bare torch tensors (the GPT ``nn.Module``) or the
+dygraph core's ``Parameter``s (``layer.parameters()``): the optimizer
+keeps each Parameter's torch tensor, so its in-place update is what the
+layer holds.
+
 Where the JAX package replaces each parameter's array, the port updates
 parameters and accumulators IN PLACE under ``torch.no_grad()`` (the
 parameter tensors the model holds are the ones that change).  The update
@@ -23,6 +28,7 @@ from typing import Dict, List
 import torch
 
 from ..framework.errors import InvalidArgumentError
+from ..tensor import Tensor
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
 
@@ -45,8 +51,9 @@ class Optimizer:
             _unported(f"weight_decay of type {type(weight_decay).__name__} "
                       "(only a float L2 coefficient is ported)")
         self._lr = float(learning_rate)
-        self._parameters = (list(parameters) if parameters is not None
-                            else None)
+        self._parameters = (None if parameters is None else
+                            [p._value if isinstance(p, Tensor) else p
+                             for p in parameters])
         self._l2_coeff = weight_decay        # None: no L2 term
         self._accumulators: Dict[str, Dict[int, torch.Tensor]] = {}
         self._step_count = 0

@@ -701,6 +701,9 @@ def _make_gpt_paged_sharded_core(model, page_size: int, pages_per_seq: int,
                     kc[a["local"], a["slot"]] = k1
                     vc[a["local"], a["slot"]] = v1
                     scales = ()
+                if sp > 1 and not kc.is_cuda:
+                    _clear_trash_row(kc, vc, scales, shard_ksc, shard_vsc,
+                                     j, i)
                 qg = q.reshape(G, Q, H_loc, D)
                 if sp == 1:
                     ctx.append(ragged_paged_attention(
@@ -737,6 +740,28 @@ def _make_gpt_paged_sharded_core(model, page_size: int, pages_per_seq: int,
         return logits[0].to(device), kv
 
     return core, init_pages
+
+
+def _clear_trash_row(kc, vc, scales, shard_ksc, shard_vsc, j: int, i: int):
+    """Reset a shard's local row 0 after a layer's scatters, before its
+    read.  Other shards' rows land there, and the plain stats version
+    multiplies every non-owned table entry (all pointing at row 0) by a
+    zero probability: a NaN K/V row written by one lane would otherwise
+    turn every lane of the shard NaN.  The row is junk by definition, so
+    no finite result changes.  Under int8 the row's scales go back to
+    the calibrated row (static) or the eps floor (dynamic, as the
+    engine's ``_reset_page_scales``).  The CUDA kernel never reads a
+    page its shard does not own, so only the plain route needs this."""
+    kc[0] = 0
+    vc[0] = 0
+    if scales:
+        from ..serving.kv_cache import KV_SCALE_EPS
+
+        for sc, static in zip(scales, (shard_ksc, shard_vsc)):
+            if static is None:
+                sc[0] = KV_SCALE_EPS
+            else:
+                sc[0] = static[j][i]
 
 
 def _gather_tp(parts, tp: int, sp: int):

@@ -20,7 +20,9 @@ over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
 kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
 reference value) (f32 sums over up to 1024 keys or queries in another
 order; bf16 outputs rounded to 8 mantissa bits); their dropout bits must
-equal ``_keep_mask``'s exactly.  Streams must be equal token for token.
+equal ``_keep_mask``'s exactly.  The scale-shift kernel (row t) must
+equal its plain version bit for bit (the same two f32 roundings and one
+cast).  Streams must be equal token for token.
 """
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ import chip_smoke
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import quantized_matmul as qm
+from paddle_tpu_torch.ops import scale_shift as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -791,3 +794,124 @@ def test_training_step_on_the_card_equals_the_cpu_step():
                                         batch=2, seq=256)
     assert res["card_counts"]["flash_fwd"] == 2
     assert res["cpu_counts"]["flash_ref"] == 6
+
+
+# --------------------------------------------------------------------------
+# the scale-shift kernel (row t) and the dygraph core on the card
+# --------------------------------------------------------------------------
+def _scale_shift_args(x_shape, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(x_shape, generator=g, device="cuda").to(dtype)
+    return (x, torch.tensor([1.37], device="cuda"),
+            torch.tensor([-0.21], device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1_000_003])
+def test_scale_shift_kernel_is_bit_equal_to_plain(n, dtype):
+    x, s, b = _scale_shift_args((n,), dtype)
+    ss.SCALE_SHIFT_ROUTE_STATS.update(cuda=0, ref=0)
+    got = ss.scale_shift(x, s, b)
+    torch.cuda.synchronize()
+    assert ss.SCALE_SHIFT_ROUTE_STATS == {"cuda": int(n > 0), "ref": 0}
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, ss.scale_shift_ref(x, s, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scale_shift_kernel_on_views(dtype):
+    """A transposed (non-contiguous) x and a view one element into its
+    storage (not 16-byte aligned: the scalar path), 0-d scale/shift."""
+    x, s, b = _scale_shift_args((33, 64), dtype, seed=1)
+    for view in (x.t(), x.reshape(-1)[1:], x[:, 1:]):
+        assert view.data_ptr() % 16 or not view.is_contiguous()
+        got = ss.scale_shift_cuda(view, s.reshape(()), b.reshape(()))
+        assert got.shape == view.shape
+        assert torch.equal(got, ss.scale_shift_ref(view, s, b))
+
+
+def test_scale_shift_kernel_needs_no_host_sync():
+    x, s, b = _scale_shift_args((16, 8), torch.float32)
+    ss.scale_shift_cuda(x, s, b)            # built and bound
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ss.scale_shift(x, s, b)
+        grads = ss.scale_shift_vjp(out, x, s, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, ss.scale_shift_ref(x, s, b))
+    assert [tuple(g.shape) for g in grads] == [(16, 8), (1,), (1,)]
+
+
+def test_scale_shift_kernel_rejects_what_it_does_not_take():
+    x, s, b = _scale_shift_args((4, 8), torch.float32)
+    with pytest.raises(ValueError, match="float32, bfloat16"):
+        ss.scale_shift_cuda(x.to(torch.int32), s, b)
+    with pytest.raises(ValueError, match="float32, bfloat16"):
+        ss.scale_shift_cuda(x.double(), s, b)
+    with pytest.raises(ValueError, match="one element"):
+        ss.scale_shift_cuda(x, torch.ones(2, device="cuda"), b)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ss.scale_shift_cuda(x, s.cpu(), b)
+
+
+def test_custom_op_net_on_the_card_equals_the_cpu():
+    """chip_smoke's custom_op phase: 15 Adam steps of the custom-op net,
+    30 kernel launches and no plain call, losses equal to the CPU's."""
+    res = chip_smoke.custom_op_phase()
+    assert res["scale_shift_launches"] == {"cuda": 30, "ref": 0}
+
+
+def test_lenet_on_the_card_equals_the_cpu():
+    res = chip_smoke.lenet_phase()
+    assert res["max_rel_diff_vs_cpu"] <= chip_smoke.TRAIN_CPU_RTOL
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"],
+                         ids=["native", "int8_dynamic"])
+@pytest.mark.parametrize("mesh_axes", [{"sp": 2}, {"tp": 2, "sp": 2}],
+                         ids=["sp2", "tp2sp2"])
+def test_quarantine_at_sp_fails_only_the_victim_on_the_card(mesh_axes,
+                                                            kv_cache_dtype):
+    """tests/test_torch_mesh_serving.py's F1 drive on the card: a 2-layer
+    GPT (seed 0), page 4, 12 pages, sync mode, requests of 9 and 6
+    tokens; the second is poisoned after 7 steps, when both span both
+    page shards.  Exactly the victim fails; the survivor's stream equals
+    the single-device engine's."""
+    from paddle_tpu_torch.distributed import force_device_count
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.models import GPTModel
+
+    m = GPTModel(vocab_size=50, hidden_size=32, num_layers=2, num_heads=2,
+                 ffn_size=64, max_seq_len=64, device="cuda", seed=0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 50, (n,)).astype(np.int32) for n in (9, 6)]
+
+    def drive(axes):
+        eng = ServingEngine(m, mesh_axes=axes, page_size=4,
+                            max_batch_size=4, prefill_chunk=4, eos_id=-1,
+                            sync_mode=True, num_pages=12,
+                            kv_cache_dtype=kv_cache_dtype)
+        ids = [eng.add_request(p, max_new_tokens=10) for p in prompts]
+        for _ in range(7):
+            eng.step()
+        victim = next(s for s in eng.scheduler.running
+                      if s.seq_id == ids[1])
+        eng._poison_lane(victim)
+        outs = eng.drain()
+        assert eng.take_faulted() == [ids[1]] and ids[1] not in outs
+        assert eng.cache.pages_in_use == 0
+        return outs[ids[0]]
+
+    want = drive(None)
+    prev = force_device_count(4)
+    try:
+        got = drive(mesh_axes)
+    finally:
+        force_device_count(prev)
+    assert len(got) == 10
+    np.testing.assert_array_equal(got, want)

@@ -83,7 +83,19 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.ops.paged_attention",
                 "paddle_tpu_torch.text.generation",
                 "paddle_tpu_torch.distributed",
-                "paddle_tpu_torch.distributed.mesh"):
+                "paddle_tpu_torch.distributed.mesh",
+                "paddle_tpu_torch.tensor",
+                "paddle_tpu_torch.autograd",
+                "paddle_tpu_torch.amp.auto_cast",
+                "paddle_tpu_torch.framework.place",
+                "paddle_tpu_torch.framework.random",
+                "paddle_tpu_torch.framework.flags",
+                "paddle_tpu_torch.ops.dispatch",
+                "paddle_tpu_torch.ops.scale_shift",
+                "paddle_tpu_torch.nn.layer",
+                "paddle_tpu_torch.utils.custom_op",
+                "paddle_tpu_torch.vision.models.lenet",
+                "paddle_tpu_torch.vision.datasets.mnist"):
         assert mod in _modules()
 
 

@@ -423,11 +423,8 @@ class TestByteIdentity:
 # =============================================================================
 def test_quarantine_scrubs_a_sharded_pool(port, native_ref):
     """The numeric guard on a head-sharded pool: the scrub zeroes the
-    victim's pages in every tensor shard.  (At sp > 1 on the CPU the
-    plain stats version multiplies the trash row, where the victim's
-    rows of other shards' pages also land, by a zero probability, so the
-    victim's NaN reaches every lane of that shard; the kernel never reads
-    a page its shard does not own.)"""
+    victim's pages in every tensor shard.  (The quarantine contract at
+    sp > 1 is ``test_quarantine_at_sp_fails_only_the_victim``.)"""
     prompts, ref, _ = native_ref
     eng = ServingEngine(port, mesh_axes={"tp": 2}, sync_mode=True, **ENGINE)
     ids = [eng.add_request(p, max_new_tokens=BUDGET) for p in prompts[:2]]
@@ -442,6 +439,82 @@ def test_quarantine_scrubs_a_sharded_pool(port, native_ref):
     assert eng.take_faulted() == [ids[1]] and ids[1] not in outs
     np.testing.assert_array_equal(outs[ids[0]], ref[0])
     assert _shard_count("page_scatters") == scatters + 1
+    assert eng.cache.pages_in_use == 0
+    assert all(torch.isfinite(p).all() for kv in eng._kv
+               for side in kv.values() for p in side)
+
+
+# The quarantine contract of tests/test_numeric_guards.py:79 at sp > 1.
+# Fault F1: the rows a lane writes into pages another shard owns land in
+# that shard's local row 0, and the plain stats version multiplies every
+# non-owned table entry (row 0) by a zero probability, so one victim's
+# NaN K/V turned every co-batched lane NaN.  The mesh core now clears
+# row 0 after each layer's scatters on the plain route.  Two pools: 24
+# pages, where both sequences sit on shard 0 when the poison lands (the
+# drive that first showed F1: the survivor failed at its third token),
+# and 12 pages poisoned after 7 steps, where both span both shards and
+# the victim's poisoned page lies on shard 1 beside the survivor's.
+# int8_static pages cannot carry the NaN into row 0 (a NaN quantizes to
+# a finite int8 and static scales are never written), so that arm held
+# before the fix too; native and int8_dynamic failed.
+F1_PROMPTS = (9, 6)
+F1_POOLS = {"one_shard": (24, 4), "both_shards": (12, 7)}
+
+
+@pytest.fixture(scope="module")
+def f1_model():
+    return GPTModel(vocab_size=VOCAB, hidden_size=32, num_layers=LAYERS,
+                    num_heads=HEADS, ffn_size=64, max_seq_len=64,
+                    device="cpu", seed=0)
+
+
+def _f1_drive(model, kv_mode, mesh_axes, num_pages, poison_after):
+    from paddle_tpu_torch.slim import export_serving_quant
+
+    kw = dict(page_size=4, max_batch_size=4, prefill_chunk=4, eos_id=-1,
+              device="cpu", sync_mode=True, num_pages=num_pages)
+    if kv_mode != "native":
+        kw["kv_cache_dtype"] = "int8"
+    if kv_mode == "int8_static":
+        kw["quant_scales"] = export_serving_quant(
+            model, weight_dtype=None,
+            calib_prompts=np.random.RandomState(3).randint(
+                1, VOCAB, (4, 12)).astype(np.int32))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, VOCAB, (n,)).astype(np.int32)
+               for n in F1_PROMPTS]
+    eng = ServingEngine(model, mesh_axes=mesh_axes, **kw)
+    ids = [eng.add_request(p, max_new_tokens=BUDGET) for p in prompts]
+    for _ in range(poison_after):
+        eng.step()
+    spans = {}
+    if eng._mesh_layout is not None:
+        per = num_pages // eng._mesh_layout.sp
+        spans = {s.seq_id: {p // per for p in eng.cache.seq_page_ids(
+            s.seq_id)} for s in eng.scheduler.running}
+    victim = next(s for s in eng.scheduler.running if s.seq_id == ids[1])
+    eng._poison_lane(victim)
+    outs = eng.drain()
+    return eng, ids, outs, spans
+
+
+@pytest.mark.parametrize("pool", sorted(F1_POOLS))
+@pytest.mark.parametrize("kv_mode", ["native", "int8_static",
+                                     "int8_dynamic"])
+@pytest.mark.parametrize("mesh_axes", [{"sp": 2}, {"tp": 2, "sp": 2}],
+                         ids=["sp2", "tp2sp2"])
+def test_quarantine_at_sp_fails_only_the_victim(f1_model, mesh_axes,
+                                                kv_mode, pool):
+    num_pages, poison_after = F1_POOLS[pool]
+    _, sids, souts, _ = _f1_drive(f1_model, kv_mode, None, num_pages,
+                                  poison_after)
+    eng, ids, outs, spans = _f1_drive(f1_model, kv_mode, mesh_axes,
+                                      num_pages, poison_after)
+    want = {"one_shard": {0}, "both_shards": {0, 1}}[pool]
+    assert all(s == want for s in spans.values()) and len(spans) == 2
+    assert eng.take_faulted() == [ids[1]] and ids[1] not in outs
+    assert len(outs[ids[0]]) == BUDGET
+    np.testing.assert_array_equal(outs[ids[0]], souts[sids[0]])
     assert eng.cache.pages_in_use == 0
     assert all(torch.isfinite(p).all() for kv in eng._kv
                for side in kv.values() for p in side)
