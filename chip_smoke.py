@@ -41,14 +41,15 @@ Phases, one result line each (or more):
    the requests, synchronous and pipelined: streams byte-identical, no
    page leaked.
 8. kernel_flash: the flash attention forward, dK/dV and dQ kernels
-   against their plain versions in f32 and bf16 at the training shape
-   (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
+   against their plain versions in f32 and bf16 (the bf16 forward and
+   dK/dV on the tensor cores, their launches logged) at the training
+   shape (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
    non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
-   D 80 and 256; the dropout bits of all three kernels read back and
-   compared with ``_keep_mask`` bit for bit; each kernel timed at the
-   training shape beside its bound, its plain version and PyTorch's
-   ``scaled_dot_product_attention`` (forward; its autograd backward for
-   the pair).
+   D 80, 100 and 256; the dropout bits of all three kernels in f32 and
+   in bf16 read back and compared with ``_keep_mask`` bit for bit; each
+   kernel timed at the training shape beside its bound, its plain
+   version and PyTorch's ``scaled_dot_product_attention`` (forward; its
+   autograd backward for the pair).
 9. train: GPT-2-small widths, all 12 layers, f32 with TF32 off, seeded
    weights, ``AdamW(6e-4, weight_decay=0.1)`` on one seeded B 8 x S 1024
    batch: a warm-up step, then 5 steps of ``loss.backward(); opt.step();
@@ -114,6 +115,16 @@ Phases, one result line each (or more):
 18. lenet: dygraph LeNet on the synthetic MNIST, ``Adam(1e-3)``, 30
    in-order batches of 64, f32: the loss falls, the first 5 losses equal
    the CPU's from the same weights; step p50 / p95 and images/s.
+19. train_bf16: phase 9 with the forward under
+   ``amp.auto_cast(dtype="bfloat16")``, as ``bench.py`` trains GPT (the
+   loss in f32; master weights, gradients and AdamW state f32): 12 x 5
+   launches of each flash kernel, the forward and dK/dV of them on the
+   tensor cores; the same loss checks, step times, peak memory and
+   device time by kernel family.
+20. train_parity_bf16: phase 10 under the same autocast (2 layers, B 2 x
+   S 1024): the loss and every gradient against the CPU's plain route
+   at bf16 tolerances, and the card's AdamW step against the same step
+   replayed on the CPU from the card's gradients.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -925,9 +936,11 @@ def qmm_phase(rng, flush) -> dict:
     return timings
 
 
-def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p):
-    """The dropout keep bits each flash kernel applied, read back
-    exactly: ``{"fwd", "dkv", "dq"}`` -> bool ``[B·H, S, S]`` (row, col).
+def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p,
+                    dtype=torch.float32):
+    """The dropout keep bits each flash kernel of ``dtype`` applied, read
+    back exactly: ``{"fwd", "dkv", "dq"}`` -> bool ``[B·H, S, S]`` (row,
+    col).
 
     With q = 0 every visible score is 0, so each probability is 1/n over
     a row's n visible keys (the backward kernels get lse = log n).  A
@@ -935,8 +948,10 @@ def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p):
     probabilities into output column ``d``, which is > 0 exactly where
     the bit is kept: v for the forward (o = P'v), dO for dK/dV (dV =
     P'ᵀdO, read transposed) and k for dQ (with dO = v = e0 and delta 0,
-    dQ = dS·k and dS = P'·1).  Masked keys read as dropped.  f32, on the
-    card, not causal."""
+    dQ = dS·k and dS = P'·1).  Masked keys read as dropped.  On the card,
+    not causal.  In bf16 (the forward and dK/dV on the tensor cores) a
+    kept probability 1/(n (1 - p)) stays > 0 after its rounding to bf16,
+    so the bits read back as exactly."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B = kv_mask.shape[0]
@@ -946,7 +961,7 @@ def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p):
     lse = torch.log(n)[:, None, None].expand(B, H, S).reshape(
         B * H, S, 1).contiguous()
     zero_rows = torch.zeros(B * H, S, 1, device=dev)
-    zeros = torch.zeros(B, H, S, D, device=dev)
+    zeros = torch.zeros(B, H, S, D, device=dev, dtype=dtype)
     e0 = zeros.clone()
     e0[..., 0] = 1.0
     bits = {name: torch.zeros(B * H, S, S, dtype=torch.bool, device=dev)
@@ -954,7 +969,7 @@ def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p):
     for c0 in range(0, S, D):
         w = min(D, S - c0)
         onehot = zeros.clone()
-        onehot[:, :, c0:c0 + w, :w] = torch.eye(w, device=dev)
+        onehot[:, :, c0:c0 + w, :w] = torch.eye(w, device=dev, dtype=dtype)
         o, _ = fa.flash_fwd_cuda(zeros, zeros, onehot, mask, seed, 1.0,
                                  False, dropout_p)
         bits["fwd"][:, :, c0:c0 + w] = o.reshape(B * H, S, D)[..., :w] > 0
@@ -987,15 +1002,35 @@ def flash_keep_reference(kv_mask, H, S, seed, dropout_p):
 # or queries in another order (1e-4); bf16 outputs rounded to 8 mantissa
 # bits (2e-2) — both times max(1, the largest reference value)
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 outputs also in relative L2 norm over the whole tensor
+# (flash_rel_l2), where the long causal rows (small |o| under a max-abs
+# limit set by row 0's |v|) cannot hide: the bf16 roundings of P, dS and
+# the outputs, 2^-9 relative each, land at 1.8e-3 to 2.8e-3 in the CPU
+# emulation of the tensor-core bodies against the Pallas kernels, where a
+# body that drops one 64-key tile of the rows past 300 at S 1024 lands at
+# 0.18 (tests/test_torch_flash_tc_numerics.py).  f32's max-abs 1e-4 is
+# already far below what a dropped tile costs
+FLASH_REL_L2 = {torch.bfloat16: 1e-2}
+# the rms that stands in for the reference's where that is smaller: a
+# gradient whose exact value is 0 (dk and dq at a single key) is rounding
+# noise in both versions; every other reference of the card tests has an
+# rms of at least 0.05
+FLASH_REL_L2_FLOOR = 1e-2
 BF16_FLOPS_PER_S = 989e12
 # (name, B, H, S, D, causal, kv mask with padded tails, dropout_p):
 # (a) the training shape, (b) a BERT-base shape, (c) unaligned S and D
+# (D 100: bf16 rows not a multiple of 16 bytes, loaded element by element)
 FLASH_CASES = [("train", 8, 12, 1024, 64, True, False, 0.0),
                ("bert", 8, 12, 512, 64, False, True, 0.1),
                ("unaligned_d80", 2, 4, 1000, 80, True, True, 0.1),
+               ("unaligned_d100", 2, 4, 1000, 100, True, True, 0.1),
                ("unaligned_d256", 2, 4, 1000, 256, True, True, 0.1)]
 FLASH_SEED = 20240611
 FLASH_TIMED = "train"
+# the bf16 forward and dK/dV bodies (namespace tc of flash_attention.cu)
+FLASH_TC_DESIGN = ("mma.sync m16n8k16 bf16 with f32 accumulators; cp.async "
+                   "ring of 3 stages; ldmatrix (.trans) from XOR-swizzled "
+                   "tiles; P and dS rounded to bf16 in registers")
 
 
 def flash_inputs(rng, B, H, S, D, masked, dtype):
@@ -1032,17 +1067,29 @@ def flash_bound_ms(kernel, B, H, S, D, causal, item):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _flash_check(tag, name, got, want, tol):
+def flash_rel_l2(got, want) -> float:
+    """‖got − want‖₂ / ‖want‖₂ over the whole tensor, with an rms of
+    FLASH_REL_L2_FLOOR standing in for ``want``'s where that is
+    smaller."""
+    want = want.float()
+    floor = FLASH_REL_L2_FLOOR * math.sqrt(want.numel())
+    return float((got.float() - want).norm()) / max(float(want.norm()),
+                                                    floor)
+
+
+def _flash_check(tag, name, got, want, tol, rel_l2=None):
     want = want.float()
     err = float((got.float() - want).abs().max())
     limit = tol * max(1.0, float(want.abs().max()))
-    ok = math.isfinite(err) and err <= limit
+    rel = flash_rel_l2(got, want) if rel_l2 is not None else None
+    ok = (math.isfinite(err) and err <= limit
+          and (rel is None or rel <= rel_l2))
     log("kernel_flash", case=tag, output=name, max_abs_err=err, limit=limit,
-        ok=ok)
+        rel_l2=rel, rel_l2_limit=rel_l2, ok=ok)
     if not ok:
         raise AssertionError(f"flash {name} kernel disagrees with its plain "
-                             f"version on {tag}: max_abs_err {err} > "
-                             f"{limit}")
+                             f"version on {tag}: max_abs_err {err} (limit "
+                             f"{limit}), relative L2 {rel} (limit {rel_l2})")
     return err
 
 
@@ -1055,6 +1102,7 @@ def flash_kernel_phase(rng, flush) -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
 
     errs, timings = {}, {}
+    reset_flash_counts()
     for name, B, H, S, D, causal, masked, p in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"{name}/{str(dtype).split('.')[-1]}"
@@ -1071,13 +1119,13 @@ def flash_kernel_phase(rng, flush) -> dict:
             torch.cuda.synchronize()
             rdk, rdv = fa.flash_dkv_ref(qf, kf, vf, gf, *bwd)
             rdq = fa.flash_dq_ref(qf, kf, vf, gf, *bwd)
-            tol = FLASH_TOL[dtype]
+            tol, rel = FLASH_TOL[dtype], FLASH_REL_L2.get(dtype)
             errs[tag] = {
-                "fwd": max(_flash_check(tag, "o", o, ref_o, tol),
+                "fwd": max(_flash_check(tag, "o", o, ref_o, tol, rel),
                            _flash_check(tag, "lse", lse, ref_lse, 1e-4)),
-                "dkv": max(_flash_check(tag, "dk", dk, rdk, tol),
-                           _flash_check(tag, "dv", dv, rdv, tol)),
-                "dq": _flash_check(tag, "dq", dq, rdq, tol)}
+                "dkv": max(_flash_check(tag, "dk", dk, rdk, tol, rel),
+                           _flash_check(tag, "dv", dv, rdv, tol, rel)),
+                "dq": _flash_check(tag, "dq", dq, rdq, tol, rel)}
             del ref_o, rdk, rdv, rdq
             if name != FLASH_TIMED:
                 continue
@@ -1117,19 +1165,31 @@ def flash_kernel_phase(rng, flush) -> dict:
             del ql, kl, vl, lib_out
             torch.cuda.empty_cache()
 
-    # (b)'s dropout bits, exactly, from every kernel
+    # the bf16 forward and dK/dV calls above ran on the tensor cores (one
+    # launch each per case's check, the rest timing runs)
+    counts = read_flash_counts()
+    log("kernel_flash_launches", **counts)
+    if min(counts["flash_tc_fwd"], counts["flash_tc_dkv"]) < len(FLASH_CASES):
+        raise AssertionError(f"kernel_flash: tensor-core launches {counts}, "
+                             f"expected at least {len(FLASH_CASES)} of each")
+
+    # (b)'s dropout bits, exactly, from every kernel in f32 and bf16
     _, B, H, S, D, _, _, p = FLASH_CASES[1]
     _, _, _, _, mask = flash_inputs(rng, B, H, S, D, True, torch.float32)
-    bits = flash_keep_bits(mask, H, S, D, FLASH_SEED, p)
     want = flash_keep_reference(mask, H, S, FLASH_SEED, p)
-    exact = {name: bool(torch.equal(got, want)) for name, got in
-             bits.items()}
+    exact = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bits = flash_keep_bits(mask, H, S, D, FLASH_SEED, p, dtype)
+        exact[str(dtype).split(".")[-1]] = {
+            name: bool(torch.equal(got, want)) for name, got in bits.items()}
     log("kernel_flash_bits", case="bert", bits=int(want.numel()),
         kept=int(want.sum()), exact=exact)
-    if not all(exact.values()):
+    if not all(all(e.values()) for e in exact.values()):
         raise AssertionError(f"flash dropout bits differ from _keep_mask: "
                              f"{exact}")
-    return {"max_abs_err": errs, "bits_exact": exact, **timings}
+    return {"max_abs_err": errs, "bits_exact": exact["float32"],
+            "bits_exact_bf16": exact["bfloat16"], "launches": counts,
+            **timings}
 
 
 # --------------------------------------------------------------------------
@@ -1147,26 +1207,42 @@ GRAD_TOL, GRAD_FLOOR, LOSS_RTOL = 1e-4, 1e-6, 1e-5
 
 def reset_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
-    from paddle_tpu_torch.ops.flash_attention import FLASH_ROUTE_STATS
+    from paddle_tpu_torch.ops.flash_attention import (FLASH_ROUTE_STATS,
+                                                      FLASH_TC_STATS)
 
-    for stats in (ROUTE_STATS, FLASH_ROUTE_STATS):
+    for stats in (ROUTE_STATS, FLASH_ROUTE_STATS, FLASH_TC_STATS):
         for key in stats:
             stats[key] = 0
 
 
 def read_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
-    from paddle_tpu_torch.ops.flash_attention import FLASH_ROUTE_STATS
+    from paddle_tpu_torch.ops.flash_attention import (FLASH_ROUTE_STATS,
+                                                      FLASH_TC_STATS)
 
     return ({f"flash_{k}": v for k, v in FLASH_ROUTE_STATS.items()}
+            | {f"flash_tc_{k}": v for k, v in FLASH_TC_STATS.items()}
             | {f"route_{k}": v for k, v in ROUTE_STATS.items()})
 
 
-def train_step(model, opt, x, y):
-    """One step of the paddle dygraph loop; returns the loss."""
+def amp_context(amp_dtype):
+    """``amp.auto_cast(dtype=amp_dtype)``, or no cast for None."""
+    from contextlib import nullcontext
+
+    from paddle_tpu_torch import amp
+
+    return (nullcontext() if amp_dtype is None
+            else amp.auto_cast(dtype=amp_dtype))
+
+
+def train_step(model, opt, x, y, amp_dtype=None):
+    """One step of the paddle dygraph loop, the forward under
+    ``auto_cast(dtype=amp_dtype)`` when given (the loss reads the logits
+    in f32 either way); returns the loss."""
     from paddle_tpu_torch.nn import functional as F
 
-    logits = model(x)
+    with amp_context(amp_dtype):
+        logits = model(x)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            y.reshape(-1))
     loss.backward()
@@ -1175,7 +1251,11 @@ def train_step(model, opt, x, y):
     return float(loss.detach())
 
 
-def profile_step(model, opt, x, y) -> dict:
+# kernel names of the matrix-product libraries (cuBLAS, cuBLASLt)
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_step(model, opt, x, y, amp_dtype=None) -> dict:
     """One more training step under ``torch.profiler``: device time by
     kernel family (the three flash kernels, matrix products, the rest),
     the costliest other kernels, and the device's busy share of the
@@ -1186,7 +1266,7 @@ def profile_step(model, opt, x, y) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = train_step(model, opt, x, y)
+        loss = train_step(model, opt, x, y, amp_dtype)
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"flash_fwd": 0.0, "flash_dkv": 0.0, "flash_dq": 0.0,
            "matmul": 0.0, "other": 0.0}
@@ -1198,8 +1278,9 @@ def profile_step(model, opt, x, y) -> dict:
         n_kernels += evt.count
         name = evt.key
         key = next((f"flash_{k}" for k in ("dkv", "dq", "fwd")
-                    if f"{k}_kernel<" in name), None)
-        if key is None and "gemm" in name.lower():
+                    if f"{k}_kernel<" in name or f"{k}_tc_kernel<" in name),
+                   None)
+        if key is None and any(m in name.lower() for m in MATMUL_NAMES):
             key = "matmul"
         if key is None:
             key = "other"
@@ -1215,11 +1296,13 @@ def profile_step(model, opt, x, y) -> dict:
                 other[:8]]}
 
 
-def train_phase(rng) -> dict:
-    """GPT-2-small widths, all 12 layers, f32, AdamW(6e-4, wd 0.1), one
-    seeded B 8 x S 1024 batch repeated: one warm-up step, then
-    TRAIN_STEPS steps with every count set to 0 just before and read
-    just after, then one more step under the profiler."""
+def train_phase(rng, amp_dtype=None, phase="train") -> dict:
+    """GPT-2-small widths, all 12 layers, AdamW(6e-4, wd 0.1), one seeded
+    B 8 x S 1024 batch repeated: one warm-up step, then TRAIN_STEPS steps
+    with every count set to 0 just before and read just after, then one
+    more step under the profiler.  f32, or the forward under
+    ``auto_cast(dtype=amp_dtype)`` as ``bench.py`` trains (bf16: the
+    forward and dK/dV flash bodies on the tensor cores)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models import GPTModel
 
@@ -1235,24 +1318,26 @@ def train_phase(rng) -> dict:
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses = [train_step(model, opt, x, y)]
+    losses = [train_step(model, opt, x, y, amp_dtype)]
     warmup_s = time.perf_counter() - t0
     reset_counts()
     reset_flash_counts()
     step_s = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        losses.append(train_step(model, opt, x, y))   # float(): syncs
+        losses.append(train_step(model, opt, x, y, amp_dtype))  # syncs
         step_s.append(time.perf_counter() - t0)
     counts = read_flash_counts() | read_counts()
-    L = len(model.layers)
-    want = {"flash_fwd": L * TRAIN_STEPS, "flash_dkv": L * TRAIN_STEPS,
-            "flash_dq": L * TRAIN_STEPS, "flash_ref": 0,
-            "route_pallas": L * TRAIN_STEPS, "route_xla": 0}
-    expect_counts("train", counts, want)
-    prof = profile_step(model, opt, x, y)
+    n = len(model.layers) * TRAIN_STEPS
+    n_tc = n if amp_dtype == "bfloat16" else 0
+    want = {"flash_fwd": n, "flash_dkv": n, "flash_dq": n, "flash_ref": 0,
+            "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc,
+            "route_pallas": n, "route_xla": 0}
+    expect_counts(phase, counts, want)
+    prof = profile_step(model, opt, x, y, amp_dtype)
     ln_v = math.log(GPT2_SMALL["vocab_size"])
     result = {
+        "amp_dtype": amp_dtype,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
         "losses": losses, "ln_vocab": ln_v, "init_s": init_s,
         "warmup_step_s": warmup_s, "step_s": step_s,
@@ -1261,15 +1346,15 @@ def train_phase(rng) -> dict:
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / sum(step_s),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         **counts, "profile": prof}
-    log("train", **result)
+    log(phase, **result)
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"train: non-finite loss {losses}")
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
     if abs(losses[0] - ln_v) > 0.5:
-        raise AssertionError(f"train: first loss {losses[0]} is not within "
-                             f"0.5 of ln(vocab) {ln_v}")
+        raise AssertionError(f"{phase}: first loss {losses[0]} is not "
+                             f"within 0.5 of ln(vocab) {ln_v}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall on the repeated "
-                             f"batch: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall on the "
+                             f"repeated batch: {losses}")
     return result
 
 
@@ -1282,18 +1367,16 @@ def _off_noise(diff, g_ref, global_max, limit):
     return off, off & ~noise
 
 
-def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
-    """2 layers at GPT-2-small widths (or ``cfg``), B 2 x S 1024: one
-    step's loss and every gradient through the kernels on the card
-    against the same step on the CPU through the port's plain flash route
-    (PADDLE_TPU_FORCE_FLASH=1), then the weights after one AdamW step."""
+def _parity_runs(rng, cfg, batch, seq, amp_dtype):
+    """One training step of the same 2-layer GPT (``cfg``) on the card
+    and on the CPU's plain flash route (PADDLE_TPU_FORCE_FLASH=1), the
+    forward under ``auto_cast(dtype=amp_dtype)`` when given: per device
+    the loss, every gradient, the weights after one AdamW step, the
+    launch counts and the seconds it took."""
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models import GPTModel
 
-    cfg = cfg or dict(GPT2_SMALL, num_layers=2)
-    seq = seq or TRAIN_SEQ
-    L = cfg["num_layers"]
     card = GPTModel(**cfg, device=DEVICE, seed=1234)
     cpu = GPTModel(**cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
@@ -1310,7 +1393,8 @@ def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
         reset_flash_counts()
         t0 = time.perf_counter()
         try:
-            logits = model(x)
+            with amp_context(amp_dtype):
+                logits = model(x)
             loss = F.cross_entropy(logits.reshape(-1, cfg["vocab_size"]),
                                    y.reshape(-1))
             loss.backward()
@@ -1321,6 +1405,8 @@ def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
                 os.environ["PADDLE_TPU_FORCE_FLASH"] = forced
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in model.named_parameters()}
+        weights0 = {n: p.detach().float().cpu().clone() for n, p in
+                    model.named_parameters()}
         opt = AdamW(TRAIN_LR, parameters=list(model.parameters()),
                     weight_decay=TRAIN_WD)
         opt.step()
@@ -1328,15 +1414,30 @@ def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
         runs[name] = {"loss": float(loss.detach()), "grads": grads,
+                      "weights0": weights0,
                       "weights": {n: p.detach().float().cpu() for n, p in
                                   model.named_parameters()},
                       "counts": read_flash_counts(),
                       "s": time.perf_counter() - t0}
-    a, b = runs["card"], runs["cpu"]
-    expect_counts("train_parity card", a["counts"], {
-        "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0})
-    expect_counts("train_parity cpu", b["counts"], {
+    L = cfg["num_layers"]
+    n_tc = L if amp_dtype == "bfloat16" else 0
+    expect_counts("train_parity card", runs["card"]["counts"], {
+        "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0,
+        "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc})
+    expect_counts("train_parity cpu", runs["cpu"]["counts"], {
         "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L})
+    return runs
+
+
+def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
+    """2 layers at GPT-2-small widths (or ``cfg``), B 2 x S 1024, f32: one
+    step's loss and every gradient through the kernels on the card
+    against the same step on the CPU through the port's plain flash route
+    (PADDLE_TPU_FORCE_FLASH=1), then the weights after one AdamW step."""
+    cfg = cfg or dict(GPT2_SMALL, num_layers=2)
+    seq = seq or TRAIN_SEQ
+    runs = _parity_runs(rng, cfg, batch, seq, None)
+    a, b = runs["card"], runs["cpu"]
     loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
     gmax = max(float(g.abs().max()) for g in b["grads"].values())
     grad_worst, w_worst, w_noise, n_w, bad = 0.0, 0.0, 0, 0, []
@@ -1356,7 +1457,7 @@ def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
             bad.append(f"weight {name}: {int(off_signal.sum())} entries "
                        f"off {2e-3 * TRAIN_LR} with a gradient above the "
                        f"noise floor")
-    result = {"layers": L, "batch": batch, "seq": seq,
+    result = {"layers": cfg["num_layers"], "batch": batch, "seq": seq,
               "loss_card": a["loss"], "loss_cpu": b["loss"],
               "loss_rel_err": loss_err,
               "grad_worst_err_over_limit": grad_worst,
@@ -1369,6 +1470,73 @@ def train_parity_phase(rng, cfg=None, batch=2, seq=None) -> dict:
         raise AssertionError(f"train_parity: loss rel err {loss_err} (tol "
                              f"{LOSS_RTOL}), noise entries {w_noise} of "
                              f"{n_w}; {bad[:5]}")
+    return result
+
+
+# the 2-layer bf16-autocast card step vs the same step on the CPU: both
+# round to bf16 after every linear, attention and GELU, but cuBLAS and the
+# CPU's BLAS take the sums inside them in another order, and the card's
+# flash bodies round P and dS to bf16 where the plain version keeps f32,
+# so elements differ by a bf16 ulp (2^-8) here and there: the loss within
+# 5e-3 relative and each parameter's gradient within 5e-2 of its norm
+# (relative L2; two CPU routes differ by 1.3e-2).  The key projections'
+# biases have an exact gradient of 0 (a softmax row ignores a constant
+# added to all its scores), so theirs is rounding noise on both devices
+# and is only held to be small.  Adam's first step moves a weight by lr
+# times the sign of its gradient, so where a gradient near 0 changes sign
+# the weights differ by 2 lr (1-6 % of a tensor's entries between two CPU
+# routes); the card's AdamW step is held instead to the same step on the
+# CPU from the card's own gradients, within 1e-3 lr (f32 elementwise ops)
+GRAD_REL_BF16, LOSS_RTOL_BF16, NOISE_GRADS = 5e-2, 5e-3, ".attn.k_proj.bias"
+
+
+def train_parity_bf16_phase(rng, cfg=None, batch=2, seq=None) -> dict:
+    """The bf16-autocast twin of :func:`train_parity_phase`: 2 layers at
+    GPT-2-small widths (or ``cfg``), B 2 x S 1024, the forward under
+    ``auto_cast(dtype="bfloat16")`` on both devices (the card's flash
+    forward and dK/dV on the tensor cores), held to the tolerances
+    above."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = cfg or dict(GPT2_SMALL, num_layers=2)
+    seq = seq or TRAIN_SEQ
+    runs = _parity_runs(rng, cfg, batch, seq, "bfloat16")
+    a, b = runs["card"], runs["cpu"]
+    loss_err = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    gmax = max(float(g.norm()) for g in b["grads"].values())
+    # the CPU's AdamW step from the card's start and gradients
+    replay = {n: torch.nn.Parameter(w.clone()) for n, w in
+              a["weights0"].items()}
+    for n, p in replay.items():
+        p.grad = a["grads"][n].clone()
+    AdamW(TRAIN_LR, parameters=list(replay.values()),
+          weight_decay=TRAIN_WD).step()
+    grad_rel, step_err, bad = {}, 0.0, []
+    for name, gb in b["grads"].items():
+        ga = a["grads"][name]
+        if name.endswith(NOISE_GRADS):
+            if float(ga.norm()) > 1e-2 * gmax:
+                bad.append(f"grad {name}: norm {float(ga.norm())} is not "
+                           f"rounding noise")
+        else:
+            grad_rel[name] = float((ga - gb).norm() / gb.norm())
+            if grad_rel[name] > GRAD_REL_BF16:
+                bad.append(f"grad {name}: relative L2 {grad_rel[name]}")
+        step_err = max(step_err, float(
+            (a["weights"][name] - replay[name].detach()).abs().max()))
+    result = {"layers": cfg["num_layers"], "batch": batch, "seq": seq,
+              "loss_card": a["loss"], "loss_cpu": b["loss"],
+              "loss_rel_err": loss_err,
+              "grad_rel_l2_worst": max(grad_rel.values()),
+              "grad_rel_l2": grad_rel, "adamw_step_max_abs_err": step_err,
+              "card_s": a["s"], "cpu_s": b["s"],
+              "card_counts": a["counts"], "cpu_counts": b["counts"]}
+    log("train_parity_bf16", **result)
+    if loss_err > LOSS_RTOL_BF16 or bad or step_err > 1e-3 * TRAIN_LR:
+        raise AssertionError(
+            f"train_parity_bf16: loss rel err {loss_err} (tol "
+            f"{LOSS_RTOL_BF16}), AdamW step off by {step_err} (tol "
+            f"{1e-3 * TRAIN_LR}); {bad[:5]}")
     return result
 
 
@@ -2179,7 +2347,14 @@ def main(argv=None) -> int:
     # trajectory does not depend on what the phases before it drew
     report["train"] = train = train_phase(np.random.RandomState(0))
     torch.cuda.empty_cache()
+    report["train_bf16"] = train_bf16 = train_phase(
+        np.random.RandomState(0), "bfloat16", "train_bf16")
+    torch.cuda.empty_cache()
     report["train_parity"] = train_parity_phase(rng)
+    torch.cuda.empty_cache()
+    # its own seed, so the phases after it see the draws of before
+    report["train_parity_bf16"] = train_parity_bf16_phase(
+        np.random.RandomState(7))
     torch.cuda.empty_cache()
     report["custom_op"] = custom = custom_op_phase()
     report["lenet"] = lenet_phase()
@@ -2233,11 +2408,23 @@ def main(argv=None) -> int:
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",
                train[f"flash_{kname}"], flash_t[f"{kname}/train/float32"],
                case="B8 H12 S1024 D64 causal, float32",
-               bfloat16=flash_t[f"{kname}/train/bfloat16"],
+               bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],
+                             launches_train_bf16=train_bf16[
+                                 f"flash_{kname}"]),
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()},
                dropout_bits_exact=flash_t["bits_exact"][kname])
         for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))] + [
+        record(f"flash_attention_{kname}_bf16_tc", flash_src,
+               f"{flash_tpu}:{line}", train_bf16[f"flash_tc_{kname}"],
+               flash_t[f"{kname}/train/bfloat16"],
+               case="B8 H12 S1024 D64 causal, bfloat16",
+               design=FLASH_TC_DESIGN,
+               max_abs_err_by_case={c: e[kname] for c, e in
+                                    flash_t["max_abs_err"].items()
+                                    if c.endswith("bfloat16")},
+               dropout_bits_exact=flash_t["bits_exact_bf16"][kname])
+        for kname, line in (("fwd", 289), ("dkv", 332))] + [
         record("paged_attention",
                "paddle_tpu_torch/ops/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:122",

@@ -1,7 +1,8 @@
 """auto_cast — twin of ``paddle_tpu/amp/auto_cast.py``: the same op
 white and black lists (copied verbatim, so an op name casts the same way
-in both packages) and the same ``should_cast`` rule, which
-``ops.dispatch.apply`` asks for each op's floating inputs."""
+in both packages) and the same ``should_cast`` rule.  ``cast_inputs``
+applies it to an op's floating inputs: ``ops.dispatch.apply``, the
+attention ops and ``GPTModel``'s linear layers all cast through it."""
 from __future__ import annotations
 
 import threading
@@ -12,7 +13,7 @@ import torch
 from ..framework.dtype import convert_dtype
 
 __all__ = ["white_list", "black_list", "auto_cast", "amp_guard",
-           "amp_state", "should_cast"]
+           "amp_state", "should_cast", "cast_inputs"]
 
 # the op lists of paddle_tpu/amp/auto_cast.py:12-30 (reference fp16_lists.py)
 white_list = {
@@ -94,3 +95,14 @@ def should_cast(op_name: str) -> Optional[torch.dtype]:
     if op_name in (black_list | _state.custom_black):
         return torch.float32
     return None
+
+
+def cast_inputs(op_name: str, *tensors):
+    """``tensors`` with the floating torch tensors among them cast to
+    ``should_cast(op_name)``'s dtype; the rest, and all of them when AMP
+    leaves the op alone, pass through unchanged."""
+    dtype = should_cast(op_name)
+    if dtype is None:
+        return tensors
+    return tuple(t.to(dtype) if isinstance(t, torch.Tensor)
+                 and t.is_floating_point() else t for t in tensors)

@@ -13,6 +13,11 @@
   routing entry (the per-row CUDA kernel on a CUDA tensor, its plain
   version on a CPU tensor).
 
+Under ``amp.auto_cast`` both routes cast their floating inputs as the
+JAX package's ``apply`` does: the flash route as "flash_attention", the
+plain route as "scaled_dot_product_attention" (both on the white list),
+so bf16 q, k and v reach the bf16 flash bodies.
+
 Routing (:func:`_pallas_ok`): the flash route needs a CUDA tensor (the
 JAX package says "on TPU"), self-attention shapes, S >= 128 and
 D <= 256.  ``PADDLE_TPU_FORCE_FLASH=1`` (the JAX package's switch) takes
@@ -29,6 +34,7 @@ import os
 
 import torch
 
+from ..amp.auto_cast import cast_inputs
 from .flash_attention import NEG_INF, flash_attention_bshd
 
 __all__ = ["ROUTE_STATS", "scaled_dot_product_attention", "flash_attention",
@@ -122,6 +128,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             return flash_attention(query, key, value, dropout=drop,
                                    causal=is_causal, kv_mask=kv_mask)
     ROUTE_STATS["xla"] += 1
+    query, key, value, attn_mask = cast_inputs(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     out = _sdpa_core(query.transpose(1, 2), key.transpose(1, 2),
                      value.transpose(1, 2), attn_mask, drop, is_causal)
     return out.transpose(1, 2).to(query.dtype)
@@ -138,6 +146,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     chain, so the two packages' draws differ; pass an explicit ``seed``
     to ``flash_attention_bshd`` to share bits)."""
     if _pallas_ok(query, key):
+        query, key, value = cast_inputs("flash_attention", query, key, value)
         seed = None
         if dropout > 0.0:
             seed = int(torch.randint(0, 2 ** 31 - 1, (1,)))

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..amp.auto_cast import should_cast
+from ..amp.auto_cast import cast_inputs
 from ..framework.flags import flag_value
 
 __all__ = ["apply"]
@@ -37,17 +37,9 @@ def apply(name, fn, *args, **kwargs):
     tuple/list of Tensors mirroring ``fn``'s flat output."""
     from ..tensor import Tensor
 
-    cast_to = should_cast(name)
-    values = []
-    for a in args:
-        if isinstance(a, Tensor):
-            v = a._value
-            if cast_to is not None and v.is_floating_point() \
-                    and v.dtype != cast_to:
-                v = v.to(cast_to)
-            values.append(v)
-        else:
-            values.append(a)
+    cast = iter(cast_inputs(name, *(a._value for a in args
+                                     if isinstance(a, Tensor))))
+    values = [next(cast) if isinstance(a, Tensor) else a for a in args]
     try:
         out = fn(*values, **kwargs)
     except Exception as e:

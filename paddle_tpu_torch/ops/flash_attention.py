@@ -39,7 +39,11 @@ its blocks.
 ``FLASH_ROUTE_STATS`` counts ``"fwd"``, ``"dkv"`` and ``"dq"`` kernel
 launches (incremented by the kernel wrappers, once per launch, and
 nowhere else) and ``"ref"`` plain-version calls (by the routing
-entries).
+entries).  ``FLASH_TC_STATS`` counts, besides, the launches of the two
+bodies that run on the tensor cores: the bf16 forward and dK/dV
+(``"fwd"``, ``"dkv"``).  In bf16 those round P and dS to bf16 before
+their second product, so they match the plain version (which keeps them
+in f32) within the bf16 tolerance, not to f32 rounding.
 """
 from __future__ import annotations
 
@@ -48,7 +52,8 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "MAX_HEAD_DIM", "_keep_mask",
+__all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "FLASH_TC_STATS", "MAX_HEAD_DIM",
+           "_keep_mask",
            "flash_fwd_ref", "flash_dkv_ref", "flash_dq_ref",
            "flash_fwd_cuda", "flash_dkv_cuda", "flash_dq_cuda",
            "_flash_fwd_bhsd", "_flash_dkv_bhsd", "_flash_dq_bhsd",
@@ -57,6 +62,8 @@ __all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "MAX_HEAD_DIM", "_keep_mask",
 NEG_INF = -1e30
 
 FLASH_ROUTE_STATS = {"fwd": 0, "dkv": 0, "dq": 0, "ref": 0}
+# launches of the tensor-core bodies (bf16 forward and dK/dV)
+FLASH_TC_STATS = {"fwd": 0, "dkv": 0}
 
 # the kernels hold a tile of up to 256 head columns in shared memory (the
 # route admits D <= 256, as the JAX package's does)
@@ -282,6 +289,8 @@ def _launch(name, dtype, ptrs, dims, scale, causal, dropout_p, seed):
             f"flash attention {name} kernel launch failed: CUDA error {rc} "
             f"(B={B}, H={H}, Sq={Sq}, Sk={Sk}, D={D}, {dtype})")
     FLASH_ROUTE_STATS[name] += 1
+    if dtype == torch.bfloat16 and name in FLASH_TC_STATS:
+        FLASH_TC_STATS[name] += 1
 
 
 def flash_fwd_cuda(q, k, v, mask, seed, scale, causal, dropout_p):

@@ -18,6 +18,20 @@ card), LayerNorm and GELU are the serving path's ``_ln`` and ``_gelu``.
 The parameters are trainable, as a paddle ``Layer``'s are; the serving
 steps (``text/generation.py``) run under ``torch.no_grad()`` on detached
 weights and build no graph.
+
+Under ``amp.auto_cast`` the forward casts where the JAX package's
+``apply`` casts (``bench.py`` trains under
+``auto_cast(dtype="bfloat16")``): the linear layers and the tied head
+are on the white list, so their input and their f32 master weight (and
+bias) are cast and the product runs in bf16; attention gets bf16 q, k,
+v, so the bf16 flash bodies run; GELU runs in its input's dtype,
+LayerNorm returns its input's, residual adds promote bf16 + f32 to f32
+and the loss (``cross_entropy``, black list) reads the logits in f32.
+The parameters, their gradients and the optimizer state stay f32.
+With ``auto_cast`` off every layer runs as before, in the parameters'
+dtype.  Level O1 only: under O2 the JAX package's ``apply`` casts every
+op off the black list (GELU, LayerNorm, the adds too), which this
+forward does not do, so it raises there.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..amp.auto_cast import amp_state, cast_inputs, should_cast
 from ..nn import functional as F
 
 __all__ = ["GPTModel", "load_numpy_state", "numpy_state"]
@@ -57,12 +72,12 @@ class _Attention(nn.Module):
         H = self.num_heads
 
         def heads(proj):
-            return proj(x).reshape(B, S, H, E // H)
+            return _linear(proj, x).reshape(B, S, H, E // H)
 
         out = F.scaled_dot_product_attention(
             heads(self.q_proj), heads(self.k_proj), heads(self.v_proj),
             attn_mask=attn_mask, is_causal=is_causal, training=self.training)
-        return self.out_proj(out.reshape(B, S, E))
+        return _linear(self.out_proj, out.reshape(B, S, E))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -81,11 +96,21 @@ class GPTDecoderLayer(nn.Module):
         x = x + self.attn(h, attn_mask=mask,
                           is_causal=causal and mask is None)
         h = _layer_norm(self.ln2, x)
-        return x + self.fc2(F.gelu(self.fc1(h)))
+        return x + _linear(self.fc2, F.gelu(_linear(self.fc1, h)))
 
 
 def _layer_norm(ln: nn.LayerNorm, x):
     return F.layer_norm(x, x.shape[-1], ln.weight, ln.bias, ln.eps)
+
+
+def _linear(lin: nn.Linear, x):
+    """``lin(x)``; under ``auto_cast`` the "linear" op of the JAX package:
+    x, the weight and the bias cast to the AMP dtype, then
+    ``x @ Wᵀ + b`` (the product and the add each rounded to it)."""
+    if should_cast("linear") is None:
+        return lin(x)
+    x, w, b = cast_inputs("linear", x, lin.weight, lin.bias)
+    return torch.matmul(x, w.t()) + b
 
 
 class GPTModel(nn.Module):
@@ -137,6 +162,11 @@ class GPTModel(nn.Module):
         """Full-sequence causal logits ``[B, S, vocab]`` for ``input_ids``
         ``[B, S]``: ``wte + wpe``, the causal layers, ``ln_f`` and the
         head tied to ``wte``."""
+        state = amp_state()
+        if state.enabled and state.level == "O2":
+            raise NotImplementedError(
+                "GPTModel casts as auto_cast level O1 does; level O2 (every "
+                "op off the black list in low precision) is not ported")
         ids = torch.as_tensor(input_ids, device=self.device).long()
         S = ids.shape[1]
         pos = torch.arange(S, device=self.device)
@@ -146,7 +176,9 @@ class GPTModel(nn.Module):
         for layer in self.layers:
             x = layer(x, causal=True)
         x = _layer_norm(self.ln_f, x)
-        return torch.matmul(x, self.wte.weight.t())
+        # the head is F.linear in the JAX GPT
+        x, w = cast_inputs("linear", x, self.wte.weight)
+        return torch.matmul(x, w.t())
 
 
 def _is_linear_weight(name: str) -> bool:
