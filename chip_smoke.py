@@ -23,9 +23,11 @@ Phases, one result line each (or more):
    over the dequantized dense KV.
 4. kernel_qmm: the weight-only int8 matmul against its plain version at
    GPT-2-small's weight shapes (q/k/v/out 768x768, fc1 768x3072, fc2
-   3072x768) and an odd edge shape, M in {1, 8, 37, 512}, f32 and bf16
-   x; timed beside the plain version and ``torch.matmul`` on a
-   pre-dequantized f32 weight.
+   3072x768) and an odd edge shape, M in {1, 8, 16, 17, 37, 72, 512}
+   (the decode form up to 16 rows, the prefill form above; the form each
+   case took logged), f32 and bf16 x, a middle row bit-equal to the same
+   row launched alone; timed at M 1, 8, 16 and 512 beside the plain
+   version and ``torch.matmul`` on a pre-dequantized f32 weight.
 5. e2e: GPT-2-small width (vocab 50304, hidden 768, 12 layers, 12 heads,
    ffn 3072, max_seq_len 1024, f32, seeded random weights) served by
    ``create_serving_engine`` on 8 requests; every attention call must go
@@ -41,15 +43,15 @@ Phases, one result line each (or more):
    the requests, synchronous and pipelined: streams byte-identical, no
    page leaked.
 8. kernel_flash: the flash attention forward, dK/dV and dQ kernels
-   against their plain versions in f32 and bf16 (the bf16 forward and
-   dK/dV on the tensor cores, their launches logged) at the training
+   against their plain versions in f32 and bf16 (the bf16 bodies on the
+   tensor cores, their launches logged) at the training
    shape (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
    non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
    D 80, 100 and 256; the dropout bits of all three kernels in f32 and
    in bf16 read back and compared with ``_keep_mask`` bit for bit; each
    kernel timed at the training shape beside its bound, its plain
    version and PyTorch's ``scaled_dot_product_attention`` (forward; its
-   autograd backward for the pair).
+   autograd backward for dK/dV and for dQ, beside the pair's time).
 9. train: GPT-2-small widths, all 12 layers, f32 with TF32 off, seeded
    weights, ``AdamW(6e-4, weight_decay=0.1)`` on one seeded B 8 x S 1024
    batch: a warm-up step, then 5 steps of ``loss.backward(); opt.step();
@@ -118,8 +120,8 @@ Phases, one result line each (or more):
 19. train_bf16: phase 9 with the forward under
    ``amp.auto_cast(dtype="bfloat16")``, as ``bench.py`` trains GPT (the
    loss in f32; master weights, gradients and AdamW state f32): 12 x 5
-   launches of each flash kernel, the forward and dK/dV of them on the
-   tensor cores; the same loss checks, step times, peak memory and
+   launches of each flash kernel, all three on the tensor cores; the
+   same loss checks, step times, peak memory and
    device time by kernel family.
 20. train_parity_bf16: phase 10 under the same autocast (2 layers, B 2 x
    S 1024): the loss and every gradient against the CPU's plain route
@@ -875,7 +877,11 @@ def stats_kernel_phase(rng, flush) -> dict:
 # shape for the edges (N not a multiple of 4: byte-wise weight loads)
 QMM_SHAPES = {"proj_768x768": (768, 768), "fc1_768x3072": (768, 3072),
               "fc2_3072x768": (3072, 768), "odd_45x70": (45, 70)}
-QMM_M = (1, 8, 37, 512)
+# M: decode rows (1, 8, 16: the decode form), the boundary (17), a ragged
+# step of 8 decode rows beside a 64-row prefill chunk (72) and prefill
+# chunks (37, 512: the prefill form); QMM_TIMED in f32
+QMM_M = (1, 8, 16, 17, 37, 72, 512)
+QMM_TIMED = (1, 8, 16, 512)
 
 
 def qmm_bound_ms(M, K, N, item):
@@ -889,8 +895,9 @@ def qmm_bound_ms(M, K, N, item):
 
 
 def qmm_phase(rng, flush) -> dict:
-    """Body #4 against its plain version at every shape, M and dtype;
-    timings at M 8 (decode) and 512 (a prefill chunk) in f32."""
+    """Body #4 against its plain version at every shape, M and dtype, a
+    middle row bit-equal to the same row launched alone (the canonical
+    summation order); timings at QMM_TIMED in f32."""
     from paddle_tpu_torch.ops import quantized_matmul as qm
 
     timings = {}
@@ -906,23 +913,30 @@ def qmm_phase(rng, flush) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 x = xf.to(dtype)
                 out = qm.quantized_matmul_cuda(x, wq, ws)
+                r = M // 2
+                one = qm.quantized_matmul_cuda(x[r:r + 1].contiguous(), wq,
+                                               ws)
                 torch.cuda.synchronize()
                 ref = qm.quantized_matmul_ref(x.float(), wq, ws)
                 tol = QMM_TOL[dtype]
                 err = float((out.float() - ref).abs().max())
                 scale = float(ref.abs().max())
-                ok = math.isfinite(err) and err <= tol * max(1.0, scale)
+                row_equal = bool(torch.equal(one[0], out[r]))
+                ok = (math.isfinite(err) and err <= tol * max(1.0, scale)
+                      and row_equal)
                 tag = f"{sname}/M{M}/{str(dtype).split('.')[-1]}"
-                log("kernel_qmm", case=tag, max_abs_err=err,
-                    max_abs_ref=scale, tol=tol, ok=ok)
+                log("kernel_qmm", case=tag, form=qm.qmm_form(M),
+                    max_abs_err=err, max_abs_ref=scale, tol=tol,
+                    row_equal_alone=row_equal, ok=ok)
                 if not ok:
                     raise AssertionError(
                         f"quantized matmul disagrees with its plain version "
                         f"on {tag}: max_abs_err {err} (tol {tol} x "
-                        f"max(1, {scale}))")
-                if dtype == torch.float32 and M in (8, 512) \
+                        f"max(1, {scale})), row {r} equal to the row "
+                        f"launched alone: {row_equal}")
+                if dtype == torch.float32 and M in QMM_TIMED \
                         and not sname.startswith("odd"):
-                    t = {"max_abs_err": err,
+                    t = {"form": qm.qmm_form(M), "max_abs_err": err,
                          "ms": time_ms(lambda: qm.quantized_matmul_cuda(
                              x, wq, ws), flush),
                          "plain_ms": time_ms(
@@ -949,8 +963,8 @@ def flash_keep_bits(kv_mask, H, S, D, seed, dropout_p,
     the bit is kept: v for the forward (o = P'v), dO for dK/dV (dV =
     P'ᵀdO, read transposed) and k for dQ (with dO = v = e0 and delta 0,
     dQ = dS·k and dS = P'·1).  Masked keys read as dropped.  On the card,
-    not causal.  In bf16 (the forward and dK/dV on the tensor cores) a
-    kept probability 1/(n (1 - p)) stays > 0 after its rounding to bf16,
+    not causal.  In bf16 (all three on the tensor cores) a kept
+    probability 1/(n (1 - p)) stays > 0 after its rounding to bf16,
     so the bits read back as exactly."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -1027,10 +1041,17 @@ FLASH_CASES = [("train", 8, 12, 1024, 64, True, False, 0.0),
                ("unaligned_d256", 2, 4, 1000, 256, True, True, 0.1)]
 FLASH_SEED = 20240611
 FLASH_TIMED = "train"
-# the bf16 forward and dK/dV bodies (namespace tc of flash_attention.cu)
-FLASH_TC_DESIGN = ("mma.sync m16n8k16 bf16 with f32 accumulators; cp.async "
-                   "ring of 3 stages; ldmatrix (.trans) from XOR-swizzled "
-                   "tiles; P and dS rounded to bf16 in registers")
+# the bf16 bodies (namespace tc of flash_attention.cu)
+_TC = ("mma.sync m16n8k16 bf16 with f32 accumulators; cp.async ring of 3 "
+       "stages; ldmatrix (.trans) from XOR-swizzled tiles; ")
+FLASH_TC_DESIGN = {
+    "fwd": _TC + "P' rounded to bf16 in registers as the A operand of P'V",
+    "dkv": _TC + "S^T = K Q^T per warp of 16 keys; P'^T and dS^T rounded "
+                 "to bf16 in registers as the A operands of dV and dK",
+    "dq": _TC + "a warp owns 16 query rows; Q and dO fragments in "
+                "registers as the A operands of S and dP; dS rounded to "
+                "bf16 in registers as the A operand of dS K, K by "
+                "ldmatrix.trans"}
 
 
 def flash_inputs(rng, B, H, S, D, masked, dtype):
@@ -1145,31 +1166,37 @@ def flash_kernel_phase(rng, flush) -> dict:
                         lambda: torch.autograd.grad(
                             lib_out, (ql, kl, vl), g, retain_graph=True)),
                 "dq": (lambda: fa.flash_dq_cuda(q, k, v, g, *bwd),
-                       lambda: fa.flash_dq_ref(q, k, v, g, *bwd), None)}
+                       lambda: fa.flash_dq_ref(q, k, v, g, *bwd),
+                       lambda: torch.autograd.grad(
+                           lib_out, (ql, kl, vl), g, retain_graph=True))}
             for kname, (kern, plain, lib) in calls.items():
                 t = {"max_abs_err": errs[tag][kname],
                      "ms": time_ms(kern, flush),
                      "plain_ms": time_ms(plain, flush),
-                     "library_ms": (time_ms(lib, flush) if lib is not None
-                                    else None)}
+                     "library_ms": time_ms(lib, flush)}
                 t["bound_ms"], t["bound_by"] = flash_bound_ms(
                     kname, B, H, S, D, causal, item)
                 if kname == "fwd":
                     t["library_max_abs_err"] = lib_err
-                if kname == "dkv":
+                else:
                     # SDPA's autograd backward computes dq, dk and dv in
-                    # one call: it is the yardstick of the pair
+                    # one call: the yardstick of the pair, timed beside it
                     t["library_is"] = "sdpa backward (dq, dk, dv)"
+                if kname == "dq":
+                    t["pair_ms"] = time_ms(lambda: (calls["dkv"][0](),
+                                                    kern()), flush)
+                    t["pair_is"] = "dK/dV (#6), then dQ (#7)"
                 log("kernel_flash_time", case=tag, kernel=kname, **t)
                 timings[f"{kname}/{tag}"] = t
             del ql, kl, vl, lib_out
             torch.cuda.empty_cache()
 
-    # the bf16 forward and dK/dV calls above ran on the tensor cores (one
-    # launch each per case's check, the rest timing runs)
+    # the bf16 calls above ran on the tensor cores (one launch of each
+    # body per case's check, the rest timing runs)
     counts = read_flash_counts()
     log("kernel_flash_launches", **counts)
-    if min(counts["flash_tc_fwd"], counts["flash_tc_dkv"]) < len(FLASH_CASES):
+    if min(counts["flash_tc_fwd"], counts["flash_tc_dkv"],
+           counts["flash_tc_dq"]) < len(FLASH_CASES):
         raise AssertionError(f"kernel_flash: tensor-core launches {counts}, "
                              f"expected at least {len(FLASH_CASES)} of each")
 
@@ -1302,7 +1329,7 @@ def train_phase(rng, amp_dtype=None, phase="train") -> dict:
     with every count set to 0 just before and read just after, then one
     more step under the profiler.  f32, or the forward under
     ``auto_cast(dtype=amp_dtype)`` as ``bench.py`` trains (bf16: the
-    forward and dK/dV flash bodies on the tensor cores)."""
+    three flash bodies on the tensor cores)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models import GPTModel
 
@@ -1331,7 +1358,7 @@ def train_phase(rng, amp_dtype=None, phase="train") -> dict:
     n = len(model.layers) * TRAIN_STEPS
     n_tc = n if amp_dtype == "bfloat16" else 0
     want = {"flash_fwd": n, "flash_dkv": n, "flash_dq": n, "flash_ref": 0,
-            "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc,
+            "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc,
             "route_pallas": n, "route_xla": 0}
     expect_counts(phase, counts, want)
     prof = profile_step(model, opt, x, y, amp_dtype)
@@ -1423,7 +1450,7 @@ def _parity_runs(rng, cfg, batch, seq, amp_dtype):
     n_tc = L if amp_dtype == "bfloat16" else 0
     expect_counts("train_parity card", runs["card"]["counts"], {
         "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0,
-        "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc})
+        "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc})
     expect_counts("train_parity cpu", runs["cpu"]["counts"], {
         "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L})
     return runs
@@ -1493,8 +1520,8 @@ GRAD_REL_BF16, LOSS_RTOL_BF16, NOISE_GRADS = 5e-2, 5e-3, ".attn.k_proj.bias"
 def train_parity_bf16_phase(rng, cfg=None, batch=2, seq=None) -> dict:
     """The bf16-autocast twin of :func:`train_parity_phase`: 2 layers at
     GPT-2-small widths (or ``cfg``), B 2 x S 1024, the forward under
-    ``auto_cast(dtype="bfloat16")`` on both devices (the card's flash
-    forward and dK/dV on the tensor cores), held to the tolerances
+    ``auto_cast(dtype="bfloat16")`` on both devices (the card's three
+    flash bodies on the tensor cores), held to the tolerances
     above."""
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -1567,19 +1594,22 @@ def logit_gap(model, prompt, stream, k, quant=None):
 
 def reset_counts():
     from paddle_tpu_torch.ops.paged_attention import PAGED_ROUTE_STATS
-    from paddle_tpu_torch.ops.quantized_matmul import QMM_ROUTE_STATS
+    from paddle_tpu_torch.ops.quantized_matmul import (QMM_FORM_STATS,
+                                                       QMM_ROUTE_STATS)
 
-    for stats in (PAGED_ROUTE_STATS, QMM_ROUTE_STATS):
+    for stats in (PAGED_ROUTE_STATS, QMM_ROUTE_STATS, QMM_FORM_STATS):
         for key in stats:
             stats[key] = 0
 
 
 def read_counts():
     from paddle_tpu_torch.ops.paged_attention import PAGED_ROUTE_STATS
-    from paddle_tpu_torch.ops.quantized_matmul import QMM_ROUTE_STATS
+    from paddle_tpu_torch.ops.quantized_matmul import (QMM_FORM_STATS,
+                                                       QMM_ROUTE_STATS)
 
     return ({f"attention_{k}": v for k, v in PAGED_ROUTE_STATS.items()}
-            | {f"qmm_{k}": v for k, v in QMM_ROUTE_STATS.items()})
+            | {f"qmm_{k}": v for k, v in QMM_ROUTE_STATS.items()}
+            | {f"qmm_form_{k}": v for k, v in QMM_FORM_STATS.items()})
 
 
 def drive(eng, prompts):
@@ -1733,6 +1763,12 @@ def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
         "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
         "attention_ref": 0, "qmm_cuda": 6 * L * dispatches, "qmm_ref": 0,
         **NO_STATS})
+    # decode dispatches take the decode form, dispatches with a prefill
+    # chunk the prefill form: both ran, each launch in one of them
+    forms = (counts["qmm_form_decode"], counts["qmm_form_prefill"])
+    if min(forms) == 0 or sum(forms) != counts["qmm_cuda"]:
+        raise AssertionError(f"e2e_int8_static: matmul forms (decode, "
+                             f"prefill) {forms} of {counts['qmm_cuda']}")
     # the same page count as the native engine, a quarter of its bytes
     ratio = eng.kv_cache_bytes() / native["kv_cache_bytes"]
     if eng.cache.num_pages != native["num_pages"] or ratio > 0.26:
@@ -2419,12 +2455,12 @@ def main(argv=None) -> int:
                f"{flash_tpu}:{line}", train_bf16[f"flash_tc_{kname}"],
                flash_t[f"{kname}/train/bfloat16"],
                case="B8 H12 S1024 D64 causal, bfloat16",
-               design=FLASH_TC_DESIGN,
+               design=FLASH_TC_DESIGN[kname],
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()
                                     if c.endswith("bfloat16")},
                dropout_bits_exact=flash_t["bits_exact_bf16"][kname])
-        for kname, line in (("fwd", 289), ("dkv", 332))] + [
+        for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))] + [
         record("paged_attention",
                "paddle_tpu_torch/ops/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:122",

@@ -30,28 +30,28 @@
 // only its inputs and outputs once and does 4 S^2 D (causal: half) per
 // product pair.  In f32 that is the 67 TFLOP/s of the CUDA cores (bound
 // by operations); in bf16 the 989 TFLOP/s of the tensor cores make the
-// bytes the bound (0.0152 ms forward, 0.0228 ms dK/dV).
+// bytes the bound (0.0152 ms forward, 0.0228 ms dK/dV, 0.0190 ms dQ).
 //
 // Two designs.
 //
-// f32 (all three bodies) and bf16 dQ: all arithmetic in f32 FMAs on the
-// CUDA cores, so the f32 results stay those the tests pin.  A plain
-// shared-memory tiling, one block of 256 threads (16 x 16) per output
-// tile: forward and dQ one block per (bh, tile of BQ query rows) looping
-// over the key tiles it can see (causal: up to the diagonal), dK/dV one
-// block per (bh, tile of BK keys) looping over the query tiles that see
-// it.  Each thread owns a register micro-tile of rows ty + 16 i and
-// columns tx + 16 j; a score row lives in 16 adjacent lanes of one warp,
-// so the row max and sum are warp shuffles.  Tiles are loaded
-// synchronously and sized by the head width (DT = 64, 128 or 256 columns,
-// zero-padded past D), so that shared memory stays under the 227 KB a
-// block may use at D 256.
+// f32 (all three bodies): all arithmetic in f32 FMAs on the CUDA cores,
+// so the f32 results stay those the tests pin.  A plain shared-memory
+// tiling, one block of 256 threads (16 x 16) per output tile: forward and
+// dQ one block per (bh, tile of BQ query rows) looping over the key tiles
+// it can see (causal: up to the diagonal), dK/dV one block per (bh, tile
+// of BK keys) looping over the query tiles that see it.  Each thread owns
+// a register micro-tile of rows ty + 16 i and columns tx + 16 j; a score
+// row lives in 16 adjacent lanes of one warp, so the row max and sum are
+// warp shuffles.  Tiles are loaded synchronously and sized by the head
+// width (DT = 64, 128 or 256 columns, zero-padded past D), so that shared
+// memory stays under the 227 KB a block may use at D 256.
 //
-// bf16 forward and dK/dV (namespace tc): FA2's design on the tensor
+// bf16 (all three bodies, namespace tc): FA2's design on the tensor
 // cores, mma.sync m16n8k16 (bf16 in, f32 accumulators), chosen over
 // wgmma + TMA because it needs no tensor maps, no warp specialisation and
 // no shared-memory matrix descriptors, and its register-resident A
-// operand is what keeps P and dS out of shared memory.  One block of 4 warps.
+// operand is what keeps P and dS out of shared memory.  One block of 4
+// warps.
 //   forward: one block per (bh, tile of BQ query rows), looping over the
 //       key tiles it can see; the last query tiles, which see the most
 //       keys under causal masking, are scheduled first.  A warp owns 16
@@ -79,6 +79,17 @@
 //       as B by ldmatrix.trans.  dK takes scale in the epilogue.  From
 //       D 128 on, a block owns 128 output columns (grid.y = DT / 128) to
 //       bound the accumulators' registers.
+//   dQ: the forward's schedule and ring with dK/dV's products turned to
+//       own query rows: one block per (bh, 64 query rows), the last query
+//       tiles first, a warp owning 16 rows; K, V and the mask tile through
+//       the three-stage ring.  Q's and dO's fragments stay in registers
+//       (up to D 128) as the A operands of S = Q K^T and dP = dO V^T;
+//       dS = P (dP' - delta) is formed in f32 on the two accumulators and
+//       rounded to bf16 in registers as the A fragment of dQ += dS K, K
+//       serving as B by ldmatrix.trans, so dS never goes to shared
+//       memory.  64-key tiles at D 64, 32 from D 128 on (the S and dP
+//       accumulators' registers); from D 128 on, 128 output columns a
+//       block as in dK/dV.  Scale in the epilogue.
 // The hot loops have no branch: columns past D are zeros in the tiles and
 // add nothing, dropout is a template parameter.  Tiles sit in shared
 // memory with their 16-byte chunks XOR-swizzled by the row, so ldmatrix
@@ -114,13 +125,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // paddle_tpu/ops/pallas_ops/flash_attention.py:_keep_mask, bit for bit
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t bh,
@@ -528,7 +533,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dK/dV on the tensor cores (mma.sync m16n8k16)
+// bf16 forward, dK/dV and dQ on the tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -1126,6 +1131,223 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<DT, DO>(dv + koff, Vs, wr, k0 + wr, p.Sk, p.D, d0, vec);
 }
 
+// ---------------------------------------------------------------------------
+// dQ: grid (BH * ceil(Sq / 64), DT / DO); warp w owns query rows 16 w ..
+// 16 w + 15.  S = Q K^T and dP = dO V^T take Q's and dO's fragments as A,
+// so dS, formed on their accumulators, is already the A operand of
+// dQ += dS K
+// ---------------------------------------------------------------------------
+template <int DT>
+struct DqCfg {
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int BK = DT == 64 ? 64 : 32;  // s and dp's registers
+  static constexpr int DO = DT < 128 ? DT : 128;  // output columns a block
+  static constexpr int kStages = 3;               // the K, V, mask ring
+  static constexpr bool kQReg = DT <= 128;  // Q, dO fragments in registers
+  static constexpr size_t smem =
+      sizeof(bf16) * (2 * BQ * DT + 2 * kStages * BK * DT) +
+      sizeof(float) * kStages * BK;
+};
+
+template <int DT, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ mask, bf16* __restrict__ dq,
+                 Params p, int vec) {
+  using C = DqCfg<DT>;
+  constexpr int BQ = C::BQ, BK = C::BK, DO = C::DO, NS = C::kStages;
+  constexpr int NT = BK / 8, KD = DT / 16, NO = DO / 8;
+  constexpr int KR = C::kQReg ? KD : 1;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][DT]
+  bf16* Os = Qs + BQ * DT;                        // [BQ][DT], dO
+  bf16* Ks = Os + BQ * DT;                        // [NS][BK][DT]
+  bf16* Vs = Ks + NS * BK * DT;                   // [NS][BK][DT]
+  float* Ms = reinterpret_cast<float*>(Vs + NS * BK * DT);  // [NS][BK]
+  // the last query tiles (under causal masking the longest) first
+  const int nqt = (p.Sq + BQ - 1) / BQ, BH = gridDim.x / nqt;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * BQ;
+  const int d0 = blockIdx.y * DO;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)bh * p.Sq * p.D;
+  const bf16* kb = k + (size_t)bh * p.Sk * p.D;
+  const bf16* vb = v + (size_t)bh * p.Sk * p.D;
+  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
+  int nkt = (p.Sk + BK - 1) / BK;
+  if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
+
+  // key tile i goes to stage i % NS: K, V and its mask slice
+  auto load_kv = [&](int i) {
+    const int st = i % NS;
+    load_tile<BK, DT>(Ks + st * BK * DT, kb, i * BK, p.Sk, p.D, vec);
+    load_tile<BK, DT>(Vs + st * BK * DT, vb, i * BK, p.Sk, p.D, vec);
+    load_vec<BK>(Ms + st * BK, mb, i * BK, p.Sk);
+  };
+  load_tile<BQ, DT>(Qs, q + qoff, q0, p.Sq, p.D, vec);
+  load_tile<BQ, DT>(Os, dout + qoff, q0, p.Sq, p.D, vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {  // one commit group per tile
+    if (i < nkt) load_kv(i);
+    cp_commit();
+  }
+
+  // lse and delta of rows (g, g + 8); rows past Sq are never stored
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + r * 8;
+    lr[r] = row < p.Sq ? lse[(size_t)bh * p.Sq + row] : 0.f;
+    dl[r] = row < p.Sq ? delta[(size_t)bh * p.Sq + row] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  uint32_t qf[KR][4], of[KR][4];
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % NS;
+    cp_wait<NS - 2>();  // this tile (and Q, dO) have landed ...
+    __syncthreads();    // ... for every thread, and tile kt - 1 is done
+    if (kt + NS - 1 < nkt) load_kv(kt + NS - 1);  // into tile kt - 1's stage
+    cp_commit();
+    const bf16* Kt = Ks + st * BK * DT;
+    const bf16* Vt = Vs + st * BK * DT;
+    const float* Mt = Ms + st * BK;
+    const int k0 = kt * BK;
+    if constexpr (C::kQReg) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          const int aoff =
+              swz<DT>(wr + (lane & 15), kk * 16 + (lane >> 4) * 8);
+          ldsm(qf[kk], Qs + aoff);
+          ldsm(of[kk], Os + aoff);
+        }
+      }
+    }
+
+    // S = Q K^T and dP = dO V^T: s[j], dp[j] hold rows (g, g + 8) and key
+    // columns (8 j + 2 t, + 1)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ao[4];
+      if constexpr (C::kQReg) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          aq[e] = qf[kk][e];
+          ao[e] = of[kk][e];
+        }
+      } else {
+        const int aoff = swz<DT>(wr + (lane & 15), kk * 16 + (lane >> 4) * 8);
+        ldsm(aq, Qs + aoff);
+        ldsm(ao, Os + aoff);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int boff = swz<DT>(j * 8 + (lane & 7) + (lane >> 4) * 8,
+                                 kk * 16 + ((lane >> 3) & 1) * 8);
+        uint32_t bk[4], bv[4];
+        ldsm(bk, Kt + boff);
+        ldsm(bv, Vt + boff);
+        mma(s[j], aq, bk[0], bk[1]);
+        mma(s[j + 1], aq, bk[2], bk[3]);
+        mma(dp[j], ao, bv[0], bv[1]);
+        mma(dp[j + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // scale in f32, then the reference's masks on global positions: only
+    // a tile that reaches past Sk or the diagonal, or whose kv mask has a
+    // zero, is masked element by element
+    bool valid = true;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32) valid = valid && Mt[c] > 0.f;
+    const bool edge = !__all_sync(0xffffffffu, valid) || k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + wr);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 mk =
+            *reinterpret_cast<const float2*>(Mt + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          if (col >= p.Sk)
+            s[j][e] = -INFINITY;  // past the keys: P exactly 0
+          else if (!(((e & 1) ? mk.y : mk.x) > 0.f) ||
+                   (p.causal && row < col))
+            s[j][e] = kNegInf;
+        }
+      }
+    }
+
+    // P = exp(S scale - lse) and dS = P (dP' - delta) in f32, rounded to
+    // bf16 straight into the A fragments of dS K: keys 16 kk .. 16 kk + 15
+    // are s[2 kk], s[2 kk + 1]
+    uint32_t da[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = __expf(s[j][e] - lr[e >> 1]);
+        float dpn = dp[j][e];
+        if constexpr (kDrop) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          dpn = keep_bit(p, bh, row, col) ? dpn * p.keep_scale : 0.f;
+        }
+        ds[e] = pr * (dpn - dl[e >> 1]);
+      }
+      da[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
+      da[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+    }
+
+    // dQ += dS K over this block's columns; K's fragments by
+    // ldmatrix.trans from its [key][d] tile
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        ldsm_t(b, Kt + swz<DT>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               d0 + n * 8 + (lane >> 4) * 8));
+        mma(acc[n], da[kk], b[0], b[1]);
+        mma(acc[n + 1], da[kk], b[2], b[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // dQ = scale dS K through the warp's own rows of the Q tile, out in
+  // 16-byte rows
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = d0 + n * 8 + 2 * t;
+    stage2(Qs, swz<DT>(wr + g, c), swz<DT>(wr + g + 8, c), acc[n], p.scale,
+           p.scale);
+  }
+  __syncwarp();
+  store_rows<DT, DO>(dq + qoff, Qs, wr, q0 + wr, p.Sq, p.D, d0, vec);
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -1323,6 +1545,25 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <int DT>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* mask, void* dqo, int BH, const Params& p,
+                 int vec, cudaStream_t st) {
+  using C = tc::DqCfg<DT>;
+  const long long blocks = (long long)BH * ((p.Sq + C::BQ - 1) / C::BQ);
+  auto kern = p.dropout ? tc::dq_tc_kernel<DT, true>
+                        : tc::dq_tc_kernel<DT, false>;
+  const int rc = prepare(kern, C::smem, blocks);
+  if (rc) return rc;
+  kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(mask), static_cast<tc::bf16*>(dqo), p, vec);
+  return (int)cudaGetLastError();
+}
+
 int fwd_tc(const void* q, const void* k, const void* v, const void* mask,
            void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
            float scale, int causal, int dropout, float keep_scale,
@@ -1364,6 +1605,28 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                             vec, st);
 }
 
+int dq_tc(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, const void* mask, void* dqo,
+          int BH, int H, int Sq, int Sk, int D, float scale, int causal,
+          int dropout, float keep_scale, unsigned thresh, unsigned seed,
+          void* stream) {
+  const int bad = check_dims(BH, H, Sq, Sk, D);
+  if (bad) return bad;
+  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
+                               keep_scale, thresh, seed);
+  const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout) && aligned16(dqo);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dq_tc<64>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
+                            st);
+  if (D <= 128)
+    return launch_dq_tc<128>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
+                             vec, st);
+  return launch_dq_tc<256>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
+                           st);
+}
+
 }  // namespace
 
 // All pointers are contiguous device memory on one card: q [BH, Sq, D],
@@ -1400,7 +1663,7 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 
 PTT_FLASH_ENTRIES(f32, float)
 
-// bf16: the forward and dK/dV on the tensor cores, dQ on the CUDA cores
+// bf16: all three bodies on the tensor cores
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, const void* mask, void* o,
                                   void* lse, int BH, int H, int Sq, int Sk,
@@ -1430,7 +1693,6 @@ extern "C" int ptt_flash_dq_bf16(const void* q, const void* k,
                                  int causal, int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
                                  void* stream) {
-  return dq<__nv_bfloat16>(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq,
-                           Sk, D, scale, causal, dropout, keep_scale, thresh,
-                           seed, stream);
+  return dq_tc(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D, scale,
+               causal, dropout, keep_scale, thresh, seed, stream);
 }

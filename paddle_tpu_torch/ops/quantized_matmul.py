@@ -17,7 +17,17 @@ K-sum.
 
 ``QMM_ROUTE_STATS`` counts ``"cuda"`` launches (incremented by the
 wrapper, once per launch) and ``"ref"`` plain-version calls (by the
-routing entry).
+routing entry); ``QMM_FORM_STATS`` counts the same launches by the form
+of the kernel that ran (:func:`qmm_form`).
+
+The kernel sums in one canonical order, a function of K alone: chunks of
+``QMM_KC`` values of k, each summed in sequential k order from 0, the
+chunk partials added in chunk order from 0, then the scale.  Its decode
+form (M <= ``QMM_DECODE_MAX_M``) splits K over blocks, writes the chunk
+partials to a scratch, and a second pass adds them in chunk order; its
+prefill form splits K over the four warps of a block, whose chunk
+partials join each output's total in chunk order.  Both give a row the
+same bits whatever M and whatever the other rows of the launch.
 """
 from __future__ import annotations
 
@@ -25,10 +35,18 @@ import ctypes
 
 import torch
 
-__all__ = ["QMM_ROUTE_STATS", "quantized_matmul_ref",
+__all__ = ["QMM_ROUTE_STATS", "QMM_FORM_STATS", "QMM_KC",
+           "QMM_DECODE_MAX_M", "qmm_form", "quantized_matmul_ref",
            "quantized_matmul_cuda", "quantized_matmul"]
 
 QMM_ROUTE_STATS = {"cuda": 0, "ref": 0}
+QMM_FORM_STATS = {"decode": 0, "prefill": 0}
+
+# the kernel's contract (csrc/quantized_matmul.cu, checked when it binds):
+# the chunk of K its canonical order sums, and the largest M of its
+# split-K decode form
+QMM_KC = 64
+QMM_DECODE_MAX_M = 16
 
 _KERNEL_FNS = {torch.float32: "ptt_quantized_matmul_f32",
                torch.bfloat16: "ptt_quantized_matmul_bf16"}
@@ -41,6 +59,12 @@ def quantized_matmul_ref(x, w_q, w_scale):
     dtype.  x [M, K], w_q [K, N] int8, w_scale [N] -> [M, N]."""
     acc = x.float() @ w_q.float()
     return (acc * w_scale.float()[None, :]).to(x.dtype)
+
+
+def qmm_form(M: int) -> str:
+    """The form of the kernel a launch of M rows takes: ``"decode"``
+    (split-K, M <= QMM_DECODE_MAX_M) or ``"prefill"`` (register-tiled)."""
+    return "decode" if M <= QMM_DECODE_MAX_M else "prefill"
 
 
 def _check(x, w_q, w_scale):
@@ -74,10 +98,17 @@ def _kernel(dtype):
     if fn is None:
         from ._build import load_library
 
-        fn = getattr(load_library("quantized_matmul"), _KERNEL_FNS[dtype])
+        lib = load_library("quantized_matmul")
+        have = (lib.ptt_quantized_matmul_chunk(),
+                lib.ptt_quantized_matmul_decode_max_m())
+        if have != (QMM_KC, QMM_DECODE_MAX_M):
+            raise RuntimeError(f"csrc/quantized_matmul.cu has (KC, decode "
+                               f"max M) = {have}, the wrapper "
+                               f"{(QMM_KC, QMM_DECODE_MAX_M)}")
+        fn = getattr(lib, _KERNEL_FNS[dtype])
         # pointers and the stream as c_void_p (a plain int would be cut
         # to a 32-bit C int)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BOUND[dtype] = fn
@@ -89,11 +120,12 @@ def quantized_matmul_cuda(x, w_q, w_scale):
     replaces ``paddle_tpu/ops/pallas_ops/quantized_matmul.py:_qmm_kernel``.
 
     At decode (M = a few lane rows) the product is bound by the int8
-    weight bytes; at a prefill chunk (M up to 512) by f32 FMAs.  The
-    design streams each weight tile once per row tile, widens it to f32
-    in shared memory and accumulates each output in one thread in
-    sequential K order, so an output row does not depend on which other
-    rows share the launch.
+    weight bytes; at a prefill chunk (M up to 512) by f32 FMAs.  Up to
+    QMM_DECODE_MAX_M rows take the split-K decode form, whose chunk
+    partials go to an f32 scratch ``[ceil(K / QMM_KC), M, N]`` allocated
+    here; more rows take the register-tiled prefill form.  Both sum in
+    the canonical chunk order, so an output row does not depend on which
+    other rows share the launch.
 
     Inputs: contiguous CUDA tensors on one device, x f32 or bf16 [M, K],
     w_q int8 [K, N], w_scale f32 [N].  Raises when the launch is
@@ -109,15 +141,22 @@ def quantized_matmul_cuda(x, w_q, w_scale):
         return out
     if K == 0:
         return out.zero_()
+    form = qmm_form(M)
+    part = None
+    if form == "decode":
+        part = torch.empty((-(-K // QMM_KC), M, N), dtype=torch.float32,
+                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                out.data_ptr(), M, K, N, stream)
+                None if part is None else part.data_ptr(), out.data_ptr(),
+                M, K, N, stream)
     if rc != 0:
         raise RuntimeError(
             f"quantized matmul kernel launch failed: CUDA error {rc} "
-            f"(M={M}, K={K}, N={N}, {x.dtype})")
+            f"(M={M}, K={K}, N={N}, {x.dtype}, {form} form)")
     QMM_ROUTE_STATS["cuda"] += 1
+    QMM_FORM_STATS[form] += 1
     return out
 
 

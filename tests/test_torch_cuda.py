@@ -19,11 +19,11 @@ weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
 over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
 kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
 reference value) (f32 sums over up to 1024 keys or queries in another
-order; in bf16 the outputs are rounded to 8 mantissa bits, and the
-forward and dK/dV, which run on the tensor cores, also round P and dS to
-bf16 before their second product, where the plain version keeps them in
-f32 — ``tests/test_torch_flash_tc_numerics.py`` shows on the CPU that
-this fits the limit); in bf16 besides, each whole output within 1e-2
+order; in bf16 the outputs are rounded to 8 mantissa bits, and the three
+bodies, which run on the tensor cores, also round P and dS to bf16
+before their second product, where the plain version keeps them in f32
+— ``tests/test_torch_flash_tc_numerics.py`` shows on the CPU that this
+fits the limit); in bf16 besides, each whole output within 1e-2
 of its plain version in relative L2 norm (``chip_smoke.FLASH_REL_L2``:
 the roundings land at 1.8e-3 to 2.8e-3 in the CPU emulation, a dropped
 key tile at 0.18); lse 1e-4; their dropout bits must equal
@@ -163,7 +163,7 @@ def test_int8_kernel_nan_scale_reaches_exactly_its_readers(fused):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("M", [1, 8, 37, 512])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 37, 72, 512])
 @pytest.mark.parametrize("K,N", [(768, 768), (768, 3072), (3072, 768),
                                  (45, 70)],
                          ids=["proj", "fc1", "fc2", "odd"])
@@ -184,7 +184,9 @@ def test_qmm_kernel_matches_plain_version(K, N, M, dtype):
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
     assert out.dtype == dtype and out.shape == (M, N)
-    # a row's result does not depend on the other rows of the launch
+    # a row's result does not depend on the other rows of the launch, nor
+    # on the form that computed it (the decode form up to 16 rows, the
+    # prefill form from 17; 72 is 8 decode rows beside a 64-row chunk)
     one = qm.quantized_matmul(x[M // 2:M // 2 + 1].contiguous(), wq, ws)
     assert torch.equal(one[0], out[M // 2])
 
@@ -741,8 +743,8 @@ def test_flash_kernels_regenerate_the_keep_mask_bit_for_bit(seed, p):
 
 
 def test_bf16_flash_kernels_regenerate_the_keep_mask_bit_for_bit():
-    """The bf16 bodies (forward and dK/dV on the tensor cores, dQ on the
-    CUDA cores) apply exactly ``_keep_mask``'s bits."""
+    """The bf16 bodies (all three on the tensor cores) apply exactly
+    ``_keep_mask``'s bits."""
     B, H, S, D = 2, 3, 200, 64
     mask = torch.ones(B, S, device="cuda")
     mask[1, 150:] = 0.0
@@ -823,20 +825,20 @@ def test_bf16_flash_kernels_are_deterministic(p):
 
 
 def test_flash_tc_stats_count_the_tensor_core_launches():
-    """FLASH_TC_STATS counts one launch of the bf16 forward and of the
-    bf16 dK/dV; f32 and the dQ body leave it alone, FLASH_ROUTE_STATS
-    counts every launch as before."""
+    """FLASH_TC_STATS counts one launch of each bf16 body (forward, dK/dV
+    and dQ); f32 leaves it alone, FLASH_ROUTE_STATS counts every launch
+    as before."""
     B, H, S, D = 1, 2, 128, 64
     for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
         q, k, v, g, mask = _flash_case(3, B, H, S, D, dtype, False)
         lse = torch.zeros(B * H, S, 1, device="cuda")
         fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
-        fa.FLASH_TC_STATS.update(fwd=0, dkv=0)
+        fa.FLASH_TC_STATS.update(fwd=0, dkv=0, dq=0)
         _flash_all(q, k, v, g, mask, 0, 0.125, True, 0.0, lse, lse)
         torch.cuda.synchronize()
         assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1,
                                         "ref": 0}
-        assert fa.FLASH_TC_STATS == {"fwd": tc, "dkv": tc}
+        assert fa.FLASH_TC_STATS == {"fwd": tc, "dkv": tc, "dq": tc}
 
 
 def test_flash_autograd_on_the_card_matches_the_plain_route():
@@ -913,13 +915,14 @@ def test_autocast_training_step_on_the_card_equals_the_cpu_step():
     CPU's plain route at bf16 tolerances, the card's AdamW step against
     the same step on the CPU from the card's gradients (chip_smoke's
     train_parity_bf16 phase at a small width; it raises past its
-    tolerances), with the flash forward and dK/dV on the tensor cores."""
+    tolerances), with the three flash bodies on the tensor cores."""
     cfg = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
                ffn_size=256, max_seq_len=256)
     res = chip_smoke.train_parity_bf16_phase(np.random.RandomState(3),
                                              cfg=cfg, batch=2, seq=256)
     assert res["card_counts"]["flash_tc_fwd"] == 2
     assert res["card_counts"]["flash_tc_dkv"] == 2
+    assert res["card_counts"]["flash_tc_dq"] == 2
     assert res["cpu_counts"]["flash_ref"] == 6
 
 

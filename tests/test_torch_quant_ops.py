@@ -12,7 +12,9 @@ Tolerances, each with its reason:
 - page helpers and the int8 write path: exact, byte for byte — both
   packages run the same f32 divide, round-half-to-even and clip;
 - quantized matmul: 1e-5 absolute and relative — the same f32 products
-  summed in another order over K = 45;
+  summed in another order over K = 45, or over K = 768 and 3072 at
+  GPT-2-small widths in the emulation of the CUDA kernel's canonical
+  order (outputs of magnitude ~1; the worst lands at a fifth of it);
 - int8 ragged attention: 2e-5 absolute and relative — the same exact
   softmax over at most 24 positions, dequantized before (reference,
   ``fused_dequant=0``) or after (``fused_dequant=1``) the dots.
@@ -164,6 +166,49 @@ def test_qmm_kernel_wrapper_rejects_cpu_tensors_and_bad_shapes():
         qm.quantized_matmul_cuda(x, wq, ws[:5])
     with pytest.raises(TypeError, match="int8"):
         qm.quantized_matmul_cuda(x, wq.float(), ws)
+
+
+def canonical_qmm(x, w_q, w_scale, kc=qm.QMM_KC):
+    """The CUDA kernel's summation order, emulated on the CPU in torch: K
+    in chunks of ``kc``; within a chunk a running f32 sum from 0, one
+    product at a time in k order (each step summed in f64, whose product
+    of an f32 and an int8 is exact, then rounded to f32: the kernel's
+    fused multiply-add up to a double rounding); the chunk partials added
+    in chunk order from 0 in f32; then the scale.  Every step is
+    elementwise over [M, N], so a row's result depends on nothing but
+    its own x row.  x [M, K] f32, w_q [K, N] int8, w_scale [N] f32."""
+    M, K = x.shape
+    xd, wd = x.double(), w_q.double()
+    total = torch.zeros(M, w_q.shape[1], dtype=torch.float32)
+    for k0 in range(0, K, kc):
+        part = torch.zeros_like(total)
+        for k in range(k0, min(k0 + kc, K)):
+            part = (part.double() + xd[:, k, None] * wd[None, k, :]).float()
+        total = total + part
+    return total * w_scale[None, :]
+
+
+@pytest.mark.parametrize("K,N", [(768, 768), (768, 3072), (3072, 768)],
+                         ids=["proj", "fc1", "fc2"])
+def test_qmm_canonical_order_matches_jax_and_is_row_independent(K, N):
+    """The chunked order the CUDA kernel's decode and prefill forms share
+    (``QMM_KC``) against ``quantized_matmul_xla`` and the Pallas kernel in
+    interpret mode at GPT-2-small widths, and a row of an M 512 launch
+    bit-equal to the same row computed alone (M 1)."""
+    assert qm.QMM_KC == 64 and qm.qmm_form(16) == "decode" \
+        and qm.qmm_form(17) == "prefill"
+    x, wq, ws = _qmm_inputs(K + N, M_=512, K=K, N=N)
+    got = canonical_qmm(*_t(x, wq, ws))
+    want = np.asarray(quantized_matmul_xla(*map(jnp.asarray, (x, wq, ws))))
+    np.testing.assert_allclose(got.numpy(), want, **QMM_TOL)
+    kern = np.asarray(quantized_matmul_kernel(
+        *map(jnp.asarray, (x, wq, ws)), interpret=True))
+    np.testing.assert_allclose(got.numpy(), kern, **QMM_TOL)
+    # the order is real: not the plain version's sum to the bit
+    assert not torch.equal(got, qm.quantized_matmul_ref(*_t(x, wq, ws)))
+    for r in (0, 255, 511):
+        one = canonical_qmm(*_t(x[r:r + 1], wq, ws))
+        assert torch.equal(one[0], got[r]), r
 
 
 # =============================================================================
