@@ -91,9 +91,12 @@ Phases, one result line each (or more):
    8 lanes of 64 prefill rows), every second page owned, a lane that
    owns nothing and an empty lane (zeros, lse -1e30), NaN K scales on an
    owned page (exactly its readers) and an unowned one (nobody); timed
-   beside its bound over the owned pages, the plain version, the
-   memory-efficient SDPA kernel with its log-sum-exp on the gathered
-   owned KV, and the ragged kernel over all pages.
+   (decode and prefill at H 12, prefill at H 6) beside its bound over the
+   owned pages, the plain version, the memory-efficient SDPA kernel with
+   its log-sum-exp on the gathered owned KV, and the ragged kernel over
+   all pages; then again with each lane owning the first half of its
+   table (runs), beside the same yardstick on those pages.  The env line
+   carries the prefill form's registers and spills.
 15. e2e_mesh: ``force_device_count(4)``, then ``mesh_axes={"tp": 2,
    "sp": 2}`` at GPT-2-small width on 4 long prompts (600-990 tokens, 32
    new tokens) in a 260-page pool, native and with int8 KV and weights
@@ -183,6 +186,19 @@ NEW_TOKENS = 32
 
 def log(phase: str, **fields):
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
+
+
+def entry_ptxas(lines, needle):
+    """``-Xptxas -v`` lines of a build, per entry function whose mangled
+    name holds ``needle``: its registers and spill line."""
+    out, name = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif name and needle in name and ("registers" in ln
+                                          or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def card_line() -> str:
@@ -655,7 +671,8 @@ STATS_CASES = [
         ("decode", 1, [0, 1, 300, 100, 255, 512, 777, 1024], None),
         ("prefill", 64, [0, 63, 400, 250, 401, 600, 900, 1024],
          {1: range(40, 64), 3: [5, 6, 7]}))]
-STATS_TIMED = ("decode_h12", "prefill_h12")
+# prefill_h6 is the mesh drive's shard shape (12 heads at tp 2)
+STATS_TIMED = ("decode_h12", "prefill_h12", "prefill_h6")
 # the stats kernel vs its plain version: o within 1e-6 in f32 (the same
 # f32 products over at most 512 owned positions in another order; the
 # int8 body scales after the dot where the plain version dequantizes
@@ -708,20 +725,30 @@ def stats_bound_ms(q, k_pages, page_tables, row_lens, page_ok):
 
 def stats_library_inputs(q, k_pages, v_pages, page_tables, row_lens,
                          page_ok):
-    """The yardstick's inputs: each lane's owned pages (the even table
-    entries) gathered into dense [G, H, S, D] K/V, and an additive
-    [G, H, Qb, S] bias hiding the positions a row does not see."""
+    """The yardstick's inputs: each lane's owned table entries below its
+    longest row, in table order, gathered into dense [G, H, S, D] K/V (S
+    the most any lane owns; shorter lanes padded with page 0), and an
+    additive [G, H, Qb, S] bias hiding the positions a row does not see
+    and the padding."""
     G, Qb, H, D = q.shape
     P = k_pages.shape[1]
-    idx = page_tables[:, ::2].long()
-    S = idx.shape[1] * P
+    M = page_tables.shape[1]
+    horizon = row_lens.long().amax(dim=1)                       # [G]
+    own = (page_ok != 0) & (torch.arange(M, device=q.device)[None, :] * P
+                            < horizon[:, None])                 # [G, M]
+    n = max(int(own.sum(dim=1).max()), 1)
+    # owned entries first, in table order
+    ent = torch.sort((~own).to(torch.int32), dim=1,
+                     stable=True).indices[:, :n]                # [G, n]
+    real = torch.gather(own, 1, ent)
+    idx = torch.gather(page_tables.long(), 1, ent) * real
+    S = n * P
     k = k_pages[idx].reshape(G, S, H, D).transpose(1, 2).contiguous()
     v = v_pages[idx].reshape(G, S, H, D).transpose(1, 2).contiguous()
-    pos = (torch.arange(idx.shape[1], device=q.device)[:, None] * 2 * P
-           + torch.arange(P, device=q.device)[None, :]).reshape(-1)
-    own = page_ok[:, ::2].repeat_interleave(P, dim=1) != 0      # [G, S]
-    see = (pos[None, None, :] < row_lens.long()[:, :, None]) \
-        & own[:, None, :]                                       # [G, Qb, S]
+    pos = (ent[:, :, None] * P + torch.arange(P, device=q.device)).reshape(
+        G, S)
+    see = (pos[:, None, :] < row_lens.long()[:, :, None]) \
+        & real.repeat_interleave(P, dim=1)[:, None, :]          # [G, Qb, S]
     bias = torch.where(see, 0.0, -1e30).to(q.dtype)[:, None].expand(
         G, H, Qb, S).contiguous()
     return q.transpose(1, 2).contiguous(), k, v, bias
@@ -855,10 +882,10 @@ def stats_kernel_phase(rng, flush) -> dict:
                      lambda: pa.ragged_paged_attention_cuda(
                          q, kp, vp, pt, rl, *scales), flush)}
             t["bound_ms"], t["bound_by"] = stats_bound_ms(q, kp, pt, rl, ok)
-            # ownership in runs, as the allocator hands a shard its pages:
-            # each lane owns the first half of its table, so whole 32-
-            # position tiles go unread (with every second 16-slot page
-            # owned, every tile holds an owned position)
+            # ownership in runs, as the allocator hands a shard its pages
+            # (each lane owns the first half of its table), beside the
+            # interleaved pattern above: the kernel walks owned pages, so
+            # both should cost what their owned positions cost
             runs = (torch.arange(pt.shape[1], device=pt.device)[None, :]
                     < pt.shape[1] // 2).to(torch.int32).repeat(
                         pt.shape[0], 1).contiguous()
@@ -868,8 +895,25 @@ def stats_kernel_phase(rng, flush) -> dict:
                     *rargs, fused_dequant=fused), flush)
             t["owned_runs_bound_ms"] = stats_bound_ms(q, kp, pt, rl,
                                                       runs)[0]
+            lq, lk, lv, bias = stats_library_inputs(q, kd, vd, pt, rl, runs)
+            t["owned_runs_library_ms"] = time_ms(
+                lambda: efficient(lq, lk, lv, bias, True), flush)
             log("kernel_stats_time", case=tag, **t)
             timings[tag] = t
+
+    # the prefill form's threshold: the mesh shard shape one row below it
+    # (the warp form: two 8-row blocks a lane) and at it (one 16-row
+    # block); own seed, so later phases see the same draws
+    thr_rng = np.random.RandomState(9)
+    thr = {}
+    for Qb in (pa.STATS_PREFILL_ROWS - 1, pa.STATS_PREFILL_ROWS):
+        kw = dict(dict(STATS_CASES)["prefill_h6"], Qb=Qb, row_gaps=None)
+        targs = make_case(thr_rng, **kw)
+        targs = targs + (stats_page_ok(targs[3]),)
+        thr[f"Qb{Qb}_ms"] = time_ms(
+            lambda: pa.ragged_paged_attention_stats_cuda(*targs), flush)
+    log("kernel_stats_time", case="threshold_h6/float32", **thr)
+    timings["threshold_h6/float32"] = thr
     return timings
 
 
@@ -2361,7 +2405,10 @@ def main(argv=None) -> int:
         builds={name: {"seconds": b["seconds"], "cached": b["cached"],
                        "ptxas": [ln for ln in b["ptxas"]
                                  if "registers" in ln or "spill" in ln]}
-                for name, b in _build.build_log.items()})
+                for name, b in _build.build_log.items()},
+        stats_prefill_ptxas=entry_ptxas(
+            _build.build_log["paged_attention_stats"]["ptxas"],
+            "stats_prefill_kernel"))
 
     rng = np.random.RandomState(0)
     report = {"card": card}
@@ -2489,6 +2536,9 @@ def main(argv=None) -> int:
                mesh["native"]["attention_cuda_stats"],
                stats_t["decode_h12/float32"], case="decode_h12/float32",
                prefill=stats_t["prefill_h12/float32"],
+               prefill_h6=stats_t["prefill_h6/float32"],
+               forms="warp form below 16 rows a lane, prefill form from 16; "
+                     "both walk the lane's owned pages",
                bf16_max_abs_err=stats_t["bf16_max_abs_err"],
                max_abs_err_by_case={
                    k: v for k, v in stats_t["max_abs_err_by_case"].items()

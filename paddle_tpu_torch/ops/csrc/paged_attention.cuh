@@ -16,7 +16,9 @@
 //
 // in f32, or -1e30 (the finite NEG_INF) where l is not positive: a row with
 // no visible position.  Rows with nothing visible write exact zeros.  q is
-// f32 or bf16; all arithmetic is f32.
+// f32 or bf16; all arithmetic is f32.  This header holds the warp form of
+// both; the stats form's prefill form (Qb >= 16) is in
+// paged_attention_stats.cuh.
 //
 // Int8 pools carry one f32 scale per (page, head), k_scales / v_scales
 // [N, H], and are widened to f32 as a tile is staged.  fused_dequant = 1
@@ -36,9 +38,13 @@
 // stream.  The design reads each page once per (lane, head, row tile) —
 // every query row of the tile is scored against the staged tile — and
 // stops at the longest row of the tile, so a lane's cost follows its real
-// tokens, not the padded page-table width.  In the stats form a tile with
-// no owned position is skipped before any load, so a shard's bytes follow
-// the pages it owns.  Prefill chunks (many rows per lane) are split into
+// tokens, not the padded page-table width.  The stats form walks owned
+// pages, not table positions: the block first compacts the lane's owned
+// table entries below its horizon into a list in shared memory
+// (own_list), and its 32-position tiles are tiles of that compacted walk,
+// so a shard reads and scores only what it owns, whatever the ownership
+// pattern (every second page costs what a run of half the pages costs).
+// Prefill chunks (many rows per lane) are split into
 // row tiles of up to 8 rows; their repeated page reads hit L2.  Int8 rows
 // load as 16-byte vectors (D / 16 lanes per row) when D is a multiple of
 // 16, else byte by byte.
@@ -47,8 +53,9 @@
 // loop inside the block):
 //   grid  = (G lanes, H heads, ceil(Qb / RB) row tiles)
 //   block = 4 warps.  Warp w walks the 32-position KV tiles w, w+4, ...
-//           of the block's horizon; lane j of the warp owns position j of
-//           the tile for the q.k scores and D/32 output columns for p.v.
+//           of the block's horizon (stats form: of its compacted owned
+//           positions); lane j of the warp owns position j of the tile
+//           for the q.k scores and D/32 output columns for p.v.
 //   Each warp keeps an online softmax (running max m, denominator l, f32
 //   accumulator) per row, skips tiles a row cannot see, and the four
 //   warps' partial states merge through shared memory at the end; the
@@ -158,6 +165,51 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The stats form's walk: the owned entries of one lane's table below
+// ``horizon`` (ok_g[m] != 0 for m < ceil(horizon / P)), compacted in table
+// order by a block prefix scan — own_m[e] the e-th owned entry's index,
+// own_page[e] its page id — and the number of owned positions below the
+// horizon, the length of the compacted walk.  Compacted position i lies
+// in entry own_m[i / P], slot i % P, at original position
+// own_m[i / P] * P + i % P; original positions grow with i, so the
+// positions a row sees are a prefix of the walk.  Every thread of the
+// block calls it (wsum holds one int per warp); the list is visible to
+// all of them on return.
+template <int kThreads>
+__device__ __forceinline__ int own_list(const int* __restrict__ pt_g,
+                                        const int* __restrict__ ok_g,
+                                        int horizon, int P, int* own_m,
+                                        int* own_page, int* wsum) {
+  constexpr int kW = kThreads / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_ent = (horizon + P - 1) / P;
+  int n_own = 0;
+  for (int b = 0; b < n_ent; b += kThreads) {   // block-uniform trip count
+    const int m = b + threadIdx.x;
+    const bool f = m < n_ent && ok_g[m] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) wsum[warp] = __popc(bal);
+    __syncthreads();
+    int before = n_own, total = 0;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const int c = wsum[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (f) {
+      const int e = before + __popc(bal & ((1u << lane) - 1u));
+      own_m[e] = m;
+      own_page[e] = pt_g[m];
+    }
+    n_own += total;
+    __syncthreads();
+  }
+  if (n_own == 0) return 0;
+  return (n_own - 1) * P + min(P, horizon - own_m[n_own - 1] * P);
+}
+
 // KV is T (f32 / bf16 pools) or int8_t (pools with [N, H] scales); kStats
 // adds the page_ok mask [G, M] and the lse output [G, Qb, H]
 template <typename T, typename KV, int RB, int DC, bool kStats>
@@ -188,6 +240,10 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   float* kv_s = q_s + RB * D;                          // per-warp tiles
   float* k_s = kv_s + warp * kTile * (ldk + ldv);      // [kTile][ldk]
   float* v_s = k_s + kTile * ldk;                      // [kTile][ldv]
+  // stats form: the compacted owned list ([M] entries, [M] pages) and the
+  // scan's warp sums
+  int* own_m = reinterpret_cast<int*>(kv_s + kWarps * kTile * (ldk + ldv));
+  int* own_page = own_m + M;
 
   // per-row horizons; rows past Qb are empty.  Positions past the page
   // table (M * P) do not exist.
@@ -223,7 +279,13 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 
   const int* pt = page_tables + (size_t)g * M;
   const size_t slot_stride = (size_t)H * D;
-  const int n_tiles = (horizon + kTile - 1) / kTile;
+  // positions walked: the horizon, or (stats form) the owned positions
+  // below it, compacted
+  int n_walk = horizon;
+  if constexpr (kStats)
+    n_walk = own_list<kWarps * 32>(pt, page_ok + (size_t)g * M, horizon, P,
+                                   own_m, own_page, own_page + M);
+  const int n_tiles = (n_walk + kTile - 1) / kTile;
   for (int t = warp; t < n_tiles; t += kWarps) {
     const int base = t * kTile;
     // each lane looks up the slot of ITS position once; the warp then
@@ -234,17 +296,28 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     // flight together instead of one dependent round trip per row.
     long long src = -1;
     float ksl = 1.f, vsl = 1.f;     // int8: the page scales of this lane's position
-    const int pos = base + lane;
-    // ``own``: this lane's position exists below the horizon and (stats
-    // form) lies on an owned page — only then is it read
+    int pos = base + lane;
+    // ``own``: this lane's position exists below the horizon — only then
+    // is it read.  ``first``: the tile's first position (warp-uniform)
     bool own = pos < horizon;
+    int first = base;
     if constexpr (kStats) {
-      if (own) own = page_ok[(size_t)g * M + pos / P] != 0;
-      // a tile with no owned position is skipped before any load
-      // (warp-uniform)
-      if (!__any_sync(0xffffffffu, own)) continue;
-    }
-    if (own) {
+      // base and pos count compacted owned positions: pos becomes the
+      // lane's original position, which every visibility test reads
+      own = pos < n_walk;
+      if (own) {
+        const int e = pos / P;
+        const int slot = pos - e * P;
+        const int page = own_page[e];
+        pos = own_m[e] * P + slot;
+        src = ((long long)page * P + slot) * slot_stride + (long long)h * D;
+        if constexpr (kQuant) {
+          ksl = k_scales[(size_t)page * H + h];
+          vsl = v_scales[(size_t)page * H + h];
+        }
+      }
+      first = __shfl_sync(0xffffffffu, pos, 0);
+    } else if (own) {
       const int page = pt[pos / P];
       src = ((long long)page * P + (pos % P)) * slot_stride +
             (long long)h * D;
@@ -304,8 +377,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       // a row that sees no position of this tile skips it outright
-      // (warp-uniform: rl and base are the same on every lane)
-      if (base >= rl[r]) continue;
+      // (warp-uniform: rl and first are the same on every lane)
+      if (first >= rl[r]) continue;
       const bool valid = own && pos < rl[r];
       const float m_new = fmaxf(m[r], warp_max(valid ? s[r] : -INFINITY));
       const float alpha = expf(m[r] - m_new);
@@ -316,8 +389,12 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
       // visible positions only (a position that is not read holds zeros
-      // and p = 0)
-      const int jn = min(kTile, rl[r] - base);
+      // and p = 0); they are a prefix of the tile
+      int jn;
+      if constexpr (kStats)
+        jn = __popc(__ballot_sync(0xffffffffu, valid));
+      else
+        jn = min(kTile, rl[r] - base);
       for (int j = 0; j < jn; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pv, j);
 #pragma unroll
@@ -394,8 +471,9 @@ int launch_rb(const void* q, const void* k, const void* v, const void* ks,
               int M, int fused, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const int ldv = kQuant ? D + 1 : D;
-  const size_t smem = ((size_t)RB * D +
-                       (size_t)kWarps * kTile * (D + 1 + ldv)) * sizeof(float);
+  size_t smem = ((size_t)RB * D +
+                 (size_t)kWarps * kTile * (D + 1 + ldv)) * sizeof(float);
+  if constexpr (kStats) smem += (size_t)(2 * M + kWarps) * sizeof(int);
   const int vec = kQuant && D % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;

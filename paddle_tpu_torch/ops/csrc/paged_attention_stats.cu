@@ -8,23 +8,27 @@
 // lane's pages; it attends over the positions on the pages it owns
 // (page_ok [G, M] != 0) below each row's length and returns the locally
 // normalized context with its log-sum-exp, which the caller merges across
-// shards in lse space.  The kernel is paged_attention.cuh's with the
-// ownership mask and the lse output switched on: a tile with no owned
-// position is skipped before any load, and lse = m + log(l) is written
-// after the four warps' states merge (-1e30 for a row with nothing
-// visible, whose context is exact zeros).
-#include "paged_attention.cuh"
+// shards in lse space (-1e30 for a row with nothing visible, whose
+// context is exact zeros).
+//
+// Both of its forms walk owned pages: the block compacts the lane's owned
+// table entries below its horizon into a list in shared memory and walks
+// that list, so a shard reads and scores only what it owns.  Lanes of
+// fewer than 16 rows (decode, spec verify) take the warp form of
+// paged_attention.cuh; prefill chunks the block-shared, register-tiled
+// form of paged_attention_stats.cuh.  pages_per_seq M is at most 4096.
+#include "paged_attention_stats.cuh"
 
 // q [G, Qb, H, D], k/v pools [N, P, H, D] (same dtype as q), page_tables
 // [G, M] int32, row_lens [G, Qb] int32, page_ok [G, M] int32, out
 // [G, Qb, H, D] (q's dtype), lse [G, Qb, H] f32; all contiguous on one
-// device, page ids in [0, N).  Launches on ``stream`` and returns
-// cudaGetLastError() (0 = launched).
+// device, page ids in [0, N), M <= 4096.  Launches on ``stream`` and
+// returns cudaGetLastError() (0 = launched).
 extern "C" int ptt_ragged_paged_attention_stats_f32(
     const void* q, const void* k, const void* v, const void* pt,
     const void* rl, const void* ok, void* out, void* lse, int G, int Qb,
     int H, int D, int P, int M, void* stream) {
-  return launch<float, float, true>(q, k, v, nullptr, nullptr, pt, rl, ok,
+  return launch_stats<float, float>(q, k, v, nullptr, nullptr, pt, rl, ok,
                                     out, lse, G, Qb, H, D, P, M, 0, stream);
 }
 
@@ -32,7 +36,7 @@ extern "C" int ptt_ragged_paged_attention_stats_bf16(
     const void* q, const void* k, const void* v, const void* pt,
     const void* rl, const void* ok, void* out, void* lse, int G, int Qb,
     int H, int D, int P, int M, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, true>(
+  return launch_stats<__nv_bfloat16, __nv_bfloat16>(
       q, k, v, nullptr, nullptr, pt, rl, ok, out, lse, G, Qb, H, D, P, M, 0,
       stream);
 }
@@ -46,7 +50,7 @@ extern "C" int ptt_ragged_paged_attention_stats_int8_f32(
     const void* vs, const void* pt, const void* rl, const void* ok,
     void* out, void* lse, int G, int Qb, int H, int D, int P, int M,
     int fused_dequant, void* stream) {
-  return launch<float, int8_t, true>(q, k, v, ks, vs, pt, rl, ok, out, lse,
+  return launch_stats<float, int8_t>(q, k, v, ks, vs, pt, rl, ok, out, lse,
                                      G, Qb, H, D, P, M, fused_dequant,
                                      stream);
 }
@@ -56,7 +60,7 @@ extern "C" int ptt_ragged_paged_attention_stats_int8_bf16(
     const void* vs, const void* pt, const void* rl, const void* ok,
     void* out, void* lse, int G, int Qb, int H, int D, int P, int M,
     int fused_dequant, void* stream) {
-  return launch<__nv_bfloat16, int8_t, true>(q, k, v, ks, vs, pt, rl, ok,
+  return launch_stats<__nv_bfloat16, int8_t>(q, k, v, ks, vs, pt, rl, ok,
                                              out, lse, G, Qb, H, D, P, M,
                                              fused_dequant, stream);
 }

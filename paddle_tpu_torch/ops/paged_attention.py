@@ -58,6 +58,7 @@ import math
 import torch
 
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT",
+           "STATS_MAX_PAGES", "STATS_PREFILL_ROWS",
            "paged_attention_ref", "paged_attention_cuda", "paged_attention",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
            "ragged_paged_attention", "ragged_paged_attention_stats_ref",
@@ -74,6 +75,11 @@ PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "cuda_decode": 0,
 FUSED_DEQUANT = 1
 
 _MAX_HEAD_DIM = 128
+# the stats kernel compacts a lane's owned table entries into shared
+# memory: pages_per_seq (page_tables.shape[1]) is bounded
+STATS_MAX_PAGES = 4096
+# lanes of at least this many rows take the stats kernel's prefill form
+STATS_PREFILL_ROWS = 16
 # (library, q dtype, int8 pools) -> C entry point
 _KERNEL_FNS = {
     ("paged_attention", torch.float32, False):
@@ -460,15 +466,25 @@ def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
     ``paddle_tpu/ops/pallas_ops/paged_attention.py:_ragged_stats_kernel``
     and, for int8 pools, ``_ragged_stats_kernel_quant``.
 
-    The kernel of :func:`ragged_paged_attention_cuda` with the ownership
-    mask and the lse output: a 32-position tile with no owned position is
-    skipped before any load, so a shard reads only the pages it owns, and
-    lse is written after the block's four warps merge their softmax
-    states.  Bound by bytes, as the ragged kernel.
+    Both of its forms walk owned pages: a block first compacts its lane's
+    owned table entries below its longest row into a list in shared
+    memory, then walks tiles of that list, so a shard reads and scores
+    only the positions it owns, whatever the ownership pattern.  Lanes of
+    fewer than ``STATS_PREFILL_ROWS`` (16) rows — decode lanes, spec
+    verify — take the warp form of :func:`ragged_paged_attention_cuda`
+    (bound by bytes: 4·D flops per position read), with lse written after
+    the block's four warps merge.  Prefill chunks take the prefill form,
+    bound by f32 operations on the CUDA cores: one block per (lane, head,
+    16 rows) stages each tile of 64 owned positions (32 at D > 64) once,
+    by 16-byte ``cp.async`` into a two-stage ring, and register-tiles
+    S = QKᵀ and O += PV.  A position a row does not see is removed by
+    select, never multiplied by zero, so a NaN stored there does not
+    reach the row.
 
     Inputs as for :func:`ragged_paged_attention_cuda` plus ``page_ok
-    [G, M]`` (cast to contiguous int32 here).  Returns ``(o, lse)``.
-    Raises when the launch is refused."""
+    [G, M]`` (cast to contiguous int32 here); M is at most
+    ``STATS_MAX_PAGES`` (4096).  Returns ``(o, lse)``.  Raises when the
+    launch is refused."""
     _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales)
     if tuple(page_ok.shape) != tuple(page_tables.shape):
         raise ValueError(f"page_ok must be {tuple(page_tables.shape)} like "
@@ -478,6 +494,10 @@ def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_stats_cuda needs CUDA "
                          "tensors")
+    if page_tables.shape[1] > STATS_MAX_PAGES:
+        raise ValueError(f"pages_per_seq {page_tables.shape[1]} > "
+                         f"{STATS_MAX_PAGES} is not supported by the stats "
+                         "kernel")
     quant = k_pages.dtype == torch.int8
     fn = _kernel("paged_attention_stats", q.dtype, quant)
     G, Qb, H, D = q.shape

@@ -501,10 +501,22 @@ def test_spec_engine_streams_equal_generate_on_the_card():
 LSE_TOL = 1e-5
 
 
-def _page_ok(pt, owner_none=3):
-    """Every second table entry owned; lane ``owner_none`` owns nothing."""
-    ok = (torch.arange(pt.shape[1], device=pt.device)[None, :] % 2 == 0
-          ).expand_as(pt).to(torch.int32).contiguous()
+# which table entries a shard owns: every second one, the first half (as
+# the allocator hands out runs), a run that starts one page in (mid-tile
+# in the table's positions), one page, none
+OWNERSHIP = ("every-second", "runs", "run-mid-tile", "one-page", "none")
+
+
+def _page_ok(pt, owner_none=3, pattern="every-second"):
+    """The ``pattern``'s table entries owned in every lane; lane
+    ``owner_none`` owns nothing."""
+    m = torch.arange(pt.shape[1], device=pt.device)
+    own = {"every-second": m % 2 == 0,
+           "runs": m < (pt.shape[1] + 1) // 2,
+           "run-mid-tile": (m >= 1) & (m < pt.shape[1] - 1),
+           "one-page": m == pt.shape[1] // 2,
+           "none": m < 0}[pattern]
+    ok = own[None, :].expand_as(pt).to(torch.int32).contiguous()
     ok[owner_none] = 0
     return ok
 
@@ -522,6 +534,7 @@ def _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype):
         o.shape[2],)
 
 
+@pytest.mark.parametrize("pattern", OWNERSHIP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("Qb", [1, 3, 8, 64])
@@ -530,9 +543,9 @@ def _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype):
                                      (3, 48, 5, 7)],
                          ids=["test-shape", "gpt2", "gpt2-tp2", "d128",
                               "odd"])
-def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype):
+def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype, pattern):
     q, kp, vp, pt, rl = _case(0, 5, Qb, H, D, P, M, dtype)
-    ok = _page_ok(pt)
+    ok = _page_ok(pt, pattern=pattern)
     _zero_counts()
     o, lse = pa.ragged_paged_attention_stats(q, kp, vp, pt, rl, ok)
     torch.cuda.synchronize()
@@ -543,19 +556,20 @@ def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype):
     assert o.dtype == dtype and o.shape == q.shape
 
 
+@pytest.mark.parametrize("pattern", ["every-second", "runs"])
 @pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("Qb", [1, 8, 64])
+@pytest.mark.parametrize("Qb", [1, 8, 17, 64])
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (6, 64, 16, 8), (3, 48, 5, 7),
-                                     (2, 20, 4, 5)],
+                                     (2, 20, 4, 5), (4, 128, 16, 4)],
                          ids=["test-shape", "gpt2", "gpt2-tp2", "odd",
-                              "bytewise-d20"])
+                              "bytewise-d20", "d128"])
 def test_int8_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype,
-                                                 fused):
+                                                 fused, pattern):
     q, kq, vq, pt, rl, ks, vs = _int8(_case(0, 5, Qb, H, D, P, M, dtype))
-    ok = _page_ok(pt)
+    ok = _page_ok(pt, pattern=pattern)
     _zero_counts()
     o, lse = pa.ragged_paged_attention_stats(q, kq, vq, pt, rl, ok, ks, vs,
                                              fused_dequant=fused)
@@ -566,15 +580,21 @@ def test_int8_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype,
     _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype)
 
 
+@pytest.mark.parametrize("Qb", [8, 64], ids=["warp-form", "prefill-form"])
 @pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
-def test_int8_stats_kernel_nan_scale_reaches_exactly_its_readers(fused):
+def test_int8_stats_kernel_nan_scale_reaches_exactly_its_readers(fused, Qb):
     """A NaN K scale on an owned page reaches exactly the rows that read
-    it; one on a page this shard does not own reaches nobody."""
-    q, kq, vq, pt, rl, ks, vs = _int8(_case(3, 5, 8, 12, 64, 16, 8,
+    it (not the rows of its lane that stop before it); one on a page this
+    shard does not own reaches nobody."""
+    q, kq, vq, pt, rl, ks, vs = _int8(_case(3, 5, Qb, 12, 64, 16, 8,
                                             torch.float32))
     ok = _page_ok(pt, owner_none=0)
-    ks[int(pt[3, 2]), 5] = float("nan")    # lane 3's third page: owned
-    ks[int(pt[3, 1]), 6] = float("nan")    # its second: not owned
+    # lane 3 (107 positions): the warp form's rows all read its third
+    # page; the prefill form's staircase (rows of 44..107 positions)
+    # holds rows on both sides of its fifth
+    e = 2 if Qb == 8 else 4
+    ks[int(pt[3, e]), 5] = float("nan")        # owned
+    ks[int(pt[3, e - 1]), 6] = float("nan")    # not owned
     o, lse = pa.ragged_paged_attention_stats(q, kq, vq, pt, rl, ok, ks, vs,
                                              fused_dequant=fused)
     ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(q, kq, vq, pt, rl,
@@ -583,13 +603,50 @@ def test_int8_stats_kernel_nan_scale_reaches_exactly_its_readers(fused):
     bad = ~torch.isfinite(o).all(dim=-1)                    # [G, Qb, H]
     want = ~torch.isfinite(ref_o).all(dim=-1)
     assert want.any() and torch.equal(bad, want)
-    # the readers: head 5 of lane 3's rows that see past position 32
-    assert torch.equal(bad[3, :, 5], rl[3] > 32)
+    # the readers: head 5 of lane 3's rows that see past the page's start
+    assert torch.equal(bad[3, :, 5], rl[3] > 16 * e)
+    if Qb == 64:
+        assert ((rl[3] > 0) & (rl[3] <= 16 * e)).any()
     assert not bad[:, :, [h for h in range(12) if h != 5]].any()
     fin = ~want[..., None].expand_as(o)
     torch.testing.assert_close(o[fin], ref_o[fin], rtol=0, atol=1e-4)
     torch.testing.assert_close(lse[~want], ref_lse[~want], rtol=0,
                                atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("pattern", OWNERSHIP)
+@pytest.mark.parametrize("Qb", [pa.STATS_PREFILL_ROWS - 1,
+                                pa.STATS_PREFILL_ROWS, 17, 33, 64, 100])
+@pytest.mark.parametrize("H,D,P,M", [(6, 64, 16, 8), (6, 48, 16, 8),
+                                     (6, 128, 16, 4)],
+                         ids=["gpt2-tp2", "d48", "d128"])
+def test_stats_prefill_form_edges_match_plain_version(H, D, P, M, Qb,
+                                                      pattern):
+    """Row counts around the prefill form's threshold and past a whole
+    number of 16-row blocks, at the mesh drive's 6 heads, D 48 and 128:
+    f32, bf16 and int8 (both dequant placements) against the plain
+    version."""
+    q, kp, vp, pt, rl = _case(6, 5, Qb, H, D, P, M, torch.float32)
+    ok = _page_ok(pt, pattern=pattern)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (q.to(dtype), kp.to(dtype), vp.to(dtype), pt, rl, ok)
+        _zero_counts()
+        o, lse = pa.ragged_paged_attention_stats(*args)
+        torch.cuda.synchronize()
+        assert pa.PAGED_ROUTE_STATS == _counts(cuda_stats=1)
+        ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(
+            *(a.float() if a.is_floating_point() else a for a in args))
+        _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype)
+    _, kq, vq, _, _, ks, vs = _int8((q, kp, vp, pt, rl))
+    ref_o, ref_lse = pa.ragged_paged_attention_stats_ref(q, kq, vq, pt, rl,
+                                                         ok, ks, vs)
+    for fused in (1, 0):
+        _zero_counts()
+        o, lse = pa.ragged_paged_attention_stats(q, kq, vq, pt, rl, ok, ks,
+                                                 vs, fused_dequant=fused)
+        torch.cuda.synchronize()
+        assert pa.PAGED_ROUTE_STATS == _counts(cuda_stats_int8=1)
+        _check_stats(o, lse, ref_o, ref_lse, rl, ok, torch.float32)
 
 
 def test_stats_wrapper_rejects_what_the_kernel_does_not_take():
@@ -606,6 +663,10 @@ def test_stats_wrapper_rejects_what_the_kernel_does_not_take():
         big = torch.zeros(4, 1, 1, 160, device="cuda")
         pools = torch.zeros(8, 4, 1, 160, device="cuda")
         pa.ragged_paged_attention_stats(big, pools, pools, pt, rl, ok)
+    wide = torch.zeros(4, pa.STATS_MAX_PAGES + 1, dtype=torch.int32,
+                       device="cuda")
+    with pytest.raises(ValueError, match="pages_per_seq"):
+        pa.ragged_paged_attention_stats(q, kp, vp, wide, rl, wide)
 
 
 def test_stats_merge_over_page_shards_equals_the_full_softmax():
