@@ -43,8 +43,9 @@ Phases, one result line each (or more):
    the requests, synchronous and pipelined: streams byte-identical, no
    page leaked.
 8. kernel_flash: the flash attention forward, dK/dV and dQ kernels
-   against their plain versions in f32 and bf16 (the bf16 bodies on the
-   tensor cores, their launches logged) at the training
+   against their plain versions in f32 and bf16 (the bf16 bodies and the
+   f32 dK/dV and dQ, 3xTF32, on the tensor cores, their launches logged;
+   f32 also in relative L2 against FLASH_REL_L2) at the training
    shape (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
    non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
    D 80, 100 and 256; the dropout bits of all three kernels in f32 and
@@ -57,7 +58,8 @@ Phases, one result line each (or more):
    batch: a warm-up step, then 5 steps of ``loss.backward(); opt.step();
    opt.clear_grad()``.  Every loss finite, the first within 0.5 of
    ln(vocab), the loss falling; every attention call on the flash
-   kernels (12 x 5 launches of each, the plain and sdpa routes 0); one
+   kernels (12 x 5 launches of each, dK/dV and dQ on the tensor cores in
+   3xTF32, the plain and sdpa routes 0); one
    more step under ``torch.profiler`` gives the device time by kernel
    family and the device's busy share.
 10. train_parity: 2 layers at the same widths, B 2 x S 1024: one step's
@@ -96,7 +98,8 @@ Phases, one result line each (or more):
    its log-sum-exp on the gathered owned KV, and the ragged kernel over
    all pages; then again with each lane owning the first half of its
    table (runs), beside the same yardstick on those pages.  The env line
-   carries the prefill form's registers and spills.
+   carries the prefill form's registers and spills, and those of the f32
+   flash dK/dV and dQ bodies.
 15. e2e_mesh: ``force_device_count(4)``, then ``mesh_axes={"tp": 2,
    "sp": 2}`` at GPT-2-small width on 4 long prompts (600-990 tokens, 32
    new tokens) in a 260-page pool, native and with int8 KV and weights
@@ -152,6 +155,7 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain version: f32 sums over up to 1024 positions in another
 # order (online softmax, tile-wise) — 1e-4 absolute on outputs of
@@ -1066,9 +1070,15 @@ FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the outputs, 2^-9 relative each, land at 1.8e-3 to 2.8e-3 in the CPU
 # emulation of the tensor-core bodies against the Pallas kernels, where a
 # body that drops one 64-key tile of the rows past 300 at S 1024 lands at
-# 0.18 (tests/test_torch_flash_tc_numerics.py).  f32's max-abs 1e-4 is
-# already far below what a dropped tile costs
-FLASH_REL_L2 = {torch.bfloat16: 1e-2}
+# 0.18 (tests/test_torch_flash_tc_numerics.py).  f32: dK/dV and dQ run in
+# 3xTF32 on the tensor cores, which keeps about 2^-21 of a product; the CPU
+# emulation of the bodies lands at most at 1.9e-6 against the Pallas
+# kernels and a one-pass TF32 product at 3.6e-4 or more
+# (tests/test_torch_flash_f32tc_numerics.py), so 2e-4 tells the two apart;
+# it leaves 2.4 times the room the card needed at a single key (exact dK
+# and dQ of 0, rounding noise against the floor below: at most 8.2e-5 at
+# D 256) and 100 times that of every other case (at most 1.7e-6)
+FLASH_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
 # the rms that stands in for the reference's where that is smaller: a
 # gradient whose exact value is 0 (dk and dq at a single key) is rounding
 # noise in both versions; every other reference of the card tests has an
@@ -1096,6 +1106,23 @@ FLASH_TC_DESIGN = {
                 "registers as the A operands of S and dP; dS rounded to "
                 "bf16 in registers as the A operand of dS K, K by "
                 "ldmatrix.trans"}
+# the f32 dK/dV and dQ bodies (namespace f32tc of flash_attention.cu)
+_F32TC = ("3xTF32 on mma.sync m16n8k8 tf32 (each f32 operand split into a "
+          "TF32 big part and a TF32 residual where its fragment is formed; "
+          "small*big, big*small, big*big a chunk of 8, each tile's chunks "
+          "in a partial sum folded in by an f32 add); cp.async ring of 2 "
+          "stages; tiles of DT + 8 floats a row, rows 4-7 of every 8 "
+          "swapped in pairs, read without bank conflicts; ")
+FLASH_F32TC_DESIGN = {
+    "dkv": _F32TC + "S^T = K Q^T per warp of 16 keys; P'^T and dS^T go "
+                    "from the accumulators to the A operands of dV and dK "
+                    "in registers (k read through a permutation, no "
+                    "shuffle), unrounded",
+    "dq": _F32TC + "a warp owns 16 query rows; dS goes from the "
+                   "accumulators to the A operand of dS K in registers"}
+# the f32 forward's body
+FLASH_F32_FWD_DESIGN = ("f32 FMAs on the CUDA cores; 16 x 16 threads, "
+                        "synchronous shared-memory tiles")
 
 
 def flash_inputs(rng, B, H, S, D, masked, dtype):
@@ -1108,11 +1135,14 @@ def flash_inputs(rng, B, H, S, D, masked, dtype):
     return q, k, v, g, mask.to(DEVICE)
 
 
-def flash_bound_ms(kernel, B, H, S, D, causal, item):
+def flash_bound_ms(kernel, B, H, S, D, causal, item, peak=None):
     """Least time on an H100 for one kernel call: the larger of its bytes
     (each input read once, each output written once) over 3.35 TB/s and
-    its operations over the peak of the input type (67 TFLOP/s f32,
-    989 TFLOP/s bf16).  Operations, the standard accounting: the forward
+    its operations over the peak of the input type (``peak`` if given):
+    f32-accurate products at 165 TFLOP/s, the TF32 tensor cores' 495 in
+    3xTF32 (three TF32 products for one f32 one; the CUDA cores' 67 is
+    the slower way), bf16 at 989 TFLOP/s.  Operations, the standard
+    accounting: the forward
     is 4·B·H·S²·D (its two products, 2·S²·D each), the backward pair
     2.5× the forward — its five products, of which dK/dV owns three
     (S = QKᵀ, dV, dK: 1.5× the forward) and dQ two (dP, dQ: 1.0×); the
@@ -1126,7 +1156,8 @@ def flash_bound_ms(kernel, B, H, S, D, causal, item):
                    "dkv": (6 * tensor + 2 * rows + mask, 1.5 * fwd_ops),
                    "dq": (5 * tensor + 2 * rows + mask, 1.0 * fwd_ops)}[
         kernel]
-    peak = F32_FLOPS_PER_S if item == 4 else BF16_FLOPS_PER_S
+    if peak is None:
+        peak = TF32_FLOPS_PER_S / 3 if item == 4 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1220,6 +1251,11 @@ def flash_kernel_phase(rng, flush) -> dict:
                      "library_ms": time_ms(lib, flush)}
                 t["bound_ms"], t["bound_by"] = flash_bound_ms(
                     kname, B, H, S, D, causal, item)
+                if dtype == torch.float32:
+                    # the same work at the CUDA cores' f32 peak
+                    t["bound_cuda_core_ms"] = flash_bound_ms(
+                        kname, B, H, S, D, causal, item,
+                        F32_FLOPS_PER_S)[0]
                 if kname == "fwd":
                     t["library_max_abs_err"] = lib_err
                 else:
@@ -1235,12 +1271,14 @@ def flash_kernel_phase(rng, flush) -> dict:
             del ql, kl, vl, lib_out
             torch.cuda.empty_cache()
 
-    # the bf16 calls above ran on the tensor cores (one launch of each
-    # body per case's check, the rest timing runs)
+    # the bf16 calls above ran on the tensor cores, and so did the f32
+    # dK/dV and dQ (one launch of each body per case's check, the rest
+    # timing runs)
     counts = read_flash_counts()
     log("kernel_flash_launches", **counts)
     if min(counts["flash_tc_fwd"], counts["flash_tc_dkv"],
-           counts["flash_tc_dq"]) < len(FLASH_CASES):
+           counts["flash_tc_dq"], counts["flash_f32tc_dkv"],
+           counts["flash_f32tc_dq"]) < len(FLASH_CASES):
         raise AssertionError(f"kernel_flash: tensor-core launches {counts}, "
                              f"expected at least {len(FLASH_CASES)} of each")
 
@@ -1278,21 +1316,25 @@ GRAD_TOL, GRAD_FLOOR, LOSS_RTOL = 1e-4, 1e-6, 1e-5
 
 def reset_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
-    from paddle_tpu_torch.ops.flash_attention import (FLASH_ROUTE_STATS,
+    from paddle_tpu_torch.ops.flash_attention import (FLASH_F32TC_STATS,
+                                                      FLASH_ROUTE_STATS,
                                                       FLASH_TC_STATS)
 
-    for stats in (ROUTE_STATS, FLASH_ROUTE_STATS, FLASH_TC_STATS):
+    for stats in (ROUTE_STATS, FLASH_ROUTE_STATS, FLASH_TC_STATS,
+                  FLASH_F32TC_STATS):
         for key in stats:
             stats[key] = 0
 
 
 def read_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
-    from paddle_tpu_torch.ops.flash_attention import (FLASH_ROUTE_STATS,
+    from paddle_tpu_torch.ops.flash_attention import (FLASH_F32TC_STATS,
+                                                      FLASH_ROUTE_STATS,
                                                       FLASH_TC_STATS)
 
     return ({f"flash_{k}": v for k, v in FLASH_ROUTE_STATS.items()}
             | {f"flash_tc_{k}": v for k, v in FLASH_TC_STATS.items()}
+            | {f"flash_f32tc_{k}": v for k, v in FLASH_F32TC_STATS.items()}
             | {f"route_{k}": v for k, v in ROUTE_STATS.items()})
 
 
@@ -1349,8 +1391,8 @@ def profile_step(model, opt, x, y, amp_dtype=None) -> dict:
         n_kernels += evt.count
         name = evt.key
         key = next((f"flash_{k}" for k in ("dkv", "dq", "fwd")
-                    if f"{k}_kernel<" in name or f"{k}_tc_kernel<" in name),
-                   None)
+                    if any(f"{k}_{body}kernel<" in name
+                           for body in ("", "tc_", "f32tc_"))), None)
         if key is None and any(m in name.lower() for m in MATMUL_NAMES):
             key = "matmul"
         if key is None:
@@ -1403,6 +1445,7 @@ def train_phase(rng, amp_dtype=None, phase="train") -> dict:
     n_tc = n if amp_dtype == "bfloat16" else 0
     want = {"flash_fwd": n, "flash_dkv": n, "flash_dq": n, "flash_ref": 0,
             "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc,
+            "flash_f32tc_dkv": n - n_tc, "flash_f32tc_dq": n - n_tc,
             "route_pallas": n, "route_xla": 0}
     expect_counts(phase, counts, want)
     prof = profile_step(model, opt, x, y, amp_dtype)
@@ -1494,9 +1537,11 @@ def _parity_runs(rng, cfg, batch, seq, amp_dtype):
     n_tc = L if amp_dtype == "bfloat16" else 0
     expect_counts("train_parity card", runs["card"]["counts"], {
         "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0,
-        "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc})
+        "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc,
+        "flash_f32tc_dkv": L - n_tc, "flash_f32tc_dq": L - n_tc})
     expect_counts("train_parity cpu", runs["cpu"]["counts"], {
-        "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L})
+        "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L,
+        "flash_f32tc_dkv": 0, "flash_f32tc_dq": 0})
     return runs
 
 
@@ -2408,7 +2453,9 @@ def main(argv=None) -> int:
                 for name, b in _build.build_log.items()},
         stats_prefill_ptxas=entry_ptxas(
             _build.build_log["paged_attention_stats"]["ptxas"],
-            "stats_prefill_kernel"))
+            "stats_prefill_kernel"),
+        flash_f32tc_ptxas=entry_ptxas(
+            _build.build_log["flash_attention"]["ptxas"], "f32tc_kernel"))
 
     rng = np.random.RandomState(0)
     report = {"card": card}
@@ -2491,6 +2538,10 @@ def main(argv=None) -> int:
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",
                train[f"flash_{kname}"], flash_t[f"{kname}/train/float32"],
                case="B8 H12 S1024 D64 causal, float32",
+               design=FLASH_F32TC_DESIGN.get(kname, FLASH_F32_FWD_DESIGN),
+               launches_f32tc=train.get(f"flash_f32tc_{kname}", 0),
+               bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
+                   "bound_cuda_core_ms"],
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],
                              launches_train_bf16=train_bf16[
                                  f"flash_{kname}"]),

@@ -28,23 +28,56 @@
 // What bounds them on an H100: at the training shape (B 8, H 12, S 1024,
 // D 64, causal) the score tiles never leave the chip, so each kernel moves
 // only its inputs and outputs once and does 4 S^2 D (causal: half) per
-// product pair.  In f32 that is the 67 TFLOP/s of the CUDA cores (bound
-// by operations); in bf16 the 989 TFLOP/s of the tensor cores make the
-// bytes the bound (0.0152 ms forward, 0.0228 ms dK/dV, 0.0190 ms dQ).
+// product pair.  That is bound by operations in f32: f32-accurate
+// products run at 165 TFLOP/s as 3xTF32 on the tensor cores (495 TFLOP/s
+// of TF32, three products for one), 67 on the CUDA cores (0.0781 ms
+// forward, 0.117 ms dK/dV, 0.0781 ms dQ at 165).  In bf16 the 989 TFLOP/s
+// of the tensor cores make the bytes the bound (0.0152 ms forward,
+// 0.0228 ms dK/dV, 0.0190 ms dQ).
 //
-// Two designs.
+// Three designs.
 //
-// f32 (all three bodies): all arithmetic in f32 FMAs on the CUDA cores,
-// so the f32 results stay those the tests pin.  A plain shared-memory
-// tiling, one block of 256 threads (16 x 16) per output tile: forward and
-// dQ one block per (bh, tile of BQ query rows) looping over the key tiles
-// it can see (causal: up to the diagonal), dK/dV one block per (bh, tile
-// of BK keys) looping over the query tiles that see it.  Each thread owns
-// a register micro-tile of rows ty + 16 i and columns tx + 16 j; a score
-// row lives in 16 adjacent lanes of one warp, so the row max and sum are
-// warp shuffles.  Tiles are loaded synchronously and sized by the head
-// width (DT = 64, 128 or 256 columns, zero-padded past D), so that shared
-// memory stays under the 227 KB a block may use at D 256.
+// f32 forward: all arithmetic in f32 FMAs on the CUDA cores.  A plain
+// shared-memory tiling, one block of 256 threads (16 x 16) per (bh, tile
+// of BQ query rows) looping over the key tiles it can see (causal: up to
+// the diagonal).  Each thread owns a register micro-tile of rows ty + 16 i
+// and columns tx + 16 j; a score row lives in 16 adjacent lanes of one
+// warp, so the row max and sum are warp shuffles.  Tiles are loaded
+// synchronously and sized by the head width (DT = 64, 128 or 256 columns,
+// zero-padded past D), so that shared memory stays under the 227 KB a
+// block may use at D 256.
+//
+// f32 dK/dV and dQ (namespace f32tc): the bf16 bodies' design below on
+// the tensor cores in 3xTF32, the arithmetic of CUTLASS's FastF32 that
+// PyTorch's memory-efficient attention uses for f32.  mma.sync m16n8k8
+// takes TF32 (10 mantissa bits); each f32 operand is split where its
+// fragment is formed into big = x rounded to TF32 and the residual
+// small = x - big, and small * big, big * small and big * big go into one
+// f32 accumulator: about 2^-21 of a product, where one TF32 product keeps
+// 2^-11 (tests/test_torch_flash_f32tc_numerics.py).  Tiles are not split
+// in shared memory, which would double the bytes staged.  What the design
+// does about f32's costs:
+//   - operands straight from the accumulators: the C fragment gives a
+//     thread columns (2 t, 2 t + 1), the A fragment wants k (t, t + 4), so
+//     the k of every product is read through that permutation, and P'^T,
+//     dS^T (dK/dV) and dS (dQ) become A fragments in registers, unrounded,
+//     without shuffles; their B operands read rows 2 t, 2 t + 1;
+//   - the tensor cores round each mma's f32 sum toward zero, a drift of
+//     half an ulp of the running sum a step that a sum over 1024 queries
+//     (3 mma a chunk of 8) would pile up: each tile's chunks go into a
+//     partial sum from zero, added to the running sum by an f32 add (S
+//     and dP: every 64 columns of d);
+//   - f32 tiles are twice the bf16 bytes and there is no 32-bit
+//     transposed ldmatrix: tiles of 32 query rows (dK/dV) or keys (dQ), 16
+//     at D 256, a 2-stage cp.async ring, 64 output columns a dK/dV block
+//     (grid.y = DT / 64: dK, dV and their partial sums in registers) and
+//     128 a dQ block from D 128 on; at D 64 two blocks fit an SM;
+//   - rows of DT + 8 floats, rows 4-7 of every 8 swapped in pairs, so both
+//     ways a tile is read (64-bit along a row, 32-bit down a column) are
+//     free of bank conflicts at a per-thread offset plus a constant;
+//   - the longest causal tiles first, branch-free hot loops (an interior
+//     tile is not masked element by element), scale in the epilogue, and
+//     the outputs stored straight from the accumulators.
 //
 // bf16 (all three bodies, namespace tc): FA2's design on the tensor
 // cores, mma.sync m16n8k16 (bf16 in, f32 accumulators), chosen over
@@ -320,215 +353,6 @@ __global__ void __launch_bounds__(kThreads)
       if (d < p.D) store(orow + d, acc[i][j] / l_safe);
     }
     if (tx == 0) lse[(size_t)bh * p.Sq + row] = m[i] + logf(l_safe);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: grid BH * ceil(Sq / BQ)
-// ---------------------------------------------------------------------------
-template <int BQ, int BK, int DT>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-         (2 * BQ * (DT + 1) + 2 * BK * (DT + 1) + BQ * (BK + 1) + BK);
-}
-
-template <typename T, int BQ, int BK, int DT>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const float* __restrict__ mask, T* __restrict__ dq, Params p) {
-  constexpr int SD = DT + 1, SP = BK + 1;
-  constexpr int TM = BQ / 16, TN = BK / 16, TD = DT / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][SD], pre-scaled
-  float* dOs = Qs + BQ * SD;     // [BQ][SD]
-  float* Ks = dOs + BQ * SD;     // [BK][SD]
-  float* Vs = Ks + BK * SD;      // [BK][SD]
-  float* dSs = Vs + BK * SD;     // [BQ][SP]
-  float* Ms = dSs + BQ * SP;     // [BK]
-  const int nqt = (p.Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt;
-  const int q0 = (blockIdx.x % nqt) * BQ;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t qoff = (size_t)bh * p.Sq * p.D;
-  const T* kb = k + (size_t)bh * p.Sk * p.D;
-  const T* vb = v + (size_t)bh * p.Sk * p.D;
-  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
-
-  load_rows<T, BQ, DT>(Qs, q + qoff, q0, p.Sq, p.D, p.scale);
-  load_rows<T, BQ, DT>(dOs, dout + qoff, q0, p.Sq, p.D, 1.f);
-  float lr[TM], dl[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lr[i] = row < p.Sq ? lse[(size_t)bh * p.Sq + row] : 0.f;
-    dl[i] = row < p.Sq ? delta[(size_t)bh * p.Sq + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
-  int nkt = (p.Sk + BK - 1) / BK;
-  if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_rows<T, BK, DT>(Ks, kb, k0, p.Sk, p.D, 1.f);
-    load_rows<T, BK, DT>(Vs, vb, k0, p.Sk, p.D, 1.f);
-    for (int c = threadIdx.x; c < BK; c += kThreads)
-      Ms[c] = (k0 + c < p.Sk) ? mb[k0 + c] : 0.f;
-    __syncthreads();
-    float s[TM][TN], dp[TM][TN];
-    mm_nt<DT, TM, TN>(Qs, Ks, s, p.D);
-    mm_nt<DT, TM, TN>(dOs, Vs, dp, p.D);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float ds = 0.f;
-        if (row < p.Sq && col < p.Sk) {
-          float x = s[i][j];
-          if ((p.causal && row < col) || !(Ms[tx + 16 * j] > 0.f))
-            x = kNegInf;
-          const float pr = expf(x - lr[i]);
-          float dpn = dp[i][j];
-          if (p.dropout)
-            dpn = keep_bit(p, bh, row, col) ? dpn * p.keep_scale : 0.f;
-          ds = pr * (dpn - dl[i]);
-        }
-        dSs[(ty + 16 * i) * SP + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    mm_nn<BK, DT, TM, TD>(dSs, Ks, acc, p.D);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    T* out = dq + qoff + (size_t)row * p.D;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < p.D) store(out + d, acc[i][j] * p.scale);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK/dV: grid BH * ceil(Sk / BK)
-// ---------------------------------------------------------------------------
-template <int BQ, int BK, int DT>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * BK * (DT + 1) + 2 * BQ * (DT + 1) +
-                          2 * BK * (BQ + 1) + 2 * BQ + BK);
-}
-
-template <typename T, int BQ, int BK, int DT>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta,
-               const float* __restrict__ mask, T* __restrict__ dk,
-               T* __restrict__ dv, Params p) {
-  constexpr int SD = DT + 1, SP = BQ + 1;
-  constexpr int TM = BK / 16, TN = BQ / 16, TD = DT / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][SD]
-  float* Vs = Ks + BK * SD;      // [BK][SD]
-  float* Qs = Vs + BK * SD;      // [BQ][SD], pre-scaled
-  float* dOs = Qs + BQ * SD;     // [BQ][SD]
-  float* PT = dOs + BQ * SD;     // [BK][SP], dropped probabilities^T
-  float* dST = PT + BK * SP;     // [BK][SP], dS^T
-  float* Ls = dST + BK * SP;     // [BQ] lse of the query tile
-  float* Dl = Ls + BQ;           // [BQ] delta of the query tile
-  float* Ms = Dl + BQ;           // [BK] kv mask of this block's keys
-  const int nkt = (p.Sk + BK - 1) / BK;
-  const int bh = blockIdx.x / nkt;
-  const int k0 = (blockIdx.x % nkt) * BK;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + (size_t)bh * p.Sq * p.D;
-  const T* ob = dout + (size_t)bh * p.Sq * p.D;
-  const size_t koff = (size_t)bh * p.Sk * p.D;
-  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
-
-  load_rows<T, BK, DT>(Ks, k + koff, k0, p.Sk, p.D, 1.f);
-  load_rows<T, BK, DT>(Vs, v + koff, k0, p.Sk, p.D, 1.f);
-  for (int c = threadIdx.x; c < BK; c += kThreads)
-    Ms[c] = (k0 + c < p.Sk) ? mb[k0 + c] : 0.f;
-  float adk[TM][TD], adv[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TD; ++j) adk[i][j] = adv[i][j] = 0.f;
-  const int nqt = (p.Sq + BQ - 1) / BQ;
-  // causal: a query tile whose last row is above this block's first key
-  // sees none of it
-  const int qt0 = p.causal ? k0 / BQ : 0;
-
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_rows<T, BQ, DT>(Qs, qb, q0, p.Sq, p.D, p.scale);
-    load_rows<T, BQ, DT>(dOs, ob, q0, p.Sq, p.D, 1.f);
-    for (int r = threadIdx.x; r < BQ; r += kThreads) {
-      const bool in = q0 + r < p.Sq;
-      Ls[r] = in ? lse[(size_t)bh * p.Sq + q0 + r] : 0.f;
-      Dl[r] = in ? delta[(size_t)bh * p.Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: element [i][j] is (row q0 + tx + 16 j, col
-    // k0 + ty + 16 i)
-    float sT[TM][TN], dpT[TM][TN];
-    mm_nt<DT, TM, TN>(Ks, Qs, sT, p.D);
-    mm_nt<DT, TM, TN>(Vs, dOs, dpT, p.D);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int col = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int row = q0 + tx + 16 * j;
-        float pv = 0.f, ds = 0.f;
-        if (row < p.Sq && col < p.Sk) {
-          float x = sT[i][j];
-          if ((p.causal && row < col) || !(Ms[ty + 16 * i] > 0.f))
-            x = kNegInf;
-          const float pr = expf(x - Ls[tx + 16 * j]);
-          float dpn = dpT[i][j];
-          pv = pr;
-          if (p.dropout) {
-            const bool keep = keep_bit(p, bh, row, col);
-            pv = keep ? pr * p.keep_scale : 0.f;
-            dpn = keep ? dpn * p.keep_scale : 0.f;
-          }
-          ds = pr * (dpn - Dl[tx + 16 * j]);
-        }
-        PT[(ty + 16 * i) * SP + tx + 16 * j] = pv;
-        dST[(ty + 16 * i) * SP + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    mm_nn<BQ, DT, TM, TD>(PT, dOs, adv, p.D);
-    mm_nn<BQ, DT, TM, TD>(dST, Qs, adk, p.D);  // q pre-scaled: scale dS^T q
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int col = k0 + ty + 16 * i;
-    if (col >= p.Sk) continue;
-    const size_t off = koff + (size_t)col * p.D;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < p.D) {
-        store(dk + off + d, adk[i][j]);
-        store(dv + off + d, adv[i][j]);
-      }
-    }
   }
 }
 
@@ -1351,6 +1175,589 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// f32 dK/dV and dQ on the tensor cores in 3xTF32 (mma.sync m16n8k8 tf32)
+// ---------------------------------------------------------------------------
+namespace f32tc {
+
+using tc::cp_async16;
+using tc::cp_commit;
+using tc::cp_wait;
+using tc::kThreads;
+using tc::kWarps;
+using tc::load_vec;
+
+// An f32 tile of DT columns keeps rows of DT + 8 floats, and row r at row
+// srow(r): rows 4 and 5, and 6 and 7, of every 8 trade places.  The
+// fragment reads of a warp are then free of bank conflicts both ways a
+// tile is read: 64-bit reads of rows 8 j + g at columns 8 kk + 2 t (an
+// operand whose k runs along the row; the half-warp's rows g = 0-3 or 4-7
+// start 8 banks apart) and 32-bit reads of rows 8 kk + 2 t (+ 1) at
+// columns 8 n + g (k down the column; rows 0, 2, 4, 6 and 1, 3, 5, 7 start
+// 8 banks apart).  Both read at a per-thread offset plus a constant, so
+// the unrolled loops spend no instruction on addresses.
+template <int DT>
+constexpr int kStride = DT + 8;
+__device__ __forceinline__ int srow(int r) { return r ^ ((r >> 2) & 1); }
+
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// x = big + small: big is x rounded to TF32 (10 mantissa bits, to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds, on the bit pattern);
+// small = x - big is exact in f32, and the tensor core reads its top 11
+// significant bits, so big + small carries about 22 of x's 24
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[N],
+                                      uint32_t (&big)[N],
+                                      uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: small * big, big * small, then big * big into the
+// same f32 accumulator (the small terms first, as CUTLASS's FastF32 does);
+// the small * small term, 2^-22 relative, is dropped
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma(c, as, bb[0], bb[1]);
+  mma(c, ab, bs[0], bs[1]);
+  mma(c, ab, bb[0], bb[1]);
+}
+
+// The k index of every product is read through one permutation inside
+// each chunk of 8: logical k = t <-> actual 2 t, t + 4 <-> 2 t + 1.  The
+// A fragment wants (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+// and the B fragment (k t, col g), (t + 4, g), so
+// - an operand whose k runs along a tile's row comes in 64-bit reads of
+//   columns (2 t, 2 t + 1);
+// - an A operand formed on an accumulator (C holds (g, 2 t), (g, 2 t + 1),
+//   (g + 8, 2 t), (g + 8, 2 t + 1)) is {c0, c2, c1, c3}, no shuffle;
+// - its B operand reads rows 2 t and 2 t + 1 of the chunk.
+// Each thread's offsets: fr = srow(g) * SD + 2 t for the first kind (row
+// 8 j + g, column 8 kk + 2 t at fr + 8 j SD + 8 kk), fc[h] = srow(2 t + h)
+// * SD + g for the B operands of the second (row 8 j + 2 t + h, column
+// c0 + 8 n + g at fc[h] + 8 j SD + c0 + 8 n)
+
+// the A fragment of rows (8 i + g, + 8) of a tile, k along the row, split
+template <int DT>
+__device__ __forceinline__ void load_a(const float* p, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float2 lo = lds2(p), hi = lds2(p + 8 * kStride<DT>);
+  const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+  split(a, big, small);
+}
+
+// the B fragment of tile row 8 j + g (n), k along the row, split
+__device__ __forceinline__ void load_b_row(const float* p, uint32_t (&big)[2],
+                                           uint32_t (&small)[2]) {
+  const float2 b = lds2(p);
+  const float x[2] = {b.x, b.y};
+  split(x, big, small);
+}
+
+// the B fragment of tile rows 8 j + 2 t, + 1 (k) at one column (n), split
+__device__ __forceinline__ void load_b_col(const float* p, const int (&fc)[2],
+                                           uint32_t (&big)[2],
+                                           uint32_t (&small)[2]) {
+  const float x[2] = {p[fc[0]], p[fc[1]]};
+  split(x, big, small);
+}
+
+// an accumulator as the A fragment of the next product (k = its columns)
+__device__ __forceinline__ void acc_as_a(const float (&c)[4],
+                                         uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  split(a, big, small);
+}
+
+// rows [r0, r0 + R) of a row-major [n, D] f32 matrix into a [R][DT] tile
+// (rows at srow, stride DT + 8), rows past n and columns past D zero.  vec
+// (D a multiple of 4, every pointer 16-byte aligned): one 16-byte cp.async
+// per chunk of 4; otherwise element by element, synchronously
+template <int R, int DT>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int n, int D, bool vec) {
+  constexpr int SD = kStride<DT>;
+  if (vec) {
+    // thread i copies chunk i % CH of rows i / CH + RP u
+    constexpr int CH = DT / 4, RP = kThreads / CH;
+    static_assert(kThreads % CH == 0 && R % RP == 0, "tile split");
+    const int c = (threadIdx.x % CH) * 4, rr = threadIdx.x / CH;
+    const float* g = src + (size_t)(r0 + rr) * D + c;
+#pragma unroll
+    for (int u = 0; u < R / RP; ++u) {
+      const int r = rr + u * RP;
+      const bool ok = r0 + r < n && c < D;
+      cp_async16(dst + srow(r) * SD + c, ok ? g + (size_t)u * RP * D : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DT; i += kThreads) {
+      const int r = i / DT, c = i % DT;
+      dst[srow(r) * SD + c] =
+          (r0 + r < n && c < D) ? src[(size_t)(r0 + r) * D + c] : 0.f;
+    }
+  }
+}
+
+// a warp's accumulators for rows (row0 + g, + 8) and columns c0 + 8 n +
+// 2 t (+ 1), times mul, to a row-major [n, D] f32 matrix (rows past n and
+// columns past D are not written)
+template <int NO>
+__device__ __forceinline__ void store_acc(float* __restrict__ dst,
+                                          const float (&acc)[NO][4],
+                                          int row0, int n, int D, int c0,
+                                          float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    float* out = dst + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int c = c0 + 8 * j + 2 * t;
+      if (c < D) out[c] = acc[j][2 * r] * mul;
+      if (c + 1 < D) out[c + 1] = acc[j][2 * r + 1] * mul;
+    }
+  }
+}
+
+// The tensor cores round each mma's f32 sum toward zero, so a long chain
+// of mma into one accumulator drifts toward zero by about half an f32 ulp
+// of the running sum per step.  The bodies therefore sum each tile's
+// chunks (at most 8 chunks of k) into a partial accumulator that starts
+// at zero and add it to the running sum in an f32 add, which rounds to
+// nearest: the truncations then act on partial sums, not on the total.
+
+// total += part (the first part is the total), part for the next chunks
+template <int NJ>
+__device__ __forceinline__ void fold(float (&total)[NJ][4],
+                                     const float (&part)[NJ][4], bool first) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      total[j][e] = first ? part[j][e] : total[j][e] + part[j][e];
+}
+template <int NJ>
+__device__ __forceinline__ void zero(float (&a)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: grid (BH * ceil(Sk / 64), DT / 64); warp w owns keys 16 w ..
+// 16 w + 15 and computes S^T = K Q^T and dP^T = V dO^T, so that P'^T and
+// dS^T are already the A operands of dV += P'^T dO and dK += dS^T Q
+// ---------------------------------------------------------------------------
+template <int DT>
+struct DkvCfg {
+  static constexpr int BK = 16 * kWarps;
+  // query tile: the Q/dO ring and the S^T, dP^T accumulators' registers
+  static constexpr int BQ = DT < 256 ? 32 : 16;
+  // output columns a block: dK and dV, each with its partial sum, hold
+  // 4 DO / 8 registers a thread
+  static constexpr int DO = 64;
+  static constexpr int kStages = 2;  // the Q, dO, lse, delta ring
+  static constexpr int kMinBlocks = DT == 64 ? 2 : 1;  // an SM at D 64
+  static constexpr size_t smem =
+      sizeof(float) * ((2 * BK + 2 * kStages * BQ) * kStride<DT> + BK +
+                       2 * kStages * BQ);
+};
+
+template <int DT, bool kDrop>
+__global__ void __launch_bounds__(kThreads, DkvCfg<DT>::kMinBlocks)
+    dkv_f32tc_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ mask, float* __restrict__ dk,
+                     float* __restrict__ dv, Params p, int vec) {
+  using C = DkvCfg<DT>;
+  constexpr int BK = C::BK, BQ = C::BQ, DO = C::DO, NS = C::kStages;
+  constexpr int NQ = BQ / 8, KD = DT / 8, NO = DO / 8, SD = kStride<DT>;
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  float* Ks = reinterpret_cast<float*>(f32_smem);  // [BK][SD]
+  float* Vs = Ks + BK * SD;                          // [BK][SD]
+  float* Qs = Vs + BK * SD;                          // [NS][BQ][SD]
+  float* Os = Qs + NS * BQ * SD;                     // [NS][BQ][SD], dO
+  float* Ms = Os + NS * BQ * SD;                     // [BK]
+  float* Ls = Ms + BK;                               // [NS][BQ]
+  float* Dl = Ls + NS * BQ;                          // [NS][BQ]
+  // the first key tiles (under causal masking the longest) first
+  const int nkt = (p.Sk + BK - 1) / BK, BH = gridDim.x / nkt;
+  const int bh = blockIdx.x % BH;
+  const int k0 = ((int)blockIdx.x / BH) * BK;
+  const int d0 = blockIdx.y * DO;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int fr = srow(g) * SD + 2 * t;
+  const int fc[2] = {srow(2 * t) * SD + g + d0,
+                     srow(2 * t + 1) * SD + g + d0};
+  const float* qb = q + (size_t)bh * p.Sq * p.D;
+  const float* ob = dout + (size_t)bh * p.Sq * p.D;
+  const float* lb = lse + (size_t)bh * p.Sq;
+  const float* db = delta + (size_t)bh * p.Sq;
+  const size_t koff = (size_t)bh * p.Sk * p.D;
+  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
+  const int nqt = (p.Sq + BQ - 1) / BQ;
+  // causal: a query tile whose last row is above this block's first key
+  // sees none of it
+  const int qt0 = p.causal ? k0 / BQ : 0;
+
+  // the i-th query tile this block visits goes to stage i % NS
+  auto load_q = [&](int i) {
+    const int st = i % NS, r0 = (qt0 + i) * BQ;
+    load_tile<BQ, DT>(Qs + st * BQ * SD, qb, r0, p.Sq, p.D, vec);
+    load_tile<BQ, DT>(Os + st * BQ * SD, ob, r0, p.Sq, p.D, vec);
+    load_vec<BQ>(Ls + st * BQ, lb, r0, p.Sq);
+    load_vec<BQ>(Dl + st * BQ, db, r0, p.Sq);
+  };
+  const int nvis = nqt - qt0;  // query tiles that see these keys
+  load_tile<BK, DT>(Ks, k + koff, k0, p.Sk, p.D, vec);
+  load_tile<BK, DT>(Vs, v + koff, k0, p.Sk, p.D, vec);
+  load_vec<BK>(Ms, mb, k0, p.Sk);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {  // one commit group per tile
+    if (i < nvis) load_q(i);
+    cp_commit();
+  }
+
+  float adk[NO][4], adv[NO][4];
+  zero(adk);
+  zero(adv);
+
+  for (int i = 0; i < nvis; ++i) {
+    const int st = i % NS;
+    cp_wait<NS - 2>();  // this tile (and K, V) have landed ...
+    __syncthreads();    // ... for every thread, and tile i - 1 is done
+    if (i + NS - 1 < nvis) load_q(i + NS - 1);  // into tile i - 1's stage
+    cp_commit();
+    const float* Qt = Qs + st * BQ * SD;
+    const float* Ot = Os + st * BQ * SD;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Dl + st * BQ;
+    const int q0 = (qt0 + i) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: s[j] holds keys (g, g + 8) and query
+    // columns (8 j + 2 t, + 1); 64 columns of d a partial sum
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int kg = 0; kg < KD; kg += 8) {
+      float ps[NQ][4], pdp[NQ][4];
+      zero(ps);
+      zero(pdp);
+#pragma unroll
+      for (int kk = kg; kk < kg + 8; ++kk) {
+        uint32_t akb[4], aks[4], avb[4], avs[4];
+        load_a<DT>(Ks + fr + wr * SD + 8 * kk, akb, aks);
+        load_a<DT>(Vs + fr + wr * SD + 8 * kk, avb, avs);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          uint32_t qbg[2], qsm[2], obg[2], osm[2];
+          load_b_row(Qt + fr + 8 * j * SD + 8 * kk, qbg, qsm);
+          load_b_row(Ot + fr + 8 * j * SD + 8 * kk, obg, osm);
+          mma3(ps[j], akb, aks, qbg, qsm);
+          mma3(pdp[j], avb, avs, obg, osm);
+        }
+      }
+      fold(s, ps, kg == 0);
+      fold(dp, pdp, kg == 0);
+    }
+
+    // scale in f32, then the reference's masks on global positions: only
+    // a tile that reaches past Sq, Sk or the diagonal, or whose kv mask
+    // has a zero among the warp's keys, is masked element by element
+    const float mk[2] = {Ms[wr + g], Ms[wr + g + 8]};
+    const bool edge =
+        !__all_sync(0xffffffffu, mk[0] > 0.f && mk[1] > 0.f) ||
+        q0 + BQ > p.Sq || k0 + wr + 16 > p.Sk ||
+        (p.causal && q0 < k0 + wr + 15);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + wr + g + (e >> 1) * 8;
+          const int row = q0 + j * 8 + 2 * t + (e & 1);
+          if (row >= p.Sq || key >= p.Sk)
+            s[j][e] = -INFINITY;  // past the data: P exactly 0
+          else if ((p.causal && row < key) || !(mk[e >> 1] > 0.f))
+            s[j][e] = kNegInf;
+        }
+    }
+
+    // P = exp(S scale - lse) and dS = P (dP' - delta) in f32, in place:
+    // s becomes P' and dp becomes dS
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lv = lds2(Lt + j * 8 + 2 * t);
+      const float2 dl = lds2(Dt + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = __expf(s[j][e] - ((e & 1) ? lv.y : lv.x));
+        float dpn = dp[j][e];
+        float pv = pr;
+        if constexpr (kDrop) {
+          const int key = k0 + wr + g + (e >> 1) * 8;
+          const int row = q0 + j * 8 + 2 * t + (e & 1);
+          const bool keep = keep_bit(p, bh, row, key);
+          pv = keep ? pr * p.keep_scale : 0.f;
+          dpn = keep ? dpn * p.keep_scale : 0.f;
+        }
+        s[j][e] = pv;
+        dp[j][e] = pr * (dpn - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P'^T dO and dK += dS^T Q over this block's columns, the tile's
+    // partial sums first: the 8 queries of s[j] are one k chunk; dO's and
+    // Q's B fragments are rows 8 j + 2 t, + 1 of their tiles
+    float pdv[NO][4], pdk[NO][4];
+    zero(pdv);
+    zero(pdk);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      uint32_t pbg[4], psm[4], dbg[4], dsm[4];
+      acc_as_a(s[j], pbg, psm);
+      acc_as_a(dp[j], dbg, dsm);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t obg[2], osm[2], qbg[2], qsm[2];
+        load_b_col(Ot + 8 * j * SD + 8 * n, fc, obg, osm);
+        load_b_col(Qt + 8 * j * SD + 8 * n, fc, qbg, qsm);
+        mma3(pdv[n], pbg, psm, obg, osm);
+        mma3(pdk[n], dbg, dsm, qbg, qsm);
+      }
+    }
+    fold(adv, pdv, false);
+    fold(adk, pdk, false);
+  }
+  cp_wait<0>();  // K and V have landed even where no query tile ran
+
+  // dK = scale dS^T q and dV, straight from the accumulators
+  store_acc<NO>(dk + koff, adk, k0 + wr, p.Sk, p.D, d0, p.scale);
+  store_acc<NO>(dv + koff, adv, k0 + wr, p.Sk, p.D, d0, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// dQ: grid (BH * ceil(Sq / 64), DT / DO); warp w owns query rows 16 w ..
+// 16 w + 15.  S = Q K^T and dP = dO V^T take Q's and dO's fragments as A,
+// so dS, formed on their accumulators, is already the A operand of
+// dQ += dS K
+// ---------------------------------------------------------------------------
+template <int DT>
+struct DqCfg {
+  static constexpr int BQ = 16 * kWarps;
+  // key tile: the K/V ring and the S, dP accumulators' registers
+  static constexpr int BK = DT < 256 ? 32 : 16;
+  static constexpr int DO = DT < 128 ? DT : 128;  // output columns a block
+  static constexpr int kStages = 2;               // the K, V, mask ring
+  static constexpr int kMinBlocks = DT == 64 ? 2 : 1;  // an SM at D 64
+  static constexpr size_t smem =
+      sizeof(float) *
+      ((2 * BQ + 2 * kStages * BK) * kStride<DT> + kStages * BK);
+};
+
+template <int DT, bool kDrop>
+__global__ void __launch_bounds__(kThreads, DqCfg<DT>::kMinBlocks)
+    dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ mask, float* __restrict__ dq,
+                    Params p, int vec) {
+  using C = DqCfg<DT>;
+  constexpr int BQ = C::BQ, BK = C::BK, DO = C::DO, NS = C::kStages;
+  constexpr int NT = BK / 8, KD = DT / 8, NO = DO / 8, SD = kStride<DT>;
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  float* Qs = reinterpret_cast<float*>(f32_smem);  // [BQ][SD]
+  float* Os = Qs + BQ * SD;                          // [BQ][SD], dO
+  float* Ks = Os + BQ * SD;                          // [NS][BK][SD]
+  float* Vs = Ks + NS * BK * SD;                     // [NS][BK][SD]
+  float* Ms = Vs + NS * BK * SD;                     // [NS][BK]
+  // the last query tiles (under causal masking the longest) first
+  const int nqt = (p.Sq + BQ - 1) / BQ, BH = gridDim.x / nqt;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * BQ;
+  const int d0 = blockIdx.y * DO;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int fr = srow(g) * SD + 2 * t;
+  const int fc[2] = {srow(2 * t) * SD + g + d0,
+                     srow(2 * t + 1) * SD + g + d0};
+  const size_t qoff = (size_t)bh * p.Sq * p.D;
+  const float* kb = k + (size_t)bh * p.Sk * p.D;
+  const float* vb = v + (size_t)bh * p.Sk * p.D;
+  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
+  int nkt = (p.Sk + BK - 1) / BK;
+  if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
+
+  // key tile i goes to stage i % NS: K, V and its mask slice
+  auto load_kv = [&](int i) {
+    const int st = i % NS;
+    load_tile<BK, DT>(Ks + st * BK * SD, kb, i * BK, p.Sk, p.D, vec);
+    load_tile<BK, DT>(Vs + st * BK * SD, vb, i * BK, p.Sk, p.D, vec);
+    load_vec<BK>(Ms + st * BK, mb, i * BK, p.Sk);
+  };
+  load_tile<BQ, DT>(Qs, q + qoff, q0, p.Sq, p.D, vec);
+  load_tile<BQ, DT>(Os, dout + qoff, q0, p.Sq, p.D, vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {  // one commit group per tile
+    if (i < nkt) load_kv(i);
+    cp_commit();
+  }
+
+  // lse and delta of rows (g, g + 8); rows past Sq are never stored
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + r * 8;
+    lr[r] = row < p.Sq ? lse[(size_t)bh * p.Sq + row] : 0.f;
+    dl[r] = row < p.Sq ? delta[(size_t)bh * p.Sq + row] : 0.f;
+  }
+  float acc[NO][4];
+  zero(acc);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % NS;
+    cp_wait<NS - 2>();  // this tile (and Q, dO) have landed ...
+    __syncthreads();    // ... for every thread, and tile kt - 1 is done
+    if (kt + NS - 1 < nkt) load_kv(kt + NS - 1);  // into tile kt - 1's stage
+    cp_commit();
+    const float* Kt = Ks + st * BK * SD;
+    const float* Vt = Vs + st * BK * SD;
+    const float* Mt = Ms + st * BK;
+    const int k0 = kt * BK;
+
+    // S = Q K^T and dP = dO V^T: s[j], dp[j] hold rows (g, g + 8) and key
+    // columns (8 j + 2 t, + 1); 64 columns of d a partial sum
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int kg = 0; kg < KD; kg += 8) {
+      float ps[NT][4], pdp[NT][4];
+      zero(ps);
+      zero(pdp);
+#pragma unroll
+      for (int kk = kg; kk < kg + 8; ++kk) {
+        uint32_t aqb[4], aqs[4], aob[4], aos[4];
+        load_a<DT>(Qs + fr + wr * SD + 8 * kk, aqb, aqs);
+        load_a<DT>(Os + fr + wr * SD + 8 * kk, aob, aos);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t kbg[2], ksm[2], vbg[2], vsm[2];
+          load_b_row(Kt + fr + 8 * j * SD + 8 * kk, kbg, ksm);
+          load_b_row(Vt + fr + 8 * j * SD + 8 * kk, vbg, vsm);
+          mma3(ps[j], aqb, aqs, kbg, ksm);
+          mma3(pdp[j], aob, aos, vbg, vsm);
+        }
+      }
+      fold(s, ps, kg == 0);
+      fold(dp, pdp, kg == 0);
+    }
+
+    // scale in f32, then the reference's masks on global positions: only
+    // a tile that reaches past Sk or the diagonal, or whose kv mask has a
+    // zero, is masked element by element
+    bool valid = true;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32) valid = valid && Mt[c] > 0.f;
+    const bool edge = !__all_sync(0xffffffffu, valid) || k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + wr);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 mk = lds2(Mt + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          if (col >= p.Sk)
+            s[j][e] = -INFINITY;  // past the keys: P exactly 0
+          else if (!(((e & 1) ? mk.y : mk.x) > 0.f) ||
+                   (p.causal && row < col))
+            s[j][e] = kNegInf;
+        }
+      }
+    }
+
+    // dS = P (dP' - delta), P = exp(S scale - lse), in f32 on dp
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = __expf(s[j][e] - lr[e >> 1]);
+        float dpn = dp[j][e];
+        if constexpr (kDrop) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          dpn = keep_bit(p, bh, row, col) ? dpn * p.keep_scale : 0.f;
+        }
+        dp[j][e] = pr * (dpn - dl[e >> 1]);
+      }
+    }
+
+    // dQ += dS K over this block's columns, the tile's partial sum first:
+    // the 8 keys of dp[j] are one k chunk; K's B fragments are rows 8 j +
+    // 2 t, + 1 of its tile
+    float pacc[NO][4];
+    zero(pacc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t dbg[4], dsm[4];
+      acc_as_a(dp[j], dbg, dsm);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t kbg[2], ksm[2];
+        load_b_col(Kt + 8 * j * SD + 8 * n, fc, kbg, ksm);
+        mma3(pacc[n], dbg, dsm, kbg, ksm);
+      }
+    }
+    fold(acc, pacc, false);
+  }
+  cp_wait<0>();
+
+  // dQ = scale dS K, straight from the accumulators
+  store_acc<NO>(dq + qoff, acc, q0 + wr, p.Sq, p.D, d0, p.scale);
+}
+
+}  // namespace f32tc
+
+// ---------------------------------------------------------------------------
 // launchers: tiles by head width (DT = 64, 128, 256)
 // ---------------------------------------------------------------------------
 template <typename K>
@@ -1380,42 +1787,6 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(mask),
       static_cast<T*>(o), static_cast<float*>(lse), p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BQ, int BK, int DT>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const void* mask, void* dq,
-              int BH, const Params& p, cudaStream_t st) {
-  constexpr size_t smem = dq_smem<BQ, BK, DT>();
-  const long long blocks = (long long)BH * ((p.Sq + BQ - 1) / BQ);
-  auto kern = dq_kernel<T, BQ, BK, DT>;
-  const int rc = prepare(kern, smem, blocks);
-  if (rc) return rc;
-  kern<<<(unsigned)blocks, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<T*>(dq), p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BQ, int BK, int DT>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* mask,
-               void* dk, void* dv, int BH, const Params& p,
-               cudaStream_t st) {
-  constexpr size_t smem = dkv_smem<BQ, BK, DT>();
-  const long long blocks = (long long)BH * ((p.Sk + BK - 1) / BK);
-  auto kern = dkv_kernel<T, BQ, BK, DT>;
-  const int rc = prepare(kern, smem, blocks);
-  if (rc) return rc;
-  kern<<<(unsigned)blocks, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<T*>(dk),
-      static_cast<T*>(dv), p);
   return (int)cudaGetLastError();
 }
 
@@ -1451,48 +1822,6 @@ int fwd(const void* q, const void* k, const void* v, const void* mask,
   if (D <= 128)
     return launch_fwd<T, 64, 32, 128>(q, k, v, mask, o, lse, BH, p, st);
   return launch_fwd<T, 64, 32, 256>(q, k, v, mask, o, lse, BH, p, st);
-}
-
-template <typename T>
-int dq(const void* q, const void* k, const void* v, const void* dout,
-       const void* lse, const void* delta, const void* mask, void* dqo,
-       int BH, int H, int Sq, int Sk, int D, float scale, int causal,
-       int dropout, float keep_scale, unsigned thresh, unsigned seed,
-       void* stream) {
-  const int bad = check_dims(BH, H, Sq, Sk, D);
-  if (bad) return bad;
-  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, mask, dqo,
-                                    BH, p, st);
-  if (D <= 128)
-    return launch_dq<T, 64, 32, 128>(q, k, v, dout, lse, delta, mask, dqo,
-                                     BH, p, st);
-  return launch_dq<T, 64, 32, 256>(q, k, v, dout, lse, delta, mask, dqo, BH,
-                                   p, st);
-}
-
-template <typename T>
-int dkv(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, const void* mask, void* dk,
-        void* dv, int BH, int H, int Sq, int Sk, int D, float scale,
-        int causal, int dropout, float keep_scale, unsigned thresh,
-        unsigned seed, void* stream) {
-  const int bad = check_dims(BH, H, Sq, Sk, D);
-  if (bad) return bad;
-  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, mask, dk,
-                                     dv, BH, p, st);
-  if (D <= 128)
-    return launch_dkv<T, 32, 32, 128>(q, k, v, dout, lse, delta, mask, dk,
-                                      dv, BH, p, st);
-  return launch_dkv<T, 32, 32, 256>(q, k, v, dout, lse, delta, mask, dk, dv,
-                                    BH, p, st);
 }
 
 bool aligned16(const void* ptr) {
@@ -1627,41 +1956,128 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
                            st);
 }
 
+
+template <int DT>
+int launch_dkv_f32tc(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* mask, void* dk, void* dv, int BH,
+                     const Params& p, int vec, cudaStream_t st) {
+  using C = f32tc::DkvCfg<DT>;
+  const long long blocks = (long long)BH * ((p.Sk + C::BK - 1) / C::BK);
+  auto kern = p.dropout ? f32tc::dkv_f32tc_kernel<DT, true>
+                        : f32tc::dkv_f32tc_kernel<DT, false>;
+  const int rc = prepare(kern, C::smem, blocks);
+  if (rc) return rc;
+  kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(mask), static_cast<float*>(dk),
+      static_cast<float*>(dv), p, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_dq_f32tc(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* mask, void* dqo, int BH, const Params& p,
+                    int vec, cudaStream_t st) {
+  using C = f32tc::DqCfg<DT>;
+  const long long blocks = (long long)BH * ((p.Sq + C::BQ - 1) / C::BQ);
+  auto kern = p.dropout ? f32tc::dq_f32tc_kernel<DT, true>
+                        : f32tc::dq_f32tc_kernel<DT, false>;
+  const int rc = prepare(kern, C::smem, blocks);
+  if (rc) return rc;
+  kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(mask), static_cast<float*>(dqo), p, vec);
+  return (int)cudaGetLastError();
+}
+
+int dkv_f32tc(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* mask, void* dk,
+              void* dv, int BH, int H, int Sq, int Sk, int D, float scale,
+              int causal, int dropout, float keep_scale, unsigned thresh,
+              unsigned seed, void* stream) {
+  const int bad = check_dims(BH, H, Sq, Sk, D);
+  if (bad) return bad;
+  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
+                               keep_scale, thresh, seed);
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dkv_f32tc<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
+                                p, vec, st);
+  if (D <= 128)
+    return launch_dkv_f32tc<128>(q, k, v, dout, lse, delta, mask, dk, dv,
+                                 BH, p, vec, st);
+  return launch_dkv_f32tc<256>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
+                               p, vec, st);
+}
+
+int dq_f32tc(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* mask, void* dqo,
+             int BH, int H, int Sq, int Sk, int D, float scale, int causal,
+             int dropout, float keep_scale, unsigned thresh, unsigned seed,
+             void* stream) {
+  const int bad = check_dims(BH, H, Sq, Sk, D);
+  if (bad) return bad;
+  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
+                               keep_scale, thresh, seed);
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dq_f32tc<64>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
+                               vec, st);
+  if (D <= 128)
+    return launch_dq_f32tc<128>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
+                                vec, st);
+  return launch_dq_f32tc<256>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
+                              vec, st);
+}
+
 }  // namespace
 
 // All pointers are contiguous device memory on one card: q [BH, Sq, D],
 // k and v [BH, Sk, D] and dout [BH, Sq, D] in the entry point's dtype;
 // mask [BH / H, Sk], lse and delta [BH, Sq] in f32.  Each launches on
 // ``stream`` and returns cudaGetLastError() (0 = launched).
-#define PTT_FLASH_ENTRIES(SUFFIX, T)                                          \
-  extern "C" int ptt_flash_fwd_##SUFFIX(                                      \
-      const void* q, const void* k, const void* v, const void* mask,          \
-      void* o, void* lse, int BH, int H, int Sq, int Sk, int D, float scale,  \
-      int causal, int dropout, float keep_scale, unsigned thresh,             \
-      unsigned seed, void* stream) {                                          \
-    return fwd<T>(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,     \
-                  dropout, keep_scale, thresh, seed, stream);                 \
-  }                                                                           \
-  extern "C" int ptt_flash_dkv_##SUFFIX(                                      \
-      const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, const void* mask, void* dk,         \
-      void* dv, int BH, int H, int Sq, int Sk, int D, float scale,            \
-      int causal, int dropout, float keep_scale, unsigned thresh,             \
-      unsigned seed, void* stream) {                                          \
-    return dkv<T>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq, Sk, D,  \
-                  scale, causal, dropout, keep_scale, thresh, seed, stream);  \
-  }                                                                           \
-  extern "C" int ptt_flash_dq_##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, const void* mask, void* dqo,        \
-      int BH, int H, int Sq, int Sk, int D, float scale, int causal,          \
-      int dropout, float keep_scale, unsigned thresh, unsigned seed,          \
-      void* stream) {                                                         \
-    return dq<T>(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D,      \
-                 scale, causal, dropout, keep_scale, thresh, seed, stream);   \
-  }
-
-PTT_FLASH_ENTRIES(f32, float)
+// f32: the forward on the CUDA cores, dK/dV and dQ on the tensor cores in
+// 3xTF32
+extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                 const void* mask, void* o, void* lse, int BH,
+                                 int H, int Sq, int Sk, int D, float scale,
+                                 int causal, int dropout, float keep_scale,
+                                 unsigned thresh, unsigned seed,
+                                 void* stream) {
+  return fwd<float>(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
+                    dropout, keep_scale, thresh, seed, stream);
+}
+extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, const void* mask,
+                                 void* dk, void* dv, int BH, int H, int Sq,
+                                 int Sk, int D, float scale, int causal,
+                                 int dropout, float keep_scale,
+                                 unsigned thresh, unsigned seed,
+                                 void* stream) {
+  return dkv_f32tc(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq, Sk, D,
+                   scale, causal, dropout, keep_scale, thresh, seed, stream);
+}
+extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, const void* mask,
+                                void* dqo, int BH, int H, int Sq, int Sk,
+                                int D, float scale, int causal, int dropout,
+                                float keep_scale, unsigned thresh,
+                                unsigned seed, void* stream) {
+  return dq_f32tc(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D,
+                  scale, causal, dropout, keep_scale, thresh, seed, stream);
+}
 
 // bf16: all three bodies on the tensor cores
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,

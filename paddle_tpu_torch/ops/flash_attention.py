@@ -40,10 +40,15 @@ its blocks.
 launches (incremented by the kernel wrappers, once per launch, and
 nowhere else) and ``"ref"`` plain-version calls (by the routing
 entries).  ``FLASH_TC_STATS`` counts, besides, the launches of the
-bodies that run on the tensor cores: the bf16 forward, dK/dV and dQ
+bf16 bodies, which run on the tensor cores: the forward, dK/dV and dQ
 (``"fwd"``, ``"dkv"``, ``"dq"``).  In bf16 those round P and dS to bf16
 before their second product, so they match the plain version (which
 keeps them in f32) within the bf16 tolerance, not to f32 rounding.
+``FLASH_F32TC_STATS`` counts the launches of the f32 dK/dV and dQ
+bodies (``"dkv"``, ``"dq"``), which run on the tensor cores in 3xTF32:
+each f32 operand is split into a TF32 part and a TF32 residual and three
+TF32 products are summed in f32, about f32's accuracy (the f32 forward
+runs on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "FLASH_TC_STATS", "MAX_HEAD_DIM",
+__all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "FLASH_TC_STATS",
+           "FLASH_F32TC_STATS", "MAX_HEAD_DIM",
            "_keep_mask",
            "flash_fwd_ref", "flash_dkv_ref", "flash_dq_ref",
            "flash_fwd_cuda", "flash_dkv_cuda", "flash_dq_cuda",
@@ -64,6 +70,8 @@ NEG_INF = -1e30
 FLASH_ROUTE_STATS = {"fwd": 0, "dkv": 0, "dq": 0, "ref": 0}
 # launches of the tensor-core bodies (bf16 forward, dK/dV and dQ)
 FLASH_TC_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
+# launches of the f32 dK/dV and dQ bodies (tensor cores, 3xTF32)
+FLASH_F32TC_STATS = {"dkv": 0, "dq": 0}
 
 # the kernels hold a tile of up to 256 head columns in shared memory (the
 # route admits D <= 256, as the JAX package's does)
@@ -291,6 +299,8 @@ def _launch(name, dtype, ptrs, dims, scale, causal, dropout_p, seed):
     FLASH_ROUTE_STATS[name] += 1
     if dtype == torch.bfloat16:
         FLASH_TC_STATS[name] += 1
+    elif name in FLASH_F32TC_STATS:
+        FLASH_F32TC_STATS[name] += 1
 
 
 def flash_fwd_cuda(q, k, v, mask, seed, scale, causal, dropout_p):

@@ -19,14 +19,18 @@ weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
 over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
 kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
 reference value) (f32 sums over up to 1024 keys or queries in another
-order; in bf16 the outputs are rounded to 8 mantissa bits, and the three
-bodies, which run on the tensor cores, also round P and dS to bf16
+order, the f32 dK/dV and dQ in 3xTF32 on the tensor cores, about 2^-21
+of a product; in bf16 the outputs are rounded to 8 mantissa bits, and the
+three bodies, which run on the tensor cores, also round P and dS to bf16
 before their second product, where the plain version keeps them in f32
 — ``tests/test_torch_flash_tc_numerics.py`` shows on the CPU that this
-fits the limit); in bf16 besides, each whole output within 1e-2
-of its plain version in relative L2 norm (``chip_smoke.FLASH_REL_L2``:
-the roundings land at 1.8e-3 to 2.8e-3 in the CPU emulation, a dropped
-key tile at 0.18); lse 1e-4; their dropout bits must equal
+fits the limit); besides, each whole output within
+``chip_smoke.FLASH_REL_L2`` of its plain version in relative L2 norm: in
+bf16 1e-2 (the roundings land at 1.8e-3 to 2.8e-3 in the CPU emulation,
+a dropped key tile at 0.18), in f32 2e-4 (3xTF32 lands at most at 1.9e-6
+in the CPU emulation, one-pass TF32 at 3.6e-4 and more,
+``tests/test_torch_flash_f32tc_numerics.py``); lse 1e-4; their dropout
+bits must equal
 ``_keep_mask``'s exactly.  The scale-shift kernel (row t) must
 equal its plain version bit for bit (the same two f32 roundings and one
 cast).  Streams must be equal token for token.
@@ -831,15 +835,16 @@ def _flash_all(q, k, v, g, mask, seed, scale, causal, p, lse, delta):
 @pytest.mark.parametrize("Sq,Sk,D,causal",
                          [(1000, 1000, 100, True), (333, 1000, 100, False),
                           (300, 700, 64, False), (700, 300, 64, True),
-                          (500, 260, 80, False)],
+                          (500, 260, 80, False), (257, 129, 30, True)],
                          ids=["d100", "d100_sq333_sk1000",
                               "sq300_sk700", "sq700_sk300_causal",
-                              "d80_sq500_sk260"])
+                              "d80_sq500_sk260", "d30_sq257_sk129_causal"])
 def test_flash_kernels_unaligned_rows_and_unequal_lengths(Sq, Sk, D, causal,
                                                           dtype):
     """Rows of D = 100 bf16 (not a multiple of 16 bytes: loaded element by
-    element) and Sq != Sk (as ring attention calls the bodies) against
-    the plain versions, with a padded kv mask and dropout."""
+    element), rows of D = 30 (not a multiple of 4 floats either) and
+    Sq != Sk (as ring attention calls the bodies) against the plain
+    versions, with a padded kv mask and dropout."""
     B, H, p, seed = 2, 3, 0.1, 31
     rng = np.random.RandomState(Sq + Sk + D)
     q, g = (torch.from_numpy(rng.randn(B, H, Sq, D).astype(np.float32))
@@ -868,12 +873,17 @@ def test_flash_kernels_unaligned_rows_and_unequal_lengths(Sq, Sk, D, causal,
     _close(lse, ref_lse, 1e-4, "lse")
 
 
-@pytest.mark.parametrize("p", [0.0, 0.1])
-def test_bf16_flash_kernels_are_deterministic(p):
+@pytest.mark.parametrize("p,dtype", [
+    pytest.param(0.0, torch.bfloat16, id="0.0"),
+    pytest.param(0.1, torch.bfloat16, id="0.1"),
+    pytest.param(0.0, torch.float32, id="f32-0.0"),
+    pytest.param(0.1, torch.float32, id="f32-0.1")])
+def test_bf16_flash_kernels_are_deterministic(p, dtype):
     """Two launches of each bf16 body on the same inputs give the same
-    bits (no atomics, a fixed order of sums)."""
+    bits (no atomics, a fixed order of sums); so do the f32 bodies (the
+    f32 dK/dV and dQ on the tensor cores in 3xTF32)."""
     B, H, S, D = 2, 4, 1000, 64
-    q, k, v, g, mask = _flash_case(11, B, H, S, D, torch.bfloat16, True)
+    q, k, v, g, mask = _flash_case(11, B, H, S, D, dtype, True)
     scale = 0.125
     ref_o, lse = fa.flash_fwd_ref(q.float(), k.float(), v.float(), mask, 5,
                                   scale, True, p)
@@ -887,19 +897,22 @@ def test_bf16_flash_kernels_are_deterministic(p):
 
 def test_flash_tc_stats_count_the_tensor_core_launches():
     """FLASH_TC_STATS counts one launch of each bf16 body (forward, dK/dV
-    and dQ); f32 leaves it alone, FLASH_ROUTE_STATS counts every launch
-    as before."""
+    and dQ) and FLASH_F32TC_STATS one of each f32 dK/dV and dQ body (3xTF32
+    on the tensor cores); each dtype leaves the other's counts alone, and
+    FLASH_ROUTE_STATS counts every launch as before."""
     B, H, S, D = 1, 2, 128, 64
     for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
         q, k, v, g, mask = _flash_case(3, B, H, S, D, dtype, False)
         lse = torch.zeros(B * H, S, 1, device="cuda")
         fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
         fa.FLASH_TC_STATS.update(fwd=0, dkv=0, dq=0)
+        fa.FLASH_F32TC_STATS.update(dkv=0, dq=0)
         _flash_all(q, k, v, g, mask, 0, 0.125, True, 0.0, lse, lse)
         torch.cuda.synchronize()
         assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1,
                                         "ref": 0}
         assert fa.FLASH_TC_STATS == {"fwd": tc, "dkv": tc, "dq": tc}
+        assert fa.FLASH_F32TC_STATS == {"dkv": 1 - tc, "dq": 1 - tc}
 
 
 def test_flash_autograd_on_the_card_matches_the_plain_route():
@@ -967,6 +980,8 @@ def test_training_step_on_the_card_equals_the_cpu_step():
     res = chip_smoke.train_parity_phase(np.random.RandomState(3), cfg=cfg,
                                         batch=2, seq=256)
     assert res["card_counts"]["flash_fwd"] == 2
+    assert res["card_counts"]["flash_f32tc_dkv"] == 2
+    assert res["card_counts"]["flash_f32tc_dq"] == 2
     assert res["cpu_counts"]["flash_ref"] == 6
 
 
