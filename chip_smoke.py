@@ -13,8 +13,9 @@ Phases, one result line each (or more):
 2. kernel: the ragged paged-attention kernel against its plain PyTorch
    version on the card, in f32 (and once in bf16), at the test shapes and
    at GPT-2-small shapes, with mixed row lengths (empty rows, rows
-   shorter than their lane, lengths that are not page multiples).  Timed
-   with CUDA events beside the plain version and the
+   shorter than their lane, lengths that are not page multiples), and at
+   head dims 128, 160 and 256 (f32 and bf16).  Timed (GPT-2-small and
+   D 256 shapes) with CUDA events beside the plain version and the
    ``scaled_dot_product_attention`` yardstick over the gathered dense KV.
 3. kernel_int8: the same kernel's int8 body (int8 pools, [N, H] f32
    scales) in both ``fused_dequant`` settings, f32 q (and once bf16 q),
@@ -43,9 +44,9 @@ Phases, one result line each (or more):
    the requests, synchronous and pipelined: streams byte-identical, no
    page leaked.
 8. kernel_flash: the flash attention forward, dK/dV and dQ kernels
-   against their plain versions in f32 and bf16 (the bf16 bodies and the
-   f32 dK/dV and dQ, 3xTF32, on the tensor cores, their launches logged;
-   f32 also in relative L2 against FLASH_REL_L2) at the training
+   against their plain versions in f32 and bf16 (all on the tensor cores,
+   the f32 bodies in 3xTF32, their launches logged; f32 also in relative
+   L2 against FLASH_REL_L2, lse within 1e-4) at the training
    shape (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
    non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
    D 80, 100 and 256; the dropout bits of all three kernels in f32 and
@@ -58,7 +59,7 @@ Phases, one result line each (or more):
    batch: a warm-up step, then 5 steps of ``loss.backward(); opt.step();
    opt.clear_grad()``.  Every loss finite, the first within 0.5 of
    ln(vocab), the loss falling; every attention call on the flash
-   kernels (12 x 5 launches of each, dK/dV and dQ on the tensor cores in
+   kernels (12 x 5 launches of each, all three on the tensor cores in
    3xTF32, the plain and sdpa routes 0); one
    more step under ``torch.profiler`` gives the device time by kernel
    family and the device's busy share.
@@ -69,7 +70,8 @@ Phases, one result line each (or more):
    one length per query row) and its int8 body against their plain
    version, f32 (and once bf16), at the test shapes, GPT-2-small decode
    rows and a GPT-2-small prefill chunk (64 rows of one sequence sharing
-   its table row), both ``fused_dequant`` settings and a NaN scale row;
+   its table row), rows at head dims 128, 160 and 256 (f32 and bf16),
+   both ``fused_dequant`` settings and a NaN scale row;
    timed beside its bound, the plain version, SDPA over the gathered
    dense KV and the ragged kernel at one row per lane on the same inputs.
 12. e2e_split: the requests of phase 5 through the split programs —
@@ -97,9 +99,11 @@ Phases, one result line each (or more):
    owned pages, the plain version, the memory-efficient SDPA kernel with
    its log-sum-exp on the gathered owned KV, and the ragged kernel over
    all pages; then again with each lane owning the first half of its
-   table (runs), beside the same yardstick on those pages.  The env line
-   carries the prefill form's registers and spills, and those of the f32
-   flash dK/dV and dQ bodies.
+   table (runs), beside the same yardstick on those pages; the same
+   checks at head dims 128 and 160 (1, 8 and 64 rows a lane) and 256
+   (timed, decode and prefill).  The env line carries the prefill form's
+   registers and spills, those of the f32 flash bodies and those of the
+   paged kernels' D 256 instances.
 15. e2e_mesh: ``force_device_count(4)``, then ``mesh_axes={"tp": 2,
    "sp": 2}`` at GPT-2-small width on 4 long prompts (600-990 tokens, 32
    new tokens) in a 260-page pool, native and with int8 KV and weights
@@ -133,6 +137,11 @@ Phases, one result line each (or more):
    S 1024): the loss and every gradient against the CPU's plain route
    at bf16 tolerances, and the card's AdamW step against the same step
    replayed on the CPU from the card's gradients.
+21. e2e_wide: a 2-layer GPT with head dim 256 (hidden 1024, 4 heads,
+   vocab 1024, seeded random weights) served by the ragged engine on 4
+   prompts, native and int8_static: every attention call on the D 256
+   instances of #1 / #1q, streams equal to ``generate`` except at a
+   reported near-tie, no page leaked.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record and
@@ -305,16 +314,40 @@ def time_ms(fn, flush, reps=30, warmup=3):
 
 
 # the attention cases: the test width at three row counts, then
-# GPT-2-small shapes — a decode batch and a prefill-chunk batch
+# GPT-2-small shapes — a decode batch and a prefill-chunk batch; then wide
+# heads: D 128 and 160 at one, 8 and 64 rows a lane, and a decode batch
+# and a prefill batch at D 256 with 8 heads (Gemma-2B's head width)
+WIDE_LANES = dict(G=4, H=4, P=16, M=16, lane_lens=[0, 37, 130, 256],
+                  row_gaps={3: [0]})
+LONG_DECODE = [0, 1, 17, 100, 255, 512, 777, 1024]
+LONG_PREFILL = dict(lane_lens=[0, 63, 130, 250, 401, 600, 900, 1024],
+                    row_gaps={1: range(40, 64), 3: [5, 6, 7]})
 ATTN_CASES = [("test", dict(G=3, Qb=Qb, H=2, D=16, P=4, M=5,
                             lane_lens=[0, 7, 19], row_gaps={2: [0]}))
               for Qb in (1, 3, 8)] + [
     ("gpt2_decode", dict(G=8, Qb=1, H=12, D=64, P=16, M=64,
-                         lane_lens=[0, 1, 17, 100, 255, 512, 777, 1024])),
+                         lane_lens=LONG_DECODE)),
     ("gpt2_prefill", dict(G=8, Qb=64, H=12, D=64, P=16, M=64,
-                          lane_lens=[0, 63, 130, 250, 401, 600, 900, 1024],
-                          row_gaps={1: range(40, 64), 3: [5, 6, 7]}))]
-TIMED = ("gpt2_decode", "gpt2_prefill")
+                          **LONG_PREFILL))] + [
+    (f"d{D}", dict(WIDE_LANES, Qb=Qb, D=D))
+    for D in (128, 160) for Qb in (1, 8, 64)] + [
+    ("d256_decode", dict(G=8, Qb=1, H=8, D=256, P=16, M=64,
+                         lane_lens=LONG_DECODE)),
+    ("d256_prefill", dict(G=8, Qb=64, H=8, D=256, P=16, M=64,
+                          **LONG_PREFILL))]
+TIMED = ("gpt2_decode", "gpt2_prefill", "d256_decode", "d256_prefill")
+# cases from this head dim on run in bf16 too (the int8 phase: bf16 q),
+# as gpt2_decode does, and draw from a generator of their own seed
+WIDE_D, WIDE_SEED = 128, 11
+
+
+def case_rngs(rng):
+    """The generator each case of a phase draws its inputs from: ``rng``,
+    or, from head dim WIDE_D on, one of WIDE_SEED, so that the other cases
+    and the phases after them see the draws they saw before the wide
+    cases existed."""
+    wide = np.random.RandomState(WIDE_SEED)
+    return lambda kw: wide if kw["D"] >= WIDE_D else rng
 
 
 def _tag(name, kw, dtype):
@@ -339,10 +372,12 @@ def kernel_phase(rng, flush) -> dict:
     from paddle_tpu_torch.ops import paged_attention as pa
 
     runs = [(name, kw, torch.float32) for name, kw in ATTN_CASES]
-    runs.append(("gpt2_decode", ATTN_CASES[3][1], torch.bfloat16))
+    runs += [(name, kw, torch.bfloat16) for name, kw in ATTN_CASES
+             if name == "gpt2_decode" or kw["D"] >= WIDE_D]
     checked = {}
+    rng_of = case_rngs(rng)
     for name, kw, dtype in runs:
-        args = make_case(rng, dtype=dtype, **kw)
+        args = make_case(rng_of(kw), dtype=dtype, **kw)
         out = pa.ragged_paged_attention_cuda(*args)
         torch.cuda.synchronize()
         ref = pa.ragged_paged_attention_ref(
@@ -398,11 +433,13 @@ def int8_kernel_phase(rng, flush) -> dict:
 
     runs = [(name, kw, torch.float32, fused) for name, kw in ATTN_CASES
             for fused in (1, 0)]
-    runs += [("gpt2_decode", ATTN_CASES[3][1], torch.bfloat16, fused)
+    runs += [(name, kw, torch.bfloat16, fused) for name, kw in ATTN_CASES
+             if name == "gpt2_decode" or kw["D"] >= WIDE_D
              for fused in (1, 0)]
     checked = {}
+    rng_of = case_rngs(rng)
     for name, kw, dtype, fused in runs:
-        q, kp, vp, pt, rl = make_case(rng, dtype=dtype, **kw)
+        q, kp, vp, pt, rl = make_case(rng_of(kw), dtype=dtype, **kw)
         kq, vq, ks, vs = quantize_pools(kp, vp)
         args = (q, kq, vq, pt, rl, ks, vs)
         out = pa.ragged_paged_attention_cuda(*args, fused_dequant=fused)
@@ -472,13 +509,16 @@ def int8_kernel_phase(rng, flush) -> dict:
 # the per-row kernel's cases: the test width, GPT-2-small decode rows
 # (one table row each) and a GPT-2-small prefill chunk: 64 rows of one
 # sequence at positions 448..511 sharing its table row, the tail padded
-# past the prompt's 500 positions
+# past the prompt's 500 positions; then wide heads, D 128 and 160 rows and
+# D 256 decode rows with 8 heads
 DECODE_CASES = [
     ("test", dict(H=2, D=16, P=4, M=5, lens=[0, 1, 7, 19, 20])),
-    ("gpt2_decode", dict(H=12, D=64, P=16, M=64,
-                         lens=[0, 1, 17, 100, 255, 512, 777, 1024])),
-    ("gpt2_chunk", dict(H=12, D=64, P=16, M=64, chunk=(448, 64, 500)))]
-DECODE_TIMED = ("gpt2_decode", "gpt2_chunk")
+    ("gpt2_decode", dict(H=12, D=64, P=16, M=64, lens=LONG_DECODE)),
+    ("gpt2_chunk", dict(H=12, D=64, P=16, M=64, chunk=(448, 64, 500)))] + [
+    (f"d{D}", dict(H=4, D=D, P=16, M=16, lens=[0, 1, 37, 130, 255, 256]))
+    for D in (128, 160)] + [
+    ("d256_decode", dict(H=8, D=256, P=16, M=64, lens=LONG_DECODE))]
+DECODE_TIMED = ("gpt2_decode", "gpt2_chunk", "d256_decode")
 
 
 def make_rows(rng, *, H, D, P, M, lens=None, chunk=None,
@@ -581,11 +621,13 @@ def decode_kernel_phase(rng, flush) -> dict:
     from paddle_tpu_torch.ops import paged_attention as pa
 
     checked = {}
+    rng_of = case_rngs(rng)
     for name, kw in DECODE_CASES:
-        dtypes = ((torch.float32, torch.bfloat16) if name == "gpt2_decode"
+        dtypes = ((torch.float32, torch.bfloat16)
+                  if name == "gpt2_decode" or kw["D"] >= WIDE_D
                   else (torch.float32,))
         for dtype in dtypes:
-            args = make_rows(rng, dtype=dtype, **kw)
+            args = make_rows(rng_of(kw), dtype=dtype, **kw)
             dt = str(dtype).split(".")[-1]
             ref = pa.paged_attention_ref(
                 *(a.float() if a.is_floating_point() else a for a in args))
@@ -667,16 +709,31 @@ def decode_kernel_phase(rng, flush) -> dict:
 # shard shapes — H 6 (12 heads at tp 2) and 12 — decode 8 lanes x 1 row,
 # prefill 8 lanes x 64 rows; every second table entry owned, lane 2 owns
 # nothing, lane 0 is empty
+STATS_LANES = {
+    "decode": (1, [0, 1, 300, 100, 255, 512, 777, 1024], None),
+    "prefill": (64, [0, 63, 400, 250, 401, 600, 900, 1024],
+                {1: range(40, 64), 3: [5, 6, 7]})}
+# wide heads over 16 pages a lane: the warp form at 1 and 8 rows, the
+# prefill form at 64
+WIDE_STATS_LANES = {
+    "decode": (1, [0, 1, 75, 25, 63, 128, 194, 256], None),
+    "rows8": (8, [0, 9, 75, 25, 63, 128, 194, 256], None),
+    "prefill": (64, [0, 63, 100, 70, 100, 150, 225, 256],
+                {1: range(40, 64), 3: [5, 6, 7]})}
 STATS_CASES = [
     (f"{kind}_h{H}", dict(G=8, Qb=Qb, H=H, D=64, P=16, M=64,
                           lane_lens=lens, row_gaps=gaps))
-    for H in (12, 6)
-    for kind, Qb, lens, gaps in (
-        ("decode", 1, [0, 1, 300, 100, 255, 512, 777, 1024], None),
-        ("prefill", 64, [0, 63, 400, 250, 401, 600, 900, 1024],
-         {1: range(40, 64), 3: [5, 6, 7]}))]
+    for H in (12, 6) for kind, (Qb, lens, gaps) in STATS_LANES.items()] + [
+    (f"d{D}_{kind}", dict(G=8, Qb=Qb, H=4, D=D, P=16, M=16,
+                          lane_lens=lens, row_gaps=gaps))
+    for D in (128, 160)
+    for kind, (Qb, lens, gaps) in WIDE_STATS_LANES.items()] + [
+    (f"d256_{kind}", dict(G=8, Qb=Qb, H=8, D=256, P=16, M=64,
+                          lane_lens=lens, row_gaps=gaps))
+    for kind, (Qb, lens, gaps) in STATS_LANES.items()]
 # prefill_h6 is the mesh drive's shard shape (12 heads at tp 2)
-STATS_TIMED = ("decode_h12", "prefill_h12", "prefill_h6")
+STATS_TIMED = ("decode_h12", "prefill_h12", "prefill_h6", "d256_decode",
+               "d256_prefill")
 # the stats kernel vs its plain version: o within 1e-6 in f32 (the same
 # f32 products over at most 512 owned positions in another order; the
 # int8 body scales after the dot where the plain version dequantizes
@@ -790,9 +847,10 @@ def stats_kernel_phase(rng, flush) -> dict:
     from paddle_tpu_torch.ops import paged_attention as pa
 
     checked = {}
+    rng_of = case_rngs(rng)
     for name, kw in STATS_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, pt, rl = make_case(rng, dtype=dtype, **kw)
+            q, kp, vp, pt, rl = make_case(rng_of(kw), dtype=dtype, **kw)
             ok = stats_page_ok(pt)
             dt = str(dtype).split(".")[-1]
             args = (q, kp, vp, pt, rl, ok)
@@ -1070,9 +1128,9 @@ FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the outputs, 2^-9 relative each, land at 1.8e-3 to 2.8e-3 in the CPU
 # emulation of the tensor-core bodies against the Pallas kernels, where a
 # body that drops one 64-key tile of the rows past 300 at S 1024 lands at
-# 0.18 (tests/test_torch_flash_tc_numerics.py).  f32: dK/dV and dQ run in
-# 3xTF32 on the tensor cores, which keeps about 2^-21 of a product; the CPU
-# emulation of the bodies lands at most at 1.9e-6 against the Pallas
+# 0.18 (tests/test_torch_flash_tc_numerics.py).  f32: all three bodies run
+# in 3xTF32 on the tensor cores, which keeps about 2^-21 of a product; the
+# CPU emulation of the bodies lands at most at 1.9e-6 against the Pallas
 # kernels and a one-pass TF32 product at 3.6e-4 or more
 # (tests/test_torch_flash_f32tc_numerics.py), so 2e-4 tells the two apart;
 # it leaves 2.4 times the room the card needed at a single key (exact dK
@@ -1106,23 +1164,25 @@ FLASH_TC_DESIGN = {
                 "registers as the A operands of S and dP; dS rounded to "
                 "bf16 in registers as the A operand of dS K, K by "
                 "ldmatrix.trans"}
-# the f32 dK/dV and dQ bodies (namespace f32tc of flash_attention.cu)
+# the f32 bodies (namespace f32tc of flash_attention.cu)
 _F32TC = ("3xTF32 on mma.sync m16n8k8 tf32 (each f32 operand split into a "
           "TF32 big part and a TF32 residual where its fragment is formed; "
           "small*big, big*small, big*big a chunk of 8, each tile's chunks "
-          "in a partial sum folded in by an f32 add); cp.async ring of 2 "
-          "stages; tiles of DT + 8 floats a row, rows 4-7 of every 8 "
+          "in a partial sum folded in by f32 operations); cp.async ring of "
+          "2 stages; tiles of DT + 8 floats a row, rows 4-7 of every 8 "
           "swapped in pairs, read without bank conflicts; ")
 FLASH_F32TC_DESIGN = {
+    "fwd": _F32TC + "a warp owns 16 query rows (Q's split fragments in "
+                    "registers at D 64); the online softmax on the S "
+                    "accumulators; P' goes from them to the A operand of "
+                    "P'V in registers, unrounded; O = O alpha + the tile's "
+                    "partial sum",
     "dkv": _F32TC + "S^T = K Q^T per warp of 16 keys; P'^T and dS^T go "
                     "from the accumulators to the A operands of dV and dK "
                     "in registers (k read through a permutation, no "
                     "shuffle), unrounded",
     "dq": _F32TC + "a warp owns 16 query rows; dS goes from the "
                    "accumulators to the A operand of dS K in registers"}
-# the f32 forward's body
-FLASH_F32_FWD_DESIGN = ("f32 FMAs on the CUDA cores; 16 x 16 threads, "
-                        "synchronous shared-memory tiles")
 
 
 def flash_inputs(rng, B, H, S, D, masked, dtype):
@@ -1272,13 +1332,12 @@ def flash_kernel_phase(rng, flush) -> dict:
             torch.cuda.empty_cache()
 
     # the bf16 calls above ran on the tensor cores, and so did the f32
-    # dK/dV and dQ (one launch of each body per case's check, the rest
-    # timing runs)
+    # ones (one launch of each body per case's check, the rest timing
+    # runs)
     counts = read_flash_counts()
     log("kernel_flash_launches", **counts)
-    if min(counts["flash_tc_fwd"], counts["flash_tc_dkv"],
-           counts["flash_tc_dq"], counts["flash_f32tc_dkv"],
-           counts["flash_f32tc_dq"]) < len(FLASH_CASES):
+    if min(counts[f"flash_{body}_{k}"] for body in ("tc", "f32tc")
+           for k in ("fwd", "dkv", "dq")) < len(FLASH_CASES):
         raise AssertionError(f"kernel_flash: tensor-core launches {counts}, "
                              f"expected at least {len(FLASH_CASES)} of each")
 
@@ -1445,8 +1504,8 @@ def train_phase(rng, amp_dtype=None, phase="train") -> dict:
     n_tc = n if amp_dtype == "bfloat16" else 0
     want = {"flash_fwd": n, "flash_dkv": n, "flash_dq": n, "flash_ref": 0,
             "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc,
-            "flash_f32tc_dkv": n - n_tc, "flash_f32tc_dq": n - n_tc,
-            "route_pallas": n, "route_xla": 0}
+            "flash_f32tc_fwd": n - n_tc, "flash_f32tc_dkv": n - n_tc,
+            "flash_f32tc_dq": n - n_tc, "route_pallas": n, "route_xla": 0}
     expect_counts(phase, counts, want)
     prof = profile_step(model, opt, x, y, amp_dtype)
     ln_v = math.log(GPT2_SMALL["vocab_size"])
@@ -1538,10 +1597,11 @@ def _parity_runs(rng, cfg, batch, seq, amp_dtype):
     expect_counts("train_parity card", runs["card"]["counts"], {
         "flash_fwd": L, "flash_dkv": L, "flash_dq": L, "flash_ref": 0,
         "flash_tc_fwd": n_tc, "flash_tc_dkv": n_tc, "flash_tc_dq": n_tc,
-        "flash_f32tc_dkv": L - n_tc, "flash_f32tc_dq": L - n_tc})
+        "flash_f32tc_fwd": L - n_tc, "flash_f32tc_dkv": L - n_tc,
+        "flash_f32tc_dq": L - n_tc})
     expect_counts("train_parity cpu", runs["cpu"]["counts"], {
         "flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0, "flash_ref": 3 * L,
-        "flash_f32tc_dkv": 0, "flash_f32tc_dq": 0})
+        "flash_f32tc_fwd": 0, "flash_f32tc_dkv": 0, "flash_f32tc_dq": 0})
     return runs
 
 
@@ -2169,6 +2229,58 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
     return result
 
 
+# a GPT with a head dim of 256 (hidden 1024 over 4 heads, 2 layers): the
+# paged kernels' widest instances on the serving path
+WIDE_GPT = dict(vocab_size=1024, hidden_size=1024, num_layers=2,
+                num_heads=4, ffn_size=4096, max_seq_len=512)
+WIDE_PROMPT_LENS = (16, 77, 190, 333)
+
+
+def e2e_wide_phase(rng, device="cuda") -> dict:
+    """The WIDE_GPT model (seeded random weights) served by the ragged
+    engine on WIDE_PROMPT_LENS prompts, native and int8_static (an export
+    calibrated on the card): every attention call on body #1 or #1q at
+    D 256, every int8 projection on body #4, streams equal to
+    ``generate`` (``generate(quant=export)``) except at a reported
+    near-tie, no page leaked."""
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.slim import export_serving_quant
+    from paddle_tpu_torch.text.models import GPTModel
+
+    model = GPTModel(**WIDE_GPT, device=device, seed=4321)
+    V, L = WIDE_GPT["vocab_size"], WIDE_GPT["num_layers"]
+    prompts = [rng.randint(1, V, (n,)).astype(np.int32)
+               for n in WIDE_PROMPT_LENS]
+    result = {"head_dim": WIDE_GPT["hidden_size"] // WIDE_GPT["num_heads"]}
+    for name in ("native", "int8_static"):
+        export, knobs = None, {}
+        if name == "int8_static":
+            export = export_serving_quant(
+                model, calib_prompts=rng.randint(1, V, (4, 64)))
+            knobs = dict(kv_cache_dtype="int8", weight_dtype="int8",
+                         quant_scales=export)
+        eng = create_serving_engine(model, device=device, **ENGINE, **knobs)
+        if eng.kv_mode() != name:
+            raise AssertionError(f"e2e_wide: the engine runs "
+                                 f"{eng.kv_mode()}, not {name}")
+        streams, counts, wall, dispatches = drive(eng, prompts)
+        on = L * dispatches
+        expect_counts(f"e2e_wide/{name}", counts, {
+            "attention_cuda": 0 if export else on,
+            "attention_cuda_int8": on if export else 0,
+            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+            "attention_ref": 0, "qmm_cuda": 6 * on if export else 0,
+            "qmm_ref": 0, **NO_STATS})
+        near = check_streams(f"e2e_wide/{name}", model, prompts, streams,
+                             export)
+        res = summary(eng, prompts, wall, dispatches, counts, near)
+        log("e2e_wide", drive=name, **res)
+        result[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    return result
+
+
 # row t: the custom-op API's worked kernel, x * scale[0] + shift[0]
 SCALE_SHIFT_SHAPES = ((16, 8), (4, 8), (1_000_003,), (8192, 8192))
 SCALE_SHIFT_TIMED = ((16, 8), (8192, 8192))
@@ -2455,7 +2567,16 @@ def main(argv=None) -> int:
             _build.build_log["paged_attention_stats"]["ptxas"],
             "stats_prefill_kernel"),
         flash_f32tc_ptxas=entry_ptxas(
-            _build.build_log["flash_attention"]["ptxas"], "f32tc_kernel"))
+            _build.build_log["flash_attention"]["ptxas"], "f32tc_kernel"),
+        # the paged kernels' D 256 instances (DC 8: "Li8ELb" in the warp
+        # form's mangled name, "Li8EEEv" in the per-row kernel's and the
+        # prefill form's)
+        paged_dc8_ptxas={
+            name: {k: v for k, v in entry_ptxas(
+                _build.build_log[name]["ptxas"], "kernel").items()
+                   if "Li8ELb" in k or "Li8EEEv" in k}
+            for name in ("paged_attention", "paged_decode",
+                         "paged_attention_stats")})
 
     rng = np.random.RandomState(0)
     report = {"card": card}
@@ -2509,6 +2630,10 @@ def main(argv=None) -> int:
     report["e2e_spec"] = e2e_spec_phase(model, spec_prompts(rng))
     torch.cuda.empty_cache()
     report["e2e_mesh"] = mesh = e2e_mesh_phase(model, rng, export)
+    del model
+    torch.cuda.empty_cache()
+    # its own seed, as row t's phase
+    report["e2e_wide"] = wide = e2e_wide_phase(np.random.RandomState(8))
 
     dec = native_t["gpt2_decode/float32/Qb1"]
     idec = int8_t["gpt2_decode/float32/Qb1/fused_dequant=1"]
@@ -2520,7 +2645,10 @@ def main(argv=None) -> int:
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:520",
                e2e["attention_cuda"], dec,
-               bf16_max_abs_err=native_t["bf16_max_abs_err"]),
+               bf16_max_abs_err=native_t["bf16_max_abs_err"],
+               d256_decode=native_t["d256_decode/float32/Qb1"],
+               d256_prefill=native_t["d256_prefill/float32/Qb64"],
+               launches_d256=wide["native"]["attention_cuda"]),
         record("ragged_paged_attention_int8",
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:461",
@@ -2528,7 +2656,11 @@ def main(argv=None) -> int:
                settings={k: v for k, v in int8_t.items()
                          if "fused_dequant=" in k},
                nan_scale_ok=int8_t["nan_scale_ok"],
-               bf16_max_abs_err=int8_t["bf16_max_abs_err"]),
+               bf16_max_abs_err=int8_t["bf16_max_abs_err"],
+               d256_decode=int8_t["d256_decode/float32/Qb1/fused_dequant=1"],
+               d256_prefill=int8_t[
+                   "d256_prefill/float32/Qb64/fused_dequant=1"],
+               launches_d256=wide["int8_static"]["attention_cuda_int8"]),
         record("quantized_matmul",
                "paddle_tpu_torch/ops/csrc/quantized_matmul.cu",
                "paddle_tpu/ops/pallas_ops/quantized_matmul.py:104",
@@ -2538,8 +2670,8 @@ def main(argv=None) -> int:
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",
                train[f"flash_{kname}"], flash_t[f"{kname}/train/float32"],
                case="B8 H12 S1024 D64 causal, float32",
-               design=FLASH_F32TC_DESIGN.get(kname, FLASH_F32_FWD_DESIGN),
-               launches_f32tc=train.get(f"flash_f32tc_{kname}", 0),
+               design=FLASH_F32TC_DESIGN[kname],
+               launches_f32tc=train[f"flash_f32tc_{kname}"],
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],
@@ -2566,6 +2698,7 @@ def main(argv=None) -> int:
                decode_t["gpt2_decode/float32"],
                case="gpt2_decode/float32",
                prefill_chunk=decode_t["gpt2_chunk/float32"],
+               d256_decode=decode_t["d256_decode/float32"],
                bf16_max_abs_err=decode_t["bf16_max_abs_err"],
                launches_by_drive={k: v["attention_cuda_decode"]
                                   for k, v in split.items()}),
@@ -2579,6 +2712,8 @@ def main(argv=None) -> int:
                          if "/int8/" in k},
                nan_scale_ok=decode_t["nan_scale_ok"],
                bf16_max_abs_err=decode_t["int8_bf16_max_abs_err"],
+               d256_decode=decode_t[
+                   "d256_decode/float32/int8/fused_dequant=1"],
                launches_spec_int8_dynamic=report["e2e_spec"][
                    "ragged_int8_dynamic"]["attention_cuda_decode_int8"]),
         record("ragged_paged_attention_stats",
@@ -2588,6 +2723,8 @@ def main(argv=None) -> int:
                stats_t["decode_h12/float32"], case="decode_h12/float32",
                prefill=stats_t["prefill_h12/float32"],
                prefill_h6=stats_t["prefill_h6/float32"],
+               d256_decode=stats_t["d256_decode/float32"],
+               d256_prefill=stats_t["d256_prefill/float32"],
                forms="warp form below 16 rows a lane, prefill form from 16; "
                      "both walk the lane's owned pages",
                bf16_max_abs_err=stats_t["bf16_max_abs_err"],
@@ -2606,6 +2743,10 @@ def main(argv=None) -> int:
                          if "/int8/" in k},
                nan_scale_ok=stats_t["nan_scale_ok"],
                bf16_max_abs_err=stats_t["int8_bf16_max_abs_err"],
+               d256_decode=stats_t[
+                   "d256_decode/float32/int8/fused_dequant=1"],
+               d256_prefill=stats_t[
+                   "d256_prefill/float32/int8/fused_dequant=1"],
                max_abs_err_by_case={
                    k: v for k, v in stats_t["max_abs_err_by_case"].items()
                    if "int8" in k},

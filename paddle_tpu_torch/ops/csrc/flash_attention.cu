@@ -35,20 +35,10 @@
 // of the tensor cores make the bytes the bound (0.0152 ms forward,
 // 0.0228 ms dK/dV, 0.0190 ms dQ).
 //
-// Three designs.
+// Two designs.
 //
-// f32 forward: all arithmetic in f32 FMAs on the CUDA cores.  A plain
-// shared-memory tiling, one block of 256 threads (16 x 16) per (bh, tile
-// of BQ query rows) looping over the key tiles it can see (causal: up to
-// the diagonal).  Each thread owns a register micro-tile of rows ty + 16 i
-// and columns tx + 16 j; a score row lives in 16 adjacent lanes of one
-// warp, so the row max and sum are warp shuffles.  Tiles are loaded
-// synchronously and sized by the head width (DT = 64, 128 or 256 columns,
-// zero-padded past D), so that shared memory stays under the 227 KB a
-// block may use at D 256.
-//
-// f32 dK/dV and dQ (namespace f32tc): the bf16 bodies' design below on
-// the tensor cores in 3xTF32, the arithmetic of CUTLASS's FastF32 that
+// f32 (all three bodies, namespace f32tc): the bf16 bodies' design below
+// on the tensor cores in 3xTF32, the arithmetic of CUTLASS's FastF32 that
 // PyTorch's memory-efficient attention uses for f32.  mma.sync m16n8k8
 // takes TF32 (10 mantissa bits); each f32 operand is split where its
 // fragment is formed into big = x rounded to TF32 and the residual
@@ -59,25 +49,39 @@
 // does about f32's costs:
 //   - operands straight from the accumulators: the C fragment gives a
 //     thread columns (2 t, 2 t + 1), the A fragment wants k (t, t + 4), so
-//     the k of every product is read through that permutation, and P'^T,
-//     dS^T (dK/dV) and dS (dQ) become A fragments in registers, unrounded,
-//     without shuffles; their B operands read rows 2 t, 2 t + 1;
+//     the k of every product is read through that permutation, and P'
+//     (forward), P'^T, dS^T (dK/dV) and dS (dQ) become A fragments in
+//     registers, unrounded, without shuffles; their B operands (V, dO and
+//     Q, K) read rows 2 t, 2 t + 1;
 //   - the tensor cores round each mma's f32 sum toward zero, a drift of
-//     half an ulp of the running sum a step that a sum over 1024 queries
-//     (3 mma a chunk of 8) would pile up: each tile's chunks go into a
-//     partial sum from zero, added to the running sum by an f32 add (S
-//     and dP: every 64 columns of d);
+//     half an ulp of the running sum a step that a sum over 1024 keys or
+//     queries (3 mma a chunk of 8) would pile up: each tile's chunks go
+//     into a partial sum from zero, added to the running sum by f32
+//     operations (S and dP: every 64 columns of d; the forward's O as
+//     O alpha + partial, the online softmax's rescale folded in);
 //   - f32 tiles are twice the bf16 bytes and there is no 32-bit
-//     transposed ldmatrix: tiles of 32 query rows (dK/dV) or keys (dQ), 16
-//     at D 256, a 2-stage cp.async ring, 64 output columns a dK/dV block
-//     (grid.y = DT / 64: dK, dV and their partial sums in registers) and
-//     128 a dQ block from D 128 on; at D 64 two blocks fit an SM;
+//     transposed ldmatrix: tiles of 32 keys (forward, dQ) or query rows
+//     (dK/dV), 16 at D 256, a 2-stage cp.async ring, 64 output columns a
+//     dK/dV block (grid.y = DT / 64: dK, dV and their partial sums in
+//     registers) and 128 a forward or dQ block from D 128 on (each such
+//     forward block computes S again; the first writes lse); at D 64 two
+//     blocks fit an SM;
 //   - rows of DT + 8 floats, rows 4-7 of every 8 swapped in pairs, so both
 //     ways a tile is read (64-bit along a row, 32-bit down a column) are
 //     free of bank conflicts at a per-thread offset plus a constant;
 //   - the longest causal tiles first, branch-free hot loops (an interior
-//     tile is not masked element by element), scale in the epilogue, and
-//     the outputs stored straight from the accumulators.
+//     tile is not masked element by element), scale on the S accumulators
+//     or in the epilogue, and the outputs stored straight from the
+//     accumulators.
+// The forward is dQ's body with V in K's place as the B operand of the
+// second product and no dP: a warp owns 16 query rows; K, V and the mask
+// tile come through the ring; S = Q K^T (Q's split fragments held in
+// registers at D 64, read from its tile otherwise) is scaled on the
+// accumulators, as the bf16 forward does, so that Q is split once where
+// it stays in registers and a tile of it is staged unchanged otherwise
+// (an f32 rounding of the score from the plain version's (scale q) k^T,
+// far below 3xTF32's 2^-21); the online softmax runs on the accumulators,
+// a row on the four lanes of a quad, with __expf.
 //
 // bf16 (all three bodies, namespace tc): FA2's design on the tensor
 // cores, mma.sync m16n8k16 (bf16 in, f32 accumulators), chosen over
@@ -146,7 +150,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the JAX package's finite NEG_INF
-constexpr int kThreads = 256;      // 16 x 16: ty = tid / 16, tx = tid % 16
 
 struct Params {
   int H, Sq, Sk, D;
@@ -156,9 +159,6 @@ struct Params {
   uint32_t thresh;   // keep where hash >= thresh
   uint32_t seed;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 // paddle_tpu/ops/pallas_ops/flash_attention.py:_keep_mask, bit for bit
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t bh,
@@ -172,188 +172,6 @@ __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t bh,
   x = x * 0x297A2D39u;
   x = x ^ (x >> 15);
   return x >= p.thresh;
-}
-
-// rows [r0, r0 + R) of a row-major [n, D] matrix into a shared tile of
-// row stride DT + 1, as f32 times mul; rows past n and columns past D are 0
-template <typename T, int R, int DT>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const T* __restrict__ src, int r0,
-                                          int n, int D, float mul) {
-  constexpr int SD = DT + 1;
-  for (int i = threadIdx.x; i < R * DT; i += kThreads) {
-    const int r = i / DT, d = i % DT;
-    const int gr = r0 + r;
-    dst[r * SD + d] =
-        (gr < n && d < D) ? to_f32(src[(size_t)gr * D + d]) * mul : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]  (row stride DT + 1)
-template <int DT, int TM, int TN>
-__device__ __forceinline__ void mm_nt(const float* A, const float* B,
-                                      float (&acc)[TM][TN], int D) {
-  constexpr int SD = DT + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = A[(ty + 16 * i) * SD + d];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = B[(tx + 16 * j) * SD + d];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{c < NC} P[ty + 16 i][c] * V[c][tx + 16 j]  (P row
-// stride NC + 1, V row stride DT + 1); column groups past D are skipped
-template <int NC, int DT, int TM, int TD>
-__device__ __forceinline__ void mm_nn(const float* P, const float* V,
-                                      float (&acc)[TM][TD], int D) {
-  constexpr int SP = NC + 1, SD = DT + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int c = 0; c < NC; ++c) {
-    float pr[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) pr[i] = P[(ty + 16 * i) * SP + c];
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      if (16 * j < D) {  // the same for every thread of the block
-        const float vv = V[c * SD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
-      }
-    }
-  }
-}
-
-// reduce over the 16 lanes that hold one score row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid BH * ceil(Sq / BQ)
-// ---------------------------------------------------------------------------
-template <int BQ, int BK, int DT>
-constexpr size_t fwd_smem() {
-  return sizeof(float) *
-         (BQ * (DT + 1) + 2 * BK * (DT + 1) + BQ * (BK + 1) + BK);
-}
-
-template <typename T, int BQ, int BK, int DT>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ mask,
-               T* __restrict__ o, float* __restrict__ lse, Params p) {
-  constexpr int SD = DT + 1, SP = BK + 1;
-  constexpr int TM = BQ / 16, TN = BK / 16, TD = DT / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][SD], pre-scaled
-  float* Ks = Qs + BQ * SD;      // [BK][SD]
-  float* Vs = Ks + BK * SD;      // [BK][SD]
-  float* Ps = Vs + BK * SD;      // [BQ][SP], dropped probabilities
-  float* Ms = Ps + BQ * SP;      // [BK], kv mask of the tile
-  const int nqt = (p.Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt;
-  const int q0 = (blockIdx.x % nqt) * BQ;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + (size_t)bh * p.Sq * p.D;
-  const T* kb = k + (size_t)bh * p.Sk * p.D;
-  const T* vb = v + (size_t)bh * p.Sk * p.D;
-  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
-
-  load_rows<T, BQ, DT>(Qs, qb, q0, p.Sq, p.D, p.scale);
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
-  int nkt = (p.Sk + BK - 1) / BK;
-  if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, BK, DT>(Ks, kb, k0, p.Sk, p.D, 1.f);
-    load_rows<T, BK, DT>(Vs, vb, k0, p.Sk, p.D, 1.f);
-    for (int c = threadIdx.x; c < BK; c += kThreads)
-      Ms[c] = (k0 + c < p.Sk) ? mb[k0 + c] : 0.f;
-    __syncthreads();
-    float s[TM][TN];
-    mm_nt<DT, TM, TN>(Qs, Ks, s, p.D);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (col >= p.Sk)
-          x = -INFINITY;  // past the keys: exactly 0 after exp
-        else if ((p.causal && row < col) || !(Ms[tx + 16 * j] > 0.f))
-          x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        rs += e;
-        float pa = e;
-        if (p.dropout) {
-          const int col = k0 + tx + 16 * j;
-          pa = keep_bit(p, bh, row, col) ? e * p.keep_scale : 0.f;
-        }
-        Ps[(ty + 16 * i) * SP + tx + 16 * j] = pa;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    mm_nn<BK, DT, TM, TD>(Ps, Vs, acc, p.D);
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * p.Sq + row) * p.D;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx + 16 * j;
-      if (d < p.D) store(orow + d, acc[i][j] / l_safe);
-    }
-    if (tx == 0) lse[(size_t)bh * p.Sq + row] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1175,7 +993,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 dK/dV and dQ on the tensor cores in 3xTF32 (mma.sync m16n8k8 tf32)
+// f32 forward, dK/dV and dQ on the tensor cores in 3xTF32 (mma.sync
+// m16n8k8 tf32)
 // ---------------------------------------------------------------------------
 namespace f32tc {
 
@@ -1366,6 +1185,234 @@ __device__ __forceinline__ void zero(float (&a)[NJ][4]) {
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (BH * ceil(Sq / 64), DT / DO); warp w owns query rows 16 w ..
+// 16 w + 15.  S = Q K^T takes Q's fragments as A, so P', formed on its
+// accumulators by the online softmax, is already the A operand of
+// O += P' V
+// ---------------------------------------------------------------------------
+template <int DT>
+struct FwdCfg {
+  static constexpr int BQ = 16 * kWarps;
+  // key tile: the K/V ring and the S accumulators' registers
+  static constexpr int BK = DT < 256 ? 32 : 16;
+  static constexpr int DO = DT < 128 ? DT : 128;  // output columns a block
+  static constexpr int kStages = 2;               // the K, V, mask ring
+  // Q's split fragments in registers (64 of them at D 64), formed once
+  static constexpr bool kQReg = DT == 64;
+  static constexpr int kMinBlocks = DT == 64 ? 2 : 1;  // an SM at D 64
+  static constexpr size_t smem =
+      sizeof(float) *
+      ((BQ + 2 * kStages * BK) * kStride<DT> + kStages * BK);
+};
+
+template <int DT, bool kDrop>
+__global__ void __launch_bounds__(kThreads, FwdCfg<DT>::kMinBlocks)
+    fwd_f32tc_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ mask, float* __restrict__ o,
+                     float* __restrict__ lse, Params p, int vec) {
+  using C = FwdCfg<DT>;
+  constexpr int BQ = C::BQ, BK = C::BK, DO = C::DO, NS = C::kStages;
+  constexpr int NT = BK / 8, KD = DT / 8, NO = DO / 8, SD = kStride<DT>;
+  constexpr int KR = C::kQReg ? KD : 1;
+  extern __shared__ __align__(128) unsigned char f32_smem[];
+  float* Qs = reinterpret_cast<float*>(f32_smem);  // [BQ][SD]
+  float* Ks = Qs + BQ * SD;                          // [NS][BK][SD]
+  float* Vs = Ks + NS * BK * SD;                     // [NS][BK][SD]
+  float* Ms = Vs + NS * BK * SD;                     // [NS][BK]
+  // the last query tiles (under causal masking the longest) first
+  const int nqt = (p.Sq + BQ - 1) / BQ, BH = gridDim.x / nqt;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * BQ;
+  const int d0 = blockIdx.y * DO;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int fr = srow(g) * SD + 2 * t;
+  const int fc[2] = {srow(2 * t) * SD + g + d0,
+                     srow(2 * t + 1) * SD + g + d0};
+  const size_t qoff = (size_t)bh * p.Sq * p.D;
+  const float* kb = k + (size_t)bh * p.Sk * p.D;
+  const float* vb = v + (size_t)bh * p.Sk * p.D;
+  const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
+  int nkt = (p.Sk + BK - 1) / BK;
+  if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
+
+  // key tile i goes to stage i % NS: K, V and its mask slice
+  auto load_kv = [&](int i) {
+    const int st = i % NS;
+    load_tile<BK, DT>(Ks + st * BK * SD, kb, i * BK, p.Sk, p.D, vec);
+    load_tile<BK, DT>(Vs + st * BK * SD, vb, i * BK, p.Sk, p.D, vec);
+    load_vec<BK>(Ms + st * BK, mb, i * BK, p.Sk);
+  };
+  load_tile<BQ, DT>(Qs, q + qoff, q0, p.Sq, p.D, vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {  // one commit group per tile
+    if (i < nkt) load_kv(i);
+    cp_commit();
+  }
+
+  // rows (g, g + 8): the running max m and this thread's part of the
+  // denominator l (the full mass: dropout leaves it alone)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+  zero(acc);
+  uint32_t qbg[KR][4], qsm[KR][4];
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % NS;
+    cp_wait<NS - 2>();  // this tile (and Q) have landed ...
+    __syncthreads();    // ... for every thread, and tile kt - 1 is done
+    if (kt + NS - 1 < nkt) load_kv(kt + NS - 1);  // into tile kt - 1's stage
+    cp_commit();
+    const float* Kt = Ks + st * BK * SD;
+    const float* Vt = Vs + st * BK * SD;
+    const float* Mt = Ms + st * BK;
+    const int k0 = kt * BK;
+    if constexpr (C::kQReg) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          load_a<DT>(Qs + fr + wr * SD + 8 * kk, qbg[kk], qsm[kk]);
+      }
+    }
+
+    // S = Q K^T: s[j] holds rows (g, g + 8) and key columns (8 j + 2 t,
+    // + 1); 64 columns of d a partial sum
+    float s[NT][4];
+#pragma unroll
+    for (int kg = 0; kg < KD; kg += 8) {
+      float ps[NT][4];
+      zero(ps);
+#pragma unroll
+      for (int kk = kg; kk < kg + 8; ++kk) {
+        uint32_t aqb[4], aqs[4];
+        if constexpr (C::kQReg) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            aqb[e] = qbg[kk][e];
+            aqs[e] = qsm[kk][e];
+          }
+        } else {
+          load_a<DT>(Qs + fr + wr * SD + 8 * kk, aqb, aqs);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t kbg[2], ksm[2];
+          load_b_row(Kt + fr + 8 * j * SD + 8 * kk, kbg, ksm);
+          mma3(ps[j], aqb, aqs, kbg, ksm);
+        }
+      }
+      fold(s, ps, kg == 0);
+    }
+
+    // scale in f32, then the reference's masks on global positions: only
+    // a tile that reaches past Sk or the diagonal, or whose kv mask has a
+    // zero, is masked element by element
+    bool valid = true;
+#pragma unroll
+    for (int c = lane; c < BK; c += 32) valid = valid && Mt[c] > 0.f;
+    const bool edge = !__all_sync(0xffffffffu, valid) || k0 + BK > p.Sk ||
+                      (p.causal && k0 + BK - 1 > q0 + wr);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 mk = lds2(Mt + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          if (col >= p.Sk)
+            s[j][e] = -INFINITY;  // past the keys: exactly 0 after exp
+          else if (!(((e & 1) ? mk.y : mk.x) > 0.f) ||
+                   (p.causal && row < col))
+            s[j][e] = kNegInf;
+        }
+      }
+    }
+
+    // online softmax on the accumulators, a row on the four lanes of a
+    // quad; s becomes P' in place (dropped where a bit says so, the
+    // denominator keeping the full mass)
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = __expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = __expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += pr;
+        float pv = pr;
+        if constexpr (kDrop) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          pv = keep_bit(p, bh, row, col) ? pr * p.keep_scale : 0.f;
+        }
+        s[j][e] = pv;
+      }
+
+    // O = O alpha + P' V over this block's columns, the tile's partial sum
+    // from zero first: the 8 keys of s[j] are one k chunk; V's B fragments
+    // are rows 8 j + 2 t, + 1 of its tile
+    float pacc[NO][4];
+    zero(pacc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t pbg[4], psm[4];
+      acc_as_a(s[j], pbg, psm);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t vbg[2], vsm[2];
+        load_b_col(Vt + 8 * j * SD + 8 * n, fc, vbg, vsm);
+        mma3(pacc[n], pbg, psm, vbg, vsm);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * alpha[e >> 1] + pacc[n][e];
+  }
+  cp_wait<0>();
+
+  // o = O / max(l, 1e-30) straight from the accumulators; lse = m +
+  // log(max(l, 1e-30)) over the quad's sum, from the first column block
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float l_safe = fmaxf(lr, 1e-30f);
+    inv[r] = 1.f / l_safe;
+    const int row = q0 + wr + g + r * 8;
+    if (blockIdx.y == 0 && t == 0 && row < p.Sq)
+      lse[(size_t)bh * p.Sq + row] = m[r] + logf(l_safe);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  store_acc<NO>(o + qoff, acc, q0 + wr, p.Sq, p.D, d0, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1774,22 +1821,6 @@ int check_dims(int BH, int H, int Sq, int Sk, int D) {
   return 0;
 }
 
-template <typename T, int BQ, int BK, int DT>
-int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
-               void* o, void* lse, int BH, const Params& p,
-               cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<BQ, BK, DT>();
-  const long long blocks = (long long)BH * ((p.Sq + BQ - 1) / BQ);
-  auto kern = fwd_kernel<T, BQ, BK, DT>;
-  const int rc = prepare(kern, smem, blocks);
-  if (rc) return rc;
-  kern<<<(unsigned)blocks, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(mask),
-      static_cast<T*>(o), static_cast<float*>(lse), p);
-  return (int)cudaGetLastError();
-}
-
 Params make_params(int H, int Sq, int Sk, int D, float scale, int causal,
                    int dropout, float keep_scale, unsigned thresh,
                    unsigned seed) {
@@ -1805,23 +1836,6 @@ Params make_params(int H, int Sq, int Sk, int D, float scale, int causal,
   p.thresh = thresh;
   p.seed = seed;
   return p;
-}
-
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, const void* mask,
-        void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
-        float scale, int causal, int dropout, float keep_scale,
-        unsigned thresh, unsigned seed, void* stream) {
-  const int bad = check_dims(BH, H, Sq, Sk, D);
-  if (bad) return bad;
-  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch_fwd<T, 64, 64, 64>(q, k, v, mask, o, lse, BH, p, st);
-  if (D <= 128)
-    return launch_fwd<T, 64, 32, 128>(q, k, v, mask, o, lse, BH, p, st);
-  return launch_fwd<T, 64, 32, 256>(q, k, v, mask, o, lse, BH, p, st);
 }
 
 bool aligned16(const void* ptr) {
@@ -1958,6 +1972,23 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
 
 
 template <int DT>
+int launch_fwd_f32tc(const void* q, const void* k, const void* v,
+                     const void* mask, void* o, void* lse, int BH,
+                     const Params& p, int vec, cudaStream_t st) {
+  using C = f32tc::FwdCfg<DT>;
+  const long long blocks = (long long)BH * ((p.Sq + C::BQ - 1) / C::BQ);
+  auto kern = p.dropout ? f32tc::fwd_f32tc_kernel<DT, true>
+                        : f32tc::fwd_f32tc_kernel<DT, false>;
+  const int rc = prepare(kern, C::smem, blocks);
+  if (rc) return rc;
+  kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(mask),
+      static_cast<float*>(o), static_cast<float*>(lse), p, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
 int launch_dkv_f32tc(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* mask, void* dk, void* dv, int BH,
@@ -1994,6 +2025,23 @@ int launch_dq_f32tc(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(mask), static_cast<float*>(dqo), p, vec);
   return (int)cudaGetLastError();
+}
+
+int fwd_f32tc(const void* q, const void* k, const void* v, const void* mask,
+              void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
+              float scale, int causal, int dropout, float keep_scale,
+              unsigned thresh, unsigned seed, void* stream) {
+  const int bad = check_dims(BH, H, Sq, Sk, D);
+  if (bad) return bad;
+  const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
+                               keep_scale, thresh, seed);
+  const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_fwd_f32tc<64>(q, k, v, mask, o, lse, BH, p, vec, st);
+  if (D <= 128)
+    return launch_fwd_f32tc<128>(q, k, v, mask, o, lse, BH, p, vec, st);
+  return launch_fwd_f32tc<256>(q, k, v, mask, o, lse, BH, p, vec, st);
 }
 
 int dkv_f32tc(const void* q, const void* k, const void* v, const void* dout,
@@ -2046,16 +2094,15 @@ int dq_f32tc(const void* q, const void* k, const void* v, const void* dout,
 // k and v [BH, Sk, D] and dout [BH, Sq, D] in the entry point's dtype;
 // mask [BH / H, Sk], lse and delta [BH, Sq] in f32.  Each launches on
 // ``stream`` and returns cudaGetLastError() (0 = launched).
-// f32: the forward on the CUDA cores, dK/dV and dQ on the tensor cores in
-// 3xTF32
+// f32: all three bodies on the tensor cores in 3xTF32
 extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  const void* mask, void* o, void* lse, int BH,
                                  int H, int Sq, int Sk, int D, float scale,
                                  int causal, int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
                                  void* stream) {
-  return fwd<float>(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
-                    dropout, keep_scale, thresh, seed, stream);
+  return fwd_f32tc(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
+                   dropout, keep_scale, thresh, seed, stream);
 }
 extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,

@@ -49,6 +49,12 @@
 // load as 16-byte vectors (D / 16 lanes per row) when D is a multiple of
 // 16, else byte by byte.
 //
+// Head dims: D <= 256, in instances of DC = 1, 2, 4 or 8 output columns a
+// lane (D <= 32 DC).  Up to DC 4 a warp stages its K and V tiles side by
+// side.  At DC 8 (D 129-256) two tiles of 32 x 257 floats a warp would
+// take 263 KB a block, more than the 227 KB an SM gives one, so K and V
+// share one tile: K is staged and scored, then V overwrites it.
+//
 // Layout of the work (the TPU kernel's sequential page axis becomes a
 // loop inside the block):
 //   grid  = (G lanes, H heads, ceil(Qb / RB) row tiles)
@@ -74,7 +80,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kTile = 32;             // KV positions per warp tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;     // the TPU kernel's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -101,8 +107,10 @@ __device__ __forceinline__ void unpack16(const int4 v, float* dst, float f) {
 // not read: zeros) and its dequant factors kf / vf (1 when the scales are
 // applied after the dots).  With ``vec`` (D % 16 == 0, 16-byte aligned
 // pools) a row is D / 16 chunks of 16 bytes and each pass loads
-// 32 / (D / 16) rows at once, all passes in flight before any store.
-template <int DC>
+// 32 / (D / 16) rows at once (2 at D 256), all passes in flight before any
+// store.  ``kSides`` picks the tiles: bit 0 K, bit 1 V (DC 8 stages them
+// one at a time into one tile).
+template <int DC, int kSides = 3>
 __device__ __forceinline__ void stage_int8(const int8_t* __restrict__ k_pages,
                                            const int8_t* __restrict__ v_pages,
                                            long long src, float kf, float vf,
@@ -122,20 +130,26 @@ __device__ __forceinline__ void stage_int8(const int8_t* __restrict__ k_pages,
       const int j = ps * rp + rsub;
       const int jc = min(j, kTile - 1);
       const long long off = __shfl_sync(0xffffffffu, src, jc);
-      kfs[ps] = __shfl_sync(0xffffffffu, kf, jc);
-      vfs[ps] = __shfl_sync(0xffffffffu, vf, jc);
+      if constexpr ((kSides & 1) != 0)
+        kfs[ps] = __shfl_sync(0xffffffffu, kf, jc);
+      if constexpr ((kSides & 2) != 0)
+        vfs[ps] = __shfl_sync(0xffffffffu, vf, jc);
       kr[ps] = vr[ps] = make_int4(0, 0, 0, 0);
       if (rsub < rp && j < kTile && off >= 0) {
-        kr[ps] = __ldg(reinterpret_cast<const int4*>(k_pages + off) + ch);
-        vr[ps] = __ldg(reinterpret_cast<const int4*>(v_pages + off) + ch);
+        if constexpr ((kSides & 1) != 0)
+          kr[ps] = __ldg(reinterpret_cast<const int4*>(k_pages + off) + ch);
+        if constexpr ((kSides & 2) != 0)
+          vr[ps] = __ldg(reinterpret_cast<const int4*>(v_pages + off) + ch);
       }
     }
 #pragma unroll
     for (int ps = 0; ps < kPass; ++ps) {
       const int j = ps * rp + rsub;
       if (rsub < rp && j < kTile) {
-        unpack16(kr[ps], k_s + j * ldk + ch * 16, kfs[ps]);
-        unpack16(vr[ps], v_s + j * ldv + ch * 16, vfs[ps]);
+        if constexpr ((kSides & 1) != 0)
+          unpack16(kr[ps], k_s + j * ldk + ch * 16, kfs[ps]);
+        if constexpr ((kSides & 2) != 0)
+          unpack16(vr[ps], v_s + j * ldv + ch * 16, vfs[ps]);
       }
     }
   } else {
@@ -145,10 +159,45 @@ __device__ __forceinline__ void stage_int8(const int8_t* __restrict__ k_pages,
       const float kfj = __shfl_sync(0xffffffffu, kf, j);
       const float vfj = __shfl_sync(0xffffffffu, vf, j);
       for (int d = lane; d < D; d += 32) {
-        k_s[j * ldk + d] = off < 0 ? 0.f : (float)k_pages[off + d] * kfj;
-        v_s[j * ldv + d] = off < 0 ? 0.f : (float)v_pages[off + d] * vfj;
+        if constexpr ((kSides & 1) != 0)
+          k_s[j * ldk + d] = off < 0 ? 0.f : (float)k_pages[off + d] * kfj;
+        if constexpr ((kSides & 2) != 0)
+          v_s[j * ldv + d] = off < 0 ? 0.f : (float)v_pages[off + d] * vfj;
       }
     }
+  }
+}
+
+// Stage one 32-position tile of an f32 or bf16 pool (K or V) into shared
+// memory as f32: DC 8's staging, one tile at a time, kBatch rows' loads in
+// flight together (each row's offset broadcast by shuffle, consecutive
+// lanes on consecutive d)
+template <int DC, typename KV>
+__device__ __forceinline__ void stage_rows(const KV* __restrict__ pages,
+                                           long long src, float* dst, int ld,
+                                           int D, int lane) {
+  constexpr int kBatch = 32 / DC;     // kBatch * DC = 32 registers
+#pragma unroll 1
+  for (int j0 = 0; j0 < kTile; j0 += kBatch) {
+    float r[kBatch][DC];
+#pragma unroll
+    for (int jj = 0; jj < kBatch; ++jj) {
+      const long long off = __shfl_sync(0xffffffffu, src, j0 + jj);
+      const long long at = off < 0 ? 0 : off;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = min(lane + 32 * c, D - 1);
+        r[jj][c] = to_f32(pages[at + d]);
+        if (off < 0) r[jj][c] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kBatch; ++jj)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < D) dst[(j0 + jj) * ld + d] = r[jj][c];
+      }
   }
 }
 
@@ -226,6 +275,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
                               int Qb, int H, int D, int P, int M, float scale,
                               int fused, int vec) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  // DC 8: K and V take turns in one tile a warp (the header note)
+  constexpr bool kShareKV = DC == 8;
   extern __shared__ float smem[];
   const int g = blockIdx.x;
   const int h = blockIdx.y;
@@ -238,11 +289,20 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 
   float* q_s = smem;                                   // [RB][D], pre-scaled
   float* kv_s = q_s + RB * D;                          // per-warp tiles
-  float* k_s = kv_s + warp * kTile * (ldk + ldv);      // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;                      // [kTile][ldv]
+  float* k_s;                                          // [kTile][ldk]
+  float* v_s;                                          // [kTile][ldv]
   // stats form: the compacted owned list ([M] entries, [M] pages) and the
   // scan's warp sums
-  int* own_m = reinterpret_cast<int*>(kv_s + kWarps * kTile * (ldk + ldv));
+  int* own_m;
+  if constexpr (kShareKV) {
+    k_s = kv_s + warp * kTile * ldk;
+    v_s = k_s;
+    own_m = reinterpret_cast<int*>(kv_s + kWarps * kTile * ldk);
+  } else {
+    k_s = kv_s + warp * kTile * (ldk + ldv);
+    v_s = k_s + kTile * ldk;
+    own_m = reinterpret_cast<int*>(kv_s + kWarps * kTile * (ldk + ldv));
+  }
   int* own_page = own_m + M;
 
   // per-row horizons; rows past Qb are empty.  Positions past the page
@@ -327,8 +387,11 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       }
     }
     if constexpr (kQuant) {
-      stage_int8<DC>(k_pages, v_pages, src, fused ? 1.f : ksl,
-                     fused ? 1.f : vsl, k_s, v_s, ldk, ldv, D, lane, vec);
+      stage_int8<DC, kShareKV ? 1 : 3>(k_pages, v_pages, src,
+                                       fused ? 1.f : ksl, fused ? 1.f : vsl,
+                                       k_s, v_s, ldk, ldv, D, lane, vec);
+    } else if constexpr (kShareKV) {
+      stage_rows<DC>(k_pages, src, k_s, ldk, D, lane);
     } else {
     constexpr int kBatch = 32 / DC;     // kBatch * DC * 2 = 64 registers
 #pragma unroll 1
@@ -372,6 +435,15 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     if (kQuant && fused) {
 #pragma unroll
       for (int r = 0; r < RB; ++r) s[r] *= ksl;   // dequant K after the dot
+    }
+    if constexpr (kShareKV) {
+      __syncwarp();   // every lane has read its K row: V takes the tile
+      if constexpr (kQuant)
+        stage_int8<DC, 2>(k_pages, v_pages, src, 1.f, fused ? 1.f : vsl,
+                          k_s, v_s, ldk, ldv, D, lane, vec);
+      else
+        stage_rows<DC>(v_pages, src, v_s, ldv, D, lane);
+      __syncwarp();
     }
 
 #pragma unroll
@@ -471,8 +543,10 @@ int launch_rb(const void* q, const void* k, const void* v, const void* ks,
               int M, int fused, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const int ldv = kQuant ? D + 1 : D;
+  // a warp's tiles a row: K's and V's, or (DC 8) the one they share
+  const int ld_kv = DC == 8 ? D + 1 : D + 1 + ldv;
   size_t smem = ((size_t)RB * D +
-                 (size_t)kWarps * kTile * (D + 1 + ldv)) * sizeof(float);
+                 (size_t)kWarps * kTile * ld_kv) * sizeof(float);
   if constexpr (kStats) smem += (size_t)(2 * M + kWarps) * sizeof(int);
   const int vec = kQuant && D % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -524,7 +598,10 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   if (D <= 64)
     return launch_dc<T, KV, 2, kStats>(q, k, v, ks, vs, pt, rl, ok, out, lse,
                                        G, Qb, H, D, P, M, fused, s);
-  return launch_dc<T, KV, 4, kStats>(q, k, v, ks, vs, pt, rl, ok, out, lse, G,
+  if (D <= 128)
+    return launch_dc<T, KV, 4, kStats>(q, k, v, ks, vs, pt, rl, ok, out, lse,
+                                       G, Qb, H, D, P, M, fused, s);
+  return launch_dc<T, KV, 8, kStats>(q, k, v, ks, vs, pt, rl, ok, out, lse, G,
                                      Qb, H, D, P, M, fused, s);
 }
 

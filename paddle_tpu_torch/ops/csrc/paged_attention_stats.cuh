@@ -36,6 +36,10 @@
 //     conflicts;
 //   - runs the online softmax with one running max and denominator a row,
 //     a row on 16 lanes of one warp (reductions by 4 shuffles).
+// Head dims: D <= 256 in instances of DC = 1, 2, 4 or 8 (D <= 32 DC).
+// Tiles hold TK = 64 compacted positions up to DC 2, 32 at DC 4 and
+// kPfTk8 at DC 8, where a 32-position f32 ring takes 165 KB: one block an
+// SM, so that instance's launch bounds ask for one block, not two.
 // What a row does not see is removed by select, never multiplied by
 // zero: score -inf, p = 0, and no p.v term (the visible positions of a
 // tile are a prefix, and the P.V loop stops at each row's count), so a
@@ -58,20 +62,25 @@ constexpr int kStatsMaxPages = 4096;  // pages_per_seq: the compacted list
 constexpr int kPrefillRows = 16;      // rows a block; Qb >= this takes it
 constexpr int kPfGroups = 4;          // 64-thread groups a block
 constexpr int kPfThreads = 64 * kPfGroups;
+constexpr int kPfTk8 = 32;            // compacted positions a tile at DC 8
 
 template <int DC>
 struct PfCfg {
-  static constexpr int TK = DC <= 2 ? 64 : 32;  // compacted positions a tile
+  // compacted positions a tile
+  static constexpr int TK = DC <= 2 ? 64 : DC == 4 ? 32 : kPfTk8;
   static constexpr int DP = 32 * DC;            // columns computed
   static constexpr int LD = DP + 4;             // f32 row stride, LD/4 odd
   static constexpr int SP = TK / 16;            // S: 4 rows x SP positions
   static constexpr int LPR = 4 * kPfGroups;     // softmax: lanes a row
   static constexpr int LDS = TK + LPR;          // S row stride
   static constexpr int LDP = kPrefillRows + 4;  // P^T row stride
-  static constexpr int PC = DC == 4 ? 2 : 1;    // P.V: float4 columns a thread
+  // P.V: float4 columns a thread
+  static constexpr int PC = DC == 8 ? 4 : DC == 4 ? 2 : 1;
   static constexpr int NCG = 8 * DC / PC;       // P.V: column groups
   static constexpr int PR = kPrefillRows * NCG / 64;  // P.V: rows a thread
   static constexpr int JG = TK / kPfGroups;     // P.V: positions a group
+  // resident blocks an SM the launch bounds ask for
+  static constexpr int kMinBlocks = DC == 8 && TK == 32 ? 1 : 2;
 };
 
 // to_f32 of paged_attention.cuh for int8 pools
@@ -100,14 +109,15 @@ struct PfSmem {
   using C = PfCfg<DC>;
   static constexpr bool kF32 = std::is_same<KV, float>::value;
   static constexpr int NF = kF32 ? 2 : 1;  // f32 tiles: the ring, or one
+  // the K/V tiles' area, which also holds the groups' accumulators for
+  // the merge at the end
+  static constexpr int kTiles = 2 * NF * C::TK * C::LD;
+  static constexpr int kMerge = kPfGroups * kPrefillRows * C::DP;
+  static constexpr int kKV = kTiles > kMerge ? kTiles : kMerge;
   static constexpr int kFloats =
-      kPrefillRows * C::LD + 2 * NF * C::TK * C::LD +
-      kPfGroups * kPrefillRows * C::LDS + C::TK * C::LDP + 4 * C::TK +
-      3 * kPrefillRows;
+      kPrefillRows * C::LD + kKV + kPfGroups * kPrefillRows * C::LDS +
+      C::TK * C::LDP + 4 * C::TK + 3 * kPrefillRows;
   static constexpr int kFloatsPad = (kFloats + 1) & ~1;
-  // the groups' accumulators, merged at the end in the K/V tiles
-  static_assert(kPfGroups * kPrefillRows * C::DP <= 2 * NF * C::TK * C::LD,
-                "merge area");
 
   static __host__ __device__ size_t raw_bytes(int D) {   // one of K, V
     return kF32 ? 0 : (size_t)2 * C::TK * D * sizeof(KV);
@@ -129,8 +139,9 @@ struct PfSmem {
     float* f0 = reinterpret_cast<float*>(base + 2 * raw_bytes(D));
     float* f = f0;
     q = f;      f += kPrefillRows * C::LD;   // [16][LD], pre-scaled
-    kf = f;     f += NF * C::TK * C::LD;     // [NF][TK][LD]
-    vf = f;     f += NF * C::TK * C::LD;
+    kf = f;                                  // [NF][TK][LD]
+    vf = f + NF * C::TK * C::LD;
+    f += kKV;
     S = f;      f += kPfGroups * kPrefillRows * C::LDS;  // [groups][16][LDS]
     P = f;      f += C::TK * C::LDP;         // [TK][LDP] p^T (times V scale)
     ksc = f;    f += 2 * C::TK;              // [2][TK] page scales
@@ -151,7 +162,7 @@ struct PfSmem {
 };
 
 template <typename T, typename KV, int DC>
-__global__ void __launch_bounds__(kPfThreads, 2)
+__global__ void __launch_bounds__(kPfThreads, PfCfg<DC>::kMinBlocks)
 stats_prefill_kernel(const T* __restrict__ q,
                      const KV* __restrict__ k_pages,
                      const KV* __restrict__ v_pages,
@@ -648,7 +659,10 @@ int launch_stats(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch_prefill<T, KV, 2>(q, k, v, ks, vs, pt, rl, ok, out, lse,
                                     G, Qb, H, D, P, M, fused, s);
-  return launch_prefill<T, KV, 4>(q, k, v, ks, vs, pt, rl, ok, out, lse, G,
+  if (D <= 128)
+    return launch_prefill<T, KV, 4>(q, k, v, ks, vs, pt, rl, ok, out, lse,
+                                    G, Qb, H, D, P, M, fused, s);
+  return launch_prefill<T, KV, 8>(q, k, v, ks, vs, pt, rl, ok, out, lse, G,
                                   Qb, H, D, P, M, fused, s);
 }
 

@@ -47,6 +47,9 @@
 //           p.v (consecutive lanes on consecutive columns: coalesced).
 //   Each warp keeps an online softmax (running max m, denominator l, f32
 //   accumulator); the four warps' states merge through shared memory.
+// Head dims: D <= 256, in instances of DC = 1, 2, 4 or 8 output columns a
+// lane (D <= 32 DC); the query and merge arrays hold 128 columns up to
+// DC 4 and 256 at DC 8 (4 KB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +62,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kTile = 32;             // positions per warp tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;     // the TPU kernel's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -146,8 +149,9 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
                     int H, int D, int P, int M, float scale, int fused,
                     int vec) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  __shared__ float q_s[kMaxD];
-  __shared__ float part[kWarps][kMaxD + 2];   // acc[0..D), m, l per warp
+  constexpr int kD = DC < 8 ? 128 : kMaxD;    // the instance's widest D
+  __shared__ float q_s[kD];
+  __shared__ float part[kWarps][kD + 2];      // acc[0..D), m, l per warp
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -269,7 +273,10 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   if (D <= 64)
     return launch_dc<T, KV, 2>(q, k, v, ks, vs, pt, sl, out, B, H, D, P, M,
                                fused, s);
-  return launch_dc<T, KV, 4>(q, k, v, ks, vs, pt, sl, out, B, H, D, P, M,
+  if (D <= 128)
+    return launch_dc<T, KV, 4>(q, k, v, ks, vs, pt, sl, out, B, H, D, P, M,
+                               fused, s);
+  return launch_dc<T, KV, 8>(q, k, v, ks, vs, pt, sl, out, B, H, D, P, M,
                              fused, s);
 }
 

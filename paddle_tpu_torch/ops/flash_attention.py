@@ -44,11 +44,10 @@ bf16 bodies, which run on the tensor cores: the forward, dK/dV and dQ
 (``"fwd"``, ``"dkv"``, ``"dq"``).  In bf16 those round P and dS to bf16
 before their second product, so they match the plain version (which
 keeps them in f32) within the bf16 tolerance, not to f32 rounding.
-``FLASH_F32TC_STATS`` counts the launches of the f32 dK/dV and dQ
-bodies (``"dkv"``, ``"dq"``), which run on the tensor cores in 3xTF32:
-each f32 operand is split into a TF32 part and a TF32 residual and three
-TF32 products are summed in f32, about f32's accuracy (the f32 forward
-runs on the CUDA cores).
+``FLASH_F32TC_STATS`` counts the launches of the f32 bodies
+(``"fwd"``, ``"dkv"``, ``"dq"``), which run on the tensor cores in
+3xTF32: each f32 operand is split into a TF32 part and a TF32 residual
+and three TF32 products are summed in f32, about f32's accuracy.
 """
 from __future__ import annotations
 
@@ -70,8 +69,8 @@ NEG_INF = -1e30
 FLASH_ROUTE_STATS = {"fwd": 0, "dkv": 0, "dq": 0, "ref": 0}
 # launches of the tensor-core bodies (bf16 forward, dK/dV and dQ)
 FLASH_TC_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
-# launches of the f32 dK/dV and dQ bodies (tensor cores, 3xTF32)
-FLASH_F32TC_STATS = {"dkv": 0, "dq": 0}
+# launches of the f32 bodies (tensor cores, 3xTF32)
+FLASH_F32TC_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
 
 # the kernels hold a tile of up to 256 head columns in shared memory (the
 # route admits D <= 256, as the JAX package's does)
@@ -299,7 +298,7 @@ def _launch(name, dtype, ptrs, dims, scale, causal, dropout_p, seed):
     FLASH_ROUTE_STATS[name] += 1
     if dtype == torch.bfloat16:
         FLASH_TC_STATS[name] += 1
-    elif name in FLASH_F32TC_STATS:
+    else:
         FLASH_F32TC_STATS[name] += 1
 
 

@@ -57,7 +57,7 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT",
+__all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
            "STATS_MAX_PAGES", "STATS_PREFILL_ROWS",
            "paged_attention_ref", "paged_attention_cuda", "paged_attention",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
@@ -74,7 +74,10 @@ PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "cuda_decode": 0,
 # ``fused_dequant``): scales applied after the dots
 FUSED_DEQUANT = 1
 
-_MAX_HEAD_DIM = 128
+# the kernels' widest head: instances of 32, 64, 128 and 256 columns (the
+# flash kernels' bound too); the serving engine checks it when it is
+# built on the card
+MAX_HEAD_DIM = 256
 # the stats kernel compacts a lane's owned table entries into shared
 # memory: pages_per_seq (page_tables.shape[1]) is bounded
 STATS_MAX_PAGES = 4096
@@ -243,7 +246,7 @@ def _check_decode(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
 def _check_pools(q, k_pages, v_pages, k_scales, v_scales, index_tensors):
     """What both kernels take: pools [N, P, H, D] matching q's trailing
     (H, D), f32 or bf16 q with pools of its dtype or int8 with f32
-    [N, H] scales, D <= 128, one device, contiguous q, pools and
+    [N, H] scales, D <= 256, one device, contiguous q, pools and
     scales."""
     H, D = q.shape[-2:]
     if k_pages.shape != v_pages.shape or tuple(k_pages.shape[2:]) != (H, D):
@@ -269,8 +272,8 @@ def _check_pools(q, k_pages, v_pages, k_scales, v_scales, index_tensors):
         scales = (("k_scales", k_scales), ("v_scales", v_scales))
     elif k_scales is not None or v_scales is not None:
         raise ValueError("k_scales/v_scales belong to int8 pools only")
-    if D > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D} > {_MAX_HEAD_DIM} is not supported "
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM} is not supported "
                          "by the kernel")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     *index_tensors, *scales):
@@ -323,7 +326,7 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, seq_lens,
 
     Inputs must be contiguous CUDA tensors on one device (q [B, H, D] f32
     or bf16; pools of q's dtype, or int8 with f32 ``[N, H]`` scales;
-    D <= 128); page tables and lengths are cast to contiguous int32 here.
+    D <= 256); page tables and lengths are cast to contiguous int32 here.
     Raises when the launch is refused."""
     _check_decode(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
                   v_scales)
@@ -399,7 +402,7 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
     position's page scales, so a tile may span pages.
 
     Inputs must be contiguous CUDA tensors on one device (q f32 or bf16;
-    pools of q's dtype, or int8 with f32 ``[N, H]`` scales; D <= 128);
+    pools of q's dtype, or int8 with f32 ``[N, H]`` scales; D <= 256);
     page tables and lengths are cast to contiguous int32 here.  Raises
     when the launch is refused."""
     _check(q, k_pages, v_pages, page_tables, row_lens, k_scales, v_scales)

@@ -83,7 +83,7 @@ import torch
 from .. import resolve_device
 from ..framework.errors import (AlreadyExistsError, InternalError,
                                 InvalidArgumentError)
-from ..ops.paged_attention import PAGED_ROUTE_STATS
+from ..ops.paged_attention import MAX_HEAD_DIM, PAGED_ROUTE_STATS
 from ..ops.quantized_matmul import QMM_ROUTE_STATS
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
                                         EV_PREFILL_CHUNK, EV_SPECULATED)
@@ -232,6 +232,14 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"model weights are on {model.device} but the engine runs "
                 f"on {self.device} — build the model with the same device")
+        head_dim = int(model.wte.weight.shape[1]) // int(
+            model.layers[0].attn.num_heads)
+        if self.device.type == "cuda" and head_dim > MAX_HEAD_DIM:
+            # the paged kernels' widest head; a CUDA tensor has no plain
+            # fallback, so refuse here rather than on the first step
+            raise InvalidArgumentError(
+                f"head_dim {head_dim} > {MAX_HEAD_DIM} is not supported by "
+                f"the paged attention kernels on the card")
         self._mesh_layout = self._check_mesh_axes(mesh_axes, model)
         self.model = model
         self.page_size = int(page_size)

@@ -19,8 +19,8 @@ weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
 over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
 kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
 reference value) (f32 sums over up to 1024 keys or queries in another
-order, the f32 dK/dV and dQ in 3xTF32 on the tensor cores, about 2^-21
-of a product; in bf16 the outputs are rounded to 8 mantissa bits, and the
+order, the f32 bodies in 3xTF32 on the tensor cores, about 2^-21 of a
+product; in bf16 the outputs are rounded to 8 mantissa bits, and the
 three bodies, which run on the tensor cores, also round P and dS to bf16
 before their second product, where the plain version keeps them in f32
 — ``tests/test_torch_flash_tc_numerics.py`` shows on the CPU that this
@@ -48,6 +48,11 @@ from paddle_tpu_torch.ops import scale_shift as ss
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# head dims past 128, the D 256 instances of the paged kernels (DC 8): a
+# multiple of 16 (int8 rows in 16-byte loads), one that is not (D 200:
+# byte by byte), and the widest
+WIDE_SHAPES = [(3, 160, 16, 4), (2, 200, 8, 5), (2, 256, 16, 4)]
+WIDE_IDS = ["d160", "d200", "d256"]
 
 
 @pytest.fixture(autouse=True)
@@ -91,8 +96,10 @@ def _case(seed, G, Qb, H, D, P, M, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("Qb", [1, 3, 8, 64])
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
-                                     (4, 128, 16, 4), (3, 48, 5, 7)],
-                         ids=["test-shape", "gpt2", "d128", "odd"])
+                                     (4, 128, 16, 4), (3, 48, 5, 7)]
+                         + WIDE_SHAPES,
+                         ids=["test-shape", "gpt2", "d128", "odd"]
+                         + WIDE_IDS)
 def test_kernel_matches_plain_version(H, D, P, M, Qb, dtype):
     args = _case(0, 5, Qb, H, D, P, M, dtype)
     before = pa.PAGED_ROUTE_STATS["cuda"]
@@ -128,9 +135,9 @@ def _int8(args):
 @pytest.mark.parametrize("Qb", [1, 3, 8, 64])
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (4, 128, 16, 4), (3, 48, 5, 7),
-                                     (2, 20, 4, 5)],
+                                     (2, 20, 4, 5)] + WIDE_SHAPES,
                          ids=["test-shape", "gpt2", "d128", "odd",
-                              "bytewise-d20"])
+                              "bytewise-d20"] + WIDE_IDS)
 def test_int8_kernel_matches_plain_version(H, D, P, M, Qb, dtype, fused):
     q, kq, vq, pt, rl, ks, vs = _int8(_case(0, 5, Qb, H, D, P, M, dtype))
     before = dict(pa.PAGED_ROUTE_STATS)
@@ -223,9 +230,9 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
                           device="cuda")[..., ::2]      # same shape
     with pytest.raises(ValueError, match="contiguous"):
         pa.ragged_paged_attention(strided, *args[1:])
-    with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros(4, 1, 1, 160, device="cuda")
-        pools = torch.zeros(8, 4, 1, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 257 > 256"):
+        big = torch.zeros(4, 1, 1, 257, device="cuda")
+        pools = torch.zeros(8, 4, 1, 257, device="cuda")
         pa.ragged_paged_attention(big, pools, pools, args[3], args[4])
 
 
@@ -337,8 +344,8 @@ def _chunk_rows(seed, C, H, D, P, M, dtype):
 
 _DECODE_SHAPES = pytest.mark.parametrize(
     "H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8), (4, 128, 16, 4),
-                (3, 48, 5, 7), (2, 20, 4, 5)],
-    ids=["test-shape", "gpt2", "d128", "odd", "bytewise-d20"])
+                (3, 48, 5, 7), (2, 20, 4, 5)] + WIDE_SHAPES,
+    ids=["test-shape", "gpt2", "d128", "odd", "bytewise-d20"] + WIDE_IDS)
 
 
 def _decode_inputs(kind, H, D, P, M, dtype):
@@ -422,9 +429,9 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
         pa.paged_attention(q, kp, vp, pt.cpu(), sl)
     with pytest.raises(ValueError, match="k_scales"):
         pa.paged_attention(q, kq, vq, pt, sl)
-    with pytest.raises(ValueError, match="head_dim 160 > 128"):
-        big = torch.zeros(4, 1, 160, device="cuda")
-        pools = torch.zeros(8, 4, 1, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 257 > 256"):
+        big = torch.zeros(4, 1, 257, device="cuda")
+        pools = torch.zeros(8, 4, 1, 257, device="cuda")
         pa.paged_attention(big, pools, pools, pt, sl)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_attention_cuda(q.cpu(), kp.cpu(), vp.cpu(), pt.cpu(),
@@ -443,6 +450,46 @@ def _engine_case():
     prompts = [rng.randint(1, 64, (n,)).astype(np.int32)
                for n in (1, 3, 9, 17, 30)] + [np.tile(pat, 4)]
     return m, prompts
+
+
+def test_wide_head_engine_streams_equal_generate_on_the_card():
+    """A 2-layer GPT with head dim 256 (hidden 512 over 2 heads) through
+    the ragged engine, native and int8_static: every attention call on
+    the D 256 instances of #1 or #1q, streams equal to ``generate``
+    (``generate(quant=...)``); a head dim of 260 is refused when the
+    engine is built."""
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.slim import export_serving_quant
+    from paddle_tpu_torch.text.generation import generate
+    from paddle_tpu_torch.text.models import GPTModel
+
+    m = GPTModel(vocab_size=64, hidden_size=512, num_layers=2, num_heads=2,
+                 ffn_size=256, max_seq_len=128, device="cuda", seed=7)
+    rng = np.random.RandomState(2)
+    quant = export_serving_quant(m, calib_prompts=rng.randint(1, 64, (4, 24)))
+    prompts = [rng.randint(1, 64, (n,)).astype(np.int32)
+               for n in (1, 3, 9, 17, 30)]
+    for qs in (None, quant):
+        kw = {} if qs is None else dict(kv_cache_dtype="int8",
+                                        weight_dtype="int8", quant_scales=qs)
+        eng = create_serving_engine(m, page_size=4, max_batch_size=4,
+                                    prefill_chunk=8, eos_id=-1, **kw)
+        _zero_counts()
+        ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        outs = eng.drain()
+        dispatches = eng.stats()["metrics"]["ragged"]["steps"]
+        key = "cuda" if qs is None else "cuda_int8"
+        assert pa.PAGED_ROUTE_STATS == _counts(**{key: 2 * dispatches})
+        assert eng.cache.pages_in_use == 0
+        for p, rid in zip(prompts, ids):
+            want = generate(m, p[None], max_new_tokens=12, end_id=-1,
+                            quant=qs)[0][0].cpu().numpy()
+            np.testing.assert_array_equal(outs[rid], want)
+    wide = GPTModel(vocab_size=64, hidden_size=520, num_layers=1,
+                    num_heads=2, ffn_size=64, max_seq_len=32, device="cuda")
+    with pytest.raises(InvalidArgumentError, match="head_dim 260 > 256"):
+        create_serving_engine(wide, page_size=4, max_batch_size=2)
 
 
 @pytest.mark.parametrize("knobs", [
@@ -544,9 +591,9 @@ def _check_stats(o, lse, ref_o, ref_lse, rl, ok, dtype):
 @pytest.mark.parametrize("Qb", [1, 3, 8, 64])
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (6, 64, 16, 8), (4, 128, 16, 4),
-                                     (3, 48, 5, 7)],
+                                     (3, 48, 5, 7)] + WIDE_SHAPES,
                          ids=["test-shape", "gpt2", "gpt2-tp2", "d128",
-                              "odd"])
+                              "odd"] + WIDE_IDS)
 def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype, pattern):
     q, kp, vp, pt, rl = _case(0, 5, Qb, H, D, P, M, dtype)
     ok = _page_ok(pt, pattern=pattern)
@@ -567,9 +614,10 @@ def test_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype, pattern):
 @pytest.mark.parametrize("Qb", [1, 8, 17, 64])
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (6, 64, 16, 8), (3, 48, 5, 7),
-                                     (2, 20, 4, 5), (4, 128, 16, 4)],
+                                     (2, 20, 4, 5), (4, 128, 16, 4)]
+                         + WIDE_SHAPES,
                          ids=["test-shape", "gpt2", "gpt2-tp2", "odd",
-                              "bytewise-d20", "d128"])
+                              "bytewise-d20", "d128"] + WIDE_IDS)
 def test_int8_stats_kernel_matches_plain_version(H, D, P, M, Qb, dtype,
                                                  fused, pattern):
     q, kq, vq, pt, rl, ks, vs = _int8(_case(0, 5, Qb, H, D, P, M, dtype))
@@ -622,12 +670,13 @@ def test_int8_stats_kernel_nan_scale_reaches_exactly_its_readers(fused, Qb):
 @pytest.mark.parametrize("Qb", [pa.STATS_PREFILL_ROWS - 1,
                                 pa.STATS_PREFILL_ROWS, 17, 33, 64, 100])
 @pytest.mark.parametrize("H,D,P,M", [(6, 64, 16, 8), (6, 48, 16, 8),
-                                     (6, 128, 16, 4)],
-                         ids=["gpt2-tp2", "d48", "d128"])
+                                     (6, 128, 16, 4), (2, 256, 16, 4)],
+                         ids=["gpt2-tp2", "d48", "d128", "d256"])
 def test_stats_prefill_form_edges_match_plain_version(H, D, P, M, Qb,
                                                       pattern):
     """Row counts around the prefill form's threshold and past a whole
-    number of 16-row blocks, at the mesh drive's 6 heads, D 48 and 128:
+    number of 16-row blocks, at the mesh drive's 6 heads, D 48, 128 and
+    256:
     f32, bf16 and int8 (both dequant placements) against the plain
     version."""
     q, kp, vp, pt, rl = _case(6, 5, Qb, H, D, P, M, torch.float32)
@@ -663,9 +712,9 @@ def test_stats_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         pa.ragged_paged_attention_stats_cuda(q.cpu(), kp.cpu(), vp.cpu(),
                                              pt.cpu(), rl.cpu(), ok.cpu())
-    with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros(4, 1, 1, 160, device="cuda")
-        pools = torch.zeros(8, 4, 1, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 257 > 256"):
+        big = torch.zeros(4, 1, 1, 257, device="cuda")
+        pools = torch.zeros(8, 4, 1, 257, device="cuda")
         pa.ragged_paged_attention_stats(big, pools, pools, pt, rl, ok)
     wide = torch.zeros(4, pa.STATS_MAX_PAGES + 1, dtype=torch.int32,
                        device="cuda")
@@ -897,8 +946,8 @@ def test_bf16_flash_kernels_are_deterministic(p, dtype):
 
 def test_flash_tc_stats_count_the_tensor_core_launches():
     """FLASH_TC_STATS counts one launch of each bf16 body (forward, dK/dV
-    and dQ) and FLASH_F32TC_STATS one of each f32 dK/dV and dQ body (3xTF32
-    on the tensor cores); each dtype leaves the other's counts alone, and
+    and dQ) and FLASH_F32TC_STATS one of each f32 body (3xTF32 on the
+    tensor cores); each dtype leaves the other's counts alone, and
     FLASH_ROUTE_STATS counts every launch as before."""
     B, H, S, D = 1, 2, 128, 64
     for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
@@ -906,13 +955,14 @@ def test_flash_tc_stats_count_the_tensor_core_launches():
         lse = torch.zeros(B * H, S, 1, device="cuda")
         fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
         fa.FLASH_TC_STATS.update(fwd=0, dkv=0, dq=0)
-        fa.FLASH_F32TC_STATS.update(dkv=0, dq=0)
+        fa.FLASH_F32TC_STATS.update(fwd=0, dkv=0, dq=0)
         _flash_all(q, k, v, g, mask, 0, 0.125, True, 0.0, lse, lse)
         torch.cuda.synchronize()
         assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1,
                                         "ref": 0}
         assert fa.FLASH_TC_STATS == {"fwd": tc, "dkv": tc, "dq": tc}
-        assert fa.FLASH_F32TC_STATS == {"dkv": 1 - tc, "dq": 1 - tc}
+        assert fa.FLASH_F32TC_STATS == {"fwd": 1 - tc, "dkv": 1 - tc,
+                                        "dq": 1 - tc}
 
 
 def test_flash_autograd_on_the_card_matches_the_plain_route():
@@ -980,6 +1030,7 @@ def test_training_step_on_the_card_equals_the_cpu_step():
     res = chip_smoke.train_parity_phase(np.random.RandomState(3), cfg=cfg,
                                         batch=2, seq=256)
     assert res["card_counts"]["flash_fwd"] == 2
+    assert res["card_counts"]["flash_f32tc_fwd"] == 2
     assert res["card_counts"]["flash_f32tc_dkv"] == 2
     assert res["card_counts"]["flash_f32tc_dq"] == 2
     assert res["cpu_counts"]["flash_ref"] == 6

@@ -1,5 +1,5 @@
-"""The arithmetic of the f32 flash backward bodies that run on the tensor
-cores in 3xTF32 (dK/dV and dQ in ``paddle_tpu_torch/ops/csrc/
+"""The arithmetic of the f32 flash bodies that run on the tensor cores in
+3xTF32 (the forward, dK/dV and dQ in ``paddle_tpu_torch/ops/csrc/
 flash_attention.cu``, namespace ``f32tc``), emulated on the CPU and held
 against the JAX package's Pallas kernels.
 
@@ -24,10 +24,17 @@ kernels do, in torch on the CPU:
   queries or keys);
 - dK/dV: S = (K Q^T) scale, P = exp(S - lse), dP = V dO^T, P' and
   dS = P (dP' - delta) in f32, dV = P'^T dO, dK = (dS^T Q) scale;
-- dQ: S and dP the same way, dQ = (dS K) scale.
-The Pallas kernels (``_flash_dkv_bhsd``, ``_flash_dq_bhsd``, interpret
-mode, called directly as ``tests/test_torch_flash_attention.py`` calls
-them) compute in f32 throughout.
+- dQ: S and dP the same way, dQ = (dS K) scale;
+- forward: S = (Q K^T) scale the same way, then per tile of 32 keys the
+  online softmax (running max m, alpha = exp(m_old - m_new), the
+  denominator l = l alpha + the tile's row sums of P, the full mass),
+  P' = P dropped, P' split unrounded into big and small, the tile's P'V
+  chunks into a partial sum from zero and O = O alpha + partial in f32;
+  o = O / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+The Pallas kernels (``_flash_fwd_bhsd``, ``_flash_dkv_bhsd``,
+``_flash_dq_bhsd``, interpret mode, called directly as
+``tests/test_torch_flash_attention.py`` calls them) compute in f32
+throughout.
 
 Tolerances.  The card tests' f32 limit: 1e-4 times max(1, the largest
 reference value) (``chip_smoke.FLASH_TOL``), and each whole output within
@@ -36,9 +43,11 @@ L2 norm.  3xTF32 drops the small * small term and the residuals' bits
 past 11, about 2^-21 of a product (the unit test below), and the
 truncating accumulation adds about an f32 ulp of a partial sum a step;
 here that lands at most at 1.9e-6 in relative L2 (a fiftieth of the
-limit is asserted).  A one-pass TF32 product (big * big only) keeps 11
-bits and lands at 4.1e-4 to 5.9e-4, beyond the limit: the limit tells
-3xTF32 from TF32.  The limit leaves room for the card tests' single-key
+limit is asserted; the forward's o lands at most at 8.9e-7 and its lse
+within 1.7e-6 absolute, where 1e-4 is asserted).  A one-pass TF32
+product (big * big only) keeps 11 bits and lands at 4.1e-4 to 5.9e-4
+(the forward's o at 3.7e-4), beyond the limit: the limit tells 3xTF32
+from TF32.  The limit leaves room for the card tests' single-key
 cases, whose exact dK and dQ are 0, so that their rounding noise is
 measured against the rms floor ``chip_smoke.FLASH_REL_L2_FLOOR`` (the
 emulation puts them at up to 4.8e-5 at D 256, the card at up to 8.2e-5;
@@ -61,8 +70,13 @@ SEED = 4242
 # every tile of 32 queries (dK/dV) or keys (dQ), the kernels' tiles below
 # D 256
 FOLD_D, FOLD_TILE = 8, 4
+# keys a tile of the forward (32 below D 256): one online-softmax step
+# and one P'V partial sum each
+FWD_TILE = 32
 F32_TOL = chip_smoke.FLASH_TOL[torch.float32]
 REL_L2 = chip_smoke.FLASH_REL_L2[torch.float32]
+# lse against the Pallas forward's, absolute (the card tests' limit)
+LSE_TOL = 1e-4
 
 
 def tf32_rna(x):
@@ -110,8 +124,9 @@ def mm(a, b, fold, passes=3):
     return total
 
 
-def _probs_and_ds(q, k, v, g, lse, delta, mask, scale, causal, p, passes):
-    """P', dS = P (dP' - delta), from S and dP as the bodies form them."""
+def _masked_scores(q, k, mask, scale, causal, passes):
+    """S = (Q K^T) scale as the bodies form it, masked to NEG_INF; and the
+    global (row, col) index grids."""
     s = mm(q, k.transpose(-1, -2), FOLD_D, passes) * scale
     rows = torch.arange(q.shape[2])[:, None]
     cols = torch.arange(k.shape[2])[None, :]
@@ -119,13 +134,51 @@ def _probs_and_ds(q, k, v, g, lse, delta, mask, scale, causal, p, passes):
         s = torch.where(rows >= cols, s, torch.full_like(s, tfa.NEG_INF))
     valid = mask.reshape(q.shape[0], 1, 1, -1) > 0
     s = torch.where(valid, s, torch.full_like(s, tfa.NEG_INF))
+    return s, rows, cols
+
+
+def _keep(q, rows, cols, p):
+    bh = torch.arange(q.shape[0] * q.shape[1]).reshape(
+        q.shape[0], q.shape[1], 1, 1)
+    return tfa._keep_mask(SEED, bh, rows, cols, p)
+
+
+def f32tc_fwd(q, k, v, mask, scale, causal, p, passes=3):
+    """The 3xTF32 forward's arithmetic: (o, lse [B·H, Sq, 1]) in f32.
+    Tiles a causal block skips would leave m, l and O as they are (their
+    scores are NEG_INF, their P exactly 0), so every tile runs here."""
+    s, rows, cols = _masked_scores(q, k, mask, scale, causal, passes)
+    keep = _keep(q, rows, cols, p) if p > 0 else None
+    inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    m = torch.full(s.shape[:3] + (1,), tfa.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    for k0 in range(0, k.shape[2], FWD_TILE):
+        st = s[..., k0:k0 + FWD_TILE]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(st - m_new)
+        l = l * alpha + pr.sum(dim=-1, keepdim=True)
+        if keep is not None:
+            pr = torch.where(keep[..., k0:k0 + FWD_TILE], pr * inv,
+                             torch.zeros_like(pr))
+        part = mm(pr, v[..., k0:k0 + FWD_TILE, :].contiguous(),
+                  FWD_TILE // 8, passes)
+        o = o * alpha + part
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    lse = (m + torch.log(l_safe)).reshape(q.shape[0] * q.shape[1], -1, 1)
+    return o / l_safe, lse
+
+
+def _probs_and_ds(q, k, v, g, lse, delta, mask, scale, causal, p, passes):
+    """P', dS = P (dP' - delta), from S and dP as the bodies form them."""
+    s, rows, cols = _masked_scores(q, k, mask, scale, causal, passes)
     pr = torch.exp(s - lse.reshape(s.shape[:3] + (1,)))
     dp = mm(g, v.transpose(-1, -2), FOLD_D, passes)
     p_v = pr
     if p > 0:
-        bh = torch.arange(q.shape[0] * q.shape[1]).reshape(
-            q.shape[0], q.shape[1], 1, 1)
-        keep = tfa._keep_mask(SEED, bh, rows, cols, p)
+        keep = _keep(q, rows, cols, p)
         inv = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
         p_v = torch.where(keep, pr * inv, torch.zeros_like(pr))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
@@ -150,8 +203,8 @@ def f32tc_dq(q, k, v, g, lse, delta, mask, scale, causal, p, passes=3):
 
 
 def _pallas_case(D, causal, variant, seed):
-    """Seeded f32 inputs and the Pallas kernels' dk, dv and dq (with the
-    Pallas forward's lse and delta), all as CPU tensors."""
+    """Seeded f32 inputs and the Pallas kernels' o and lse, and dk, dv and
+    dq (with the Pallas forward's lse and delta), all as CPU tensors."""
     rng = np.random.RandomState(seed)
     q, k, v, g = (rng.randn(B, H, S, D).astype(np.float32) for _ in range(4))
     mask = np.ones((B, 1, S), np.float32)
@@ -177,7 +230,8 @@ def _pallas_case(D, causal, variant, seed):
 
     inputs = (t(q), t(k), t(v), t(g), t(lse), t(delta), t(mask), scale,
               causal, p)
-    return inputs, {"dk": t(dk), "dv": t(dv), "dq": t(dq)}
+    return inputs, {"dk": t(dk), "dv": t(dv), "dq": t(dq), "o": t(o),
+                    "lse": t(lse)}
 
 
 def _emulate(inputs, passes=3):
@@ -206,6 +260,40 @@ def test_3xtf32_fits_the_f32_limits(D, causal, variant):
         rel = chip_smoke.flash_rel_l2(got[name], want[name])
         assert err <= F32_TOL, f"{name}: max_abs_err {err} of the scale"
         assert 0 < rel <= REL_L2 / 50, f"{name}: relative L2 {rel}"
+
+
+def _fwd_inputs(inputs):
+    """The forward's arguments out of a backward case's."""
+    q, k, v, _, _, _, mask, scale, causal, p = inputs
+    return q, k, v, mask, scale, causal, p
+
+
+@pytest.mark.parametrize("variant", ["plain", "mask_dropout"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D", [64, 100])
+def test_3xtf32_forward_fits_the_f32_limits(D, causal, variant):
+    """o in 3xTF32 within the card tests' f32 max-abs limit and a fiftieth
+    of the f32 relative L2 limit of the Pallas forward, and off it (the
+    rounding is real); lse within LSE_TOL."""
+    inputs, want = _pallas_case(D, causal, variant, 5 * D + causal)
+    o, lse = f32tc_fwd(*_fwd_inputs(inputs))
+    err = _max_err(o, want["o"])
+    rel = chip_smoke.flash_rel_l2(o, want["o"])
+    assert err <= F32_TOL, f"o: max_abs_err {err} of the scale"
+    assert 0 < rel <= REL_L2 / 50, f"o: relative L2 {rel}"
+    lse_err = float((lse - want["lse"]).abs().max())
+    assert lse_err <= LSE_TOL, f"lse: max_abs_err {lse_err}"
+
+
+def test_one_pass_tf32_forward_fails_the_f32_l2_limit():
+    """The forward with one TF32 product a chunk (big * big) misses the
+    f32 relative L2 limit on o: the limit has teeth for it too."""
+    inputs, want = _pallas_case(64, True, "mask_dropout", 11)
+    three, _ = f32tc_fwd(*_fwd_inputs(inputs))
+    one, _ = f32tc_fwd(*_fwd_inputs(inputs), passes=1)
+    assert chip_smoke.flash_rel_l2(three, want["o"]) <= REL_L2
+    rel = chip_smoke.flash_rel_l2(one, want["o"])
+    assert rel > REL_L2, f"o: one-pass TF32 at relative L2 {rel}"
 
 
 def test_one_pass_tf32_fails_the_f32_l2_limit():
