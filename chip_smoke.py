@@ -13,15 +13,19 @@ Phases, one result line each (or more):
 2. kernel: the ragged paged-attention kernel against its plain PyTorch
    version on the card, in f32 (and once in bf16), at the test shapes and
    at GPT-2-small shapes, with mixed row lengths (empty rows, rows
-   shorter than their lane, lengths that are not page multiples), and at
-   head dims 128, 160 and 256 (f32 and bf16).  Timed (GPT-2-small and
+   shorter than their lane, lengths that are not page multiples), at
+   head dims 128, 160 and 256 (f32 and bf16), and at its two forms'
+   edges: 15, 16 and 17 rows a lane (the decode form below 16, the
+   prefill form from 16) and a 4100-page table.  Timed (GPT-2-small and
    D 256 shapes) with CUDA events beside the plain version and the
-   ``scaled_dot_product_attention`` yardstick over the gathered dense KV.
+   ``scaled_dot_product_attention`` yardstick over the gathered dense KV;
+   every lane of a timed case launched alone bit-equal to the same lane
+   in the batch (``lane_equal_alone``).
 3. kernel_int8: the same kernel's int8 body (int8 pools, [N, H] f32
    scales) in both ``fused_dequant`` settings, f32 q (and once bf16 q),
    at the same shapes, plus a NaN in one K scale row (non-finite exactly
    on the rows that read it); timed beside its plain version and SDPA
-   over the dequantized dense KV.
+   over the dequantized dense KV; lanes alone bit-equal as in phase 2.
 4. kernel_qmm: the weight-only int8 matmul against its plain version at
    GPT-2-small's weight shapes (q/k/v/out 768x768, fc1 768x3072, fc2
    3072x768) and an odd edge shape, M in {1, 8, 16, 17, 37, 72, 512}
@@ -73,7 +77,9 @@ Phases, one result line each (or more):
    its table row), rows at head dims 128, 160 and 256 (f32 and bf16),
    both ``fused_dequant`` settings and a NaN scale row;
    timed beside its bound, the plain version, SDPA over the gathered
-   dense KV and the ragged kernel at one row per lane on the same inputs.
+   dense KV and the ragged kernel at one row per lane on the same inputs;
+   every row of a timed case launched alone bit-equal to the same row in
+   the batch.  (It runs on the ragged kernel's decode form.)
 12. e2e_split: the requests of phase 5 through the split programs —
    ``ragged=False`` pipelined and synchronous, ``fused_steps=4``, and
    ``ragged=False`` with int8 KV and weights and phase 6's export; every
@@ -144,7 +150,9 @@ Phases, one result line each (or more):
    reported near-tie, no page leaked.
 
 Every failure raises (nonzero exit).  The last three lines of standard
-output are the card's name and power limit, the kernel record and
+output are the card's name and power limit, the kernel record (with each
+paged kernel's forms: the decode form's cluster, warps and rows, and the
+prefill form) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
 nonzero before printing a result.
 """
@@ -322,6 +330,19 @@ WIDE_LANES = dict(G=4, H=4, P=16, M=16, lane_lens=[0, 37, 130, 256],
 LONG_DECODE = [0, 1, 17, 100, 255, 512, 777, 1024]
 LONG_PREFILL = dict(lane_lens=[0, 63, 130, 250, 401, 600, 900, 1024],
                     row_gaps={1: range(40, 64), 3: [5, 6, 7]})
+# the forms' edges, from a generator of their own seed: GPT-2-small lanes at
+# 15, 16 and 17 rows (the last decode-form row tile, the first prefill-form
+# block, one row past it), and a page table wider than the stats kernel's
+# 4096 pages (#1 has no such limit) at one row and at 16
+EDGE_CASES = [
+    (f"gpt2_qb{Qb}", dict(G=8, Qb=Qb, H=12, D=64, P=16, M=64,
+                          lane_lens=LONG_PREFILL["lane_lens"],
+                          row_gaps={3: [5, 6, 7]}))
+    for Qb in (15, 16, 17)] + [
+    (f"wide_table_qb{Qb}", dict(G=3, Qb=Qb, H=2, D=64, P=1, M=4100,
+                                lane_lens=[0, 4100, 2501]))
+    for Qb in (1, 16)]
+EDGE_SEED = 12
 ATTN_CASES = [("test", dict(G=3, Qb=Qb, H=2, D=16, P=4, M=5,
                             lane_lens=[0, 7, 19], row_gaps={2: [0]}))
               for Qb in (1, 3, 8)] + [
@@ -334,7 +355,7 @@ ATTN_CASES = [("test", dict(G=3, Qb=Qb, H=2, D=16, P=4, M=5,
     ("d256_decode", dict(G=8, Qb=1, H=8, D=256, P=16, M=64,
                          lane_lens=LONG_DECODE)),
     ("d256_prefill", dict(G=8, Qb=64, H=8, D=256, P=16, M=64,
-                          **LONG_PREFILL))]
+                          **LONG_PREFILL))] + EDGE_CASES
 TIMED = ("gpt2_decode", "gpt2_prefill", "d256_decode", "d256_prefill")
 # cases from this head dim on run in bf16 too (the int8 phase: bf16 q),
 # as gpt2_decode does, and draw from a generator of their own seed
@@ -342,12 +363,16 @@ WIDE_D, WIDE_SEED = 128, 11
 
 
 def case_rngs(rng):
-    """The generator each case of a phase draws its inputs from: ``rng``,
-    or, from head dim WIDE_D on, one of WIDE_SEED, so that the other cases
-    and the phases after them see the draws they saw before the wide
-    cases existed."""
+    """The generator each case of a phase draws its inputs from, by name
+    and shape: ``rng``, or, from head dim WIDE_D on, one of WIDE_SEED, and
+    for EDGE_CASES one of EDGE_SEED, so that the other cases and the
+    phases after them see the draws they saw before those cases
+    existed."""
     wide = np.random.RandomState(WIDE_SEED)
-    return lambda kw: wide if kw["D"] >= WIDE_D else rng
+    edge = np.random.RandomState(EDGE_SEED)
+    edges = {name for name, _ in EDGE_CASES}
+    return lambda name, kw: (edge if name in edges
+                             else wide if kw["D"] >= WIDE_D else rng)
 
 
 def _tag(name, kw, dtype):
@@ -368,6 +393,26 @@ def _check_close(phase, tag, out, ref, row_lens, tol, **extra):
     return err
 
 
+def lane_equal_alone(fn, args, **kw) -> bool:
+    """Whether each lane (each row, for the per-row kernel) launched alone
+    gives the bits it gives inside ``args``'s batch: q, the page table and
+    the lengths (args 0, 3 and 4 of both layouts) cut to that lane, the
+    pools and scales as they are."""
+    full = fn(*args, **kw)
+    for g in range(args[0].shape[0]):
+        one = fn(*(a[g:g + 1] if i in (0, 3, 4) else a
+                   for i, a in enumerate(args)), **kw)
+        if not torch.equal(one[0], full[g]):
+            return False
+    return True
+
+
+def _require_lane_equal(phase, tag, t):
+    if not t["lane_equal_alone"]:
+        raise AssertionError(f"{phase}: a lane of {tag} launched alone "
+                             "differs from the same lane in the batch")
+
+
 def kernel_phase(rng, flush) -> dict:
     from paddle_tpu_torch.ops import paged_attention as pa
 
@@ -377,7 +422,7 @@ def kernel_phase(rng, flush) -> dict:
     checked = {}
     rng_of = case_rngs(rng)
     for name, kw, dtype in runs:
-        args = make_case(rng_of(kw), dtype=dtype, **kw)
+        args = make_case(rng_of(name, kw), dtype=dtype, **kw)
         out = pa.ragged_paged_attention_cuda(*args)
         torch.cuda.synchronize()
         ref = pa.ragged_paged_attention_ref(
@@ -403,10 +448,13 @@ def kernel_phase(rng, flush) -> dict:
              "plain_ms": time_ms(
                  lambda: pa.ragged_paged_attention_ref(*args), flush),
              "library_ms": time_ms(
-                 lambda: sdpa(q_d, k_d, v_d, attn_mask=mask), flush)}
+                 lambda: sdpa(q_d, k_d, v_d, attn_mask=mask), flush),
+             "lane_equal_alone": lane_equal_alone(
+                 pa.ragged_paged_attention_cuda, args)}
         t["bound_ms"], t["bound_by"] = bound_ms(args[0], args[1], args[3],
                                                 args[4])
         log("kernel_time", case=tag, **t)
+        _require_lane_equal("kernel", tag, t)
         timings[tag] = t
     return timings
 
@@ -439,7 +487,7 @@ def int8_kernel_phase(rng, flush) -> dict:
     checked = {}
     rng_of = case_rngs(rng)
     for name, kw, dtype, fused in runs:
-        q, kp, vp, pt, rl = make_case(rng_of(kw), dtype=dtype, **kw)
+        q, kp, vp, pt, rl = make_case(rng_of(name, kw), dtype=dtype, **kw)
         kq, vq, ks, vs = quantize_pools(kp, vp)
         args = (q, kq, vq, pt, rl, ks, vs)
         out = pa.ragged_paged_attention_cuda(*args, fused_dequant=fused)
@@ -499,9 +547,13 @@ def int8_kernel_phase(rng, flush) -> dict:
                  "plain_ms": time_ms(
                      lambda: pa.ragged_paged_attention_ref(*args), flush),
                  "library_ms": time_ms(
-                     lambda: sdpa(q_d, k_d, v_d, attn_mask=mask), flush)}
+                     lambda: sdpa(q_d, k_d, v_d, attn_mask=mask), flush),
+                 "lane_equal_alone": lane_equal_alone(
+                     pa.ragged_paged_attention_cuda, args,
+                     fused_dequant=fused)}
             t["bound_ms"], t["bound_by"] = bound_ms(q, kq, pt, rl)
             log("kernel_int8_time", case=tag, **t)
+            _require_lane_equal("kernel_int8", tag, t)
             timings[tag] = t
     return timings
 
@@ -584,11 +636,12 @@ def rows_bound_ms(q, k_pages, page_tables, seq_lens):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _decode_timings(pa, tag, args, kernel, plain, err, flush):
+def _decode_timings(pa, tag, args, kernel, plain, err, flush, fused=1):
     """One timed case of the per-row kernel: its time beside its bound,
     the plain version, SDPA over each row's gathered dense KV, and the
     ragged kernel on the same inputs at one row per lane (and, for a
-    shared table row, as one lane of B rows)."""
+    shared table row, as one lane of B rows); each row launched alone
+    bit-equal to the same row in the batch."""
     q, kp, vp, pt, sl = args[:5]
     scales = args[5:]
     if scales:
@@ -609,8 +662,12 @@ def _decode_timings(pa, tag, args, kernel, plain, err, flush):
         t["ragged_one_lane_ms"] = time_ms(
             lambda: pa.ragged_paged_attention_cuda(
                 q[None], kp, vp, pt[:1], sl[None], *scales), flush)
+    t["lane_equal_alone"] = lane_equal_alone(
+        pa.paged_attention_cuda, args,
+        **({"fused_dequant": fused} if scales else {}))
     t["bound_ms"], t["bound_by"] = rows_bound_ms(q, kp, pt, sl)
     log("kernel_decode_time", case=tag, **t)
+    _require_lane_equal("kernel_decode", tag, t)
     return t
 
 
@@ -627,7 +684,7 @@ def decode_kernel_phase(rng, flush) -> dict:
                   if name == "gpt2_decode" or kw["D"] >= WIDE_D
                   else (torch.float32,))
         for dtype in dtypes:
-            args = make_rows(rng_of(kw), dtype=dtype, **kw)
+            args = make_rows(rng_of(name, kw), dtype=dtype, **kw)
             dt = str(dtype).split(".")[-1]
             ref = pa.paged_attention_ref(
                 *(a.float() if a.is_floating_point() else a for a in args))
@@ -701,7 +758,7 @@ def decode_kernel_phase(rng, flush) -> dict:
                 pa, itag, iargs,
                 lambda: pa.paged_attention_cuda(*iargs,
                                                 fused_dequant=fused),
-                lambda: pa.paged_attention_ref(*iargs), err, flush)
+                lambda: pa.paged_attention_ref(*iargs), err, flush, fused)
     return timings
 
 
@@ -850,7 +907,7 @@ def stats_kernel_phase(rng, flush) -> dict:
     rng_of = case_rngs(rng)
     for name, kw in STATS_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, pt, rl = make_case(rng_of(kw), dtype=dtype, **kw)
+            q, kp, vp, pt, rl = make_case(rng_of(name, kw), dtype=dtype, **kw)
             ok = stats_page_ok(pt)
             dt = str(dtype).split(".")[-1]
             args = (q, kp, vp, pt, rl, ok)
@@ -2530,6 +2587,39 @@ def lenet_phase(device="cuda") -> dict:
     return res
 
 
+# the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
+# kernel
+PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
+                "in 4 groups of 64 threads, tiles of 64 positions (32 at "
+                "D > 64) staged once a block by cp.async into a two-stage "
+                "ring, S = QK^T and O += PV in 4 x 4 register micro-tiles; "
+                "#1 walks the lane's table, #3 its owned pages")
+
+
+def decode_form(D, item, Qb, M, P) -> dict:
+    """The decode form's layout for a call, as the kernel library reports
+    it (``ptt_paged_decode_layout``), held against the wrappers' twin
+    ``decode_form_layout``."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.load_library("paged_attention").ptt_paged_decode_layout(
+        D, item, Qb, M, P, *map(ctypes.byref, vals))
+    got = tuple(v.value for v in vals)
+    if got != pa.decode_form_layout(D, item, Qb, M, P):
+        raise AssertionError(f"decode form layout {got} != the wrappers' "
+                             f"{pa.decode_form_layout(D, item, Qb, M, P)}")
+    cs, warps, rows = got
+    return {"form": "decode", "D": D, "pool_item_bytes": item, "Qb": Qb,
+            "M": M, "P": P, "cluster_ctas": cs, "warps_per_cta": warps,
+            "rows_per_cta": rows,
+            "grid": f"(G x {cs}, H, ceil(Qb / {rows}))",
+            "block_threads": 32 * warps}
+
+
 def record(name, source, replaces, launches, t, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2648,7 +2738,14 @@ def main(argv=None) -> int:
                bf16_max_abs_err=native_t["bf16_max_abs_err"],
                d256_decode=native_t["d256_decode/float32/Qb1"],
                d256_prefill=native_t["d256_prefill/float32/Qb64"],
-               launches_d256=wide["native"]["attention_cuda"]),
+               launches_d256=wide["native"]["attention_cuda"],
+               prefill=native_t["gpt2_prefill/float32/Qb64"],
+               forms={"decode": decode_form(64, 4, 1, 64, 16),
+                      "decode_d256": decode_form(256, 4, 1, 64, 16),
+                      "prefill": PREFILL_FORM},
+               lane_equal_alone={k: v["lane_equal_alone"]
+                                 for k, v in native_t.items()
+                                 if isinstance(v, dict)}),
         record("ragged_paged_attention_int8",
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:461",
@@ -2660,7 +2757,13 @@ def main(argv=None) -> int:
                d256_decode=int8_t["d256_decode/float32/Qb1/fused_dequant=1"],
                d256_prefill=int8_t[
                    "d256_prefill/float32/Qb64/fused_dequant=1"],
-               launches_d256=wide["int8_static"]["attention_cuda_int8"]),
+               launches_d256=wide["int8_static"]["attention_cuda_int8"],
+               forms={"decode": decode_form(64, 1, 1, 64, 16),
+                      "decode_d256": decode_form(256, 1, 1, 64, 16),
+                      "prefill": PREFILL_FORM},
+               lane_equal_alone={k: v["lane_equal_alone"]
+                                 for k, v in int8_t.items()
+                                 if isinstance(v, dict)}),
         record("quantized_matmul",
                "paddle_tpu_torch/ops/csrc/quantized_matmul.cu",
                "paddle_tpu/ops/pallas_ops/quantized_matmul.py:104",
@@ -2701,7 +2804,14 @@ def main(argv=None) -> int:
                d256_decode=decode_t["d256_decode/float32"],
                bf16_max_abs_err=decode_t["bf16_max_abs_err"],
                launches_by_drive={k: v["attention_cuda_decode"]
-                                  for k, v in split.items()}),
+                                  for k, v in split.items()},
+               forms={"decode": decode_form(64, 4, 1, 64, 16),
+                      "decode_d256": decode_form(256, 4, 1, 64, 16),
+                      "is": "#1's decode form at one row a lane (G = B, "
+                            "Qb = 1, row_lens = seq_lens)"},
+               lane_equal_alone={k: v["lane_equal_alone"]
+                                 for k, v in decode_t.items()
+                                 if isinstance(v, dict)}),
         record("paged_attention_int8",
                "paddle_tpu_torch/ops/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:173",
@@ -2715,7 +2825,10 @@ def main(argv=None) -> int:
                d256_decode=decode_t[
                    "d256_decode/float32/int8/fused_dequant=1"],
                launches_spec_int8_dynamic=report["e2e_spec"][
-                   "ragged_int8_dynamic"]["attention_cuda_decode_int8"]),
+                   "ragged_int8_dynamic"]["attention_cuda_decode_int8"],
+               forms={"decode": decode_form(64, 1, 1, 64, 16),
+                      "decode_d256": decode_form(256, 1, 1, 64, 16),
+                      "is": "#1q's decode form at one row a lane"}),
         record("ragged_paged_attention_stats",
                "paddle_tpu_torch/ops/csrc/paged_attention_stats.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:681",

@@ -31,9 +31,15 @@ _GLOBAL_MESH: Optional["Mesh"] = None
 
 
 def _real_devices(device_type: Optional[str]) -> List[torch.device]:
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    if device_type == "cuda":
+    """Every device of ``device_type``: None means the CUDA cards, as for
+    every entry point of the port (``paddle_tpu_torch.resolve_device``),
+    and raises without one; the CPU only when the caller names it."""
+    if device_type is None or device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the mesh's devices are the CUDA cards, but "
+                "torch.cuda.is_available() is False — pass "
+                "device_type='cpu' to build a mesh on the CPU")
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     if device_type == "cpu":
@@ -43,8 +49,8 @@ def _real_devices(device_type: Optional[str]) -> List[torch.device]:
 
 
 def _device_slots(device_type: Optional[str] = None) -> List[torch.device]:
-    """The mesh's device slots: every CUDA card (``device_type`` None with
-    a card present, or ``"cuda"``), else the CPU — or, after
+    """The mesh's device slots: every CUDA card (``device_type`` None or
+    ``"cuda"``; raises without one), or the CPU (``"cpu"``) — or, after
     :func:`force_device_count`, that many slots round-robin over them."""
     real = _real_devices(device_type)
     if _FORCED is None or not real:

@@ -1,10 +1,13 @@
-// The prefill form of the stats kernel (bodies #3 / #3q for Qb >= 16
-// rows a lane), for NVIDIA Hopper (sm_90a), and the stats form's launcher,
-// which picks it or the warp form of paged_attention.cuh by Qb.  It
-// computes what paged_attention.cuh's stats form computes (the context
+// The prefill form of the paged kernels (Qb >= 16 rows a lane: the stats
+// kernel's bodies #3 / #3q and the ragged kernel's #1 / #1q), for NVIDIA
+// Hopper (sm_90a), and the launchers that pick a form by Qb: the stats
+// form's (this form or the warp form of paged_attention.cuh) and the
+// ragged kernel's (this form or the decode form).  It computes what
+// paged_attention.cuh describes: for the stats kernel (kOwned) the context
 // over the visible owned positions, lse = m + log(l), -1e30 and exact
-// zeros for a row with nothing visible; fused_dequant as described
-// there).
+// zeros for a row with nothing visible; for #1 the context over every
+// position below a row's length, exact zeros for a row with nothing
+// visible; fused_dequant as described there.
 //
 // What bounds it on an H100.  A prefill row tile does 4*D flops per
 // position and row, and its K/V bytes are shared by every row of the
@@ -36,6 +39,8 @@
 //     conflicts;
 //   - runs the online softmax with one running max and denominator a row,
 //     a row on 16 lanes of one warp (reductions by 4 shuffles).
+// Without kOwned (#1) the walk is the lane's table below the block's
+// horizon, one position per table position, and M is not bounded.
 // Head dims: D <= 256 in instances of DC = 1, 2, 4 or 8 (D <= 32 DC).
 // Tiles hold TK = 64 compacted positions up to DC 2, 32 at DC 4 and
 // kPfTk8 at DC 8, where a 32-position f32 ring takes 165 KB: one block an
@@ -82,25 +87,6 @@ struct PfCfg {
   // resident blocks an SM the launch bounds ask for
   static constexpr int kMinBlocks = DC == 8 && TK == 32 ? 1 : 2;
 };
-
-// to_f32 of paged_attention.cuh for int8 pools
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-
-// async copies; src_size 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // the block's shared memory: raw K/V rings (bf16, int8), then f32, then
 // the 8-byte pool offsets, then ints (the compacted list last, [M] x 2)
@@ -161,18 +147,18 @@ struct PfSmem {
   }
 };
 
-template <typename T, typename KV, int DC>
-__global__ void __launch_bounds__(kPfThreads, PfCfg<DC>::kMinBlocks)
-stats_prefill_kernel(const T* __restrict__ q,
-                     const KV* __restrict__ k_pages,
-                     const KV* __restrict__ v_pages,
-                     const float* __restrict__ k_scales,
-                     const float* __restrict__ v_scales,
-                     const int* __restrict__ page_tables,
-                     const int* __restrict__ row_lens,
-                     const int* __restrict__ page_ok, T* __restrict__ out,
-                     float* __restrict__ lse, int Qb, int H, int D, int P,
-                     int M, float scale, int fused, int vec) {
+// The form's body.  kOwned (the stats kernel, #3 / #3q) walks the owned
+// positions and writes lse; without it (#1 / #1q, Qb >= 16) the walk is
+// the lane's table below the block's horizon, no page_ok is read, no
+// owned list is built or allocated and no lse is written.
+template <typename T, typename KV, int DC, bool kOwned>
+__device__ __forceinline__ void prefill_body(
+    const T* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ page_tables,
+    const int* __restrict__ row_lens, const int* __restrict__ page_ok,
+    T* __restrict__ out, float* __restrict__ lse, int Qb, int H, int D,
+    int P, int M, float scale, int fused, int vec) {
   using C = PfCfg<DC>;
   using SM = PfSmem<KV, DC>;
   constexpr int TK = C::TK, LD = C::LD, RT = kPrefillRows;
@@ -180,7 +166,7 @@ stats_prefill_kernel(const T* __restrict__ q,
   constexpr bool kF32 = SM::kF32;
   constexpr int kNoPos = 0x7fffffff;
   extern __shared__ __align__(16) unsigned char pf_smem[];
-  SM sm(pf_smem, D, M);
+  SM sm(pf_smem, D, kOwned ? M : 0);
 
   const int g = blockIdx.x;
   const int h = blockIdx.y;
@@ -192,12 +178,13 @@ stats_prefill_kernel(const T* __restrict__ q,
   const int tg = tid & 63;         // its thread in the group
   const int cap = M * P;
   const int* pt_g = page_tables + (size_t)g * M;
-  const int* ok_g = page_ok + (size_t)g * M;
+  const int* ok_g = kOwned ? page_ok + (size_t)g * M : nullptr;
 
   // the lane's first table entries into L1 while the rows load: the
   // ownership scan below then finds them there
   if (tid < M) {
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(ok_g + tid));
+    if constexpr (kOwned)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(ok_g + tid));
     asm volatile("prefetch.global.L1 [%0];" ::"l"(pt_g + tid));
   }
   if (tid < RT) {
@@ -229,8 +216,10 @@ stats_prefill_kernel(const T* __restrict__ q,
   int horizon = 0;
 #pragma unroll
   for (int r = 0; r < RT; ++r) horizon = max(horizon, sm.rl[r]);
-  const int n_walk = own_list<kPfThreads>(pt_g, ok_g, horizon, P, sm.own_m,
-                                          sm.own_page, sm.wsum);
+  int n_walk = horizon;
+  if constexpr (kOwned)
+    n_walk = own_list<kPfThreads>(pt_g, ok_g, horizon, P, sm.own_m,
+                                  sm.own_page, sm.wsum);
   const int n_tiles = (n_walk + TK - 1) / TK;
 
   // tile t's metadata into slot t & 1: a thread a compacted position
@@ -243,8 +232,13 @@ stats_prefill_kernel(const T* __restrict__ q,
       if (c < n_walk) {
         const int e = c / P;
         const int slot = c - e * P;
-        page = sm.own_page[e];
-        p = sm.own_m[e] * P + slot;
+        if constexpr (kOwned) {
+          page = sm.own_page[e];
+          p = sm.own_m[e] * P + slot;
+        } else {
+          page = pt_g[e];
+          p = c;
+        }
         o = ((long long)page * P + slot) * H * D + (long long)h * D;
       }
       sm.pos[at] = p;
@@ -580,7 +574,7 @@ stats_prefill_kernel(const T* __restrict__ q,
     sm.m_fin[srow] = m_run;
     sm.l_fin[srow] = l_run;
     const int row = r0 + srow;
-    if (row < Qb)
+    if (kOwned && row < Qb)
       lse[((size_t)g * Qb + row) * H + h] =
           l_run > 0.f ? m_run + logf(l_run) : kNegInf;
   }
@@ -610,29 +604,102 @@ stats_prefill_kernel(const T* __restrict__ q,
 }
 
 template <typename T, typename KV, int DC>
+__global__ void __launch_bounds__(kPfThreads, PfCfg<DC>::kMinBlocks)
+stats_prefill_kernel(const T* __restrict__ q,
+                     const KV* __restrict__ k_pages,
+                     const KV* __restrict__ v_pages,
+                     const float* __restrict__ k_scales,
+                     const float* __restrict__ v_scales,
+                     const int* __restrict__ page_tables,
+                     const int* __restrict__ row_lens,
+                     const int* __restrict__ page_ok, T* __restrict__ out,
+                     float* __restrict__ lse, int Qb, int H, int D, int P,
+                     int M, float scale, int fused, int vec) {
+  prefill_body<T, KV, DC, true>(q, k_pages, v_pages, k_scales, v_scales,
+                                page_tables, row_lens, page_ok, out, lse, Qb,
+                                H, D, P, M, scale, fused, vec);
+}
+
+// #1 / #1q at Qb >= 16: the same form over the lane's whole table
+template <typename T, typename KV, int DC>
+__global__ void __launch_bounds__(kPfThreads, PfCfg<DC>::kMinBlocks)
+ragged_prefill_kernel(const T* __restrict__ q,
+                      const KV* __restrict__ k_pages,
+                      const KV* __restrict__ v_pages,
+                      const float* __restrict__ k_scales,
+                      const float* __restrict__ v_scales,
+                      const int* __restrict__ page_tables,
+                      const int* __restrict__ row_lens, T* __restrict__ out,
+                      int Qb, int H, int D, int P, int M, float scale,
+                      int fused, int vec) {
+  prefill_body<T, KV, DC, false>(q, k_pages, v_pages, k_scales, v_scales,
+                                 page_tables, row_lens, nullptr, out,
+                                 nullptr, Qb, H, D, P, M, scale, fused, vec);
+}
+
+template <typename T, typename KV, int DC, bool kOwned>
 int launch_prefill(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* pt,
                    const void* rl, const void* ok, void* out, void* lse,
                    int G, int Qb, int H, int D, int P, int M, int fused,
                    cudaStream_t stream) {
-  const size_t smem = PfSmem<KV, DC>::bytes(D, M);
+  const size_t smem = PfSmem<KV, DC>::bytes(D, kOwned ? M : 0);
   const int vec = (D * (int)sizeof(KV)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  auto kern = stats_prefill_kernel<T, KV, DC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)G, (unsigned)H,
                   (unsigned)((Qb + kPrefillRows - 1) / kPrefillRows));
-  kern<<<grid, kPfThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(rl), static_cast<const int*>(ok),
-      static_cast<T*>(out), static_cast<float*>(lse), Qb, H, D, P, M,
-      1.0f / sqrtf((float)D), fused, vec);
+  const float scale = 1.0f / sqrtf((float)D);
+  cudaError_t err;
+  if constexpr (kOwned) {
+    auto kern = stats_prefill_kernel<T, KV, DC>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kPfThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const KV*>(k),
+        static_cast<const KV*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(pt),
+        static_cast<const int*>(rl), static_cast<const int*>(ok),
+        static_cast<T*>(out), static_cast<float*>(lse), Qb, H, D, P, M,
+        scale, fused, vec);
+  } else {
+    auto kern = ragged_prefill_kernel<T, KV, DC>;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, kPfThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const KV*>(k),
+        static_cast<const KV*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(pt),
+        static_cast<const int*>(rl), static_cast<T*>(out), Qb, H, D, P, M,
+        scale, fused, vec);
+  }
   return (int)cudaGetLastError();
+}
+
+// the prefill form's launcher by head dim
+template <typename T, typename KV, bool kOwned>
+int launch_prefill_d(const void* q, const void* k, const void* v,
+                     const void* ks, const void* vs, const void* pt,
+                     const void* rl, const void* ok, void* out, void* lse,
+                     int G, int Qb, int H, int D, int P, int M, int fused,
+                     void* stream) {
+  if (G <= 0 || H <= 0 || P <= 0 || M <= 0 || D <= 0 || D > kMaxD ||
+      H > 65535 || Qb > kPrefillRows * 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32)
+    return launch_prefill<T, KV, 1, kOwned>(q, k, v, ks, vs, pt, rl, ok, out,
+                                            lse, G, Qb, H, D, P, M, fused, s);
+  if (D <= 64)
+    return launch_prefill<T, KV, 2, kOwned>(q, k, v, ks, vs, pt, rl, ok, out,
+                                            lse, G, Qb, H, D, P, M, fused, s);
+  if (D <= 128)
+    return launch_prefill<T, KV, 4, kOwned>(q, k, v, ks, vs, pt, rl, ok, out,
+                                            lse, G, Qb, H, D, P, M, fused, s);
+  return launch_prefill<T, KV, 8, kOwned>(q, k, v, ks, vs, pt, rl, ok, out,
+                                          lse, G, Qb, H, D, P, M, fused, s);
 }
 
 // the stats form's launcher: Qb >= kPrefillRows rows a lane take the
@@ -647,23 +714,26 @@ int launch_stats(const void* q, const void* k, const void* v,
                  void* stream) {
   if (M > kStatsMaxPages) return (int)cudaErrorInvalidValue;
   if (Qb < kPrefillRows)
-    return launch<T, KV, true>(q, k, v, ks, vs, pt, rl, ok, out, lse, G, Qb,
-                               H, D, P, M, fused, stream);
-  if (G <= 0 || H <= 0 || P <= 0 || M <= 0 || D <= 0 || D > kMaxD ||
-      H > 65535 || Qb > kPrefillRows * 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32)
-    return launch_prefill<T, KV, 1>(q, k, v, ks, vs, pt, rl, ok, out, lse,
-                                    G, Qb, H, D, P, M, fused, s);
-  if (D <= 64)
-    return launch_prefill<T, KV, 2>(q, k, v, ks, vs, pt, rl, ok, out, lse,
-                                    G, Qb, H, D, P, M, fused, s);
-  if (D <= 128)
-    return launch_prefill<T, KV, 4>(q, k, v, ks, vs, pt, rl, ok, out, lse,
-                                    G, Qb, H, D, P, M, fused, s);
-  return launch_prefill<T, KV, 8>(q, k, v, ks, vs, pt, rl, ok, out, lse, G,
-                                  Qb, H, D, P, M, fused, s);
+    return launch_warp<T, KV>(q, k, v, ks, vs, pt, rl, ok, out, lse, G, Qb, H,
+                              D, P, M, fused, stream);
+  return launch_prefill_d<T, KV, true>(q, k, v, ks, vs, pt, rl, ok, out, lse,
+                                       G, Qb, H, D, P, M, fused, stream);
+}
+
+// #1 / #1q: lanes of Qb >= kPrefillRows rows take the prefill form over
+// the lane's whole table (no page limit), fewer the decode form of
+// paged_attention.cuh
+template <typename T, typename KV>
+int launch_ragged(const void* q, const void* k, const void* v,
+                  const void* ks, const void* vs, const void* pt,
+                  const void* rl, void* out, int G, int Qb, int H, int D,
+                  int P, int M, int fused, void* stream) {
+  if (Qb < kPrefillRows)
+    return launch_decode<T, KV>(q, k, v, ks, vs, pt, rl, out, G, Qb, H, D, P,
+                                M, fused, stream);
+  return launch_prefill_d<T, KV, false>(q, k, v, ks, vs, pt, rl, nullptr,
+                                        out, nullptr, G, Qb, H, D, P, M,
+                                        fused, stream);
 }
 
 }  // namespace

@@ -92,9 +92,14 @@ def _case(seed, G, Qb, H, D, P, M, dtype):
             torch.from_numpy(pt).to(dev), torch.from_numpy(rl).to(dev))
 
 
+# rows a lane: the decode form up to 15 (1, 4 or 8 rows a CTA), the
+# prefill form from 16 (STATS_PREFILL_ROWS)
+RAGGED_QB = [1, 3, 8, 15, 16, 17, 64]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("Qb", [1, 3, 8, 64])
+@pytest.mark.parametrize("Qb", RAGGED_QB)
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (4, 128, 16, 4), (3, 48, 5, 7)]
                          + WIDE_SHAPES,
@@ -132,7 +137,7 @@ def _int8(args):
 @pytest.mark.parametrize("fused", [1, 0], ids=["fused", "unfused"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("Qb", [1, 3, 8, 64])
+@pytest.mark.parametrize("Qb", RAGGED_QB)
 @pytest.mark.parametrize("H,D,P,M", [(2, 16, 4, 6), (12, 64, 16, 8),
                                      (4, 128, 16, 4), (3, 48, 5, 7),
                                      (2, 20, 4, 5)] + WIDE_SHAPES,
@@ -200,6 +205,118 @@ def test_qmm_kernel_matches_plain_version(K, N, M, dtype):
     # prefill form from 17; 72 is 8 decode rows beside a 64-row chunk)
     one = qm.quantized_matmul(x[M // 2:M // 2 + 1].contiguous(), wq, ws)
     assert torch.equal(one[0], out[M // 2])
+
+
+def _lanes_case(seed, lane_lens, Qb, H, D, P, M, dtype):
+    """Lanes of the given lengths (a prefill staircase of Qb rows), each
+    on its own pages, random content in the trash page 0."""
+    rng = np.random.RandomState(seed)
+    G = len(lane_lens)
+    N = 1 + G * M
+    perm = rng.permutation(np.arange(1, N))
+    pt = np.zeros((G, M), np.int32)
+    for g, n in enumerate(lane_lens):
+        k = -(-n // P)
+        pt[g, :k] = perm[g * M:g * M + k]
+    rl = np.array([[max(n - (Qb - 1 - r), 0) for r in range(Qb)]
+                   for n in lane_lens], np.int32)
+    q, kp, vp = (torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+                 for a in (rng.randn(G, Qb, H, D), rng.randn(N, P, H, D),
+                           rng.randn(N, P, H, D)))
+    return q, kp, vp, torch.from_numpy(pt).cuda(), torch.from_numpy(rl).cuda()
+
+
+def _check_ragged(args, fused=1):
+    quant = args[1].dtype == torch.int8
+    kw = {"fused_dequant": fused} if quant else {}
+    out = pa.ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    q = args[0].float()
+    ref = pa.ragged_paged_attention_ref(
+        q, *(a.float() if a.is_floating_point() and not quant else a
+             for a in args[1:]))
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=TOL[args[0].dtype])
+    assert (out[args[4] == 0] == 0).all()
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("Qb", [1, 16])
+def test_kernel_takes_a_table_wider_than_the_stats_limit(Qb, quant):
+    """#1 has no page-table limit: 4100 one-position pages a lane (the
+    stats kernel stops at STATS_MAX_PAGES = 4096)."""
+    args = _lanes_case(4, [0, 4100, 2501, 4097], Qb, 2, 64, 1, 4100,
+                       torch.float32)
+    assert args[3].shape[1] > pa.STATS_MAX_PAGES
+    _check_ragged(_int8(args) if quant else args)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("Qb", [1, 8, 15])
+@pytest.mark.parametrize("D", [64, 256])
+def test_decode_form_lanes_of_length_0_and_1_in_a_cluster(D, Qb, quant):
+    """A 1024-position table splits each lane's walk over a cluster of 2
+    to 4 CTAs: lanes of 0 and 1 positions leave all but rank 0's first
+    warp (or all) idle, and still merge to exact zeros and to the one
+    visible value."""
+    args = _lanes_case(5, [0, 1, 1024, 33, 1, 0], Qb, 4, D, 16, 64,
+                       torch.float32)
+    assert pa.decode_form_layout(D, 1 if quant else 4, Qb, 64, 16)[0] > 1
+    out = _check_ragged(_int8(args) if quant else args)
+    assert (out[0] == 0).all() and (out[5] == 0).all()
+
+
+def _lane_alone_equal(fn, args, **kw):
+    full = fn(*args, **kw)
+    for g in range(args[0].shape[0]):
+        one = fn(*(a[g:g + 1] if i in (0, 3, 4) else a
+                   for i, a in enumerate(args)), **kw)
+        assert torch.equal(one[0], full[g]), g
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("Qb", [1, 8, 16, 64])
+@pytest.mark.parametrize("D", [64, 256])
+def test_a_lane_alone_equals_the_lane_in_its_batch(D, Qb, quant):
+    """Batch invariance, bit for bit: the decode form's split and the
+    prefill form's walk depend on the lane's own rows, never on the
+    other lanes of the launch (#1 and #1q)."""
+    args = _lanes_case(6, [0, 1, 17, 300, 777, 1024], Qb, 4, D, 16, 64,
+                       torch.float32)
+    if quant:
+        args = _int8(args)
+    _lane_alone_equal(pa.ragged_paged_attention_cuda, args,
+                      **({"fused_dequant": 1} if quant else {}))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_a_row_alone_equals_the_row_in_its_batch(D, quant):
+    """The same for the per-row kernel (#2 and #2q)."""
+    args = _rows(_lanes_case(7, [0, 1, 17, 300, 777, 1024], 1, 4, D, 16,
+                             64, torch.float32))
+    if quant:
+        q, kq, vq, pt, sl, ks, vs = _int8(args)
+        args = (q, kq, vq, pt, sl, ks, vs)
+    _lane_alone_equal(pa.paged_attention_cuda, args,
+                      **({"fused_dequant": 0} if quant else {}))
+
+
+def test_decode_form_layout_matches_the_library():
+    import ctypes
+    import itertools
+
+    from paddle_tpu_torch.ops import _build
+
+    fn = _build.load_library("paged_attention").ptt_paged_decode_layout
+    for D, item, Qb, M, P in itertools.product(
+            [1, 32, 33, 64, 128, 129, 256], [1, 2, 4], [1, 2, 4, 5, 15],
+            [1, 3, 64, 4100], [1, 16]):
+        vals = [ctypes.c_int() for _ in range(3)]
+        assert fn(D, item, Qb, M, P, *map(ctypes.byref, vals)) == 0
+        assert tuple(v.value for v in vals) == pa.decode_form_layout(
+            D, item, Qb, M, P)
 
 
 def test_int8_and_qmm_wrappers_reject_what_the_kernels_do_not_take():
