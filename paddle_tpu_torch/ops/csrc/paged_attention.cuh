@@ -279,22 +279,18 @@ __device__ __forceinline__ int own_list(const int* __restrict__ pt_g,
 
 // The stats kernel's warp form.  KV is T (f32 / bf16 pools) or int8_t
 // (pools with [N, H] scales); it reads the page_ok mask [G, M] and writes
-// the lse output [G, Qb, H].  kStats is true in every instance (#1 and #2
-// take the decode form below); the parameter keeps the instances' names.
-template <typename T, typename KV, int RB, int DC, bool kStats>
+// the lse output [G, Qb, H].
+template <typename T, typename KV, int RB, int DC>
 __global__ void __launch_bounds__(kWarps * 32)
-ragged_paged_attention_kernel(const T* __restrict__ q,
-                              const KV* __restrict__ k_pages,
-                              const KV* __restrict__ v_pages,
-                              const float* __restrict__ k_scales,
-                              const float* __restrict__ v_scales,
-                              const int* __restrict__ page_tables,
-                              const int* __restrict__ row_lens,
-                              const int* __restrict__ page_ok,
-                              T* __restrict__ out, float* __restrict__ lse,
-                              int Qb, int H, int D, int P, int M, float scale,
-                              int fused, int vec) {
-  static_assert(kStats, "the warp form serves the stats kernel only");
+stats_warp_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                  const KV* __restrict__ v_pages,
+                  const float* __restrict__ k_scales,
+                  const float* __restrict__ v_scales,
+                  const int* __restrict__ page_tables,
+                  const int* __restrict__ row_lens,
+                  const int* __restrict__ page_ok, T* __restrict__ out,
+                  float* __restrict__ lse, int Qb, int H, int D, int P, int M,
+                  float scale, int fused, int vec) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   // DC 8: K and V take turns in one tile a warp (the header note)
   constexpr bool kShareKV = DC == 8;
@@ -552,7 +548,7 @@ int launch_rb(const void* q, const void* k, const void* v, const void* ks,
   const int vec = kQuant && D % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  auto kern = ragged_paged_attention_kernel<T, KV, RB, DC, true>;
+  auto kern = stats_warp_kernel<T, KV, RB, DC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -620,9 +616,12 @@ int launch_warp(const void* q, const void* k, const void* v, const void* ks,
 //     tile t of the lane's walk goes to worker t mod (CS * W), worker
 //     w = rank * W + warp.  Which tiles a warp takes is a function of the
 //     lane's own horizon, so a lane's bits do not depend on its batch.
-//     Every CTA of every cluster costs launch time whether it has work or
-//     not, so CS is sized for a few tiles a warp (decode_tiles_per_worker),
-//     not one;
+//     CS is sized for a few tiles a warp of a full table
+//     (decode_tiles_per_worker), not one.  Rank r walks tiles from r * W
+//     on, so a lane of n tiles keeps the first ceil(n / W) CTAs busy; the
+//     others leave at once (with the cluster's two barriers when a peer
+//     merges, else before any), and a lane of at most W tiles never
+//     touches the cluster: rank 0 writes its CTA's state;
 //   - a warp stages its tile's K and V rows by 16-byte cp.async as raw
 //     bytes (f32, bf16 or int8) and pipelines its tiles: the next tile's
 //     page lookups go out while this one is scored, its K copy once this
@@ -637,7 +636,9 @@ int launch_warp(const void* q, const void* k, const void* v, const void* ks,
 //     states in shared memory, then rank 0 merges the CTAs' states through
 //     distributed shared memory (cluster.map_shared_rank) between two
 //     cluster barriers and writes the output: no scratch in device memory,
-//     no second launch.
+//     no second launch.  Ranks without a tile hold m = -1e30, l = 0 and
+//     acc = 0, which add exact zeros, so leaving them out of the merge
+//     changes no bit.
 // Int8 pools: each lane holds its position's page scales; fused_dequant
 // 1 scales the score by K's and p by V's (not the denominator), 0 scales
 // each element of K and V as it is read.  A position a row does not see
@@ -661,11 +662,18 @@ __host__ __device__ constexpr int decode_warps(bool f32, int DC) {
 __host__ __device__ constexpr bool decode_share_kv(bool f32) { return f32; }
 
 // 32-position tiles of a full table a warp is sized to take (so a lane's
-// walk is split over fewer CTAs when each does more): f32 4, else 2.  A
-// launch of many lanes pays for every CTA of every cluster, a launch of a
-// few long lanes for the tiles a warp walks in turn.
+// walk is split over fewer CTAs when each does more): f32 4, else 2
+// (tools/paged_decode_probe.py times other counts by setting these).  A
+// launch of many long lanes pays for every busy CTA, a launch of a few
+// long lanes for the tiles a warp walks in turn.
+#ifndef PTT_DECODE_TILES_F32
+#define PTT_DECODE_TILES_F32 4
+#endif
+#ifndef PTT_DECODE_TILES
+#define PTT_DECODE_TILES 2
+#endif
 __host__ __device__ constexpr int decode_tiles_per_worker(bool f32) {
-  return f32 ? 4 : 2;
+  return f32 ? PTT_DECODE_TILES_F32 : PTT_DECODE_TILES;
 }
 
 template <typename KV, int DC>
@@ -852,6 +860,16 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
     rl[r] = len;
     horizon = max(horizon, len);
   }
+  // the CTAs with a tile to walk (rank 0 always: it writes the output)
+  const int n_tiles = (horizon + kTile - 1) / kTile;
+  const int busy = max(1, min(CS, (n_tiles + W - 1) / W));
+  if (rank >= busy) {
+    if (busy > 1) {                     // the busy ranks' two barriers
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < RB * DP; i += W * 32) {
     const int r = i / DP;
     const int d = i - r * DP;
@@ -860,6 +878,17 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
                  ? to_f32(q[(((size_t)g * Qb + row) * H + h) * D + d]) * scale
                  : 0.f;
   }
+  // a row's output from its merged state; an empty row has l == 0 and
+  // acc == 0: exact zeros, as on the TPU
+  auto write_row = [&](int row, const float* o, float lsum) {
+    const float denom = fmaxf(lsum, 1e-30f);
+    T* dst = out + (((size_t)g * Qb + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = lane * DC + c;
+      if (d < D) store(dst + d, o[c] / denom);
+    }
+  };
 
   float m[RB], l[RB], acc[RB][DC];
 #pragma unroll
@@ -879,7 +908,6 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
       stage_bytes(pages, from, dst, RS, D, lane);
     }
   };
-  const int n_tiles = (horizon + kTile - 1) / kTile;
   if (t < n_tiles) {                    // warp-uniform
     if (t * kTile + lane >= horizon) src = -1;
     stage(k_pages, src, k_t);
@@ -1046,6 +1074,11 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
 #pragma unroll
       for (int c = 0; c < DC; ++c) o[c] += e[lane * DC + c] * sc;
     }
+    if (busy == 1) {                    // the lane's state: write it
+      const int row = r0 + r;
+      if (row < Qb) write_row(row, o, lsum);
+      continue;
+    }
     float* dst = cta + r * LDP;
 #pragma unroll
     for (int c = 0; c < DC; ++c) dst[lane * DC + c] = o[c];
@@ -1054,8 +1087,9 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
       dst[DP + 1] = lsum;
     }
   }
+  if (busy == 1) return;
 
-  // rank 0 merges the cluster's CTA states, in rank order, through
+  // rank 0 merges the busy CTAs' states, in rank order, through
   // distributed shared memory; the second barrier keeps every CTA's
   // shared memory alive until it has read them
   cluster.sync();
@@ -1064,26 +1098,19 @@ ragged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
       const int row = r0 + r;
       if (row >= Qb) continue;
       float mx = kNegInf;
-      for (int b = 0; b < CS; ++b)
+      for (int b = 0; b < busy; ++b)
         mx = fmaxf(mx, cluster.map_shared_rank(cta, b)[r * LDP + DP]);
       float lsum = 0.f, o[DC];
 #pragma unroll
       for (int c = 0; c < DC; ++c) o[c] = 0.f;
-      for (int b = 0; b < CS; ++b) {
+      for (int b = 0; b < busy; ++b) {
         const float* e = cluster.map_shared_rank(cta, b) + r * LDP;
         const float sc = expf(e[DP] - mx);
         lsum += e[DP + 1] * sc;
 #pragma unroll
         for (int c = 0; c < DC; ++c) o[c] += e[lane * DC + c] * sc;
       }
-      // an empty row has l == 0 and acc == 0: exact zeros, as on the TPU
-      const float denom = fmaxf(lsum, 1e-30f);
-      T* dst = out + (((size_t)g * Qb + row) * H + h) * D;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane * DC + c;
-        if (d < D) store(dst + d, o[c] / denom);
-      }
+      write_row(row, o, lsum);
     }
   }
   cluster.sync();
@@ -1118,7 +1145,7 @@ int launch_decode_rb(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = CS > 1;                // one CTA: no cluster launch
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const float*>(ks),

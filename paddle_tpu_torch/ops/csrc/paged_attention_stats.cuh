@@ -621,6 +621,7 @@ stats_prefill_kernel(const T* __restrict__ q,
 }
 
 // #1 / #1q at Qb >= 16: the same form over the lane's whole table
+// (page_ok and lse are not read: null)
 template <typename T, typename KV, int DC>
 __global__ void __launch_bounds__(kPfThreads, PfCfg<DC>::kMinBlocks)
 ragged_prefill_kernel(const T* __restrict__ q,
@@ -629,9 +630,10 @@ ragged_prefill_kernel(const T* __restrict__ q,
                       const float* __restrict__ k_scales,
                       const float* __restrict__ v_scales,
                       const int* __restrict__ page_tables,
-                      const int* __restrict__ row_lens, T* __restrict__ out,
-                      int Qb, int H, int D, int P, int M, float scale,
-                      int fused, int vec) {
+                      const int* __restrict__ row_lens,
+                      const int* __restrict__ page_ok, T* __restrict__ out,
+                      float* __restrict__ lse, int Qb, int H, int D, int P,
+                      int M, float scale, int fused, int vec) {
   prefill_body<T, KV, DC, false>(q, k_pages, v_pages, k_scales, v_scales,
                                  page_tables, row_lens, nullptr, out,
                                  nullptr, Qb, H, D, P, M, scale, fused, vec);
@@ -649,32 +651,23 @@ int launch_prefill(const void* q, const void* k, const void* v,
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const dim3 grid((unsigned)G, (unsigned)H,
                   (unsigned)((Qb + kPrefillRows - 1) / kPrefillRows));
-  const float scale = 1.0f / sqrtf((float)D);
-  cudaError_t err;
-  if constexpr (kOwned) {
-    auto kern = stats_prefill_kernel<T, KV, DC>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, kPfThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const KV*>(k),
-        static_cast<const KV*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(pt),
-        static_cast<const int*>(rl), static_cast<const int*>(ok),
-        static_cast<T*>(out), static_cast<float*>(lse), Qb, H, D, P, M,
-        scale, fused, vec);
-  } else {
-    auto kern = ragged_prefill_kernel<T, KV, DC>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<grid, kPfThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const KV*>(k),
-        static_cast<const KV*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(pt),
-        static_cast<const int*>(rl), static_cast<T*>(out), Qb, H, D, P, M,
-        scale, fused, vec);
-  }
+  // the stats kernel's wrapper or #1's; only the one picked is built
+  auto kern = [] {
+    if constexpr (kOwned)
+      return stats_prefill_kernel<T, KV, DC>;
+    else
+      return ragged_prefill_kernel<T, KV, DC>;
+  }();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kPfThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pt),
+      static_cast<const int*>(rl), static_cast<const int*>(ok),
+      static_cast<T*>(out), static_cast<float*>(lse), Qb, H, D, P, M,
+      1.0f / sqrtf((float)D), fused, vec);
   return (int)cudaGetLastError();
 }
 

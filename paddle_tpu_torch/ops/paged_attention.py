@@ -35,7 +35,8 @@ the shards merge in lse space without NaN.
   CPU tensor runs the plain version.  There is no other branch and no
   fallback on the card.  The per-row kernel and the ragged kernel's
   lanes of fewer than 16 rows share one decode form (each lane's walk
-  split over a thread-block cluster, :func:`decode_form_layout`); the
+  split over a thread-block cluster, whose size the kernel library
+  reports through ``ptt_paged_decode_layout``); the
   ragged kernel's prefill chunks (16 rows or more) and the stats kernel's
   share one prefill form.
 - :func:`paged_attention_ref` / :func:`ragged_paged_attention_ref` /
@@ -62,8 +63,7 @@ import math
 import torch
 
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
-           "STATS_MAX_PAGES", "STATS_PREFILL_ROWS", "DECODE_TILE",
-           "DECODE_MAX_CLUSTER", "decode_form_layout",
+           "STATS_MAX_PAGES", "STATS_PREFILL_ROWS",
            "paged_attention_ref", "paged_attention_cuda", "paged_attention",
            "ragged_paged_attention_ref", "ragged_paged_attention_cuda",
            "ragged_paged_attention", "ragged_paged_attention_stats_ref",
@@ -89,30 +89,6 @@ STATS_MAX_PAGES = 4096
 # lanes of at least this many rows take the prefill form (the stats
 # kernel's and the ragged kernel's), fewer the decode form
 STATS_PREFILL_ROWS = 16
-# the decode form: positions a warp tile, CTAs a lane's cluster at most
-DECODE_TILE = 32
-DECODE_MAX_CLUSTER = 8
-
-
-def decode_form_layout(D: int, item: int, Qb: int, M: int, P: int):
-    """The decode form's layout for a call — the twin of
-    ``decode_layout`` in ``csrc/paged_attention.cuh``: ``(cluster, warps,
-    rows)``, the CTAs a (lane, head, row tile)'s walk is split over, a
-    CTA's warps and its rows.  ``item`` is the pools' element size in
-    bytes.  A CTA's warps are sized to take 4 tiles of a full table each
-    for f32 pools and 2 for bf16 and int8 ones.  The layout depends on
-    D, the pools' type, the Qb bucket and the table's capacity M * P only
-    — never on the batch — and tile t of a
-    lane's walk goes to worker t mod (cluster * warps) (rank = worker //
-    warps, warp = worker % warps), so a lane's result does not depend on
-    the other lanes of the launch."""
-    f32 = item == 4
-    warps = 2 if f32 and D > 128 else 4
-    tiles = -(-M * P // DECODE_TILE)
-    per = warps * (4 if f32 else 2)         # tiles of a full table a warp
-    cluster = max(1, min(-(-tiles // per), DECODE_MAX_CLUSTER))
-    rows = 1 if Qb <= 1 else 4 if Qb <= 4 else 8
-    return cluster, warps, rows
 # (library, q dtype, int8 pools) -> C entry point
 _KERNEL_FNS = {
     ("paged_attention", torch.float32, False):
@@ -352,9 +328,9 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, seq_lens,
     Qb = 1, ``seq_lens`` as the row lengths).  The kernel is bound by
     bytes: a row does 4·D flops per K/V position it reads, far under the
     H100's flop-per-byte balance.  Each (row, head)'s walk of its pages
-    below its length is split over a thread-block cluster
-    (:func:`decode_form_layout`); rows that share a table row (a prefill
-    chunk) each read the pages again, out of L2.
+    below its length is split over a thread-block cluster; rows that
+    share a table row (a prefill chunk) each read the pages again, out of
+    L2.
 
     Inputs must be contiguous CUDA tensors on one device (q [B, H, D] f32
     or bf16; pools of q's dtype, or int8 with f32 ``[N, H]`` scales;
@@ -426,9 +402,9 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
     ``STATS_PREFILL_ROWS`` (decode lanes, spec verify): the decode form,
     bound by bytes (a decode row does 4·D flops per K/V position it
     streams), which reads each visible page once per (lane, head, tile of
-    up to 8 rows), split over a thread-block cluster of up to 8 CTAs
-    (:func:`decode_form_layout`), whose rank 0 merges the CTAs' softmax
-    states through distributed shared memory.  Prefill chunks: the stats
+    up to 8 rows), split over a thread-block cluster of up to 8 CTAs,
+    whose rank 0 merges the CTAs' softmax states through distributed
+    shared memory.  Prefill chunks: the stats
     kernel's prefill form over the lane's whole table, bound by f32
     operations: 16 rows a block, each tile of 64 positions (32 at D > 64)
     staged once by ``cp.async`` into a two-stage ring, S = QKᵀ and

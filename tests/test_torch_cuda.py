@@ -252,6 +252,19 @@ def test_kernel_takes_a_table_wider_than_the_stats_limit(Qb, quant):
     _check_ragged(_int8(args) if quant else args)
 
 
+def _decode_layout(D, item, Qb, M, P):
+    """The decode form's (cluster, warps, rows) for a call, from the
+    kernel library (``ptt_paged_decode_layout``, the launch's own rule)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+
+    vals = [ctypes.c_int() for _ in range(3)]
+    fn = _build.load_library("paged_attention").ptt_paged_decode_layout
+    assert fn(D, item, Qb, M, P, *map(ctypes.byref, vals)) == 0
+    return tuple(v.value for v in vals)
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("Qb", [1, 8, 15])
 @pytest.mark.parametrize("D", [64, 256])
@@ -262,7 +275,7 @@ def test_decode_form_lanes_of_length_0_and_1_in_a_cluster(D, Qb, quant):
     visible value."""
     args = _lanes_case(5, [0, 1, 1024, 33, 1, 0], Qb, 4, D, 16, 64,
                        torch.float32)
-    assert pa.decode_form_layout(D, 1 if quant else 4, Qb, 64, 16)[0] > 1
+    assert _decode_layout(D, 1 if quant else 4, Qb, 64, 16)[0] > 1
     out = _check_ragged(_int8(args) if quant else args)
     assert (out[0] == 0).all() and (out[5] == 0).all()
 
@@ -304,19 +317,25 @@ def test_a_row_alone_equals_the_row_in_its_batch(D, quant):
 
 
 def test_decode_form_layout_matches_the_library():
-    import ctypes
+    """The library's layouts: at a 1024-position table the clusters the
+    CPU emulation (tests/test_torch_paged_forms.py) deals tiles over —
+    4 tiles of a full table a warp for f32 pools, 2 for bf16 and int8 —
+    rows a CTA by the Qb bucket, one CTA for a small table, at most 8
+    whatever the table."""
     import itertools
 
-    from paddle_tpu_torch.ops import _build
-
-    fn = _build.load_library("paged_attention").ptt_paged_decode_layout
+    for (D, item), want in {(64, 4): (2, 4), (64, 2): (4, 4),
+                            (64, 1): (4, 4), (256, 4): (4, 2),
+                            (256, 1): (4, 4)}.items():
+        for Qb, rows in ((1, 1), (2, 4), (4, 4), (5, 8), (15, 8)):
+            assert _decode_layout(D, item, Qb, 64, 16) == want + (rows,)
+        assert _decode_layout(D, item, 1, 5, 4)[0] == 1
+        assert _decode_layout(D, item, 1, 4100, 16)[0] == 8
     for D, item, Qb, M, P in itertools.product(
             [1, 32, 33, 64, 128, 129, 256], [1, 2, 4], [1, 2, 4, 5, 15],
             [1, 3, 64, 4100], [1, 16]):
-        vals = [ctypes.c_int() for _ in range(3)]
-        assert fn(D, item, Qb, M, P, *map(ctypes.byref, vals)) == 0
-        assert tuple(v.value for v in vals) == pa.decode_form_layout(
-            D, item, Qb, M, P)
+        cs, warps, rows = _decode_layout(D, item, Qb, M, P)
+        assert 1 <= cs <= 8 and warps in (2, 4) and rows in (1, 4, 8)
 
 
 def test_int8_and_qmm_wrappers_reject_what_the_kernels_do_not_take():

@@ -13,9 +13,11 @@ The emulation does what the kernels do, in torch on the CPU:
   worker t mod (CS * W), rank worker // W of the lane's cluster of CS
   CTAs and warp worker % W of that CTA, each worker with its own running
   state; each CTA merges its warps' states in warp order, then rank 0
-  merges the CTAs' states in rank order.  CS, W and the rows a CTA come
-  from ``paged_attention.decode_form_layout`` (the twin of the kernel's
-  own, which a card test holds to it);
+  merges the states of the CTAs that had a tile (the first
+  ceil(tiles / W)) in rank order.  The emulation takes any (CS, W); the
+  kernel library picks them (``ptt_paged_decode_layout``, which a card
+  test pins), and a row's arithmetic does not depend on the rows a CTA
+  takes (1, 4 or 8);
 - the prefill form without the ownership list (16 rows or more): blocks
   of 16 rows walk the lane's table below their longest row in tiles of
   64 positions (32 at D > 64), in order, one running state a row;
@@ -45,6 +47,18 @@ from test_torch_stats_tiling import State
 TOL = dict(rtol=2e-5, atol=2e-5)
 NEG_INF = pa.NEG_INF
 PREFILL_ROWS = pa.STATS_PREFILL_ROWS
+DECODE_TILE = 32
+# (CTAs a lane's cluster, warps a CTA): what the card runs for bf16 and
+# int8 pools at a 1024-position table
+DECODE_LAYOUT = (4, 4)
+DECODE_ROWS = 8             # rows a CTA of a spec-verify lane
+
+
+def deal(n_tiles, CS, W):
+    """The decode form's split of a lane's tiles: tile t's worker
+    (rank * W + warp), and the ranks that have a tile (rank 0 always)."""
+    workers = [t % (CS * W) for t in range(n_tiles)]
+    return workers, max(1, min(CS, -(-n_tiles // W)))
 
 
 def prefill_tile(D):
@@ -80,9 +94,11 @@ def _tile(tk, tv, pt_g, pos, P, quant, ks, vs, fused):
     return kt * kss[..., None], vt * vss[..., None], None, None
 
 
-def emulate(q, kp, vp, pt, rl, ks=None, vs=None, fused=True):
+def emulate(q, kp, vp, pt, rl, ks=None, vs=None, fused=True,
+            layout=DECODE_LAYOUT):
     """#1 / #1q's arithmetic on numpy inputs: the decode form below 16
-    rows a lane, the prefill form from 16 -> o [G, Qb, H, D]."""
+    rows a lane (a cluster of ``layout`` = (CS, W)), the prefill form from
+    16 -> o [G, Qb, H, D]."""
     G, Qb, H, D = q.shape
     P, M = kp.shape[1], pt.shape[1]
     quant = kp.dtype == np.int8
@@ -92,8 +108,7 @@ def emulate(q, kp, vp, pt, rl, ks=None, vs=None, fused=True):
     if prefill:
         RB, T = PREFILL_ROWS, prefill_tile(D)
     else:
-        CS, W, RB = pa.decode_form_layout(D, kp.dtype.itemsize, Qb, M, P)
-        T = pa.DECODE_TILE
+        (CS, W), RB, T = layout, DECODE_ROWS, DECODE_TILE
     o = torch.zeros(G, Qb, H, D)
     for g in range(G):
         for r0 in range(0, Qb, RB):
@@ -103,28 +118,33 @@ def emulate(q, kp, vp, pt, rl, ks=None, vs=None, fused=True):
             R = rlb.shape[0]
             qs = tq[g, rows] * (1.0 / np.sqrt(D))
             horizon = int(rlb.max())
-            n_workers = 1 if prefill else CS * W
+            n_tiles = -(-horizon // T)
+            if prefill:
+                dealt, busy, n_workers = [0] * n_tiles, 1, 1
+            else:
+                (dealt, busy), n_workers = deal(n_tiles, CS, W), CS * W
             workers = [State(R, H, D) for _ in range(n_workers)]
             for t, c0 in enumerate(range(0, horizon, T)):
                 pos = np.arange(c0, min(c0 + T, horizon))
                 kt, vt, ksc, vsc = _tile(tk, tv, pt[g], pos, P, quant, ks,
                                          vs, fused)
-                workers[t % n_workers].step(
+                workers[dealt[t]].step(
                     qs, kt, vt, torch.from_numpy(pos), rlb, ksc, vsc,
                     "select")
             if prefill:
                 st = workers[0]
-            else:   # each CTA's warps, then the cluster's CTAs
+            else:   # each CTA's warps, then the busy CTAs of the cluster
                 st = _merge([_merge(workers[r * W:(r + 1) * W])
-                             for r in range(CS)])
+                             for r in range(busy)])
             o[g, rows] = st.acc / torch.clamp(st.l, min=1e-30)[..., None]
     return o
 
 
-def emulate_rows(q, kp, vp, pt, sl, ks=None, vs=None, fused=True):
+def emulate_rows(q, kp, vp, pt, sl, ks=None, vs=None, fused=True,
+                 layout=DECODE_LAYOUT):
     """#2 / #2q: the decode form at one row a lane (G = B, Qb = 1)."""
-    return emulate(q[:, None], kp, vp, pt, sl[:, None], ks, vs,
-                   fused)[:, 0]
+    return emulate(q[:, None], kp, vp, pt, sl[:, None], ks, vs, fused,
+                   layout)[:, 0]
 
 
 def pools(rng, quantized, N, P, H, D):
@@ -174,12 +194,9 @@ FORM_D = [16, 64, 256]
 @pytest.mark.parametrize("Qb", FORM_QB)
 def test_emulation_matches_jax_xla_reference(Qb, D, quantized, fused):
     """A 1024-position table: the decode form splits each lane over a
-    cluster of 2 (f32 at D <= 128) or 4 CTAs."""
+    cluster of 4 CTAs of 4 warps."""
     args = lanes_case(np.random.RandomState(40 + Qb), quantized, Qb, D,
                       P=4, M=256)
-    if Qb < PREFILL_ROWS:
-        assert pa.decode_form_layout(D, args[1].dtype.itemsize, Qb, 256,
-                                     4)[0] >= 2
     got = emulate(*args, fused=fused).numpy()
     np.testing.assert_allclose(
         got, np.asarray(ragged_paged_attention_xla(*_jnp(args))), **TOL)
@@ -194,8 +211,8 @@ def test_emulation_matches_jax_xla_reference(Qb, D, quantized, fused):
 @pytest.mark.parametrize("Qb", FORM_QB)
 def test_emulation_matches_pallas_kernel_interpret(Qb, D, quantized,
                                                    fused):
-    """A 192-position table (one CTA for f32 at D <= 128, else a cluster
-    of 2)."""
+    """A 192-position table: 6 tiles, on the first two CTAs of the
+    cluster."""
     args = lanes_case(np.random.RandomState(50 + Qb), quantized, Qb, D,
                       P=16, M=12)
     want = ragged_paged_attention_kernel(
@@ -273,22 +290,32 @@ def test_a_lane_does_not_depend_on_its_batch(Qb):
         assert torch.equal(one[0], full[g]), g
 
 
-@pytest.mark.parametrize("D,item,layout,tiles_a_warp", [
-    (64, 4, (2, 4, 1), 4), (64, 1, (4, 4, 1), 2), (64, 2, (4, 4, 1), 2),
-    (256, 4, (4, 2, 1), 4), (256, 1, (4, 4, 1), 2)],
+@pytest.mark.parametrize("layout,tiles_a_warp", [
+    ((2, 4), 4), ((4, 4), 2), ((4, 4), 2), ((4, 2), 4), ((4, 4), 2)],
     ids=["f32", "int8", "bf16", "f32-d256", "int8-d256"])
-def test_tiles_are_dealt_to_every_worker(D, item, layout, tiles_a_warp):
-    """At a 1024-position table every worker (cluster CTAs x warps) takes
-    the same number of a full lane's 32 tiles — 4 for f32 pools, 2 for
-    bf16 and int8 — and a lane of 33 positions occupies rank 0's first
-    two warps only."""
-    CS, W, RB = pa.decode_form_layout(D, item, 1, 64, 16)
-    assert (CS, W, RB) == layout
-    workers = [t % (CS * W) for t in range(-(-1024 // pa.DECODE_TILE))]
-    assert sorted(set(workers)) == list(range(CS * W))
+def test_tiles_are_dealt_to_every_worker(layout, tiles_a_warp):
+    """At a 1024-position table every worker (cluster CTAs x warps) of
+    the layouts the card runs (a card test pins them) takes the same
+    number of a full lane's 32 tiles, and every CTA is busy; a lane of 33
+    positions occupies rank 0's first two warps only, and an empty lane
+    rank 0 alone."""
+    CS, W = layout
+    workers, busy = deal(-(-1024 // DECODE_TILE), CS, W)
+    assert sorted(set(workers)) == list(range(CS * W)) and busy == CS
     assert all(workers.count(w) == tiles_a_warp for w in range(CS * W))
-    short = {(w // W, w % W) for w in
-             (t % (CS * W) for t in range(-(-33 // pa.DECODE_TILE)))}
-    assert short == {(0, 0), (0, 1)}
-    # a small table runs on one CTA
-    assert pa.decode_form_layout(D, item, 3, 5, 4) == (1, W, 4)
+    workers, busy = deal(-(-33 // DECODE_TILE), CS, W)
+    assert {(w // W, w % W) for w in workers} == {(0, 0), (0, 1)}
+    assert busy == 1
+    assert deal(0, CS, W) == ([], 1)
+
+
+@pytest.mark.parametrize("layout", [(1, 4), (2, 4), (4, 2), (8, 4), (8, 2)])
+@pytest.mark.parametrize("Qb", [1, 8])
+def test_every_cluster_layout_matches_jax(Qb, layout):
+    """The split is exact for any cluster: one CTA, clusters whose last
+    ranks are idle on the shorter lanes, and 8 CTAs of 2 warps."""
+    args = lanes_case(np.random.RandomState(90 + Qb), False, Qb, 64, P=16,
+                      M=64, lane_lens=[1024, 0, 1, 300, 777, 33])
+    np.testing.assert_allclose(
+        emulate(*args, layout=layout).numpy(),
+        np.asarray(ragged_paged_attention_xla(*_jnp(args))), **TOL)

@@ -1,21 +1,29 @@
-"""Time the paged kernels' decode form as shipped against copies with
-another split (more or fewer tiles a warp, so fewer or more CTAs a
-lane's cluster) or another choice of the pools whose K and V share one
-raw tile a warp.
+"""Time the paged kernels' decode form as built from this tree against the
+same C interface built with other split sizes or from other source trees
+(an older checkout), on long lanes and on the short lanes a server sees.
 
 Run on a machine with one NVIDIA card and the CUDA toolkit:
 
-    python tools/paged_decode_probe.py [--out FILE.json]
+    python tools/paged_decode_probe.py [--tiles F32,OTHER ...]
+        [--tree NAME=CSRC_DIR ...] [--out FILE.json]
 
-Builds ``paddle_tpu_torch/ops/csrc/paged_decode.cu`` (the per-row kernel,
-which is the decode form at one row a lane) as it is and one copy per
-variant (``decode_share_kv`` and ``decode_tiles_per_worker`` substituted
-in ``paged_attention.cuh``), checks every copy against the plain version on
-chip_smoke's timed per-row cases (``gpt2_decode``, ``gpt2_chunk``,
-``d256_decode``; f32 and int8 pools, ``fused_dequant`` 1), and times all
-with ``chip_smoke.time_ms`` (L2 flushed, median of 30) in turns: the
-variants in order, then in reverse.  Prints one JSON object with the
-card's name and power limit, each variant's layout, times and errors.
+Builds ``paged_decode.cu`` (the per-row kernel, which is the decode form
+at one row a lane) of ``paddle_tpu_torch/ops/csrc`` as it is, once more
+per ``--tiles`` pair with ``PTT_DECODE_TILES_F32`` / ``PTT_DECODE_TILES``
+set to it (the 32-position tiles of a full table a warp is sized to
+take, f32 pools and the others, so the clusters are smaller or larger),
+and once per ``--tree`` from that directory's sources.  All builds start
+together.  Every build is checked against the plain version on every
+case (f32 pools and int8 pools at ``fused_dequant`` 1) and timed with
+``chip_smoke.time_ms`` (L2 flushed, median of 30) in turns: the builds in
+order, then in reverse.  ``bit_equal`` says whether a build's output is
+the shipped build's, bit for bit.  The cases (H 12, D 64, P 16, 64 pages
+a table, unless named): chip_smoke's timed per-row cases, the serving
+drive's 8 lanes at their first and last decode step (``PROMPT_LENS`` +
+1 and + ``NEW_TOKENS``), 64 lanes of serving lengths, 8 and 64 lanes of
+one position, 64 of 16 and 64 full tables.  Prints one JSON object with
+the card's name and power limit, each case's bound and each build's
+times and errors.
 """
 from __future__ import annotations
 
@@ -38,42 +46,30 @@ import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
-# the decode form's compile-time choices, each a line of paged_attention.cuh:
-# which pools share one K/V tile a warp, and the tiles of a full table a
-# warp is sized to take (f32 pools, the others)
-KNOBS = {"share_kv":
-         "constexpr bool decode_share_kv(bool f32) {{ return {}; }}",
-         "tiles_per_worker": "  return f32 ? {} : {};"}
-SHIPPED = {"share_kv": ("f32",), "tiles_per_worker": (4, 2)}
-VARIANTS = {"share_none": dict(SHIPPED, share_kv=("false",)),
-            "share_all": dict(SHIPPED, share_kv=("true",)),
-            "f32_tpw2": dict(SHIPPED, tiles_per_worker=(2, 2)),
-            "f32_tpw8": dict(SHIPPED, tiles_per_worker=(8, 2)),
-            "other_tpw1": dict(SHIPPED, tiles_per_worker=(4, 1)),
-            "other_tpw4": dict(SHIPPED, tiles_per_worker=(4, 4))}
-CASES = ("gpt2_decode", "gpt2_chunk", "d256_decode")
+CSRC = ROOT / "paddle_tpu_torch/ops/csrc"
+GPT2 = dict(H=12, D=64, P=16, M=64)
+SERVE = [p + 1 + 4 * k for k in range(8) for p in cs.PROMPT_LENS]
+CASES = [(n, dict(cs.DECODE_CASES)[n]) for n in cs.DECODE_TIMED] + [
+    ("serve8_first", dict(GPT2, lens=[p + 1 for p in cs.PROMPT_LENS])),
+    ("serve8_last", dict(GPT2, lens=[p + cs.NEW_TOKENS
+                                     for p in cs.PROMPT_LENS])),
+    ("serve64", dict(GPT2, lens=SERVE)),
+    ("short8x1", dict(GPT2, lens=[1] * 8)),
+    ("short64x1", dict(GPT2, lens=[1] * 64)),
+    ("short64x16", dict(GPT2, lens=[16] * 64)),
+    ("full64x1024", dict(GPT2, lens=[1024] * 64))]
 
 
-def build_variant(tmp: Path, name: str, v: dict) -> ctypes.CDLL:
-    src_dir = tmp / name
-    src_dir.mkdir()
-    for f in (ROOT / "paddle_tpu_torch/ops/csrc").iterdir():
-        text = f.read_text()
-        if f.name == "paged_attention.cuh":
-            for key, pat in KNOBS.items():
-                old = pat.format(*SHIPPED[key])
-                assert text.count(old) == 1, old
-                text = text.replace(old, pat.format(*v[key]))
-        (src_dir / f.name).write_text(text)
+def build(tmp: Path, name: str, csrc: Path, defines=()) -> ctypes.CDLL:
     out = tmp / f"libdecode_{name}.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(src_dir / "paged_decode.cu")], check=True,
-                   capture_output=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines,
+                    "-o", str(out), str(csrc / "paged_decode.cu")],
+                   check=True, capture_output=True)
     return ctypes.CDLL(str(out))
 
 
-def bind(lib, dtype, quant):
-    fn = getattr(lib, pa._KERNEL_FNS["paged_decode", dtype, quant])
+def bind(lib, quant):
+    fn = getattr(lib, pa._KERNEL_FNS["paged_decode", torch.float32, quant])
     n_ptr, n_int = (8, 6) if quant else (6, 5)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
@@ -83,22 +79,34 @@ def bind(lib, dtype, quant):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tiles", action="append", default=[],
+                    help="F32,OTHER tiles a warp, e.g. 8,4")
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=CSRC_DIR of another source tree")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("paged_decode_probe: needs an NVIDIA card", file=sys.stderr)
         return 2
+    jobs = {"shipped": (CSRC, ())}
+    for t in args.tiles:
+        f32, other = t.split(",")
+        jobs[f"tiles{f32}_{other}"] = (CSRC, (
+            f"-DPTT_DECODE_TILES_F32={f32}", f"-DPTT_DECODE_TILES={other}"))
+    for t in args.tree:
+        name, path = t.split("=", 1)
+        jobs[name] = (Path(path), ())
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
-    report = {"card": cs.card_line(), "shipped": SHIPPED,
-              "variants": VARIANTS}
+    report = {"card": cs.card_line(), "builds": {
+        n: {"csrc": str(src), "defines": list(d)}
+        for n, (src, d) in jobs.items()}}
     with tempfile.TemporaryDirectory() as tmp:
-        with ThreadPoolExecutor(len(VARIANTS)) as pool:
-            libs = dict(zip(VARIANTS, pool.map(
-                lambda kv: build_variant(Path(tmp), *kv), VARIANTS.items())))
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            libs = dict(zip(jobs, pool.map(
+                lambda kv: build(Path(tmp), kv[0], *kv[1]), jobs.items())))
         rng = np.random.RandomState(0)
-        for name in CASES:
-            kw = dict(cs.DECODE_CASES)[name]
+        for name, kw in CASES:
             args_f = cs.make_rows(rng, **kw)
             q, kq, vq, ks, vs = (args_f[0],) + cs.quantize_pools(*args_f[1:3])
             for quant in (False, True):
@@ -108,29 +116,32 @@ def main(argv=None) -> int:
                 ref = pa.paged_attention_ref(*a)
                 key = ("paged_decode", torch.float32, quant)
                 pa._kernel(*key)
-                fns = {"shipped": pa._BOUND[key],
-                       **{n: bind(lib, torch.float32, quant)
-                          for n, lib in libs.items()}}
+                bound = pa._BOUND[key]
+                fns = {n: bind(lib, quant) for n, lib in libs.items()}
 
                 def run(fn):
                     pa._BOUND[key] = fn
                     return pa.paged_attention_cuda(*a, **kwargs)
 
                 tag = f"{name}/{'int8' if quant else 'float32'}"
-                res = {}
+                res = {"bound_ms": cs.rows_bound_ms(q, a[1], a[3], a[4])[0]}
+                outs = {}
                 for n, fn in fns.items():
-                    out = run(fn)
+                    outs[n] = run(fn)
                     torch.cuda.synchronize()
                     res[n] = {"max_abs_err": float(
-                        (out.float() - ref).abs().max()), "ms": []}
+                        (outs[n].float() - ref).abs().max()),
+                        "bit_equal": bool(torch.equal(outs[n],
+                                                      outs["shipped"])),
+                        "ms": []}
                 order = list(fns) + list(fns)[::-1]
                 for n in order:
                     res[n]["ms"].append(cs.time_ms(lambda: run(fns[n]),
                                                    flush))
-                pa._BOUND[key] = fns["shipped"]
+                pa._BOUND[key] = bound
                 report[tag] = res
-                print(tag, json.dumps({n: r["ms"] for n, r in res.items()}),
-                      flush=True)
+                print(tag, json.dumps({n: r["ms"] for n, r in res.items()
+                                       if isinstance(r, dict)}), flush=True)
     text = json.dumps(report)
     if args.out:
         Path(args.out).write_text(text)

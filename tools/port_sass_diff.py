@@ -3,7 +3,7 @@
 Run on a machine with the CUDA toolkit (``nvcc``, ``cuobjdump``):
 
     python tools/port_sass_diff.py OLD_CSRC NEW_CSRC [--out FILE.json]
-        [--only NAME ...]
+        [--only NAME ...] [--rename OLD_REGEX=NEW ...]
 
 Each ``<name>.cu`` of both trees (``paddle_tpu_torch/ops/csrc`` of two
 checkouts) is compiled to a cubin with the flags of
@@ -12,9 +12,13 @@ SASS listed with ``cuobjdump -sass``, and every kernel's listing compared
 with the same kernel's from the other tree, after normalising what
 differs between two builds of the same code: the hash in the mangled
 name of the anonymous namespace, and the addresses and encodings beside
-each instruction.  Prints one JSON object: per source, the kernels whose
-SASS is identical, those that differ (with their instruction counts and
-the first differing lines) and those found in one tree only.
+each instruction.  A kernel renamed between the trees is matched by
+``--rename``, a regular-expression substitution on OLD's mangled names
+(e.g. ``'29ragged_paged_attention_kernelI(.*?)Lb1EE=17stats_warp_kernelI\1E'``
+for the stats kernel's warp form, which lost its always-true ``kStats``
+parameter).  Prints one JSON object: per source, the kernels whose SASS
+is identical, those that differ (with their instruction counts and the
+first differing lines) and those found in one tree only.
 """
 from __future__ import annotations
 
@@ -76,8 +80,12 @@ def main(argv=None) -> int:
     ap.add_argument("new", type=Path)
     ap.add_argument("--only", nargs="*", default=None,
                     help="source names (default: every .cu of NEW)")
+    ap.add_argument("--rename", action="append", default=[],
+                    metavar="OLD_REGEX=NEW",
+                    help="substitution on OLD's kernel names")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    renames = [r.split("=", 1) for r in args.rename]
     names = args.only or sorted(p.stem for p in args.new.glob("*.cu"))
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
@@ -89,8 +97,13 @@ def main(argv=None) -> int:
             listings = dict(zip(jobs, pool.map(
                 lambda j: sass(root[j[0]] / f"{j[1]}.cu", work / j[0]),
                 jobs)))
-    report = {name: compare(listings["old", name], listings["new", name])
-              for name in names}
+    def renamed(listing):
+        for pat, repl in renames:
+            listing = {re.sub(pat, repl, n): v for n, v in listing.items()}
+        return listing
+
+    report = {name: compare(renamed(listings["old", name]),
+                            listings["new", name]) for name in names}
     text = json.dumps(report, indent=1)
     if args.out:
         Path(args.out).write_text(text)
