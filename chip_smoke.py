@@ -37,7 +37,18 @@ Phases, one result line each (or more):
    ffn 3072, max_seq_len 1024, f32, seeded random weights) served by
    ``create_serving_engine`` on 8 requests; every attention call must go
    through the kernel, no page may leak, and every stream must equal the
-   port's dense ``generate`` except at a reported near-tie.
+   port's dense ``generate`` except at a reported near-tie.  Every
+   serving arm below (5, 6, 7, 12, 15) is driven twice on the same
+   prompts, by two engines: once under ``profiler.jit_cost.disable_jit()``
+   (every program eager) and once with the serving programs captured as
+   one CUDA graph per signature and replayed; the launch counts hold in
+   both (a replay adds its captured launches), the two drives' streams
+   are equal, and each phase prints both drives' step p50 / p95 and
+   dispatch gaps with the captures, their seconds and the replays.  One
+   steady graphed step of the native, int8_static and tp 2 x sp 2 mesh
+   engines runs under ``torch.profiler``: the paged and matmul kernels'
+   device launches by name must be L (#1), 4 L on the mesh (#3/#3q) and
+   6 L (#4's decode form) under int8 weights.
 6. e2e_int8_static: the same model and requests with
    ``kv_cache_dtype="int8"``, ``weight_dtype="int8"`` and an export
    calibrated on the card; every attention call on the int8 body, every
@@ -148,6 +159,12 @@ Phases, one result line each (or more):
    prompts, native and int8_static: every attention call on the D 256
    instances of #1 / #1q, streams equal to ``generate`` except at a
    reported near-tie, no page leaked.
+
+22. sync_free: 32 steady ragged steps (4 lanes) of the native,
+   int8_static, int8_dynamic and tp 2 x sp 2 mesh engines, graphed,
+   under ``torch.cuda.set_sync_debug_mode("error")`` inside
+   ``compile_budget(0, prefix="serving.")``: no host sync, no capture,
+   one replay a step.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -1852,6 +1869,154 @@ def expect_counts(phase, counts, want):
                              f"at every layer of every dispatch")
 
 
+# --------------------------------------------------------------------------
+# the serving programs as CUDA graphs (paddle_tpu_torch/profiler/jit_cost.py)
+# --------------------------------------------------------------------------
+def jit_delta(before) -> dict:
+    """What each serving program did since ``before`` (a ``cost_registry``
+    snapshot): captures and their seconds, calls and replays."""
+    from paddle_tpu_torch.profiler.jit_cost import cost_registry
+
+    out = {}
+    for name, now in cost_registry.snapshot().items():
+        was = before.get(name, {})
+        d = {"captures": now["compile_count"] - was.get("compile_count", 0),
+             "capture_s": now["compile_time_s"]
+             - was.get("compile_time_s", 0.0),
+             "calls": now["calls"] - was.get("calls", 0),
+             "replays": now["replays"] - was.get("replays", 0)}
+        if name.startswith("serving.") and d["calls"]:
+            out[name] = d
+    return out
+
+
+def drive_modes(phase, make_engine, prompts, run_drive=None) -> dict:
+    """Serve ``prompts`` through two engines from ``make_engine()``: the
+    first under ``disable_jit()`` (every program eager), the second with
+    its programs captured and replayed as CUDA graphs, each through
+    ``run_drive`` (default ``drive``: counts set to 0 just before, read just
+    after).  The eager drive must record no program, the graphed one
+    must replay (where the engine captures), and their streams must be
+    equal.  Returns {mode: (engine, ``run_drive``'s result, {"programs":
+    what each program did, "stats": the engine's stats after the
+    drive})}."""
+    from paddle_tpu_torch.profiler.jit_cost import (cost_registry,
+                                                    disable_jit)
+
+    run_drive = run_drive or drive
+    runs = {}
+    for mode in ("eager", "graphed"):
+        eng = make_engine()
+        before = cost_registry.snapshot()
+        if mode == "eager":
+            with disable_jit():
+                res = run_drive(eng, prompts)
+        else:
+            res = run_drive(eng, prompts)
+        programs = jit_delta(before)
+        replays = sum(p["replays"] for p in programs.values())
+        if (programs if mode == "eager"
+                else eng.cuda_graphs and not replays):
+            raise AssertionError(f"{phase}: the {mode} drive ran the "
+                                 f"programs {programs}")
+        # the metrics histograms are process-wide (the next engine resets
+        # them): read this drive's now
+        runs[mode] = (eng, res, {"programs": programs,
+                                 "stats": eng.stats()})
+    eager, graphed = runs["eager"][1][0], runs["graphed"][1][0]
+    if not all(np.array_equal(a, b) for a, b in zip(eager, graphed)):
+        raise AssertionError(f"{phase}: the graphed streams differ from the "
+                             f"eager ones: {graphed} vs {eager}")
+    return runs
+
+
+def modes_summary(runs) -> dict:
+    """Per mode: wall time, step and dispatch-gap histograms (host clock)
+    and what each program did (captures, capture seconds, replays)."""
+    out = {}
+    for mode, (_eng, res, seen) in runs.items():
+        snap = seen["stats"]["metrics"]
+        out[mode] = {"wall_s": res[2], "step_ms": snap["step_latency_ms"],
+                     "dispatch_gap_ms": snap["dispatch_gap_ms"],
+                     "programs": seen["programs"]}
+    out["step_p50_graphed_over_eager"] = (
+        out["graphed"]["step_ms"]["p50"] / out["eager"]["step_ms"]["p50"])
+    return out
+
+
+def to_steady(eng, prompts, budget):
+    """Admit ``prompts`` (``budget`` new tokens each) and step until every
+    lane decodes (no request waiting, no prefill chunk left), then two
+    more steps: the steady signature's first call and its first replay.
+    Returns the request ids."""
+    ids = [eng.add_request(p, max_new_tokens=budget) for p in prompts]
+    for _ in range(256):
+        eng.step()
+        if not eng.scheduler.waiting and not eng._prefill_plans:
+            break
+    else:
+        raise AssertionError("the lanes never reached steady decode")
+    eng.step()
+    eng.step()
+    return ids
+
+
+# the paged and matmul kernels' names in a device trace
+PAGED_KERNELS = ("ragged_decode_kernel", "ragged_prefill_kernel",
+                 "stats_warp_kernel", "stats_prefill_kernel",
+                 "qmm_chunk_kernel", "qmm_sum_kernel", "qmm_tile_kernel")
+# the budget of the profiled step's requests (the mesh's longest prompt
+# leaves room for 34 tokens)
+PROFILE_BUDGET = 32
+
+
+def profile_graphed_step(phase, eng, prompts, want) -> dict:
+    """One steady step of a graphed engine under ``torch.profiler``: the
+    paged and matmul kernels' device launches by name, read from the
+    device trace.  Each kernel in ``want`` must have launched exactly that
+    often, in a step that captured nothing and replayed the ragged step
+    once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler.jit_cost import (compile_budget,
+                                                    cost_registry)
+
+    to_steady(eng, prompts, PROFILE_BUDGET)
+    before = cost_registry.snapshot()
+    torch.cuda.synchronize()
+    with compile_budget(0, prefix="serving."), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    programs = jit_delta(before)
+    launches = dict.fromkeys(PAGED_KERNELS, 0)
+    n_kernels, device_ms = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += evt.count
+        device_ms += evt.self_device_time_total / 1e3
+        for name in PAGED_KERNELS:
+            if f"{name}<" in evt.key:
+                launches[name] += evt.count
+    eng.drain()
+    # the step's kernels on one stream, so their times add up; the wall
+    # time covers the step's host work and the wait for its device work
+    result = {"device_launches": launches, "device_kernels": n_kernels,
+              "device_ms": device_ms, "wall_ms": wall_ms,
+              "device_busy_share": device_ms / wall_ms,
+              "expected": want, "programs": programs}
+    log(f"{phase}_profiled_step", **result)
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad or programs.get("serving.ragged_step", {}).get("replays") != 1:
+        raise AssertionError(f"{phase}: the profiled graphed step launched "
+                             f"{launches} (expected {want}), programs "
+                             f"{programs}")
+    return result
+
+
 _REFERENCES = {}
 
 
@@ -1926,29 +2091,35 @@ ENGINE = dict(page_size=16, max_batch_size=8, prefill_chunk=64, eos_id=-1)
 
 
 def e2e_phase(model, prompts, device="cuda") -> dict:
-    """Native KV, f32 weights: attention on body #1 only."""
+    """Native KV, f32 weights: attention on body #1 only; driven eager
+    and graphed (``drive_modes``), then one steady graphed step
+    profiled."""
     from paddle_tpu_torch.serving import create_serving_engine
 
-    eng = create_serving_engine(model, device=device, **ENGINE)
-    streams, counts, wall, dispatches = drive(eng, prompts)
     L = len(model.layers)
-    expect_counts("e2e", counts, {"attention_cuda": L * dispatches,
-                                  "attention_cuda_int8": 0,
-                                  "attention_cuda_decode": 0,
-                                  "attention_cuda_decode_int8": 0,
-                                  "attention_ref": 0, "qmm_cuda": 0,
-                                  "qmm_ref": 0, **NO_STATS})
+    runs = drive_modes("e2e", lambda: create_serving_engine(
+        model, device=device, **ENGINE), prompts)
     t0 = time.perf_counter()
-    near = check_streams("e2e", model, prompts, streams)
+    for mode, (eng, (streams, counts, wall, dispatches), _) in runs.items():
+        expect_counts(f"e2e/{mode}", counts, {
+            "attention_cuda": L * dispatches, "attention_cuda_int8": 0,
+            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+            "attention_ref": 0, "qmm_cuda": 0, "qmm_ref": 0, **NO_STATS})
+        near = check_streams(f"e2e/{mode}", model, prompts, streams)
+    eng, (streams, counts, wall, dispatches), _ = runs["graphed"]
     result = summary(eng, prompts, wall, dispatches, counts, near)
     result["reference_s"] = time.perf_counter() - t0
+    result["modes"] = modes_summary(runs)
+    result["profiled_step"] = profile_graphed_step(
+        "e2e", eng, prompts, {"ragged_decode_kernel": L})
     log("e2e", **result)
     return result
 
 
 def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
     """int8 KV with scales calibrated on the card, int8 weights: every
-    attention call on body #1q, every projection/MLP matmul on body #4.
+    attention call on body #1q, every projection/MLP matmul on body #4;
+    driven eager and graphed, then one steady graphed step profiled.
     Returns (result, the export)."""
     from paddle_tpu_torch.serving import create_serving_engine
     from paddle_tpu_torch.slim import export_serving_quant
@@ -1957,24 +2128,36 @@ def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
     calib = rng.randint(1, model.wte.weight.shape[0], (4, 64))
     export = export_serving_quant(model, calib_prompts=calib)
     t_export = time.perf_counter() - t0
-    eng = create_serving_engine(model, device=device, kv_cache_dtype="int8",
-                                weight_dtype="int8", quant_scales=export,
-                                **ENGINE)
-    if eng.kv_mode() != "int8_static":
-        raise AssertionError(f"engine runs {eng.kv_mode()}, not int8_static")
-    streams, counts, wall, dispatches = drive(eng, prompts)
+
+    def make():
+        eng = create_serving_engine(model, device=device,
+                                    kv_cache_dtype="int8",
+                                    weight_dtype="int8", quant_scales=export,
+                                    **ENGINE)
+        if eng.kv_mode() != "int8_static":
+            raise AssertionError(f"engine runs {eng.kv_mode()}, not "
+                                 "int8_static")
+        return eng
+
+    runs = drive_modes("e2e_int8_static", make, prompts)
     L = len(model.layers)
-    expect_counts("e2e_int8_static", counts, {
-        "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
-        "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
-        "attention_ref": 0, "qmm_cuda": 6 * L * dispatches, "qmm_ref": 0,
-        **NO_STATS})
-    # decode dispatches take the decode form, dispatches with a prefill
-    # chunk the prefill form: both ran, each launch in one of them
-    forms = (counts["qmm_form_decode"], counts["qmm_form_prefill"])
-    if min(forms) == 0 or sum(forms) != counts["qmm_cuda"]:
-        raise AssertionError(f"e2e_int8_static: matmul forms (decode, "
-                             f"prefill) {forms} of {counts['qmm_cuda']}")
+    t0 = time.perf_counter()
+    for mode, (eng, (streams, counts, wall, dispatches), _) in runs.items():
+        expect_counts(f"e2e_int8_static/{mode}", counts, {
+            "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
+            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+            "attention_ref": 0, "qmm_cuda": 6 * L * dispatches,
+            "qmm_ref": 0, **NO_STATS})
+        # decode dispatches take the decode form, dispatches with a
+        # prefill chunk the prefill form: both ran, each launch in one
+        forms = (counts["qmm_form_decode"], counts["qmm_form_prefill"])
+        if min(forms) == 0 or sum(forms) != counts["qmm_cuda"]:
+            raise AssertionError(f"e2e_int8_static/{mode}: matmul forms "
+                                 f"(decode, prefill) {forms} of "
+                                 f"{counts['qmm_cuda']}")
+        near = check_streams(f"e2e_int8_static/{mode}", model, prompts,
+                             streams, export)
+    eng, (streams, counts, wall, dispatches), _ = runs["graphed"]
     # the same page count as the native engine, a quarter of its bytes
     ratio = eng.kv_cache_bytes() / native["kv_cache_bytes"]
     if eng.cache.num_pages != native["num_pages"] or ratio > 0.26:
@@ -1983,41 +2166,52 @@ def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
             f"{eng.cache.num_pages} pages are {ratio:.4f}x the native "
             f"engine's {native['kv_cache_bytes']} over "
             f"{native['num_pages']} (limit 0.26)")
-    t0 = time.perf_counter()
-    near = check_streams("e2e_int8_static", model, prompts, streams, export)
     result = summary(eng, prompts, wall, dispatches, counts, near)
     result.update(reference_s=time.perf_counter() - t0, export_s=t_export,
                   kv_bytes_vs_native=ratio,
                   kv_bytes_per_token=eng.kv_bytes_per_token(),
                   quant_weight_bytes=eng.stats()["quant"][
-                      "quant_weight_bytes"])
+                      "quant_weight_bytes"],
+                  modes=modes_summary(runs))
+    result["profiled_step"] = profile_graphed_step(
+        "e2e_int8_static", eng, prompts,
+        {"ragged_decode_kernel": L, "qmm_chunk_kernel": 6 * L,
+         "qmm_tile_kernel": 0})
     log("e2e_int8_static", **result)
     return result, export
 
 
 def e2e_int8_dynamic_phase(model, prompts, device="cuda") -> dict:
     """No KV calibration: dynamic per-page scales; synchronous and
-    pipelined drives must stream byte-identical tokens."""
+    pipelined drives, each eager and graphed, must stream byte-identical
+    tokens."""
     from paddle_tpu_torch.serving import create_serving_engine
 
     runs = {}
     L = len(model.layers)
     for sync_mode in (True, False):
-        eng = create_serving_engine(model, device=device,
-                                    kv_cache_dtype="int8",
-                                    weight_dtype="int8", sync_mode=sync_mode,
-                                    **ENGINE)
-        if eng.kv_mode() != "int8_dynamic":
-            raise AssertionError(f"engine runs {eng.kv_mode()}")
-        streams, counts, wall, dispatches = drive(eng, prompts)
-        expect_counts("e2e_int8_dynamic", counts, {
-            "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
-            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
-            "attention_ref": 0, "qmm_cuda": 6 * L * dispatches,
-            "qmm_ref": 0, **NO_STATS})
-        runs[sync_mode] = (streams, summary(eng, prompts, wall, dispatches,
-                                            counts, []))
-        del eng
+        def make():
+            eng = create_serving_engine(model, device=device,
+                                        kv_cache_dtype="int8",
+                                        weight_dtype="int8",
+                                        sync_mode=sync_mode, **ENGINE)
+            if eng.kv_mode() != "int8_dynamic":
+                raise AssertionError(f"engine runs {eng.kv_mode()}")
+            return eng
+
+        modes = drive_modes("e2e_int8_dynamic", make, prompts)
+        for mode, (eng, (streams, counts, wall, dispatches), _) in \
+                modes.items():
+            expect_counts(f"e2e_int8_dynamic/{mode}", counts, {
+                "attention_cuda": 0, "attention_cuda_int8": L * dispatches,
+                "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+                "attention_ref": 0, "qmm_cuda": 6 * L * dispatches,
+                "qmm_ref": 0, **NO_STATS})
+        eng, (streams, counts, wall, dispatches), _ = modes["graphed"]
+        res = summary(eng, prompts, wall, dispatches, counts, [])
+        res["modes"] = modes_summary(modes)
+        runs[sync_mode] = (streams, res)
+        del eng, modes
     same = all(np.array_equal(a, b) for a, b in zip(runs[True][0],
                                                     runs[False][0]))
     result = {"sync": runs[True][1], "pipelined": runs[False][1],
@@ -2051,40 +2245,44 @@ SPLIT_DRIVES = (("split", dict(ragged=False), False),
 
 def e2e_split_phase(model, prompts, export, ragged_step_ms,
                     device="cuda") -> dict:
-    """The split programs on the e2e requests: every attention call on
-    the per-row kernel (#2, or #2q with int8 KV), every int8 projection
-    on body #4; streams equal to ``generate`` (``generate(quant=
-    export)``) except at a reported near-tie; step time beside the
-    ragged engine's (``ragged_step_ms``, phase 5's p50)."""
+    """The split programs on the e2e requests, each drive eager and
+    graphed: every attention call on the per-row kernel (#2, or #2q with
+    int8 KV), every int8 projection on body #4; streams equal to
+    ``generate`` (``generate(quant=export)``) except at a reported
+    near-tie; step time beside the ragged engine's (``ragged_step_ms``,
+    phase 5's graphed p50)."""
     from paddle_tpu_torch.serving import create_serving_engine
 
     L = len(model.layers)
     result = {}
     for name, knobs, int8 in SPLIT_DRIVES:
         qs = dict(quant_scales=export) if int8 else {}
-        eng = create_serving_engine(model, device=device, **ENGINE, **knobs,
-                                    **qs)
-        streams, counts, wall, _ = drive(eng, prompts)
-        fwd = split_forwards(eng)
-        calls = eng.stats()["programs"]
-        expect_counts(f"e2e_split/{name}", counts, {
-            "attention_cuda": 0, "attention_cuda_int8": 0,
-            "attention_cuda_decode": 0 if int8 else L * fwd,
-            "attention_cuda_decode_int8": L * fwd if int8 else 0,
-            "attention_ref": 0, "qmm_cuda": 6 * L * fwd if int8 else 0,
-            "qmm_ref": 0, **NO_STATS})
-        if calls["ragged_step"] or (name == "fused4"
-                                    and not calls["decode_fused"]):
-            raise AssertionError(f"e2e_split/{name}: programs {calls}")
-        near = check_streams(f"e2e_split/{name}", model, prompts, streams,
-                             export if int8 else None)
+        runs = drive_modes(
+            f"e2e_split/{name}", lambda: create_serving_engine(
+                model, device=device, **ENGINE, **knobs, **qs), prompts)
+        for mode, (eng, (streams, counts, wall, _), _) in runs.items():
+            fwd = split_forwards(eng)
+            calls = eng.stats()["programs"]
+            expect_counts(f"e2e_split/{name}/{mode}", counts, {
+                "attention_cuda": 0, "attention_cuda_int8": 0,
+                "attention_cuda_decode": 0 if int8 else L * fwd,
+                "attention_cuda_decode_int8": L * fwd if int8 else 0,
+                "attention_ref": 0, "qmm_cuda": 6 * L * fwd if int8 else 0,
+                "qmm_ref": 0, **NO_STATS})
+            if calls["ragged_step"] or (name == "fused4"
+                                        and not calls["decode_fused"]):
+                raise AssertionError(f"e2e_split/{name}: programs {calls}")
+            near = check_streams(f"e2e_split/{name}/{mode}", model, prompts,
+                                 streams, export if int8 else None)
+        eng, (streams, counts, wall, _), _ = runs["graphed"]
         res = summary(eng, prompts, wall, 0, counts, near)
         res.update(programs=calls, split_forwards=fwd,
                    step_ms_p50_vs_ragged=(res["step_ms"]["p50"]
-                                          / ragged_step_ms))
+                                          / ragged_step_ms),
+                   modes=modes_summary(runs))
         log("e2e_split", drive=name, **res)
         result[name] = res
-        del eng
+        del eng, runs
         torch.cuda.empty_cache()
     return result
 
@@ -2202,11 +2400,13 @@ def mesh_drive(eng, prompts):
 def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
     """The mesh-sharded replica at GPT-2-small width on MESH_SLOTS slots of
     the card: per drive, the single-device engine with the same knobs
-    serves the same prompts first (the reference), then the mesh engine;
-    streams equal except at a recorded near-tie (at most one), every
-    attention launch on the stats kernel at sp 2 (on the ragged kernel at
-    sp 1) once per layer, shard and dispatch, one shard step per
-    dispatch, no page leaked, sequences on both page shards at sp 2."""
+    serves the same prompts first (the reference), then the mesh engine,
+    eager and graphed (its slots share the card, so it captures); streams
+    equal except at a recorded near-tie (at most one), every attention
+    launch on the stats kernel at sp 2 (on the ragged kernel at sp 1)
+    once per layer, shard and dispatch, one shard step per dispatch, no
+    page leaked, sequences on both page shards at sp 2; one steady
+    graphed step of the tp 2 x sp 2 drives profiled."""
     from paddle_tpu_torch.distributed import force_device_count, get_mesh
     from paddle_tpu_torch.serving import create_serving_engine
 
@@ -2228,45 +2428,54 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
             single_step = single.stats()["metrics"]["step_latency_ms"]
             del single
             torch.cuda.empty_cache()
-            eng = create_serving_engine(model, mesh_axes=axes, **kw)
+            runs = drive_modes(
+                f"e2e_mesh/{name}", lambda: create_serving_engine(
+                    model, mesh_axes=axes, **kw), prompts,
+                run_drive=mesh_drive)
             slots = [str(d) for d in get_mesh().slots]
             log("e2e_mesh_slots", drive=name, mesh=dict(axes),
                 slot_to_card=slots)
-            streams, counts, wall, spans = mesh_drive(eng, prompts)
-            st = eng.stats()
-            dispatches = st["programs"]["ragged_step"]
-            sp = st["pipeline"]["mesh"]["sp"]
-            shards = st["pipeline"]["mesh"]["devices"]
-            on = L * shards * dispatches
-            stats_key = "attention_cuda_stats_int8" if int8 \
-                else "attention_cuda_stats"
-            ragged_key = "attention_cuda_int8" if int8 else "attention_cuda"
-            want_counts = {"attention_cuda": 0, "attention_cuda_int8": 0,
-                           "attention_cuda_decode": 0,
-                           "attention_cuda_decode_int8": 0,
-                           "attention_ref": 0, "qmm_ref": 0, **NO_STATS,
-                           "qmm_cuda": 6 * L * shards * dispatches
-                           if int8 else 0}
-            want_counts[stats_key if sp > 1 else ragged_key] = on
-            expect_counts(f"e2e_mesh/{name}", counts, want_counts)
-            shard_steps = st["metrics"]["shard"]["steps"]
-            bad = []
-            if shard_steps != dispatches:
-                bad.append(f"serving.shard.steps {shard_steps} != "
-                           f"{dispatches} dispatches")
-            if sp > 1 and sp not in spans:
-                bad.append(f"no sequence spans all {sp} page shards "
-                           f"(spans {spans})")
-            if "spec_decode" in knobs and not st["spec"]["drafted"]:
-                bad.append("no drafts")
-            if bad:
-                raise AssertionError(f"e2e_mesh/{name}: {bad}")
-            near = check_streams(f"e2e_mesh/{name}", model, prompts,
-                                 streams, quant=export if int8 else None,
-                                 want=want)
-            if len(near) > 1:
-                raise AssertionError(f"e2e_mesh/{name}: {len(near)} "
-                                     f"near-ties, at most one allowed")
+            for mode, (eng, (streams, counts, wall, spans), seen) in \
+                    runs.items():
+                st = seen["stats"]
+                dispatches = st["programs"]["ragged_step"]
+                sp = st["pipeline"]["mesh"]["sp"]
+                shards = st["pipeline"]["mesh"]["devices"]
+                on = L * shards * dispatches
+                stats_key = "attention_cuda_stats_int8" if int8 \
+                    else "attention_cuda_stats"
+                ragged_key = "attention_cuda_int8" if int8 \
+                    else "attention_cuda"
+                want_counts = {"attention_cuda": 0, "attention_cuda_int8": 0,
+                               "attention_cuda_decode": 0,
+                               "attention_cuda_decode_int8": 0,
+                               "attention_ref": 0, "qmm_ref": 0, **NO_STATS,
+                               "qmm_cuda": 6 * L * shards * dispatches
+                               if int8 else 0}
+                want_counts[stats_key if sp > 1 else ragged_key] = on
+                expect_counts(f"e2e_mesh/{name}/{mode}", counts, want_counts)
+                shard_steps = st["metrics"]["shard"]["steps"]
+                bad = []
+                if shard_steps != dispatches:
+                    bad.append(f"serving.shard.steps {shard_steps} != "
+                               f"{dispatches} dispatches")
+                if sp > 1 and sp not in spans:
+                    bad.append(f"no sequence spans all {sp} page shards "
+                               f"(spans {spans})")
+                if "spec_decode" in knobs and not st["spec"]["drafted"]:
+                    bad.append("no drafts")
+                if st["pipeline"]["cuda_graphs"] != (device == "cuda"):
+                    bad.append("the mesh on one card does not capture")
+                if bad:
+                    raise AssertionError(f"e2e_mesh/{name}/{mode}: {bad}")
+                near = check_streams(f"e2e_mesh/{name}/{mode}", model,
+                                     prompts, streams,
+                                     quant=export if int8 else None,
+                                     want=want)
+                if len(near) > 1:
+                    raise AssertionError(f"e2e_mesh/{name}: {len(near)} "
+                                         f"near-ties, at most one allowed")
+            eng, (streams, counts, wall, spans), _ = runs["graphed"]
             res = summary(eng, prompts, wall, dispatches, counts, near)
             res.update(mesh=st["pipeline"]["mesh"], slot_to_card=slots,
                        page_spans_after_admission=spans,
@@ -2274,15 +2483,98 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
                        single_device_wall_s=single_wall,
                        single_device_step_ms=single_step,
                        step_ms_label=f"{shards} slots on one card",
+                       modes=modes_summary(runs),
                        spec=({k: st["spec"][k] for k in (
                            "drafted", "accepted", "accept_rate")}
                              if "spec_decode" in knobs else None))
+            if sp > 1:
+                want_launches = {"stats_warp_kernel": L * shards}
+                if int8:
+                    want_launches["qmm_chunk_kernel"] = 6 * L * shards
+                res["profiled_step"] = profile_graphed_step(
+                    f"e2e_mesh/{name}", eng, prompts, want_launches)
             log("e2e_mesh", drive=name, **res)
             result[name] = res
-            del eng
+            del eng, runs
             torch.cuda.empty_cache()
     finally:
         force_device_count(prev)
+    return result
+
+
+SYNC_FREE_STEPS = 32
+SYNC_FREE_BUDGET = 48
+
+
+def sync_free_window(eng, prompts, steps=SYNC_FREE_STEPS,
+                     budget=SYNC_FREE_BUDGET) -> dict:
+    """Bring ``prompts`` to steady decode on a graphed engine, then run
+    ``steps`` steps under ``torch.cuda.set_sync_debug_mode("error")``
+    inside ``compile_budget(0, prefix="serving.")``: a host sync raises,
+    and so does a capture.  The consume's wait on the oldest dispatch's
+    event is the one wait the design allows; it does not trip the mode.
+    Every step must keep the bucket and replay the ragged step once.
+    Drains and returns the window's programs, buckets and step times."""
+    from paddle_tpu_torch.profiler.jit_cost import (compile_budget,
+                                                    cost_registry)
+
+    to_steady(eng, prompts, budget)
+    before = cost_registry.snapshot()
+    buckets, step_ms = set(), []
+    with compile_budget(0, prefix="serving."):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                buckets.add(eng.step()["bucket"])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    programs = jit_delta(before)
+    replays = programs.get("serving.ragged_step", {}).get("replays")
+    if len(buckets) != 1 or replays != (steps if eng.cuda_graphs else 0):
+        raise AssertionError(f"sync_free: buckets {buckets}, programs "
+                             f"{programs} over {steps} steps")
+    eng.drain()
+    if eng.cache.pages_in_use:
+        raise AssertionError(f"{eng.cache.pages_in_use} KV pages leaked")
+    return {"steps": steps, "bucket": buckets.pop(), "programs": programs,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p95": float(np.percentile(step_ms, 95))}
+
+
+def sync_free_phase(model, prompts, export, device="cuda") -> dict:
+    """SYNC_FREE_STEPS steady ragged steps of the native, int8_static,
+    int8_dynamic and tp 2 x sp 2 mesh engines, graphed, under the sync
+    debug mode's "error" and a compile budget of 0 (``sync_free_window``),
+    on the first four e2e prompts.  Every arm runs; any failure raises
+    at the end."""
+    from paddle_tpu_torch.distributed import force_device_count
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    int8 = dict(kv_cache_dtype="int8", weight_dtype="int8")
+    arms = (("native", {}), ("int8_static", dict(int8, quant_scales=export)),
+            ("int8_dynamic", int8),
+            ("mesh", dict(mesh_axes={"tp": 2, "sp": 2},
+                          num_pages=MESH_PAGES)))
+    result, failed = {}, {}
+    for name, knobs in arms:
+        prev = force_device_count(MESH_SLOTS if name == "mesh" else None)
+        try:
+            eng = create_serving_engine(model, device=device,
+                                        **dict(ENGINE, **knobs))
+        finally:
+            force_device_count(prev)
+        try:
+            result[name] = sync_free_window(eng, prompts[:4])
+        except Exception as exc:  # noqa: BLE001 — every arm reports
+            failed[name] = repr(exc)
+        del eng
+        torch.cuda.empty_cache()
+    log("sync_free", arms=result, failed=failed)
+    if failed:
+        raise AssertionError(f"sync_free failed on {sorted(failed)}: "
+                             f"{failed}")
     return result
 
 
@@ -2714,6 +3006,8 @@ def main(argv=None) -> int:
     report["e2e_spec"] = e2e_spec_phase(model, spec_prompts(rng))
     torch.cuda.empty_cache()
     report["e2e_mesh"] = mesh = e2e_mesh_phase(model, rng, export)
+    torch.cuda.empty_cache()
+    report["sync_free"] = sync_free_phase(model, prompts, export)
     del model
     torch.cuda.empty_cache()
     # its own seed, as row t's phase

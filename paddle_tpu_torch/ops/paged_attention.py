@@ -62,6 +62,8 @@ import math
 
 import torch
 
+from ..profiler.jit_cost import register_launch_counters
+
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
            "STATS_MAX_PAGES", "STATS_PREFILL_ROWS",
            "paged_attention_ref", "paged_attention_cuda", "paged_attention",
@@ -71,9 +73,11 @@ __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
 
 NEG_INF = -1e30
 
-PAGED_ROUTE_STATS = {"cuda": 0, "cuda_int8": 0, "cuda_decode": 0,
-                     "cuda_decode_int8": 0, "cuda_stats": 0,
-                     "cuda_stats_int8": 0, "ref": 0, "ref_stats": 0}
+# registered with the CUDA-graph runner, which adds a captured program's
+# launches on every replay
+PAGED_ROUTE_STATS = register_launch_counters({
+    "cuda": 0, "cuda_int8": 0, "cuda_decode": 0, "cuda_decode_int8": 0,
+    "cuda_stats": 0, "cuda_stats_int8": 0, "ref": 0, "ref_stats": 0})
 
 # the contract default of the int8 body (paddle_tpu's PAGED_RAGGED_INT8
 # ``fused_dequant``): scales applied after the dots

@@ -35,12 +35,16 @@ import ctypes
 
 import torch
 
+from ..profiler.jit_cost import register_launch_counters
+
 __all__ = ["QMM_ROUTE_STATS", "QMM_FORM_STATS", "QMM_KC",
            "QMM_DECODE_MAX_M", "qmm_form", "quantized_matmul_ref",
            "quantized_matmul_cuda", "quantized_matmul"]
 
-QMM_ROUTE_STATS = {"cuda": 0, "ref": 0}
-QMM_FORM_STATS = {"decode": 0, "prefill": 0}
+# registered with the CUDA-graph runner, which adds a captured program's
+# launches on every replay
+QMM_ROUTE_STATS = register_launch_counters({"cuda": 0, "ref": 0})
+QMM_FORM_STATS = register_launch_counters({"decode": 0, "prefill": 0})
 
 # the kernel's contract (csrc/quantized_matmul.cu, checked when it binds):
 # the chunk of K its canonical order sums, and the largest M of its

@@ -37,7 +37,23 @@ Execution model
   row.  Steady decode uploads nothing.
 - **KV pools** ``[N, P, H, D]`` per layer and side are updated IN PLACE
   by each dispatch (the JAX engine donates them to its jitted programs
-  instead).  On the card the programs are eager PyTorch.
+  instead).  The engine writes them only in place too (page puts, scale
+  resets, quarantine scrubs), never replacing a pool tensor.
+- **Programs** (``profiler/jit_cost.py``): the ragged step, the split
+  decode and the fused decode programs run through ``profiled_graph``
+  under the JAX engine's names (``serving.ragged_step``,
+  ``serving.decode``, ``serving.decode_fused``).  On the card each input
+  signature — lane bucket, rows per lane — is captured into one CUDA
+  graph at its first call (which runs eagerly) and replayed after that;
+  the pools are donated, i.e. captured by address.  Every signature
+  counts one compile in ``compile_ledger``, on the CPU too
+  (``stats()["jit_costs"]``).  The lane state keeps its flow: the device
+  tensors the engine holds (a replay's static outputs, or tensors a
+  bucket change rebuilds) are copied into the graph's static inputs on
+  the next call, and every read of a static output (the host copy of a
+  dispatch's tokens) is enqueued on the stream before the next replay.
+  The split prefill and verify programs run eagerly (they sync by
+  design), and so does a mesh whose slots span several cards.
 - **Dispatch-ahead**: one step stays in flight.  Each dispatch enqueues a
   non-blocking device-to-host copy of its tokens into pinned memory and
   records an event; ``step`` dispatches step N and only then waits on
@@ -85,6 +101,7 @@ from ..framework.errors import (AlreadyExistsError, InternalError,
                                 InvalidArgumentError)
 from ..ops.paged_attention import MAX_HEAD_DIM, PAGED_ROUTE_STATS
 from ..ops.quantized_matmul import QMM_ROUTE_STATS
+from ..profiler.jit_cost import cost_registry, profiled_graph
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
                                         EV_PREFILL_CHUNK, EV_SPECULATED)
 from ..profiler.flight_recorder import recorder as flight
@@ -334,13 +351,23 @@ class ServingEngine:
                                     metrics=self.metrics,
                                     sequential=self._kv_dynamic)
 
-        # --- the programs: eager functions over the shared weights -------
+        # --- the programs over the shared weights ------------------------
         qkw = dict(kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
                    weight_quant=weight_quant)
         geometry = (model, self.page_size, self.pages_per_seq)
-        self._ragged_fn, init_pages = make_gpt_paged_ragged_step(
+        # one CUDA graph per signature on the card, unless a mesh's slots
+        # span several cards (one graph cannot span devices)
+        self.cuda_graphs = (self.device.type == "cuda"
+                            and len(set(self._slot_devices())) == 1)
+
+        def program(name, fn, pools_at):
+            return profiled_graph(name, fn, donate_argnums=(pools_at,),
+                                  capture=self.cuda_graphs)
+
+        ragged_fn, init_pages = make_gpt_paged_ragged_step(
             *geometry, with_guard=self.numeric_guards, mesh_layout=layout,
             **qkw)
+        self._ragged_fn = program("serving.ragged_step", ragged_fn, 7)
         # the pools: one dict of per-layer tensors, or on a mesh one such
         # dict per shard (shard t * sp + s)
         self._kv = init_pages(num_pages)
@@ -350,17 +377,18 @@ class ServingEngine:
                                          devices=layout.size)
         else:
             # the split decode and prefill programs (the prefill one also
-            # replays accepted tokens after an int8_dynamic spec rollback);
-            # a mesh engine runs the ragged step alone
-            self._decode_fn = _split_decode(
+            # replays accepted tokens after an int8_dynamic spec rollback,
+            # and stays eager); a mesh engine runs the ragged step alone
+            self._decode_fn = program("serving.decode", _split_decode(
                 make_gpt_paged_decode_step(*geometry, **qkw)[0],
-                self.numeric_guards)
+                self.numeric_guards), 3)
             self._prefill_fn, _ = make_gpt_paged_prefill_step(*geometry,
                                                               **qkw)
         if self.fused_steps > 1:
-            self._fused_fn, _ = make_gpt_paged_fused_decode_step(
-                *geometry, self.fused_steps,
-                with_guard=self.numeric_guards, **qkw)
+            self._fused_fn = program(
+                "serving.decode_fused", make_gpt_paged_fused_decode_step(
+                    *geometry, self.fused_steps,
+                    with_guard=self.numeric_guards, **qkw)[0], 3)
         # a ragged engine folds spec verify into the ragged step (a verify
         # lane IS a ragged-query lane) — except int8_dynamic, which keeps
         # the split SEQUENTIAL verifier: its rollback replays progressive
@@ -434,6 +462,16 @@ class ServingEngine:
                 f"mesh_axes needs tp*sp = {tp * sp} devices but only "
                 f"{n_dev} are available")
         return ServingMeshLayout(tp=tp, sp=sp)
+
+    def _slot_devices(self) -> List[torch.device]:
+        """The devices the programs run on: the engine's, or on a mesh
+        its slots (``distributed.mesh.devices``, as the sharded core
+        places its shards)."""
+        if self._mesh_layout is None:
+            return [self.device]
+        from ..distributed.mesh import devices
+
+        return devices(self.device.type)[:self._mesh_layout.size]
 
     # --- host <-> device ----------------------------------------------------
     def _dput(self, x) -> torch.Tensor:
@@ -677,7 +715,9 @@ class ServingEngine:
         for pools, rows, _at, _hs in self._page_shards(page_ids):
             for side in ("k_scale", "v_scale"):
                 for sc in pools[side]:
-                    sc[rows] = KV_SCALE_EPS
+                    # the value as a kernel argument: ``sc[rows] = eps``
+                    # would copy a host scalar to the card and sync
+                    sc.index_fill_(0, rows, KV_SCALE_EPS)
 
     def _quarantine(self, seq: Sequence):
         """Fail one guard-flagged request NOW (pipeline collapsed)."""
@@ -1466,6 +1506,9 @@ class ServingEngine:
                 "state_bucket": self._state_bucket,
                 "numeric_guards": self.numeric_guards,
                 "device": str(self.device),
+                # the serving programs replay CUDA graphs (False on the
+                # CPU and on a mesh spread over several cards)
+                "cuda_graphs": self.cuda_graphs,
                 "mesh": (None if self._mesh_layout is None else {
                     "tp": self._mesh_layout.tp,
                     "sp": self._mesh_layout.sp,
@@ -1487,6 +1530,10 @@ class ServingEngine:
                 "quant_weight_bytes": weight_bytes,
                 "matmul_route": dict(QMM_ROUTE_STATS),
             },
+            # process-wide, as the route counters: captures, calls and
+            # replays of every serving program
+            "jit_costs": {k: v for k, v in cost_registry.snapshot().items()
+                          if k.startswith("serving.")},
         }
 
 

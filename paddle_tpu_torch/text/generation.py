@@ -148,7 +148,9 @@ def _quant_write_page(pages, scales, page_idx, slot, val, static_scale):
         pages[page_idx, slot] = q
         return pages, scales
     amax = valf.abs().amax(dim=-1)                           # [N, H]
-    cand = torch.maximum(amax / _KV_QMAX, amax.new_tensor(1e-8))
+    # the floor as a scalar operand: a tensor made from a Python float
+    # would be a host-to-device copy (a sync, and not capturable)
+    cand = torch.clamp_min(amax / _KV_QMAX, 1e-8)
     s_old = scales[page_idx]                                 # [N, H]
     old = pages[page_idx].float()                            # [N, P, H, D]
     scales.scatter_reduce_(0, page_idx[:, None].expand_as(cand), cand,

@@ -1308,3 +1308,215 @@ def test_quarantine_at_sp_fails_only_the_victim_on_the_card(mesh_axes,
         force_device_count(prev)
     assert len(got) == 10
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the serving programs as CUDA graphs (profiler/jit_cost.py)
+# --------------------------------------------------------------------------
+# the arms: engine knobs; "export" is replaced by an int8 export
+GRAPH_ARMS = {
+    "native": {},
+    "int8_static": dict(kv_cache_dtype="int8", weight_dtype="int8",
+                        quant_scales="export"),
+    "int8_dynamic": dict(kv_cache_dtype="int8", weight_dtype="int8"),
+    "split": dict(ragged=False),
+    "fused4": dict(fused_steps=4),
+    "mesh": dict(mesh_axes={"tp": 2, "sp": 2}, num_pages=16),
+}
+SYNC_FREE_ARMS = ("native", "int8_static", "int8_dynamic", "mesh")
+
+
+def _graph_engine(m, arm, export=None, **extra):
+    """The small card engine of ``arm``; a mesh's 4 slots on cuda:0."""
+    from paddle_tpu_torch.distributed import force_device_count
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    knobs = dict(page_size=4, max_batch_size=4, prefill_chunk=8, eos_id=-1)
+    knobs.update(GRAPH_ARMS[arm], **extra)
+    if knobs.get("quant_scales") == "export":
+        knobs["quant_scales"] = export
+    prev = force_device_count(4 if "mesh_axes" in knobs else None)
+    try:
+        return create_serving_engine(m, **knobs)
+    finally:
+        force_device_count(prev)
+
+
+def _export(m):
+    from paddle_tpu_torch.slim import export_serving_quant
+
+    return export_serving_quant(m, calib_prompts=np.random.RandomState(
+        3).randint(1, 64, (4, 24)))
+
+
+def _forwards(eng):
+    """Attention launches a layer: ragged steps (4 shards on the mesh) or
+    the split programs' forwards."""
+    calls = eng.stats()["programs"]
+    if eng.ragged:
+        return calls["ragged_step"] * (4 if eng._mesh_layout else 1)
+    return (calls["decode"] + calls["prefill"] + calls["spec_verify"]
+            + eng.fused_steps * calls["decode_fused"])
+
+
+@pytest.mark.parametrize("arm", list(GRAPH_ARMS))
+def test_graphed_streams_equal_eager_and_generate(arm):
+    """Each arm served twice, eager under ``disable_jit()`` and graphed:
+    the same launches a forward on the arm's kernel in both (a replay
+    adds its captured launches), replays in the graphed drive only,
+    streams equal to each other and to ``generate`` (int8_static:
+    ``generate(quant=...)``; int8_dynamic has no dense twin)."""
+    from contextlib import nullcontext
+
+    from paddle_tpu_torch.profiler.jit_cost import (cost_registry,
+                                                    disable_jit)
+    from paddle_tpu_torch.text.generation import generate
+
+    m, prompts = _engine_case()
+    export = _export(m) if arm == "int8_static" else None
+    streams = {}
+    for mode in ("eager", "graphed"):
+        eng = _graph_engine(m, arm, export)
+        assert eng.stats()["pipeline"]["cuda_graphs"]
+        _zero_counts()
+        qm.QMM_ROUTE_STATS.update(cuda=0, ref=0)
+        before = cost_registry.snapshot()
+        with disable_jit() if mode == "eager" else nullcontext():
+            ids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+            outs = eng.drain()
+        costs = chip_smoke.jit_delta(before)
+        n = 2 * _forwards(eng)
+        int8 = "kv_cache_dtype" in GRAPH_ARMS[arm]
+        key = ("cuda_stats" if arm == "mesh" else "cuda" if eng.ragged
+               else "cuda_decode") + ("_int8" if int8 else "")
+        assert pa.PAGED_ROUTE_STATS == _counts(**{key: n})
+        assert qm.QMM_ROUTE_STATS == {"cuda": 6 * n if int8 else 0, "ref": 0}
+        replays = sum(c["replays"] for c in costs.values())
+        assert (replays > 0) == (mode == "graphed"), costs
+        assert eng.cache.pages_in_use == 0
+        streams[mode] = [outs[r] for r in ids]
+    for a, b in zip(streams["eager"], streams["graphed"]):
+        np.testing.assert_array_equal(a, b)
+    if arm != "int8_dynamic":
+        for p, got in zip(prompts, streams["graphed"]):
+            want = generate(m, p[None], max_new_tokens=12, end_id=-1,
+                            quant=export)[0][0].cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+def _pools_copy(kv):
+    return {side: [t.clone() for t in ts] for side, ts in kv.items()}
+
+
+def _pools_put(kv, saved):
+    for side, ts in kv.items():
+        for t, s in zip(ts, saved[side]):
+            t.copy_(s)
+
+
+@pytest.mark.parametrize("arm", ["native", "int8_static"])
+def test_graphed_ragged_step_is_bit_equal_to_the_eager_step(arm):
+    """The same inputs and pools through the ragged step's replay and
+    through the eager function: out_rows and every pool byte equal."""
+    from paddle_tpu_torch.profiler.jit_cost import (cost_registry,
+                                                    disable_jit)
+
+    m, prompts = _engine_case()
+    eng = _graph_engine(m, arm, _export(m) if arm == "int8_static" else None)
+    for p in prompts[:4]:
+        eng.add_request(p, max_new_tokens=12)
+    for _ in range(3):
+        eng.step()
+    eng._sync_pending()
+    B = eng._state_bucket
+    args = (eng._tokens.clone(), eng._pos.clone(), eng._tables.clone(),
+            *eng._steady_rows(B))
+    start = _pools_copy(eng._kv)
+    eng._ragged_fn(*args, eng._kv)         # captured (or replayed)
+    _pools_put(eng._kv, start)
+    before = cost_registry.snapshot()
+    graphed = [t.clone() for t in eng._ragged_fn(*args, eng._kv)[:4]]
+    assert chip_smoke.jit_delta(before)["serving.ragged_step"][
+        "replays"] == 1
+    after_graph = _pools_copy(eng._kv)
+    _pools_put(eng._kv, start)
+    with disable_jit():
+        eager = eng._ragged_fn(*args, eng._kv)[:4]
+    for g, e in zip(graphed, eager):
+        assert torch.equal(g, e)
+    for side, ts in after_graph.items():
+        for g, e in zip(ts, eng._kv[side]):
+            assert torch.equal(g, e), side
+
+
+def test_graph_captures_once_per_bucket_and_never_in_steady_decode():
+    """Zero captures over 32 steady steps (each a replay, L launches of
+    #1 each), exactly one capture when the lane bucket grows."""
+    from paddle_tpu_torch.profiler.jit_cost import (compile_budget,
+                                                    cost_registry)
+
+    m, prompts = _engine_case()
+    eng = _graph_engine(m, "native", max_batch_size=2)
+    eng.add_request(prompts[3], max_new_tokens=60, request_id="a")
+    for _ in range(6):
+        eng.step()                          # bucket 1 decoding
+    assert eng._state_bucket == 1
+    with compile_budget(None, names=("serving.ragged_step",)) as cb:
+        eng.add_request(prompts[1][:2], max_new_tokens=60, request_id="b")
+        for _ in range(4):
+            eng.step()                      # admit -> bucket 2
+        assert eng._state_bucket == 2
+    assert cb.compiles() == {"serving.ragged_step": 1}
+    eng.step()
+    _zero_counts()
+    before = cost_registry.snapshot()
+    with compile_budget(0, prefix="serving."):
+        for _ in range(32):
+            assert eng.step()["bucket"] == 2
+    costs = chip_smoke.jit_delta(before)["serving.ragged_step"]
+    assert costs["replays"] == 32 and costs["captures"] == 0
+    assert pa.PAGED_ROUTE_STATS == _counts(cuda=2 * 32)
+    assert eng.stats()["jit_costs"]["serving.ragged_step"]["graphed"]
+    eng.drain()
+
+
+@pytest.mark.parametrize("arm", SYNC_FREE_ARMS)
+def test_steady_decode_is_sync_free(arm):
+    """chip_smoke's sync_free window on the small engines: 32 steady
+    steps under ``set_sync_debug_mode("error")`` and a compile budget of
+    0, one replay a step."""
+    m, prompts = _engine_case()
+    # a pool that holds the four lanes' 48 new tokens (no preemption)
+    eng = _graph_engine(m, arm, _export(m) if arm == "int8_static" else None,
+                        num_pages=80)
+    res = chip_smoke.sync_free_window(eng, prompts[1:5], budget=48)
+    assert res["programs"]["serving.ragged_step"]["replays"] == 32
+
+
+def test_a_replaced_pool_raises_on_the_card():
+    from paddle_tpu_torch.framework.errors import InvalidArgumentError
+
+    m, prompts = _engine_case()
+    eng = _graph_engine(m, "native")
+    eng.add_request(prompts[2], max_new_tokens=12)
+    for _ in range(4):
+        eng.step()
+    eng._kv["v"][0] = eng._kv["v"][0].clone()
+    with pytest.raises(InvalidArgumentError, match="donated tensor leaf"):
+        eng.step()
+
+
+def test_a_failed_capture_raises():
+    """A function that reads a device value on the host cannot be
+    captured: the runner raises (after the eager warm-up ran), and the
+    next call of the signature raises again — nothing falls back."""
+    from paddle_tpu_torch.profiler.jit_cost import profiled_graph
+
+    f = profiled_graph("test.sync_in_capture",
+                       lambda x: x * float(x.sum().item()))
+    x = torch.ones(4, device="cuda")
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            f(x)
+    torch.cuda.synchronize()
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device="cuda"))
