@@ -164,7 +164,28 @@ Phases, one result line each (or more):
    int8_static, int8_dynamic and tp 2 x sp 2 mesh engines, graphed,
    under ``torch.cuda.set_sync_debug_mode("error")`` inside
    ``compile_budget(0, prefix="serving.")``: no host sync, no capture,
-   one replay a step.
+   one replay a step; and of a ``prefix_cache=True`` engine whose 4
+   lanes share prefixes (a full-prompt hit with its copy-on-write, a
+   hit, and a lane held by the write barrier), taken after admission.
+23. e2e_prefix (runs after e2e_mesh): ``prefix_cache=True`` at
+   GPT-2-small width on two waves — 8 requests sharing a 512-token system
+   prompt with suffixes of 16-200 tokens, then 2 exact repeats (528 and
+   640 tokens: full-prompt hits, each a copy-on-write) and 1 request that
+   opts out; native and int8_static on the ragged engine, native on
+   ``ragged=False`` and native in a 100-page pool (eviction, reclaim,
+   preemption).  Each arm with the cache off and on (graphed; native also
+   eager): streams equal to the batched dense reference and to the
+   cache-off drive except at a reported near-tie, launches per route,
+   the leak invariant, no more captures than the cache-off drive, pool
+   addresses unchanged; prefix stats, prefill rows with and without the
+   cache, TTFT p50 of hits and misses (host clock) and step p50.
+24. e2e_snapshot: the first 4 e2e requests, each snapshotted after 8
+   consumed tokens on a graphed donor, restored in a fresh graphed
+   engine and drained: spliced streams equal to the uninterrupted drive
+   (and ``generate``) except at a reported near-tie, native,
+   int8_static and int8_dynamic; then a tp 2 x sp 2 donor restored in a
+   single-slot engine and the reverse; snapshot bytes, snapshot ms and
+   restore ms (the pages' upload), pools written in place.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -2543,12 +2564,46 @@ def sync_free_window(eng, prompts, steps=SYNC_FREE_STEPS,
             "step_ms_p95": float(np.percentile(step_ms, 95))}
 
 
+def prefix_window_prompts(rng, vocab, system_len=32, suffix_len=5):
+    """The shared-prefix window's prompts: a donor that is ``system``
+    itself (served and retired first, so its pages are sealed), then four
+    lanes admitted together — ``system`` again (a full-prompt hit: a
+    copy-on-write), ``system`` + a suffix (a hit), and two prompts sharing
+    a new prefix, whose second lane waits on the write barrier for the
+    first one's pages.  Returns (donor, lanes)."""
+    system = rng.randint(1, vocab, (system_len,)).astype(np.int32)
+    other = rng.randint(1, vocab, (system_len,)).astype(np.int32)
+    sfx = [rng.randint(1, vocab, (suffix_len + i,)).astype(np.int32)
+           for i in range(3)]
+    return system, [system.copy(), np.concatenate([system, sfx[0]]),
+                    np.concatenate([other, sfx[1]]),
+                    np.concatenate([other, sfx[2]])]
+
+
+def prefix_sync_free_window(eng, donor, lanes) -> dict:
+    """``sync_free_window`` over lanes that share prefixes: the donor is
+    served first (retirement seals its pages), then the lanes' admission
+    runs the copy-on-write and the write barrier before the window; the
+    index must show the hits and the copy."""
+    eng.add_request(donor, max_new_tokens=4)
+    eng.drain()
+    res = sync_free_window(eng, lanes)
+    st = eng.stats()["prefix_cache"]
+    if st["hits"] < 3 or st["cow_copies"] < 1:
+        raise AssertionError(f"sync_free/prefix_shared: prefix stats {st}")
+    leak_invariant("sync_free/prefix_shared", eng)
+    res["prefix_cache"] = st
+    return res
+
+
 def sync_free_phase(model, prompts, export, device="cuda") -> dict:
     """SYNC_FREE_STEPS steady ragged steps of the native, int8_static,
     int8_dynamic and tp 2 x sp 2 mesh engines, graphed, under the sync
     debug mode's "error" and a compile budget of 0 (``sync_free_window``),
-    on the first four e2e prompts.  Every arm runs; any failure raises
-    at the end."""
+    on the first four e2e prompts; and of a prefix-cache engine whose 4
+    lanes share prefixes, taken after their admission's copy-on-write and
+    write barrier passed (``prefix_sync_free_window``).  Every arm runs;
+    any failure raises at the end."""
     from paddle_tpu_torch.distributed import force_device_count
     from paddle_tpu_torch.serving import create_serving_engine
 
@@ -2556,7 +2611,10 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
     arms = (("native", {}), ("int8_static", dict(int8, quant_scales=export)),
             ("int8_dynamic", int8),
             ("mesh", dict(mesh_axes={"tp": 2, "sp": 2},
-                          num_pages=MESH_PAGES)))
+                          num_pages=MESH_PAGES)),
+            ("prefix_shared", dict(prefix_cache=True)))
+    donor, lanes = prefix_window_prompts(np.random.RandomState(9),
+                                         GPT2_SMALL["vocab_size"])
     result, failed = {}, {}
     for name, knobs in arms:
         prev = force_device_count(MESH_SLOTS if name == "mesh" else None)
@@ -2566,7 +2624,10 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
         finally:
             force_device_count(prev)
         try:
-            result[name] = sync_free_window(eng, prompts[:4])
+            if name == "prefix_shared":
+                result[name] = prefix_sync_free_window(eng, donor, lanes)
+            else:
+                result[name] = sync_free_window(eng, prompts[:4])
         except Exception as exc:  # noqa: BLE001 — every arm reports
             failed[name] = repr(exc)
         del eng
@@ -2575,6 +2636,444 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
     if failed:
         raise AssertionError(f"sync_free failed on {sorted(failed)}: "
                              f"{failed}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# the prefix cache and warm-failover snapshots (serving/prefix_cache.py,
+# serving/resilience.py)
+# --------------------------------------------------------------------------
+def batched_reference(model, prompts, quant=None):
+    """The port's dense greedy decode for prompts of different lengths in
+    one batch: every lane steps in lock step through
+    ``make_gpt_decode_step`` (the step ``generate`` runs), teacher-forced
+    through its own prompt, then fed its own argmax; NEW_TOKENS tokens a
+    lane.  The step and the choice of the next token run as one CUDA
+    graph (``profiled_graph``, the dense caches donated), replayed once a
+    position: one pass for all lanes instead of one ``generate`` per
+    prompt, without a host launch a kernel."""
+    from paddle_tpu_torch.profiler.jit_cost import profiled_graph
+    from paddle_tpu_torch.text.generation import make_gpt_decode_step
+
+    qkw = {}
+    if quant is not None:
+        qkw = dict(kv_cache_dtype=quant["kv_cache_dtype"],
+                   kv_scales=quant["kv_scales"],
+                   weight_quant=quant["weights"])
+    dev = model.device
+    lens = np.array([p.size for p in prompts])
+    steps = int(lens.max()) - 1 + NEW_TOKENS
+    forced = np.zeros((len(prompts), steps + 1), np.int32)
+    for i, p in enumerate(prompts):
+        forced[i, :p.size] = p
+    forced_d = torch.as_tensor(forced, device=dev)
+    is_forced_d = torch.as_tensor(np.arange(steps + 1)[None, :]
+                                  < lens[:, None], device=dev)
+    step_fn, init_state = make_gpt_decode_step(model, steps + 1, **qkw)
+    state = init_state(len(prompts))
+
+    def one(tok, pos, t, k, v):
+        logits, new = step_fn(tok, {"k": k, "v": v, "pos": pos})
+        nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        t1 = t + 1
+        fed = torch.where(is_forced_d.index_select(1, t1)[:, 0],
+                          forced_d.index_select(1, t1)[:, 0], nxt)
+        return nxt, fed, new["pos"], t1
+
+    run = profiled_graph("reference.dense_step", one, donate_argnums=(3, 4),
+                         capture=dev.type == "cuda")
+    tok, pos = forced_d[:, 0].contiguous(), state["pos"]
+    t = torch.zeros((1,), dtype=torch.long, device=dev)
+    outs = []
+    with torch.no_grad():
+        for _ in range(steps):
+            nxt, tok, pos, t = run(tok, pos, t, state["k"], state["v"])
+            outs.append(nxt.clone())
+    out = torch.stack(outs, dim=1).cpu().numpy()
+    return [out[i, n - 1:n - 1 + NEW_TOKENS] for i, n in enumerate(lens)]
+
+
+def leak_invariant(phase, eng):
+    """After a drain: no page in use, and ``pages_in_use + pages_cached +
+    free_pages == allocatable_pages``."""
+    c = eng.cache
+    if c.pages_in_use or (c.pages_in_use + c.pages_cached + c.free_pages
+                          != c.allocatable_pages):
+        raise AssertionError(
+            f"{phase}: pages in use {c.pages_in_use}, cached "
+            f"{c.pages_cached}, free {c.free_pages} of "
+            f"{c.allocatable_pages}")
+
+
+def pool_ptrs(eng):
+    """The data pointers of every pool tensor (scale rows included), on
+    every shard."""
+    return [t.data_ptr() for pools in eng._pool_dicts()
+            for side in pools.values() for t in side]
+
+
+# the prefix drive: 8 requests share a 512-token system prompt (32 full
+# pages at page 16), each with its own suffix; then 2 requests repeat
+# wave-1 prompts exactly (528 and 640 tokens: page multiples, so the match
+# covers the whole prompt and the first decode write needs a copy) and 1
+# request opts out
+PREFIX_SYSTEM_LEN = 512
+PREFIX_SUFFIXES = (16, 37, 64, 83, 128, 150, 177, 200)
+PREFIX_REPEATS = (0, 4)
+PREFIX_OPT_OUT_SUFFIX = 43
+# the tight pool: eviction, reclaim and preemption all happen (the drive's
+# schedule is host logic: at 160 pages nothing is evicted, at 100 about
+# 40 cached pages are and 2 requests are preempted)
+PREFIX_TIGHT_PAGES = 100
+# (name, engine knobs, int8 KV and weights)
+PREFIX_ARMS = (("native", {}, False),
+               ("int8_static", {}, True),
+               ("split", dict(ragged=False), False),
+               ("tight_pool", dict(num_pages=PREFIX_TIGHT_PAGES), False))
+
+
+def prefix_prompts(rng, vocab):
+    """(wave 1, wave 2): lists of (prompt, prefix_cache opt-in)."""
+    system = rng.randint(1, vocab, (PREFIX_SYSTEM_LEN,))
+    wave1 = [(np.concatenate([system, rng.randint(1, vocab, (n,))]).astype(
+        np.int32), True) for n in PREFIX_SUFFIXES]
+    opt_out = np.concatenate([system, rng.randint(
+        1, vocab, (PREFIX_OPT_OUT_SUFFIX,))]).astype(np.int32)
+    wave2 = [(wave1[i][0].copy(), True) for i in PREFIX_REPEATS] + [
+        (opt_out, False)]
+    return wave1, wave2
+
+
+def prefix_drive(eng, waves):
+    """Serve each wave to completion in turn, every count set to 0 just
+    before the first and read just after the last; a request's TTFT is
+    the host time from its ``add_request`` to its first token.  Returns
+    (streams, counts, wall s, {"hit" | "miss": [TTFT ms]})."""
+    from paddle_tpu_torch.profiler.flight_recorder import recorder
+
+    added, first = {}, {}
+
+    def on_token(rid, index, _tok):
+        if index == 0 and rid not in first:
+            first[rid] = time.perf_counter()
+
+    eng.token_callback = on_token
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, outs = [], {}
+    for wave in waves:
+        for p, opt_in in wave:
+            rid = eng.add_request(p, max_new_tokens=NEW_TOKENS,
+                                  prefix_cache=opt_in)
+            added[rid] = time.perf_counter()
+            ids.append(rid)
+        outs.update(eng.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ttft = {"hit": [], "miss": []}
+    for rid in ids:
+        tr = recorder.trace(rid) or {"events": []}
+        hit = any(e["kind"] == "prefix_hit" for e in tr["events"])
+        ttft["hit" if hit else "miss"].append(
+            (first[rid] - added[rid]) * 1e3)
+    streams = [outs[r] for r in ids]
+    if [len(s) for s in streams] != [NEW_TOKENS] * len(ids):
+        raise AssertionError(f"expected {NEW_TOKENS} tokens per request, "
+                             f"got {[len(s) for s in streams]}")
+    return streams, counts, wall, ttft
+
+
+def e2e_prefix_phase(model, export, device="cuda") -> dict:
+    """``prefix_cache=True`` at GPT-2-small width on two waves of requests
+    sharing a 512-token system prompt (``prefix_prompts``): native and
+    int8_static on the ragged engine, native on the split programs, and
+    native in a tight pool (eviction, reclaim and preemption).  Each arm
+    is driven with the cache off and on, graphed (the native arm also
+    eager with the cache on): streams equal to the batched dense
+    reference (``batched_reference``, int8 per the export) and to the
+    cache-off drive except at a reported near-tie, the launch counts per
+    route, the leak invariant after the drain, no more captures than the
+    roomy cache-off drive (the tight pool's own cache-off drive admits
+    fewer lanes at a time and so meets fewer signatures: it is held
+    against the native arm's), the pools' addresses unchanged, hits,
+    copies (and evictions and preemptions in the tight pool)."""
+    from paddle_tpu_torch.profiler.jit_cost import (cost_registry,
+                                                    disable_jit)
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    waves = prefix_prompts(np.random.RandomState(10),
+                           GPT2_SMALL["vocab_size"])
+    prompts = [p for wave in waves for p, _ in wave]
+    t0 = time.perf_counter()
+    refs = {False: batched_reference(model, prompts),
+            True: batched_reference(model, prompts, export)}
+    reference_s = time.perf_counter() - t0
+    result = {"reference_s": reference_s,
+              "prompt_lens": [int(p.size) for p in prompts]}
+    for name, knobs, int8 in PREFIX_ARMS:
+        qs = dict(kv_cache_dtype="int8", weight_dtype="int8",
+                  quant_scales=export) if int8 else {}
+        runs = {}
+        modes = [(False, "graphed"), (True, "graphed")]
+        if name == "native":
+            modes.append((True, "eager"))
+        for pc, mode in modes:
+            eng = create_serving_engine(model, device=device,
+                                        prefix_cache=pc,
+                                        **dict(ENGINE, **knobs, **qs))
+            ptrs = pool_ptrs(eng)
+            before = cost_registry.snapshot()
+            if mode == "eager":
+                with disable_jit():
+                    res = prefix_drive(eng, waves)
+            else:
+                res = prefix_drive(eng, waves)
+            programs = jit_delta(before)
+            tag = f"e2e_prefix/{name}/{'on' if pc else 'off'}/{mode}"
+            streams, counts, wall, ttft = res
+            st = eng.stats()
+            calls = st["programs"]
+            if eng.ragged:
+                att = L * calls["ragged_step"]
+                want_counts = {"attention_cuda": 0 if int8 else att,
+                               "attention_cuda_int8": att if int8 else 0,
+                               "attention_cuda_decode": 0,
+                               "attention_cuda_decode_int8": 0,
+                               "qmm_cuda": 6 * att if int8 else 0}
+            else:
+                fwd = split_forwards(eng)
+                want_counts = {"attention_cuda": 0, "attention_cuda_int8": 0,
+                               "attention_cuda_decode": L * fwd,
+                               "attention_cuda_decode_int8": 0,
+                               "qmm_cuda": 0}
+            expect_counts(tag, counts, {**want_counts, "attention_ref": 0,
+                                        "qmm_ref": 0, **NO_STATS})
+            leak_invariant(tag, eng)
+            if pool_ptrs(eng) != ptrs:
+                raise AssertionError(f"{tag}: a pool tensor was replaced")
+            near = check_streams(tag, model, prompts, streams,
+                                 quant=export if int8 else None,
+                                 want=refs[int8], int8=int8)
+            metrics = st["metrics"]
+            runs[pc, mode] = {
+                "streams": streams, "near_ties": near,
+                "wall_s": wall, "launches": counts,
+                "captures": sum(p["captures"] for p in programs.values()),
+                "programs": programs,
+                "prefix": st["prefix_cache"],
+                "preemptions": st["preemptions"],
+                "prefill_rows": metrics["ragged"]["prefill_rows"],
+                "prefill_tokens": metrics["prefill_tokens"],
+                "dispatches": calls,
+                "step_ms": metrics["step_latency_ms"],
+                "ttft_ms_p50": {k: (float(np.percentile(v, 50)) if v
+                                    else None) for k, v in ttft.items()},
+                "ttft_ms": ttft}
+            del eng
+            torch.cuda.empty_cache()
+        on, off = runs[True, "graphed"], runs[False, "graphed"]
+        near = check_streams(f"e2e_prefix/{name}/on_vs_off", model, prompts,
+                             on["streams"], quant=export if int8 else None,
+                             want=off["streams"], int8=int8)
+        pst = on["prefix"]
+        bad = []
+        if pst["hits"] < len(PREFIX_SUFFIXES) - 1 + len(PREFIX_REPEATS) \
+                or pst["cow_copies"] != len(PREFIX_REPEATS):
+            bad.append(f"prefix stats {pst}")
+        roomy_off = result["native"]["off"] if name == "tight_pool" \
+            else off
+        if on["captures"] > roomy_off["captures"]:
+            bad.append(f"{on['captures']} captures with the cache, "
+                       f"{roomy_off['captures']} without")
+        if name == "tight_pool" and not (pst["evictions"]
+                                         and on["preemptions"]):
+            bad.append(f"no eviction or preemption: {pst}, "
+                       f"{on['preemptions']} preemptions")
+        rows = "prefill_rows" if name != "split" else "prefill_tokens"
+        if on[rows] >= off[rows]:
+            bad.append(f"{rows} {on[rows]} with the cache, {off[rows]} "
+                       "without")
+        if bad:
+            raise AssertionError(f"e2e_prefix/{name}: {bad}")
+        res = {"on": {k: v for k, v in on.items() if k != "streams"},
+               "off": {k: v for k, v in off.items() if k != "streams"},
+               "on_vs_off_near_ties": near}
+        if (True, "eager") in runs:
+            eager = runs[True, "eager"]
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(eager["streams"], on["streams"])):
+                raise AssertionError(f"e2e_prefix/{name}: eager and graphed "
+                                     "streams differ")
+            res["on_eager"] = {k: v for k, v in eager.items()
+                               if k != "streams"}
+            res["step_ms_p50"] = {"eager": eager["step_ms"]["p50"],
+                                  "graphed": on["step_ms"]["p50"]}
+        log("e2e_prefix", arm=name, **res)
+        result[name] = res
+    return result
+
+
+# the snapshot drive: 4 requests (the first four e2e prompts), each
+# snapshotted once it has consumed SNAPSHOT_AT tokens
+SNAPSHOT_AT = 8
+SNAPSHOT_ARMS = ("native", "int8_static", "int8_dynamic")
+
+
+def snapshot_run(make_donor, make_survivor, prompts):
+    """Serve ``prompts`` on ``make_donor()`` until each request has
+    consumed SNAPSHOT_AT tokens, snapshot every one (timed, each ending
+    in a device synchronise), drop the donor; restore all snapshots in
+    ``make_survivor()`` (the pages' upload timed, synchronised) and drain
+    it with the counts set to 0 just before and read just after.
+    Returns (spliced streams, counts, survivor, {bytes, snapshot_ms,
+    restore_ms: each snapshot's page upload at its admission})."""
+    donor = make_donor()
+    ids = [donor.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    snaps = {}
+    snap_ms = []
+    for _ in range(512):
+        done = {s.seq_id for s in donor.scheduler.running
+                if len(s.generated) >= SNAPSHOT_AT}
+        for rid in sorted(done - snaps.keys()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = donor.snapshot(rid)
+            torch.cuda.synchronize()
+            if snap is not None:
+                snap_ms.append((time.perf_counter() - t0) * 1e3)
+                snaps[rid] = snap
+        if len(snaps) == len(ids):
+            break
+        donor.step()
+    else:
+        raise AssertionError("the donor never reached the snapshot point")
+    del donor
+    torch.cuda.empty_cache()
+    surv = make_survivor()
+    ptrs = pool_ptrs(surv)
+    restore_ms = []
+    upload = surv._upload_snapshot
+
+    def timed_upload(seq):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upload(seq)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+
+    surv._upload_snapshot = timed_upload
+    for rid in ids:
+        surv.restore(snaps[rid])
+    reset_counts()
+    outs = surv.drain()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    leak_invariant("e2e_snapshot", surv)
+    if pool_ptrs(surv) != ptrs:
+        raise AssertionError("e2e_snapshot: a pool tensor was replaced")
+    streams = [outs[r] for r in ids]
+    for rid, got in zip(ids, streams):
+        if not np.array_equal(got[:snaps[rid].num_generated],
+                              snaps[rid].generated):
+            raise AssertionError(f"e2e_snapshot: {rid} does not continue "
+                                 "its snapshot")
+    return streams, counts, surv, {
+        "generated_at_snapshot": [int(snaps[r].num_generated) for r in ids],
+        "snapshot_bytes": [int(snaps[r].nbytes) for r in ids],
+        "snapshot_ms": snap_ms, "restore_ms": restore_ms}
+
+
+def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
+    """Warm failover at GPT-2-small width on the first four e2e prompts:
+    per KV mode (native, int8_static, int8_dynamic) an uninterrupted
+    graphed drive, then ``snapshot_run`` (a graphed donor, snapshots at
+    SNAPSHOT_AT consumed tokens, a fresh graphed survivor): the spliced
+    streams equal the uninterrupted ones (and ``generate``, int8 per the
+    export, for native and int8_static) except at a reported near-tie;
+    the survivor's launches on the kernels; the pools written in place.
+    Then a tp 2 x sp 2 mesh donor restored in a single-slot engine and
+    the reverse, both against the single-slot engine's uninterrupted
+    streams and ``generate``."""
+    from paddle_tpu_torch.distributed import force_device_count
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    # the e2e phases computed ``generate`` for all of them already
+    all_prompts, prompts = prompts, prompts[:4]
+    result = {}
+    for name in SNAPSHOT_ARMS:
+        kw = dict(ENGINE, device=device)
+        if name != "native":
+            kw.update(kv_cache_dtype="int8", weight_dtype="int8")
+        if name == "int8_static":
+            kw["quant_scales"] = export
+        want, _, _, _ = drive(create_serving_engine(model, **kw), prompts)
+        streams, counts, surv, res = snapshot_run(
+            lambda: create_serving_engine(model, **kw),
+            lambda: create_serving_engine(model, **kw), prompts)
+        if surv.kv_mode() != name:
+            raise AssertionError(f"e2e_snapshot: engine runs "
+                                 f"{surv.kv_mode()}, not {name}")
+        att = L * surv.stats()["programs"]["ragged_step"]
+        int8 = name != "native"
+        expect_counts(f"e2e_snapshot/{name}", counts, {
+            "attention_cuda": 0 if int8 else att,
+            "attention_cuda_int8": att if int8 else 0,
+            "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+            "attention_ref": 0, "qmm_cuda": 6 * att if int8 else 0,
+            "qmm_ref": 0, **NO_STATS})
+        near = check_streams(f"e2e_snapshot/{name}", model, prompts,
+                             streams, want=want, int8=int8)
+        if name != "int8_dynamic":
+            q = export if int8 else None
+            near += check_streams(
+                f"e2e_snapshot/{name}/generate", model, prompts, streams,
+                quant=q, want=reference_streams(model, all_prompts, q)[:4])
+        res.update(near_ties=near, launches=counts,
+                   restores=surv.stats()["metrics"]["restores"])
+        log("e2e_snapshot", arm=name, **res)
+        result[name] = res
+        del surv
+        torch.cuda.empty_cache()
+    kw = dict(ENGINE, device=device, num_pages=MESH_PAGES)
+    want, _, _, _ = drive(create_serving_engine(model, **kw), prompts)
+
+    def make(axes):
+        prev = force_device_count(MESH_SLOTS if axes else None)
+        try:
+            return create_serving_engine(model, mesh_axes=axes, **kw)
+        finally:
+            force_device_count(prev)
+
+    mesh = {"tp": 2, "sp": 2}
+    for name, donor_axes, surv_axes in (("mesh_to_single", mesh, None),
+                                        ("single_to_mesh", None, mesh)):
+        streams, counts, surv, res = snapshot_run(
+            lambda: make(donor_axes), lambda: make(surv_axes), prompts)
+        sp = 2 if surv_axes else 1
+        att = L * (4 if surv_axes else 1) * \
+            surv.stats()["programs"]["ragged_step"]
+        expect_counts(f"e2e_snapshot/{name}", counts, {
+            "attention_cuda": 0 if sp > 1 else att,
+            "attention_cuda_stats": att if sp > 1 else 0,
+            "attention_cuda_int8": 0, "attention_cuda_decode": 0,
+            "attention_cuda_decode_int8": 0, "attention_ref": 0,
+            "attention_cuda_stats_int8": 0, "attention_ref_stats": 0,
+            "qmm_cuda": 0, "qmm_ref": 0})
+        near = check_streams(f"e2e_snapshot/{name}", model, prompts,
+                             streams, want=want)
+        near += check_streams(f"e2e_snapshot/{name}/generate", model,
+                              prompts, streams,
+                              want=reference_streams(model, all_prompts)[:4])
+        res.update(near_ties=near, launches=counts,
+                   survivor_mesh=surv.stats()["pipeline"]["mesh"])
+        log("e2e_snapshot", arm=name, **res)
+        result[name] = res
+        del surv
+        torch.cuda.empty_cache()
     return result
 
 
@@ -3007,6 +3506,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["e2e_mesh"] = mesh = e2e_mesh_phase(model, rng, export)
     torch.cuda.empty_cache()
+    # both draw from their own seeds, so the phases after them see the
+    # draws of before
+    report["e2e_prefix"] = prefix = e2e_prefix_phase(model, export)
+    torch.cuda.empty_cache()
+    report["e2e_snapshot"] = snap = e2e_snapshot_phase(model, prompts,
+                                                       export)
+    torch.cuda.empty_cache()
     report["sync_free"] = sync_free_phase(model, prompts, export)
     del model
     torch.cuda.empty_cache()
@@ -3023,6 +3529,10 @@ def main(argv=None) -> int:
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:520",
                e2e["attention_cuda"], dec,
+               launches_prefix=prefix["native"]["on"]["launches"][
+                   "attention_cuda"],
+               launches_snapshot_restore=snap["native"]["launches"][
+                   "attention_cuda"],
                bf16_max_abs_err=native_t["bf16_max_abs_err"],
                d256_decode=native_t["d256_decode/float32/Qb1"],
                d256_prefill=native_t["d256_prefill/float32/Qb64"],
@@ -3038,6 +3548,8 @@ def main(argv=None) -> int:
                "paddle_tpu_torch/ops/csrc/paged_attention.cu",
                "paddle_tpu/ops/pallas_ops/paged_attention.py:461",
                st["attention_cuda_int8"], idec, fused_dequant=1,
+               launches_prefix=prefix["int8_static"]["on"]["launches"][
+                   "attention_cuda_int8"],
                settings={k: v for k, v in int8_t.items()
                          if "fused_dequant=" in k},
                nan_scale_ok=int8_t["nan_scale_ok"],
@@ -3088,6 +3600,8 @@ def main(argv=None) -> int:
                split["split"]["attention_cuda_decode"],
                decode_t["gpt2_decode/float32"],
                case="gpt2_decode/float32",
+               launches_prefix=prefix["split"]["on"]["launches"][
+                   "attention_cuda_decode"],
                prefill_chunk=decode_t["gpt2_chunk/float32"],
                d256_decode=decode_t["d256_decode/float32"],
                bf16_max_abs_err=decode_t["bf16_max_abs_err"],
@@ -3122,6 +3636,8 @@ def main(argv=None) -> int:
                "paddle_tpu/ops/pallas_ops/paged_attention.py:681",
                mesh["native"]["attention_cuda_stats"],
                stats_t["decode_h12/float32"], case="decode_h12/float32",
+               launches_snapshot_restore=snap["single_to_mesh"]["launches"][
+                   "attention_cuda_stats"],
                prefill=stats_t["prefill_h12/float32"],
                prefill_h6=stats_t["prefill_h6/float32"],
                d256_decode=stats_t["d256_decode/float32"],

@@ -5,7 +5,9 @@ same families (an ``InvalidArgumentError`` is also a ``ValueError``)."""
 from __future__ import annotations
 
 __all__ = ["EnforceNotMet", "InvalidArgumentError", "AlreadyExistsError",
-           "ResourceExhaustedError", "InternalError", "NumericalFaultError"]
+           "ResourceExhaustedError", "PreconditionNotMetError",
+           "InternalError", "NumericalFaultError",
+           "CheckpointIncompatibleError"]
 
 
 class EnforceNotMet(RuntimeError):
@@ -23,6 +25,15 @@ class AlreadyExistsError(EnforceNotMet, ValueError):
 
 class ResourceExhaustedError(EnforceNotMet, MemoryError):
     pass
+
+
+class PreconditionNotMetError(EnforceNotMet):
+    pass
+
+
+class CheckpointIncompatibleError(PreconditionNotMetError):
+    """A checkpoint is well-formed but cannot be restored here — its
+    schema version is newer than this build understands."""
 
 
 class InternalError(EnforceNotMet):

@@ -2,9 +2,10 @@
 ``paddle_tpu/profiler/flight_recorder.py``.
 
 Every request the engine admits gets a typed event timeline (admission,
-prefill chunks, first token, preemption/replay, terminal outcome), and
-fixed-size rings always hold the last N lifecycle events, engine step
-records and chaos fault firings.  Appends are O(1) host work.
+prefix hit, prefill chunks, first token, preemption/replay, terminal
+outcome), and fixed-size rings always hold the last N lifecycle events,
+engine step records, chaos fault firings and state transitions (prefix
+evictions, brownout stage changes).  Appends are O(1) host work.
 
 Left out of this slice: postmortem bundle export (``build_bundle`` /
 ``dump`` / ``auto_dump`` and dump-time context providers) — it reaches
@@ -22,20 +23,21 @@ from ..framework.monitor import stat_registry
 
 __all__ = [
     "FlightRecorder", "RequestTrace", "recorder",
-    "EV_ADMITTED", "EV_PREFILL_CHUNK", "EV_FIRST_TOKEN", "EV_SPECULATED",
-    "EV_PREEMPTED", "EV_TERMINAL", "LIFECYCLE_EVENTS",
+    "EV_ADMITTED", "EV_PREFIX_HIT", "EV_PREFILL_CHUNK", "EV_FIRST_TOKEN",
+    "EV_SPECULATED", "EV_PREEMPTED", "EV_TERMINAL", "LIFECYCLE_EVENTS",
 ]
 
 # the request lifecycle event taxonomy this slice records
 EV_ADMITTED = "admitted"          # engine admitted it into the batch
+EV_PREFIX_HIT = "prefix_hit"      # radix index covered {tokens} positions
 EV_PREFILL_CHUNK = "prefill_chunk"  # one chunked-prefill dispatch {size}
 EV_FIRST_TOKEN = "first_token"    # first decode token consumed
 EV_SPECULATED = "speculated"      # one verify dispatch {drafted, accepted}
 EV_PREEMPTED = "preempted"        # evicted mid-decode (replays later)
 EV_TERMINAL = "terminal"          # exactly-once final outcome {status}
 LIFECYCLE_EVENTS = frozenset({
-    EV_ADMITTED, EV_PREFILL_CHUNK, EV_FIRST_TOKEN, EV_SPECULATED,
-    EV_PREEMPTED, EV_TERMINAL})
+    EV_ADMITTED, EV_PREFIX_HIT, EV_PREFILL_CHUNK, EV_FIRST_TOKEN,
+    EV_SPECULATED, EV_PREEMPTED, EV_TERMINAL})
 
 
 def _now_ns() -> int:
@@ -64,10 +66,11 @@ class RequestTrace:
 
 
 class FlightRecorder:
-    """Bounded, always-on black box: three ``deque(maxlen=ring_size)``
-    rings (lifecycle / engine steps / chaos faults), a ``traces_keep``-
-    deep ring of terminal request timelines and a ``live_cap`` bound on
-    in-flight traces (the oldest is evicted, never unbounded growth)."""
+    """Bounded, always-on black box: four ``deque(maxlen=ring_size)``
+    rings (lifecycle / engine steps / chaos faults / transitions), a
+    ``traces_keep``-deep ring of terminal request timelines and a
+    ``live_cap`` bound on in-flight traces (the oldest is evicted, never
+    unbounded growth)."""
 
     def __init__(self, ring_size: int = 4096, traces_keep: int = 128,
                  live_cap: int = 4096):
@@ -76,6 +79,7 @@ class FlightRecorder:
         self._events: deque = deque(maxlen=int(ring_size))
         self._steps: deque = deque(maxlen=int(ring_size))
         self._faults: deque = deque(maxlen=int(ring_size))
+        self._transitions: deque = deque(maxlen=int(ring_size))
         self._live: Dict[str, RequestTrace] = {}
         self._live_cap = int(live_cap)
         self._done: deque = deque(maxlen=int(traces_keep))
@@ -86,6 +90,7 @@ class FlightRecorder:
             self._events.clear()
             self._steps.clear()
             self._faults.clear()
+            self._transitions.clear()
             self._live.clear()
             self._done.clear()
             self._done_by_id.clear()
@@ -167,6 +172,20 @@ class FlightRecorder:
         self._append(self._faults, {
             "ts_ns": _now_ns(), "site": site, "key": key,
             "action": action, "seen": seen})
+
+    def on_transition(self, kind: str, target: str, detail: str = ""):
+        """A state transition: a burst of prefix-index evictions, a
+        brownout stage change."""
+        if not self.enabled:
+            return
+        self._append(self._transitions, {
+            "ts_ns": _now_ns(), "kind": kind, "target": target,
+            "detail": detail})
+
+    def transitions(self) -> List[dict]:
+        """The transitions ring, oldest first."""
+        with self._lock:
+            return list(self._transitions)
 
     def trace(self, request_id: str) -> Optional[dict]:
         """Structured timeline of a live or recently-terminal request."""

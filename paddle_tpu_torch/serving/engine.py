@@ -76,6 +76,19 @@ Execution model
   (scheduler, page tables, lane state) is unchanged: one logical
   replica.  Ragged dispatch only; ``tp = sp = 1`` is the single-device
   engine.
+- **Prefix cache** (``prefix_cache=True``, ``serving/prefix_cache.py``):
+  admission maps a prompt's longest resident full-page prefix into its
+  page table, the chunked prefill starts at the first uncached token,
+  and a full-prompt match copies its last page on the device before the
+  first decode write (copy-on-write, in place in the pools).  Sealed
+  pages that a prefill plan has not written yet are ``unwritten``: a
+  lane reading one idles (``row_valid`` 0, ``advance`` 0) until the
+  chunk that writes it was issued by an earlier dispatch.  int8_dynamic
+  KV runs uncached (``stats()["prefix_cache"]["bypass_reason"]``).
+- **Snapshots** (``snapshot`` / ``restore``, ``serving/resilience.py``):
+  one running request's consumed tokens and KV pages, restored
+  mid-stream on another engine of the same configuration (any mesh
+  shape); int8_dynamic pages travel dequantized and are requantized.
 - **Int8 serving** (``kv_cache_dtype="int8"``, ``weight_dtype="int8"``):
   int8 pages with ``[N, H]`` f32 scale rows per layer and side, and
   int8 projection/MLP weights.  ``quant_scales`` (an export of either
@@ -103,7 +116,8 @@ from ..ops.paged_attention import MAX_HEAD_DIM, PAGED_ROUTE_STATS
 from ..ops.quantized_matmul import QMM_ROUTE_STATS
 from ..profiler.jit_cost import cost_registry, profiled_graph
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
-                                        EV_PREFILL_CHUNK, EV_SPECULATED)
+                                        EV_PREFILL_CHUNK, EV_PREFIX_HIT,
+                                        EV_SPECULATED)
 from ..profiler.flight_recorder import recorder as flight
 from ..testing.chaos import chaos_site
 from ..text.generation import (RAGGED_NO_LIMIT, ServingMeshLayout,
@@ -113,8 +127,11 @@ from ..text.generation import (RAGGED_NO_LIMIT, ServingMeshLayout,
                                make_gpt_paged_ragged_step,
                                make_gpt_paged_spec_verify_step)
 from ..utils.bucketing import chunk_schedule, smallest_bucket
-from .kv_cache import KV_SCALE_EPS, PagedKVCache
+from .kv_cache import (KV_SCALE_EPS, PagedKVCache, dequantize_kv_page,
+                       quantize_kv_page)
 from .metrics import ServingMetrics
+from .prefix_cache import PrefixCache
+from .resilience import EngineSnapshot
 from .scheduler import Request, Scheduler, Sequence
 from .spec_decode import SpecDecoder
 
@@ -203,10 +220,13 @@ class ServingEngine:
         if not isinstance(prefix_cache, bool):
             raise InvalidArgumentError(
                 f"prefix_cache must be a bool, got {prefix_cache!r}")
-        for value, knob in ((prefix_cache, "prefix_cache"),
-                            (kv_tiering, "kv_tiering")):
-            if value:
-                raise _not_ported(knob, "item 7")
+        if not isinstance(kv_tiering, (bool, dict)):
+            raise InvalidArgumentError(
+                f"kv_tiering must be a bool or a dict of tier options "
+                f"(host_pages/disk_dir/disk_pages), got {kv_tiering!r}")
+        if kv_tiering:
+            # the host and disk tiers behind the radix index
+            raise _not_ported("kv_tiering", "item 7")
         if not isinstance(numeric_guards, bool):
             raise InvalidArgumentError(
                 f"numeric_guards must be a bool, got {numeric_guards!r}")
@@ -350,6 +370,22 @@ class ServingEngine:
             self.spec = SpecDecoder(spec_k, drafter=spec_drafter,
                                     metrics=self.metrics,
                                     sequential=self._kv_dynamic)
+
+        # --- prefix cache -------------------------------------------------
+        # int8_dynamic bypasses the index: a reader's per-page scale growth
+        # would requantize shared content under every other reader
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._prefix_bypass_reason: Optional[str] = None
+        if prefix_cache:
+            if self._kv_dynamic:
+                self._prefix_bypass_reason = (
+                    "int8_dynamic KV: per-page scales are device state "
+                    "grown by the writer — shared pages require "
+                    "int8_static or native KV (docs/SERVING.md)")
+            else:
+                self.prefix_cache = PrefixCache(self.cache,
+                                                metrics=self.metrics)
+                self.scheduler.prefix_cache = self.prefix_cache
 
         # --- the programs over the shared weights ------------------------
         qkw = dict(kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
@@ -526,14 +562,21 @@ class ServingEngine:
 
     def add_request(self, prompt, max_new_tokens: int = 32,
                     request_id: Optional[str] = None,
-                    deadline: Optional[float] = None) -> str:
+                    deadline: Optional[float] = None,
+                    prefix_cache: bool = True) -> str:
         """Enqueue a generation request; returns its id.  ``deadline`` is
         an ABSOLUTE ``time.monotonic()`` instant: once passed, the request
         is dropped from the queue or aborted mid-decode, and its id
-        surfaces through ``take_expired()``."""
+        surfaces through ``take_expired()``.  ``prefix_cache=False`` opts
+        this request out of the engine's prefix cache (no index lookup,
+        its pages are never sealed); a no-op without a prefix cache."""
         prompt = self.check_request(prompt, max_new_tokens)
+        if not isinstance(prefix_cache, bool):
+            raise InvalidArgumentError(
+                f"prefix_cache must be a bool, got {prefix_cache!r}")
         req = Request(prompt=prompt, max_new_tokens=int(max_new_tokens),
-                      request_id=request_id or "", deadline=deadline)
+                      request_id=request_id or "", deadline=deadline,
+                      use_prefix_cache=prefix_cache)
         self._check_not_live(req.request_id)
         self.scheduler.add(req)
         return req.request_id
@@ -550,12 +593,6 @@ class ServingEngine:
             raise AlreadyExistsError(
                 f"request_id {request_id!r} is already in flight or "
                 "has an unconsumed output")
-
-    def snapshot(self, request_id: str):
-        raise _not_ported("snapshot (warm failover)", "item 7")
-
-    def restore(self, snap):
-        raise _not_ported("restore (warm failover)", "item 7")
 
     # --- abort ------------------------------------------------------------
     def abort(self, request_id: str) -> bool:
@@ -588,9 +625,14 @@ class ServingEngine:
         return True
 
     def _forget(self, request_id: str):
+        """Drop per-request bookkeeping (abort, expiry, quarantine): a
+        plan cut short un-publishes its never-written sealed pages and
+        recomputes the sharers waiting on them."""
         self._ttft_recorded.discard(request_id)
         self._uploaded_pages.pop(request_id, None)
-        self._prefill_plans.pop(request_id, None)
+        stale = self._drop_plan(request_id)
+        if stale:
+            self._preempt_plan_sharers(stale)
         if self.spec is not None:
             self.spec.on_drop(request_id)
 
@@ -766,12 +808,125 @@ class ServingEngine:
             for pool in pools.get("k_scale", pools["k"]):
                 pool[rows] = float("nan")
 
+    # --- snapshot / warm failover ------------------------------------------
     def kv_mode(self) -> str:
-        """The KV pools' mode: ``native``, ``int8_static`` or
-        ``int8_dynamic``."""
+        """The KV pools' mode — the snapshot contract's key: ``native``,
+        ``int8_static`` or ``int8_dynamic``."""
         if self.kv_cache_dtype != "int8":
             return "native"
         return "int8_dynamic" if self._kv_dynamic else "int8_static"
+
+    def snapshot(self, request_id: str) -> Optional[EngineSnapshot]:
+        """Checkpoint one RUNNING request: its consumed tokens and the KV
+        pages covering them, for ``restore()`` on another engine built
+        from the same model and configuration (any mesh shape).  None
+        when the id is not decoding (queued, preempted back to the queue,
+        finished, or mid prefill plan — its pages are half written).
+
+        ``generated`` is the consumed stream; the pages may also hold a
+        still-in-flight dispatch's writes at positions >= ``pos``, which
+        the resumed decode rewrites.  The page read waits for the device
+        (a snapshot is not a steady-decode operation)."""
+        seq = next((s for s in self.scheduler.running
+                    if s.seq_id == request_id and not s.done), None)
+        if seq is None or request_id in self._prefill_plans:
+            return None
+        g = len(seq.generated)
+        pos = seq.request.prompt.size - 1 + g
+        rows = self.cache.seq_page_ids(request_id)[
+            :self.cache.pages_needed(pos)]
+        pages: Dict[str, List[np.ndarray]] = {"k": [], "v": []}
+        mode = self.kv_mode()
+        if rows:
+            # numpy has no bfloat16: such pages travel as exact f32
+            got = {side: [(t.float() if t.dtype == torch.bfloat16 else t)
+                          .cpu().numpy() for t in arrs]
+                   for side, arrs in self._page_gather(rows).items()}
+            if mode == "int8_dynamic":
+                # dynamic scales are the donor pool's device state: store
+                # dequantized pages (restore re-derives abs-max scales)
+                for side in ("k", "v"):
+                    for q, sc in zip(got[side], got[f"{side}_scale"]):
+                        pages[side].append(np.stack(
+                            [dequantize_kv_page(q[i], sc[i])
+                             for i in range(len(rows))]))
+            else:
+                for side in ("k", "v"):
+                    pages[side] = got[side]
+        spec_state = None
+        if self.spec is not None:
+            spec_state = self.spec.drafter.export_lane(request_id) or None
+        snap = EngineSnapshot(
+            request_id=request_id, prompt=seq.request.prompt,
+            max_new_tokens=seq.request.max_new_tokens,
+            deadline=seq.request.deadline,
+            generated=np.asarray(seq.generated, np.int32), pos=int(pos),
+            kv_mode=mode, page_size=self.page_size, pages=pages,
+            spec=spec_state)
+        self.metrics.on_snapshot(snap.nbytes)
+        return snap
+
+    def restore(self, snap: EngineSnapshot) -> str:
+        """Re-admit a snapshotted request MID-STREAM: a resume request
+        whose admission uploads the snapshot's pages instead of
+        prefilling; decode continues at ``snap.pos`` and token callbacks
+        fire from index ``snap.num_generated`` on.  The deadline rides
+        along unchanged.  Raises on a page-size or KV-mode mismatch and
+        on a live duplicate id."""
+        if snap.page_size != self.page_size:
+            raise InvalidArgumentError(
+                f"snapshot page_size {snap.page_size} != engine "
+                f"page_size {self.page_size}")
+        if snap.kv_mode != self.kv_mode():
+            raise InvalidArgumentError(
+                f"snapshot kv_mode {snap.kv_mode!r} != engine kv_mode "
+                f"{self.kv_mode()!r} — snapshots are portable only "
+                "between replicas of one serving configuration")
+        prompt = self.check_request(snap.prompt, snap.max_new_tokens)
+        self._check_not_live(snap.request_id)
+        req = Request(prompt=prompt,
+                      max_new_tokens=int(snap.max_new_tokens),
+                      request_id=snap.request_id, deadline=snap.deadline,
+                      resume=snap)
+        self.scheduler.add(req)
+        return req.request_id
+
+    def _upload_snapshot(self, seq: Sequence):
+        """Admission of a resume request: write the snapshot's pages into
+        its freshly allocated pages, in place (replaces the prefill)."""
+        snap = seq.request.resume
+        rows = self.cache.seq_page_ids(seq.seq_id)
+        if rows:
+            R = len(rows)
+            pool = self._pool_dicts()[0]["k"][0]
+            payload = {}
+            if snap.kv_mode == "int8_dynamic":
+                # fresh abs-max scales from the dequantized pages: the
+                # restored scales depend only on this sequence's content
+                for side in ("k", "v"):
+                    qs, ss = [], []
+                    for page_fp in snap.pages[side]:      # [R, P, H, D]
+                        pairs = [quantize_kv_page(page_fp[i])
+                                 for i in range(R)]
+                        qs.append(np.stack([q for q, _ in pairs]))
+                        ss.append(np.stack([sc for _, sc in pairs]))
+                    payload[side] = qs
+                    payload[f"{side}_scale"] = ss
+            else:
+                for side in ("k", "v"):
+                    payload[side] = [np.asarray(p)[:R]
+                                     for p in snap.pages[side]]
+            dtypes = {"k": pool.dtype, "v": pool.dtype,
+                      "k_scale": torch.float32, "v_scale": torch.float32}
+            self._page_put(rows, {
+                key: [torch.tensor(a).to(self.device, dtypes[key])
+                      for a in arrs]
+                for key, arrs in payload.items()})
+        if snap.num_generated:
+            # the first token came out on the donor: no second TTFT
+            self._ttft_recorded.add(seq.seq_id)
+            seq.first_token_time = snap.created_at
+        self.metrics.on_restore()
 
     # --- device-resident lane state ---------------------------------------
     def _grow_state(self, new_bucket: int):
@@ -864,30 +1019,37 @@ class ServingEngine:
         self._state_bucket = desired
 
     # --- prefill ----------------------------------------------------------
-    def _prefill_chunks(self, prompt) -> List[Tuple[np.ndarray, np.ndarray]]:
-        """prompt[:-1] as (tokens, positions) chunks of up to
+    def _prefill_chunks(self, prompt, start: int = 0
+                        ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """prompt[start:-1] as (tokens, positions) chunks of up to
         ``prefill_chunk`` rows (``chunk_schedule``: full chunks + one pow2
         tail); padded tail rows sit past the prompt, where the valid
-        length sends their writes to the trash page."""
+        length sends their writes to the trash page.  Positions are
+        absolute, so a chunk starting past a cached prefix attends over
+        the shared pages like any page written before."""
         n = prompt.size - 1
         chunks = []
-        for off, size in chunk_schedule(n, self.prefill_chunk):
+        for off, size in chunk_schedule(n - start, self.prefill_chunk):
+            s0 = start + off
             ctok = np.zeros((size,), np.int32)
-            valid = min(off + size, n) - off
-            ctok[:valid] = prompt[off:off + valid]
-            chunks.append((ctok, (off + np.arange(size)).astype(np.int32)))
+            valid = min(s0 + size, n) - s0
+            ctok[:valid] = prompt[s0:s0 + valid]
+            chunks.append((ctok, (s0 + np.arange(size)).astype(np.int32)))
         return chunks
 
     def _prefill_seq(self, seq: Sequence):
-        """Split-mode admission: teacher-force prompt[:-1] through the
-        prefill program chunk by chunk, then wait for the device once,
-        inside the timed window — the decode that follows needs this KV
+        """Split-mode admission: teacher-force prompt[cached:-1] through
+        the prefill program chunk by chunk (positions below
+        ``seq.cached_tokens`` sit in shared index pages; a fully covered
+        prompt dispatches nothing), then wait for the device once, inside
+        the timed window — the decode that follows needs this KV
         anyway."""
         prompt = seq.request.prompt
         n = prompt.size - 1
-        if n == 0:
+        start = min(seq.cached_tokens, n)
+        if n - start == 0:
             return
-        chunks = self._prefill_chunks(prompt)
+        chunks = self._prefill_chunks(prompt, start)
         row = self._dput(self.cache.page_table_row(seq.seq_id))
         n_dev = self._dput(np.int32(n))
         t0 = time.perf_counter()
@@ -901,22 +1063,79 @@ class ServingEngine:
             torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0
         self.metrics.on_prefill(dt)
-        self.metrics.on_prefill_chunks(len(chunks), n, dt)
+        self.metrics.on_prefill_chunks(len(chunks), n - start, dt)
 
     # --- unified ragged dispatch ------------------------------------------
-    def _plan_prefill(self, seq: Sequence):
+    def _plan_prefill(self, seq: Sequence, awaits=()):
         """Ragged-mode admission: BUILD the chunk plan (host arrays only)
         — each following step pops one chunk into the mixed dispatch; the
-        chunk rows carry valid_len n."""
+        chunk rows carry valid_len n.  The plan starts at the first
+        uncached token; a fully covered prompt plans nothing.
+
+        Write visibility (prefix cache): admission sealed the prompt's
+        full pages before this plan wrote them, so the plan registers
+        them as ``unwritten`` and clears each one as the chunk covering
+        it is issued.  ``awaits`` lists shared pages this sequence reads
+        that another live plan has not written yet: the lane idles (no
+        chunk, no decode, no copy-on-write) until every one of them was
+        issued by an earlier dispatch; a fully covered prompt then gets a
+        chunkless plan that only holds the lane."""
         prompt = seq.request.prompt
         n = prompt.size - 1
-        if n == 0:
+        start = min(seq.cached_tokens, n)
+        awaits = set(awaits)
+        if n - start == 0 and not awaits:
             return
         chunks: Deque[Tuple[np.ndarray, np.ndarray, int]] = deque(
-            (ctok, cpos, n) for ctok, cpos in self._prefill_chunks(prompt))
+            (ctok, cpos, n)
+            for ctok, cpos in self._prefill_chunks(prompt, start))
+        pend: List[Tuple[int, int]] = []
+        pc = self.prefix_cache
+        if chunks and pc is not None and seq.request.resume is None \
+                and seq.request.use_prefix_cache:
+            # page j is complete once positions through (j+1)*P - 1 have
+            # been issued
+            P = self.page_size
+            ids = self.cache.seq_page_ids(seq.seq_id)
+            for j in range(start // P, n // P):
+                pc.unwritten.add(int(ids[j]))
+                pend.append((int(ids[j]), (j + 1) * P - 1))
         self._prefill_plans[seq.seq_id] = {
             "chunks": chunks, "t0": time.perf_counter(),
-            "count": len(chunks), "tokens": n}
+            "count": len(chunks), "tokens": n - start, "await": awaits,
+            "cow": seq.cow_pair is not None and bool(awaits),
+            "pending": pend}
+
+    def _drop_plan(self, seq_id: str) -> set:
+        """Remove a sequence's prefill plan (preemption, abort, expiry or
+        quarantine mid-plan).  The sealed pages it never wrote hold no
+        KV: un-publish them and return them, so that their current
+        sharers are recomputed too (``_preempt_plan_sharers``)."""
+        plan = self._prefill_plans.pop(seq_id, None)
+        if plan is None:
+            return set()
+        stale = {pid for pid, _ in plan["pending"]}
+        if stale and self.prefix_cache is not None:
+            self.prefix_cache.invalidate_pages(stale)
+        return stale
+
+    def _preempt_plan_sharers(self, stale: set):
+        """Cascade recompute: every running sequence still barrier-held on
+        a ``stale`` page would read KV that is now never written — preempt
+        it back to the queue (a deterministic replay)."""
+        for s in list(self.scheduler.running):
+            plan = self._prefill_plans.get(s.seq_id)
+            if plan is None or not (plan["await"] & stale):
+                continue
+            self.scheduler.preempt(s)
+            self.metrics.on_preemption(1)
+            self._uploaded_pages.pop(s.seq_id, None)
+            sub = self._drop_plan(s.seq_id)
+            if self.spec is not None:
+                self.spec.on_drop(s.seq_id)
+            self._release_lane(s)
+            if sub:
+                self._preempt_plan_sharers(sub)
 
     def _mark_dispatch(self):
         """Record the host gap since the previous dispatch (the
@@ -944,28 +1163,54 @@ class ServingEngine:
         """Issue ONE mixed ragged dispatch: decode lanes advance one
         position on the device; lanes with a pending prefill plan carry
         their next chunk's rows (advance 0, device state untouched until
-        the plan drains)."""
+        the plan drains); barrier-held lanes ride with every row junk
+        (``row_valid`` 0, advance 0)."""
         B = self._state_bucket
         chunks: Dict[int, Tuple[np.ndarray, np.ndarray, int]] = {}
+        idle: set = set()
         done_plans: List[dict] = []
+        # the barrier's view BEFORE this dispatch issues anything: a lane
+        # may read a shared page only once an EARLIER dispatch issued the
+        # chunk that writes it (stream order then commits the payload
+        # ahead of the read)
+        pc = self.prefix_cache
+        pending_before = set(pc.unwritten) if pc is not None \
+            and pc.unwritten else ()
         for lane, seq in active:
             plan = self._prefill_plans.get(seq.seq_id)
             if plan is None:
                 continue
-            chunks[lane] = plan["chunks"].popleft()
+            aw = plan["await"]
+            if aw:
+                aw.intersection_update(pending_before)
+            if aw:
+                idle.add(lane)
+                continue
+            if plan["cow"]:
+                # deferred copy-on-write: its source page is written now
+                self._apply_cow(seq)
+                plan["cow"] = False
+            if plan["chunks"]:
+                chunks[lane] = ctok, cpos, n = plan["chunks"].popleft()
+                pend = plan["pending"]
+                # sealed pages this chunk writes through are issued now:
+                # their readers pass the barrier from the next step
+                through = min(int(cpos[-1]), n - 1)
+                while pend and pend[0][1] <= through:
+                    pc.unwritten.discard(pend.pop(0)[0])
             if not plan["chunks"]:
                 done_plans.append(self._prefill_plans.pop(seq.seq_id))
         self._sync_rows(active)
         self._mark_dispatch()
         prefill_rows = 0
-        if not chunks:
+        if not chunks and not idle:
             Q = 1
             rows_tok, rows_pos, row_valid, advance = self._steady_rows(B)
         else:
             # mixed step: fresh host rows for this step's chunk mix;
             # padding rows carry row_valid 0 (trash-page scatter, zero
             # attention span)
-            Q = max(c[0].size for c in chunks.values())
+            Q = max((c[0].size for c in chunks.values()), default=1)
             rt = np.zeros((B, Q), np.int32)
             rp = np.zeros((B, Q), np.int32)
             rv = np.zeros((B, Q), np.int32)
@@ -982,24 +1227,31 @@ class ServingEngine:
                 flight.request_event(self._lanes[lane].seq_id,
                                      EV_PREFILL_CHUNK,
                                      replica=self.chaos_key, size=int(sz))
+            for lane in idle:
+                rv[lane, :] = 0
+                adv[lane] = 0
             rows_tok, rows_pos = self._dput(rt), self._dput(rp)
             row_valid, advance = self._dput(rv), self._dput(adv)
         _out_rows, out_dec = self._run_ragged(rows_tok, rows_pos, row_valid,
                                               advance)
-        # chunk lanes did not decode this step: their out_dec entry is
-        # junk and their host mirror must not advance
+        # chunk and barrier-held lanes did not decode this step: their
+        # out_dec entry is junk and their host mirror must not advance
+        held = chunks.keys() | idle
         snapshot = tuple(
-            (s, s.epoch) if s is not None and i not in chunks else None
+            (s, s.epoch) if s is not None and i not in held else None
             for i, s in enumerate(self._lanes))
         for lane, s in active:
-            if lane not in chunks:
+            if lane not in held:
                 s.pos += 1
         host, event = self._to_host(out_dec)
         self._pending.append(_Pending(host, event, 1, snapshot))
         self.metrics.on_ragged(
-            decode_rows=sum(1 for lane, _ in active if lane not in chunks),
+            decode_rows=sum(1 for lane, _ in active if lane not in held),
             prefill_rows=prefill_rows, q_bucket=Q)
         for plan in done_plans:
+            if not plan["count"]:
+                # a barrier-only plan (fully covered prompt): no prefill
+                continue
             # prefill accounting records wall time since admission (the
             # chunks ran interleaved across steps)
             dt = time.perf_counter() - plan["t0"]
@@ -1062,6 +1314,50 @@ class ServingEngine:
         host, event = self._to_host(out)
         self._pending.append(_Pending(host, event, k, snapshot))
         return k
+
+    # --- prefix cache -------------------------------------------------------
+    def _apply_cow(self, seq: Sequence):
+        """The device half of a copy-on-write admission: the scheduler
+        already swapped the shared page for a fresh one in the host
+        table; copy the payload (every layer, side and scale row) from
+        ``src`` to ``dst`` IN PLACE, so the pools keep the addresses the
+        captured graphs bind.  On a mesh each tensor shard copies its
+        heads from the sequence shard owning ``src`` to the one owning
+        ``dst``."""
+        src, dst = (int(p) for p in seq.cow_pair)
+        if self._mesh_layout is None:
+            pairs = [(self._kv, src, self._kv, dst)]
+        else:
+            lay = self._mesh_layout
+            per = self.cache.num_pages // lay.sp
+            pairs = [(self._kv[t * lay.sp + src // per], src % per,
+                      self._kv[t * lay.sp + dst // per], dst % per)
+                     for t in range(lay.tp)]
+        for src_pools, s_row, dst_pools, d_row in pairs:
+            for side, pools in dst_pools.items():
+                for dst_pool, src_pool in zip(pools, src_pools[side]):
+                    dst_pool[d_row].copy_(src_pool[s_row])
+        self.prefix_cache.on_cow()
+
+    def _seal_prefix(self, seq: Sequence, upto_pos: int):
+        """Publish ``seq``'s full pages covering positions ``[0,
+        upto_pos)`` into the prefix index, keyed by the token ids that
+        produced them (prompt + generated).  Callers pass the first
+        position any future write of the sequence can touch.  Host work
+        only."""
+        pc = self.prefix_cache
+        req = seq.request
+        if pc is None or req.resume is not None \
+                or not req.use_prefix_cache:
+            return
+        full = upto_pos // self.page_size
+        if full <= 0:
+            return
+        tokens = req.prompt
+        if full * self.page_size > tokens.size:
+            tokens = np.concatenate(
+                [tokens, np.asarray(seq.generated, np.int32)])
+        pc.insert(tokens, self.cache.seq_page_ids(seq.seq_id), full)
 
     # --- pipelined consume ------------------------------------------------
     def _remaining(self, seq: Sequence) -> int:
@@ -1136,6 +1432,11 @@ class ServingEngine:
             # publish the finished stream into the drafter's shared
             # n-gram corpus and drop the lane state
             self.spec.on_retire(seq)
+        # seal BEFORE finish: the full pages this request wrote (prompt
+        # and generated tokens) stay resident in the index after its
+        # references drop — the donor of the next shared-prefix arrival
+        self._seal_prefix(seq, seq.request.prompt.size - 1
+                          + seq.num_generated)
         self.scheduler.finish(seq)
         seq.done = True
         self._ttft_recorded.discard(seq.seq_id)
@@ -1336,6 +1637,32 @@ class ServingEngine:
         return {"emitted": emitted, "bucket": bucket, "lanes": len(active)}
 
     # --- one scheduler iteration -----------------------------------------
+    def _admit_prefill(self, seq: Sequence):
+        """The device half of a fresh admission, in admission order: the
+        copy-on-write page copy, then the suffix prefill (planned on the
+        ragged engine, dispatched now on the split one).  Hit accounting
+        and the sealing of the prompt pages already happened in
+        ``Scheduler.admit``.  On the ragged engine, shared pages this
+        sequence reads whose writer is itself mid-plan hold the lane (and
+        its copy) until their writes are issued."""
+        deps = set()
+        pc = self.prefix_cache
+        if self.ragged and seq.cached_tokens and pc is not None:
+            ids = self.cache.seq_page_ids(seq.seq_id)
+            deps = {int(p) for p in ids[:seq.cached_tokens // self.page_size]
+                    if int(p) in pc.unwritten}
+            if seq.cow_pair is not None and int(seq.cow_pair[0]) in \
+                    pc.unwritten:
+                # the copy's source left this table but is still unwritten
+                deps.add(int(seq.cow_pair[0]))
+        if seq.cow_pair is not None and not deps:
+            self._apply_cow(seq)
+        if self.ragged:
+            # chunks ride the following mixed ragged steps
+            self._plan_prefill(seq, awaits=deps)
+        else:
+            self._prefill_seq(seq)
+
     def step(self) -> dict:
         """Admit waiting requests (planning their prefill chunks, or
         prefilling them in split mode), then issue one dispatch — a
@@ -1372,15 +1699,22 @@ class ServingEngine:
             admitted = sched.admit()
             for seq in admitted:
                 flight.request_event(seq.seq_id, EV_ADMITTED,
-                                     replica=self.chaos_key)
+                                     replica=self.chaos_key,
+                                     resume=seq.request.resume is not None)
+                if seq.cached_tokens:
+                    flight.request_event(seq.seq_id, EV_PREFIX_HIT,
+                                         replica=self.chaos_key,
+                                         tokens=int(seq.cached_tokens))
                 # freshly allocated pages quantize from scratch (dynamic
-                # int8), before anything is written through them
+                # int8, which bypasses the prefix cache: no shared page is
+                # ever reset here), before anything is written through them
                 self._reset_page_scales(self.cache.seq_page_ids(seq.seq_id))
-                if self.ragged:
-                    # chunks ride the following mixed ragged steps
-                    self._plan_prefill(seq)
+                if seq.request.resume is not None:
+                    # warm-failover resume: upload the checkpoint's pages
+                    # instead of prefilling
+                    self._upload_snapshot(seq)
                 else:
-                    self._prefill_seq(seq)
+                    self._admit_prefill(seq)
                 self._bind_lane(seq)
                 if self.spec is not None:
                     self.spec.on_admit(seq)
@@ -1399,10 +1733,14 @@ class ServingEngine:
                 self.metrics.on_preemption(len(preempted))
                 for victim in preempted:
                     self._uploaded_pages.pop(victim.seq_id, None)
-                    self._prefill_plans.pop(victim.seq_id, None)
+                    stale = self._drop_plan(victim.seq_id)
                     if self.spec is not None:
                         self.spec.on_drop(victim.seq_id)
                     self._release_lane(victim)
+                    if stale:
+                        # a mid-plan victim: the sharers of its never-
+                        # written sealed pages recompute too
+                        self._preempt_plan_sharers(stale)
             active = [(i, s) for i, s in enumerate(self._lanes)
                       if s is not None]
             if any(self._remaining(s) > 0 for _, s in active):
@@ -1514,6 +1852,11 @@ class ServingEngine:
                     "sp": self._mesh_layout.sp,
                     "devices": self._mesh_layout.size}),
             },
+            "prefix_cache": (
+                self.prefix_cache.stats()
+                if self.prefix_cache is not None else
+                {"enabled": False,
+                 "bypass_reason": self._prefix_bypass_reason}),
             "spec": (self.spec.stats() if self.spec is not None
                      else {"enabled": False}),
             "programs": dict(self.program_calls),

@@ -14,9 +14,15 @@ the attention kernel needs no bounds checks.
 
 Allocation is a LIFO free list.  Pages carry a reference count — the
 number of sequence tables that contain them — so ``share`` can map one
-resident page into several tables and ``free`` only DECREFS;
-``pages_in_use`` counts distinct referenced pages, and
-``pages_in_use + free_pages == allocatable_pages`` always holds (the leak
+resident page into several tables and ``free`` only DECREFS.  Pages the
+prefix index holds (``pin_cached``) stay RESIDENT at refcount 0 —
+evictable, not free: ``allocate`` reclaims them through the registered
+reclaimer (the index's LRU eviction) only when the free list runs short.
+``cow_page`` is the host half of copy-on-write: it swaps a shared page
+in a sequence's table for a fresh one, and the engine copies the payload
+on the device.  ``pages_in_use`` counts distinct referenced pages,
+``pages_cached`` the refcount-0 resident ones, and ``pages_in_use +
+pages_cached + free_pages == allocatable_pages`` always holds (the leak
 invariant).
 
 Int8 pages (the quantized serving arm) keep one fp32 scale per (page,
@@ -25,13 +31,10 @@ head) beside the int8 payload, so a page costs ``P * H * D`` bytes plus
 reference for that layout (symmetric, zero-point-free, qmax 127); the
 device write path lives in ``text/generation.py`` and the dequant in the
 attention kernel.
-
-Not in this slice: the prefix-cache residency hooks (``cow_page``,
-``pin_cached``, the reclaimer; ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -122,9 +125,16 @@ class PagedKVCache:
         self._tables: Dict[str, List[int]] = {}
         # page id -> number of sequence tables containing it
         self._ref: Dict[int, int] = {}
+        # pages the prefix index holds resident: at refcount 0 they are
+        # EVICTABLE (reclaimed through the reclaimer), never free
+        self._cached: set = set()
+        # the prefix cache's LRU eviction: called with the page deficit
+        # when the free list cannot cover an allocation
+        self._reclaimer: Optional[Callable[[int], int]] = None
         self.total_allocs = 0
         self.total_frees = 0
         self.total_shared_maps = 0
+        self.total_cow = 0
         self.peak_pages_in_use = 0
 
     # --- capacity ---------------------------------------------------------
@@ -139,8 +149,8 @@ class PagedKVCache:
     @property
     def allocatable_pages(self) -> int:
         """``num_pages`` minus the reserved trash rows — the leak
-        invariant closes over this: ``pages_in_use + free_pages ==
-        allocatable_pages``."""
+        invariant closes over this: ``pages_in_use + pages_cached +
+        free_pages == allocatable_pages``."""
         return self.num_pages - len(self.reserved_pages)
 
     @property
@@ -149,13 +159,22 @@ class PagedKVCache:
         counts once)."""
         return len(self._ref)
 
+    @property
+    def pages_cached(self) -> int:
+        """Resident refcount-0 pages held only by the prefix index
+        (evictable on demand — neither leaked nor free)."""
+        return sum(1 for p in self._cached if p not in self._ref)
+
     def ref_count(self, page_id: int) -> int:
         return self._ref.get(int(page_id), 0)
 
     def is_free(self, page_id: int) -> bool:
-        """True when the page is on the free list (no sequence holds it) —
-        the quarantine scrub zeroes only such pages."""
-        return self._ref.get(int(page_id), 0) == 0
+        """True when the page is on the free list: no sequence holds it
+        and no prefix index keeps it resident — the quarantine scrub
+        zeroes only such pages (a page shared with other readers keeps
+        its clean payload)."""
+        p = int(page_id)
+        return self._ref.get(p, 0) == 0 and p not in self._cached
 
     def num_seqs(self) -> int:
         return len(self._tables)
@@ -187,7 +206,11 @@ class PagedKVCache:
         need = self.pages_needed(num_tokens) - have
         if need <= 0:
             return True
-        if have + need > self.pages_per_seq or need > len(self._free):
+        if have + need > self.pages_per_seq:
+            return False
+        if need > len(self._free):
+            self._reclaim(need - len(self._free))
+        if need > len(self._free):
             # no phantom registration on failure
             return False
         if table is None:
@@ -201,13 +224,28 @@ class PagedKVCache:
                                      self.pages_in_use)
         return True
 
+    def _reclaim(self, deficit: int):
+        """Ask the prefix index (if attached) to evict refcount-0 cached
+        pages back to the free list — cached prefixes yield to live
+        sequences before an allocation fails or preemption strikes."""
+        if self._reclaimer is not None and deficit > 0:
+            self._reclaimer(deficit)
+
+    def set_reclaimer(self, fn: Optional[Callable[[int], int]]):
+        """Register the cached-page eviction hook (the prefix cache
+        attaches itself here)."""
+        self._reclaimer = fn
+
     def _release_ref(self, page: int):
+        """Drop one reference; a page reaching refcount 0 returns to the
+        free list unless the prefix index holds it resident."""
         n = self._ref.get(page, 0) - 1
         if n > 0:
             self._ref[page] = n
             return
         self._ref.pop(page, None)
-        self._free.append(page)
+        if page not in self._cached:
+            self._free.append(page)
 
     def free(self, seq_id: str) -> int:
         """Drop all of ``seq_id``'s page references; returns the table
@@ -220,10 +258,12 @@ class PagedKVCache:
         self.total_frees += len(table)
         return len(table)
 
+    # --- prefix sharing / copy-on-write ------------------------------------
     def share(self, seq_id: str, page_ids: List[int]) -> bool:
-        """Map already-resident ``page_ids`` as the HEAD of a new
-        sequence's table, increffing each.  Returns False untouched when
-        the sequence already has a table or the prefix alone would exceed
+        """Map already-resident ``page_ids`` (a radix-index match) as the
+        HEAD of a new sequence's table, increffing each — before the
+        sequence's first ``allocate``.  Returns False untouched when the
+        sequence already has a table or the prefix alone would exceed
         ``pages_per_seq``."""
         if not page_ids:
             return True
@@ -233,14 +273,74 @@ class PagedKVCache:
             if int(page) in self.reserved_pages:
                 raise InvalidArgumentError(
                     f"shared page id {page} is reserved (a trash page)")
-            if int(page) not in self._ref:
+            if int(page) not in self._ref and int(page) not in self._cached:
                 raise InvalidArgumentError(
                     f"shared page id {page} is not resident")
         self._tables[seq_id] = [int(p) for p in page_ids]
         for page in self._tables[seq_id]:
-            self._ref[page] += 1
+            self._ref[page] = self._ref.get(page, 0) + 1
         self.total_shared_maps += len(page_ids)
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages_in_use)
         return True
+
+    def cow_page(self, seq_id: str,
+                 table_index: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write, host half: replace the shared page at
+        ``table_index`` of ``seq_id``'s table with a freshly allocated
+        private page and decref the original.  Returns ``(src, dst)`` for
+        the engine's device copy, or None (state untouched — the caller
+        defers the admission) when no page can be had.
+
+        Goes through the chaos site ``kv.allocate`` like every other
+        allocation: a ``deny`` defers the copy exactly like exhaustion."""
+        fault = chaos_site("kv.allocate", key=seq_id)
+        if fault is not None and fault.action == "deny":
+            return None
+        table = self._tables.get(seq_id)
+        if table is None or not (0 <= table_index < len(table)):
+            raise InvalidArgumentError(
+                f"cow_page: sequence {seq_id!r} has no page at table "
+                f"index {table_index}")
+        if not self._free:
+            self._reclaim(1)
+        if not self._free:
+            return None
+        src = table[table_index]
+        dst = self._free.pop()
+        table[table_index] = dst
+        self._ref[dst] = 1
+        self._release_ref(src)
+        self.total_allocs += 1
+        self.total_cow += 1
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages_in_use)
+        return src, dst
+
+    # --- prefix-index residency (called by serving.prefix_cache) ----------
+    def pin_cached(self, page_id: int):
+        """The prefix index took custody of ``page_id``: keep it resident
+        (evictable, not free) when its refcount drops to 0."""
+        self._cached.add(int(page_id))
+
+    def release_cached(self, page_id: int):
+        """The prefix index let go of ``page_id``: a refcount-0 page
+        returns to the free list; a referenced one only loses its
+        residency (it frees normally when its readers finish)."""
+        page_id = int(page_id)
+        self._cached.discard(page_id)
+        if page_id not in self._ref:
+            self._free.append(page_id)
+
+    def take_cached_page(self) -> Optional[int]:
+        """Pop one FREE page straight into cached residency (free to
+        cached in one move, so the leak invariant never sees a middle
+        state); None when the free list is empty — it never reclaims."""
+        if not self._free:
+            return None
+        page = self._free.pop()
+        self._cached.add(page)
+        return page
 
     # --- page-table export ------------------------------------------------
     def seq_page_ids(self, seq_id: str) -> List[int]:
@@ -262,11 +362,13 @@ class PagedKVCache:
             "num_pages": self.allocatable_pages,
             "page_size": self.page_size,
             "pages_in_use": self.pages_in_use,
+            "pages_cached": self.pages_cached,
             "pages_free": self.free_pages,
             "num_seqs": self.num_seqs(),
             "total_allocs": self.total_allocs,
             "total_frees": self.total_frees,
             "total_shared_maps": self.total_shared_maps,
+            "total_cow": self.total_cow,
             "peak_pages_in_use": self.peak_pages_in_use,
             "utilization": self.pages_in_use / max(self.allocatable_pages,
                                                    1),

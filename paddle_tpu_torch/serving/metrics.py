@@ -10,9 +10,11 @@ occupancy).  The registry names are PROCESS-GLOBAL: constructing a new
 ServingMetrics resets them.
 
 Not in this slice: ``FrontendMetrics`` and ``FleetMetrics`` (the
-frontend and router, ROADMAP queue 1 item 7), the recent-window
-histograms that their SLO tracker and healthz read, and the prefix-cache
-and snapshot counters of the engine features that are not ported yet.
+frontend and router, ROADMAP queue 1 step C) and the recent-window
+histograms that their SLO tracker and healthz read.  The frontend's
+brownout counters live here until the frontend is ported, beside the
+``serving.brownout_stage`` gauge that ``resilience.BrownoutController``
+sets.
 """
 from __future__ import annotations
 
@@ -41,7 +43,13 @@ class ServingMetrics:
               # (head) shards, sequence (page) shards and their product
               # (device slots per replica)
               "serving.shard.tp", "serving.shard.sp",
-              "serving.shard.devices")
+              "serving.shard.devices",
+              # resilience: the latest snapshot's host bytes and the
+              # brownout stage (0 normal .. 3 reject)
+              "serving.snapshot_bytes", "serving.brownout_stage",
+              # prefix cache: tokens' worth of KV the radix index can
+              # serve (resident sealed pages)
+              "serving.prefix.cached_tokens")
     COUNTERS = ("serving.steps", "serving.tokens_generated",
                 "serving.requests_admitted", "serving.requests_completed",
                 "serving.preemptions", "serving.prefill_chunks",
@@ -64,10 +72,25 @@ class ServingMetrics:
                 # maintenance traffic that assembled (gather) or
                 # re-distributed (scatter) sharded KV pages
                 "serving.shard.steps", "serving.shard.page_gathers",
-                "serving.shard.page_scatters")
+                "serving.shard.page_scatters",
+                # resilience: request checkpoints taken and restored, the
+                # watchdog's trips, placement retries that backed off
+                "serving.snapshots", "serving.restores",
+                "serving.watchdog_trips", "serving.retries_backoff",
+                # prefix cache: per-admission hit/miss, the prefill tokens
+                # the hits skipped, LRU page evictions and copy-on-write
+                # page copies
+                "serving.prefix.hits", "serving.prefix.misses",
+                "serving.prefix.hit_tokens", "serving.prefix.evictions",
+                "serving.prefix.cow",
+                # brownout: queued requests shed, budgets clamped,
+                # submissions rejected
+                "serving.frontend.brownout_shed",
+                "serving.frontend.brownout_clamped",
+                "serving.frontend.brownout_rejected")
     HISTOGRAMS = ("serving.step_latency_ms", "serving.prefill_latency_ms",
                   "serving.decode_latency_ms", "serving.ttft_ms",
-                  "serving.dispatch_gap_ms")
+                  "serving.dispatch_gap_ms", "serving.failover_recovery_ms")
 
     def __init__(self, clock: Optional[Callable[[], float]] = None):
         self._lock = OrderedLock("serving.metrics")
@@ -117,6 +140,68 @@ class ServingMetrics:
 
     def on_deadline_miss(self, n: int = 1):
         stat_registry.get("serving.deadline_miss").add(n)
+
+    # --- resilience --------------------------------------------------------
+    def on_snapshot(self, nbytes: int):
+        """One request checkpoint taken; the gauge holds the latest
+        snapshot's size (tokens + KV pages, host bytes)."""
+        stat_registry.get("serving.snapshots").add(1)
+        stat_registry.get("serving.snapshot_bytes").set(int(nbytes))
+
+    def on_restore(self, n: int = 1):
+        """A snapshot was re-admitted mid-stream (warm failover)."""
+        stat_registry.get("serving.restores").add(n)
+
+    def on_watchdog_trip(self, n: int = 1):
+        """The watchdog pulled a replica from the routing pool."""
+        stat_registry.get("serving.watchdog_trips").add(n)
+
+    def on_retry_backoff(self, n: int = 1):
+        """One placement retry slept through its backoff."""
+        stat_registry.get("serving.retries_backoff").add(n)
+
+    def on_failover_recovery(self, seconds: float):
+        """Replica death to the first token decoded by the survivor."""
+        stat_registry.histogram("serving.failover_recovery_ms").observe(
+            seconds * 1e3)
+
+    def on_brownout_shed(self):
+        """A queued request was shed under brownout (lowest deadline
+        slack first)."""
+        stat_registry.get("serving.frontend.brownout_shed").add(1)
+
+    def on_brownout_clamp(self):
+        """A new submission's max_new_tokens was clamped under
+        brownout."""
+        stat_registry.get("serving.frontend.brownout_clamped").add(1)
+
+    def on_brownout_reject(self):
+        """A new submission was rejected under brownout stage 3."""
+        stat_registry.get("serving.frontend.brownout_rejected").add(1)
+
+    # --- prefix cache --------------------------------------------------------
+    def on_prefix_hit(self, tokens: int):
+        """One eligible admission matched a resident prefix: ``tokens``
+        prompt positions were mapped from the index, not prefilled."""
+        stat_registry.get("serving.prefix.hits").add(1)
+        if tokens > 0:
+            stat_registry.get("serving.prefix.hit_tokens").add(int(tokens))
+
+    def on_prefix_miss(self, n: int = 1):
+        stat_registry.get("serving.prefix.misses").add(n)
+
+    def on_prefix_evict(self, n: int = 1):
+        """Refcount-0 cached pages reclaimed (LRU, leaf-first) to cover a
+        live allocation."""
+        stat_registry.get("serving.prefix.evictions").add(n)
+
+    def on_prefix_cow(self, n: int = 1):
+        """Copy-on-write page copies: a sequence was about to write into
+        a shared page and received a private copy on the device."""
+        stat_registry.get("serving.prefix.cow").add(n)
+
+    def set_prefix_cached_tokens(self, tokens: int):
+        stat_registry.get("serving.prefix.cached_tokens").set(int(tokens))
 
     def on_ragged(self, *, decode_rows: int = 0, prefill_rows: int = 0,
                   spec_rows: int = 0, q_bucket: int = 0):
@@ -272,6 +357,18 @@ class ServingMetrics:
         snap["aborts"] = stat_registry.get("serving.aborts").get()
         snap["deadline_miss"] = stat_registry.get(
             "serving.deadline_miss").get()
+        for short in ("snapshots", "restores", "watchdog_trips",
+                      "retries_backoff", "brownout_stage",
+                      "snapshot_bytes"):
+            snap[short] = stat_registry.get(f"serving.{short}").get()
+        snap["prefix"] = {
+            short: stat_registry.get(f"serving.prefix.{short}").get()
+            for short in ("hits", "misses", "hit_tokens", "evictions",
+                          "cow", "cached_tokens")}
+        snap["brownout"] = {
+            short: stat_registry.get(
+                f"serving.frontend.brownout_{short}").get()
+            for short in ("shed", "clamped", "rejected")}
         snap["guard"] = {
             short: stat_registry.get(f"serving.guard.{short}").get()
             for short in ("nan_lanes", "quarantines")}

@@ -22,9 +22,12 @@ deadline     a request may carry an absolute ``deadline`` (monotonic
 reservation  ``reserve`` grows a table WITHOUT preemption, for capacity
              that may be rolled back (the fused K-step horizon, spec-decode
              draft windows).
-
-Not in this slice: snapshot resume requests and prefix-cache admission
-(ROADMAP queue 1 item 7).
+prefix       with a prefix cache attached (``Scheduler.prefix_cache``),
+             admission maps the longest resident full-page prompt prefix
+             into the new table and allocates only the uncached suffix.
+resume       a request carrying an ``EngineSnapshot`` (``Request.resume``)
+             allocates pages for every KV position the snapshot holds and
+             starts mid-stream at its checkpoint.
 """
 from __future__ import annotations
 
@@ -56,6 +59,15 @@ class Request:
     arrival_time: float = field(default_factory=time.monotonic)
     # absolute time.monotonic() seconds; None = no SLO
     deadline: Optional[float] = None
+    # warm-failover resume state (a resilience.EngineSnapshot): admission
+    # uploads the snapshot's KV pages instead of prefilling, and the
+    # sequence starts mid-stream at the checkpoint.  The scheduler reads
+    # only .pos / .next_token / .generated / .kv_len.
+    resume: Optional[object] = field(default=None, repr=False)
+    # the per-request prefix-cache OPT-OUT: False skips both the index
+    # lookup and the sealing of this request's pages.  Ignored when the
+    # engine has no prefix cache; resume requests always restore private.
+    use_prefix_cache: bool = True
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -83,8 +95,18 @@ class Sequence:
         self.pos = 0
         self.next_token = int(request.prompt[-1])
         self.generated: List[int] = []
+        if request.resume is not None:
+            # warm-failover resume: start mid-stream at the checkpoint
+            self.next_token = int(request.resume.next_token)
+            self.generated = [int(t) for t in request.resume.generated]
         self.preemptions = 0
         self.first_token_time: Optional[float] = None
+        # prefix-cache admission outcome (set by Scheduler.admit): tokens
+        # covered by shared index pages (prefill starts there) and the
+        # (src, dst) of a pending copy-on-write page the engine copies on
+        # the device before the first dispatch that reads it
+        self.cached_tokens = 0
+        self.cow_pair: Optional[tuple] = None
         # a preemption bumps the epoch, so tokens dispatched before the
         # reset are dropped on consume (the recompute replays them)
         self.epoch = 0
@@ -101,10 +123,17 @@ class Sequence:
         return len(self.generated)
 
     def reset(self):
-        """Recompute-preemption: back to the unprefilled state."""
+        """Recompute-preemption: back to the unprefilled state — or, for a
+        snapshot-resumed sequence, back to its checkpoint (re-admission
+        uploads the snapshot's pages again)."""
+        resume = self.request.resume
         self.pos = 0
-        self.next_token = int(self.request.prompt[-1])
-        self.generated = []
+        if resume is not None:
+            self.next_token = int(resume.next_token)
+            self.generated = [int(t) for t in resume.generated]
+        else:
+            self.next_token = int(self.request.prompt[-1])
+            self.generated = []
         self.preemptions += 1
         self.epoch += 1
 
@@ -125,6 +154,8 @@ class Scheduler:
         self.waiting: Deque[Request] = deque()
         self.running: List[Sequence] = []
         self.num_preemptions = 0
+        # optional serving.prefix_cache.PrefixCache (set by the engine)
+        self.prefix_cache = None
 
     # --- queue ------------------------------------------------------------
     def add(self, request: Request):
@@ -152,17 +183,62 @@ class Scheduler:
     def admit(self) -> List[Sequence]:
         """Move waiting requests into the running set while a batch slot
         is free and the cache can cover the prompt; FIFO order, so a big
-        stuck request head-of-line blocks."""
+        stuck request head-of-line blocks.
+
+        With a prefix cache, an eligible request (not a resume, not opted
+        out) first maps the index's longest resident full-page prompt
+        prefix through ``cache.share`` and allocates only the suffix; when
+        the match covers the WHOLE prompt, the first decode write
+        (position P-1) would land in a shared page, so the last matched
+        page is swapped copy-on-write (``cache.cow_page``).  Any failure
+        on the way (exhaustion, a chaos ``kv.allocate`` denial) rolls the
+        mapping back and defers the admission.  The full prompt pages
+        below position P-1 are sealed at once, so a later request of the
+        same ``admit`` already shares them."""
         admitted: List[Sequence] = []
         while self.waiting and len(self.running) < self.max_batch_size:
             req = self.waiting[0]
-            if not self.cache.allocate(req.request_id, len(req.prompt)):
+            # a resumed request needs pages for every KV position its
+            # snapshot carries, not just the prompt
+            kv_need = (int(req.resume.kv_len) if req.resume is not None
+                       else len(req.prompt))
+            eligible = (self.prefix_cache is not None and req.resume is None
+                        and req.use_prefix_cache)
+            matched: List[int] = []
+            if eligible:
+                matched = self.prefix_cache.match(req.prompt)
+                if matched and not self.cache.share(req.request_id,
+                                                    matched):
+                    matched = []
+            if not self.cache.allocate(req.request_id, kv_need):
+                if matched:
+                    # roll the mapping back (a pure decref: the pages stay
+                    # resident for the retry)
+                    self.cache.free(req.request_id)
                 break
+            matched_tokens = len(matched) * self.cache.page_size
+            cow_pair = None
+            if matched_tokens >= len(req.prompt):
+                cow_pair = self.cache.cow_page(req.request_id,
+                                               len(matched) - 1)
+                if cow_pair is None:
+                    self.cache.free(req.request_id)
+                    break
             self.waiting.popleft()
             seq = Sequence(req)
-            seq.pos = len(req.prompt) - 1
+            seq.pos = (int(req.resume.pos) if req.resume is not None
+                       else len(req.prompt) - 1)
+            seq.cached_tokens = matched_tokens
+            seq.cow_pair = cow_pair
             self.running.append(seq)
             admitted.append(seq)
+            if eligible:
+                self.prefix_cache.on_admission(matched_tokens)
+                full = (len(req.prompt) - 1) // self.cache.page_size
+                if full > 0:
+                    self.prefix_cache.insert(
+                        req.prompt,
+                        self.cache.seq_page_ids(req.request_id), full)
         return admitted
 
     # --- decode-time page growth -----------------------------------------

@@ -365,13 +365,20 @@ class SpecDecoder:
 
     # --- lane lifecycle (engine hooks) --------------------------------------
     def on_admit(self, seq) -> None:
-        """An admitted sequence: seed the drafter with its full history
-        (the prompt, plus any tokens it already generated)."""
+        """An admitted (or snapshot-resumed) sequence: seed the drafter
+        with its full history (the prompt, plus any tokens it already
+        generated) and, when resuming, restore the lane's adaptive state
+        from the snapshot."""
         hist = seq.request.prompt
         if seq.generated:
             hist = np.concatenate(
                 [hist, np.asarray(seq.generated, np.int32)])
         self.drafter.begin_lane(seq.seq_id, hist)
+        resume = seq.request.resume
+        spec_state = getattr(resume, "spec", None) if resume is not None \
+            else None
+        if spec_state:
+            self.drafter.import_lane(seq.seq_id, spec_state)
 
     def on_token(self, seq_id: str, token: int) -> None:
         self.drafter.observe(seq_id, token)

@@ -118,6 +118,11 @@ class ChaosPlan:
                     return f
         return None
 
+    def fired_log(self) -> List[dict]:
+        """A copy of the record of fired faults, oldest first."""
+        with self._lock:
+            return list(self.fired)
+
 
 _ACTIVE: Optional[ChaosPlan] = None
 _INSTALL_LOCK = OrderedLock("chaos.install")

@@ -1520,3 +1520,172 @@ def test_a_failed_capture_raises():
             f(x)
     torch.cuda.synchronize()
     assert torch.equal(x + 1, torch.full((4,), 2.0, device="cuda"))
+
+
+# --------------------------------------------------------------------------
+# the prefix cache and snapshots on the card: prefill chunks that start at
+# a cached page boundary, streams, in-place pool writes and the
+# shared-prefix sync-free window
+# --------------------------------------------------------------------------
+BOUNDARY_START = 528          # 33 pages of 16: a page boundary, not a
+BOUNDARY_ROWS = 64            # multiple of the 64-row chunk
+
+
+def _boundary_case(D, dtype, P=16, M=48):
+    """Lane 0: a prefill chunk of BOUNDARY_ROWS rows starting at
+    BOUNDARY_START (the first chunk of a prefix-hit lane), row r seeing
+    BOUNDARY_START + r + 1 positions; lane 1: one decode row over 700
+    positions (its other rows empty).  Pages distinct and random, random
+    content in the trash page 0."""
+    H = 12 if D == 64 else 4
+    rng = np.random.RandomState(D)
+    G, Qb = 2, BOUNDARY_ROWS
+    N = 1 + G * M
+    perm = rng.permutation(np.arange(1, N))
+    pt = np.zeros((G, M), np.int32)
+    lens = (BOUNDARY_START + Qb, 700)
+    for g, n in enumerate(lens):
+        pt[g, :-(-n // P)] = perm[g * M:g * M + -(-n // P)]
+    rl = np.zeros((G, Qb), np.int32)
+    rl[0] = BOUNDARY_START + 1 + np.arange(Qb)
+    rl[1, 0] = lens[1]
+    q, kp, vp = (torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+                 for a in (rng.randn(G, Qb, H, D), rng.randn(N, P, H, D),
+                           rng.randn(N, P, H, D)))
+    return q, kp, vp, torch.from_numpy(pt).cuda(), torch.from_numpy(rl).cuda()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_ragged_chunk_at_an_unaligned_page_boundary(D, quant):
+    """#1 / #1q: the prefill form over a chunk starting at position 528
+    beside a decode lane, against the plain version."""
+    args = _boundary_case(D, torch.float32)
+    _zero_counts()
+    _check_ragged(_int8(args) if quant else args)
+    assert pa.PAGED_ROUTE_STATS == _counts(
+        **{"cuda_int8" if quant else "cuda": 1})
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_decode_chunk_at_an_unaligned_page_boundary(D, quant):
+    """#2 / #2q: the split prefill's chunk starting at position 528 (64
+    rows of one sequence sharing its table row), against the plain
+    version."""
+    q, kp, vp, pt, rl = _boundary_case(D, torch.float32)
+    args = (q[0].contiguous(), kp, vp,
+            pt[0:1].repeat(BOUNDARY_ROWS, 1).contiguous(),
+            rl[0].contiguous())
+    _zero_counts()
+    if quant:
+        _, kq, vq, _, _, ks, vs = _int8((q, kp, vp, pt, rl))
+        out = pa.paged_attention(args[0], kq, vq, args[3], args[4], ks, vs)
+        ref = pa.paged_attention_ref(args[0], kq, vq, args[3], args[4], ks,
+                                     vs)
+    else:
+        out = pa.paged_attention(*args)
+        ref = pa.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert pa.PAGED_ROUTE_STATS == _counts(
+        **{"cuda_decode_int8" if quant else "cuda_decode": 1})
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=TOL[torch.float32])
+
+
+def _prefix_prompts(vocab=64):
+    """A donor whose prompt is a 16-token system prompt (4 pages of 4),
+    then three readers: the same prompt (a full-prompt hit: a copy), and
+    two with their own suffixes."""
+    rng = np.random.RandomState(21)
+    system = rng.randint(1, vocab, (16,)).astype(np.int32)
+    return system, [system.copy()] + [
+        np.concatenate([system, rng.randint(1, vocab, (n,)).astype(
+            np.int32)]) for n in (3, 9)]
+
+
+def _prefix_drive(eng, donor, readers):
+    rid = eng.add_request(donor, max_new_tokens=12)
+    outs = eng.drain()
+    ids = [eng.add_request(p, max_new_tokens=12) for p in readers]
+    outs.update(eng.drain())
+    return [outs[r] for r in [rid] + ids]
+
+
+@pytest.mark.parametrize("arm", ["native", "int8_static", "split"])
+def test_prefix_engine_streams_on_the_card(arm):
+    """``prefix_cache=True`` on the card: the readers hit the donor's
+    pages (one copy-on-write), every launch on the arm's kernel, streams
+    equal to the cache-off engine's and to ``generate`` (int8_static:
+    ``generate(quant=...)``), the leak invariant after the drain."""
+    from paddle_tpu_torch.text.generation import generate
+
+    m, _ = _engine_case()
+    export = _export(m) if arm == "int8_static" else None
+    donor, readers = _prefix_prompts()
+    streams = {}
+    for pc in (False, True):
+        eng = _graph_engine(m, arm, export, prefix_cache=pc)
+        _zero_counts()
+        streams[pc] = _prefix_drive(eng, donor, readers)
+        n = 2 * _forwards(eng)
+        int8 = arm == "int8_static"
+        key = ("cuda" if eng.ragged else "cuda_decode") + (
+            "_int8" if int8 else "")
+        assert pa.PAGED_ROUTE_STATS == _counts(**{key: n})
+        c = eng.cache
+        assert c.pages_in_use == 0
+        assert c.pages_in_use + c.pages_cached + c.free_pages == \
+            c.allocatable_pages
+    st = eng.stats()["prefix_cache"]
+    assert st["hits"] == 3 and st["cow_copies"] == 1
+    for a, b in zip(streams[True], streams[False]):
+        np.testing.assert_array_equal(a, b)
+    for p, got in zip([donor] + readers, streams[True]):
+        want = generate(m, p[None], max_new_tokens=12, end_id=-1,
+                        quant=export)[0][0].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cow_and_restore_write_the_pools_in_place():
+    """The copy-on-write and a snapshot's upload write the pools in
+    place: every pool tensor keeps its ``data_ptr`` across admission, the
+    copy and the restore, and the graphed ragged step keeps replaying."""
+    m, _ = _engine_case()
+    donor, readers = _prefix_prompts()
+    eng = _graph_engine(m, "native", prefix_cache=True)
+    ptrs = chip_smoke.pool_ptrs(eng)
+    _prefix_drive(eng, donor, readers[:1])
+    assert eng.stats()["prefix_cache"]["cow_copies"] == 1
+    assert chip_smoke.pool_ptrs(eng) == ptrs
+    rid = eng.add_request(readers[2], max_new_tokens=12)
+    for _ in range(64):
+        eng.step()
+        seq = next((s for s in eng.scheduler.running if s.seq_id == rid),
+                   None)
+        if seq is not None and len(seq.generated) >= 4:
+            break
+    snap = eng.snapshot(rid)
+    assert snap is not None
+    surv = _graph_engine(m, "native")
+    sptrs = chip_smoke.pool_ptrs(surv)
+    want = eng.drain()[rid]
+    surv.restore(snap)
+    got = surv.drain()[rid]
+    assert chip_smoke.pool_ptrs(surv) == sptrs
+    assert chip_smoke.pool_ptrs(eng) == ptrs
+    assert surv.stats()["jit_costs"]["serving.ragged_step"]["replays"] > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_shared_prefix_window_is_sync_free():
+    """chip_smoke's shared-prefix window on the small engine: after the
+    admission's copy-on-write and write barrier, 32 steady steps under
+    ``set_sync_debug_mode("error")`` and a compile budget of 0."""
+    m, _ = _engine_case()
+    eng = _graph_engine(m, "native", prefix_cache=True, num_pages=80)
+    donor, lanes = chip_smoke.prefix_window_prompts(
+        np.random.RandomState(9), 64, system_len=16, suffix_len=3)
+    res = chip_smoke.prefix_sync_free_window(eng, donor, lanes)
+    assert res["programs"]["serving.ragged_step"]["replays"] == 32
+    assert res["prefix_cache"]["cow_copies"] == 1

@@ -8,10 +8,11 @@ paddle_tpu and vs the port's own dense ``generate``.
   ``ServingEngine`` stream, with no page leaked;
 - recompute preemption, abort, deadlines and the numeric-guard
   quarantine keep every surviving stream equal to ``generate``;
-- knobs the port does not carry yet, and knob values no slice takes (an
-  unknown KV or weight dtype, ``quant_scales`` without an int8 knob,
-  ``ragged=True`` with ``fused_steps``, a ``spec_decode`` horizon below
-  2, an unknown mesh axis), raise ``InvalidArgumentError``, and the
+- knobs the port does not carry yet (the KV tiers), and knob values no
+  slice takes (an unknown KV or weight dtype, ``quant_scales`` without
+  an int8 knob, ``ragged=True`` with ``fused_steps``, a ``spec_decode``
+  horizon below 2, an unknown mesh axis), raise
+  ``InvalidArgumentError``, and the
   default device (the CUDA card) raises where there is none.
 
 Streams are compared token for token (greedy, f32 on the CPU).
@@ -225,7 +226,8 @@ def test_request_validation(port):
 # default
 # =============================================================================
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True}, {"kv_tiering": True}, {"spec_decode": 1},
+    {"prefix_cache": True, "kv_tiering": True}, {"kv_tiering": True},
+    {"spec_decode": 1},
     {"spec_drafter": object()}, {"mesh_axes": {"dp": 2}},
     {"kv_cache_dtype": "int4"}, {"weight_dtype": "fp8"},
     {"quant_scales": {}}, {"fused_steps": 2, "ragged": True},
@@ -239,8 +241,9 @@ def test_unsupported_knobs_raise(port, knob):
 
 
 def test_unported_entry_points_name_the_roadmap(port):
-    eng = ServingEngine(port, device="cpu", **ENGINE)
-    for call in (lambda: eng.snapshot("x"), lambda: eng.restore(None),
+    for call in (lambda: ServingEngine(port, device="cpu", prefix_cache=True,
+                                       kv_tiering={"host_pages": 4},
+                                       **ENGINE),
                  lambda: create_serving_engine(port, config=object())):
         with pytest.raises(InvalidArgumentError, match="ROADMAP"):
             call()
