@@ -186,6 +186,27 @@ Phases, one result line each (or more):
    int8_static and int8_dynamic; then a tp 2 x sp 2 donor restored in a
    single-slot engine and the reverse; snapshot bytes, snapshot ms and
    restore ms (the pages' upload), pools written in place.
+25. e2e_frontend (after sync_free): the serving front door at
+   GPT-2-small width on the e2e requests — ``ServingFrontend`` over two
+   graphed replicas driven by their pump threads (snapshots every 16
+   tokens, replica-0 killed mid-decode by ``inject_failure``: its
+   requests resume on replica-1 from their snapshots), the same fleet
+   with snapshots off and no failure, a disaggregated int8_static fleet
+   (one prefill and one decode replica: #1q and #4 through the front
+   door, each ship an int8 snapshot), restart recovery (a
+   ``snapshot_store`` in a temporary directory, the only replica killed,
+   a new frontend's ``recover_pending()`` finishes 4 requests), the
+   HTTP server (2 streamed ``POST /generate``, ``GET /healthz``, ``GET
+   /metrics``), and 32 steady pump steps of one replica under
+   ``set_sync_debug_mode("error")`` and ``compile_budget(0)`` with the
+   main thread idle.  Every stream equal to the batched dense reference
+   and to the bare engine's e2e streams (int8 per the export) except at
+   a reported near-tie; route counters exact summed over the replicas;
+   only the injected replica dead; the survivors' leak invariant;
+   ``healthz()`` with its SLO, tier and fleet keys and ``/metrics``
+   parsed with the ``serving.*`` families; TTFT and ITL p50 / p95 from
+   the handles, each replica's step p50, captures and replays,
+   snapshots and their ms, ships and wall seconds.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -2134,6 +2155,8 @@ def e2e_phase(model, prompts, device="cuda") -> dict:
     result["profiled_step"] = profile_graphed_step(
         "e2e", eng, prompts, {"ragged_decode_kernel": L})
     log("e2e", **result)
+    # the graphed drive's streams, a reference of the front door's phase
+    result["streams"] = [s.tolist() for s in streams]
     return result
 
 
@@ -2199,6 +2222,7 @@ def e2e_int8_static_phase(model, prompts, rng, native, device="cuda"):
         {"ragged_decode_kernel": L, "qmm_chunk_kernel": 6 * L,
          "qmm_tile_kernel": 0})
     log("e2e_int8_static", **result)
+    result["streams"] = [s.tolist() for s in streams]
     return result, export
 
 
@@ -3077,6 +3101,558 @@ def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# the serving front door (serving/frontend.py, router.py, http.py,
+# profiler/slo.py and exposition.py, io/checkpoint.py)
+# --------------------------------------------------------------------------
+# replica-0's engine step at which the fleet arm's injected failure fires:
+# every request placed there has consumed its first snapshot's 16 tokens
+# and none has finished its 32 (the schedule is host logic; the CPU
+# rehearsal gives the same one)
+FRONTEND_KILL_STEP = 30
+# the restart arm's kill of its only replica (4 requests, 16-128 tokens)
+RESTART_KILL_STEP = 24
+FRONTEND_SNAPSHOT_INTERVAL = 16
+# the sync-free arm's budget: the window (steps counted by polling from
+# the main thread, which may lag the pump by a few steps) must end well
+# before a lane retires
+FRONTEND_SYNC_FREE_BUDGET = 96
+# every healthz() of the port carries these keys (the fleet rollup is
+# ``replicas`` and ``healthy_by_role``; its gauges are serving_fleet_*)
+HEALTHZ_KEYS = ("status", "replicas", "healthy_by_role", "slo", "tiers",
+                "window")
+METRIC_FAMILIES = ("serving_steps", "serving_frontend_completed",
+                   "serving_frontend_ttft_ms", "serving_fleet_state",
+                   "serving_slo_attainment", "serving_kv_pages_in_use")
+
+
+def prometheus_families(text) -> dict:
+    """{family: type} of a Prometheus 0.0.4 text page; raises on a sample
+    line outside its declared family or without a float value, and on a
+    family declared twice."""
+    types = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split(" ", 3)
+            if name in types:
+                raise AssertionError(f"/metrics: TYPE {name} twice")
+            types[name] = typ
+        elif line and not line.startswith("#"):
+            name = line.split("{", 1)[0].split(" ", 1)[0]
+            if not any(name == f or name.startswith(f + "_")
+                       for f in types):
+                raise AssertionError(f"/metrics: undeclared sample {line}")
+            float(line.rsplit(" ", 1)[1])
+    return types
+
+
+def check_ops_surface(phase, hz, metrics_text):
+    """``healthz()`` (or ``GET /healthz``) carries the SLO, tier and fleet
+    keys; the exposition parses and has the ``serving.*`` families."""
+    missing = [k for k in HEALTHZ_KEYS if k not in hz]
+    if missing or set(hz["slo"]["objectives"]) != {
+            "availability", "deadline", "nan_quarantine", "ttft_p95"}:
+        raise AssertionError(f"{phase}: healthz lacks {missing}: {hz}")
+    fams = prometheus_families(metrics_text)
+    absent = [f for f in METRIC_FAMILIES if f not in fams]
+    if absent:
+        raise AssertionError(f"{phase}: /metrics lacks {absent}")
+    return {"healthz_keys": sorted(hz), "metric_families": len(fams)}
+
+
+def time_replica_calls(fe):
+    """Host timers around each replica engine's ``step`` and ``snapshot``
+    (run by its pump thread); returns {replica id: {"step_ms": [...],
+    "snapshot_ms": [...], "snapshots": [(kv_mode, page dtype)]}}."""
+    timers = {}
+    for rep in fe._replicas:
+        eng = rep.engine
+        t = timers[rep.id] = {"step_ms": [], "snapshot_ms": [],
+                              "snapshots": []}
+
+        def step(fn=eng.step, out=t["step_ms"]):
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                out.append((time.perf_counter() - t0) * 1e3)
+
+        def snapshot(rid, fn=eng.snapshot, t=t):
+            t0 = time.perf_counter()
+            snap = fn(rid)
+            t["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+            if snap is not None:
+                t["snapshots"].append(
+                    (snap.kv_mode, str(snap.pages["k"][0].dtype)))
+            return snap
+
+        eng.step, eng.snapshot = step, snapshot
+    return timers
+
+
+def start_consumers(handles):
+    """Iterate every handle's events on a thread of its own (host work
+    only: a handle never touches the device), stamping each token's
+    arrival.  Returns (threads, {request id: [arrival s]})."""
+    import threading
+
+    stamps = {h.request_id: [] for h in handles}
+
+    def run(h):
+        for ev in h.events():
+            if ev[0] == "token":
+                stamps[h.request_id].append(time.perf_counter())
+
+    threads = [threading.Thread(target=run, args=(h,), daemon=True)
+               for h in handles]
+    for th in threads:
+        th.start()
+    return threads, stamps
+
+
+def join_consumers(threads):
+    for th in threads:
+        th.join(600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a handle never reached a terminal state")
+
+
+def consume(handles):
+    """``start_consumers`` and wait until every handle is terminal;
+    returns the arrival stamps."""
+    threads, stamps = start_consumers(handles)
+    join_consumers(threads)
+    return stamps
+
+
+def _pcts(xs) -> dict:
+    if not xs:
+        return {"p50": None, "p95": None, "n": 0}
+    return {"p50": float(np.percentile(xs, 50)),
+            "p95": float(np.percentile(xs, 95)), "n": len(xs)}
+
+
+def replica_programs(eng) -> dict:
+    """One replica's ragged dispatches, graphs captured (signatures) and
+    replays (every later call of a captured signature)."""
+    calls = eng.program_calls["ragged_step"]
+    sigs = eng._ragged_fn._sigs.values()
+    captures = sum(1 for s in sigs if s.graph is not None)
+    return {"dispatches": calls, "captures": captures,
+            "replays": calls - len(sigs) if captures else 0}
+
+
+def fleet_report(phase, fe, handles, stamps, timers, wall, killed):
+    """The arm's latency and per-replica figures; checks that only the
+    replicas in ``killed`` ({id: reason}) died, of exactly that.
+    ``handles`` are ResponseHandles or the HTTP final lines (their
+    ``ttft_ms``, ``retried``, ``resumed_from``)."""
+    dead = {r.id: r.dead_reason for r in fe._replicas if r.state == "dead"}
+    if dead != killed:
+        raise AssertionError(f"{phase}: dead replicas {dead}, expected "
+                             f"{killed}")
+    itl = [(b - a) * 1e3 for s in stamps.values()
+           for a, b in zip(s, s[1:])]
+    snap_ms = [x for t in timers.values() for x in t["snapshot_ms"]]
+    esnap = fe.engine_metrics.snapshot()
+    def field(h, name):
+        return h[name] if isinstance(h, dict) else getattr(h, name)
+
+    return {
+        "wall_s": wall,
+        "ttft_ms": _pcts([field(h, "ttft_ms") for h in handles]),
+        "itl_ms": _pcts(itl),
+        "replicas": {
+            r.id: dict(replica_programs(r.engine), state=r.state,
+                       steps=r.steps,
+                       step_ms=_pcts(timers[r.id]["step_ms"]))
+            for r in fe._replicas},
+        "snapshots": esnap["snapshots"], "snapshot_ms": _pcts(snap_ms),
+        "restores": esnap["restores"],
+        "ships": esnap["disagg"]["transfer_ms"]["count"],
+        "shipped_pages": esnap["disagg"]["shipped_pages"],
+        "retried": sum(field(h, "retried") for h in handles),
+        "resumed_from": [field(h, "resumed_from") for h in handles],
+        "dead": dead}
+
+
+def frontend_counts(phase, model, counts, engines, int8):
+    """The route counters summed over every replica that ran: each
+    engine's ragged dispatches times the layers (times 6 for the int8
+    matmul)."""
+    att = len(model.layers) * sum(
+        e.program_calls["ragged_step"] for e in engines)
+    expect_counts(phase, counts, {
+        "attention_cuda": 0 if int8 else att,
+        "attention_cuda_int8": att if int8 else 0,
+        "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+        "attention_ref": 0, "qmm_cuda": 6 * att if int8 else 0,
+        "qmm_ref": 0, **NO_STATS})
+    return att
+
+
+def check_frontend_streams(phase, model, prompts, handles, wants, int8,
+                           budget=NEW_TOKENS):
+    """Every handle completed, and its first ``budget`` tokens equal each
+    reference in ``wants`` except at a reported near-tie."""
+    bad = {h.request_id: h.status for h in handles
+           if h.status != "completed"}
+    if bad:
+        raise AssertionError(f"{phase}: not completed: {bad}")
+    streams = [h.tokens[:budget] for h in handles]
+    near = []
+    for name, want in wants.items():
+        near += check_streams(f"{phase}/{name}", model, prompts, streams,
+                              want=want, int8=int8)
+    return near
+
+
+def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
+                 kill=None, **fe_kw):
+    """Serve ``prompts`` through one ServingFrontend, submitted together
+    and consumed by iterating the handles, with the counts set to 0 just
+    before the submissions and read after the last stream ended;
+    ``kill`` = (replica id, step) arms an injected failure first.  Checks
+    streams, counters, deaths, leaks and the ops surface; returns the
+    arm's report (``fleet_report``)."""
+    from paddle_tpu_torch.profiler import prometheus_text
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    fe = ServingFrontend(model, device=device, **fe_kw)
+    try:
+        timers = time_replica_calls(fe)
+        killed = {}
+        if kill is not None:
+            fe.inject_failure(kill[0], at_step=kill[1])
+            killed[kill[0]] = f"injected failure at step {kill[1]}"
+        reset_counts()
+        t0 = time.perf_counter()
+        handles = [fe.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        stamps = consume(handles)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        res = fleet_report(phase, fe, handles, stamps, timers, wall, killed)
+        res["launches"] = counts
+        frontend_counts(phase, model, counts,
+                        [r.engine for r in fe._replicas], int8)
+        res["near_ties"] = check_frontend_streams(phase, model, prompts,
+                                                  handles, wants, int8)
+        for rep in fe._replicas:
+            if rep.state != "dead":
+                leak_invariant(f"{phase}/{rep.id}", rep.engine)
+        res["ops"] = check_ops_surface(phase, fe.healthz(),
+                                       prometheus_text())
+        res["snapshot_kinds"] = sorted({k for t in timers.values()
+                                        for k in t["snapshots"]})
+        return res
+    finally:
+        fe.close()
+
+
+def restart_arm(model, prompts, wants, device) -> dict:
+    """A frontend with a ``snapshot_store`` in a temporary directory loses
+    its only replica mid-decode (every request ``failed``, the slots
+    stay); a new frontend's ``recover_pending()`` finishes them from the
+    slots."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_slots_")
+    try:
+        kw = dict(replicas=1, engine_kwargs=dict(ENGINE), device=device,
+                  snapshot_interval=FRONTEND_SNAPSHOT_INTERVAL,
+                  snapshot_store=d)
+        fe = ServingFrontend(model, **kw)
+        try:
+            fe.inject_failure("replica-0", at_step=RESTART_KILL_STEP)
+            reset_counts()
+            t0 = time.perf_counter()
+            lost = [fe.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+            if [h.wait(600) for h in lost] != ["failed"] * len(prompts):
+                raise AssertionError(f"e2e_frontend/restart: "
+                                     f"{[h.status for h in lost]}")
+            dead = {r.id: r.dead_reason for r in fe._replicas}
+            engines = [fe._replicas[0].engine]
+        finally:
+            fe.close()
+        if dead != {"replica-0":
+                    f"injected failure at step {RESTART_KILL_STEP}"}:
+            raise AssertionError(f"e2e_frontend/restart: deaths {dead}")
+        slots = sorted(os.listdir(d))
+        fe2 = ServingFrontend(model, **kw)
+        try:
+            timers = time_replica_calls(fe2)
+            handles = fe2.recover_pending()
+            stamps = consume(handles)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            engines.append(fe2._replicas[0].engine)
+            order = {h.request_id: h for h in handles}
+            handles = [order[h.request_id] for h in lost]
+            res = fleet_report("e2e_frontend/restart", fe2, handles, stamps,
+                               timers, wall, {})
+            res.update(launches=counts, slots=slots,
+                       skipped=fe2._snapshot_store.last_skipped)
+            frontend_counts("e2e_frontend/restart", model, counts, engines,
+                            False)
+            res["near_ties"] = check_frontend_streams(
+                "e2e_frontend/restart", model, prompts, handles, wants,
+                False)
+            if len(slots) != len(prompts) or any(
+                    (h.resumed_from or 0) < FRONTEND_SNAPSHOT_INTERVAL
+                    for h in handles):
+                raise AssertionError(
+                    f"e2e_frontend/restart: slots {slots}, resumed from "
+                    f"{[h.resumed_from for h in handles]}")
+            leak_invariant("e2e_frontend/restart", fe2._replicas[0].engine)
+            return res
+        finally:
+            fe2.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def http_arm(model, prompts, wants, device) -> dict:
+    """``start_http_server(frontend, port=0)`` on 127.0.0.1: two streamed
+    ``POST /generate`` at once (chunked NDJSON, each on its own client
+    thread), then ``GET /healthz`` and ``GET /metrics``."""
+    import http.client
+    import threading
+
+    from paddle_tpu_torch.serving import ServingFrontend, start_http_server
+
+    fe = ServingFrontend(model, replicas=1, engine_kwargs=dict(ENGINE),
+                         device=device)
+    timers = time_replica_calls(fe)
+    srv = start_http_server(fe, port=0)
+    try:
+        out, stamps = {}, {}
+
+        def post(i, p):
+            conn = http.client.HTTPConnection(srv.host, srv.port,
+                                              timeout=600)
+            conn.request("POST", "/generate", json.dumps(
+                {"prompt": p.tolist(), "max_new_tokens": NEW_TOKENS}),
+                {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            lines, stamps[i] = [], []
+            for raw in iter(r.readline, b""):      # one NDJSON line a chunk
+                lines.append(json.loads(raw))
+                if "token" in lines[-1]:
+                    stamps[i].append(time.perf_counter())
+            out[i] = (r.status, r.getheader("Transfer-Encoding"), lines)
+            conn.close()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, p))
+                   for i, p in enumerate(prompts)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        streams = []
+        for i in range(len(prompts)):
+            status, te, lines = out[i]
+            final = lines[-1]
+            if status != 200 or te != "chunked" or not final.get("done") \
+                    or final["status"] != "completed":
+                raise AssertionError(f"e2e_frontend/http: request {i}: "
+                                     f"{status} {te} {final}")
+            streams.append(np.asarray([ln["token"] for ln in lines
+                                       if "token" in ln], np.int32))
+        near = []
+        for name, want in wants.items():
+            near += check_streams(f"e2e_frontend/http/{name}", model,
+                                  prompts, streams, want=want)
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        hz = json.loads(r.read())
+        conn.request("GET", "/metrics")
+        r2 = conn.getresponse()
+        text = r2.read().decode()
+        conn.close()
+        if r.status != 200 or r2.status != 200:
+            raise AssertionError(f"e2e_frontend/http: /healthz {r.status}, "
+                                 f"/metrics {r2.status}")
+        frontend_counts("e2e_frontend/http", model, counts,
+                        [fe._replicas[0].engine], False)
+        finals = [out[i][2][-1] for i in range(len(prompts))]
+        # TTFT from the server's handles (the final lines), ITL from the
+        # client's arrival stamps
+        res = fleet_report("e2e_frontend/http", fe, finals, stamps, timers,
+                           wall, {})
+        res.update(near_ties=near, launches=counts, final_lines=finals,
+                   ops=check_ops_surface("e2e_frontend/http", hz, text))
+        return res
+    finally:
+        srv.stop()
+        fe.close()
+        leak_invariant("e2e_frontend/http", fe._replicas[0].engine)
+
+
+def frontend_sync_free_arm(model, prompts, device) -> dict:
+    """One replica without snapshots serves 4 requests; once every lane
+    decodes, its pump runs at least SYNC_FREE_STEPS whole steps under
+    ``set_sync_debug_mode("error")`` inside ``compile_budget(0,
+    prefix="serving.")`` while the main thread only polls a host list.
+    A sync in the pump would raise in its step and kill the replica; a
+    capture would trip the budget.  The pump itself records, after each
+    step, the engine's ragged dispatches and graph signatures, so the
+    window's counts and its steps are read at the same points."""
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    fe = ServingFrontend(model, replicas=1, engine_kwargs=dict(ENGINE),
+                         snapshot_interval=None, device=device)
+    try:
+        rep = fe._replicas[0]
+        eng = rep.engine
+        timers = time_replica_calls(fe)
+        after_step = []          # (dispatches, signatures), pump-appended
+        timed_step = eng.step
+
+        def step():
+            out = timed_step()
+            after_step.append((eng.program_calls["ragged_step"],
+                               len(eng._ragged_fn._sigs)))
+            return out
+
+        eng.step = step
+        t0 = time.perf_counter()
+        handles = [fe.submit(p, max_new_tokens=FRONTEND_SYNC_FREE_BUDGET)
+                   for p in prompts]
+        threads, stamps = start_consumers(handles)
+        end = time.monotonic() + 600
+        while (eng.scheduler.waiting or eng._prefill_plans
+               or min(h.num_tokens for h in handles) < 2):
+            if time.monotonic() > end or rep.state == "dead":
+                raise AssertionError("e2e_frontend/sync_free: the lanes "
+                                     "never reached steady decode")
+            time.sleep(0.0005)
+        # two more steps: the steady signature's first call and its
+        # first replay (as ``to_steady``)
+        i0 = len(after_step) + 2
+        while len(after_step) < i0:
+            time.sleep(0.0005)
+        # the steps that end at indices i0 + 1 .. i1 - 1 ran wholly
+        # inside the window
+        with compile_budget(0, prefix="serving."):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                while len(after_step) < i0 + SYNC_FREE_STEPS + 2 \
+                        and rep.state != "dead" \
+                        and time.monotonic() < end:
+                    time.sleep(0.0005)
+                i1 = len(after_step)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        join_consumers(threads)
+        wall = time.perf_counter() - t0
+        steps = i1 - 1 - i0
+        (d0, s0), (d1, s1) = after_step[i0], after_step[i1 - 1]
+        if [h.status for h in handles] != ["completed"] * len(handles) \
+                or rep.state == "dead" or steps < SYNC_FREE_STEPS \
+                or d1 - d0 != steps or s1 != s0:
+            raise AssertionError(
+                f"e2e_frontend/sync_free: {steps} steps, {d1 - d0} "
+                f"dispatches, {s1 - s0} new graphs; replica {rep.state} "
+                f"({rep.dead_reason}), {[h.status for h in handles]}")
+        res = fleet_report("e2e_frontend/sync_free", fe, handles, stamps,
+                           timers, wall, {})
+        # every dispatch of a signature captured before the window is a
+        # replay on a graphed engine
+        res.update(window_steps=steps, window_dispatches=d1 - d0,
+                   window_replays=(d1 - d0) if eng.cuda_graphs else 0,
+                   window_new_graphs=s1 - s0,
+                   tokens=[h.num_tokens for h in handles])
+        return res
+    finally:
+        fe.close()
+        leak_invariant("e2e_frontend/sync_free", fe._replicas[0].engine)
+
+
+def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
+                       device="cuda") -> dict:
+    """The serving front door at GPT-2-small width, on the e2e prompts:
+    ``ServingFrontend`` over two graphed replicas with warm-failover
+    snapshots every 16 tokens and an injected mid-decode failure of
+    replica-0 (its requests resume on replica-1 from their snapshots);
+    the same fleet with snapshots off and no failure; a disaggregated
+    int8_static fleet (one prefill, one decode replica: #1q and #4
+    through the front door, each ship an int8 snapshot); restart
+    recovery from a ``CheckpointStore``; the HTTP server; and a
+    sync-free window through the pump.  Every stream equals the batched
+    dense reference and the bare engine's e2e streams (int8 per the
+    export) except at a reported near-tie; every arm runs, any failure
+    raises at the end."""
+    t_phase = time.perf_counter()
+    want = {"batched_reference": batched_reference(model, prompts),
+            "engine_e2e": e2e_streams}
+    want8 = {"batched_reference": batched_reference(model, prompts,
+                                                    quant=export),
+             "engine_e2e_int8_static": int8_streams}
+    int8_engine = dict(ENGINE, kv_cache_dtype="int8", weight_dtype="int8",
+                       quant_scales=export)
+    arms = (
+        ("fleet", lambda: frontend_arm(
+            "e2e_frontend/fleet", model, prompts, want, device,
+            kill=("replica-0", FRONTEND_KILL_STEP), replicas=2,
+            snapshot_interval=FRONTEND_SNAPSHOT_INTERVAL,
+            engine_kwargs=dict(ENGINE))),
+        ("interval_off", lambda: frontend_arm(
+            "e2e_frontend/interval_off", model, prompts, want, device,
+            replicas=2, snapshot_interval=None,
+            engine_kwargs=dict(ENGINE))),
+        ("disaggregated_int8", lambda: frontend_arm(
+            "e2e_frontend/disaggregated_int8", model, prompts, want8,
+            device, int8=True, replicas=1, prefill_replicas=1,
+            snapshot_interval=FRONTEND_SNAPSHOT_INTERVAL,
+            engine_kwargs=int8_engine)),
+        ("restart", lambda: restart_arm(
+            model, prompts[:4], {k: v[:4] for k, v in want.items()},
+            device)),
+        ("http", lambda: http_arm(
+            model, prompts[:2], {k: v[:2] for k, v in want.items()},
+            device)),
+        ("sync_free", lambda: frontend_sync_free_arm(model, prompts[:4],
+                                                     device)))
+    result, failed = {}, {}
+    for name, run in arms:
+        t0 = time.perf_counter()
+        try:
+            res = run()
+            if name == "fleet" and not any(
+                    r is not None for r in res["resumed_from"]):
+                raise AssertionError("e2e_frontend/fleet: no request "
+                                     "resumed from a snapshot")
+            if name == "disaggregated_int8" and (
+                    res["shipped_pages"] == 0
+                    or res["snapshot_kinds"] != [("int8_static", "int8")]):
+                raise AssertionError(
+                    f"e2e_frontend/disaggregated_int8: ships "
+                    f"{res['ships']}, pages {res['shipped_pages']}, "
+                    f"snapshots {res['snapshot_kinds']}")
+            res["arm_s"] = time.perf_counter() - t0
+            result[name] = res
+            log("e2e_frontend", arm=name, **res)
+        except Exception as exc:  # noqa: BLE001 — every arm reports
+            failed[name] = repr(exc)
+            log("e2e_frontend", arm=name, failed=repr(exc))
+        torch.cuda.empty_cache()
+    log("e2e_frontend", phase_s=time.perf_counter() - t_phase,
+        failed=failed)
+    if failed:
+        raise AssertionError(f"e2e_frontend failed on {sorted(failed)}: "
+                             f"{failed}")
+    return result
+
+
 # a GPT with a head dim of 256 (hidden 1024 over 4 heads, 2 layers): the
 # paged kernels' widest instances on the serving path
 WIDE_GPT = dict(vocab_size=1024, hidden_size=1024, num_layers=2,
@@ -3514,6 +4090,11 @@ def main(argv=None) -> int:
                                                        export)
     torch.cuda.empty_cache()
     report["sync_free"] = sync_free_phase(model, prompts, export)
+    torch.cuda.empty_cache()
+    report["e2e_frontend"] = front = e2e_frontend_phase(
+        model, prompts, export,
+        [np.asarray(x, np.int32) for x in e2e["streams"]],
+        [np.asarray(x, np.int32) for x in st["streams"]])
     del model
     torch.cuda.empty_cache()
     # its own seed, as row t's phase
@@ -3533,6 +4114,8 @@ def main(argv=None) -> int:
                    "attention_cuda"],
                launches_snapshot_restore=snap["native"]["launches"][
                    "attention_cuda"],
+               launches_frontend_fleet=front["fleet"]["launches"][
+                   "attention_cuda"],
                bf16_max_abs_err=native_t["bf16_max_abs_err"],
                d256_decode=native_t["d256_decode/float32/Qb1"],
                d256_prefill=native_t["d256_prefill/float32/Qb64"],
@@ -3550,6 +4133,8 @@ def main(argv=None) -> int:
                st["attention_cuda_int8"], idec, fused_dequant=1,
                launches_prefix=prefix["int8_static"]["on"]["launches"][
                    "attention_cuda_int8"],
+               launches_frontend_disaggregated=front["disaggregated_int8"][
+                   "launches"]["attention_cuda_int8"],
                settings={k: v for k, v in int8_t.items()
                          if "fused_dequant=" in k},
                nan_scale_ok=int8_t["nan_scale_ok"],
@@ -3568,6 +4153,8 @@ def main(argv=None) -> int:
                "paddle_tpu_torch/ops/csrc/quantized_matmul.cu",
                "paddle_tpu/ops/pallas_ops/quantized_matmul.py:104",
                st["qmm_cuda"], qdec, case="fc1_768x3072/M8/float32",
+               launches_frontend_disaggregated=front["disaggregated_int8"][
+                   "launches"]["qmm_cuda"],
                cases=qmm_t),
     ] + [
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",

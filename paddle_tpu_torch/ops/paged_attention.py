@@ -62,7 +62,7 @@ import math
 
 import torch
 
-from ..profiler.jit_cost import register_launch_counters
+from ..profiler.jit_cost import count_launch
 
 __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
            "STATS_MAX_PAGES", "STATS_PREFILL_ROWS",
@@ -73,11 +73,11 @@ __all__ = ["NEG_INF", "PAGED_ROUTE_STATS", "FUSED_DEQUANT", "MAX_HEAD_DIM",
 
 NEG_INF = -1e30
 
-# registered with the CUDA-graph runner, which adds a captured program's
-# launches on every replay
-PAGED_ROUTE_STATS = register_launch_counters({
+# counted through ``count_launch``: the CUDA-graph runner adds a captured
+# program's launches on every replay
+PAGED_ROUTE_STATS = {
     "cuda": 0, "cuda_int8": 0, "cuda_decode": 0, "cuda_decode_int8": 0,
-    "cuda_stats": 0, "cuda_stats_int8": 0, "ref": 0, "ref_stats": 0})
+    "cuda_stats": 0, "cuda_stats_int8": 0, "ref": 0, "ref_stats": 0}
 
 # the contract default of the int8 body (paddle_tpu's PAGED_RAGGED_INT8
 # ``fused_dequant``): scales applied after the dots
@@ -370,7 +370,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, seq_lens,
             f"paged attention kernel launch failed: CUDA error {rc} "
             f"(B={B}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, pools "
             f"{k_pages.dtype})")
-    PAGED_ROUTE_STATS["cuda_decode_int8" if quant else "cuda_decode"] += 1
+    count_launch(PAGED_ROUTE_STATS,
+                 "cuda_decode_int8" if quant else "cuda_decode")
     return out
 
 
@@ -390,7 +391,7 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
         return paged_attention_cuda(q, k_pages, v_pages, page_tables,
                                     seq_lens, k_scales, v_scales,
                                     fused_dequant)
-    PAGED_ROUTE_STATS["ref"] += 1
+    count_launch(PAGED_ROUTE_STATS, "ref")
     return paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
                                k_scales, v_scales)
 
@@ -452,7 +453,7 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
             f"ragged paged attention kernel launch failed: CUDA error {rc} "
             f"(G={G}, Qb={Qb}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, "
             f"pools {k_pages.dtype})")
-    PAGED_ROUTE_STATS["cuda_int8" if quant else "cuda"] += 1
+    count_launch(PAGED_ROUTE_STATS, "cuda_int8" if quant else "cuda")
     return out
 
 
@@ -473,7 +474,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens,
         return ragged_paged_attention_cuda(q, k_pages, v_pages,
                                            page_tables, row_lens, k_scales,
                                            v_scales, fused_dequant)
-    PAGED_ROUTE_STATS["ref"] += 1
+    count_launch(PAGED_ROUTE_STATS, "ref")
     return ragged_paged_attention_ref(q, k_pages, v_pages, page_tables,
                                       row_lens, k_scales, v_scales)
 
@@ -550,7 +551,8 @@ def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
             f"ragged paged attention stats kernel launch failed: CUDA error "
             f"{rc} (G={G}, Qb={Qb}, H={H}, D={D}, P={P}, M={M}, {q.dtype}, "
             f"pools {k_pages.dtype})")
-    PAGED_ROUTE_STATS["cuda_stats_int8" if quant else "cuda_stats"] += 1
+    count_launch(PAGED_ROUTE_STATS,
+                 "cuda_stats_int8" if quant else "cuda_stats")
     return out, lse
 
 
@@ -569,7 +571,7 @@ def ragged_paged_attention_stats(q, k_pages, v_pages, page_tables, row_lens,
         return ragged_paged_attention_stats_cuda(
             q, k_pages, v_pages, page_tables, row_lens, page_ok, k_scales,
             v_scales, fused_dequant)
-    PAGED_ROUTE_STATS["ref_stats"] += 1
+    count_launch(PAGED_ROUTE_STATS, "ref_stats")
     return ragged_paged_attention_stats_ref(q, k_pages, v_pages, page_tables,
                                             row_lens, page_ok, k_scales,
                                             v_scales)

@@ -35,16 +35,16 @@ import ctypes
 
 import torch
 
-from ..profiler.jit_cost import register_launch_counters
+from ..profiler.jit_cost import count_launch
 
 __all__ = ["QMM_ROUTE_STATS", "QMM_FORM_STATS", "QMM_KC",
            "QMM_DECODE_MAX_M", "qmm_form", "quantized_matmul_ref",
            "quantized_matmul_cuda", "quantized_matmul"]
 
-# registered with the CUDA-graph runner, which adds a captured program's
-# launches on every replay
-QMM_ROUTE_STATS = register_launch_counters({"cuda": 0, "ref": 0})
-QMM_FORM_STATS = register_launch_counters({"decode": 0, "prefill": 0})
+# counted through ``count_launch``: the CUDA-graph runner adds a captured
+# program's launches on every replay
+QMM_ROUTE_STATS = {"cuda": 0, "ref": 0}
+QMM_FORM_STATS = {"decode": 0, "prefill": 0}
 
 # the kernel's contract (csrc/quantized_matmul.cu, checked when it binds):
 # the chunk of K its canonical order sums, and the largest M of its
@@ -159,8 +159,8 @@ def quantized_matmul_cuda(x, w_q, w_scale):
         raise RuntimeError(
             f"quantized matmul kernel launch failed: CUDA error {rc} "
             f"(M={M}, K={K}, N={N}, {x.dtype}, {form} form)")
-    QMM_ROUTE_STATS["cuda"] += 1
-    QMM_FORM_STATS[form] += 1
+    count_launch(QMM_ROUTE_STATS, "cuda")
+    count_launch(QMM_FORM_STATS, form)
     return out
 
 
@@ -175,6 +175,6 @@ def quantized_matmul(x, w_q, w_scale):
     if x.is_cuda:
         out = quantized_matmul_cuda(x2.contiguous(), w_q, w_scale)
     else:
-        QMM_ROUTE_STATS["ref"] += 1
+        count_launch(QMM_ROUTE_STATS, "ref")
         out = quantized_matmul_ref(x2, w_q, w_scale)
     return out.reshape(*lead, w_q.shape[1])

@@ -29,14 +29,30 @@ exit when the region compiled more than ``limit`` programs; record mode
 compiles (captures), capture seconds, calls, replays and whether the
 program runs as a graph.  FLOPs and bytes are not attributed.
 
-Launch counters: a kernel wrapper counts its launches in a dict that it
-hands to :func:`register_launch_counters`.  A capture runs the wrappers
-once without launching anything, so a runner puts the counters back as
-they were before the capture and adds the capture's increments on every
-replay: the counts keep meaning launches run.
+Launch counters: a kernel wrapper counts its launches in a dict of its
+own with :func:`count_launch`.  A capture runs the wrappers once
+without launching anything, so while a thread captures, its counts go to
+the capture (a thread-local sink) instead of the dicts, and every replay
+adds them: the counts keep meaning launches run, also while other
+threads launch and count at the same time.
+
+Several engines in one process (the serving frontend's replicas, each
+driven by its own pump thread) share the card.  A capture runs in
+PyTorch's default *global* capture mode, in which a ``cudaMalloc``, a
+stream or event sync or a pageable copy made by ANY thread of the
+process during the capture fails, in that thread or in the capture.
+:data:`capture_gate` keeps them apart: an engine holds the gate shared
+around everything it does on the device (a step, a snapshot, a restore,
+an abort), and a capture holds it exclusively, so the other engines
+pause only while a capture runs — a capture is once per signature.  A
+per-engine stream with ``capture_error_mode="thread_local"`` was the
+other choice; it would leave every call PyTorch makes on the other
+threads during a capture (allocator growth, pinned host copies, event
+waits) to be proven safe one by one, where the gate rules them all out.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from contextlib import contextmanager
@@ -49,7 +65,7 @@ from ..framework.errors import InvalidArgumentError
 __all__ = ["profiled_graph", "ProfiledGraph", "JitCostRegistry",
            "cost_registry", "CompileLedger", "compile_ledger",
            "compile_budget", "CompileBudget", "CompileBudgetExceeded",
-           "disable_jit", "register_launch_counters"]
+           "disable_jit", "count_launch", "CaptureGate", "capture_gate"]
 
 
 # --- argument trees ---------------------------------------------------------
@@ -95,15 +111,90 @@ def _sig_str(sig) -> str:
 
 
 # --- launch counters ---------------------------------------------------------
-_LAUNCH_COUNTERS: List[Dict[str, int]] = []
+_COUNT_LOCK = threading.Lock()
+# .launches: the capture in progress on this thread, or None
+_CAPTURING = threading.local()
 
 
-def register_launch_counters(counts: Dict[str, int]) -> Dict[str, int]:
-    """Register a kernel wrapper's launch-count dict (kept as the same
-    object; callers may zero it in place); returns it."""
-    if not any(c is counts for c in _LAUNCH_COUNTERS):
-        _LAUNCH_COUNTERS.append(counts)
-    return counts
+def count_launch(counts: Dict[str, int], key: str, n: int = 1) -> None:
+    """Add ``n`` launches under ``key`` — or, while this thread captures
+    a graph, to the capture, whose replays add them.  Thread-safe."""
+    sink = getattr(_CAPTURING, "launches", None)
+    if sink is not None:
+        sink.append((counts, key, n))
+        return
+    with _COUNT_LOCK:
+        counts[key] += n
+
+
+def _add_launches(launches) -> None:
+    with _COUNT_LOCK:
+        for counts, delta in launches:
+            for k, v in delta.items():
+                counts[k] += v
+
+
+class CaptureGate:
+    """A readers-writer lock over the card: ``shared()`` around device
+    work that may run beside other threads' device work, ``exclusive()``
+    around a graph capture.  ``shared()`` is re-entrant per thread, and a
+    thread that captures inside its own shared region steps out of it
+    while it waits, so two threads that each capture from inside a step
+    take turns instead of waiting on each other.  Waiting captures are
+    served before new shared regions start."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._shared = 0            # threads inside a shared region
+        self._writer: Optional[int] = None
+        self._waiting = 0           # captures waiting for the gate
+        self._tls = threading.local()
+
+    def _depth(self) -> int:
+        return getattr(self._tls, "depth", 0)
+
+    @contextmanager
+    def shared(self):
+        depth = self._depth()
+        if depth == 0:
+            with self._cond:
+                while self._writer is not None or self._waiting:
+                    self._cond.wait()
+                self._shared += 1
+        self._tls.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._tls.depth = depth
+            if depth == 0:
+                with self._cond:
+                    self._shared -= 1
+                    self._cond.notify_all()
+
+    @contextmanager
+    def exclusive(self):
+        inside = self._depth() > 0
+        with self._cond:
+            if inside:
+                self._shared -= 1   # step aside while waiting
+                self._cond.notify_all()
+            self._waiting += 1
+            while self._writer is not None or self._shared:
+                self._cond.wait()
+            self._waiting -= 1
+            self._writer = threading.get_ident()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                if inside:
+                    self._shared += 1
+                self._cond.notify_all()
+
+
+# the one gate of the process: every engine and every capture use it
+capture_gate = CaptureGate()
 
 
 # --- cost registry -----------------------------------------------------------
@@ -411,9 +502,7 @@ class ProfiledGraph:
                 if isinstance(x, torch.Tensor) and x is not static:
                     static.copy_(x)
             ent.graph.replay()
-            for counts, delta in ent.launches:
-                for k, v in delta.items():
-                    counts[k] += v
+            _add_launches(ent.launches)
             out = ent.outputs
         cost_registry.record_call(self.name, time.perf_counter() - t0,
                                    replay=ent.graph is not None)
@@ -453,21 +542,32 @@ class ProfiledGraph:
         side.wait_stream(main)
         with torch.cuda.device(dev), torch.cuda.stream(side):
             out = self._fun(*args)
-            before = [dict(c) for c in _LAUNCH_COUNTERS]
             graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            graph.capture_begin(pool=self._pool)
-            try:
-                static_out = self._fun(*static_args)
-            finally:
-                graph.capture_end()
-                for counts, old in zip(_LAUNCH_COUNTERS, before):
-                    delta = {k: v - old.get(k, 0) for k, v in counts.items()
-                             if v != old.get(k, 0)}
-                    counts.update(old)
-                    if delta:
-                        ent.launches.append((counts, delta))
-            capture_s = time.perf_counter() - t0
+            sink: List[Tuple[Dict[str, int], str, int]] = []
+            # no other thread touches the card while the capture runs,
+            # and no garbage collection either: collecting a dead
+            # engine's graphs destroys them, a call the capture forbids
+            with capture_gate.exclusive():
+                gc_was_on = gc.isenabled()
+                gc.disable()
+                t0 = time.perf_counter()
+                _CAPTURING.launches = sink
+                try:
+                    graph.capture_begin(pool=self._pool)
+                    try:
+                        static_out = self._fun(*static_args)
+                    finally:
+                        graph.capture_end()
+                finally:
+                    _CAPTURING.launches = None
+                    if gc_was_on:
+                        gc.enable()
+                capture_s = time.perf_counter() - t0
+            by_dict: Dict[int, Tuple[Dict[str, int], Dict[str, int]]] = {}
+            for counts, k, n in sink:
+                delta = by_dict.setdefault(id(counts), (counts, {}))[1]
+                delta[k] = delta.get(k, 0) + n
+            ent.launches = list(by_dict.values())
         main.wait_stream(side)
         ent.graph = graph
         ent.outputs = static_out

@@ -89,6 +89,11 @@ Execution model
   one running request's consumed tokens and KV pages, restored
   mid-stream on another engine of the same configuration (any mesh
   shape); int8_dynamic pages travel dequantized and are requantized.
+- **Several engines, several threads** (the frontend's replicas, one
+  pump thread each): an engine is driven by one thread at a time.
+  ``step``, ``abort``, ``snapshot`` and ``restore`` hold
+  ``profiler.jit_cost.capture_gate`` shared, and a graph capture holds
+  it exclusively, so no engine touches the card while another captures.
 - **Int8 serving** (``kv_cache_dtype="int8"``, ``weight_dtype="int8"``):
   int8 pages with ``[N, H]`` f32 scale rows per layer and side, and
   int8 projection/MLP weights.  ``quant_scales`` (an export of either
@@ -102,6 +107,7 @@ Knobs of the JAX engine that this slice does not carry raise
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Tuple
@@ -114,7 +120,7 @@ from ..framework.errors import (AlreadyExistsError, InternalError,
                                 InvalidArgumentError)
 from ..ops.paged_attention import MAX_HEAD_DIM, PAGED_ROUTE_STATS
 from ..ops.quantized_matmul import QMM_ROUTE_STATS
-from ..profiler.jit_cost import cost_registry, profiled_graph
+from ..profiler.jit_cost import capture_gate, cost_registry, profiled_graph
 from ..profiler.flight_recorder import (EV_ADMITTED, EV_FIRST_TOKEN,
                                         EV_PREFILL_CHUNK, EV_PREFIX_HIT,
                                         EV_SPECULATED)
@@ -157,6 +163,18 @@ def _split_decode(step_fn, numeric_guards: bool):
         return (nxt, _guard_pack(nxt, logits, numeric_guards)), pos + 1, kv
 
     return decode
+
+
+def _gated(method):
+    """Run an engine method that works on the device inside the
+    process's ``capture_gate`` (shared): several engines step side by
+    side, and all of them pause while any one captures a graph."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with capture_gate.shared():
+            return method(self, *args, **kwargs)
+
+    return run
 
 
 class _Pending:
@@ -595,6 +613,7 @@ class ServingEngine:
                 "has an unconsumed output")
 
     # --- abort ------------------------------------------------------------
+    @_gated
     def abort(self, request_id: str) -> bool:
         """Retire a queued or in-flight sequence NOW: no output, pages and
         lane freed.  The pipeline is collapsed first so survivors' streams
@@ -816,6 +835,7 @@ class ServingEngine:
             return "native"
         return "int8_dynamic" if self._kv_dynamic else "int8_static"
 
+    @_gated
     def snapshot(self, request_id: str) -> Optional[EngineSnapshot]:
         """Checkpoint one RUNNING request: its consumed tokens and the KV
         pages covering them, for ``restore()`` on another engine built
@@ -866,6 +886,7 @@ class ServingEngine:
         self.metrics.on_snapshot(snap.nbytes)
         return snap
 
+    @_gated
     def restore(self, snap: EngineSnapshot) -> str:
         """Re-admit a snapshotted request MID-STREAM: a resume request
         whose admission uploads the snapshot's pages instead of
@@ -1663,6 +1684,7 @@ class ServingEngine:
         else:
             self._prefill_seq(seq)
 
+    @_gated
     def step(self) -> dict:
         """Admit waiting requests (planning their prefill chunks, or
         prefilling them in split mode), then issue one dispatch — a

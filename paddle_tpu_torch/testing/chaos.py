@@ -1,5 +1,5 @@
 """Deterministic chaos injection — the plan machinery of
-``paddle_tpu/testing/chaos.py`` that the ported engine and KV cache call.
+``paddle_tpu/testing/chaos.py`` that the ported serving stack calls.
 
 A :class:`ChaosPlan` is a SCHEDULE of faults, not a probability: each
 :class:`Fault` names an instrumented *site* and the evaluation index at
@@ -35,6 +35,25 @@ Instrumented sites in this package
                       ``raise`` a failed cross-shard exchange, which
                       fails the step as a replica crash.  Key: the
                       engine's chaos key.
+``replica.kill``      frontend pump loop, after each step — ``kill``
+                      crashes the replica mid-decode (the generalized
+                      form of ``Router.inject_failure``).  Key: replica
+                      id.
+``kv.ship``           frontend ``_ship_ready``, the prefill→decode page
+                      hand-off — ``deny`` skips the ship, so the request
+                      decodes in place on the prefill replica (the
+                      stream is unchanged).  Key: request id.
+``http.request``      ``POST /generate`` intake — ``http_error`` answers
+                      with the fault's ``status`` before touching the
+                      frontend.  Key: request path.
+``ckpt.write``        ``framework_io.atomic_write_bytes``, the commit
+                      path under every checkpoint (the CheckpointStore,
+                      persisted serving snapshots) — ``raise`` at key
+                      ``temp`` kills the writer with a PARTIAL temp file
+                      on disk, at key ``rename`` after the durable temp
+                      but before the rename.  Neither may ever corrupt a
+                      committed slot.  Key: the injection point
+                      (``temp`` | ``rename``).
 
 Sites check ``chaos_site(site, key)``, which is a single global read when
 no plan is installed — production paths pay nothing.
@@ -48,13 +67,16 @@ from typing import List, Optional
 from ..framework.concurrency import OrderedLock
 
 __all__ = ["Fault", "ChaosPlan", "install", "uninstall", "running",
-           "chaos_site", "DENY", "RAISE", "DELAY", "NAN_LOGITS"]
+           "chaos_site", "DENY", "RAISE", "DELAY", "KILL", "HTTP_ERROR",
+           "NAN_LOGITS"]
 
 DENY = "deny"
 RAISE = "raise"
 DELAY = "delay"
+KILL = "kill"
+HTTP_ERROR = "http_error"
 NAN_LOGITS = "nan_logits"
-_ACTIONS = frozenset({DENY, RAISE, DELAY, NAN_LOGITS})
+_ACTIONS = frozenset({DENY, RAISE, DELAY, KILL, HTTP_ERROR, NAN_LOGITS})
 
 
 class Fault:
@@ -65,11 +87,12 @@ class Fault:
     fault's clock."""
 
     __slots__ = ("site", "at", "action", "match", "count", "delay_s",
-                 "message", "seen", "remaining")
+                 "status", "message", "seen", "remaining")
 
     def __init__(self, site: str, at: int, action: str,
                  match: Optional[str] = None, count: int = 1,
-                 delay_s: float = 0.0, message: str = ""):
+                 delay_s: float = 0.0, status: int = 500,
+                 message: str = ""):
         if action not in _ACTIONS:
             raise ValueError(f"unknown chaos action {action!r}; one of "
                              f"{sorted(_ACTIONS)}")
@@ -81,6 +104,7 @@ class Fault:
         self.match = match
         self.count = int(count)
         self.delay_s = float(delay_s)
+        self.status = int(status)         # HTTP_ERROR's answer
         self.message = message or f"chaos[{site}@{at}:{action}]"
         self.seen = 0              # matching evaluations so far
         self.remaining = self.count

@@ -1689,3 +1689,153 @@ def test_shared_prefix_window_is_sync_free():
     res = chip_smoke.prefix_sync_free_window(eng, donor, lanes)
     assert res["programs"]["serving.ragged_step"]["replays"] == 32
     assert res["prefix_cache"]["cow_copies"] == 1
+
+
+# --------------------------------------------------------------------------
+# the serving front door on the card: several engines stepping from
+# several threads of one process (captures under the capture gate, the
+# launch counters exact), the frontend's failover and the HTTP path
+# --------------------------------------------------------------------------
+CAPTURE_ROUNDS = 12
+
+
+def _step_to_done(eng, barrier, outs, errors, key):
+    """One pump: wait at ``barrier`` with the other thread, then step
+    ``eng`` to the end of its requests."""
+    try:
+        barrier.wait(timeout=60)
+        outs[key] = eng.drain()
+    except Exception as exc:  # noqa: BLE001 — reported by the test
+        errors[key] = exc
+
+
+def test_two_engines_capture_concurrently_from_two_threads():
+    """Two engines, each driven by its own thread, release together
+    (a barrier) into their first steps, so their first signatures are
+    captured at the same moment; repeated with fresh engines (fresh
+    graphs).  Every round: no thread raises, every stream equals the one
+    engine alone gives, and the launch counters are exact — L launches
+    of #1 for every dispatch of either engine, none lost to the other
+    thread's capture, none counted twice."""
+    import sys
+    import threading
+
+    m, prompts = _engine_case()
+    L = len(m.layers)
+    sets = (prompts[:3], prompts[3:])
+    alone = []
+    for ps in sets:
+        eng = _graph_engine(m, "native")
+        ids = [eng.add_request(p, max_new_tokens=12) for p in ps]
+        outs = eng.drain()
+        alone.append([outs[r] for r in ids])
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for rnd in range(CAPTURE_ROUNDS):
+            engines = [_graph_engine(m, "native") for _ in sets]
+            ids = [[eng.add_request(p, max_new_tokens=12) for p in ps]
+                   for eng, ps in zip(engines, sets)]
+            _zero_counts()
+            barrier, outs, errors = threading.Barrier(2), {}, {}
+            threads = [threading.Thread(target=_step_to_done,
+                                        args=(eng, barrier, outs, errors, i))
+                       for i, eng in enumerate(engines)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(120)
+            assert not any(th.is_alive() for th in threads), rnd
+            assert not errors, (rnd, errors)
+            torch.cuda.synchronize()
+            dispatches = sum(e.stats()["programs"]["ragged_step"]
+                             for e in engines)
+            assert pa.PAGED_ROUTE_STATS == _counts(cuda=L * dispatches), rnd
+            for i, (eng, rids, want) in enumerate(zip(engines, ids, alone)):
+                assert chip_smoke.replica_programs(eng)["replays"] > 0
+                got = [outs[i][r] for r in rids]
+                for a, b in zip(got, want):
+                    np.testing.assert_array_equal(a, b)
+                assert eng.cache.pages_in_use == 0
+    finally:
+        sys.setswitchinterval(prev)
+
+
+def _generate_all(m, prompts, n):
+    from paddle_tpu_torch.text.generation import generate
+
+    return [generate(m, p[None], max_new_tokens=n, end_id=-1)[0][0]
+            .cpu().numpy() for p in prompts]
+
+
+def test_frontend_two_replicas_one_injected_failure_on_the_card():
+    """Two graphed replicas behind the front door, replica-0 killed
+    mid-decode with snapshots every 4 tokens: every stream completes,
+    equal to ``generate``; only replica-0 died, of the injection; the
+    counters are exact summed over both replicas; the survivor leaks no
+    page."""
+    from paddle_tpu_torch.serving import ServingFrontend
+
+    m, prompts = _engine_case()
+    fe = ServingFrontend(m, replicas=2, snapshot_interval=4,
+                         engine_kwargs=dict(page_size=4, max_batch_size=4,
+                                            prefill_chunk=8, eos_id=-1))
+    try:
+        fe.inject_failure("replica-0", at_step=6)
+        _zero_counts()
+        handles = [fe.submit(p, max_new_tokens=12) for p in prompts]
+        chip_smoke.consume(handles)
+        assert [h.status for h in handles] == ["completed"] * len(prompts)
+        dead = {r.id: r.dead_reason for r in fe._replicas
+                if r.state == "dead"}
+        assert dead == {"replica-0": "injected failure at step 6"}
+        assert any(h.resumed_from is not None for h in handles)
+        dispatches = sum(r.engine.stats()["programs"]["ragged_step"]
+                         for r in fe._replicas)
+        assert pa.PAGED_ROUTE_STATS == _counts(
+            cuda=len(m.layers) * dispatches)
+        chip_smoke.leak_invariant("fe", fe._replicas[1].engine)
+    finally:
+        fe.close()
+    for h, want in zip(handles, _generate_all(m, prompts, 12)):
+        np.testing.assert_array_equal(h.tokens, want)
+
+
+def test_http_path_on_the_card():
+    """``start_http_server`` over a graphed replica: a streamed
+    ``POST /generate`` (chunked NDJSON) equal to ``generate``, then
+    ``GET /healthz`` and ``GET /metrics`` (Prometheus text with the
+    ``serving.*`` families)."""
+    import http.client
+    import json
+
+    from paddle_tpu_torch.serving import ServingFrontend, start_http_server
+
+    m, prompts = _engine_case()
+    fe = ServingFrontend(m, replicas=1,
+                         engine_kwargs=dict(page_size=4, max_batch_size=4,
+                                            prefill_chunk=8, eos_id=-1))
+    srv = start_http_server(fe, port=0)
+    try:
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=120)
+        conn.request("POST", "/generate", json.dumps(
+            {"prompt": prompts[4].tolist(), "max_new_tokens": 12}))
+        r = conn.getresponse()
+        assert r.status == 200
+        assert r.getheader("Transfer-Encoding") == "chunked"
+        lines = [json.loads(ln) for ln in
+                 r.read().decode().strip().split("\n")]
+        toks = [ln["token"] for ln in lines if "token" in ln]
+        assert lines[-1]["done"] and lines[-1]["status"] == "completed"
+        assert toks == _generate_all(m, prompts[4:5], 12)[0].tolist()
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        hz = json.loads(r.read())
+        assert r.status == 200 and hz["healthy_replicas"] == 1
+        conn.request("GET", "/metrics")
+        r = conn.getresponse()
+        text = r.read().decode()
+        chip_smoke.check_ops_surface("http", hz, text)
+    finally:
+        srv.stop()
+        fe.close()

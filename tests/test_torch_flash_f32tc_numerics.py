@@ -79,6 +79,19 @@ REL_L2 = chip_smoke.FLASH_REL_L2[torch.float32]
 LSE_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch work on one thread.  Its emulations are
+    long runs of small tensor ops; with the suite's workers sharing the
+    CPU, an OpenMP team per worker oversubscribes it and each op pays
+    for the team's rendezvous (two orders of magnitude here).  The
+    cases, their inputs and their limits are unchanged."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def tf32_rna(x):
     """x rounded to TF32: to nearest, ties away from zero (the bit
     pattern plus half a TF32 ulp, the low 13 bits cleared)."""

@@ -95,7 +95,21 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.nn.layer",
                 "paddle_tpu_torch.utils.custom_op",
                 "paddle_tpu_torch.vision.models.lenet",
-                "paddle_tpu_torch.vision.datasets.mnist"):
+                "paddle_tpu_torch.vision.datasets.mnist",
+                "paddle_tpu_torch.framework.errors",
+                "paddle_tpu_torch.framework.concurrency",
+                "paddle_tpu_torch.framework.monitor",
+                "paddle_tpu_torch.framework_io",
+                "paddle_tpu_torch.io",
+                "paddle_tpu_torch.io.checkpoint",
+                "paddle_tpu_torch.profiler",
+                "paddle_tpu_torch.profiler.flight_recorder",
+                "paddle_tpu_torch.profiler.slo",
+                "paddle_tpu_torch.profiler.exposition",
+                "paddle_tpu_torch.serving.metrics",
+                "paddle_tpu_torch.serving.router",
+                "paddle_tpu_torch.serving.frontend",
+                "paddle_tpu_torch.serving.http"):
         assert mod in _modules()
 
 

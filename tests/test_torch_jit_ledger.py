@@ -14,7 +14,11 @@ paddle_tpu's, on the CPU.
 - the same request schedule through paddle_tpu's ``ServingEngine`` (JAX
   on the CPU, a fresh model) and the port's engine (its weights bridged):
   the ``serving.ragged_step`` / ``serving.decode*`` compile counts of
-  both ledgers are equal, and so are the streams.
+  both ledgers are equal, and so are the streams;
+- the capture gate and the launch counters under many threads: no
+  capture section overlaps another thread's device section, captures
+  nested in a thread's own section take turns instead of deadlocking,
+  and launches counted inside a capture land only in that capture.
 
 On the CPU nothing is captured: a signature's first call counts one
 compile and every call runs the function as written.  Streams are
@@ -313,3 +317,82 @@ def test_compile_counts_equal_paddle_tpu_on_one_schedule(knobs):
     assert got["port"][1], "the schedule compiled no serving program"
     for a, b in zip(got["paddle_tpu"][0], got["port"][0]):
         np.testing.assert_array_equal(a, b)
+
+
+# =============================================================================
+# several engines in one process: the capture gate, the launch counters
+# =============================================================================
+def test_capture_gate_and_launch_counters_under_many_threads():
+    """More threads than cores, a short switch interval: each thread
+    loops over shared sections (an engine step) and, every few rounds,
+    an exclusive section nested in one (a capture inside a step), which
+    counts its launches through the thread's capture sink; the other
+    threads count theirs directly all the while.  No exclusive section
+    ever sees another thread in a shared or exclusive section, nothing
+    deadlocks, and the counter ends at the direct launches plus every
+    capture's launches once per replay — none lost, none doubled."""
+    import sys
+    import threading
+
+    from paddle_tpu_torch.profiler import jit_cost
+
+    gate = jit_cost.CaptureGate()
+    counts = {"cuda": 0}
+    state = {"shared": 0, "writer": 0, "bad": 0, "direct": 0,
+             "replayed": 0}
+    lock = threading.Lock()
+    n_threads, rounds, per_capture, replays = 12, 150, 3, 2
+
+    def work(tid):
+        for r in range(rounds):
+            with gate.shared():
+                with lock:
+                    state["shared"] += 1
+                jit_cost.count_launch(counts, "cuda")
+                with lock:
+                    state["direct"] += 1
+                if (r + tid) % 10 == 0:
+                    with lock:
+                        state["shared"] -= 1
+                    with gate.exclusive():
+                        with lock:
+                            if state["shared"] or state["writer"]:
+                                state["bad"] += 1
+                            state["writer"] += 1
+                        sink = []
+                        jit_cost._CAPTURING.launches = sink
+                        try:
+                            for _ in range(per_capture):
+                                jit_cost.count_launch(counts, "cuda")
+                        finally:
+                            jit_cost._CAPTURING.launches = None
+                        with lock:
+                            state["writer"] -= 1
+                    with lock:
+                        state["shared"] += 1
+                    delta = {"cuda": sum(n for _c, _k, n in sink)}
+                    for _ in range(replays):
+                        jit_cost._add_launches([(counts, delta)])
+                    with lock:
+                        state["replayed"] += replays * delta["cuda"]
+                with lock:
+                    state["shared"] -= 1
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,), daemon=True)
+                   for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(th.is_alive() for th in threads)
+    assert state["bad"] == 0 and state["shared"] == 0
+    assert state["direct"] == n_threads * rounds
+    assert state["replayed"] == n_threads * (rounds // 10) * (
+        per_capture * replays)
+    assert counts["cuda"] == state["direct"] + state["replayed"]
+    assert gate._shared == 0 and gate._writer is None and not gate._waiting

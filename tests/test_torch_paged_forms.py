@@ -54,6 +54,19 @@ DECODE_LAYOUT = (4, 4)
 DECODE_ROWS = 8             # rows a CTA of a spec-verify lane
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch work on one thread.  Its emulations are
+    long runs of small tensor ops; with the suite's workers sharing the
+    CPU, an OpenMP team per worker oversubscribes it and each op pays
+    for the team's rendezvous (two orders of magnitude here).  The
+    cases, their inputs and their limits are unchanged."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def deal(n_tiles, CS, W):
     """The decode form's split of a lane's tiles: tile t's worker
     (rank * W + warp), and the ranks that have a tile (rank 0 always)."""

@@ -42,6 +42,19 @@ ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 QMM_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch work on one thread.  Its emulations are
+    long runs of small tensor ops; with the suite's workers sharing the
+    CPU, an OpenMP team per worker oversubscribes it and each op pays
+    for the team's rendezvous (two orders of magnitude here).  The
+    cases, their inputs and their limits are unchanged."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 

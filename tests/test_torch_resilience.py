@@ -360,11 +360,13 @@ def test_brownout_matches_jax():
 
 def test_metric_hooks_match_jax():
     """The resilience, prefix and brownout hooks fed the same events
-    count what paddle_tpu's ``ServingMetrics`` (and, for the brownout
-    counters, its ``FrontendMetrics``) count."""
+    count what paddle_tpu's ``ServingMetrics`` and, for the brownout
+    counters, its ``FrontendMetrics`` count."""
     from paddle_tpu.serving.metrics import FrontendMetrics
     from paddle_tpu.serving.metrics import ServingMetrics as JaxMetrics
     from paddle_tpu_torch.serving import ServingMetrics
+    from paddle_tpu_torch.serving.metrics import (
+        FrontendMetrics as PortFrontendMetrics)
 
     def feed(m, fm):
         m.on_snapshot(1234)
@@ -388,7 +390,8 @@ def test_metric_hooks_match_jax():
     jfm = FrontendMetrics()
     feed(jm, jfm)
     pm = ServingMetrics()
-    feed(pm, pm)
+    pfm = PortFrontendMetrics()
+    feed(pm, pfm)
     want, got = jm.snapshot(), pm.snapshot()
     for key in ("snapshots", "restores", "watchdog_trips",
                 "retries_backoff", "brownout_stage", "snapshot_bytes"):
@@ -396,6 +399,7 @@ def test_metric_hooks_match_jax():
     assert got["prefix"] == {k: want["prefix"][k] for k in got["prefix"]}
     assert got["failover_recovery_ms"]["count"] == \
         want["failover_recovery_ms"]["count"] == 1
-    fsnap = jfm.snapshot()
-    assert got["brownout"] == {k: fsnap[f"brownout_{k}"]
-                               for k in ("shed", "clamped", "rejected")}
+    fsnap, psnap = jfm.snapshot(), pfm.snapshot()
+    assert {k: psnap[f"brownout_{k}"]
+            for k in ("shed", "clamped", "rejected")} == \
+        {k: fsnap[f"brownout_{k}"] for k in ("shed", "clamped", "rejected")}
