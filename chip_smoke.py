@@ -164,9 +164,12 @@ Phases, one result line each (or more):
    int8_static, int8_dynamic and tp 2 x sp 2 mesh engines, graphed,
    under ``torch.cuda.set_sync_debug_mode("error")`` inside
    ``compile_budget(0, prefix="serving.")``: no host sync, no capture,
-   one replay a step; and of a ``prefix_cache=True`` engine whose 4
+   one replay a step; of a ``prefix_cache=True`` engine whose 4
    lanes share prefixes (a full-prompt hit with its copy-on-write, a
-   hit, and a lane held by the write barrier), taken after admission.
+   hit, and a lane held by the write barrier), taken after admission;
+   and of a ``kv_tiering`` engine (a 64-page pool) after a demote /
+   promote cycle (a donor's pages demoted by an opted-out 1000-token
+   prompt's admission, promoted back by the lanes').
 23. e2e_prefix (runs after e2e_mesh): ``prefix_cache=True`` at
    GPT-2-small width on two waves — 8 requests sharing a 512-token system
    prompt with suffixes of 16-200 tokens, then 2 exact repeats (528 and
@@ -206,7 +209,36 @@ Phases, one result line each (or more):
    ``healthz()`` with its SLO, tier and fleet keys and ``/metrics``
    parsed with the ``serving.*`` families; TTFT and ITL p50 / p95 from
    the handles, each replica's step p50, captures and replays,
-   snapshots and their ms, ships and wall seconds.
+   snapshots and their ms, ships and wall seconds.  The first fleet runs
+   with span retention on: its Chrome trace (written to a temporary
+   file and loaded back) must show ``serving/step`` spans with
+   ``serving/ragged_step`` children on both pump threads; it is read
+   into each replica's step time and snapshots and each request's time
+   from submission to admission, from admission to its first token and
+   its prefill chunks.  The HTTP arm also fetches
+   ``/debug/requests/<id>?format=chrome``; a last arm builds the
+   two-replica fleet from ``inference.Config`` through
+   ``create_serving_frontend(model, config)``: streams equal to the
+   keyword-built fleet's.
+26. e2e_tiers (after e2e_prefix): ``kv_tiering`` behind the prefix
+   cache in the 100-page pool on three waves — e2e_prefix's first wave,
+   8 requests over a second 512-token system prompt opted out of the
+   cache (their admission evicts, and so demotes, the first wave's
+   pages), the first wave again (its admission promotes them): native
+   with a 64-page host tier, native with an 8-page host tier over a
+   64-page disk tier (a temporary directory), int8_static with the host
+   tier, each beside its tiers-off drive.  Streams equal to the batched
+   dense reference and the tiers-off drive except at a reported
+   near-tie, demotions and promotions (and disk hits), fewer wave-3
+   prefill rows than without tiers, pool addresses unchanged, no
+   signature captured twice, the leak invariant, launches per route;
+   the host ms of a demotion and of a promotion per page, wave 3's TTFT
+   p50 with and without tiers, the tiers' bytes.
+27. e2e_profile (after e2e_frontend): the engine built from
+   ``inference.Config`` serving 4 e2e prompts graphed, then again under
+   ``utils.profiler.start_profiler`` / ``stop_profiler(timeline_path=)``:
+   streams equal to the keyword-built engine's, and every launch of the
+   paged kernel in the device trace inside a ``serving/step`` range.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -2620,14 +2652,43 @@ def prefix_sync_free_window(eng, donor, lanes) -> dict:
     return res
 
 
+# the tier window's pool, and its flood: one opted-out prompt whose
+# admission needs all but one page of it
+TIER_WINDOW_PAGES = 64
+TIER_FLOOD_LEN = 1000
+
+
+def tier_sync_free_window(eng, donor, lanes, floods) -> dict:
+    """``sync_free_window`` after a demote / promote cycle of a tiered
+    engine: the donor is served (its pages are sealed), then ``floods``,
+    opted out of the cache, whose admission evicts them — demoted inside
+    the admission window — and which free their own pages as they
+    retire; the lanes' admission promotes the donor's pages back before
+    the window."""
+    eng.add_request(donor, max_new_tokens=4)
+    eng.drain()
+    for p in floods:
+        eng.add_request(p, max_new_tokens=2, prefix_cache=False)
+    eng.drain()
+    res = sync_free_window(eng, lanes)
+    st = eng.stats()["prefix_cache"]
+    tiers = st["tiers"]
+    if not (tiers["demotions"] and tiers["promotions"] and st["hits"]):
+        raise AssertionError(f"sync_free/tiers: prefix stats {st}")
+    leak_invariant("sync_free/tiers", eng)
+    res["prefix_cache"] = st
+    return res
+
+
 def sync_free_phase(model, prompts, export, device="cuda") -> dict:
     """SYNC_FREE_STEPS steady ragged steps of the native, int8_static,
     int8_dynamic and tp 2 x sp 2 mesh engines, graphed, under the sync
     debug mode's "error" and a compile budget of 0 (``sync_free_window``),
     on the first four e2e prompts; and of a prefix-cache engine whose 4
     lanes share prefixes, taken after their admission's copy-on-write and
-    write barrier passed (``prefix_sync_free_window``).  Every arm runs;
-    any failure raises at the end."""
+    write barrier passed (``prefix_sync_free_window``); and of a tiered
+    engine after a demote / promote cycle (``tier_sync_free_window``).
+    Every arm runs; any failure raises at the end."""
     from paddle_tpu_torch.distributed import force_device_count
     from paddle_tpu_torch.serving import create_serving_engine
 
@@ -2636,9 +2697,13 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
             ("int8_dynamic", int8),
             ("mesh", dict(mesh_axes={"tp": 2, "sp": 2},
                           num_pages=MESH_PAGES)),
-            ("prefix_shared", dict(prefix_cache=True)))
+            ("prefix_shared", dict(prefix_cache=True)),
+            ("tiers", dict(prefix_cache=True, kv_tiering={"host_pages": 64},
+                           num_pages=TIER_WINDOW_PAGES)))
     donor, lanes = prefix_window_prompts(np.random.RandomState(9),
                                          GPT2_SMALL["vocab_size"])
+    flood = np.random.RandomState(12).randint(
+        1, GPT2_SMALL["vocab_size"], (TIER_FLOOD_LEN,)).astype(np.int32)
     result, failed = {}, {}
     for name, knobs in arms:
         prev = force_device_count(MESH_SLOTS if name == "mesh" else None)
@@ -2650,6 +2715,9 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
         try:
             if name == "prefix_shared":
                 result[name] = prefix_sync_free_window(eng, donor, lanes)
+            elif name == "tiers":
+                result[name] = tier_sync_free_window(eng, donor, lanes,
+                                                     [flood])
             else:
                 result[name] = sync_free_window(eng, prompts[:4])
         except Exception as exc:  # noqa: BLE001 — every arm reports
@@ -2768,13 +2836,12 @@ def prefix_prompts(rng, vocab):
     return wave1, wave2
 
 
-def prefix_drive(eng, waves):
-    """Serve each wave to completion in turn, every count set to 0 just
-    before the first and read just after the last; a request's TTFT is
-    the host time from its ``add_request`` to its first token.  Returns
-    (streams, counts, wall s, {"hit" | "miss": [TTFT ms]})."""
-    from paddle_tpu_torch.profiler.flight_recorder import recorder
-
+def wave_drive(eng, waves):
+    """Serve each wave (a list of (prompt, prefix_cache opt-in)) to
+    completion in turn, every count set to 0 just before the first and
+    read just after the last; a request's TTFT is the host time from its
+    ``add_request`` to its first token.  Returns (streams, counts, wall
+    s, per wave {"ids", "prefill_rows", "ttft_ms"})."""
     added, first = {}, {}
 
     def on_token(rid, index, _tok):
@@ -2785,28 +2852,29 @@ def prefix_drive(eng, waves):
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids, outs = [], {}
+    outs, per_wave = {}, []
     for wave in waves:
+        rows0 = eng.metrics.snapshot()["ragged"]["prefill_rows"]
+        ids = []
         for p, opt_in in wave:
             rid = eng.add_request(p, max_new_tokens=NEW_TOKENS,
                                   prefix_cache=opt_in)
             added[rid] = time.perf_counter()
             ids.append(rid)
         outs.update(eng.drain())
+        per_wave.append({
+            "ids": ids,
+            "prefill_rows": eng.metrics.snapshot()["ragged"]["prefill_rows"]
+            - rows0,
+            "ttft_ms": [(first[r] - added[r]) * 1e3 for r in ids]})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    ttft = {"hit": [], "miss": []}
-    for rid in ids:
-        tr = recorder.trace(rid) or {"events": []}
-        hit = any(e["kind"] == "prefix_hit" for e in tr["events"])
-        ttft["hit" if hit else "miss"].append(
-            (first[rid] - added[rid]) * 1e3)
-    streams = [outs[r] for r in ids]
-    if [len(s) for s in streams] != [NEW_TOKENS] * len(ids):
+    streams = [outs[r] for w in per_wave for r in w["ids"]]
+    if [len(s) for s in streams] != [NEW_TOKENS] * len(streams):
         raise AssertionError(f"expected {NEW_TOKENS} tokens per request, "
                              f"got {[len(s) for s in streams]}")
-    return streams, counts, wall, ttft
+    return streams, counts, wall, per_wave
 
 
 def e2e_prefix_phase(model, export, device="cuda") -> dict:
@@ -2823,6 +2891,7 @@ def e2e_prefix_phase(model, export, device="cuda") -> dict:
     fewer lanes at a time and so meets fewer signatures: it is held
     against the native arm's), the pools' addresses unchanged, hits,
     copies (and evictions and preemptions in the tight pool)."""
+    from paddle_tpu_torch.profiler.flight_recorder import recorder
     from paddle_tpu_torch.profiler.jit_cost import (cost_registry,
                                                     disable_jit)
     from paddle_tpu_torch.serving import create_serving_engine
@@ -2852,12 +2921,19 @@ def e2e_prefix_phase(model, export, device="cuda") -> dict:
             before = cost_registry.snapshot()
             if mode == "eager":
                 with disable_jit():
-                    res = prefix_drive(eng, waves)
+                    res = wave_drive(eng, waves)
             else:
-                res = prefix_drive(eng, waves)
+                res = wave_drive(eng, waves)
             programs = jit_delta(before)
             tag = f"e2e_prefix/{name}/{'on' if pc else 'off'}/{mode}"
-            streams, counts, wall, ttft = res
+            streams, counts, wall, per_wave = res
+            ttft = {"hit": [], "miss": []}
+            for w in per_wave:
+                for rid, ms in zip(w["ids"], w["ttft_ms"]):
+                    tr = recorder.trace(rid) or {"events": []}
+                    hit = any(e["kind"] == "prefix_hit"
+                              for e in tr["events"])
+                    ttft["hit" if hit else "miss"].append(ms)
             st = eng.stats()
             calls = st["programs"]
             if eng.ragged:
@@ -2937,6 +3013,195 @@ def e2e_prefix_phase(model, export, device="cuda") -> dict:
                                   "graphed": on["step_ms"]["p50"]}
         log("e2e_prefix", arm=name, **res)
         result[name] = res
+    return result
+
+
+# --------------------------------------------------------------------------
+# the host and disk KV page tiers behind the prefix cache
+# (serving/kv_transport.py)
+# --------------------------------------------------------------------------
+# (name, kv_tiering, int8 KV and weights); the disk arm's directory is a
+# temporary one, made by the phase
+TIER_ARMS = (("native_host", {"host_pages": 64}, False),
+             ("native_disk", {"host_pages": 8, "disk_pages": 64}, False),
+             ("int8_static_host", {"host_pages": 64}, True))
+
+
+def tier_waves(vocab):
+    """Three waves of 8 requests, lists of (prompt, prefix_cache opt-in):
+    e2e_prefix's first wave (a 512-token system prompt, suffixes of
+    16-200 tokens); the same suffix lengths over a second system prompt,
+    opted out of the cache, whose first admission needs more pages than
+    the pool holds, so it evicts every page the first wave left cached —
+    inside the admission window, where evictions demote; then the first
+    wave's prompts again, whose admission promotes its pages back.  The
+    second wave opts out because a promotion only takes a FREE page (it
+    never evicts, in either package): a second wave that filled the
+    cache would leave none, and its opted-out pages return to the free
+    list as each request retires."""
+    wave1, _ = prefix_prompts(np.random.RandomState(10), vocab)
+    rng = np.random.RandomState(11)
+    system = rng.randint(1, vocab, (PREFIX_SYSTEM_LEN,))
+    wave2 = [(np.concatenate([system, rng.randint(1, vocab, (n,))]).astype(
+        np.int32), False) for n in PREFIX_SUFFIXES]
+    return [wave1, wave2, [(p.copy(), True) for p, _ in wave1]]
+
+
+def time_tier_calls(eng):
+    """Host timers around the transport's gather (one page's demotion,
+    device to host; it waits for the copy) and restore (one page's
+    promotion; the upload and the write are queued, the host does not
+    wait) closures.  Returns {"demote_ms": [...], "promote_ms": [...]}."""
+    timers = {"demote_ms": [], "promote_ms": []}
+    tr = eng.kv_transport
+    if tr is None:
+        return timers
+
+    def timed(fn, out):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                out.append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    tr._gather = timed(tr._gather, timers["demote_ms"])
+    tr._restore = timed(tr._restore, timers["promote_ms"])
+    return timers
+
+
+def e2e_tiers_phase(model, export, device="cuda") -> dict:
+    """``kv_tiering`` behind ``prefix_cache=True`` at GPT-2-small width in
+    the 100-page pool, on three waves (``tier_waves``), each drained
+    before the next: native with a 64-page host tier, native with an
+    8-page host tier spilling to a 64-page disk tier (disk hits), and
+    int8_static with the host tier, each beside its tiers-off drive
+    (graphed).  Checks: streams equal to the batched dense reference and
+    to the tiers-off drive except at a reported near-tie; demotions and
+    promotions on every arm, disk hits on the disk arm; wave 3 prefills
+    fewer rows than without tiers; the pools' addresses unchanged, no
+    more captures than the tiers-off drive; the leak invariant; launches
+    per route exact.  Reports the host-clock ms of a demotion and of a
+    promotion (one page each), wave 3's TTFT p50 with and without tiers
+    and the tiers' bytes."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.profiler.jit_cost import cost_registry
+    from paddle_tpu_torch.serving import create_serving_engine
+
+    L = len(model.layers)
+    waves = tier_waves(GPT2_SMALL["vocab_size"])
+    prompts = [p for wave in waves for p, _ in wave]
+    t0 = time.perf_counter()
+    refs = {}
+    for int8 in (False, True):
+        once = batched_reference(model, prompts[:2 * len(waves[0])],
+                                 export if int8 else None)
+        refs[int8] = once + once[:len(waves[0])]
+    result = {"reference_s": time.perf_counter() - t0,
+              "prompt_lens": [int(p.size) for p in prompts],
+              "num_pages": PREFIX_TIGHT_PAGES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+    runs = {}
+    try:
+        arms = (("native_off", False, False),
+                ("int8_static_off", False, True)) + TIER_ARMS
+        for name, tiering, int8 in arms:
+            qs = dict(kv_cache_dtype="int8", weight_dtype="int8",
+                      quant_scales=export) if int8 else {}
+            if tiering and "disk_pages" in tiering:
+                tiering = dict(tiering, disk_dir=os.path.join(tmp, name))
+            eng = create_serving_engine(
+                model, device=device, prefix_cache=True, kv_tiering=tiering,
+                **dict(ENGINE, num_pages=PREFIX_TIGHT_PAGES, **qs))
+            ptrs = pool_ptrs(eng)
+            before = cost_registry.snapshot()
+            timers = time_tier_calls(eng)
+            streams, counts, wall, per_wave = wave_drive(eng, waves)
+            programs = jit_delta(before)
+            tag = f"e2e_tiers/{name}"
+            st = eng.stats()
+            att = L * st["programs"]["ragged_step"]
+            expect_counts(tag, counts, {
+                "attention_cuda": 0 if int8 else att,
+                "attention_cuda_int8": att if int8 else 0,
+                "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
+                "attention_ref": 0, "qmm_cuda": 6 * att if int8 else 0,
+                "qmm_ref": 0, **NO_STATS})
+            leak_invariant(tag, eng)
+            if pool_ptrs(eng) != ptrs:
+                raise AssertionError(f"{tag}: a pool tensor was replaced")
+            near = check_streams(tag, model, prompts, streams,
+                                 quant=export if int8 else None,
+                                 want=refs[int8], int8=int8)
+            runs[name] = {
+                "streams": streams, "near_ties": near, "wall_s": wall,
+                "launches": counts,
+                "captures": sum(p["captures"] for p in programs.values()),
+                "signatures": set(eng._ragged_fn._sigs),
+                "programs": programs, "prefix": st["prefix_cache"],
+                "preemptions": st["preemptions"],
+                "waves": [{"prefill_rows": w["prefill_rows"],
+                           "ttft_ms_p50": float(np.percentile(
+                               w["ttft_ms"], 50))} for w in per_wave],
+                "demote_ms": _pcts(timers["demote_ms"]),
+                "promote_ms": _pcts(timers["promote_ms"]),
+                "step_ms": st["metrics"]["step_latency_ms"]}
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, _tiering, int8 in TIER_ARMS:
+        on = runs[name]
+        off = runs["int8_static_off" if int8 else "native_off"]
+        near = check_streams(f"e2e_tiers/{name}/on_vs_off", model, prompts,
+                             on["streams"], quant=export if int8 else None,
+                             want=off["streams"], int8=int8)
+        tiers = on["prefix"]["tiers"]
+        bad = []
+        if not (tiers["demotions"] and tiers["promotions"]):
+            bad.append(f"tier stats {tiers}")
+        if name == "native_disk" and not tiers["disk_hits"]:
+            bad.append(f"no disk hit: {tiers}")
+        if on["waves"][2]["prefill_rows"] >= off["waves"][2]["prefill_rows"]:
+            bad.append(f"wave 3 prefilled {on['waves'][2]['prefill_rows']} "
+                       f"rows with tiers, {off['waves'][2]['prefill_rows']} "
+                       "without")
+        # no signature captured twice, and no capture beyond the ragged
+        # step's signatures that the tiers-off drive did not meet (a
+        # promoted prefix moves the first uncached token, and with it the
+        # size of a prefill chunk's pow2 tail)
+        new_sigs = len(on["signatures"] - off["signatures"])
+        if on["captures"] != len(on["signatures"]) \
+                or on["captures"] > off["captures"] + new_sigs:
+            bad.append(f"{on['captures']} captures of "
+                       f"{len(on['signatures'])} signatures with tiers, "
+                       f"{off['captures']} without; {new_sigs} signatures "
+                       "the tiers-off drive did not meet")
+        if bad:
+            raise AssertionError(f"e2e_tiers/{name}: {bad}")
+        res = {"on": {k: v for k, v in on.items()
+                      if k not in ("streams", "signatures")},
+               "off_waves": off["waves"], "off_captures": off["captures"],
+               "new_signatures": new_sigs,
+               "on_vs_off_near_ties": near,
+               "demote_ms_per_page_p50": on["demote_ms"]["p50"],
+               "promote_ms_per_page_p50": on["promote_ms"]["p50"],
+               "wave3_ttft_ms_p50": {"tiers": on["waves"][2]["ttft_ms_p50"],
+                                     "off": off["waves"][2]["ttft_ms_p50"]},
+               "wave3_prefill_rows": {
+                   "tiers": on["waves"][2]["prefill_rows"],
+                   "off": off["waves"][2]["prefill_rows"]},
+               "host_bytes": tiers["host_bytes"],
+               "bytes_per_page": (tiers["host_bytes"] // tiers["host_pages"]
+                                  if tiers["host_pages"] else None)}
+        log("e2e_tiers", arm=name, **res)
+        result[name] = res
+    for name in ("native_off", "int8_static_off"):
+        result[name] = {k: v for k, v in runs[name].items()
+                        if k not in ("streams", "signatures")}
     return result
 
 
@@ -3162,15 +3427,22 @@ def check_ops_surface(phase, hz, metrics_text):
 
 def time_replica_calls(fe):
     """Host timers around each replica engine's ``step`` and ``snapshot``
-    (run by its pump thread); returns {replica id: {"step_ms": [...],
-    "snapshot_ms": [...], "snapshots": [(kv_mode, page dtype)]}}."""
+    (run by its pump thread; a snapshot is also a ``chip_smoke/snapshot``
+    span); returns {replica id: {"step_ms": [...], "snapshot_ms": [...],
+    "snapshots": [(kv_mode, page dtype)], "tid": the pump's thread
+    ident}}."""
+    import threading
+
+    from paddle_tpu_torch.profiler import span
+
     timers = {}
     for rep in fe._replicas:
         eng = rep.engine
         t = timers[rep.id] = {"step_ms": [], "snapshot_ms": [],
-                              "snapshots": []}
+                              "snapshots": [], "tid": None}
 
-        def step(fn=eng.step, out=t["step_ms"]):
+        def step(fn=eng.step, out=t["step_ms"], t=t):
+            t["tid"] = threading.get_ident()
             t0 = time.perf_counter()
             try:
                 return fn()
@@ -3179,7 +3451,8 @@ def time_replica_calls(fe):
 
         def snapshot(rid, fn=eng.snapshot, t=t):
             t0 = time.perf_counter()
-            snap = fn(rid)
+            with span("chip_smoke/snapshot", request=rid):
+                snap = fn(rid)
             t["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
             if snap is not None:
                 t["snapshots"].append(
@@ -3307,31 +3580,157 @@ def check_frontend_streams(phase, model, prompts, handles, wants, int8,
     return near
 
 
-def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
-                 kill=None, **fe_kw):
-    """Serve ``prompts`` through one ServingFrontend, submitted together
-    and consumed by iterating the handles, with the counts set to 0 just
-    before the submissions and read after the last stream ended;
-    ``kill`` = (replica id, step) arms an injected failure first.  Checks
-    streams, counters, deaths, leaks and the ops surface; returns the
-    arm's report (``fleet_report``)."""
-    from paddle_tpu_torch.profiler import prometheus_text
-    from paddle_tpu_torch.serving import ServingFrontend
+def _ms(xs) -> dict:
+    """p50 / p95 / total / count of a list of ms."""
+    return dict(_pcts(xs), total=float(sum(xs)))
 
-    fe = ServingFrontend(model, device=device, **fe_kw)
+
+def _overlap_ms(lo, hi, spans) -> float:
+    """ms of [lo, hi] (us) covered by ``spans`` ([(start, end)] in us,
+    disjoint)."""
+    return sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in spans) / 1e3
+
+
+def trace_attribution(phase, fe, handles, timers, doc) -> dict:
+    """Read a Chrome trace of a fleet drive (``profiler.
+    export_chrome_trace`` of the host spans): every replica's pump thread
+    must show ``serving/step`` spans with ``serving/ragged_step``
+    children.  Returns each replica's step time (spans on its pump
+    thread), the share of it in the steps that captured a graph (its
+    ``captures`` longest ragged steps), and its snapshots with the time
+    each overlapped the other pump's steps and captures; and per request
+    (the flight recorder's timeline, on the same monotonic clock) the
+    time from submission to admission, from admission to the first
+    token, the part of that spent in its replica's capturing steps, and
+    its prefill chunks: where the TTFT goes."""
+    from paddle_tpu_torch.profiler import aggregates
+
+    names = {e["args"]["name"]: e["tid"] for e in doc["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    # span ts are perf_counter us; the recorder's are monotonic ns
+    shift_us = (time.monotonic_ns() - time.perf_counter_ns()) / 1e3
+    out = {"replicas": {}, "requests": {}}
+    per = {}
+    for rep in fe._replicas:
+        t = timers[rep.id]
+        tid = next((i for n, i in names.items()
+                    if n.endswith(f"({t['tid']})")), None)
+        mine = [e for e in spans if e["tid"] == tid]
+        steps = [e for e in mine if e["name"] == "serving/step"]
+        step_ids = {e["args"]["span_id"] for e in steps}
+        ragged = [e for e in mine if e["name"] == "serving/ragged_step"
+                  and e["args"].get("parent_id") in step_ids]
+        if not steps or not ragged:
+            raise AssertionError(f"{phase}: the trace holds {len(steps)} "
+                                 f"serving/step spans with {len(ragged)} "
+                                 f"serving/ragged_step children on "
+                                 f"{rep.id}'s pump thread")
+        captures = replica_programs(rep.engine)["captures"]
+        longest = sorted(ragged, key=lambda e: -e["dur"])[:captures]
+        per[rep.id] = {
+            "steps": [(e["ts"], e["ts"] + e["dur"]) for e in steps],
+            "captures": [(e["ts"], e["ts"] + e["dur"]) for e in longest],
+            "snapshots": [(e["ts"], e["ts"] + e["dur"]) for e in mine
+                          if e["name"] == "chip_smoke/snapshot"]}
+        out["replicas"][rep.id] = {
+            "step_ms": _ms([e["dur"] / 1e3 for e in steps]),
+            "ragged_step_ms": _ms([e["dur"] / 1e3 for e in ragged]),
+            "capture_steps_ms": _ms([e["dur"] / 1e3 for e in longest]),
+            "prefill_steps": sum(1 for e in ragged if e["args"]["rows"] > 1),
+            "snapshot_ms": _ms([(b - a) / 1e3
+                                for a, b in per[rep.id]["snapshots"]])}
+    for rep_id, mine in per.items():
+        others = [r for r in per if r != rep_id]
+        steps = [x for r in others for x in per[r]["steps"]]
+        caps = [x for r in others for x in per[r]["captures"]]
+        out["replicas"][rep_id]["snapshot_overlap_ms"] = {
+            "other_pump_steps": _pcts([_overlap_ms(a, b, steps)
+                                       for a, b in mine["snapshots"]]),
+            "other_pump_capture_steps": _pcts(
+                [_overlap_ms(a, b, caps) for a, b in mine["snapshots"]])}
+    waits, prefills, in_captures, chunks = [], [], [], []
+    for h in handles:
+        ev, n_chunks, where = {}, 0, None
+        for e in fe.trace(h.request_id)["events"]:
+            ev.setdefault(e["kind"], e["ts_ns"])
+            n_chunks += e["kind"] == "prefill_chunk"
+            if e["kind"] == "admitted" and where is None:
+                where = e.get("replica")
+        if "admitted" in ev and "first_token" in ev:
+            waits.append((ev["admitted"] - ev["queued"]) / 1e6)
+            prefills.append((ev["first_token"] - ev["admitted"]) / 1e6)
+            lo = ev["admitted"] / 1e3 - shift_us
+            hi = ev["first_token"] / 1e3 - shift_us
+            in_captures.append(_overlap_ms(
+                lo, hi, per.get(where, {}).get("captures", [])))
+            chunks.append(n_chunks)
+    out["requests"] = {"submit_to_admit_ms": _pcts(waits),
+                       "admit_to_first_token_ms": _pcts(prefills),
+                       "admit_to_first_token_in_captures_ms":
+                           _pcts(in_captures),
+                       "prefill_chunks": _pcts(chunks)}
+    out["span_aggregates"] = {
+        k: v for k, v in aggregates().items()
+        if k.startswith(("serving/", "chip_smoke/"))}
+    return out
+
+
+def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
+                 kill=None, trace=False, config=None, **fe_kw):
+    """Serve ``prompts`` through one ServingFrontend (built from
+    ``config`` through ``create_serving_frontend`` when given), submitted
+    together and consumed by iterating the handles, with the counts set
+    to 0 just before the submissions and read after the last stream
+    ended; ``kill`` = (replica id, step) arms an injected failure first.
+    With ``trace`` the drive runs with span retention on, and its Chrome
+    trace is written to a temporary file, loaded back and attributed
+    (``trace_attribution``).  Checks streams, counters, deaths, leaks and
+    the ops surface; returns the arm's report (``fleet_report``) with
+    the streams under ``streams``."""
+    import tempfile
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import prometheus_text
+    from paddle_tpu_torch.serving import (ServingFrontend,
+                                          create_serving_frontend)
+
+    if config is not None:
+        fe = create_serving_frontend(model, config)
+    else:
+        fe = ServingFrontend(model, device=device, **fe_kw)
     try:
         timers = time_replica_calls(fe)
         killed = {}
         if kill is not None:
             fe.inject_failure(kill[0], at_step=kill[1])
             killed[kill[0]] = f"injected failure at step {kill[1]}"
+        if trace:
+            profiler.reset_aggregates()
+            profiler.enable_tracing()
         reset_counts()
         t0 = time.perf_counter()
-        handles = [fe.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-        stamps = consume(handles)
+        try:
+            handles = [fe.submit(p, max_new_tokens=NEW_TOKENS)
+                       for p in prompts]
+            stamps = consume(handles)
+        finally:
+            profiler.disable_tracing()
         wall = time.perf_counter() - t0
         counts = read_counts()
         res = fleet_report(phase, fe, handles, stamps, timers, wall, killed)
+        if trace:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") \
+                    as d:
+                path = profiler.export_chrome_trace(
+                    os.path.join(d, "fleet.json"))
+                res["trace_bytes"] = os.path.getsize(path)
+                with open(path) as f:
+                    doc = json.load(f)
+            res["trace"] = trace_attribution(phase, fe, handles, timers,
+                                             doc)
+            res["trace_spans"] = len(profiler.get_spans())
+            profiler.clear_spans()
         res["launches"] = counts
         frontend_counts(phase, model, counts,
                         [r.engine for r in fe._replicas], int8)
@@ -3344,6 +3743,8 @@ def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
                                        prometheus_text())
         res["snapshot_kinds"] = sorted({k for t in timers.values()
                                         for k in t["snapshots"]})
+        res["streams"] = [np.asarray(h.tokens[:NEW_TOKENS], np.int32)
+                          for h in handles]
         return res
     finally:
         fe.close()
@@ -3476,10 +3877,16 @@ def http_arm(model, prompts, wants, device) -> dict:
         conn.request("GET", "/metrics")
         r2 = conn.getresponse()
         text = r2.read().decode()
+        rid = out[0][2][-1]["request_id"]
+        conn.request("GET", f"/debug/requests/{rid}?format=chrome")
+        r3 = conn.getresponse()
+        chrome = json.loads(r3.read())
         conn.close()
-        if r.status != 200 or r2.status != 200:
+        if r.status != 200 or r2.status != 200 or r3.status != 200 \
+                or not chrome.get("traceEvents"):
             raise AssertionError(f"e2e_frontend/http: /healthz {r.status}, "
-                                 f"/metrics {r2.status}")
+                                 f"/metrics {r2.status}, ?format=chrome "
+                                 f"{r3.status}")
         frontend_counts("e2e_frontend/http", model, counts,
                         [fe._replicas[0].engine], False)
         finals = [out[i][2][-1] for i in range(len(prompts))]
@@ -3488,7 +3895,8 @@ def http_arm(model, prompts, wants, device) -> dict:
         res = fleet_report("e2e_frontend/http", fe, finals, stamps, timers,
                            wall, {})
         res.update(near_ties=near, launches=counts, final_lines=finals,
-                   ops=check_ops_surface("e2e_frontend/http", hz, text))
+                   ops=check_ops_surface("e2e_frontend/http", hz, text),
+                   chrome_trace_events=len(chrome["traceEvents"]))
         return res
     finally:
         srv.stop()
@@ -3586,11 +3994,18 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
     the same fleet with snapshots off and no failure; a disaggregated
     int8_static fleet (one prefill, one decode replica: #1q and #4
     through the front door, each ship an int8 snapshot); restart
-    recovery from a ``CheckpointStore``; the HTTP server; and a
-    sync-free window through the pump.  Every stream equals the batched
+    recovery from a ``CheckpointStore``; the HTTP server (a request's
+    timeline also as ``?format=chrome``); a sync-free window through the
+    pump; and the two-replica fleet built from an ``inference.Config``
+    (``create_serving_frontend(model, config)``), whose streams must
+    equal the keyword-built fleet's.  The first fleet runs with span
+    retention on: its Chrome trace shows both pumps' steps and attributes
+    the TTFT (``trace_attribution``).  Every stream equals the batched
     dense reference and the bare engine's e2e streams (int8 per the
     export) except at a reported near-tie; every arm runs, any failure
     raises at the end."""
+    from paddle_tpu_torch.inference import Config
+
     t_phase = time.perf_counter()
     want = {"batched_reference": batched_reference(model, prompts),
             "engine_e2e": e2e_streams}
@@ -3599,16 +4014,25 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
              "engine_e2e_int8_static": int8_streams}
     int8_engine = dict(ENGINE, kv_cache_dtype="int8", weight_dtype="int8",
                        quant_scales=export)
+    config = Config()
+    if torch.device(device).type == "cpu":
+        config.disable_gpu()
+    config.enable_serving(replicas=2, snapshot_interval=None, **ENGINE)
+    streams = {}
     arms = (
         ("fleet", lambda: frontend_arm(
             "e2e_frontend/fleet", model, prompts, want, device,
             kill=("replica-0", FRONTEND_KILL_STEP), replicas=2,
             snapshot_interval=FRONTEND_SNAPSHOT_INTERVAL,
-            engine_kwargs=dict(ENGINE))),
+            engine_kwargs=dict(ENGINE), trace=True)),
         ("interval_off", lambda: frontend_arm(
             "e2e_frontend/interval_off", model, prompts, want, device,
             replicas=2, snapshot_interval=None,
             engine_kwargs=dict(ENGINE))),
+        ("config", lambda: frontend_arm(
+            "e2e_frontend/config", model, prompts,
+            dict(want, frontend_kwargs=streams["interval_off"]), device,
+            config=config)),
         ("disaggregated_int8", lambda: frontend_arm(
             "e2e_frontend/disaggregated_int8", model, prompts, want8,
             device, int8=True, replicas=1, prefill_replicas=1,
@@ -3627,10 +4051,17 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
         t0 = time.perf_counter()
         try:
             res = run()
+            streams[name] = res.pop("streams", None)
             if name == "fleet" and not any(
                     r is not None for r in res["resumed_from"]):
                 raise AssertionError("e2e_frontend/fleet: no request "
                                      "resumed from a snapshot")
+            if name == "config" and (
+                    len(res["replicas"]) != 2 or any(
+                        r["dispatches"] == 0
+                        for r in res["replicas"].values())):
+                raise AssertionError(f"e2e_frontend/config: replicas "
+                                     f"{res['replicas']}")
             if name == "disaggregated_int8" and (
                     res["shipped_pages"] == 0
                     or res["snapshot_kinds"] != [("int8_static", "int8")]):
@@ -3650,6 +4081,111 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
     if failed:
         raise AssertionError(f"e2e_frontend failed on {sorted(failed)}: "
                              f"{failed}")
+    return result
+
+
+# --------------------------------------------------------------------------
+# inference.Config and utils.profiler on the serving path
+# --------------------------------------------------------------------------
+# the paged kernel's two forms, as named in a device trace
+STEP_KERNELS = ("ragged_decode_kernel", "ragged_prefill_kernel")
+
+
+def kernels_in_steps(doc) -> dict:
+    """In a ``torch.profiler`` Chrome trace: the paged kernel's device
+    launches, and how many of them ran inside a ``serving/step`` range —
+    the kernel inside the range on the device timeline
+    (``gpu_user_annotation``), or the host call that launched it (its
+    ``correlation``: a ``cudaGraphLaunch`` for a replay) inside the host
+    range (``user_annotation``)."""
+    evs = doc["traceEvents"]
+    host = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+            if e.get("cat") == "user_annotation"
+            and e.get("name") == "serving/step"]
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+           if e.get("cat") == "gpu_user_annotation"
+           and e.get("name") == "serving/step"]
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and any(k in e.get("name", "") for k in STEP_KERNELS)]
+    inside = 0
+    for k in kernels:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        inside += (any(a <= k["ts"] and k["ts"] + k["dur"] <= b
+                       for a, b in dev)
+                   or (call is not None
+                       and any(a <= call["ts"] <= b for a, b in host)))
+    return {"step_ranges_host": len(host), "step_ranges_device": len(dev),
+            "paged_kernels": len(kernels), "inside_steps": inside,
+            "events": len(evs)}
+
+
+def e2e_profile_phase(model, prompts, e2e_streams, device="cuda") -> dict:
+    """The engine built from an ``inference.Config``
+    (``Config().enable_serving(**ENGINE)`` and
+    ``create_serving_engine(model, config)``) on the first 4 e2e prompts,
+    graphed: the first drive captures its signatures, the second runs
+    under ``utils.profiler.start_profiler`` / ``stop_profiler(
+    timeline_path=..., profile_path=...)``.  Both drives' streams equal
+    the keyword-built e2e engine's except at a reported near-tie, the
+    launches per route are exact, and the device trace holds every
+    launch of the paged kernel inside a ``serving/step`` range."""
+    import tempfile
+
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.profiler.jit_cost import cost_registry
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.utils.profiler import start_profiler, stop_profiler
+
+    config = Config()
+    if torch.device(device).type == "cpu":
+        config.disable_gpu()
+    config.enable_serving(**ENGINE)
+    eng = create_serving_engine(model, config)
+    sub, want = prompts[:4], e2e_streams[:4]
+    L = len(model.layers)
+    result = {"device": str(eng.device)}
+    for mode in ("capture", "profiled"):
+        calls = eng.program_calls["ragged_step"]
+        before = cost_registry.snapshot()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_prof_") as d:
+            timeline = os.path.join(d, "timeline.json")
+            table = os.path.join(d, "profile.txt")
+            if mode == "profiled":
+                start_profiler()
+            try:
+                streams, counts, wall, _ = drive(eng, sub)
+            finally:
+                if mode == "profiled":
+                    stop_profiler(profile_path=table,
+                                  timeline_path=timeline)
+            if mode == "profiled":
+                with open(timeline) as f:
+                    doc = json.load(f)
+                with open(table) as f:
+                    spans = f.read()
+                result["timeline_bytes"] = os.path.getsize(timeline)
+        att = L * (eng.program_calls["ragged_step"] - calls)
+        expect_counts(f"e2e_profile/{mode}", counts, {
+            "attention_cuda": att, "attention_ref": 0, "qmm_cuda": 0,
+            "qmm_ref": 0, **NO_STATS})
+        near = check_streams(f"e2e_profile/{mode}", model, sub, streams,
+                             want=want)
+        result[mode] = {"wall_s": wall, "launches": counts,
+                        "programs": jit_delta(before), "near_ties": near}
+    trace = kernels_in_steps(doc)
+    result["trace"] = trace
+    if "serving/step" not in spans or not trace["step_ranges_host"] or (
+            eng.device.type == "cuda"
+            and not (trace["paged_kernels"]
+                     == trace["inside_steps"]
+                     == result["profiled"]["launches"]["attention_cuda"])):
+        raise AssertionError(f"e2e_profile: trace {trace}, launches "
+                             f"{result['profiled']['launches']}")
+    leak_invariant("e2e_profile", eng)
+    log("e2e_profile", **result)
     return result
 
 
@@ -4086,6 +4622,8 @@ def main(argv=None) -> int:
     # draws of before
     report["e2e_prefix"] = prefix = e2e_prefix_phase(model, export)
     torch.cuda.empty_cache()
+    report["e2e_tiers"] = tiers = e2e_tiers_phase(model, export)
+    torch.cuda.empty_cache()
     report["e2e_snapshot"] = snap = e2e_snapshot_phase(model, prompts,
                                                        export)
     torch.cuda.empty_cache()
@@ -4095,6 +4633,9 @@ def main(argv=None) -> int:
         model, prompts, export,
         [np.asarray(x, np.int32) for x in e2e["streams"]],
         [np.asarray(x, np.int32) for x in st["streams"]])
+    torch.cuda.empty_cache()
+    report["e2e_profile"] = e2e_profile_phase(
+        model, prompts, [np.asarray(x, np.int32) for x in e2e["streams"]])
     del model
     torch.cuda.empty_cache()
     # its own seed, as row t's phase
@@ -4116,6 +4657,9 @@ def main(argv=None) -> int:
                    "attention_cuda"],
                launches_frontend_fleet=front["fleet"]["launches"][
                    "attention_cuda"],
+               launches_tiers={k: tiers[k]["on"]["launches"][
+                   "attention_cuda"] for k in ("native_host",
+                                               "native_disk")},
                bf16_max_abs_err=native_t["bf16_max_abs_err"],
                d256_decode=native_t["d256_decode/float32/Qb1"],
                d256_prefill=native_t["d256_prefill/float32/Qb64"],
@@ -4135,6 +4679,8 @@ def main(argv=None) -> int:
                    "attention_cuda_int8"],
                launches_frontend_disaggregated=front["disaggregated_int8"][
                    "launches"]["attention_cuda_int8"],
+               launches_tiers=tiers["int8_static_host"]["on"]["launches"][
+                   "attention_cuda_int8"],
                settings={k: v for k, v in int8_t.items()
                          if "fused_dequant=" in k},
                nan_scale_ok=int8_t["nan_scale_ok"],

@@ -111,7 +111,14 @@ class Optimizer:
     def step(self):
         """One update of every parameter that has a gradient, in place:
         the gradient cast to the parameter's dtype, plus ``coeff · p``
-        under a float ``weight_decay`` (L2), then the rule."""
+        under a float ``weight_decay`` (L2), then the rule.  The span
+        ``optimizer/step``."""
+        from ..utils.profiler import RecordEvent
+
+        with RecordEvent("optimizer/step"):
+            self._step_impl()
+
+    def _step_impl(self):
         params = [p for p in self._param_list()
                   if p.grad is not None and p.requires_grad]
         self._step_count += 1

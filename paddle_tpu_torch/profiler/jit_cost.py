@@ -65,7 +65,19 @@ from ..framework.errors import InvalidArgumentError
 __all__ = ["profiled_graph", "ProfiledGraph", "JitCostRegistry",
            "cost_registry", "CompileLedger", "compile_ledger",
            "compile_budget", "CompileBudget", "CompileBudgetExceeded",
-           "disable_jit", "count_launch", "CaptureGate", "capture_gate"]
+           "disable_jit", "count_launch", "CaptureGate", "capture_gate",
+           "device_memory_stats"]
+
+
+def device_memory_stats() -> Dict[str, Any]:
+    """Live per-card memory stats (``torch.cuda.memory_stats``: bytes
+    allocated, reserved, peaks, ...) of every visible card, keyed by
+    device name; empty without a card.  A query of the caching
+    allocator's host-side counters: it launches nothing."""
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": dict(torch.cuda.memory_stats(i))
+            for i in range(torch.cuda.device_count())}
 
 
 # --- argument trees ---------------------------------------------------------

@@ -85,6 +85,16 @@ Execution model
   lane reading one idles (``row_valid`` 0, ``advance`` 0) until the
   chunk that writes it was issued by an earlier dispatch.  int8_dynamic
   KV runs uncached (``stats()["prefix_cache"]["bypass_reason"]``).
+- **Tiered KV** (``kv_tiering``, ``serving/kv_transport.py``): with the
+  prefix cache on, an evicted cached page demotes to a host-RAM tier
+  (spilling to a disk tier) and a later prompt with that prefix promotes
+  it back into a free page, in place in the pools.  Both happen only at
+  admission; an eviction during decode discards.
+- **Spans**: ``serving/step`` with its ``serving/ragged_step`` (or the
+  split ``serving/decode_step``, ``serving/prefill`` /
+  ``serving/prefill_chunk``) and ``serving/spec_verify`` children, as
+  ``utils.profiler.RecordEvent``s (host code; ``torch.profiler`` ranges
+  only while it records).
 - **Snapshots** (``snapshot`` / ``restore``, ``serving/resilience.py``):
   one running request's consumed tokens and KV pages, restored
   mid-stream on another engine of the same configuration (any mesh
@@ -101,9 +111,6 @@ Execution model
   (static mode) and the int8 weights; without KV scales the pages run
   dynamic per-page scales, reset whenever a page is (re)allocated, and
   without weights they are quantized here, data-free.
-
-Knobs of the JAX engine that this slice does not carry raise
-``InvalidArgumentError`` naming the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -133,21 +140,17 @@ from ..text.generation import (RAGGED_NO_LIMIT, ServingMeshLayout,
                                make_gpt_paged_ragged_step,
                                make_gpt_paged_spec_verify_step)
 from ..utils.bucketing import chunk_schedule, smallest_bucket
+from ..utils.profiler import RecordEvent
 from .kv_cache import (KV_SCALE_EPS, PagedKVCache, dequantize_kv_page,
                        quantize_kv_page)
 from .metrics import ServingMetrics
+from .kv_transport import PageTransport
 from .prefix_cache import PrefixCache
 from .resilience import EngineSnapshot
 from .scheduler import Request, Scheduler, Sequence
 from .spec_decode import SpecDecoder
 
 __all__ = ["ServingEngine", "create_serving_engine"]
-
-
-def _not_ported(knob: str, item: str):
-    return InvalidArgumentError(
-        f"{knob} is not ported to paddle_tpu_torch yet (ROADMAP queue 1 "
-        f"{item})")
 
 
 def _split_decode(step_fn, numeric_guards: bool):
@@ -220,7 +223,7 @@ class ServingEngine:
                  token_callback: Optional[Callable[[str, int, int],
                                                    None]] = None,
                  device=None):
-        # --- knobs of the reference engine this slice does not carry ---
+        # --- knob validation --------------------------------------------
         for d, knob in ((kv_cache_dtype, "kv_cache_dtype"),
                         (weight_dtype, "weight_dtype")):
             if d not in (None, "int8"):
@@ -242,9 +245,11 @@ class ServingEngine:
             raise InvalidArgumentError(
                 f"kv_tiering must be a bool or a dict of tier options "
                 f"(host_pages/disk_dir/disk_pages), got {kv_tiering!r}")
-        if kv_tiering:
-            # the host and disk tiers behind the radix index
-            raise _not_ported("kv_tiering", "item 7")
+        if kv_tiering and not prefix_cache:
+            # a truthy option must not silently do nothing
+            raise InvalidArgumentError(
+                "kv_tiering was provided but prefix_cache is off — the "
+                "tiers extend the radix index (pass prefix_cache=True)")
         if not isinstance(numeric_guards, bool):
             raise InvalidArgumentError(
                 f"numeric_guards must be a bool, got {numeric_guards!r}")
@@ -404,6 +409,34 @@ class ServingEngine:
                 self.prefix_cache = PrefixCache(self.cache,
                                                 metrics=self.metrics)
                 self.scheduler.prefix_cache = self.prefix_cache
+
+        # --- tiered KV transport ------------------------------------------
+        # evicted prefix pages demote to a host-RAM tier (spilling to a
+        # CRC'd disk tier) instead of being discarded, and tier hits come
+        # back with one in-place page write.  False | True (the host tier
+        # at its default capacity) | dict(host_pages=, disk_dir=,
+        # disk_pages=); int8_dynamic bypasses the index, and with it the
+        # tiers
+        self.kv_transport: Optional[PageTransport] = None
+        if kv_tiering and self.prefix_cache is not None:
+            opts = dict(kv_tiering) if isinstance(kv_tiering, dict) else {}
+            unknown = set(opts) - {"host_pages", "disk_dir", "disk_pages"}
+            if unknown:
+                raise InvalidArgumentError(
+                    f"unknown kv_tiering option(s) {sorted(unknown)}; "
+                    "expected host_pages/disk_dir/disk_pages")
+            disk_store = None
+            if opts.get("disk_dir"):
+                from ..io.checkpoint import CheckpointStore
+
+                disk_store = CheckpointStore(str(opts["disk_dir"]))
+            self.kv_transport = PageTransport(
+                self._tier_gather, self._tier_restore,
+                host_pages=int(opts.get("host_pages", 64)),
+                disk_store=disk_store,
+                disk_pages=int(opts.get("disk_pages", 0)),
+                metrics=self.metrics)
+            self.prefix_cache.attach_transport(self.kv_transport)
 
         # --- the programs over the shared weights ------------------------
         qkw = dict(kv_cache_dtype=kv_cache_dtype, kv_scales=kv_scales,
@@ -746,6 +779,60 @@ class ServingEngine:
         if self._mesh_layout is not None:
             self.metrics.on_shard_page_scatter()
 
+    # --- tiered KV transport closures ---------------------------------------
+    # The PageTransport is device-free: these two closures are its only
+    # window onto the pools.  Both run only at the admission boundary
+    # (the demote window and promote_for), never in steady decode, and
+    # inside ``step`` — behind the capture gate, like every device call
+    # of the engine.
+    def _tier_gather(self, page_ids: List[int]) -> List[dict]:
+        """Device->host: one payload per page, in ``page_ids`` order —
+        per-layer [P, H, D] k / v arrays, plus [H] scale rows in the int8
+        modes, in the pool's own dtypes (a restore is bit-exact).  A
+        bfloat16 pool's pages travel as their int16 bit pattern: numpy
+        has no bfloat16.  One copy a side, every layer stacked (it waits
+        for the device: demotions happen at admission only)."""
+        got = self._page_gather(page_ids)
+        out = [{} for _ in page_ids]
+        for key, arrs in got.items():
+            stacked = torch.stack(arrs)               # [L, R, ...]
+            if stacked.dtype == torch.bfloat16:
+                stacked = stacked.view(torch.int16)
+            host = stacked.cpu().numpy()
+            for i, payload in enumerate(out):
+                payload[key] = [host[li, i].copy()
+                                for li in range(host.shape[0])]
+        return out
+
+    def _tier_restore(self, page_ids: List[int], payloads: List[dict]):
+        """Host->device: write promoted payloads into freshly taken pages
+        in place (the inverse of ``_tier_gather``: the same keys, the
+        pool's own dtypes — anything else is refused, and the promotion
+        becomes a miss).  The upload is ``_dput``'s pinned, non-blocking
+        copy, ordered before the write on the engine's stream; the pools
+        keep their addresses, so no graph is captured again."""
+        pools = self._pool_dicts()[0]
+        dev = {}
+        for key in payloads[0]:
+            want = pools[key][0].dtype
+            bits = torch.int16 if want == torch.bfloat16 else want
+            host = np.stack([np.stack(p[key]) for p in payloads],
+                            axis=1)                   # [L, R, ...]
+            page = list(pools[key][0].shape[1:])
+            page[0 if len(page) == 1 else 1] = \
+                self.model.layers[0].attn.num_heads
+            if torch.from_numpy(host[:0]).dtype != bits \
+                    or list(host.shape[2:]) != page:
+                raise InvalidArgumentError(
+                    f"tier payload {key!r} {host.dtype} "
+                    f"{tuple(host.shape[2:])} does not fit the pool "
+                    f"({want})")
+            t = self._dput(host)
+            if want == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            dev[key] = list(t.unbind(0))
+        self._page_put(page_ids, dev)
+
     def _scrub_pages(self, page_ids):
         """Zero the payload of pages a quarantine frees, so the NaN they
         carry never reaches a future owner.  Int8 static scale rows are
@@ -1074,14 +1161,18 @@ class ServingEngine:
         row = self._dput(self.cache.page_table_row(seq.seq_id))
         n_dev = self._dput(np.int32(n))
         t0 = time.perf_counter()
-        for ctok, cpos in chunks:
-            flight.request_event(seq.seq_id, EV_PREFILL_CHUNK,
-                                 replica=self.chaos_key, size=ctok.size)
-            self._kv = self._prefill_fn(self._dput(ctok), self._dput(cpos),
-                                        row, n_dev, self._kv)
-            self.program_calls["prefill"] += 1
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with RecordEvent("serving/prefill", chunks=len(chunks),
+                         prompt_len=int(prompt.size)):
+            for ctok, cpos in chunks:
+                flight.request_event(seq.seq_id, EV_PREFILL_CHUNK,
+                                     replica=self.chaos_key, size=ctok.size)
+                with RecordEvent("serving/prefill_chunk", size=ctok.size):
+                    self._kv = self._prefill_fn(
+                        self._dput(ctok), self._dput(cpos), row, n_dev,
+                        self._kv)
+                self.program_calls["prefill"] += 1
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0
         self.metrics.on_prefill(dt)
         self.metrics.on_prefill_chunks(len(chunks), n - start, dt)
@@ -1253,8 +1344,9 @@ class ServingEngine:
                 adv[lane] = 0
             rows_tok, rows_pos = self._dput(rt), self._dput(rp)
             row_valid, advance = self._dput(rv), self._dput(adv)
-        _out_rows, out_dec = self._run_ragged(rows_tok, rows_pos, row_valid,
-                                              advance)
+        with RecordEvent("serving/ragged_step", bucket=B, rows=Q):
+            _out_rows, out_dec = self._run_ragged(rows_tok, rows_pos,
+                                                  row_valid, advance)
         # chunk and barrier-held lanes did not decode this step: their
         # out_dec entry is junk and their host mirror must not advance
         held = chunks.keys() | idle
@@ -1320,14 +1412,16 @@ class ServingEngine:
         # or the writes fall into the trash page
         self._sync_rows(active)
         self._mark_dispatch()
-        if k == 1:
-            (self._tokens, out), self._pos, self._kv = self._decode_fn(
-                self._tokens, self._pos, self._tables, self._kv)
-            self.program_calls["decode"] += 1
-        else:
-            out, self._tokens, self._pos, self._kv = self._fused_fn(
-                self._tokens, self._pos, self._tables, self._kv)
-            self.program_calls["decode_fused"] += 1
+        with RecordEvent("serving/decode_step", bucket=self._state_bucket,
+                         steps=k):
+            if k == 1:
+                (self._tokens, out), self._pos, self._kv = self._decode_fn(
+                    self._tokens, self._pos, self._tables, self._kv)
+                self.program_calls["decode"] += 1
+            else:
+                out, self._tokens, self._pos, self._kv = self._fused_fn(
+                    self._tokens, self._pos, self._tables, self._kv)
+                self.program_calls["decode_fused"] += 1
         snapshot = tuple((s, s.epoch) if s is not None else None
                          for s in self._lanes)
         for _, s in active:
@@ -1581,29 +1675,32 @@ class ServingEngine:
             if d is not None and len(d):
                 draft_mat[1: 1 + len(d), lane] = d
         self._mark_dispatch()
-        if self._spec_fn is not None:
-            out, self._kv = self._spec_fn(self._dput(draft_mat), self._pos,
-                                          self._tables, self._kv)
-            self.program_calls["spec_verify"] += 1
-            t0 = time.perf_counter()
-            toks = out.cpu().numpy()                       # [K, bucket]
-        else:
-            # ragged fold-in: K teacher-forcing rows per lane, advance 0
-            # everywhere (the accept decision below uploads the surviving
-            # state wholesale, as on the split path)
-            rows_pos = np.zeros((bucket, K), np.int32)
-            rows_val = np.zeros((bucket, K), np.int32)
-            for lane, seq in active:
-                rows_pos[lane] = seq.pos + np.arange(K)
-                rows_val[lane] = RAGGED_NO_LIMIT
-            out_rows, _dec = self._run_ragged(
-                self._dput(np.ascontiguousarray(draft_mat.T)),
-                self._dput(rows_pos), self._dput(rows_val),
-                self._dput(np.zeros((bucket,), np.int32)))
-            self.metrics.on_ragged(spec_rows=K * len(active), q_bucket=K)
-            t0 = time.perf_counter()
-            toks = np.ascontiguousarray(out_rows.cpu().numpy().T)
-        self.metrics.on_decode(time.perf_counter() - t0)
+        with RecordEvent("serving/spec_verify", bucket=bucket, steps=K):
+            if self._spec_fn is not None:
+                out, self._kv = self._spec_fn(self._dput(draft_mat),
+                                              self._pos, self._tables,
+                                              self._kv)
+                self.program_calls["spec_verify"] += 1
+                t0 = time.perf_counter()
+                toks = out.cpu().numpy()                   # [K, bucket]
+            else:
+                # ragged fold-in: K teacher-forcing rows per lane, advance
+                # 0 everywhere (the accept decision below uploads the
+                # surviving state wholesale, as on the split path)
+                rows_pos = np.zeros((bucket, K), np.int32)
+                rows_val = np.zeros((bucket, K), np.int32)
+                for lane, seq in active:
+                    rows_pos[lane] = seq.pos + np.arange(K)
+                    rows_val[lane] = RAGGED_NO_LIMIT
+                out_rows, _dec = self._run_ragged(
+                    self._dput(np.ascontiguousarray(draft_mat.T)),
+                    self._dput(rows_pos), self._dput(rows_val),
+                    self._dput(np.zeros((bucket,), np.int32)))
+                self.metrics.on_ragged(spec_rows=K * len(active),
+                                       q_bucket=K)
+                t0 = time.perf_counter()
+                toks = np.ascontiguousarray(out_rows.cpu().numpy().T)
+            self.metrics.on_decode(time.perf_counter() - t0)
         now = time.monotonic()
         results = []
         for lane, seq in active:
@@ -1695,6 +1792,10 @@ class ServingEngine:
         ``raise`` throws InternalError mid-step."""
         t_step = time.perf_counter()
         chaos_site("engine.step", key=self.chaos_key)
+        with RecordEvent("serving/step"):
+            return self._step_inner(t_step)
+
+    def _step_inner(self, t_step: float) -> dict:
         sched = self.scheduler
         admitted: List[Sequence] = []
         emitted = 0
@@ -1718,7 +1819,23 @@ class ServingEngine:
         # pipelined under queue pressure
         if sched.waiting and len(sched.running) < sched.max_batch_size:
             emitted += self._sync_pending()
-            admitted = sched.admit()
+            if self.kv_transport is not None:
+                # the admission boundary: promote tier hits for the
+                # waiting prompts, and open the ONLY window in which
+                # evictions demote (admission-pressure reclaims copy to
+                # the host here; decode-time pressure keeps discarding,
+                # so steady decode never copies a page)
+                self.kv_transport.chaos_key = self.chaos_key
+                self.kv_transport.demote_window = True
+                try:
+                    for req in sched.waiting:
+                        if req.resume is None and req.use_prefix_cache:
+                            self.prefix_cache.promote_for(req.prompt)
+                    admitted = sched.admit()
+                finally:
+                    self.kv_transport.demote_window = False
+            else:
+                admitted = sched.admit()
             for seq in admitted:
                 flight.request_event(seq.seq_id, EV_ADMITTED,
                                      replica=self.chaos_key,
@@ -1903,9 +2020,15 @@ class ServingEngine:
 
 
 def create_serving_engine(model, config=None, **overrides) -> ServingEngine:
-    """Build a ServingEngine; ``overrides`` are the engine's keyword
-    arguments.  ``inference.Config`` is not ported yet."""
+    """Build a ServingEngine from an ``inference.Config`` on which
+    ``enable_serving()`` was called (its ``serving_config()``, the card
+    it selected included); keyword arguments override config values."""
+    kwargs = {}
     if config is not None:
-        raise _not_ported("create_serving_engine(config=...) "
-                          "(inference.Config)", "item 13")
-    return ServingEngine(model, **overrides)
+        if not getattr(config, "serving_enabled", lambda: False)():
+            raise InvalidArgumentError(
+                "config has serving disabled — call "
+                "Config.enable_serving(...) first")
+        kwargs.update(config.serving_config())
+    kwargs.update(overrides)
+    return ServingEngine(model, **kwargs)

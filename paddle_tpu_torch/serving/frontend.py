@@ -1630,18 +1630,26 @@ class ServingFrontend:
 
 def create_serving_frontend(model, config=None, **overrides
                             ) -> ServingFrontend:
-    """Build a ServingFrontend: frontend knobs (``replicas``,
-    ``queue_cap``, ``snapshot_interval``, ``device``, ...) go to the
-    frontend, every other keyword to the replica engines.  Passing
-    ``engine_factory`` together with engine keywords raises — a custom
-    factory owns engine construction outright.  ``inference.Config`` is
-    not ported yet."""
-    if config is not None:
-        raise InvalidArgumentError(
-            "create_serving_frontend(config=...) (inference.Config) is "
-            "not ported to paddle_tpu_torch yet (ROADMAP queue 1 item 13)")
+    """Build a ServingFrontend from an ``inference.Config`` on which
+    ``enable_serving(...)`` was called: engine knobs come from
+    ``serving_config()`` (its card becomes the frontend's ``device``),
+    frontend knobs (``replicas``, ``queue_cap``, ``snapshot_interval``,
+    ...) from ``frontend_config()``; keyword arguments override either
+    side (unknown keys go to the engines).  Passing ``engine_factory``
+    together with engine knobs raises — a custom factory owns engine
+    construction outright."""
     fe_kwargs: dict = {}
-    engine_kwargs: dict = dict(overrides.pop("engine_kwargs", {}))
+    engine_kwargs: dict = {}
+    if config is not None:
+        if not getattr(config, "serving_enabled", lambda: False)():
+            raise InvalidArgumentError(
+                "config has serving disabled — call "
+                "Config.enable_serving(...) first")
+        engine_kwargs.update(config.serving_config())
+        fe_kwargs.update(config.frontend_config())
+        # the frontend places its replica engines on its own device
+        fe_kwargs["device"] = engine_kwargs.pop("device", None)
+    engine_kwargs.update(overrides.pop("engine_kwargs", {}))
     for key in ("replicas", "prefill_replicas", "queue_cap",
                 "default_deadline_ms", "engine_factory", "metrics",
                 "poll_interval_s", "snapshot_interval", "watchdog",

@@ -33,9 +33,10 @@ Endpoints
                      (queued → placed → admitted → ... → terminal,
                      replica-annotated — a failover trace spans both
                      replicas); unknown/evicted ids are ``404``.
-                     ``?format=chrome`` answers ``501``: the
-                     Chrome-trace renderer (``profiler/chrome_trace.py``)
-                     is not ported yet (ROADMAP queue 1 item 7).
+                     ``?format=chrome`` renders it as a Chrome trace
+                     (``profiler.chrome_trace.request_trace_events``:
+                     one row per replica, loadable in chrome://tracing
+                     and Perfetto).
 
 A client disconnect mid-stream cancels the request (frees its pages and
 batch lane) instead of decoding tokens nobody will read.
@@ -46,8 +47,7 @@ import http.server
 import json
 import threading
 
-from ..framework.errors import (InvalidArgumentError, UnimplementedError,
-                                http_status_for)
+from ..framework.errors import InvalidArgumentError, http_status_for
 from ..profiler.exposition import prometheus_text
 from ..testing.chaos import chaos_site
 from .frontend import CANCELLED, COMPLETED, ServingFrontend
@@ -148,10 +148,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                                                "evicted)"})
                 return
             if "format=chrome" in query:
-                err = UnimplementedError(
-                    "format=chrome is not ported to paddle_tpu_torch yet "
-                    "(ROADMAP queue 1 item 7: profiler/chrome_trace.py)")
-                self._send_json(http_status_for(err), {"error": str(err)})
+                from ..profiler.chrome_trace import request_trace_events
+
+                self._send_json(200, request_trace_events(trace))
             else:
                 self._send_json(200, trace)
         else:

@@ -37,8 +37,11 @@ engine configuration) index normally; ``int8_dynamic`` bypasses the
 index (the engine never builds one), because a reader-triggered scale
 growth would requantize content under every other reader.
 
-Tiers (``kv_transport``) are not in this slice: ``attach_transport`` /
-``promote_for`` keep only their no-transport form.
+Tiers (``kv_transport.PageTransport``, attached by an engine built
+with ``kv_tiering``): every eviction funnels through ``_drop_node``,
+which demotes the page's payload before releasing it, and
+``promote_for`` brings a demoted chain back into the index at
+admission.
 
 Threading: owned by the engine's driving thread, like the scheduler —
 no locks, no device calls.
@@ -99,24 +102,21 @@ class PrefixCache:
         self.hit_tokens = 0
         self.evictions = 0
         self.cow_copies = 0
-        # the tiered transport is not ported: always None here
+        # optional kv_transport.PageTransport: evictions demote through
+        # it, promote_for restores through it (None = tiers off)
         self.transport = None
         # pages sealed at admission whose device payload has NOT been
         # written yet: the ragged engine's prefill plans write a prompt's
         # pages across later steps, so a page can sit in the index before
-        # its KV exists.  The engine maintains membership and readers
-        # gate on it (the dispatch barrier).
+        # its KV exists.  The engine maintains membership, readers gate
+        # on it (the dispatch barrier), and eviction never demotes such
+        # a page — it has no payload to capture.
         self.unwritten: Set[int] = set()
         cache.set_reclaimer(self.evict)
 
     def attach_transport(self, transport):
-        """Tier attachment: the tiered transport is not ported, so only
-        the tier-off form (``None``) is accepted."""
-        if transport is not None:
-            raise InvalidArgumentError(
-                "kv_tiering is not ported to paddle_tpu_torch yet (ROADMAP "
-                "queue 1 item 7)")
-        self.transport = None
+        """Attach the tiered page transport (the engine's wiring)."""
+        self.transport = transport
 
     # --- lookup -------------------------------------------------------------
     def _chunks(self, tokens: np.ndarray, limit_pages: int):
@@ -220,16 +220,75 @@ class PrefixCache:
         return dropped
 
     def _drop_node(self, node: _Node):
+        # every eviction funnels through here — the one demotion hook.
+        # The transport captures the payload on the host (or declines:
+        # window closed, chaos deny, gather failure); the device page is
+        # released either way.  A page whose prefill is still in flight
+        # holds no payload, so membership in ``unwritten`` is tested
+        # BEFORE it is discarded.
+        if self.transport is not None and node.page not in self.unwritten:
+            self.transport.demote(self._chain_key(node), node.page)
         self.unwritten.discard(node.page)
         del self._by_page[node.page]
         if node.parent is not None:
             node.parent.children.pop(node.chunk, None)
         self.cache.release_cached(node.page)
 
+    @staticmethod
+    def _chain_key(node: _Node) -> Tuple[int, ...]:
+        """The FULL token chain from the prompt start through ``node``'s
+        page — the tier key."""
+        chunks: List[Tuple[int, ...]] = []
+        walk: Optional[_Node] = node
+        while walk is not None and walk.parent is not None:
+            chunks.append(walk.chunk)
+            walk = walk.parent
+        key: List[int] = []
+        for chunk in reversed(chunks):
+            key.extend(chunk)
+        return tuple(key)
+
+    # --- tier promotion -----------------------------------------------------
     def promote_for(self, prompt: np.ndarray) -> int:
-        """Tier promotion: with no transport (tiers are not ported)
-        nothing is promoted."""
-        return 0
+        """Extend the resident trie along ``prompt`` from the tiers: where
+        the radix walk would fall off, fetch the chain's payload (host
+        tier, then disk), take a free page, write it back and publish the
+        node — the ``match`` that follows maps it like a resident hit.
+        Called at ADMISSION only.  Stops at the first miss (a deeper
+        chain cannot be resident without its parents) and never evicts
+        to make room.  Returns the pages promoted."""
+        if self.transport is None:
+            return 0
+        node = self._root
+        key: List[int] = []
+        promoted = 0
+        for chunk in self._chunks(prompt, self.cache.pages_per_seq):
+            key.extend(chunk)
+            child = node.children.get(chunk)
+            if child is not None:
+                node = child
+                continue
+            payload = self.transport.fetch(tuple(key))
+            if payload is None:
+                break
+            page = self.cache.take_cached_page()
+            if page is None:
+                # no free page: stay demoted, the admission re-prefills
+                break
+            try:
+                self.transport.restore_page(page, payload)
+            except Exception:  # noqa: BLE001 — degrade to a miss
+                self.cache.release_cached(page)
+                break
+            child = _Node(chunk, page, node)
+            node.children[chunk] = child
+            self._by_page[page] = child
+            child.lru = next(self._clock)
+            node = child
+            promoted += 1
+        if promoted:
+            self._publish_gauge()
+        return promoted
 
     # --- accounting ---------------------------------------------------------
     def on_admission(self, matched_tokens: int):
@@ -274,7 +333,7 @@ class PrefixCache:
         self.evictions = self.cow_copies = 0
 
     def stats(self) -> dict:
-        return {
+        out = {
             "enabled": True,
             "pages": self.num_pages,
             "cached_tokens": self.cached_tokens,
@@ -285,3 +344,6 @@ class PrefixCache:
             "evictions": self.evictions,
             "cow_copies": self.cow_copies,
         }
+        if self.transport is not None:
+            out["tiers"] = self.transport.stats()
+        return out

@@ -53,8 +53,9 @@ class Drafter:
     rollback are draft-source-agnostic.
 
     ``export_lane`` / ``import_lane`` carry a lane's adaptive state as
-    plain python scalars (the JAX package's snapshots carry it across a
-    failover; snapshots are not ported yet).
+    plain python scalars: an ``EngineSnapshot``'s ``spec`` field carries
+    it across a failover, so the lane resumes speculating on the
+    survivor.
     """
 
     def begin_lane(self, seq_id: str, tokens) -> None:

@@ -991,8 +991,11 @@ def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
     package) — decodes with the int8 KV cache and/or weight-only int8
     matmuls it describes; int8 KV here needs the export's calibrated
     ``kv_scales``.  This is the reference stream of the quantized
-    serving engine."""
+    serving engine.  Spans: ``text.generation`` with its
+    ``text.generation/prefill`` and ``text.generation/decode``
+    children."""
     from ..nn.decode import greedy_search_decode
+    from ..utils.profiler import RecordEvent
 
     if decode_strategy != "greedy":
         _unsupported(f"decode_strategy={decode_strategy!r}",
@@ -1019,11 +1022,15 @@ def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
             qkw.update(weight_quant=quant.get("weights"))
     step_fn, init_state = make_gpt_decode_step(
         model, P + max_new_tokens + 1, **qkw)
-    state = init_state(B)
-    # prefill all but the last prompt token; the decode loop's first
-    # step consumes the last one and emits new token #1
-    if P > 1:
-        state, _ = prefill(step_fn, state, ids[:, :-1])
-    return greedy_search_decode(step_fn, state, batch_size=B,
-                                max_len=max_new_tokens, bos_id=ids[:, -1],
-                                end_id=end_id)
+    with RecordEvent("text.generation", strategy="greedy", batch=B,
+                     prompt_len=P):
+        state = init_state(B)
+        # prefill all but the last prompt token; the decode loop's first
+        # step consumes the last one and emits new token #1
+        if P > 1:
+            with RecordEvent("text.generation/prefill"):
+                state, _ = prefill(step_fn, state, ids[:, :-1])
+        with RecordEvent("text.generation/decode"):
+            return greedy_search_decode(step_fn, state, batch_size=B,
+                                        max_len=max_new_tokens,
+                                        bos_id=ids[:, -1], end_id=end_id)

@@ -1692,6 +1692,103 @@ def test_shared_prefix_window_is_sync_free():
 
 
 # --------------------------------------------------------------------------
+# the host and disk KV page tiers (serving/kv_transport.py) on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tier_round_trip_is_bit_exact_on_the_card(dtype):
+    """A page demoted to the host (``_tier_gather``: f32 as is, bf16 as
+    its int16 bit pattern) and written back into another page
+    (``_tier_restore``: pinned upload, in-place write) equals the
+    original bit for bit in every layer and side; the pools keep their
+    addresses."""
+    from paddle_tpu_torch.serving import create_serving_engine
+    from paddle_tpu_torch.text.models import GPTModel
+
+    m = GPTModel(vocab_size=64, hidden_size=64, num_layers=2, num_heads=4,
+                 ffn_size=128, max_seq_len=128, device="cuda", seed=7,
+                 dtype=dtype)
+    eng = create_serving_engine(m, page_size=4, max_batch_size=4,
+                                eos_id=-1, prefix_cache=True,
+                                kv_tiering=True)
+    ptrs = chip_smoke.pool_ptrs(eng)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for side in ("k", "v"):
+        for pool in eng._kv[side]:
+            pool.copy_(torch.randn(pool.shape, device="cuda",
+                                   generator=gen))
+    (payload,) = eng._tier_gather([3])
+    want = np.int16 if dtype == torch.bfloat16 else np.float32
+    assert {a.dtype for arrs in payload.values() for a in arrs} == {
+        np.dtype(want)}
+    eng._tier_restore([5], [payload])
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for side in ("k", "v"):
+        for pool in eng._kv[side]:
+            assert torch.equal(pool[5].view(bits), pool[3].view(bits))
+    assert chip_smoke.pool_ptrs(eng) == ptrs
+
+
+@pytest.mark.parametrize("arm", ["native", "int8_static"])
+def test_tiered_engine_streams_on_the_card(arm):
+    """Demote a donor's pages (an opted-out flood's admission), promote
+    them back (the readers' admission): streams equal to the tiers-off
+    engine's and to ``generate``, every launch on the arm's kernel, the
+    pools in place, the leak invariant."""
+    from paddle_tpu_torch.text.generation import generate
+
+    m, _ = _engine_case()
+    export = _export(m) if arm == "int8_static" else None
+    donor, readers = _prefix_prompts()
+    floods = [np.random.RandomState(30 + i).randint(1, 64, (120,)).astype(
+        np.int32) for i in range(3)]
+    streams = {}
+    for tiering in (False, True):
+        eng = _graph_engine(m, arm, export, prefix_cache=True,
+                            kv_tiering=tiering, num_pages=80)
+        ptrs = chip_smoke.pool_ptrs(eng)
+        _zero_counts()
+        rid = eng.add_request(donor, max_new_tokens=12)
+        outs = eng.drain()
+        for p in floods:
+            eng.add_request(p, max_new_tokens=2, prefix_cache=False)
+        eng.drain()
+        ids = [eng.add_request(p, max_new_tokens=12) for p in readers]
+        outs.update(eng.drain())
+        streams[tiering] = [outs[r] for r in [rid] + ids]
+        key = "cuda_int8" if arm == "int8_static" else "cuda"
+        assert pa.PAGED_ROUTE_STATS == _counts(**{key: 2 * _forwards(eng)})
+        assert chip_smoke.pool_ptrs(eng) == ptrs
+        chip_smoke.leak_invariant(f"tiers/{arm}", eng)
+    tiers = eng.stats()["prefix_cache"]["tiers"]
+    assert tiers["demotions"] > 0 and tiers["promotions"] > 0
+    for a, b in zip(streams[True], streams[False]):
+        np.testing.assert_array_equal(a, b)
+    for p, got in zip([donor] + readers, streams[True]):
+        want = generate(m, p[None], max_new_tokens=12, end_id=-1,
+                        quant=export)[0][0].cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_tiered_steady_decode_is_sync_free():
+    """chip_smoke's tier window on the small engine: after a demote /
+    promote cycle, 32 steady steps under ``set_sync_debug_mode("error")``
+    and a compile budget of 0, one replay a step."""
+    m, _ = _engine_case()
+    eng = _graph_engine(m, "native", prefix_cache=True, kv_tiering=True,
+                        num_pages=80)
+    donor, lanes = chip_smoke.prefix_window_prompts(
+        np.random.RandomState(9), 64, system_len=16, suffix_len=3)
+    floods = [np.random.RandomState(30 + i).randint(1, 64, (120,)).astype(
+        np.int32) for i in range(3)]
+    res = chip_smoke.tier_sync_free_window(eng, donor, lanes, floods)
+    assert res["programs"]["serving.ragged_step"]["replays"] == 32
+    tiers = res["prefix_cache"]["tiers"]
+    assert tiers["demotions"] > 0 and tiers["promotions"] > 0
+
+
+# --------------------------------------------------------------------------
 # the serving front door on the card: several engines stepping from
 # several threads of one process (captures under the capture gate, the
 # launch counters exact), the frontend's failover and the HTTP path

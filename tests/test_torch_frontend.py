@@ -223,7 +223,7 @@ def test_default_deadline_and_factory_knobs(port):
         assert h2.wait(timeout=120) == "completed"
     finally:
         fe.close()
-    with pytest.raises(InvalidArgumentError, match="item 13"):
+    with pytest.raises(InvalidArgumentError, match="serving disabled"):
         create_serving_frontend(port, config=object(), device="cpu")
 
 

@@ -144,7 +144,11 @@ def test_generate_stream_healthz_metrics(port, shared_gpt_small,
         assert status == 200 and kinds[0] == "queued"
         assert kinds[-1] == "terminal"
         assert _get(conn, "/debug/requests/nope")[0] == 404
-        assert _get(conn, f"/debug/requests/{rid}?format=chrome")[0] == 501
+        status, raw = _get(conn, f"/debug/requests/{rid}?format=chrome")
+        chrome = json.loads(raw)
+        assert status == 200 and chrome["traceEvents"]
+        assert [e["name"] for e in chrome["traceEvents"]
+                if e["ph"] == "i"] == kinds
 
         for bad in ({"prompt": []}, {"prompt": "xx"}, {},
                     {"prompt": [1], "max_new_tokens": 9999}):

@@ -109,7 +109,13 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.serving.metrics",
                 "paddle_tpu_torch.serving.router",
                 "paddle_tpu_torch.serving.frontend",
-                "paddle_tpu_torch.serving.http"):
+                "paddle_tpu_torch.serving.http",
+                "paddle_tpu_torch.serving.kv_transport",
+                "paddle_tpu_torch.profiler.tracer",
+                "paddle_tpu_torch.profiler.chrome_trace",
+                "paddle_tpu_torch.utils.profiler",
+                "paddle_tpu_torch.inference",
+                "paddle_tpu_torch.inference.config"):
         assert mod in _modules()
 
 

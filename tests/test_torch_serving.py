@@ -226,7 +226,8 @@ def test_request_validation(port):
 # default
 # =============================================================================
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True, "kv_tiering": True}, {"kv_tiering": True},
+    {"prefix_cache": True, "kv_tiering": {"host_mb": 1}},
+    {"kv_tiering": True},
     {"spec_decode": 1},
     {"spec_drafter": object()}, {"mesh_axes": {"dp": 2}},
     {"kv_cache_dtype": "int4"}, {"weight_dtype": "fp8"},
@@ -241,12 +242,14 @@ def test_unsupported_knobs_raise(port, knob):
 
 
 def test_unported_entry_points_name_the_roadmap(port):
-    for call in (lambda: ServingEngine(port, device="cpu", prefix_cache=True,
-                                       kv_tiering={"host_pages": 4},
-                                       **ENGINE),
-                 lambda: create_serving_engine(port, config=object())):
-        with pytest.raises(InvalidArgumentError, match="ROADMAP"):
-            call()
+    """The entry points that once named the ROADMAP are ported: a tiered
+    engine builds, and a config without ``enable_serving`` is refused as
+    in the JAX package."""
+    eng = ServingEngine(port, device="cpu", prefix_cache=True,
+                        kv_tiering={"host_pages": 4}, **ENGINE)
+    assert eng.stats()["prefix_cache"]["tiers"]["host_capacity"] == 4
+    with pytest.raises(InvalidArgumentError, match="serving disabled"):
+        create_serving_engine(port, config=object())
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(port):
