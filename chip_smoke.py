@@ -239,6 +239,34 @@ Phases, one result line each (or more):
    ``utils.profiler.start_profiler`` / ``stop_profiler(timeline_path=)``:
    streams equal to the keyword-built engine's, and every launch of the
    paged kernel in the device trace inside a ``serving/step`` range.
+28. e2e_beam (after e2e_profile): beam ``generate`` on the GPT-2-small
+   model (12 layers) — 4 prompts of 64 tokens, 4 beams, 32 new tokens,
+   ``end_id`` 0, f32 with TF32 off — with ``length_penalty`` 0 and 0.6
+   and with a weight-only int8 export.  ``num_beams=1`` gives the greedy
+   ids; every arm's scores are best-first and within 1e-3 of their
+   beams' log-probs re-scored by one full-sequence ``GPTModel.forward``
+   (the int8 arm's by the same model with its weights dequantized);
+   ``beam_search_decode`` runs under ``set_sync_debug_mode("error")``
+   after a warm-up, and its wall time, ms a step and tokens/s are
+   logged.  The int8 arm launches #4 72 times a forward (6 matmuls x 12
+   layers, 63 prefill and 32 decode forwards), the plain matmul never;
+   its beams equal the same decode with the plain matmul except where
+   that decode's top K + 1 candidates lie closer than
+   INT8_NEAR_TIE_GAP (logged).
+29. seq_layers (after e2e_wide): ``nn.Transformer()`` at its default
+   width (d_model 512, 8 heads, 6 + 6 layers, ffn 2048) in eval mode,
+   B 8, source 256 with a padding mask, target 64 with the causal mask:
+   #5 launched once per encoder layer and forward (cross-attention and
+   the masked decoder self-attention on the plain route), the output
+   within 1e-4 relative L2 of the same model with every attention on the
+   plain route, the target decoded step by step through
+   ``TransformerDecoder.gen_cache`` against the full causal forward; one
+   backward through a GELU ``TransformerEncoderLayer`` at S 256 (#5, #6,
+   #7 once each), its gradients within the f32 flash limits of the plain
+   route's (max-abs FLASH_TOL, and relative L2 FLASH_REL_L2 but for the
+   K bias, whose exact gradient is 0); a
+   ``dynamic_decode`` of a GRUCell + Embedding + Linear decoder (H 512,
+   V 8000, B 8, K 4, 32 steps), sync-free after a warm-up.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -250,6 +278,7 @@ nonzero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -4241,6 +4270,497 @@ def e2e_wide_phase(rng, device="cuda") -> dict:
     return result
 
 
+# beam search on GPT-2-small: B prompts of BEAM_PROMPT tokens, K beams,
+# BEAM_NEW new tokens; end_id 0, a real token (paddle_tpu reads end_id -1
+# as the last vocab entry: the port follows it, but the drive uses a
+# real id)
+BEAM_BATCH, BEAM_PROMPT, BEAM_K, BEAM_NEW, BEAM_END_ID = 4, 64, 4, 32, 0
+BEAM_ALPHAS = (0.0, 0.6)
+# a beam's score against the log-probs of its own tokens re-scored by one
+# full-sequence forward: 32 f32 log-probs from another summation order
+# (the full forward against the dense ring's cached steps), each off by
+# ~1e-5 on logits of magnitude ~10
+BEAM_SCORE_TOL = 1e-3
+
+
+def beam_lengths(ids, end_id):
+    """Position of each beam's first ``end_id`` plus one, or T."""
+    is_end = (ids == end_id).to(torch.int32)
+    T = ids.shape[-1]
+    return torch.where(is_end.amax(-1) > 0, is_end.argmax(-1) + 1, T)
+
+
+@torch.no_grad()
+def beam_rescore(model, prompts, ids, end_id):
+    """Each beam's summed log-prob of its own tokens (up to and including
+    its first ``end_id``) under one full-sequence ``GPTModel.forward``."""
+    B, K, T = ids.shape
+    P = prompts.shape[1]
+    seq = torch.cat([prompts.repeat_interleave(K, 0).long(),
+                     ids.reshape(B * K, T).long()], dim=1)
+    lp = torch.log_softmax(model(seq)[:, P - 1:P + T - 1].float(), dim=-1)
+    tok = lp.gather(-1, seq[:, P:, None])[..., 0]             # [B*K, T]
+    live = (torch.arange(T, device=ids.device)[None, :]
+            < beam_lengths(ids, end_id).reshape(B * K, 1))
+    return (tok * live).sum(-1).reshape(B, K)
+
+
+def dequantized_model(model, export):
+    """A copy of ``model`` whose quantized weights are ``w_q * scale``:
+    the f32 forward of what the int8 arm multiplies by."""
+    import copy
+
+    from paddle_tpu_torch.text.models import load_numpy_state, numpy_state
+
+    state = numpy_state(model)
+    for name, (q, sc) in export["weights"].items():
+        state[name] = np.asarray(q, np.float32) * np.asarray(sc)[None, :]
+    return load_numpy_state(copy.deepcopy(model), state)
+
+
+@torch.no_grad()
+def beam_prefilled(model, prompts, quant=None):
+    """``generate``'s beam set-up: the dense step, the prompts but their
+    last token prefilled once per sequence."""
+    from paddle_tpu_torch.text.generation import (make_gpt_decode_step,
+                                                  prefill)
+
+    qkw = {}
+    if quant is not None:
+        qkw = dict(weight_quant=quant["weights"])
+    P = prompts.shape[1]
+    step_fn, init_state = make_gpt_decode_step(model, P + BEAM_NEW + 1,
+                                               **qkw)
+    state, _ = prefill(step_fn, init_state(prompts.shape[0]),
+                       prompts[:, :-1])
+    return step_fn, state
+
+
+def beam_lanes(state, K):
+    from paddle_tpu_torch.nn.decode import tree_map
+
+    return tree_map(lambda s: s.repeat_interleave(K, dim=0), state)
+
+
+@torch.no_grad()
+def beam_trace(step_fn, state, prompts, K, alpha):
+    """``beam_search_decode``'s loop step by step: each step's tokens and
+    parents, and the smallest gap between adjacent ranks of its top K + 1
+    candidates in the units selection compares (``flat / lp``)."""
+    from paddle_tpu_torch.nn.decode import (_NEG_INF, _length_penalty,
+                                            beam_search_step, tree_map)
+
+    B, dev = prompts.shape[0], prompts.device
+    tokens = prompts[:, -1:].expand(B, K).to(torch.int32)
+    scores = torch.full((B, K), _NEG_INF, device=dev)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lane0 = torch.arange(B, device=dev)[:, None] * K
+    steps = []
+    for t in range(BEAM_NEW):
+        logits, state = step_fn(tokens.reshape(-1), state)
+        lp = torch.log_softmax(logits.reshape(B, K, -1), dim=-1)
+        cont = torch.where(finished[..., None], _NEG_INF, lp)
+        cont[..., BEAM_END_ID] = torch.where(finished, 0.0,
+                                             cont[..., BEAM_END_ID])
+        keys = (scores[..., None] + cont).reshape(B, -1)
+        if alpha:
+            keys = keys / _length_penalty(t + 1, alpha)
+        top = torch.topk(keys, K + 1).values
+        gap = float((top[:, :-1] - top[:, 1:]).min())
+        scores, tokens, parent = beam_search_step(
+            scores, lp, finished, K, BEAM_END_ID, length_penalty=alpha,
+            step=t + 1)
+        state = tree_map(lambda s: s[(parent + lane0).reshape(-1)], state)
+        finished = (torch.gather(finished, 1, parent.long())
+                    | (tokens == BEAM_END_ID))
+        steps.append((tokens.cpu().numpy(), parent.cpu().numpy(), gap))
+    return steps
+
+
+class plain_qmm:
+    """Within it the serving steps multiply by the int8 matmul's plain
+    version (``quantized_matmul_ref``) on the card: the comparison arm
+    of the int8 beam drive."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.quantized_matmul import \
+            quantized_matmul_ref
+        from paddle_tpu_torch.text import generation
+
+        self._saved = generation.quantized_matmul
+        generation.quantized_matmul = quantized_matmul_ref
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.text import generation
+
+        generation.quantized_matmul = self._saved
+
+
+def check_beams(arm, model, prompts, ids, scores, rescorer):
+    """Shapes, best-first scores, and each score against its beam's
+    re-scored log-probs (``rescorer``: the f32 model the arm computes)."""
+    want = (BEAM_BATCH, BEAM_K, BEAM_NEW)
+    if tuple(ids.shape) != want or tuple(scores.shape) != want[:2]:
+        raise AssertionError(f"e2e_beam/{arm}: ids {tuple(ids.shape)}, "
+                             f"scores {tuple(scores.shape)}")
+    if not torch.isfinite(scores).all():
+        raise AssertionError(f"e2e_beam/{arm}: scores not finite")
+    if (scores[:, 1:] > scores[:, :-1]).any():
+        raise AssertionError(f"e2e_beam/{arm}: scores not best-first: "
+                             f"{scores.tolist()}")
+    err = float((beam_rescore(rescorer, prompts, ids, BEAM_END_ID)
+                 - scores).abs().max())
+    if not err <= BEAM_SCORE_TOL:
+        raise AssertionError(f"e2e_beam/{arm}: a score is {err} from its "
+                             f"beam's re-scored log-probs (limit "
+                             f"{BEAM_SCORE_TOL})")
+    return err
+
+
+def e2e_beam_phase(model, rng, device="cuda") -> dict:
+    """Beam ``generate`` at GPT-2-small width and depth: B 4 prompts of 64
+    tokens, K 4, 32 new tokens, ``length_penalty`` 0 and 0.6, and a
+    weight-only int8 export; ``num_beams=1`` equal to greedy; scores
+    best-first and equal to their beams' re-scored log-probs; the int8
+    arm's matmuls all on #4, its beams equal to the plain matmul's except
+    at a logged near-tie; ``beam_search_decode`` sync-free after a
+    warm-up."""
+    from paddle_tpu_torch.nn.decode import (_gather_tree_impl,
+                                            beam_search_decode)
+    from paddle_tpu_torch.slim import export_serving_quant
+    from paddle_tpu_torch.text.generation import generate
+
+    V, L = model.wte.weight.shape[0], len(model.layers)
+    card = card_line() if device == "cuda" else "cpu"
+    prompts = torch.as_tensor(rng.randint(
+        1, V, (BEAM_BATCH, BEAM_PROMPT)).astype(np.int32), device=device)
+    result = {"shape": dict(batch=BEAM_BATCH, prompt=BEAM_PROMPT, K=BEAM_K,
+                            new_tokens=BEAM_NEW, end_id=BEAM_END_ID)}
+    greedy, _ = generate(model, prompts, max_new_tokens=BEAM_NEW,
+                         end_id=BEAM_END_ID)
+    one, _ = model.generate(prompts, max_new_tokens=BEAM_NEW,
+                            end_id=BEAM_END_ID,
+                            decode_strategy="beam_search", num_beams=1)
+    if not torch.equal(one[:, 0], greedy):
+        raise AssertionError("e2e_beam: num_beams=1 differs from greedy")
+    for alpha in BEAM_ALPHAS:
+        arm = f"native/lp{alpha}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, scores = model.generate(
+            prompts, max_new_tokens=BEAM_NEW, end_id=BEAM_END_ID,
+            decode_strategy="beam_search", num_beams=BEAM_K,
+            length_penalty=alpha)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = check_beams(arm, model, prompts, ids, scores, model)
+        result[arm] = dict(card=card, wall_s=wall, rescore_max_abs_err=err,
+                           scores=scores.tolist(),
+                           lengths=beam_lengths(ids, BEAM_END_ID).tolist())
+        log("e2e_beam", arm=arm, **result[arm])
+
+    # the decode loop alone: timed, then sync-free after its warm-up
+    step_fn, state = beam_prefilled(model, prompts)
+    for alpha in BEAM_ALPHAS:
+        lanes = beam_lanes(state, BEAM_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = beam_search_decode(
+            step_fn, lanes, BEAM_BATCH, BEAM_K, BEAM_NEW,
+            prompts[:, -1:].expand(BEAM_BATCH, BEAM_K), BEAM_END_ID,
+            length_penalty=alpha)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.equal(res.ids, model.generate(
+                prompts, max_new_tokens=BEAM_NEW, end_id=BEAM_END_ID,
+                decode_strategy="beam_search", num_beams=BEAM_K,
+                length_penalty=alpha)[0]):
+            raise AssertionError("e2e_beam: beam_search_decode differs "
+                                 "from generate")
+        lanes = beam_lanes(state, BEAM_K)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = beam_search_decode(
+                step_fn, lanes, BEAM_BATCH, BEAM_K, BEAM_NEW,
+                prompts[:, -1:].expand(BEAM_BATCH, BEAM_K), BEAM_END_ID,
+                length_penalty=alpha)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not torch.equal(again.ids, res.ids):
+            raise AssertionError("e2e_beam: the sync-free decode differs")
+        result[f"decode/lp{alpha}"] = dict(
+            card=card, wall_s=dt, ms_per_step=1e3 * dt / BEAM_NEW,
+            lane_tokens_per_s=BEAM_BATCH * BEAM_K * BEAM_NEW / dt,
+            sequence_tokens_per_s=BEAM_BATCH * BEAM_NEW / dt,
+            sync_free=True)
+        log("e2e_beam", arm=f"decode/lp{alpha}",
+            **result[f"decode/lp{alpha}"])
+
+    export = export_serving_quant(model, kv_cache_dtype=None)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = generate(model, prompts, max_new_tokens=BEAM_NEW,
+                           end_id=BEAM_END_ID, decode_strategy="beam_search",
+                           num_beams=BEAM_K, quant=export)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = BEAM_NEW + BEAM_PROMPT - 1
+    want = 6 * L * forwards
+    if counts["qmm_cuda"] != want or counts["qmm_ref"] != 0:
+        raise AssertionError(f"e2e_beam/int8: qmm counts {counts}, want "
+                             f"qmm_cuda {want} = 6 x {L} x {forwards} "
+                             "forwards and qmm_ref 0")
+    err = check_beams("int8", model, prompts, ids, scores,
+                      dequantized_model(model, export))
+    torch.cuda.empty_cache()
+    # the same decode, traced, with the kernel and with its plain version
+    traces = {}
+    for name in ("kernel", "plain"):
+        with (plain_qmm() if name == "plain" else contextlib.nullcontext()):
+            step_fn, state = beam_prefilled(model, prompts, export)
+            traces[name] = beam_trace(step_fn, beam_lanes(state, BEAM_K),
+                                      prompts, BEAM_K, 0.0)
+    traced = _gather_tree_impl(
+        torch.as_tensor(np.stack([s[0] for s in traces["kernel"]])),
+        torch.as_tensor(np.stack([s[1] for s in traces["kernel"]])))
+    if not torch.equal(traced.permute(1, 2, 0), ids.cpu()):
+        raise AssertionError("e2e_beam/int8: the traced decode differs from "
+                             "generate's")
+    diverged = None
+    for t, (k_step, p_step) in enumerate(zip(traces["kernel"],
+                                             traces["plain"])):
+        if not (np.array_equal(k_step[0], p_step[0])
+                and np.array_equal(k_step[1], p_step[1])):
+            diverged = dict(step=t, gap=p_step[2])
+            break
+    if diverged is not None:
+        log("e2e_beam", arm="int8", near_tie=diverged,
+            limit=INT8_NEAR_TIE_GAP)
+        if not diverged["gap"] < INT8_NEAR_TIE_GAP:
+            raise AssertionError(f"e2e_beam/int8: the kernel's beams leave "
+                                 f"the plain matmul's at step "
+                                 f"{diverged['step']}, where the top-K "
+                                 f"boundary gap is {diverged['gap']} (limit "
+                                 f"{INT8_NEAR_TIE_GAP})")
+    result["int8"] = dict(card=card, wall_s=wall, rescore_max_abs_err=err,
+                          qmm_cuda=counts["qmm_cuda"],
+                          qmm_form_decode=counts["qmm_form_decode"],
+                          qmm_form_prefill=counts["qmm_form_prefill"],
+                          qmm_ref=counts["qmm_ref"],
+                          matmuls_per_forward=6 * L, forwards=forwards,
+                          plain_divergence=diverged,
+                          min_gap=min(s[2] for s in traces["plain"]))
+    log("e2e_beam", arm="int8", **result["int8"])
+    return result
+
+
+# seq_layers: nn.Transformer() at its default width in eval mode
+SEQ_BATCH, SEQ_SRC, SEQ_TGT = 8, 256, 64
+SEQ_SRC_LENS = (256, 200, 129, 256, 64, 255, 128, 17)
+# the flash route against the plain one on the same weights and card:
+# f32 sums in another order (3xTF32 on the tensor cores), relative L2
+# over the output
+SEQ_REL_L2 = 1e-4
+# the GRU decoder of the dynamic_decode drive
+GRU_H, GRU_V, GRU_K, GRU_STEPS = 512, 8000, 4, 32
+
+
+class plain_attention:
+    """Within it ``ops.attention`` takes the plain route (``_sdpa_core``)
+    on the card too: the comparison arm of the flash route."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention
+
+        self._saved = attention._pallas_ok
+        attention._pallas_ok = lambda q, k=None: False
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import attention
+
+        attention._pallas_ok = self._saved
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def seq_layers_phase(device="cuda") -> dict:
+    """``nn.Transformer()`` (d_model 512, 8 heads, 6 + 6 layers, ffn 2048)
+    in eval mode at B 8, source 256 with a padding mask, target 64 with
+    the causal mask: #5 launched once per encoder layer, the output
+    against the same model on the plain attention route, the target
+    decoded step by step through ``TransformerDecoder.gen_cache`` against
+    the full causal forward; one backward through a
+    ``TransformerEncoderLayer`` (#5, #6, #7 once each) against the plain
+    route; and a ``dynamic_decode`` of a GRUCell + Embedding + Linear
+    decoder, sync-free after a warm-up."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+
+    rng = np.random.RandomState(11)
+    result = {"card": card_line() if device == "cuda" else "cpu"}
+    pt.set_device(device)
+    pt.seed(11)
+    model = nn.Transformer().eval()
+    B, E, heads = SEQ_BATCH, model.d_model, model.nhead
+    src = pt.to_tensor(rng.randn(B, SEQ_SRC, E).astype(np.float32))
+    tgt = pt.to_tensor(rng.randn(B, SEQ_TGT, E).astype(np.float32))
+    mask = pt.to_tensor((np.arange(SEQ_SRC)[None, :]
+                         < np.asarray(SEQ_SRC_LENS)[:, None]).astype(
+                             np.float32))
+    # a [T, T] mask would read as a [B, S] validity mask (in paddle_tpu
+    # too): the causal mask goes in as [1, 1, T, T]
+    causal = nn.Transformer.generate_square_subsequent_mask(
+        SEQ_TGT).reshape([1, 1, SEQ_TGT, SEQ_TGT])
+
+    def forward():
+        return model(src, tgt, src_mask=mask, tgt_mask=causal,
+                     memory_mask=mask)
+
+    with torch.no_grad():
+        forward()
+        torch.cuda.synchronize()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        out = forward()
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        counts = read_flash_counts()
+        layers = len(model.encoder.layers)
+        if (counts["route_pallas"] != layers or counts["flash_fwd"] != layers
+                or counts["flash_ref"] != 0):
+            raise AssertionError(f"seq_layers: one forward launched {counts}"
+                                 f", want {layers} flash forwards (one per "
+                                 "encoder layer) and no plain flash call")
+        with plain_attention():
+            want = forward()
+        rel = _rel_l2(out._value, want._value)
+        if not (torch.isfinite(out._value).all() and rel <= SEQ_REL_L2):
+            raise AssertionError(f"seq_layers: the flash route's output is "
+                                 f"{rel} from the plain route's in relative "
+                                 f"L2 (limit {SEQ_REL_L2})")
+        # incremental decoding through the caches
+        memory = model.encoder(src, src_mask=mask)
+        full = model.decoder(tgt, memory, tgt_mask=causal,
+                             memory_mask=mask)
+        cache = model.decoder.gen_cache(memory)
+        steps = []
+        for t in range(SEQ_TGT):
+            o, cache = model.decoder(tgt[:, t:t + 1], memory, None, mask,
+                                     cache)
+            steps.append(o._value)
+        inc_rel = _rel_l2(torch.cat(steps, dim=1), full._value)
+        if not inc_rel <= SEQ_REL_L2:
+            raise AssertionError(f"seq_layers: cached decoding is {inc_rel} "
+                                 f"from the full causal forward (limit "
+                                 f"{SEQ_REL_L2})")
+    result["transformer"] = dict(
+        card=result["card"], forward_ms=1e3 * fwd_s, launches=counts,
+        rel_l2_vs_plain_route=rel, cached_decode_rel_l2=inc_rel, batch=B,
+        src=SEQ_SRC, tgt=SEQ_TGT, src_lens=list(SEQ_SRC_LENS))
+    log("seq_layers", part="transformer", **result["transformer"])
+    del model, out, want, memory, full, cache, steps
+    torch.cuda.empty_cache()
+
+    # one backward through an encoder layer, flash route against plain;
+    # GELU, not ReLU: an activation within an ulp of 0 may take the other
+    # side of ReLU's kink on the other route, and its gradient then
+    # differs by a whole column (0.025 in x's gradient, seen on the card)
+    pt.seed(11)
+    layer = nn.TransformerEncoderLayer(E, heads, 4 * E, dropout=0.0,
+                                       activation="gelu").eval()
+    x_np = rng.randn(B, SEQ_SRC, E).astype(np.float32)
+    w = pt.to_tensor(rng.randn(B, SEQ_SRC, E).astype(np.float32))
+    grads = {}
+    for route in ("flash", "plain"):
+        for p in layer.parameters():
+            p.clear_grad()
+        x = pt.to_tensor(x_np, stop_gradient=False)
+        reset_flash_counts()
+        with (plain_attention() if route == "plain"
+              else contextlib.nullcontext()):
+            (layer(x, src_mask=mask) * w).sum().backward()
+        torch.cuda.synchronize()
+        if route == "flash":
+            bwd_counts = read_flash_counts()
+        grads[route] = {"x": x.grad._value} | {
+            k: p.grad._value for k, p in layer.state_dict().items()}
+    if (bwd_counts["flash_fwd"], bwd_counts["flash_dkv"],
+            bwd_counts["flash_dq"], bwd_counts["flash_ref"]) != (1, 1, 1, 0):
+        raise AssertionError(f"seq_layers: the encoder layer's backward "
+                             f"launched {bwd_counts}, want #5, #6, #7 once "
+                             "each")
+    # the flash limits: max-abs FLASH_TOL x max(1, |want|) on every
+    # gradient, relative L2 FLASH_REL_L2 on all but the K projection's
+    # bias, whose exact gradient is 0 (a bias on every key of a row
+    # shifts its logits alike, and softmax ignores the shift): both
+    # routes hold only rounding noise there, summed over B x S rows
+    limit, tol = FLASH_REL_L2[torch.float32], FLASH_TOL[torch.float32]
+    rel, abs_err = {}, {}
+    for k, want in grads["plain"].items():
+        got = grads["flash"][k]
+        abs_err[k] = float((got - want).abs().max())
+        if not abs_err[k] <= tol * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"seq_layers: gradient {k} on the flash "
+                                 f"route is {abs_err[k]} from the plain "
+                                 f"route's (limit {tol} x max(1, max "
+                                 "|want|))")
+        if k != "self_attn.k_proj.bias":
+            rel[k] = flash_rel_l2(got, want)
+    worst = max((v, k) for k, v in rel.items())
+    if not worst[0] <= limit:
+        raise AssertionError(f"seq_layers: gradient {worst[1]} on the flash "
+                             f"route is {worst[0]} from the plain route's "
+                             f"in relative L2 (limit {limit})")
+    result["encoder_backward"] = dict(
+        launches=bwd_counts, worst_grad_rel_l2=worst[0],
+        worst_grad=worst[1], limit=limit,
+        max_abs_err=max(abs_err.values()),
+        k_bias_max_abs=abs_err["self_attn.k_proj.bias"])
+    log("seq_layers", part="encoder_backward", **result["encoder_backward"])
+    del layer, grads
+    torch.cuda.empty_cache()
+
+    # dynamic_decode of a GRU decoder, sync-free after its warm-up
+    pt.seed(12)
+    cell, emb = nn.GRUCell(GRU_H, GRU_H), nn.Embedding(GRU_V, GRU_H)
+    proj = nn.Linear(GRU_H, GRU_V)
+    dec = nn.BeamSearchDecoder(cell, start_token=1, end_token=2,
+                               beam_size=GRU_K, embedding_fn=emb,
+                               output_fn=proj)
+    h0 = nn.BeamSearchDecoder.tile_beam_merge_with_batch(
+        pt.to_tensor(rng.randn(B, GRU_H).astype(np.float32)), GRU_K)
+    ids, _ = nn.dynamic_decode(dec, inits=h0, max_step_num=GRU_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, scores = nn.dynamic_decode(dec, inits=h0,
+                                          max_step_num=GRU_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    s = scores._value
+    if (not torch.equal(again._value, ids._value)
+            or tuple(again.shape) != (B, GRU_K, GRU_STEPS)
+            or not torch.isfinite(s).all() or (s[:, 1:] > s[:, :-1]).any()):
+        raise AssertionError("seq_layers: the GRU dynamic_decode is not "
+                             "repeatable, finite and best-first")
+    result["gru_dynamic_decode"] = dict(
+        card=result["card"], H=GRU_H, V=GRU_V, B=B, K=GRU_K,
+        steps=GRU_STEPS, wall_s=dt, ms_per_step=1e3 * dt / GRU_STEPS,
+        sync_free=True)
+    log("seq_layers", part="gru_dynamic_decode",
+        **result["gru_dynamic_decode"])
+    return result
+
+
 # row t: the custom-op API's worked kernel, x * scale[0] + shift[0]
 SCALE_SHIFT_SHAPES = ((16, 8), (4, 8), (1_000_003,), (8192, 8192))
 SCALE_SHIFT_TIMED = ((16, 8), (8192, 8192))
@@ -4636,10 +5156,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["e2e_profile"] = e2e_profile_phase(
         model, prompts, [np.asarray(x, np.int32) for x in e2e["streams"]])
+    torch.cuda.empty_cache()
+    # its own seed, as row t's phase
+    report["e2e_beam"] = beam = e2e_beam_phase(model,
+                                               np.random.RandomState(9))
     del model
     torch.cuda.empty_cache()
     # its own seed, as row t's phase
     report["e2e_wide"] = wide = e2e_wide_phase(np.random.RandomState(8))
+    torch.cuda.empty_cache()
+    report["seq_layers"] = seq = seq_layers_phase()
+    seq_launches = {
+        "fwd": {"transformer_forward": seq["transformer"]["launches"][
+            "flash_fwd"], "encoder_layer_forward": seq["encoder_backward"][
+            "launches"]["flash_fwd"]},
+        "dkv": {"encoder_layer_backward": seq["encoder_backward"][
+            "launches"]["flash_dkv"]},
+        "dq": {"encoder_layer_backward": seq["encoder_backward"][
+            "launches"]["flash_dq"]}}
 
     dec = native_t["gpt2_decode/float32/Qb1"]
     idec = int8_t["gpt2_decode/float32/Qb1/fused_dequant=1"]
@@ -4701,6 +5235,7 @@ def main(argv=None) -> int:
                st["qmm_cuda"], qdec, case="fc1_768x3072/M8/float32",
                launches_frontend_disaggregated=front["disaggregated_int8"][
                    "launches"]["qmm_cuda"],
+               launches_e2e_beam=beam["int8"]["qmm_cuda"],
                cases=qmm_t),
     ] + [
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",
@@ -4708,6 +5243,7 @@ def main(argv=None) -> int:
                case="B8 H12 S1024 D64 causal, float32",
                design=FLASH_F32TC_DESIGN[kname],
                launches_f32tc=train[f"flash_f32tc_{kname}"],
+               launches_seq_layers=seq_launches[kname],
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],

@@ -1,13 +1,38 @@
-"""paddle_tpu_torch.nn — the paddle layer API of the dygraph core
-(twins of ``paddle_tpu/nn``'s ``Layer``, ``Linear``, ``Sequential``,
-``Flatten``, ``Conv2D``, ``MaxPool2D``, ``ReLU`` and the initializers),
-plus the decoding loops of the serving slices (``nn.decode``)."""
+"""paddle_tpu_torch.nn — the paddle layer API (twins of ``paddle_tpu/nn``
+under the same names): ``Layer`` and the initializers; ``Linear``,
+``Flatten``, ``Identity``, ``Embedding``, ``Dropout``, ``LayerNorm``,
+``Conv2D``, ``MaxPool2D``, ``ReLU``; the containers ``Sequential``,
+``LayerList``, ``ParameterList`` and ``LayerDict``; the recurrent layers
+of ``nn.rnn``; the transformer stack of ``nn.transformer``; and the
+decoding loops of ``nn.decode`` (beam search, ``dynamic_decode``, greedy).
+"""
+from . import functional  # noqa: F401
+from . import initializer  # noqa: F401
 from .activation_layers import ReLU  # noqa: F401
-from .common_layers import Flatten, Linear  # noqa: F401
-from .container import Sequential  # noqa: F401
+from .common_layers import (  # noqa: F401
+    Dropout, Embedding, Flatten, Identity, Linear)
+from .container import (LayerDict, LayerList, ParameterList,  # noqa: F401
+                        Sequential)
 from .conv_layers import Conv2D  # noqa: F401
+from .decode import (BeamSearchDecoder, beam_search_decode,  # noqa: F401
+                     beam_search_step, dynamic_decode, gather_tree,
+                     greedy_search_decode)
 from .layer import Layer, state_from_numpy  # noqa: F401
+from .norm_layers import LayerNorm  # noqa: F401
 from .pool_layers import MaxPool2D  # noqa: F401
+from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
+                  RNNCellBase, SimpleRNN, SimpleRNNCell)
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["Layer", "Linear", "Flatten", "Sequential", "Conv2D",
-           "MaxPool2D", "ReLU", "state_from_numpy"]
+__all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
+           "LayerNorm", "Sequential", "LayerList", "ParameterList",
+           "LayerDict", "Conv2D", "MaxPool2D", "ReLU", "RNNCellBase",
+           "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN", "BiRNN",
+           "SimpleRNN", "GRU", "LSTM", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder",
+           "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+           "BeamSearchDecoder", "beam_search_decode", "beam_search_step",
+           "dynamic_decode", "gather_tree", "greedy_search_decode",
+           "state_from_numpy"]

@@ -1,12 +1,14 @@
-"""Containers — twin of ``paddle_tpu/nn/container.py:11`` ``Sequential``
-(sublayers named "0", "1", … as in paddle)."""
+"""Containers — twins of ``paddle_tpu/nn/container.py``'s ``Sequential``
+(``:11``), ``LayerList`` (``:39``), ``ParameterList`` (``:77``) and
+``LayerDict`` (``:98``); members are named "0", "1", … (or by their
+keys), as in paddle, so ``state_dict`` names match."""
 from __future__ import annotations
 
 from collections import OrderedDict
 
 from .layer import Layer
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
 class Sequential(Layer):
@@ -34,3 +36,108 @@ class Sequential(Layer):
         for layer in self._sub_layers.values():
             x = layer(x)
         return x
+
+
+class LayerList(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            for i, layer in enumerate(sublayers):
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._sub_layers.values())[idx])
+        return self._sub_layers[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __setitem__(self, idx, layer):
+        self._sub_layers[str(idx)] = layer
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def __iter__(self):
+        return iter(self._sub_layers.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._sub_layers.values())
+        layers.insert(index, layer)
+        self._sub_layers.clear()
+        for i, sub in enumerate(layers):
+            self._sub_layers[str(i)] = sub
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for i, p in enumerate(parameters):
+                self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self)), parameter)
+        return self
+
+
+class LayerDict(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._sub_layers[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._sub_layers[key]
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def __iter__(self):
+        return iter(self._sub_layers)
+
+    def __contains__(self, key):
+        return key in self._sub_layers
+
+    def clear(self):
+        self._sub_layers.clear()
+
+    def pop(self, key):
+        return self._sub_layers.pop(key)
+
+    def keys(self):
+        return self._sub_layers.keys()
+
+    def items(self):
+        return self._sub_layers.items()
+
+    def values(self):
+        return self._sub_layers.values()
+
+    def update(self, sublayers):
+        items = (sublayers.items() if isinstance(sublayers, (dict, LayerDict))
+                 else sublayers)
+        for k, v in items:
+            self.add_sublayer(k, v)

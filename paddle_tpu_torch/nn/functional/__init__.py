@@ -1,53 +1,58 @@
 """paddle_tpu_torch.nn.functional — the functionals the GPT serving and
-training slices and the dygraph core run, twins of
+training slices, the dygraph core and the sequence layers run, twins of
 ``paddle_tpu/nn/functional``.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
-variance) are the serving path's ``_gelu`` and ``_ln`` from
-``text/generation.py``; the attention entries are
-``ops/attention.py``'s (flash and paged), re-exported as the JAX package
-re-exports them.
+variance) are the serving path's ``_gelu`` and ``_ln``; they dispatch as
+"gelu" and "layer_norm" on a port ``Tensor``, and on a plain torch
+tensor (the torch-module ``GPTModel``) return one.  The attention
+entries are ``ops/attention.py``'s (flash and paged), re-exported as the
+JAX package re-exports them.
 """
 from __future__ import annotations
 
-from ...text.generation import _gelu, _ln
-from .activation import relu
-from .common import linear
+import torch
+
+from ...text.generation import _ln
+from .activation import gelu, log_softmax, relu, sigmoid, softmax, tanh
+from .common import dropout, embedding, linear
 from .conv import conv2d
 from .loss import cross_entropy
 from .pooling import max_pool2d
 
-__all__ = ["gelu", "layer_norm", "cross_entropy", "linear", "conv2d",
-           "max_pool2d", "relu", "scaled_dot_product_attention",
+__all__ = ["gelu", "layer_norm", "cross_entropy", "linear", "dropout",
+           "embedding", "conv2d", "max_pool2d", "relu", "sigmoid", "tanh",
+           "softmax", "log_softmax", "scaled_dot_product_attention",
            "flash_attention", "paged_attention"]
-
-
-def gelu(x, approximate=False, name=None):
-    """Exact GELU (erf form); the tanh approximation is not ported."""
-    if approximate:
-        from ...framework.errors import InvalidArgumentError
-
-        raise InvalidArgumentError(
-            "gelu(approximate=True) is not ported yet (ROADMAP queue 1 "
-            "item 8)")
-    return _gelu(x)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
                name=None):
-    """LayerNorm over the last axis with f32 statistics and population
-    variance, cast back to x's dtype."""
+    """LayerNorm over the trailing axes ``normalized_shape`` names, with
+    f32 statistics and population variance, cast back to x's dtype."""
+    from ...ops._helpers import to_tensor_like
+    from ...ops.dispatch import apply
+
     shape = ((normalized_shape,) if isinstance(normalized_shape, int)
              else tuple(normalized_shape))
-    if len(shape) != 1 or shape[0] != x.shape[-1]:
+    if tuple(x.shape[len(x.shape) - len(shape):]) != shape:
         from ...framework.errors import InvalidArgumentError
 
         raise InvalidArgumentError(
-            f"layer_norm over {shape} of a {tuple(x.shape)} input: only the "
-            "last axis is ported (ROADMAP queue 1 item 8)")
-    w = weight if weight is not None else 1.0
-    b = bias if bias is not None else 0.0
-    return _ln(x, w, b, epsilon)
+            f"layer_norm over {shape} of a {tuple(x.shape)} input: the "
+            "normalized shape must be the input's trailing axes")
+    dims = tuple(range(-len(shape), 0))
+    has_w, has_b = weight is not None, bias is not None
+
+    def f(v, *wb):
+        return _ln(v, wb[0] if has_w else 1.0, wb[-1] if has_b else 0.0,
+                   epsilon, dims)
+
+    wb = [t for t in (weight, bias) if t is not None]
+    if isinstance(x, torch.Tensor):
+        return f(x, *wb)
+    return apply("layer_norm", f, to_tensor_like(x),
+                 *map(to_tensor_like, wb))
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -110,6 +110,18 @@ class Tensor:
             raise TypeError("len() of a 0-d tensor")
         return self._value.shape[0]
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __getitem__(self, idx) -> "Tensor":
+        """Indexing as torch's (ints, slices, None, ``...``, integer or
+        bool Tensors), dispatched as "slice"."""
+        from .ops.dispatch import apply
+
+        cidx = _clean_index(idx)
+        return apply("slice", lambda v: v[cidx], self)
+
     # --- autograd -----------------------------------------------------
     def backward(self, grad_tensor=None, retain_graph: bool = False):
         """Accumulate d(self)/d(leaf) into every leaf that requires grad
@@ -145,6 +157,29 @@ class Tensor:
 
         return reshape(self, shape)
 
+    def transpose(self, perm=None, name=None) -> "Tensor":
+        from .ops.manipulation import transpose
+
+        return transpose(self, perm)
+
+    def t(self, name=None) -> "Tensor":
+        """The transpose of a tensor of at most 2 axes (paddle.t)."""
+        from .ops.dispatch import apply
+
+        if self.ndim > 2:
+            raise ValueError("paddle.t only supports ndim <= 2")
+        return apply("t", lambda v: v.t(), self)
+
+    def squeeze(self, axis=None, name=None) -> "Tensor":
+        from .ops.manipulation import squeeze
+
+        return squeeze(self, axis)
+
+    def unsqueeze(self, axis, name=None) -> "Tensor":
+        from .ops.manipulation import unsqueeze
+
+        return unsqueeze(self, axis)
+
     def sum(self, axis=None, dtype=None, keepdim=False, name=None):
         from .ops.dispatch import apply
 
@@ -167,6 +202,13 @@ class Tensor:
                 f"{self.numpy()!r})")
 
     __str__ = __repr__
+
+
+def _clean_index(idx):
+    """An index with its Tensors unwrapped to their torch values."""
+    if isinstance(idx, tuple):
+        return tuple(_clean_index(i) for i in idx)
+    return idx._value if isinstance(idx, Tensor) else idx
 
 
 def _dims(axis):

@@ -6,7 +6,7 @@ Two cores, both holding the JAX package's math step for step:
 
 - the dense ring (:func:`make_gpt_decode_step`): one ``[B, max_len, H, D]``
   cache per layer and side, attention masked with ``-1e9`` past each
-  lane's position.  :func:`prefill` and :func:`generate` (greedy) run on
+  lane's position.  :func:`prefill` and :func:`generate` run on
   it; it is the port's own oracle for the serving engine.
 - the paged core (:func:`_make_gpt_paged_core`): per-layer page pools
   ``[N, P, H, D]``, every row's K/V scattered into
@@ -49,8 +49,8 @@ shards' outputs.  A sequence shard attends over the pages it owns through
 the stats form of the ragged kernel, and the shards merge in lse space.
 It serves the ragged layout only.
 
-Not in this slice (each raises where a caller could ask for it): beam
-search.
+:func:`generate` decodes greedily or by beam search (``nn/decode.py``)
+on the dense ring.
 """
 from __future__ import annotations
 
@@ -77,11 +77,12 @@ __all__ = ["make_gpt_decode_step", "make_gpt_paged_decode_step",
 RAGGED_NO_LIMIT = 1 << 30
 
 
-def _ln(x, w, b, eps=1e-5):
-    """LayerNorm with f32 statistics and population variance."""
+def _ln(x, w, b, eps=1e-5, dims=(-1,)):
+    """LayerNorm over ``dims`` with f32 statistics and population
+    variance."""
     xf = x.float()
-    m = xf.mean(dim=-1, keepdim=True)
-    v = xf.var(dim=-1, keepdim=True, unbiased=False)
+    m = xf.mean(dim=dims, keepdim=True)
+    v = xf.var(dim=dims, keepdim=True, unbiased=False)
     out = (xf - m) * torch.rsqrt(v + eps)
     return (out * w + b).to(x.dtype)
 
@@ -89,11 +90,6 @@ def _ln(x, w, b, eps=1e-5):
 def _gelu(x):
     """Exact GELU, x * Phi(x), in the erfc form of jax.scipy's norm.cdf."""
     return x * (0.5 * torch.special.erfc(-x / math.sqrt(2.0)))
-
-
-def _unsupported(knob: str, item: str):
-    raise InvalidArgumentError(
-        f"{knob} is not ported yet (ROADMAP queue 1 {item})")
 
 
 _KV_QMAX = 127.0
@@ -980,12 +976,16 @@ def prefill(step_fn, state, prompt):
 
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
-             decode_strategy: str = "greedy", quant=None):
-    """Greedy GPT generation on the model's device.
+             decode_strategy: str = "greedy", num_beams: int = 4,
+             length_penalty: float = 0.0, quant=None):
+    """GPT generation on the model's device, greedy or by beam search.
 
-    ``input_ids`` [B, P] (numpy or tensor).  Returns ``(ids [B, T] int32,
-    scores [B])``, T = max_new_tokens; a lane that emits ``end_id`` keeps
-    emitting it.  Beam search is not ported yet.
+    ``input_ids`` [B, P] (numpy or tensor).  Greedy returns ``(ids [B, T]
+    int32, scores [B])``; ``decode_strategy="beam_search"`` returns
+    ``(ids [B, K, T] int32, scores [B, K])`` for ``num_beams`` K, best
+    first, ranked under ``length_penalty``.  T = max_new_tokens; a lane
+    or beam that emits ``end_id`` keeps emitting it.  Beam search
+    prefills each prompt once, then repeats its state to the K lanes.
 
     ``quant``: an export from ``slim.export_serving_quant`` (of either
     package) — decodes with the int8 KV cache and/or weight-only int8
@@ -994,12 +994,13 @@ def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
     serving engine.  Spans: ``text.generation`` with its
     ``text.generation/prefill`` and ``text.generation/decode``
     children."""
-    from ..nn.decode import greedy_search_decode
+    from ..nn.decode import beam_search_decode, greedy_search_decode, tree_map
     from ..utils.profiler import RecordEvent
 
-    if decode_strategy != "greedy":
-        _unsupported(f"decode_strategy={decode_strategy!r}",
-                     "item 2 (beam search)")
+    if decode_strategy not in ("greedy", "beam_search"):
+        raise ValueError(
+            f"decode_strategy must be 'greedy' or 'beam_search', "
+            f"got {decode_strategy!r}")
     device = model.device
     if isinstance(input_ids, torch.Tensor):
         ids = input_ids.to(device=device, dtype=torch.int32)
@@ -1022,15 +1023,30 @@ def generate(model, input_ids, max_new_tokens: int = 32, end_id: int = 0,
             qkw.update(weight_quant=quant.get("weights"))
     step_fn, init_state = make_gpt_decode_step(
         model, P + max_new_tokens + 1, **qkw)
-    with RecordEvent("text.generation", strategy="greedy", batch=B,
-                     prompt_len=P):
+    beam = decode_strategy == "beam_search"
+    K = int(num_beams)
+    span = dict(strategy=decode_strategy, batch=B, prompt_len=P)
+    if beam:
+        span["num_beams"] = K
+    with RecordEvent("text.generation", **span):
         state = init_state(B)
         # prefill all but the last prompt token; the decode loop's first
         # step consumes the last one and emits new token #1
         if P > 1:
             with RecordEvent("text.generation/prefill"):
                 state, _ = prefill(step_fn, state, ids[:, :-1])
+        if not beam:
+            with RecordEvent("text.generation/decode"):
+                return greedy_search_decode(step_fn, state, batch_size=B,
+                                            max_len=max_new_tokens,
+                                            bos_id=ids[:, -1], end_id=end_id)
+        # each lane its own copy of its prompt's caches: the step writes
+        # them in place
+        state = tree_map(lambda s: torch.repeat_interleave(s, K, dim=0),
+                         state)
         with RecordEvent("text.generation/decode"):
-            return greedy_search_decode(step_fn, state, batch_size=B,
-                                        max_len=max_new_tokens,
-                                        bos_id=ids[:, -1], end_id=end_id)
+            res = beam_search_decode(
+                step_fn, state, batch_size=B, beam_size=K,
+                max_len=max_new_tokens, bos_id=ids[:, -1:].expand(B, K),
+                end_id=end_id, length_penalty=length_penalty)
+        return res.ids, res.scores

@@ -1,6 +1,6 @@
 """GPT as a ``torch.nn.Module`` — twin of
-``paddle_tpu/text/models.py:125-180`` (``GPTDecoderLayer``,
-``GPTModel``) and of the self-attention path of
+``paddle_tpu/text/models.py:125-195`` (``GPTDecoderLayer``,
+``GPTModel`` with ``generate``) and of the self-attention path of
 ``paddle_tpu/nn/transformer.py`` ``MultiHeadAttention``.
 
 Parameter names match the JAX package's ``get_state`` names exactly
@@ -179,6 +179,18 @@ class GPTModel(nn.Module):
         # the head is F.linear in the JAX GPT
         x, w = cast_inputs("linear", x, self.wte.weight)
         return torch.matmul(x, w.t())
+
+    def generate(self, input_ids, max_new_tokens=32, end_id=0,
+                 decode_strategy="greedy", num_beams=4,
+                 length_penalty=0.0):
+        """KV-cache incremental decoding: ``text.generation.generate`` on
+        this model (greedy ``(ids [B, T], scores [B])``, or beam search
+        ``(ids [B, K, T], scores [B, K])``)."""
+        from .generation import generate as _generate
+
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         end_id=end_id, decode_strategy=decode_strategy,
+                         num_beams=num_beams, length_penalty=length_penalty)
 
 
 def _is_linear_weight(name: str) -> bool:

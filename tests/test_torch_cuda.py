@@ -1936,3 +1936,135 @@ def test_http_path_on_the_card():
     finally:
         srv.stop()
         fe.close()
+
+
+# --- beam search and the paddle-API sequence layers -------------------------
+def _small_gpt(device):
+    """A 2-layer GPT with the same weights on either device (drawn on the
+    CPU: the card's generator draws other values from the same seed)."""
+    from paddle_tpu_torch.text.models import (GPTModel, load_numpy_state,
+                                              numpy_state)
+
+    kw = dict(vocab_size=64, hidden_size=64, num_layers=2, num_heads=4,
+              ffn_size=128, max_seq_len=128)
+    cpu = GPTModel(**kw, device="cpu", seed=7)
+    if device == "cpu":
+        return cpu
+    return load_numpy_state(GPTModel(**kw, device=device), numpy_state(cpu))
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.6])
+def test_beam_generate_on_the_card_equals_the_cpu(alpha):
+    """Beam ``generate`` on the card against the port's CPU run of the
+    same model: ids and lengths equal, scores within 1e-4."""
+    from paddle_tpu_torch.text.generation import generate
+
+    prompt = np.random.RandomState(3).randint(1, 64, (3, 9)).astype(
+        np.int32)
+    kw = dict(max_new_tokens=12, end_id=0, decode_strategy="beam_search",
+              num_beams=4, length_penalty=alpha)
+    ids, scores = generate(_small_gpt("cuda"), prompt, **kw)
+    want_ids, want_scores = generate(_small_gpt("cpu"), prompt, **kw)
+    np.testing.assert_array_equal(ids.cpu().numpy(), want_ids.numpy())
+    np.testing.assert_allclose(scores.cpu().numpy(), want_scores.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_beam_search_decode_is_sync_free(monkeypatch):
+    """After a warm-up, the whole beam loop on the card runs under
+    ``set_sync_debug_mode("error")``: no read-back, no host tensor."""
+    from paddle_tpu_torch.nn.decode import beam_search_decode
+
+    m = _small_gpt("cuda")
+    prompts = torch.as_tensor(np.random.RandomState(4).randint(
+        1, 64, (2, 8)).astype(np.int32), device="cuda")
+    monkeypatch.setattr(chip_smoke, "BEAM_NEW", 10)
+    step_fn, state = chip_smoke.beam_prefilled(m, prompts)
+    bos = prompts[:, -1:].expand(2, 3)
+
+    def run():
+        return beam_search_decode(step_fn, chip_smoke.beam_lanes(state, 3),
+                                  2, 3, 10, bos, 0, length_penalty=0.6)
+
+    first = run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again.ids, first.ids)
+    assert torch.equal(again.scores, first.scores)
+
+
+def test_transformer_flash_route_matches_the_plain_route():
+    """``nn.Transformer`` at S 256 on the card (encoder self-attention on
+    the flash kernels, one launch a layer) against the same weights on
+    the CPU's plain route."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import state_from_numpy
+    from paddle_tpu_torch.ops import attention as attn
+
+    rng = np.random.RandomState(6)
+    src = rng.randn(2, 256, 64).astype(np.float32)
+    tgt = rng.randn(2, 16, 64).astype(np.float32)
+    pad = np.ones((2, 256), np.float32)
+    pad[1, 190:] = 0.0
+    try:
+        outs = []
+        for dev in ("cuda", "cpu"):
+            pt.set_device(dev)
+            pt.seed(3)
+            model = nn.Transformer(64, 4, 2, 2, 128).eval()
+            if dev == "cpu":
+                model.set_state_dict(state_from_numpy(state, "cpu"))
+            else:
+                state = {k: v.numpy() for k, v in model.state_dict().items()}
+            attn.ROUTE_STATS.update(pallas=0, xla=0)
+            fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
+            with torch.no_grad():
+                out = model(pt.to_tensor(src), pt.to_tensor(tgt),
+                            src_mask=pt.to_tensor(pad),
+                            memory_mask=pt.to_tensor(pad))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert attn.ROUTE_STATS["pallas"] == 2
+                assert fa.FLASH_ROUTE_STATS == {"fwd": 2, "dkv": 0, "dq": 0,
+                                                "ref": 0}
+            outs.append(out._value.cpu())
+    finally:
+        pt.set_device("cuda")
+    _close(outs[0], outs[1], 1e-4, "transformer")
+
+
+def test_lstm_on_the_card_equals_the_cpu():
+    """A 2-layer bidirectional LSTM, forward and gradients, on the card
+    against the CPU (f32, TF32 off)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import state_from_numpy
+
+    rng = np.random.RandomState(8)
+    x, w = rng.randn(3, 20, 16).astype(np.float32), rng.randn(
+        3, 20, 64).astype(np.float32)
+    got = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            pt.set_device(dev)
+            pt.seed(4)
+            lstm = nn.LSTM(16, 32, num_layers=2, direction="bidirect")
+            if dev == "cpu":
+                lstm.set_state_dict(state_from_numpy(state, "cpu"))
+            else:
+                state = {k: v.numpy() for k, v in lstm.state_dict().items()}
+            xt = pt.to_tensor(x, stop_gradient=False)
+            out, (h, c) = lstm(xt)
+            (out * pt.to_tensor(w)).sum().backward()
+            got[dev] = [t._value.detach().cpu() for t in (out, h, c, xt.grad)]
+            got[dev] += [p.grad._value.cpu()
+                         for p in lstm.state_dict().values()]
+    finally:
+        pt.set_device("cuda")
+    for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+        _close(a, b, 1e-4, f"lstm[{i}]")

@@ -115,7 +115,18 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.profiler.chrome_trace",
                 "paddle_tpu_torch.utils.profiler",
                 "paddle_tpu_torch.inference",
-                "paddle_tpu_torch.inference.config"):
+                "paddle_tpu_torch.inference.config",
+                "paddle_tpu_torch.ops._helpers",
+                "paddle_tpu_torch.ops.creation",
+                "paddle_tpu_torch.ops.manipulation",
+                "paddle_tpu_torch.nn.functional.activation",
+                "paddle_tpu_torch.nn.functional.common",
+                "paddle_tpu_torch.nn.common_layers",
+                "paddle_tpu_torch.nn.container",
+                "paddle_tpu_torch.nn.norm_layers",
+                "paddle_tpu_torch.nn.rnn",
+                "paddle_tpu_torch.nn.transformer",
+                "paddle_tpu_torch.nn.decode"):
         assert mod in _modules()
 
 
