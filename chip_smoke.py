@@ -267,6 +267,24 @@ Phases, one result line each (or more):
    K bias, whose exact gradient is 0); a
    ``dynamic_decode`` of a GRUCell + Embedding + Linear decoder (H 512,
    V 8000, B 8, K 4, 32 steps), sync-free after a warm-up.
+30. fit (after lenet): ``hapi.Model.fit`` on GPT-2-small (12 layers,
+   f32, TF32 off, seeded weights): 16 seeded sequences of 1025 tokens
+   through ``TensorDataset`` -> ``DataLoader(batch 8, shuffle,
+   drop_last)`` for 3 epochs (6 steps, staged by ``prefetch_to_device``),
+   ``AdamW(LinearWarmup(CosineAnnealingDecay(6e-4, T_max=6), 2, 0.0,
+   6e-4), weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))``, the
+   ``LRScheduler(by_step=True)`` callback and token ``Accuracy``; once
+   with the train step one CUDA graph (``accelerate=True``: 1 capture
+   of ``hapi/train_step`` and 5 replays while the LR changes every
+   step) and once eager, from the same weights and data order: losses
+   and final weights bit-equal, #5-#7 launched 12 x 6 times each in both
+   runs (3xTF32 bodies, the plain route 0), the first loss within 0.5 of
+   ln(vocab) and the loss falling, one ``eval_batch`` and one
+   ``predict_batch`` equal to the network's forward, step p50 / p95
+   (host clock), tokens/s, peak memory, and one graphed step under the
+   profiler (device busy share, kernels by family); then at 2 layers a
+   checkpointed fit (every 2 steps) killed at step 4 and resumed by a
+   fresh Model, bit-equal to the uninterrupted run.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -1604,18 +1622,20 @@ def train_step(model, opt, x, y, amp_dtype=None):
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def profile_step(model, opt, x, y, amp_dtype=None) -> dict:
+def profile_step(model, opt, x, y, amp_dtype=None, step=None) -> dict:
     """One more training step under ``torch.profiler``: device time by
     kernel family (the three flash kernels, matrix products, the rest),
     the costliest other kernels, and the device's busy share of the
-    step's wall time (one stream: kernel times add up)."""
+    step's wall time (one stream: kernel times add up).  ``step``, a
+    callable returning the loss, replaces the dygraph loop's step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = train_step(model, opt, x, y, amp_dtype)
+        loss = (train_step(model, opt, x, y, amp_dtype) if step is None
+                else step())
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"flash_fwd": 0.0, "flash_dkv": 0.0, "flash_dq": 0.0,
            "matmul": 0.0, "other": 0.0}
@@ -5010,6 +5030,284 @@ def lenet_phase(device="cuda") -> dict:
     return res
 
 
+FIT_SEQS, FIT_EPOCHS, FIT_BATCH = 16, 3, 8
+FIT_STEPS = FIT_SEQS // FIT_BATCH * FIT_EPOCHS
+FIT_RESUME_LAYERS, FIT_KILL_AT, FIT_CKPT_INTERVAL = 2, 4, 2
+
+
+def fit_run(ids, layers, accelerate, **fit_kw):
+    """``Model.fit`` of a seeded GPT-2-small-width GPT (``layers`` deep,
+    f32) on ``ids`` [FIT_SEQS, S + 1]: ``TensorDataset`` -> ``DataLoader(
+    batch 8, shuffle, drop_last)`` for FIT_EPOCHS epochs (staged by
+    ``prefetch_to_device``), ``AdamW(LinearWarmup(CosineAnnealingDecay(
+    6e-4, T_max=6), 2, 0.0, 6e-4), weight_decay=0.1,
+    grad_clip=ClipGradByGlobalNorm(1.0))``, ``CrossEntropyLoss``, token
+    ``Accuracy`` and the ``LRScheduler(by_step=True)`` callback.  Returns
+    (model, net, per-step losses, per-step host ms, per-step LRs)."""
+    from paddle_tpu_torch import Model, callbacks, io, metric, nn, optimizer
+    from paddle_tpu_torch.optimizer import lr as sched
+    from paddle_tpu_torch.text.models import GPTModel
+
+    net = GPTModel(**dict(GPT2_SMALL, num_layers=layers), device=DEVICE,
+                   seed=1234)
+    opt = optimizer.AdamW(
+        sched.LinearWarmup(sched.CosineAnnealingDecay(TRAIN_LR,
+                                                      T_max=FIT_STEPS),
+                           2, 0.0, TRAIN_LR),
+        parameters=list(net.parameters()), weight_decay=TRAIN_WD,
+        grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    model = Model(net)
+    model.prepare(opt, nn.CrossEntropyLoss(), metric.Accuracy(),
+                  accelerate=accelerate)
+    losses, step_ms, lrs = [], [], []
+
+    class Record(callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            lrs.append(opt.get_lr())
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            # train_batch read the loss back: the step is done
+            step_ms.append((time.perf_counter() - self.t0) * 1e3)
+            losses.append(logs["loss"])
+
+    np.random.seed(4)
+    loader = io.DataLoader(io.TensorDataset([ids[:, :-1], ids[:, 1:]]),
+                           batch_size=FIT_BATCH, shuffle=True,
+                           drop_last=True)
+    model.fit(loader, epochs=FIT_EPOCHS, verbose=0,
+              callbacks=[Record(), callbacks.LRScheduler(by_step=True)],
+              **fit_kw)
+    return model, net, losses, step_ms, lrs
+
+
+FIT_DROPOUT, FIT_DROPOUT_STEPS = 0.1, 3
+
+
+def fit_dropout_run(ids, accelerate, lr):
+    """FIT_DROPOUT_STEPS ``train_batch`` steps on one batch of ``ids``
+    (paddle-API layers at GPT-2-small width: an embedding, one
+    ``TransformerEncoderLayer(768, 12, 3072, dropout=FIT_DROPOUT)``, whose
+    attention takes the flash route with its dropout seed an int32 tensor
+    on the card, and a head; ``AdamW(lr)``) from ``pt.seed(11)`` and
+    seeded weights.  Returns (losses, {name: weight}, flash counts,
+    captures)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import Model, nn, optimizer
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            width = GPT2_SMALL["hidden_size"]
+            self.emb = nn.Embedding(GPT2_SMALL["vocab_size"], width)
+            self.enc = nn.TransformerEncoderLayer(
+                width, GPT2_SMALL["num_heads"], 4 * width,
+                dropout=FIT_DROPOUT)
+            self.head = nn.Linear(width, GPT2_SMALL["vocab_size"])
+
+        def forward(self, x):
+            return self.head(self.enc(self.emb(x)))
+
+    pt.set_device(DEVICE)
+    pt.seed(5)
+    net = Net()
+    opt = optimizer.AdamW(lr, parameters=net.parameters(),
+                          weight_decay=TRAIN_WD)
+    model = Model(net)
+    model.prepare(opt, nn.CrossEntropyLoss(), accelerate=accelerate)
+    x = torch.from_numpy(ids[:FIT_BATCH, :-1]).to(DEVICE)
+    y = torch.from_numpy(ids[:FIT_BATCH, 1:]).to(DEVICE)
+    reset_flash_counts()
+    pt.seed(11)
+    with compile_budget(None, names=("hapi/train_step",)) as cb:
+        losses = [model.train_batch([x], [y])[0]
+                  for _ in range(FIT_DROPOUT_STEPS)]
+    torch.cuda.synchronize()
+    weights = {k: v._value.detach().clone()
+               for k, v in net.state_dict().items()}
+    return (losses, weights, read_flash_counts(),
+            cb.compiles().get("hapi/train_step", 0))
+
+
+def fit_dropout_check(ids) -> dict:
+    """Randomness inside the graphed step: ``fit_dropout_run`` graphed
+    and eager from one seed must be bit-equal (the port's generator is
+    registered with the graph, so each replay draws what the eager step
+    draws), with one capture and the flash kernels launched once a step
+    each on both paths; at LR 0 the graphed steps on one batch must give
+    FIT_DROPOUT_STEPS different losses (a new mask at each replay)."""
+    (gl, gw, gn, gc), (el, ew, en, _) = (
+        fit_dropout_run(ids, acc, TRAIN_LR) for acc in (True, False))
+    frozen = fit_dropout_run(ids, True, 0.0)[0]
+    diff = next((k for k in gw if not torch.equal(gw[k], ew[k])), None)
+    n = FIT_DROPOUT_STEPS
+    flash = {k: gn[k] for k in ("flash_fwd", "flash_dkv", "flash_dq",
+                                "flash_ref")}
+    res = {"dropout": FIT_DROPOUT, "steps": n, "graphed_losses": gl,
+           "eager_losses": el, "captures": gc, "first_difference": diff,
+           "flash_graphed": flash, "lr0_graphed_losses": frozen}
+    if gc != 1 or gl != el or diff is not None:
+        raise AssertionError(f"fit: the graphed step with dropout differs "
+                             f"from the eager one: {res}")
+    if flash != {"flash_fwd": n, "flash_dkv": n, "flash_dq": n,
+                 "flash_ref": 0} or any(
+                     en[k] != v for k, v in flash.items()):
+        raise AssertionError(f"fit: dropout flash launches {gn} / {en}")
+    if len(set(frozen)) != n:
+        raise AssertionError(f"fit: the graphed replays did not draw new "
+                             f"dropout masks: {frozen}")
+    return res
+
+
+def _first_difference(net_a, net_b):
+    """The first parameter whose bits differ, with its largest
+    difference, or None."""
+    for (name, a), b in zip(net_a.named_parameters(), net_b.parameters()):
+        if not torch.equal(a, b):
+            return {"param": name,
+                    "max_abs_diff": float((a - b).abs().max())}
+    return None
+
+
+def fit_phase(rng) -> dict:
+    """``hapi.Model.fit`` on GPT-2-small (12 layers, f32, TF32 off), its
+    train step one CUDA graph (``accelerate=True``) and again eager
+    (``accelerate=False``) from the same weights and data order: one
+    capture of ``hapi/train_step`` and FIT_STEPS - 1 replays though the
+    LR changes every step; losses and final weights bit-equal; #5-#7
+    launched 12 times a step each in both runs (3xTF32 bodies, the plain
+    route 0); the first loss within 0.5 of ln(vocab) and the loss
+    falling; one ``eval_batch`` and one ``predict_batch`` equal to the
+    network's own forward; step p50 / p95 (host clock), tokens/s and
+    peak memory of both runs, and one more graphed step under the
+    profiler.  Then, at FIT_RESUME_LAYERS layers, a checkpointed fit
+    killed at step FIT_KILL_AT (chaos ``train.step``) and resumed by a
+    fresh Model: bit-equal to the uninterrupted run.  Last, dropout in
+    the graphed step (``fit_dropout_check``)."""
+    import tempfile
+
+    from paddle_tpu_torch.framework.errors import FatalError
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.profiler.jit_cost import (compile_budget,
+                                                    cost_registry)
+    from paddle_tpu_torch.testing import chaos
+
+    ids = rng.randint(0, GPT2_SMALL["vocab_size"],
+                      (FIT_SEQS, TRAIN_SEQ + 1)).astype(np.int64)
+    tokens = FIT_BATCH * TRAIN_SEQ
+    runs, nets, models = {}, {}, {}
+    for mode, accelerate in (("graphed", True), ("eager", False)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = cost_registry.snapshot().get("hapi/train_step", {})
+        reset_counts()
+        reset_flash_counts()
+        with compile_budget(None, names=("hapi/train_step",)) as cb:
+            model, net, losses, step_ms, lrs = fit_run(ids, 12, accelerate)
+        torch.cuda.synchronize()
+        counts = read_flash_counts()
+        now = cost_registry.snapshot().get("hapi/train_step", {})
+        steady = step_ms[1:]
+        runs[mode] = {
+            "losses": losses, "lrs": lrs, "step_ms": step_ms,
+            "step_ms_p50": float(np.percentile(steady, 50)),
+            "step_ms_p95": float(np.percentile(steady, 95)),
+            "tokens_per_s": tokens / (np.percentile(steady, 50) / 1e3),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "captures": cb.compiles().get("hapi/train_step", 0),
+            "replays": now.get("replays", 0) - before.get("replays", 0),
+            **counts}
+        nets[mode], models[mode] = net, model
+        n = 12 * FIT_STEPS
+        want = {"flash_fwd": n, "flash_dkv": n, "flash_dq": n,
+                "flash_ref": 0, "flash_f32tc_fwd": n, "flash_f32tc_dkv": n,
+                "flash_f32tc_dq": n, "flash_tc_fwd": 0, "flash_tc_dkv": 0,
+                "flash_tc_dq": 0, "route_pallas": n, "route_xla": 0}
+        expect_counts(f"fit_{mode}", counts, want)
+    g, e = runs["graphed"], runs["eager"]
+    diff = _first_difference(nets["graphed"], nets["eager"])
+    x = torch.from_numpy(ids[:FIT_BATCH, :-1]).to(DEVICE)
+    y = torch.from_numpy(ids[:FIT_BATCH, 1:]).to(DEVICE)
+    net, model = nets["graphed"], models["graphed"]
+    with torch.no_grad():
+        net.eval()
+        want_loss = float(F.cross_entropy(net(x), y))
+        want_logits = net(x[:1]).cpu().numpy()
+    eval_loss = model.eval_batch([x], [y])[0]
+    predicted = model.predict_batch([x[:1]])[0]
+    prof = profile_step(None, None, x, y,
+                        step=lambda: model.train_batch([x], [y])[0])
+    del nets, models, model, net
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        _, plain_net, plain_losses, _, _ = fit_run(ids, FIT_RESUME_LAYERS,
+                                                   True)
+        plan = chaos.ChaosPlan([chaos.Fault("train.step", FIT_KILL_AT,
+                                            chaos.KILL)])
+        killed = False
+        with chaos.running(plan):
+            try:
+                fit_run(ids, FIT_RESUME_LAYERS, True, checkpoint_dir=d,
+                        checkpoint_interval=FIT_CKPT_INTERVAL,
+                        checkpoint_async=False)
+            except FatalError:
+                killed = True
+        _, resumed_net, resumed_losses, _, _ = fit_run(
+            ids, FIT_RESUME_LAYERS, True, checkpoint_dir=d,
+            checkpoint_interval=FIT_CKPT_INTERVAL, resume=True)
+        resume_diff = _first_difference(plain_net, resumed_net)
+    del plain_net, resumed_net
+    torch.cuda.empty_cache()
+    dropout = fit_dropout_check(ids)
+    res = {
+        "layers": 12, "seqs": FIT_SEQS, "batch": FIT_BATCH,
+        "seq": TRAIN_SEQ, "epochs": FIT_EPOCHS, "steps": FIT_STEPS,
+        "graphed": g, "eager": e, "bit_equal_weights": diff is None,
+        "first_difference": diff, "bit_equal_losses": g["losses"] ==
+        e["losses"], "ln_vocab": math.log(GPT2_SMALL["vocab_size"]),
+        "eval_loss": eval_loss, "eval_loss_forward": want_loss,
+        "predict_equal": bool(np.array_equal(predicted, want_logits)),
+        "profile_graphed_step": prof,
+        "resume": {"layers": FIT_RESUME_LAYERS, "killed": killed,
+                   "kill_at_step": FIT_KILL_AT,
+                   "checkpoint_interval": FIT_CKPT_INTERVAL,
+                   "losses": plain_losses, "resumed_losses": resumed_losses,
+                   "bit_equal_weights": resume_diff is None,
+                   "first_difference": resume_diff},
+        "dropout": dropout}
+    log("fit", **res)
+    if g["captures"] != 1 or g["replays"] != FIT_STEPS - 1:
+        raise AssertionError(f"fit: {g['captures']} captures and "
+                             f"{g['replays']} replays of hapi/train_step, "
+                             f"expected 1 and {FIT_STEPS - 1}")
+    if any(a == b for a, b in zip(g["lrs"], g["lrs"][1:])):
+        raise AssertionError(f"fit: the LR did not change every step: "
+                             f"{g['lrs']}")
+    if not (res["bit_equal_losses"] and res["bit_equal_weights"]):
+        raise AssertionError(
+            f"fit: the graphed and eager runs differ: losses "
+            f"{g['losses']} vs {e['losses']}, first weight difference "
+            f"{diff}")
+    losses = g["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fit: non-finite loss {losses}")
+    if abs(losses[0] - res["ln_vocab"]) > 0.5:
+        raise AssertionError(f"fit: first loss {losses[0]} is not within "
+                             f"0.5 of ln(vocab) {res['ln_vocab']}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fit: the loss did not fall: {losses}")
+    if eval_loss != want_loss or not res["predict_equal"]:
+        raise AssertionError(f"fit: eval_batch loss {eval_loss} vs the "
+                             f"forward's {want_loss}; predict equal: "
+                             f"{res['predict_equal']}")
+    if not (killed and resume_diff is None
+            and resumed_losses == plain_losses[FIT_CKPT_INTERVAL:]):
+        raise AssertionError(f"fit: the resumed run differs: {res['resume']}")
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -5116,6 +5414,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["custom_op"] = custom = custom_op_phase()
     report["lenet"] = lenet_phase()
+    torch.cuda.empty_cache()
+    # its own seed, so the phases after it see the draws of before
+    report["fit"] = fit = fit_phase(np.random.RandomState(10))
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5244,6 +5545,8 @@ def main(argv=None) -> int:
                design=FLASH_F32TC_DESIGN[kname],
                launches_f32tc=train[f"flash_f32tc_{kname}"],
                launches_seq_layers=seq_launches[kname],
+               launches_fit={mode: fit[mode][f"flash_f32tc_{kname}"]
+                             for mode in ("graphed", "eager")},
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],

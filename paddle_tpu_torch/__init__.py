@@ -8,7 +8,10 @@ CUDA twin under ``ops/csrc/``; plain tensor code is PyTorch.
 
 The dygraph core is the paddle API over torch: ``Tensor``,
 ``to_tensor``, ``seed``, ``set_device``/``get_device`` here, ``nn.Layer``
-and its layers, ``optimizer`` and ``utils.register_op``.
+and its layers, ``optimizer`` and ``utils.register_op``.  The training
+front door is here under the JAX package's names: ``Model`` and
+``summary`` (``hapi``), ``callbacks``, ``metric``, ``io`` (``DataLoader``
+and the datasets) and ``regularizer``.
 
 Device policy: entry points take an explicit ``device``.  The default
 (``None``) means the CUDA card; without one it raises instead of falling
@@ -22,7 +25,8 @@ import torch
 __version__ = "0.1.0"
 
 __all__ = ["resolve_device", "__version__", "Tensor", "Parameter",
-           "to_tensor", "seed", "set_device", "get_device"]
+           "to_tensor", "seed", "set_device", "get_device", "Model",
+           "summary", "callbacks", "metric", "io", "regularizer"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,3 +50,5 @@ def resolve_device(device=None) -> torch.device:
 from .framework.place import get_device, set_device  # noqa: E402
 from .framework.random import seed  # noqa: E402
 from .tensor import Parameter, Tensor, to_tensor  # noqa: E402
+from . import io, metric, regularizer  # noqa: E402,F401
+from .hapi import Model, callbacks, summary  # noqa: E402,F401

@@ -1,0 +1,617 @@
+"""hapi ``Model`` — twin of ``paddle_tpu/hapi/model.py``, the dynamic path:
+``prepare``, ``train_batch`` / ``eval_batch`` / ``predict_batch``,
+``fit``, ``evaluate``, ``predict``, ``save`` / ``load``, ``parameters``,
+``state_dict`` and ``summary``.
+
+``network`` is a port ``nn.Layer`` (LeNet, ``nn.Transformer``: called on
+port Tensors) or a ``torch.nn.Module`` (the GPT of ``text/models.py``:
+called on torch tensors).  Its parameters stay in it and are updated in
+place; the loss gets the outputs and the label as port Tensors, as in
+the JAX package, and may return a Tensor or a torch tensor.
+
+``prepare(accelerate=True)`` (the default) builds the JAX package's fast
+path: one train step — forward, loss, ``torch.autograd.grad``, the
+optimizer's clip and update — as ``profiled_graph("hapi/train_step",
+...)``, one CUDA graph per input signature, its parameters and
+optimizer state donated (bound by address).  On the host before each
+call the optimizer writes its learning rate and step count into its
+device scalars, so a running LR scheduler changes no signature and the
+step captures once.  On the CPU the same function runs as written.
+``accelerate=False`` steps eagerly: ``loss.backward(); opt.step();
+opt.clear_grad()``.  Both paths apply the optimizer's eager semantics
+(the scheduler, ``grad_clip``, ``L1Decay`` and ``L2Decay``), which the
+JAX package's own fused step does not (ROADMAP "Known facts about the
+reference"); on the card they give the same bits.  Every step reads its
+loss back (``float(loss)``), as the JAX package's ``fit`` does.
+
+On the card ``fit`` stages each batch with ``io.prefetch_to_device``
+(pinned memory, a side stream, an event).  The numpy state it saves in a
+checkpoint is the one before the next batch's fetch, as without
+prefetching, so a resume is bit-exact also for datasets that draw from
+numpy's stream.
+
+Not ported (each raises ``InvalidArgumentError`` naming its ROADMAP
+queue 1 item): static-graph mode (``StaticGraphAdapter``, item 13);
+``amp_configs`` (item 16; the JAX package accepts and ignores it);
+``fit(anomaly=)`` (item 16, ``hapi/anomaly.py``); ``update=False``
+(gradient accumulation) on the graphed path — it runs with
+``accelerate=False``.
+"""
+from __future__ import annotations
+
+import time as _time
+from typing import List
+
+import numpy as np
+import torch
+
+from ..framework.errors import InvalidArgumentError
+from ..framework.monitor import histogram_observe
+from ..framework.random import get_rng_state, py_random, set_rng_state
+from ..metric.metrics import Metric
+from ..tensor import Tensor
+from ..utils.profiler import RecordEvent
+from .callbacks import CallbackList
+
+__all__ = ["Model", "StaticGraphAdapter"]
+
+
+def _to_list(x):
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
+
+
+def _batch_size_of(x):
+    try:
+        return int(x.shape[0])
+    except Exception:
+        return 1
+
+
+def _value(x):
+    return x._value if isinstance(x, Tensor) else x
+
+
+class StaticGraphAdapter:
+    """The JAX package's static-graph execution path: not ported."""
+
+    def __init__(self, model):
+        raise InvalidArgumentError(
+            "hapi's static-graph mode (StaticGraphAdapter) is not ported "
+            "yet (ROADMAP queue 1 item 13)")
+
+
+class _Tracked:
+    """An iterator that records numpy's and ``py_random``'s state just
+    before each fetch, so a checkpoint can save the state before the
+    next batch was fetched even when prefetching has fetched further."""
+
+    def __init__(self, it, first_index: int):
+        self._it = it
+        self._next = first_index
+        self.states = {}
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.states[self._next] = (np.random.get_state(),
+                                   py_random.getstate())
+        out = next(self._it)
+        self._next += 1
+        return out
+
+    def state_before(self, index: int):
+        """The states before batch ``index``'s fetch (now, if not yet
+        fetched); forgets the earlier ones."""
+        for k in [k for k in self.states if k < index]:
+            del self.states[k]
+        return self.states.get(index, (np.random.get_state(),
+                                       py_random.getstate()))
+
+
+class Model:
+    def __init__(self, network, inputs=None, labels=None):
+        self.network = network
+        self._inputs = inputs
+        self._labels = labels
+        self._optimizer = None
+        self._loss = None
+        self._metrics: List[Metric] = []
+        self._accelerate = True
+        self._graph = None
+        self._train_state = None
+        self._train_params = None
+        self.stop_training = False
+
+    # --- prepare -----------------------------------------------------------
+    def prepare(self, optimizer=None, loss=None, metrics=None,
+                amp_configs=None, accelerate=True):
+        if amp_configs is not None:
+            raise InvalidArgumentError(
+                "prepare(amp_configs=) is not ported yet (ROADMAP queue 1 "
+                "item 16: amp/grad_scaler.py, decorate, level O2)")
+        self._optimizer = optimizer
+        self._loss = loss
+        self._metrics = _to_list(metrics)
+        self._accelerate = accelerate
+        self._graph = None
+        if optimizer is not None and optimizer._parameters is None:
+            optimizer._param_objs = list(self.parameters())
+            optimizer._parameters = [_value(p) for p in
+                                     optimizer._param_objs]
+        return self
+
+    # --- network plumbing ---------------------------------------------------
+    def _is_module(self) -> bool:
+        return isinstance(self.network, torch.nn.Module)
+
+    def _device(self) -> torch.device:
+        for p in self.parameters():
+            return _value(p).device
+        return torch.device("cpu")
+
+    def _as_input(self, x):
+        """A batch entry as a torch tensor on the network's device."""
+        v = _value(x)
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+        dev = self._device()
+        return v if v.device == dev else v.to(dev)
+
+    def _forward(self, x):
+        """The network's outputs on ``x`` as a list of torch tensors."""
+        out = self.network(x if self._is_module() else Tensor(x))
+        return [_value(o) for o in _to_list(out)]
+
+    def _loss_value(self, outs, y):
+        loss = self._loss(*[Tensor(o) for o in outs], Tensor(y))
+        return _value(loss).float()
+
+    # --- the train step -------------------------------------------------------
+    def _build_train_step(self):
+        """The graphed step over the optimizer's trainable parameters,
+        their accumulators and its device scalars (all donated)."""
+        from ..profiler.jit_cost import profiled_graph
+
+        opt = self._optimizer
+        params = [p for p in opt._param_list() if p.requires_grad]
+        opt._ensure_state(params)
+        lr_t, step_t = opt._scalars()
+        accs = [opt._accumulators[kind][id(p)]
+                for kind in opt._acc_kinds() for p in params]
+
+        def train_step(state, x, y):
+            outs = self._forward(x)
+            loss = self._loss_value(outs, y)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            opt._apply_gradients(list(zip(params, grads)))
+            return loss.detach(), outs[0].detach()
+
+        self._train_params = params
+        self._train_state = list(params) + accs + [lr_t, step_t]
+        self._graph = profiled_graph("hapi/train_step", train_step,
+                                     donate_argnums=(0,))
+
+    def _run_train_step(self, x, y, update=True):
+        """One training step on device tensors; returns ``(loss, first
+        output)`` as device tensors, nothing read back (a graphed step's
+        are its static outputs: the next step overwrites them)."""
+        self.network.train()
+        if self._accelerate:
+            if not update:
+                raise InvalidArgumentError(
+                    "train_batch(update=False) (gradient accumulation) "
+                    "needs prepare(accelerate=False)")
+            if self._graph is None:
+                self._build_train_step()
+            self._optimizer._prepare_step()
+            return self._graph(self._train_state, x, y)
+        outs = self._forward(x)
+        loss = self._loss_value(outs, y)
+        loss.backward()
+        if update:
+            self._optimizer.step()
+            self._optimizer.clear_grad()
+        return loss.detach(), outs[0].detach()
+
+    # --- single-batch API ----------------------------------------------------
+    def train_batch(self, inputs, labels=None, update=True):
+        inputs = _to_list(inputs)
+        labels = _to_list(labels)
+        x = self._as_input(inputs[0])
+        y = self._as_input(labels[0]) if labels and labels[0] is not None \
+            else None
+        loss, out = self._run_train_step(x, y, update)
+        metrics_out = self._update_metrics(out, y)
+        return [float(loss)] + metrics_out
+
+    def _update_metrics(self, out, y):
+        res = []
+        for m in self._metrics:
+            c = m.compute(Tensor(out), Tensor(y))
+            res.append(m.update(*c) if isinstance(c, tuple) else m.update(c))
+        return res
+
+    @torch.no_grad()
+    def _eval_outputs(self, x):
+        self.network.eval()
+        return self._forward(x)
+
+    def eval_batch(self, inputs, labels=None):
+        inputs = _to_list(inputs)
+        labels = _to_list(labels)
+        outs = self._eval_outputs(self._as_input(inputs[0]))
+        res = []
+        if labels and labels[0] is not None:
+            y = self._as_input(labels[0])
+            if self._loss is not None:
+                with torch.no_grad():
+                    res.append(float(self._loss_value(outs, y)))
+            res += self._update_metrics(outs[0], y)
+        return res
+
+    def predict_batch(self, inputs):
+        inputs = _to_list(inputs)
+        out = self._eval_outputs(self._as_input(inputs[0]))[0]
+        return [out.float().cpu().numpy() if out.is_floating_point()
+                else out.cpu().numpy()]
+
+    # --- loops ---------------------------------------------------------------
+    def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
+            eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
+            drop_last=False, shuffle=True, num_workers=0, callbacks=None,
+            accumulate_grad_batches=1, num_iters=None,
+            checkpoint_dir=None, checkpoint_interval=None,
+            checkpoint_async=True, keep_checkpoints=3, resume=False,
+            step_retries=0, step_retry_backoff_s=0.05, anomaly=None):
+        """The train loop, with the JAX package's crash-consistency
+        knobs:
+
+        - ``checkpoint_dir`` + ``checkpoint_interval``: commit a train
+          state checkpoint (weights, optimizer state and scheduler, the
+          generators, the loader position, the step counter) every K
+          steps through a ``CheckpointStore``; ``checkpoint_async``
+          writes on a background thread, ``keep_checkpoints`` keeps the
+          last K.
+        - ``resume``: True resumes from ``checkpoint_dir``'s newest valid
+          checkpoint (a path or store resumes from there): the same epoch
+          permutation is drawn again, the trained batches are skipped,
+          the streams rejoin where the capture left them, and the run
+          continues bit-identical to the uninterrupted one.
+        - ``step_retries`` + ``step_retry_backoff_s``: a failed batch
+          fetch (the ``loader.next`` chaos site) or train step is retried
+          with exponential backoff, the generators restored first; a
+          ``FatalError`` (a ``train.step`` chaos ``kill``) is not.
+        - ``anomaly``: not ported (ROADMAP queue 1 item 16).
+        """
+        from ..framework.errors import FatalError
+        from ..framework.monitor import stat_add
+        from ..io import DataLoader
+        from ..io.dataloader import prefetch_to_device
+        from ..io.dataset import Dataset
+        from ..testing.chaos import KILL, chaos_site
+
+        if anomaly:
+            raise InvalidArgumentError(
+                "fit(anomaly=) is not ported yet (ROADMAP queue 1 item 16: "
+                "hapi/anomaly.py, a branch-free device guard in the graph)")
+        if isinstance(train_data, Dataset):
+            train_loader = DataLoader(train_data, batch_size=batch_size,
+                                      shuffle=shuffle, drop_last=drop_last,
+                                      num_workers=num_workers)
+        else:
+            train_loader = train_data
+        if eval_data is not None and isinstance(eval_data, Dataset):
+            eval_loader = DataLoader(eval_data, batch_size=batch_size,
+                                     num_workers=num_workers)
+        else:
+            eval_loader = eval_data
+
+        ckpt = None
+        if checkpoint_dir is not None:
+            from .checkpoint import TrainCheckpointer
+
+            ckpt = TrainCheckpointer(
+                checkpoint_dir,
+                interval=(1 if checkpoint_interval is None
+                          else checkpoint_interval),
+                async_write=checkpoint_async, keep_last=keep_checkpoints)
+        resume_pos = None
+        if resume:
+            from .checkpoint import TrainCheckpointer
+
+            if resume is True:
+                if ckpt is None:
+                    raise InvalidArgumentError(
+                        "resume=True needs checkpoint_dir= (or pass the "
+                        "store/path to resume from as resume=)")
+                resume_pos = ckpt.resume(self)
+            else:
+                resume_pos = TrainCheckpointer(
+                    resume, async_write=False).resume(self)
+
+        staged = self._device().type == "cuda"
+        steps = None
+        try:
+            steps = len(train_loader)
+        except TypeError:
+            pass
+        cbks = CallbackList(callbacks, model=self, verbose=verbose,
+                            metrics=["loss"] + self._metric_names(),
+                            epochs=epochs, steps=steps, log_freq=log_freq)
+        cbks.on_begin("train")
+        self.stop_training = False
+        global_step = 0 if resume_pos is None else resume_pos["global_step"]
+        start_epoch = 0 if resume_pos is None else resume_pos["epoch"]
+        trained_any = False
+        logs = {}
+        try:
+            for epoch in range(start_epoch, epochs):
+                skip_batches = 0
+                if resume_pos is not None and epoch == start_epoch:
+                    # replay the epoch permutation the interrupted run
+                    # drew, then (below) skip what it trained and rejoin
+                    # its streams before the first batch left to train
+                    np.random.set_state(resume_pos["np_state_epoch_start"])
+                    if resume_pos.get("py_state_epoch_start") is not None:
+                        py_random.setstate(
+                            resume_pos["py_state_epoch_start"])
+                    skip_batches = resume_pos["next_batch"]
+                with RecordEvent("hapi/fit.epoch", epoch=epoch):
+                    cbks.on_epoch_begin(epoch)
+                    for m in self._metrics:
+                        m.reset()
+                    logs = {}
+                    np_epoch_start = np.random.get_state()
+                    py_epoch_start = py_random.getstate()
+                    raw = iter(train_loader)
+                    for _ in range(skip_batches):
+                        if self._fetch_with_retry(
+                                raw, step_retries, step_retry_backoff_s,
+                                chaos_site, stat_add) is None:
+                            break
+                    if skip_batches:
+                        np.random.set_state(resume_pos["np_random"])
+                        if resume_pos.get("py_random") is not None:
+                            py_random.setstate(resume_pos["py_random"])
+                    tracked = _Tracked(raw, skip_batches)
+                    it = (prefetch_to_device(tracked, device=self._device())
+                          if staged else tracked)
+                    step = skip_batches
+                    while num_iters is None or step < num_iters:
+                        batch = self._fetch_with_retry(
+                            it, step_retries, step_retry_backoff_s,
+                            chaos_site, stat_add)
+                        if batch is None:
+                            break
+                        cbks.on_batch_begin("train", step, logs)
+                        x = batch[0]
+                        y = batch[1] if len(batch) > 1 else None
+                        t0 = _time.perf_counter()
+                        with RecordEvent("hapi/train_batch"):
+                            outs = self._step_with_retry(
+                                x, y, step_retries, step_retry_backoff_s,
+                                chaos_site, stat_add, KILL, FatalError)
+                        histogram_observe(
+                            "hapi.train_batch_ms",
+                            (_time.perf_counter() - t0) * 1e3)
+                        global_step += 1
+                        trained_any = True
+                        logs = {"loss": outs[0],
+                                "batch_size": _batch_size_of(x)}
+                        for name, val in zip(self._metric_names(),
+                                             outs[1:]):
+                            logs[name] = val
+                        cbks.on_batch_end("train", step, logs)
+                        step += 1
+                        if ckpt is not None:
+                            ckpt.note_step(global_step)
+                            if ckpt.due(global_step):
+                                np_mid, py_mid = tracked.state_before(step)
+                                ckpt.snapshot(
+                                    self, global_step=global_step,
+                                    epoch=epoch, next_batch=step,
+                                    np_state_epoch_start=np_epoch_start,
+                                    py_state_epoch_start=py_epoch_start,
+                                    np_random=np_mid, py_random=py_mid)
+                        if self.stop_training:
+                            break
+                    if eval_loader is not None \
+                            and (epoch + 1) % eval_freq == 0:
+                        eval_logs = self.evaluate(eval_loader, verbose=0,
+                                                  _inside_fit=True)
+                        logs.update({f"eval_{k}": v
+                                     for k, v in eval_logs.items()})
+                    cbks.on_epoch_end(epoch, logs)
+                if save_dir and (epoch + 1) % save_freq == 0:
+                    self.save(f"{save_dir}/{epoch}")
+                if self.stop_training:
+                    break
+            if ckpt is not None and (trained_any or resume_pos is None):
+                # terminal checkpoint at (epochs, 0): resuming with the
+                # same budget is a no-op, a larger one continues
+                ckpt.snapshot(self, global_step=global_step,
+                              epoch=epochs, next_batch=0,
+                              np_state_epoch_start=np.random.get_state(),
+                              py_state_epoch_start=py_random.getstate())
+        finally:
+            if ckpt is not None:
+                import sys as _sys
+
+                in_flight = _sys.exc_info()[0] is not None
+                try:
+                    ckpt.close()
+                except Exception:  # noqa: BLE001 — see re-raise below
+                    # a close failure must not mask a training exception
+                    # already propagating
+                    if not in_flight:
+                        raise
+        cbks.on_end("train", logs)
+        if save_dir:
+            self.save(f"{save_dir}/final")
+        return self
+
+    def _fetch_with_retry(self, it, retries, backoff_s, chaos_site,
+                          stat_add):
+        """Next batch through the ``loader.next`` chaos site with
+        bounded-backoff retry; None when the epoch is exhausted.  Only
+        the site's faults are retried: a real ``next()`` may already have
+        consumed a sampler index when it fails."""
+        from ..profiler.flight_recorder import recorder as _flight
+
+        attempt = 0
+        while True:
+            try:
+                chaos_site("loader.next")
+                break
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                attempt += 1
+                if attempt > retries:
+                    raise
+                stat_add("train.step_retries", 1)
+                _flight.on_transition("train.retry", "loader.next",
+                                      f"{type(e).__name__}: {e}")
+                _time.sleep(backoff_s * (2 ** (attempt - 1)))
+        try:
+            return next(it)
+        except StopIteration:
+            return None
+
+    def _step_with_retry(self, x, y, retries, backoff_s, chaos_site,
+                         stat_add, KILL, FatalError):
+        """One train step through the ``train.step`` chaos site; a
+        transient failure retries after restoring the generators (so a
+        retried step draws the same numbers); a chaos ``kill`` raises
+        ``FatalError`` (never retried) and dumps the flight recorder."""
+        from ..profiler.flight_recorder import recorder as _flight
+
+        attempt = 0
+        while True:
+            rng_state = get_rng_state()
+            np_state = np.random.get_state()
+            py_state = py_random.getstate()
+            try:
+                fault = chaos_site("train.step")
+                if fault is not None and fault.action == KILL:
+                    raise FatalError(fault.message)
+                return self.train_batch([x], [y])
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except FatalError as e:
+                _flight.on_transition("train.fatal", "train.step", str(e))
+                _flight.auto_dump(f"train step fatal: {e}")
+                raise
+            except Exception as e:
+                attempt += 1
+                set_rng_state(rng_state)
+                np.random.set_state(np_state)
+                py_random.setstate(py_state)
+                if attempt > retries:
+                    raise
+                stat_add("train.step_retries", 1)
+                _flight.on_transition("train.retry", "train.step",
+                                      f"{type(e).__name__}: {e}")
+                _time.sleep(backoff_s * (2 ** (attempt - 1)))
+
+    def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
+                 num_workers=0, callbacks=None, num_iters=None,
+                 _inside_fit=False):
+        from ..io import DataLoader
+        from ..io.dataset import Dataset
+
+        if isinstance(eval_data, Dataset):
+            loader = DataLoader(eval_data, batch_size=batch_size,
+                                num_workers=num_workers)
+        else:
+            loader = eval_data
+        for m in self._metrics:
+            m.reset()
+        losses = []
+        for step, batch in enumerate(loader):
+            if num_iters is not None and step >= num_iters:
+                break
+            x, y = batch[0], batch[1] if len(batch) > 1 else None
+            outs = self.eval_batch([x], [y])
+            if outs and self._loss is not None and y is not None:
+                losses.append(outs[0])
+        logs = {}
+        if losses:
+            logs["loss"] = float(np.mean(losses))
+        for m in self._metrics:
+            names = m.name() if isinstance(m.name(), list) else [m.name()]
+            vals = m.accumulate()
+            vals = vals if isinstance(vals, list) else [vals]
+            for n, v in zip(names, vals):
+                logs[n] = v
+        if verbose and not _inside_fit:
+            print("Eval:", logs)
+        return logs
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, callbacks=None, verbose=1):
+        from ..io import DataLoader
+        from ..io.dataset import Dataset
+
+        if isinstance(test_data, Dataset):
+            loader = DataLoader(test_data, batch_size=batch_size,
+                                num_workers=num_workers)
+        else:
+            loader = test_data
+        outputs = []
+        for batch in loader:
+            x = batch[0] if isinstance(batch, (list, tuple)) else batch
+            outputs.append(self.predict_batch([x])[0])
+        if stack_outputs:
+            return [np.concatenate(outputs, axis=0)]
+        return [outputs]
+
+    # --- persistence ---------------------------------------------------------
+    def save(self, path, training=True):
+        from ..framework_io import save as _save
+
+        _save(self.network.state_dict(), path + ".pdparams")
+        if training and self._optimizer is not None:
+            _save(self._optimizer.state_dict(), path + ".pdopt")
+
+    def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        import os
+
+        from ..framework_io import load as _load
+
+        state = _load(path + ".pdparams", return_numpy=True)
+        if self._is_module():
+            with torch.no_grad():
+                live = self.network.state_dict(keep_vars=True)
+                for k, v in state.items():
+                    live[k].copy_(torch.as_tensor(np.asarray(v)))
+        else:
+            self.network.set_state_dict(state)
+        if not reset_optimizer and self._optimizer is not None and \
+                os.path.exists(path + ".pdopt"):
+            self._optimizer.set_state_dict(_load(path + ".pdopt",
+                                                 return_numpy=True))
+        return self
+
+    def parameters(self, *args, **kwargs):
+        return list(self.network.parameters(*args, **kwargs))
+
+    def state_dict(self):
+        return self.network.state_dict()
+
+    def _metric_names(self):
+        names = []
+        for m in self._metrics:
+            n = m.name()
+            names += n if isinstance(n, list) else [n]
+        return names
+
+    def summary(self, input_size=None, dtype=None):
+        from .summary import summary as _summary
+
+        return _summary(self.network, input_size, dtype)

@@ -4,11 +4,15 @@ under the same names): ``Layer`` and the initializers; ``Linear``,
 ``Conv2D``, ``MaxPool2D``, ``ReLU``; the containers ``Sequential``,
 ``LayerList``, ``ParameterList`` and ``LayerDict``; the recurrent layers
 of ``nn.rnn``; the transformer stack of ``nn.transformer``; and the
-decoding loops of ``nn.decode`` (beam search, ``dynamic_decode``, greedy).
+decoding loops of ``nn.decode`` (beam search, ``dynamic_decode``, greedy);
+the loss layers of ``nn.loss_layers`` and the gradient clips of
+``nn.clip_grad``.
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .activation_layers import ReLU  # noqa: F401
+from .clip_grad import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                        ClipGradByValue)
 from .common_layers import (  # noqa: F401
     Dropout, Embedding, Flatten, Identity, Linear)
 from .container import (LayerDict, LayerList, ParameterList,  # noqa: F401
@@ -18,6 +22,11 @@ from .decode import (BeamSearchDecoder, beam_search_decode,  # noqa: F401
                      beam_search_step, dynamic_decode, gather_tree,
                      greedy_search_decode)
 from .layer import Layer, state_from_numpy  # noqa: F401
+from .loss_layers import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
+                          CosineEmbeddingLoss, CrossEntropyLoss, CTCLoss,
+                          HingeEmbeddingLoss, KLDivLoss, L1Loss,
+                          MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+                          TripletMarginLoss)
 from .norm_layers import LayerNorm  # noqa: F401
 from .pool_layers import MaxPool2D  # noqa: F401
 from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
@@ -35,4 +44,8 @@ __all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
            "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
            "BeamSearchDecoder", "beam_search_decode", "beam_search_step",
            "dynamic_decode", "gather_tree", "greedy_search_decode",
-           "state_from_numpy"]
+           "state_from_numpy", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "CrossEntropyLoss", "MSELoss", "L1Loss",
+           "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
+           "SmoothL1Loss", "MarginRankingLoss", "CTCLoss",
+           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss"]

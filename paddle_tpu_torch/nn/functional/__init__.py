@@ -1,5 +1,6 @@
 """paddle_tpu_torch.nn.functional — the functionals the GPT serving and
-training slices, the dygraph core and the sequence layers run, twins of
+training slices, the dygraph core, the sequence layers and the losses of
+``nn/loss_layers.py`` run, twins of
 ``paddle_tpu/nn/functional``.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
@@ -17,10 +18,23 @@ from ...text.generation import _ln
 from .activation import gelu, log_softmax, relu, sigmoid, softmax, tanh
 from .common import dropout, embedding, linear
 from .conv import conv2d
-from .loss import cross_entropy
+from .loss import (binary_cross_entropy,  # noqa: F401
+                   binary_cross_entropy_with_logits, cosine_embedding_loss,
+                   cross_entropy, ctc_loss, dice_loss, hinge_embedding_loss,
+                   kl_div, l1_loss, log_loss, margin_ranking_loss, mse_loss,
+                   nll_loss, npair_loss, sigmoid_focal_loss, smooth_l1_loss,
+                   softmax_with_cross_entropy, square_error_cost,
+                   triplet_margin_loss)
 from .pooling import max_pool2d
 
-__all__ = ["gelu", "layer_norm", "cross_entropy", "linear", "dropout",
+__all__ = ["gelu", "layer_norm", "cross_entropy", "softmax_with_cross_entropy",
+           "nll_loss", "mse_loss", "l1_loss", "smooth_l1_loss",
+           "square_error_cost", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "kl_div",
+           "margin_ranking_loss", "hinge_embedding_loss",
+           "cosine_embedding_loss", "triplet_margin_loss", "npair_loss",
+           "log_loss", "ctc_loss", "dice_loss", "sigmoid_focal_loss",
+           "linear", "dropout",
            "embedding", "conv2d", "max_pool2d", "relu", "sigmoid", "tanh",
            "softmax", "log_softmax", "scaled_dot_product_attention",
            "flash_attention", "paged_attention"]

@@ -26,7 +26,8 @@ run the flash bodies' plain versions; a CUDA tensor never takes them.
 
 ``ROUTE_STATS`` keeps the JAX key names so counts compare one to one:
 ``"pallas"`` counts calls routed to the flash kernels (their plain
-versions on the CPU), ``"xla"`` calls routed to :func:`_sdpa_core`.
+versions on the CPU), ``"xla"`` calls routed to :func:`_sdpa_core`;
+both count through ``count_launch``, so a graph's replays add theirs.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import os
 import torch
 
 from ..amp.auto_cast import cast_inputs
+from ..framework.random import generator
+from ..profiler.jit_cost import count_launch
 from .flash_attention import NEG_INF, flash_attention_bshd
 
 __all__ = ["ROUTE_STATS", "scaled_dot_product_attention", "flash_attention",
@@ -47,8 +50,9 @@ def _sdpa_core(q, k, v, mask, dropout_p, is_causal, scale=None):
     """Plain attention on ``[B, H, S, D]``: f32 logits, the finite
     ``NEG_INF`` sentinel for causal and boolean masks, a float mask added
     to the logits, the softmax cast back to q's dtype.  Dropout draws
-    from torch's default generator, so its bits differ from the JAX
-    package's; only the flash route's bits are shared."""
+    from the port's generator of q's device (``framework.random``), so
+    its bits differ from the JAX package's; only the flash route's bits
+    are shared."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / (d ** 0.5)
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * s
@@ -69,7 +73,8 @@ def _sdpa_core(q, k, v, mask, dropout_p, is_causal, scale=None):
             logits = logits + mask.float()
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(p.shape, device=p.device) >= dropout_p
+        keep = torch.rand(p.shape, generator=generator(p.device),
+                          device=p.device) >= dropout_p
         p = torch.where(keep, p / (1.0 - dropout_p),
                         torch.zeros_like(p)).to(q.dtype)
     return torch.matmul(p, v)
@@ -124,10 +129,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             kv_mask = _as_kv_mask(attn_mask, key.shape[0], key.shape[1])
             routable = kv_mask is not None
         if routable:
-            ROUTE_STATS["pallas"] += 1
+            count_launch(ROUTE_STATS, "pallas")
             return flash_attention(query, key, value, dropout=drop,
                                    causal=is_causal, kv_mask=kv_mask)
-    ROUTE_STATS["xla"] += 1
+    count_launch(ROUTE_STATS, "xla")
     query, key, value, attn_mask = cast_inputs(
         "scaled_dot_product_attention", query, key, value, attn_mask)
     out = _sdpa_core(query.transpose(1, 2), key.transpose(1, 2),
@@ -141,15 +146,19 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     ``[B, S]`` validity mask (1/True = attend).  On the route's terms the
     flash kernels run (their plain versions for a CPU tensor); otherwise
     :func:`scaled_dot_product_attention` with the mask as a boolean
-    ``[B, 1, 1, S]``.  With dropout the kernel seed is drawn from torch's
-    default CPU generator (the JAX package draws it from its own key
-    chain, so the two packages' draws differ; pass an explicit ``seed``
-    to ``flash_attention_bshd`` to share bits)."""
+    ``[B, 1, 1, S]``.  With dropout the kernel seed is an int32 tensor
+    drawn on the query's device from the port's generator there
+    (``framework.random``), which the kernels read on the card: a CUDA
+    graph draws a new one at each replay.  The JAX package draws it from
+    its own key chain, so the two packages' draws differ; pass an
+    explicit ``seed`` to ``flash_attention_bshd`` to share bits."""
     if _pallas_ok(query, key):
         query, key, value = cast_inputs("flash_attention", query, key, value)
         seed = None
         if dropout > 0.0:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,)))
+            seed = torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=generator(query.device),
+                                 device=query.device, dtype=torch.int32)
         out = flash_attention_bshd(query, key, value, causal=causal,
                                    kv_mask=kv_mask, dropout_p=dropout,
                                    seed=seed)

@@ -8,7 +8,10 @@
 //   ptt_flash_dq_*   <- _flash_dq_bhsd  (body _bwd_dq_kernel)
 //
 // What they compute, on q [BH, Sq, D], k and v [BH, Sk, D] (f32 or bf16,
-// row-major), a kv validity mask [B, Sk] f32 (b = bh / H) and a seed:
+// row-major), a kv validity mask [B, Sk] f32 (b = bh / H) and a seed
+// (a launch argument, or a uint32 the kernels read from device memory
+// when seed_ptr is not null, so a captured graph's replays each take the
+// value written there before them):
 //   s = (scale * q) k^T, masked to the finite sentinel -1e30 where the
 //       key is invalid or (causal) row < col on global positions;
 //   forward: online softmax over key tiles, o = (sum p' v) / max(l, 1e-30)
@@ -158,13 +161,15 @@ struct Params {
   float keep_scale;  // 1 / (1 - dropout_p)
   uint32_t thresh;   // keep where hash >= thresh
   uint32_t seed;
+  const uint32_t* seed_ptr;  // when not null, the seed is *seed_ptr
 };
 
 // paddle_tpu/ops/pallas_ops/flash_attention.py:_keep_mask, bit for bit
 __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t bh,
                                          uint32_t row, uint32_t col) {
+  const uint32_t seed = p.seed_ptr ? __ldg(p.seed_ptr) : p.seed;
   uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
-  x = x + p.seed * 0xC2B2AE3Du;
+  x = x + seed * 0xC2B2AE3Du;
   x = x ^ (bh * 0x27D4EB2Fu);
   x = x ^ (x >> 15);
   x = x * 0x2C1B3C6Du;
@@ -1823,7 +1828,7 @@ int check_dims(int BH, int H, int Sq, int Sk, int D) {
 
 Params make_params(int H, int Sq, int Sk, int D, float scale, int causal,
                    int dropout, float keep_scale, unsigned thresh,
-                   unsigned seed) {
+                   unsigned seed, const void* seed_ptr) {
   Params p;
   p.H = H;
   p.Sq = Sq;
@@ -1835,6 +1840,7 @@ Params make_params(int H, int Sq, int Sk, int D, float scale, int causal,
   p.keep_scale = keep_scale;
   p.thresh = thresh;
   p.seed = seed;
+  p.seed_ptr = static_cast<const uint32_t*>(seed_ptr);
   return p;
 }
 
@@ -1910,11 +1916,11 @@ int launch_dq_tc(const void* q, const void* k, const void* v,
 int fwd_tc(const void* q, const void* k, const void* v, const void* mask,
            void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
            float scale, int causal, int dropout, float keep_scale,
-           unsigned thresh, unsigned seed, void* stream) {
+           unsigned thresh, unsigned seed, const void* seed_ptr, void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1929,11 +1935,11 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* mask, void* dk,
            void* dv, int BH, int H, int Sq, int Sk, int D, float scale,
            int causal, int dropout, float keep_scale, unsigned thresh,
-           unsigned seed, void* stream) {
+           unsigned seed, const void* seed_ptr, void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout) && aligned16(dk) &&
                   aligned16(dv);
@@ -1952,11 +1958,12 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
           const void* lse, const void* delta, const void* mask, void* dqo,
           int BH, int H, int Sq, int Sk, int D, float scale, int causal,
           int dropout, float keep_scale, unsigned thresh, unsigned seed,
+          const void* seed_ptr,
           void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout) && aligned16(dqo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2030,11 +2037,12 @@ int launch_dq_f32tc(const void* q, const void* k, const void* v,
 int fwd_f32tc(const void* q, const void* k, const void* v, const void* mask,
               void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
               float scale, int causal, int dropout, float keep_scale,
-              unsigned thresh, unsigned seed, void* stream) {
+              unsigned thresh, unsigned seed, const void* seed_ptr,
+              void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
@@ -2048,11 +2056,11 @@ int dkv_f32tc(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* mask, void* dk,
               void* dv, int BH, int H, int Sq, int Sk, int D, float scale,
               int causal, int dropout, float keep_scale, unsigned thresh,
-              unsigned seed, void* stream) {
+              unsigned seed, const void* seed_ptr, void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2070,11 +2078,12 @@ int dq_f32tc(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, const void* mask, void* dqo,
              int BH, int H, int Sq, int Sk, int D, float scale, int causal,
              int dropout, float keep_scale, unsigned thresh, unsigned seed,
+             const void* seed_ptr,
              void* stream) {
   const int bad = check_dims(BH, H, Sq, Sk, D);
   if (bad) return bad;
   const Params p = make_params(H, Sq, Sk, D, scale, causal, dropout,
-                               keep_scale, thresh, seed);
+                               keep_scale, thresh, seed, seed_ptr);
   const int vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(dout);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2092,7 +2101,8 @@ int dq_f32tc(const void* q, const void* k, const void* v, const void* dout,
 
 // All pointers are contiguous device memory on one card: q [BH, Sq, D],
 // k and v [BH, Sk, D] and dout [BH, Sq, D] in the entry point's dtype;
-// mask [BH / H, Sk], lse and delta [BH, Sq] in f32.  Each launches on
+// mask [BH / H, Sk], lse and delta [BH, Sq] in f32; seed_ptr is null or
+// one uint32 on the card, read in place of seed.  Each launches on
 // ``stream`` and returns cudaGetLastError() (0 = launched).
 // f32: all three bodies on the tensor cores in 3xTF32
 extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
@@ -2100,9 +2110,10 @@ extern "C" int ptt_flash_fwd_f32(const void* q, const void* k, const void* v,
                                  int H, int Sq, int Sk, int D, float scale,
                                  int causal, int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
+                                 const void* seed_ptr,
                                  void* stream) {
   return fwd_f32tc(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
-                   dropout, keep_scale, thresh, seed, stream);
+                   dropout, keep_scale, thresh, seed, seed_ptr, stream);
 }
 extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -2111,9 +2122,11 @@ extern "C" int ptt_flash_dkv_f32(const void* q, const void* k, const void* v,
                                  int Sk, int D, float scale, int causal,
                                  int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
+                                 const void* seed_ptr,
                                  void* stream) {
   return dkv_f32tc(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq, Sk, D,
-                   scale, causal, dropout, keep_scale, thresh, seed, stream);
+                   scale, causal, dropout, keep_scale, thresh, seed, seed_ptr,
+                   stream);
 }
 extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -2121,9 +2134,11 @@ extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
                                 void* dqo, int BH, int H, int Sq, int Sk,
                                 int D, float scale, int causal, int dropout,
                                 float keep_scale, unsigned thresh,
-                                unsigned seed, void* stream) {
+                                unsigned seed, const void* seed_ptr,
+                                void* stream) {
   return dq_f32tc(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D,
-                  scale, causal, dropout, keep_scale, thresh, seed, stream);
+                  scale, causal, dropout, keep_scale, thresh, seed, seed_ptr,
+                  stream);
 }
 
 // bf16: all three bodies on the tensor cores
@@ -2133,9 +2148,10 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   int D, float scale, int causal,
                                   int dropout, float keep_scale,
                                   unsigned thresh, unsigned seed,
+                                  const void* seed_ptr,
                                   void* stream) {
   return fwd_tc(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
-                dropout, keep_scale, thresh, seed, stream);
+                dropout, keep_scale, thresh, seed, seed_ptr, stream);
 }
 extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* dout,
@@ -2144,9 +2160,11 @@ extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k,
                                   int BH, int H, int Sq, int Sk, int D,
                                   float scale, int causal, int dropout,
                                   float keep_scale, unsigned thresh,
-                                  unsigned seed, void* stream) {
+                                  unsigned seed, const void* seed_ptr,
+                                  void* stream) {
   return dkv_tc(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq, Sk, D,
-                scale, causal, dropout, keep_scale, thresh, seed, stream);
+                scale, causal, dropout, keep_scale, thresh, seed, seed_ptr,
+                stream);
 }
 extern "C" int ptt_flash_dq_bf16(const void* q, const void* k,
                                  const void* v, const void* dout,
@@ -2155,7 +2173,8 @@ extern "C" int ptt_flash_dq_bf16(const void* q, const void* k,
                                  int Sq, int Sk, int D, float scale,
                                  int causal, int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
+                                 const void* seed_ptr,
                                  void* stream) {
   return dq_tc(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D, scale,
-               causal, dropout, keep_scale, thresh, seed, stream);
+               causal, dropout, keep_scale, thresh, seed, seed_ptr, stream);
 }

@@ -48,6 +48,9 @@ keeps them in f32) within the bf16 tolerance, not to f32 rounding.
 (``"fwd"``, ``"dkv"``, ``"dq"``), which run on the tensor cores in
 3xTF32: each f32 operand is split into a TF32 part and a TF32 residual
 and three TF32 products are summed in f32, about f32's accuracy.
+All of them count through ``profiler.jit_cost.count_launch``, so inside
+a CUDA graph (the hapi train step) every replay adds the launches it
+runs.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ import ctypes
 import math
 
 import torch
+
+from ..profiler.jit_cost import count_launch
 
 __all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "FLASH_TC_STATS",
            "FLASH_F32TC_STATS", "MAX_HEAD_DIM",
@@ -109,9 +114,9 @@ def _keep_mask(seed, bh, rows, cols, dropout_p):
 
 
 def _seed_int(seed) -> int:
-    """The kernel seed as a Python int (an int32 value): ``None`` is 0, a
-    tensor gives its first element (a CUDA tensor is read once, on the
-    host)."""
+    """The seed as a Python int (an int32 value): ``None`` is 0, a tensor
+    gives its first element (read on the host: the plain versions'
+    path; the kernels read a CUDA seed tensor on the card)."""
     if seed is None:
         return 0
     if isinstance(seed, torch.Tensor):
@@ -230,7 +235,7 @@ def _kernel(name, dtype):
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                          ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _BOUND[key] = fn
     return fn
@@ -281,25 +286,39 @@ def _check(q, k, v, mask, g=None, lse=None, delta=None):
     return B, H, Sq, Sk, D
 
 
+def _seed_args(seed, dev):
+    """(seed int, seed pointer) of a launch: a CUDA int tensor is read by
+    the kernels on the card (its first element, low 32 bits), so a
+    captured graph takes each replay's value; anything else is an int
+    argument and a null pointer."""
+    if isinstance(seed, torch.Tensor) and seed.is_cuda:
+        if seed.device != dev or seed.dtype not in (torch.int32,
+                                                    torch.int64) \
+                or seed.numel() == 0:
+            raise ValueError(f"a seed tensor must be int32 or int64 on "
+                             f"{dev}, got {seed.dtype} on {seed.device}")
+        return 0, seed.data_ptr()
+    return _seed_int(seed) & _U32, None
+
+
 def _launch(name, dtype, ptrs, dims, scale, causal, dropout_p, seed):
     fn = _kernel(name, dtype)
     B, H, Sq, Sk, D = dims
     dev = ptrs[0].device
+    seed, seed_ptr = _seed_args(seed, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in ptrs), B * H, H, Sq, Sk, D,
                 float(scale), int(bool(causal)), int(dropout_p > 0.0),
                 float(1.0 / (1.0 - dropout_p)) if dropout_p > 0.0 else 1.0,
-                _keep_threshold(dropout_p), _seed_int(seed) & _U32, stream)
+                _keep_threshold(dropout_p), seed, seed_ptr, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash attention {name} kernel launch failed: CUDA error {rc} "
             f"(B={B}, H={H}, Sq={Sq}, Sk={Sk}, D={D}, {dtype})")
-    FLASH_ROUTE_STATS[name] += 1
-    if dtype == torch.bfloat16:
-        FLASH_TC_STATS[name] += 1
-    else:
-        FLASH_F32TC_STATS[name] += 1
+    count_launch(FLASH_ROUTE_STATS, name)
+    count_launch(FLASH_TC_STATS if dtype == torch.bfloat16
+                 else FLASH_F32TC_STATS, name)
 
 
 def flash_fwd_cuda(q, k, v, mask, seed, scale, causal, dropout_p):
@@ -360,7 +379,7 @@ def _flash_fwd_bhsd(q, k, v, mask, seed, scale, causal, dropout_p,
         B, _, _, _ = q.shape
         m = _mask2d(mask, B, k.shape[2], q.device).contiguous()
         return flash_fwd_cuda(q, k, v, m, seed, scale, causal, dropout_p)
-    FLASH_ROUTE_STATS["ref"] += 1
+    count_launch(FLASH_ROUTE_STATS, "ref")
     return flash_fwd_ref(q, k, v, mask, seed, scale, causal, dropout_p)
 
 
@@ -374,7 +393,7 @@ def _flash_dkv_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
         m = _mask2d(mask, q.shape[0], k.shape[2], q.device).contiguous()
         return flash_dkv_cuda(q, k, v, g, lse, delta, m, seed, scale,
                               causal, dropout_p)
-    FLASH_ROUTE_STATS["ref"] += 1
+    count_launch(FLASH_ROUTE_STATS, "ref")
     return flash_dkv_ref(q, k, v, g, lse, delta, mask, seed, scale, causal,
                          dropout_p)
 
@@ -387,7 +406,7 @@ def _flash_dq_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
         m = _mask2d(mask, q.shape[0], k.shape[2], q.device).contiguous()
         return flash_dq_cuda(q, k, v, g, lse, delta, m, seed, scale, causal,
                              dropout_p)
-    FLASH_ROUTE_STATS["ref"] += 1
+    count_launch(FLASH_ROUTE_STATS, "ref")
     return flash_dq_ref(q, k, v, g, lse, delta, mask, seed, scale, causal,
                         dropout_p)
 
@@ -409,8 +428,8 @@ def _flash_bwd_bhsd(q, k, v, o, lse, g, mask, seed, scale, causal,
 class FlashAttentionCore(torch.autograd.Function):
     """Twin of the ``jax.custom_vjp`` ``_flash_attention_core``: forward
     through the forward body, backward through the dK/dV and dQ bodies.
-    Saves q, k, v, o, lse and the mask (tensors) and the seed (an int);
-    the mask and the seed get no gradient."""
+    Saves q, k, v, o, lse and the mask (tensors) and the seed (an int,
+    or an int tensor); the mask and the seed get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, scale, causal, dropout_p):
@@ -434,9 +453,11 @@ def flash_attention_bshd(q, k, v, causal=False, kv_mask=None, dropout_p=0.0,
     """Flash attention on ``[B, S, H, D]`` tensors; returns BSHD in q's
     dtype.  ``kv_mask``: optional ``[B, S]`` validity mask (1/True =
     attend).  ``dropout_p`` drops attention probabilities with the
-    counter-based bits of ``seed`` (an int32; None is 0).  The scale is
-    ``1/sqrt(D)``.  Nothing is padded: the kernels mask ragged tiles
-    themselves.  ``block_q``/``block_k`` are ignored."""
+    counter-based bits of ``seed``: an int32 (None is 0), or an int
+    tensor, which the kernels read on the card, so a CUDA graph takes
+    the value it holds at each replay.  The scale is ``1/sqrt(D)``.
+    Nothing is padded: the kernels mask ragged tiles themselves.
+    ``block_q``/``block_k`` are ignored."""
     B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention_bshd takes self-attention "
@@ -445,7 +466,8 @@ def flash_attention_bshd(q, k, v, causal=False, kv_mask=None, dropout_p=0.0,
     scale = 1.0 / math.sqrt(D)
     mask = _mask2d(kv_mask, B, S, q.device)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out = FlashAttentionCore.apply(qt, kt, vt, mask.contiguous(),
-                                   _seed_int(seed), scale, bool(causal),
-                                   float(dropout_p))
+    if not isinstance(seed, torch.Tensor):
+        seed = _seed_int(seed)
+    out = FlashAttentionCore.apply(qt, kt, vt, mask.contiguous(), seed,
+                                   scale, bool(causal), float(dropout_p))
     return out.transpose(1, 2)

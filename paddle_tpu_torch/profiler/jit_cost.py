@@ -31,10 +31,17 @@ program runs as a graph.  FLOPs and bytes are not attributed.
 
 Launch counters: a kernel wrapper counts its launches in a dict of its
 own with :func:`count_launch`.  A capture runs the wrappers once
-without launching anything, so while a thread captures, its counts go to
-the capture (a thread-local sink) instead of the dicts, and every replay
-adds them: the counts keep meaning launches run, also while other
-threads launch and count at the same time.
+without launching anything, so a count made on a stream that is
+capturing goes to that capture's sink instead of the dicts, and every
+replay adds it: the counts keep meaning launches run, also while other
+threads launch and count at the same time.  The stream decides, not the
+thread: a backward inside a capture launches from autograd's device
+thread, on the capturing stream.
+
+Randomness: each graph registers the port's generator of its card
+(``framework.random``), so dropout masks, flash dropout seeds and
+optimizer noise drawn inside a graph are drawn anew at every replay,
+and a replay draws what the eager call would from the same state.
 
 Several engines in one process (the serving frontend's replicas, each
 driven by its own pump thread) share the card.  A capture runs in
@@ -61,6 +68,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..framework.errors import InvalidArgumentError
+from ..framework.random import generator
 
 __all__ = ["profiled_graph", "ProfiledGraph", "JitCostRegistry",
            "cost_registry", "CompileLedger", "compile_ledger",
@@ -124,17 +132,26 @@ def _sig_str(sig) -> str:
 
 # --- launch counters ---------------------------------------------------------
 _COUNT_LOCK = threading.Lock()
-# .launches: the capture in progress on this thread, or None
-_CAPTURING = threading.local()
+# the sink of each capture in progress, by its stream's handle: a launch
+# on that stream is one the capture records, from the capturing thread
+# or from autograd's device thread (a backward inside the capture)
+_STREAM_SINKS: Dict[int, list] = {}
+
+
+def _stream_key() -> int:
+    """The handle of this thread's current CUDA stream."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def count_launch(counts: Dict[str, int], key: str, n: int = 1) -> None:
-    """Add ``n`` launches under ``key`` — or, while this thread captures
-    a graph, to the capture, whose replays add them.  Thread-safe."""
-    sink = getattr(_CAPTURING, "launches", None)
-    if sink is not None:
-        sink.append((counts, key, n))
-        return
+    """Add ``n`` launches under ``key`` — or, when the current stream
+    captures a graph, to the capture, whose replays add them.
+    Thread-safe."""
+    if _STREAM_SINKS:
+        sink = _STREAM_SINKS.get(_stream_key())
+        if sink is not None:
+            sink.append((counts, key, n))
+            return
     with _COUNT_LOCK:
         counts[key] += n
 
@@ -555,6 +572,9 @@ class ProfiledGraph:
         with torch.cuda.device(dev), torch.cuda.stream(side):
             out = self._fun(*args)
             graph = torch.cuda.CUDAGraph()
+            # the port's generator of the card draws anew at each replay
+            # (dropout masks, flash seeds, optimizer noise)
+            graph.register_generator_state(generator(dev))
             sink: List[Tuple[Dict[str, int], str, int]] = []
             # no other thread touches the card while the capture runs,
             # and no garbage collection either: collecting a dead
@@ -563,7 +583,7 @@ class ProfiledGraph:
                 gc_was_on = gc.isenabled()
                 gc.disable()
                 t0 = time.perf_counter()
-                _CAPTURING.launches = sink
+                _STREAM_SINKS[side.cuda_stream] = sink
                 try:
                     graph.capture_begin(pool=self._pool)
                     try:
@@ -571,7 +591,7 @@ class ProfiledGraph:
                     finally:
                         graph.capture_end()
                 finally:
-                    _CAPTURING.launches = None
+                    del _STREAM_SINKS[side.cuda_stream]
                     if gc_was_on:
                         gc.enable()
                 capture_s = time.perf_counter() - t0

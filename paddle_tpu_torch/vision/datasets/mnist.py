@@ -3,8 +3,8 @@ reader and, where no file is given or the path does not exist, the same
 deterministic synthetic stand-in (numpy only: 2048 train / 512 test
 images, seeds 42 and 7), so both packages see the same arrays.  Nothing
 is downloaded and nothing outside the given paths is read.  Items are
-``(image [1, 28, 28] float32 in [0, 1], label [1] int64)``; there is no
-DataLoader yet (ROADMAP queue 1 item 9): take batches by slicing."""
+``(image [1, 28, 28] float32 in [0, 1], label [1] int64)``; batch them
+with ``io.DataLoader`` (or ``batch``)."""
 from __future__ import annotations
 
 import gzip
@@ -12,6 +12,8 @@ import os
 import struct
 
 import numpy as np
+
+from ...io.dataset import Dataset
 
 __all__ = ["MNIST"]
 
@@ -45,7 +47,7 @@ def synthetic_mnist(mode="train"):
     return images, labels
 
 
-class MNIST:
+class MNIST(Dataset):
     NAME = "mnist"
 
     def __init__(self, image_path=None, label_path=None, mode="train",

@@ -1129,6 +1129,28 @@ def test_flash_autograd_on_the_card_matches_the_plain_route():
         _close(a, b, 1e-4, name)
 
 
+@pytest.mark.parametrize("seed", [99, -5])
+def test_flash_seed_read_on_the_card_equals_the_seed_argument(seed):
+    """An int32 seed tensor on the card (which the kernels read there,
+    as a CUDA graph needs) gives the bits of the same seed passed as an
+    int, values and gradients, bf16 and f32."""
+    rng = np.random.RandomState(9)
+    x = [rng.randn(2, 256, 4, 64).astype(np.float32) for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for s in (seed, torch.tensor([seed], dtype=torch.int32,
+                                     device="cuda")):
+            q, k, v = (torch.tensor(a, device="cuda", dtype=dtype,
+                                    requires_grad=True) for a in x[:3])
+            out = fa.flash_attention_bshd(q, k, v, causal=True,
+                                          dropout_p=0.3, seed=s)
+            (out.float() * torch.tensor(x[3], device="cuda")).sum() \
+                .backward()
+            runs.append([t.detach() for t in (out, q.grad, k.grad, v.grad)])
+        for name, a, b in zip(("out", "dq", "dk", "dv"), *runs):
+            assert torch.equal(a, b), f"{dtype} {name}"
+
+
 def test_flash_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 2, 8, 16, device="cuda")
     mask = torch.ones(1, 8, device="cuda")
@@ -2068,3 +2090,165 @@ def test_lstm_on_the_card_equals_the_cpu():
         pt.set_device("cuda")
     for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
         _close(a, b, 1e-4, f"lstm[{i}]")
+
+
+# --------------------------------------------------------------------------
+# hapi: the train step as one CUDA graph
+# --------------------------------------------------------------------------
+_FIT_CFG = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+                ffn_size=256, max_seq_len=256)
+
+
+def _fit_model(accelerate):
+    from paddle_tpu_torch import Model, nn, optimizer
+    from paddle_tpu_torch.optimizer import lr as sched
+    from paddle_tpu_torch.text.models import GPTModel
+
+    net = GPTModel(**_FIT_CFG, device="cuda", seed=7)
+    opt = optimizer.AdamW(sched.StepDecay(1e-3, 1, 0.5),
+                          parameters=list(net.parameters()),
+                          weight_decay=0.1,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    model = Model(net)
+    model.prepare(opt, nn.CrossEntropyLoss(), accelerate=accelerate)
+    return model, net, opt
+
+
+def _fit_batches(n):
+    rng = np.random.RandomState(3)
+    ids = rng.randint(0, _FIT_CFG["vocab_size"], (n, 4, 257))
+    return [(torch.from_numpy(b[:, :-1]).cuda(), torch.from_numpy(b[:, 1:])
+             .cuda()) for b in ids]
+
+
+def test_graphed_fit_step_equals_the_eager_step_bit_for_bit():
+    """Three ``train_batch`` steps with the LR halving every step: the
+    graphed path captures once, replays twice, and its losses and
+    weights equal the eager path's bit for bit; the flash kernels run
+    each step on both paths."""
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+
+    out = {}
+    for accelerate in (True, False):
+        model, net, opt = _fit_model(accelerate)
+        fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
+        losses = []
+        with compile_budget(None, names=("hapi/train_step",)) as cb:
+            for x, y in _fit_batches(3):
+                losses.append(model.train_batch([x], [y])[0])
+                opt._lr.step()
+        out[accelerate] = (losses, [p.detach().clone()
+                                    for p in net.parameters()],
+                           cb.compiles(), dict(fa.FLASH_ROUTE_STATS))
+    (gl, gw, gc, gs), (el, ew, ec, es) = out[True], out[False]
+    assert gc == {"hapi/train_step": 1} and ec == {}
+    assert gl == el
+    assert all(torch.equal(a, b) for a, b in zip(gw, ew))
+    n = _FIT_CFG["num_layers"] * 3
+    assert gs == es == {"fwd": n, "dkv": n, "dq": n, "ref": 0}
+
+
+def _drop_net(dropout):
+    """Embedding, one transformer encoder layer and a head over 64 ids:
+    paddle-API layers, on the default device."""
+    from paddle_tpu_torch import nn
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(64, 64)
+            self.enc = nn.TransformerEncoderLayer(64, 4, 128,
+                                                  dropout=dropout)
+            self.head = nn.Linear(64, 64)
+
+        def forward(self, x):
+            return self.head(self.enc(self.emb(x)))
+
+    return Net()
+
+
+def _fit_random(case, accelerate, lr, seq):
+    """Three train batches of one batch from ``pt.seed(11)``, every run
+    from the same weights: (losses, weights, captures, flash counts)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import Model, nn, optimizer
+    from paddle_tpu_torch.nn import state_from_numpy
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+
+    pt.set_device("cuda")
+    net = _drop_net(0.0 if case == "dpsgd" else 0.1)
+    rng = np.random.RandomState(2)
+    net.set_state_dict(state_from_numpy(
+        {k: rng.randn(*v.shape).astype(np.float32) * 0.1
+         for k, v in net.state_dict().items()}, "cuda"))
+    opt = (optimizer.Dpsgd(lr, clip=1.0, batch_size=4.0, sigma=0.5,
+                           parameters=net.parameters())
+           if case == "dpsgd" else
+           optimizer.AdamW(lr, parameters=net.parameters(),
+                           weight_decay=0.1))
+    model = Model(net)
+    model.prepare(opt, nn.CrossEntropyLoss(), accelerate=accelerate)
+    ids = rng.randint(0, 64, (2, seq + 1))
+    x = torch.from_numpy(ids[:, :-1]).cuda()
+    y = torch.from_numpy(ids[:, 1:]).cuda()
+    fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
+    pt.seed(11)
+    with compile_budget(None, names=("hapi/train_step",)) as cb:
+        losses = [model.train_batch([x], [y])[0] for _ in range(3)]
+    weights = {k: v._value.detach().clone()
+               for k, v in net.state_dict().items()}
+    return losses, weights, cb.compiles(), dict(fa.FLASH_ROUTE_STATS)
+
+
+@pytest.mark.parametrize("case,seq", [("flash", 256), ("plain", 32),
+                                      ("dpsgd", 32)])
+def test_graphed_fit_draws_anew_each_replay_as_the_eager_step(case, seq):
+    """Dropout on the flash route (its seed an int32 tensor the kernels
+    read on the card) and on the plain route, and ``Dpsgd``'s noise,
+    inside the graphed train step: the port's generator is registered
+    with the graph, so each replay draws what the eager step draws from
+    the same state — losses and weights bit-equal over 3 steps with one
+    capture — and, with dropout, each replay draws a new mask (at LR 0
+    the same batch gives three losses)."""
+    (gl, gw, gc, gs), (el, ew, ec, es) = (
+        _fit_random(case, acc, 1e-3, seq) for acc in (True, False))
+    assert gc == {"hapi/train_step": 1} and ec == {}
+    assert gl == el, (gl, el)
+    for k in gw:
+        assert torch.equal(gw[k], ew[k]), k
+    n = 3 if case == "flash" else 0
+    assert gs == es == {"fwd": n, "dkv": n, "dq": n, "ref": 0}
+    if case != "dpsgd":
+        frozen = _fit_random(case, True, 0.0, seq)[0]
+        assert len(set(frozen)) == 3, frozen
+
+
+def test_cuda_names_the_current_cards_generator():
+    from paddle_tpu_torch.framework.random import generator
+
+    assert generator("cuda") is generator(
+        torch.device("cuda", torch.cuda.current_device()))
+
+
+def test_prefetched_graphed_step_does_not_sync():
+    """Batches staged by ``prefetch_to_device`` (pinned memory, a side
+    stream, an event) land on the card, and a steady graphed step — the
+    staging of the next batch and the replay — makes no host sync; only
+    the loss read after it does."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.tensor import Tensor
+
+    model, net, opt = _fit_model(True)
+    cpu = [(Tensor(x.cpu()), Tensor(y.cpu())) for x, y in _fit_batches(4)]
+    it = io.prefetch_to_device(iter(cpu))
+    x, y = next(it)
+    assert x.place.type == "cuda"
+    model.train_batch([x], [y])                       # the capture
+    for _ in range(3):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x, y = next(it)
+            loss, _ = model._run_train_step(x._value, y._value)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert np.isfinite(float(loss))

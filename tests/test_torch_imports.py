@@ -126,7 +126,21 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.nn.norm_layers",
                 "paddle_tpu_torch.nn.rnn",
                 "paddle_tpu_torch.nn.transformer",
-                "paddle_tpu_torch.nn.decode"):
+                "paddle_tpu_torch.nn.decode",
+                "paddle_tpu_torch.regularizer",
+                "paddle_tpu_torch.optimizer.lr",
+                "paddle_tpu_torch.nn.clip_grad",
+                "paddle_tpu_torch.nn.loss_layers",
+                "paddle_tpu_torch.io.dataset",
+                "paddle_tpu_torch.io.sampler",
+                "paddle_tpu_torch.io.dataloader",
+                "paddle_tpu_torch.metric",
+                "paddle_tpu_torch.metric.metrics",
+                "paddle_tpu_torch.hapi",
+                "paddle_tpu_torch.hapi.callbacks",
+                "paddle_tpu_torch.hapi.summary",
+                "paddle_tpu_torch.hapi.model",
+                "paddle_tpu_torch.hapi.checkpoint"):
         assert mod in _modules()
 
 

@@ -322,20 +322,24 @@ def test_compile_counts_equal_paddle_tpu_on_one_schedule(knobs):
 # =============================================================================
 # several engines in one process: the capture gate, the launch counters
 # =============================================================================
-def test_capture_gate_and_launch_counters_under_many_threads():
+def test_capture_gate_and_launch_counters_under_many_threads(monkeypatch):
     """More threads than cores, a short switch interval: each thread
     loops over shared sections (an engine step) and, every few rounds,
     an exclusive section nested in one (a capture inside a step), which
-    counts its launches through the thread's capture sink; the other
-    threads count theirs directly all the while.  No exclusive section
-    ever sees another thread in a shared or exclusive section, nothing
-    deadlocks, and the counter ends at the direct launches plus every
-    capture's launches once per replay — none lost, none doubled."""
+    switches to its capture stream and counts its launches through that
+    stream's sink; the other threads count theirs directly, on their own
+    streams, all the while.  No exclusive section ever sees another
+    thread in a shared or exclusive section, nothing deadlocks, and the
+    counter ends at the direct launches plus every capture's launches
+    once per replay — none lost, none doubled.  Each thread's current
+    stream is a thread-local number here (torch's is thread-local too)."""
     import sys
     import threading
 
     from paddle_tpu_torch.profiler import jit_cost
 
+    current = threading.local()
+    monkeypatch.setattr(jit_cost, "_stream_key", lambda: current.stream)
     gate = jit_cost.CaptureGate()
     counts = {"cuda": 0}
     state = {"shared": 0, "writer": 0, "bad": 0, "direct": 0,
@@ -344,6 +348,7 @@ def test_capture_gate_and_launch_counters_under_many_threads():
     n_threads, rounds, per_capture, replays = 12, 150, 3, 2
 
     def work(tid):
+        current.stream = tid
         for r in range(rounds):
             with gate.shared():
                 with lock:
@@ -360,12 +365,15 @@ def test_capture_gate_and_launch_counters_under_many_threads():
                                 state["bad"] += 1
                             state["writer"] += 1
                         sink = []
-                        jit_cost._CAPTURING.launches = sink
+                        side = n_threads + tid       # the capture stream
+                        jit_cost._STREAM_SINKS[side] = sink
+                        current.stream = side
                         try:
                             for _ in range(per_capture):
                                 jit_cost.count_launch(counts, "cuda")
                         finally:
-                            jit_cost._CAPTURING.launches = None
+                            current.stream = tid
+                            del jit_cost._STREAM_SINKS[side]
                         with lock:
                             state["writer"] -= 1
                     with lock:

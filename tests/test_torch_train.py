@@ -145,11 +145,30 @@ def test_cross_entropy_matches_jax(reduction, ignore_index, smoothing,
 
 
 def test_cross_entropy_rejects_what_is_not_ported():
-    x, y = torch.zeros(2, 4), torch.zeros(2, dtype=torch.long)
-    for kw in ({"weight": torch.ones(4)}, {"soft_label": True},
-               {"use_softmax": False}):
-        with pytest.raises(ValueError, match="item 9"):
-            F.cross_entropy(x, y, **kw)
+    """``weight``, ``soft_label`` and ``use_softmax=False`` are ported
+    now: each matches the JAX package (1e-6, one softmax over 4
+    classes); an unknown reduction is still refused."""
+    rng = np.random.RandomState(8)
+    x = rng.rand(5, 4).astype(np.float32) + 0.1
+    y = rng.randint(0, 4, (5,)).astype(np.int64)
+    soft = rng.dirichlet(np.ones(4), 5).astype(np.float32)
+    w = np.asarray([0.5, 1.0, 2.0, 1.5], np.float32)
+    for label, kw in ((y, {"weight": w}), (soft, {"soft_label": True}),
+                      (y, {"use_softmax": False}),
+                      (soft, {"soft_label": True, "weight": w})):
+        jkw = {k: paddle.to_tensor(v) if k == "weight" else v
+               for k, v in kw.items()}
+        tkw = {k: torch.from_numpy(v) if k == "weight" else v
+               for k, v in kw.items()}
+        want = JF.cross_entropy(paddle.to_tensor(x), paddle.to_tensor(label),
+                                **jkw)
+        got = F.cross_entropy(torch.from_numpy(x), torch.from_numpy(label),
+                              **tkw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="reduction"):
+        F.cross_entropy(torch.zeros(2, 4), torch.zeros(2, dtype=torch.long),
+                        reduction="batchmean")
 
 
 _OPTIMIZERS = {
@@ -235,14 +254,41 @@ def test_optimizer_state_dict_keys_and_round_trip(name):
 
 
 def test_optimizer_rejects_what_is_not_ported():
+    """``lazy_mode`` and ``apply_decay_param_fun`` still raise, naming
+    ROADMAP item 8; ``grad_clip`` and an LR scheduler are ported now and
+    match the JAX package's eager step (1e-7, as SGD above)."""
+    from paddle_tpu.nn import ClipGradByNorm as JClip
+    from paddle_tpu.optimizer.lr import StepDecay as JStep
+    from paddle_tpu_torch.nn import ClipGradByNorm as TClip
+    from paddle_tpu_torch.optimizer.lr import StepDecay as TStep
+
     ps = [torch.nn.Parameter(torch.zeros(2))]
-    for make in (lambda: topt.SGD(0.1, parameters=ps, grad_clip=object()),
-                 lambda: topt.AdamW(parameters=ps,
+    for make in (lambda: topt.AdamW(parameters=ps,
                                     apply_decay_param_fun=lambda n: True),
-                 lambda: topt.Adam(parameters=ps, lazy_mode=True),
-                 lambda: topt.SGD(learning_rate=lambda: 0.1, parameters=ps)):
-        with pytest.raises(ValueError, match="item 9"):
+                 lambda: topt.Adam(parameters=ps, lazy_mode=True)):
+        with pytest.raises(ValueError, match="item 8"):
             make()
+    for make_j, make_t in (
+            (lambda p: jopt.SGD(0.1, parameters=p, grad_clip=JClip(0.5)),
+             lambda p: topt.SGD(0.1, parameters=p, grad_clip=TClip(0.5))),
+            (lambda p: jopt.SGD(JStep(0.1, 1, 0.5), parameters=p),
+             lambda p: topt.SGD(TStep(0.1, 1, 0.5), parameters=p))):
+        rng = np.random.RandomState(13)
+        init = rng.randn(3, 2).astype(np.float32)
+        jp = [Parameter(paddle.to_tensor(init)._value)]
+        tp = [torch.nn.Parameter(torch.tensor(init))]
+        jo, to = make_j(jp), make_t(tp)
+        for _ in range(3):
+            g = rng.randn(3, 2).astype(np.float32)
+            jp[0]._grad = paddle.to_tensor(g)
+            tp[0].grad = torch.tensor(g)
+            jo.step()
+            to.step()
+            if not isinstance(jo._lr, float):
+                jo._lr.step()
+                to._lr.step()
+        np.testing.assert_allclose(tp[0].detach().numpy(), jp[0].numpy(),
+                                   rtol=1e-7, atol=1e-7)
 
 
 # --------------------------------------------------------------------------
