@@ -63,11 +63,13 @@ Phases, one result line each (or more):
    the f32 bodies in 3xTF32, their launches logged; f32 also in relative
    L2 against FLASH_REL_L2, lse within 1e-4) at the training
    shape (B 8, H 12, S 1024, D 64, causal), a BERT-base shape (S 512,
-   non-causal, padded kv mask, dropout 0.1) and unaligned S 1000 with
+   non-causal, padded kv mask, dropout 0.1), ``bench.py``'s BERT-base
+   shape (B 32, S 128, the same mask and dropout) and unaligned S 1000 with
    D 80, 100 and 256; the dropout bits of all three kernels in f32 and
    in bf16 read back and compared with ``_keep_mask`` bit for bit; each
-   kernel timed at the training shape beside its bound, its plain
-   version and PyTorch's ``scaled_dot_product_attention`` (forward; its
+   kernel timed at the training shape and at B 32 x S 128 beside its
+   bound, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` on the same work (forward; its
    autograd backward for dK/dV and for dQ, beside the pair's time).
 9. train: GPT-2-small widths, all 12 layers, f32 with TF32 off, seeded
    weights, ``AdamW(6e-4, weight_decay=0.1)`` on one seeded B 8 x S 1024
@@ -285,6 +287,38 @@ Phases, one result line each (or more):
    profiler (device busy share, kernels by family); then at 2 layers a
    checkpointed fit (every 2 steps) killed at step 4 and resumed by a
    fresh Model, bit-equal to the uninterrupted run.
+31. resnet (after fit): ResNet-50 at ``bench.py``'s settings — NHWC,
+   every batch norm + ReLU one autograd op, bf16 autocast,
+   ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``, B 128 x 224^2 x 3 from
+   ``RandomState(0)`` — through the twin of ``bench.py``'s
+   ``build_step`` (``functional_call``, ``fused_step``, the state
+   donated to one CUDA graph) graphed and eager, and through
+   ``Model.fit`` (``DataLoader`` over 4 batches of the same arrays) with
+   ``accelerate`` True and False: losses finite and the graphed runs'
+   within 1e-2 of the eager ones, every running mean moved, one capture
+   of the fit step, the AMP cast of each op name as the JAX lists say
+   (conv2d and linear bf16, the norms and pools none); step p50 / p95,
+   images/s, peak memory of each run, and one graphed step under the
+   profiler (busy share, kernels by family: conv, matmul, reductions,
+   elementwise, pool, copies, every copy kernel named) and one eager
+   step's device time by op (the batch norms, the convolutions, the
+   casts, the pools).  Then VGG-16
+   with batch norm and MobileNet V2 (NCHW, B 32, 3 graphed steps each),
+   and a ResNet-18 (NHWC, f32, B 16) whose graphed step equals its eager
+   one bit for bit under ``cudnn.deterministic`` (with it off, two eager
+   runs' spread is reported).
+32. bert (after resnet): ``BertForSequenceClassification()`` at
+   bert-base width, ``AdamW(5e-5)``, bf16 autocast, B 32 x S 128 ids
+   from ``RandomState(0)`` and a mask padding the last quarter of every
+   second row, through the bench-form step and ``Model.fit`` (ids and
+   mask packed ``[B, 2, S]``), each graphed and eager: #5, #6 and #7
+   launched 12 times a step each in every run, all on the bf16
+   tensor-core bodies, the plain route never; losses finite, graphed
+   within 1e-3 of eager (bit-equality reported); step p50 / p95,
+   tokens/s, peak memory, one graphed step under the profiler (busy
+   share, kernels by family); then a 2-layer f32 classifier's loss and
+   gradients on the flash route (3xTF32 bodies) against the plain
+   attention route on the card.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -297,6 +331,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -341,6 +376,14 @@ GPT2_SMALL = dict(vocab_size=50304, hidden_size=768, num_layers=12,
                   num_heads=12, ffn_size=3072, max_seq_len=1024)
 PROMPT_LENS = (16, 45, 77, 128, 190, 257, 333, 400)
 NEW_TOKENS = 32
+
+
+def free_cuda():
+    """Collect the garbage, then hand the allocator's free blocks back to
+    the card: a hapi ``Model`` and its train step's graph refer to each
+    other, so only the collector frees the graph's memory pool."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def log(phase: str, **fields):
@@ -1343,11 +1386,13 @@ BF16_FLOPS_PER_S = 989e12
 # (D 100: bf16 rows not a multiple of 16 bytes, loaded element by element)
 FLASH_CASES = [("train", 8, 12, 1024, 64, True, False, 0.0),
                ("bert", 8, 12, 512, 64, False, True, 0.1),
+               ("bert_base_s128", 32, 12, 128, 64, False, True, 0.1),
                ("unaligned_d80", 2, 4, 1000, 80, True, True, 0.1),
                ("unaligned_d100", 2, 4, 1000, 100, True, True, 0.1),
                ("unaligned_d256", 2, 4, 1000, 256, True, True, 0.1)]
 FLASH_SEED = 20240611
-FLASH_TIMED = "train"
+# timed: the GPT training shape, and BERT-base's at bench.py's B 32 x S 128
+FLASH_TIMED = ("train", "bert_base_s128")
 # the bf16 bodies (namespace tc of flash_attention.cu)
 _TC = ("mma.sync m16n8k16 bf16 with f32 accumulators; cp.async ring of 3 "
        "stages; ldmatrix (.trans) from XOR-swizzled tiles; ")
@@ -1390,7 +1435,8 @@ def flash_inputs(rng, B, H, S, D, masked, dtype):
     return q, k, v, g, mask.to(DEVICE)
 
 
-def flash_bound_ms(kernel, B, H, S, D, causal, item, peak=None):
+def flash_bound_ms(kernel, B, H, S, D, causal, item, peak=None,
+                   kv_frac=1.0):
     """Least time on an H100 for one kernel call: the larger of its bytes
     (each input read once, each output written once) over 3.35 TB/s and
     its operations over the peak of the input type (``peak`` if given):
@@ -1402,11 +1448,13 @@ def flash_bound_ms(kernel, B, H, S, D, causal, item, peak=None):
     2.5× the forward — its five products, of which dK/dV owns three
     (S = QKᵀ, dV, dK: 1.5× the forward) and dQ two (dP, dQ: 1.0×); the
     products each backward kernel recomputes for itself are not counted
-    twice.  Causal halves every count."""
+    twice.  Causal halves every count; a kv mask scales the products by
+    ``kv_frac``, the share of keys it lets through (a masked key needs
+    no product)."""
     tensor = B * H * S * D * item
     rows = B * H * S * 4                         # lse or delta, f32
     mask = B * S * 4
-    fwd_ops = 4.0 * B * H * S * S * D * (0.5 if causal else 1.0)
+    fwd_ops = 4.0 * B * H * S * S * D * (0.5 if causal else 1.0) * kv_frac
     nbytes, ops = {"fwd": (4 * tensor + rows + mask, fwd_ops),
                    "dkv": (6 * tensor + 2 * rows + mask, 1.5 * fwd_ops),
                    "dq": (5 * tensor + 2 * rows + mask, 1.0 * fwd_ops)}[
@@ -1478,19 +1526,24 @@ def flash_kernel_phase(rng, flush) -> dict:
                            _flash_check(tag, "dv", dv, rdv, tol, rel)),
                 "dq": _flash_check(tag, "dq", dq, rdq, tol, rel)}
             del ref_o, rdk, rdv, rdq
-            if name != FLASH_TIMED:
+            if name not in FLASH_TIMED:
                 continue
             item = q.element_size()
             sdpa = torch.nn.functional.scaled_dot_product_attention
+            # the library call on the same work: the kv mask as a boolean
+            # [B, 1, 1, S] mask and the same dropout rate (its own bits)
+            lib_mask = (mask > 0)[:, None, None, :] if masked else None
             ql, kl, vl = (t.detach().clone().requires_grad_(True)
                           for t in (q, k, v))
-            lib_out = sdpa(ql, kl, vl, is_causal=causal)
-            lib_err = float((lib_out.detach().float() - o.float())
-                            .abs().max())
+            lib_out = sdpa(ql, kl, vl, attn_mask=lib_mask, dropout_p=p,
+                           is_causal=causal)
+            lib_err = (float((lib_out.detach().float() - o.float())
+                             .abs().max()) if p == 0.0 else None)
             calls = {
                 "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, *common),
                         lambda: fa.flash_fwd_ref(q, k, v, *common),
-                        lambda: sdpa(q, k, v, is_causal=causal)),
+                        lambda: sdpa(q, k, v, attn_mask=lib_mask,
+                                     dropout_p=p, is_causal=causal)),
                 "dkv": (lambda: fa.flash_dkv_cuda(q, k, v, g, *bwd),
                         lambda: fa.flash_dkv_ref(q, k, v, g, *bwd),
                         lambda: torch.autograd.grad(
@@ -1505,12 +1558,13 @@ def flash_kernel_phase(rng, flush) -> dict:
                      "plain_ms": time_ms(plain, flush),
                      "library_ms": time_ms(lib, flush)}
                 t["bound_ms"], t["bound_by"] = flash_bound_ms(
-                    kname, B, H, S, D, causal, item)
+                    kname, B, H, S, D, causal, item,
+                    kv_frac=float(mask.mean()))
                 if dtype == torch.float32:
                     # the same work at the CUDA cores' f32 peak
                     t["bound_cuda_core_ms"] = flash_bound_ms(
-                        kname, B, H, S, D, causal, item,
-                        F32_FLOPS_PER_S)[0]
+                        kname, B, H, S, D, causal, item, F32_FLOPS_PER_S,
+                        float(mask.mean()))[0]
                 if kname == "fwd":
                     t["library_max_abs_err"] = lib_err
                 else:
@@ -1524,7 +1578,7 @@ def flash_kernel_phase(rng, flush) -> dict:
                 log("kernel_flash_time", case=tag, kernel=kname, **t)
                 timings[f"{kname}/{tag}"] = t
             del ql, kl, vl, lib_out
-            torch.cuda.empty_cache()
+            free_cuda()
 
     # the bf16 calls above ran on the tensor cores, and so did the f32
     # ones (one launch of each body per case's check, the rest timing
@@ -2409,7 +2463,7 @@ def e2e_split_phase(model, prompts, export, ragged_step_ms,
         log("e2e_split", drive=name, **res)
         result[name] = res
         del eng, runs
-        torch.cuda.empty_cache()
+        free_cuda()
     return result
 
 
@@ -2480,7 +2534,7 @@ def e2e_spec_phase(model, prompts, device="cuda") -> dict:
         log("e2e_spec", drive=name, **res)
         result[name] = res
         del eng
-        torch.cuda.empty_cache()
+        free_cuda()
     return result
 
 
@@ -2553,7 +2607,7 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
             want, _, single_wall, _ = mesh_drive(single, prompts)
             single_step = single.stats()["metrics"]["step_latency_ms"]
             del single
-            torch.cuda.empty_cache()
+            free_cuda()
             runs = drive_modes(
                 f"e2e_mesh/{name}", lambda: create_serving_engine(
                     model, mesh_axes=axes, **kw), prompts,
@@ -2622,7 +2676,7 @@ def e2e_mesh_phase(model, rng, export, device="cuda") -> dict:
             log("e2e_mesh", drive=name, **res)
             result[name] = res
             del eng, runs
-            torch.cuda.empty_cache()
+            free_cuda()
     finally:
         force_device_count(prev)
     return result
@@ -2772,7 +2826,7 @@ def sync_free_phase(model, prompts, export, device="cuda") -> dict:
         except Exception as exc:  # noqa: BLE001 — every arm reports
             failed[name] = repr(exc)
         del eng
-        torch.cuda.empty_cache()
+        free_cuda()
     log("sync_free", arms=result, failed=failed)
     if failed:
         raise AssertionError(f"sync_free failed on {sorted(failed)}: "
@@ -3022,7 +3076,7 @@ def e2e_prefix_phase(model, export, device="cuda") -> dict:
                                     else None) for k, v in ttft.items()},
                 "ttft_ms": ttft}
             del eng
-            torch.cuda.empty_cache()
+            free_cuda()
         on, off = runs[True, "graphed"], runs[False, "graphed"]
         near = check_streams(f"e2e_prefix/{name}/on_vs_off", model, prompts,
                              on["streams"], quant=export if int8 else None,
@@ -3199,7 +3253,7 @@ def e2e_tiers_phase(model, export, device="cuda") -> dict:
                 "promote_ms": _pcts(timers["promote_ms"]),
                 "step_ms": st["metrics"]["step_latency_ms"]}
             del eng
-            torch.cuda.empty_cache()
+            free_cuda()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, _tiering, int8 in TIER_ARMS:
@@ -3289,7 +3343,7 @@ def snapshot_run(make_donor, make_survivor, prompts):
     else:
         raise AssertionError("the donor never reached the snapshot point")
     del donor
-    torch.cuda.empty_cache()
+    free_cuda()
     surv = make_survivor()
     ptrs = pool_ptrs(surv)
     restore_ms = []
@@ -3363,10 +3417,10 @@ def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
             "attention_cuda_decode": 0, "attention_cuda_decode_int8": 0,
             "attention_ref": 0, "qmm_cuda": 6 * att if int8 else 0,
             "qmm_ref": 0, **NO_STATS})
+        q = export if name == "int8_static" else None
         near = check_streams(f"e2e_snapshot/{name}", model, prompts,
-                             streams, want=want, int8=int8)
+                             streams, quant=q, want=want, int8=int8)
         if name != "int8_dynamic":
-            q = export if int8 else None
             near += check_streams(
                 f"e2e_snapshot/{name}/generate", model, prompts, streams,
                 quant=q, want=reference_streams(model, all_prompts, q)[:4])
@@ -3375,7 +3429,7 @@ def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
         log("e2e_snapshot", arm=name, **res)
         result[name] = res
         del surv
-        torch.cuda.empty_cache()
+        free_cuda()
     kw = dict(ENGINE, device=device, num_pages=MESH_PAGES)
     want, _, _, _ = drive(create_serving_engine(model, **kw), prompts)
 
@@ -3411,7 +3465,7 @@ def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
         log("e2e_snapshot", arm=name, **res)
         result[name] = res
         del surv
-        torch.cuda.empty_cache()
+        free_cuda()
     return result
 
 
@@ -3613,10 +3667,11 @@ def frontend_counts(phase, model, counts, engines, int8):
     return att
 
 
-def check_frontend_streams(phase, model, prompts, handles, wants, int8,
+def check_frontend_streams(phase, model, prompts, handles, wants, quant,
                            budget=NEW_TOKENS):
     """Every handle completed, and its first ``budget`` tokens equal each
-    reference in ``wants`` except at a reported near-tie."""
+    reference in ``wants`` except at a reported near-tie of the dense
+    reference (int8 per ``quant``, as the fleet served)."""
     bad = {h.request_id: h.status for h in handles
            if h.status != "completed"}
     if bad:
@@ -3625,7 +3680,7 @@ def check_frontend_streams(phase, model, prompts, handles, wants, int8,
     near = []
     for name, want in wants.items():
         near += check_streams(f"{phase}/{name}", model, prompts, streams,
-                              want=want, int8=int8)
+                              quant=quant, want=want)
     return near
 
 
@@ -3725,7 +3780,7 @@ def trace_attribution(phase, fe, handles, timers, doc) -> dict:
     return out
 
 
-def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
+def frontend_arm(phase, model, prompts, wants, device, *, quant=None,
                  kill=None, trace=False, config=None, **fe_kw):
     """Serve ``prompts`` through one ServingFrontend (built from
     ``config`` through ``create_serving_frontend`` when given), submitted
@@ -3782,9 +3837,9 @@ def frontend_arm(phase, model, prompts, wants, device, *, int8=False,
             profiler.clear_spans()
         res["launches"] = counts
         frontend_counts(phase, model, counts,
-                        [r.engine for r in fe._replicas], int8)
+                        [r.engine for r in fe._replicas], quant is not None)
         res["near_ties"] = check_frontend_streams(phase, model, prompts,
-                                                  handles, wants, int8)
+                                                  handles, wants, quant)
         for rep in fe._replicas:
             if rep.state != "dead":
                 leak_invariant(f"{phase}/{rep.id}", rep.engine)
@@ -3849,7 +3904,7 @@ def restart_arm(model, prompts, wants, device) -> dict:
                             False)
             res["near_ties"] = check_frontend_streams(
                 "e2e_frontend/restart", model, prompts, handles, wants,
-                False)
+                None)
             if len(slots) != len(prompts) or any(
                     (h.resumed_from or 0) < FRONTEND_SNAPSHOT_INTERVAL
                     for h in handles):
@@ -4084,7 +4139,7 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
             config=config)),
         ("disaggregated_int8", lambda: frontend_arm(
             "e2e_frontend/disaggregated_int8", model, prompts, want8,
-            device, int8=True, replicas=1, prefill_replicas=1,
+            device, quant=export, replicas=1, prefill_replicas=1,
             snapshot_interval=FRONTEND_SNAPSHOT_INTERVAL,
             engine_kwargs=int8_engine)),
         ("restart", lambda: restart_arm(
@@ -4124,7 +4179,7 @@ def e2e_frontend_phase(model, prompts, export, e2e_streams, int8_streams,
         except Exception as exc:  # noqa: BLE001 — every arm reports
             failed[name] = repr(exc)
             log("e2e_frontend", arm=name, failed=repr(exc))
-        torch.cuda.empty_cache()
+        free_cuda()
     log("e2e_frontend", phase_s=time.perf_counter() - t_phase,
         failed=failed)
     if failed:
@@ -4286,7 +4341,7 @@ def e2e_wide_phase(rng, device="cuda") -> dict:
         log("e2e_wide", drive=name, **res)
         result[name] = res
         del eng
-        torch.cuda.empty_cache()
+        free_cuda()
     return result
 
 
@@ -4536,7 +4591,7 @@ def e2e_beam_phase(model, rng, device="cuda") -> dict:
                              "forwards and qmm_ref 0")
     err = check_beams("int8", model, prompts, ids, scores,
                       dequantized_model(model, export))
-    torch.cuda.empty_cache()
+    free_cuda()
     # the same decode, traced, with the kernel and with its plain version
     traces = {}
     for name in ("kernel", "plain"):
@@ -4685,7 +4740,7 @@ def seq_layers_phase(device="cuda") -> dict:
         src=SEQ_SRC, tgt=SEQ_TGT, src_lens=list(SEQ_SRC_LENS))
     log("seq_layers", part="transformer", **result["transformer"])
     del model, out, want, memory, full, cache, steps
-    torch.cuda.empty_cache()
+    free_cuda()
 
     # one backward through an encoder layer, flash route against plain;
     # GELU, not ReLU: an activation within an ulp of 0 may take the other
@@ -4744,7 +4799,7 @@ def seq_layers_phase(device="cuda") -> dict:
         k_bias_max_abs=abs_err["self_attn.k_proj.bias"])
     log("seq_layers", part="encoder_backward", **result["encoder_backward"])
     del layer, grads
-    torch.cuda.empty_cache()
+    free_cuda()
 
     # dynamic_decode of a GRU decoder, sync-free after its warm-up
     pt.seed(12)
@@ -4844,7 +4899,7 @@ def scale_shift_kernel_phase(rng, flush) -> dict:
                 timings[tag] = t
             del x, out, ref
         del xf
-        torch.cuda.empty_cache()
+        free_cuda()
     before = ss.SCALE_SHIFT_ROUTE_STATS["cuda"]
     empty = ss.scale_shift_cuda(torch.empty((0, 8), device=DEVICE), scale,
                                 shift)
@@ -5198,7 +5253,7 @@ def fit_phase(rng) -> dict:
     tokens = FIT_BATCH * TRAIN_SEQ
     runs, nets, models = {}, {}, {}
     for mode, accelerate in (("graphed", True), ("eager", False)):
-        torch.cuda.empty_cache()
+        free_cuda()
         torch.cuda.reset_peak_memory_stats()
         before = cost_registry.snapshot().get("hapi/train_step", {})
         reset_counts()
@@ -5239,7 +5294,7 @@ def fit_phase(rng) -> dict:
     prof = profile_step(None, None, x, y,
                         step=lambda: model.train_batch([x], [y])[0])
     del nets, models, model, net
-    torch.cuda.empty_cache()
+    free_cuda()
 
     with tempfile.TemporaryDirectory() as d:
         _, plain_net, plain_losses, _, _ = fit_run(ids, FIT_RESUME_LAYERS,
@@ -5259,7 +5314,7 @@ def fit_phase(rng) -> dict:
             checkpoint_interval=FIT_CKPT_INTERVAL, resume=True)
         resume_diff = _first_difference(plain_net, resumed_net)
     del plain_net, resumed_net
-    torch.cuda.empty_cache()
+    free_cuda()
     dropout = fit_dropout_check(ids)
     res = {
         "layers": 12, "seqs": FIT_SEQS, "batch": FIT_BATCH,
@@ -5305,6 +5360,700 @@ def fit_phase(rng) -> dict:
     if not (killed and resume_diff is None
             and resumed_losses == plain_losses[FIT_CKPT_INTERVAL:]):
         raise AssertionError(f"fit: the resumed run differs: {res['resume']}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# the JAX package's benchmark models: ResNet-50 and BERT-base
+# --------------------------------------------------------------------------
+def build_step(model, loss_fn, opt, amp_dtype="bfloat16", graphed=True):
+    """The port's twin of ``bench.py:43-79`` ``build_step``: one train
+    step ``step(state, *inputs, labels) -> loss`` of a port ``nn.Layer``
+    and the state it updates, ``{"params", "buffers", "opt", "step",
+    "lr"}`` (the model's own tensors, fresh accumulators, and the step
+    count and the learning rate as 0-d float64 device tensors).
+
+    The step runs ``jit.functional_call`` in training mode under
+    ``amp.auto_cast(dtype=amp_dtype)`` (None: no cast), the loss outside
+    it cast to f32, ``torch.autograd.grad``, and the optimizer's
+    ``fused_step`` with the count advanced on the device; it writes the
+    new parameters and accumulators back in place, and the batch norms
+    update their running statistics in place.  With ``graphed`` the step
+    is one ``profiled_graph("bench/train_step")`` with the state donated
+    (``bench.py`` jits it with the state donated); else it runs eagerly.
+    The learning rate is read once, as the JAX step bakes it.  It is
+    this script's harness for measuring that form, not an API of the
+    port: ``Model.fit`` is the port's training entry point."""
+    from paddle_tpu_torch.jit.functional import functional_call, get_state
+    from paddle_tpu_torch.profiler.jit_cost import profiled_graph
+    from paddle_tpu_torch.tensor import Tensor
+
+    params, buffers = get_state(model)
+    names = [n for n, p in params.items() if p.requires_grad]
+    dev = params[names[0]].device
+    state = {"params": params, "buffers": buffers,
+             "opt": opt.init_opt_state({n: params[n] for n in names}),
+             "step": torch.zeros((), dtype=torch.float64, device=dev),
+             "lr": torch.full((), opt.get_lr(), dtype=torch.float64,
+                              device=dev)}
+
+    def step_fn(state, *inputs):
+        *xs, y = inputs
+        with amp_context(amp_dtype):
+            out, _ = functional_call(model, state["params"],
+                                     state["buffers"], xs, training=True)
+        loss = loss_fn(Tensor(out), Tensor(y))._value.float()
+        grads = torch.autograd.grad(loss, [state["params"][n]
+                                           for n in names],
+                                    allow_unused=True)
+        count = state["step"]
+        count.add_(1)
+        live = {n: state["params"][n] for n in names}
+        new_params, new_opt = opt.fused_step(live, dict(zip(names, grads)),
+                                             state["opt"], count,
+                                             lr=state["lr"])
+        with torch.no_grad():
+            for n in names:
+                live[n].copy_(new_params[n])
+                for kind, accs in state["opt"].items():
+                    accs[n].copy_(new_opt[kind][n])
+        return loss.detach()
+
+    if graphed:
+        return profiled_graph("bench/train_step", step_fn,
+                              donate_argnums=(0,)), state
+    return step_fn, state
+
+
+@contextlib.contextmanager
+def amp_op_names():
+    """``{(op name, dtype AMP casts its inputs to or "none"): calls}`` of
+    every op the dispatcher runs in the region (``ops.dispatch.apply``
+    casts through ``cast_inputs``; wrapped here, not in the port)."""
+    from paddle_tpu_torch.amp.auto_cast import should_cast
+    from paddle_tpu_torch.ops import dispatch
+
+    seen = {}
+    real = dispatch.cast_inputs
+
+    def counting(name, *tensors):
+        d = should_cast(name)
+        key = (name, "none" if d is None else str(d).split(".")[-1])
+        seen[key] = seen.get(key, 0) + 1
+        return real(name, *tensors)
+
+    dispatch.cast_inputs = counting
+    try:
+        yield seen
+    finally:
+        dispatch.cast_inputs = real
+
+
+# the ops of the conv nets and where the JAX package's AMP lists put them
+# (``paddle_tpu/amp/auto_cast.py:11-29``): conv2d and linear on the white
+# list (bf16), the norms and pools on neither (their input's dtype)
+AMP_EXPECTED = {"conv2d": "bfloat16", "linear": "bfloat16",
+                "batch_norm": "none", "max_pool2d": "none",
+                "adaptive_avg_pool2d": "none", "relu": "none"}
+
+
+def check_amp_ops(phase, seen):
+    cast = {}
+    for (name, dtype), n in seen.items():
+        cast.setdefault(name, set()).add(dtype)
+    bad = {k: sorted(cast.get(k, ())) for k, want in AMP_EXPECTED.items()
+           if k in cast and cast[k] != {want}}
+    if bad or "conv2d" not in cast or "batch_norm" not in cast:
+        raise AssertionError(f"{phase}: AMP casts {cast}, expected "
+                             f"{AMP_EXPECTED}")
+    return {f"{k}/{d}": n for (k, d), n in sorted(seen.items())}
+
+
+def conv_family(name: str) -> str:
+    """The family of a device kernel of a conv net's step, by name."""
+    low = name.lower()
+    if ("copy" in low or "nchwtonhwc" in low or "nhwctonchw" in low
+            or "transpose" in low):
+        return "copies"
+    if any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
+                              "implicit_gemm")):
+        return "conv"
+    if any(k in low for k in MATMUL_NAMES):
+        return "matmul"
+    if "pool" in low:
+        return "pool"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def bert_family(name: str) -> str:
+    """The family of a device kernel of a BERT step: the three flash
+    kernels, else as ``conv_family``."""
+    key = next((f"flash_{k}" for k in ("dkv", "dq", "fwd")
+                if any(f"{k}_{body}kernel<" in name
+                       for body in ("", "tc_", "f32tc_"))), None)
+    return key or conv_family(name)
+
+
+def profile_families(step, family) -> dict:
+    """One more step (``step()`` returns the loss, read back) under
+    ``torch.profiler``: device time and launches by ``family(name)``, the
+    costliest kernels, every copy kernel, and the device's busy share of
+    the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, top, copies, n_kernels = {}, [], [], 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        n_kernels += evt.count
+        fam = family(evt.key)
+        ms0, n0 = fams.get(fam, (0.0, 0))
+        fams[fam] = (ms0 + ms, n0 + evt.count)
+        top.append((ms, evt.count, fam, evt.key[:90]))
+        if fam == "copies":
+            copies.append({"launches": evt.count, "ms": ms,
+                           "name": evt.key[:120]})
+    busy = sum(ms for ms, _ in fams.values())
+    top.sort(reverse=True)
+    return {"loss": loss, "wall_ms": wall_ms, "device_ms": busy,
+            "device_busy_share": busy / wall_ms if busy else None,
+            "device_kernels": n_kernels,
+            "by_family": {k: {"ms": ms, "launches": n}
+                          for k, (ms, n) in sorted(fams.items())},
+            "copies": copies,
+            "top_kernels": [{"ms": ms, "launches": c, "family": f,
+                             "name": n} for ms, c, f, n in top[:10]]}
+
+
+# the ops of an eager conv-net step whose device time the profiler
+# attributes to them (each name's kernels and its children's): the batch
+# norm's autograd op (forward and backward), the convolutions, the dtype
+# casts, the pools
+CONV_NET_OPS = {
+    "batch_norm": ("_BatchNormTrain", "_BatchNormTrainBackward"),
+    "conv": ("aten::convolution", "ConvolutionBackward0"),
+    "casts": ("aten::_to_copy", "ToCopyBackward0"),
+    "pool": ("aten::max_pool2d", "MaxPool2DWithIndicesBackward0",
+             "aten::adaptive_avg_pool2d", "MeanBackward1",
+             "AdaptiveAvgPool2DBackward0"),
+}
+
+
+def profile_ops(step, groups) -> dict:
+    """One more eager step (``step()`` returns the loss, read back) under
+    ``torch.profiler``: the device time of the kernels each group of op
+    names launched (an op's own and its children's), the step's device
+    time and wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {k: 0.0 for k in groups}
+    for evt in prof.events():
+        for key, names in groups.items():
+            if evt.name in names:
+                by[key] += evt.device_time_total / 1e3
+    total = sum(evt.self_device_time_total for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": total, "device_ms_by_op": by,
+            "device_ms_rest": total - sum(by.values())}
+
+
+def _steady(ms) -> dict:
+    steady = ms[1:] if len(ms) > 1 else ms
+    return {"step_ms": ms, "step_ms_p50": float(np.percentile(steady, 50)),
+            "step_ms_p95": float(np.percentile(steady, 95))}
+
+
+def bench_run(make_model, make_opt, inputs, steps, graphed,
+              amp_dtype="bfloat16"):
+    """``steps`` bench-form steps of a fresh seeded model on one batch
+    (``inputs``: the model's inputs, then the labels), each ending in
+    its loss read.  Returns (model, step, state, result)."""
+    from paddle_tpu_torch import nn
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model()
+    step, state = build_step(model, nn.CrossEntropyLoss(), make_opt(model),
+                             amp_dtype, graphed)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, *inputs)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return model, step, state, {
+        "losses": losses, **_steady(ms),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def fit_bench_run(make_model, make_opt, wrap, arrays, batch, accelerate):
+    """``Model.fit`` for one epoch over ``DataLoader(TensorDataset(
+    arrays), batch, no shuffle)`` (staged by ``prefetch_to_device``) of a
+    fresh seeded model wrapped by ``wrap``; each step ends in its loss
+    read.  Returns (model, result)."""
+    from paddle_tpu_torch import Model, callbacks, io, nn
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    net = wrap(make_model())
+    model = Model(net)
+    model.prepare(make_opt(net), nn.CrossEntropyLoss(),
+                  accelerate=accelerate)
+    losses, ms = [], []
+
+    class Record(callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            ms.append((time.perf_counter() - self.t0) * 1e3)
+            losses.append(logs["loss"])
+
+    loader = io.DataLoader(io.TensorDataset(arrays), batch_size=batch,
+                           shuffle=False, drop_last=True)
+    with compile_budget(None, names=("hapi/train_step",)) as cb:
+        model.fit(loader, epochs=1, verbose=0, callbacks=[Record()])
+    torch.cuda.synchronize()
+    return model, {"losses": losses, **_steady(ms),
+                   "captures": cb.compiles().get("hapi/train_step", 0),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def autocast_wrapper(split_mask=False):
+    """``wrap(net)``: a port ``nn.Layer`` running ``net`` under
+    ``auto_cast(dtype="bfloat16")`` as ``bench.py``'s step does (hapi's
+    ``amp_configs`` is not ported: ROADMAP item 16); with
+    ``split_mask`` its input is ``[B, 2, S]``, token ids and the
+    validity mask, for BERT."""
+    from paddle_tpu_torch import amp, nn
+
+    class AutoCast(nn.Layer):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            with amp.auto_cast(dtype="bfloat16"):
+                if split_mask:
+                    return self.net(x[:, 0], None, x[:, 1])
+                return self.net(x)
+
+    return AutoCast
+
+
+def seeded(build, **kw):
+    """A maker of ``build(**kw)`` from ``seed(0)``: every call the same
+    weights."""
+    def make():
+        import paddle_tpu_torch as pt
+
+        pt.seed(0)
+        return build(**kw)
+
+    return make
+
+
+def close_losses(a, b, rtol):
+    return all(abs(x - y) <= rtol * max(1.0, abs(y)) for x, y in zip(a, b))
+
+
+def stats_moved(model) -> bool:
+    """Whether every batch norm's running mean left zero."""
+    means = [b._value for n, b in model.named_buffers()
+             if n.endswith("._mean")]
+    return bool(means) and all(float(m.abs().max()) > 0 for m in means)
+
+
+def _first_buffer_difference(a, b):
+    for (name, x), (_, y) in zip(list(a.named_parameters())
+                                 + list(a.named_buffers()),
+                                 list(b.named_parameters())
+                                 + list(b.named_buffers())):
+        if not torch.equal(x._value, y._value):
+            return {"name": name, "max_abs_diff": float(
+                (x._value.float() - y._value.float()).abs().max())}
+    return None
+
+
+def state_snapshot(model) -> dict:
+    """Copies of a model's parameters and buffers, by name."""
+    return {n: t._value.detach().clone()
+            for n, t in list(model.named_parameters())
+            + list(model.named_buffers())}
+
+
+def state_difference(a, b) -> dict:
+    """Two ``state_snapshot``s: the first tensor that differs at all
+    (None: bit-equal) and the largest relative L2 difference, with its
+    name."""
+    first, worst, at = None, 0.0, None
+    for name, x in a.items():
+        y = b[name]
+        if first is None and not torch.equal(x, y):
+            first = name
+        d = float((x.float() - y.float()).norm())
+        rel = d / max(float(y.float().norm()), 1e-30) if d else 0.0
+        if rel > worst:
+            worst, at = rel, name
+    return {"first_difference": first, "max_rel_l2": worst,
+            "max_rel_l2_at": at}
+
+
+RESNET_BATCH, RESNET_SIZE, RESNET_STEPS = 128, 224, 6
+RESNET_FIT_BATCHES = 4
+# graphed vs eager in bf16: cuDNN's algorithms may sum in another order
+# from run to run (a cuDNN heuristic, not the port); a loss at ~7 moves
+# by a few bf16 ulps of the logits at most
+RESNET_LOSS_RTOL = 1e-2
+# graphed vs eager parameters and running statistics after the same
+# steps, per tensor: another cuDNN summation order moves a tensor by a
+# few bf16 ulps, relative ~1e-3 at most; a replay that left a running
+# statistic or a parameter unupdated is off by ~1
+RESNET_STATE_REL_L2 = 1e-2
+CONVNET_BATCH, CONVNET_STEPS = 32, 3
+DETERMINISM_BATCH, DETERMINISM_SIZE, DETERMINISM_STEPS = 16, 224, 3
+
+
+def resnet18_determinism(rng) -> dict:
+    """A graphed bench-form ResNet-18 step (NHWC, f32, TF32 off, B 16 ×
+    224²) against the eager one from the same weights, under
+    ``cudnn.deterministic``: losses, parameters and running statistics
+    bit-equal after DETERMINISM_STEPS steps.  Then two eager runs with
+    ``cudnn.deterministic`` off: their spread, reported."""
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    x = torch.from_numpy(rng.randn(
+        DETERMINISM_BATCH, DETERMINISM_SIZE, DETERMINISM_SIZE, 3).astype(
+            np.float32)).to(DEVICE)
+    y = torch.from_numpy(rng.randint(0, 1000, (DETERMINISM_BATCH,)).astype(
+        np.int64)).to(DEVICE)
+
+    make = seeded(resnet18, data_format="NHWC")
+
+    def opt(m):
+        return Momentum(0.1, 0.9, parameters=m.parameters())
+
+    prev = torch.backends.cudnn.deterministic
+    runs = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for mode, graphed in (("graphed", True), ("eager", False)):
+            runs[mode] = bench_run(make, opt, (x, y), DETERMINISM_STEPS,
+                                   graphed, amp_dtype=None)
+        torch.backends.cudnn.deterministic = False
+        loose = [bench_run(make, opt, (x, y), DETERMINISM_STEPS, False,
+                           amp_dtype=None) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    diff = _first_buffer_difference(runs["graphed"][0], runs["eager"][0])
+    spread = _first_buffer_difference(loose[0][0], loose[1][0])
+    res = {"batch": DETERMINISM_BATCH, "size": DETERMINISM_SIZE,
+           "steps": DETERMINISM_STEPS,
+           "graphed_losses": runs["graphed"][3]["losses"],
+           "eager_losses": runs["eager"][3]["losses"],
+           "first_difference": diff,
+           "nondeterministic_eager_losses": [r[3]["losses"] for r in loose],
+           "nondeterministic_first_difference": spread}
+    if diff is not None or res["graphed_losses"] != res["eager_losses"]:
+        raise AssertionError(f"resnet: under cudnn.deterministic the "
+                             f"graphed ResNet-18 step differs from the "
+                             f"eager one: {res}")
+    return res
+
+
+def convnet_path(name, make_model) -> dict:
+    """CONVNET_STEPS graphed bench-form steps (bf16 autocast, Momentum)
+    of a model at B 32 × 224², NCHW: losses finite, every running mean
+    moved."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(CONVNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE).astype(np.float32)).to(DEVICE)
+    y = torch.from_numpy(rng.randint(0, 1000, (CONVNET_BATCH,)).astype(
+        np.int64)).to(DEVICE)
+    model, _, _, res = bench_run(
+        make_model, lambda m: Momentum(0.1, 0.9, parameters=m.parameters()),
+        (x, y), CONVNET_STEPS, True)
+    res["stats_moved"] = stats_moved(model)
+    res["images_per_s"] = CONVNET_BATCH / (res["step_ms_p50"] / 1e3)
+    if not (all(math.isfinite(v) for v in res["losses"])
+            and res["stats_moved"]):
+        raise AssertionError(f"resnet: {name} {res}")
+    return res
+
+
+def resnet_phase() -> dict:
+    """ResNet-50 at ``bench.py``'s settings (NHWC, bf16 autocast,
+    ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``, B 128 × 224² × 3 and
+    labels from ``RandomState(0)``): (a) the bench-form step graphed and
+    eager, RESNET_STEPS steps each from the same weights; (b)
+    ``Model.fit`` over RESNET_FIT_BATCHES batches of the same arrays with
+    ``accelerate`` True and False.  Losses finite and graphed within
+    RESNET_LOSS_RTOL of eager, every running mean moved, the AMP casts of
+    every op name as the JAX lists say; step p50 / p95, images/s, peak
+    memory; one more graphed bench step under the profiler (busy share,
+    kernels by family, every copy kernel).  Then VGG-16 with batch norm
+    and MobileNet V2 through ``convnet_path``, and
+    ``resnet18_determinism``.  The graphed runs' parameters and running
+    statistics, read right after their training steps, are held to the
+    eager runs' within RESNET_STATE_REL_L2 (bit-equality reported), and
+    one ``evaluate`` and one ``predict_batch`` of the graphed fit model
+    (eval mode: the running statistics) to the eager fit model's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import mobilenet_v2, resnet50, vgg16
+
+    pt.set_device(DEVICE)
+    rng = np.random.RandomState(0)
+    n = RESNET_BATCH * RESNET_FIT_BATCHES
+    x_np = rng.randn(n, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y_np = rng.randint(0, 1000, (n,)).astype(np.int64)
+    x = torch.from_numpy(x_np[:RESNET_BATCH]).to(DEVICE)
+    y = torch.from_numpy(y_np[:RESNET_BATCH]).to(DEVICE)
+
+    make = seeded(resnet50, num_classes=1000, data_format="NHWC")
+
+    def opt(m):
+        return Momentum(0.1, 0.9, parameters=m.parameters())
+
+    bench, states = {}, {}
+    for mode, graphed in (("graphed", True), ("eager", False)):
+        model, step, state, res = bench_run(make, opt, (x, y), RESNET_STEPS,
+                                            graphed)
+        res["images_per_s"] = RESNET_BATCH / (res["step_ms_p50"] / 1e3)
+        res["stats_moved"] = stats_moved(model)
+        states["bench", mode] = state_snapshot(model)
+        bench[mode] = res
+        if graphed:
+            prof = profile_families(lambda: float(step(state, x, y)),
+                                    conv_family)
+        else:
+            with amp_op_names() as seen:
+                step(state, x, y)
+            amp_ops = check_amp_ops("resnet", seen)
+            prof_ops = profile_ops(lambda: float(step(state, x, y)),
+                                   CONV_NET_OPS)
+        del model, step, state
+    fits, evals = {}, {}
+    eval_set = io.TensorDataset([x_np[:RESNET_BATCH], y_np[:RESNET_BATCH]])
+    for mode, accelerate in (("graphed", True), ("eager", False)):
+        model, res = fit_bench_run(make, opt, autocast_wrapper(),
+                                   [x_np, y_np], RESNET_BATCH, accelerate)
+        res["images_per_s"] = RESNET_BATCH / (res["step_ms_p50"] / 1e3)
+        res["stats_moved"] = stats_moved(model.network)
+        states["fit", mode] = state_snapshot(model.network)
+        res["eval_loss"] = model.evaluate(eval_set, batch_size=RESNET_BATCH,
+                                          verbose=0)["loss"]
+        evals[mode] = model.predict_batch([x_np[:RESNET_BATCH]])[0]
+        fits[mode] = res
+        del model
+    del x_np, y_np
+    free_cuda()
+    logits_rel_l2 = float(np.linalg.norm(evals["graphed"] - evals["eager"])
+                          / np.linalg.norm(evals["eager"]))
+    state_diff = {name: state_difference(states[name, "graphed"],
+                                         states[name, "eager"])
+                  for name in ("bench", "fit")}
+    del states
+    res = {"batch": RESNET_BATCH, "size": RESNET_SIZE, "layout": "NHWC",
+           "steps": RESNET_STEPS, "bench": bench, "fit": fits,
+           "graphed_vs_eager_state": state_diff,
+           "fit_eval_logits_rel_l2": logits_rel_l2,
+           "fit_eval_logits_bit_equal": bool(
+               np.array_equal(evals["graphed"], evals["eager"])),
+           "amp_ops": amp_ops, "profile_graphed_step": prof,
+           "profile_eager_step_by_op": prof_ops}
+    res["vgg16_bn"] = convnet_path("vgg16_bn",
+                                   seeded(vgg16, batch_norm=True))
+    res["mobilenet_v2"] = convnet_path("mobilenet_v2", seeded(mobilenet_v2))
+    free_cuda()
+    res["determinism"] = resnet18_determinism(np.random.RandomState(1))
+    log("resnet", **res)
+    for name, runs in (("bench", bench), ("fit", fits)):
+        g, e = runs["graphed"], runs["eager"]
+        if not all(math.isfinite(v) for r in (g, e) for v in r["losses"]):
+            raise AssertionError(f"resnet: non-finite {name} losses {runs}")
+        if not (g["stats_moved"] and e["stats_moved"]):
+            raise AssertionError(f"resnet: {name} left a running mean at 0")
+        if not close_losses(g["losses"], e["losses"], RESNET_LOSS_RTOL):
+            raise AssertionError(f"resnet: {name} graphed losses "
+                                 f"{g['losses']} vs eager {e['losses']}")
+        if not state_diff[name]["max_rel_l2"] <= RESNET_STATE_REL_L2:
+            raise AssertionError(f"resnet: {name} graphed state vs eager "
+                                 f"{state_diff[name]}")
+    if not (close_losses([fits["graphed"]["eval_loss"]],
+                         [fits["eager"]["eval_loss"]], RESNET_LOSS_RTOL)
+            and logits_rel_l2 <= RESNET_STATE_REL_L2):
+        raise AssertionError(
+            f"resnet: evaluate after the graphed fit: loss "
+            f"{fits['graphed']['eval_loss']} vs eager "
+            f"{fits['eager']['eval_loss']}, logits rel L2 {logits_rel_l2}")
+    if fits["graphed"]["captures"] != 1:
+        raise AssertionError(f"resnet: fit captured "
+                             f"{fits['graphed']['captures']} times")
+    return res
+
+
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_FIT_BATCHES = 32, 128, 6, 4
+# graphed vs eager: cuBLAS and the flash kernels run the same kernels in
+# both, and every dropout draw comes from the port's generator, which
+# each graph registers; so the losses are
+# expected bit-equal and are held to 1e-3 relative, the bit-equality
+# reported
+BERT_LOSS_RTOL = 1e-3
+
+
+def bert_inputs(rng, n):
+    """Token ids ``[n, BERT_SEQ]`` and labels as ``bench.py:390-392``
+    draws them, and a ``[n, BERT_SEQ]`` validity mask padding the last
+    quarter of every second row."""
+    ids = rng.randint(0, 30000, (n, BERT_SEQ)).astype(np.int64)
+    y = rng.randint(0, 2, (n,)).astype(np.int64)
+    mask = np.ones((n, BERT_SEQ), np.int64)
+    mask[1::2, BERT_SEQ - BERT_SEQ // 4:] = 0
+    return ids, mask, y
+
+
+def bert_route_check() -> dict:
+    """A 2-layer bert-base-width classifier, f32 (TF32 off), no dropout,
+    B 4 × S 128 with the padding mask: one forward and backward on the
+    flash route (#5-#7, 3xTF32 bodies: 2 launches of each) against the
+    same on the plain attention route; the loss within 1e-5 relative and
+    every gradient within FLASH_REL_L2 (f32) in relative L2."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    ids, mask, y = bert_inputs(np.random.RandomState(3), 4)
+    ids, mask, y = (torch.from_numpy(a).to(DEVICE) for a in (ids, mask, y))
+    pt.seed(0)
+    model = BertForSequenceClassification(
+        num_hidden_layers=2, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, dropout=0.0)
+
+    def run():
+        logits = model(pt.Tensor(ids), None, pt.Tensor(mask))
+        loss = nn.CrossEntropyLoss()(logits, pt.Tensor(y))
+        params = [p._value for p in model.parameters()]
+        grads = torch.autograd.grad(loss._value, params)
+        return float(loss), grads
+
+    reset_flash_counts()
+    loss, grads = run()
+    counts = read_flash_counts()
+    real = attention._pallas_ok
+    attention._pallas_ok = lambda *a, **k: False
+    try:
+        plain_loss, plain_grads = run()
+    finally:
+        attention._pallas_ok = real
+    rel = max(flash_rel_l2(g, p) for g, p in zip(grads, plain_grads))
+    res = {"loss": loss, "plain_loss": plain_loss, "grad_rel_l2_max": rel,
+           "launches": counts}
+    want = {"flash_f32tc_fwd": 2, "flash_f32tc_dkv": 2, "flash_f32tc_dq": 2,
+            "flash_ref": 0, "route_pallas": 2, "route_xla": 0}
+    expect_counts("bert_route", counts, want)
+    if abs(loss - plain_loss) > 1e-5 * abs(plain_loss) or \
+            rel > FLASH_REL_L2[torch.float32]:
+        raise AssertionError(f"bert: the flash route differs from the plain "
+                             f"route: {res}")
+    return res
+
+
+def bert_phase() -> dict:
+    """``BertForSequenceClassification()`` at bert-base width,
+    ``AdamW(5e-5)``, bf16 autocast, B 32 × S 128 ids from
+    ``RandomState(0)`` with ``bert_inputs``' padding mask: the bench-form
+    step graphed and eager (BERT_STEPS steps each) and ``Model.fit`` over
+    BERT_FIT_BATCHES batches graphed and eager (ids and mask packed
+    ``[B, 2, S]``); the launches of #5-#7 in every step of each run, all
+    on the bf16 tensor-core bodies (12 a step each), the plain route 0;
+    losses finite, graphed within BERT_LOSS_RTOL of eager; step p50 /
+    p95, tokens/s, peak memory; then ``bert_route_check``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    pt.set_device(DEVICE)
+    n = BERT_BATCH * BERT_FIT_BATCHES
+    ids_np, mask_np, y_np = bert_inputs(np.random.RandomState(0), n)
+    ids, mask, y = (torch.from_numpy(a[:BERT_BATCH]).to(DEVICE)
+                    for a in (ids_np, mask_np, y_np))
+
+    make = seeded(BertForSequenceClassification, num_classes=2)
+
+    def opt(m):
+        return AdamW(5e-5, parameters=m.parameters())
+
+    layers = 12
+    runs = {}
+    for mode, graphed in (("bench_graphed", True), ("bench_eager", False)):
+        reset_flash_counts()
+        model, step, state, res = bench_run(make, opt, (ids, None, mask, y),
+                                            BERT_STEPS, graphed)
+        res.update(read_flash_counts())
+        res["steps"] = BERT_STEPS
+        runs[mode] = res
+        if graphed:
+            prof = profile_families(
+                lambda: float(step(state, ids, None, mask, y)), bert_family)
+        del model, step, state
+    packed = np.stack([ids_np, mask_np], axis=1)
+    for mode, accelerate in (("fit_graphed", True), ("fit_eager", False)):
+        reset_flash_counts()
+        model, res = fit_bench_run(make, opt, autocast_wrapper(True),
+                                   [packed, y_np], BERT_BATCH, accelerate)
+        res.update(read_flash_counts())
+        res["steps"] = BERT_FIT_BATCHES
+        runs[mode] = res
+        del model
+    free_cuda()
+    for mode, r in runs.items():
+        r["tokens_per_s"] = BERT_BATCH * BERT_SEQ / (r["step_ms_p50"] / 1e3)
+        k = layers * r["steps"]
+        expect_counts(f"bert_{mode}", r, {
+            "flash_fwd": k, "flash_dkv": k, "flash_dq": k, "flash_ref": 0,
+            "flash_tc_fwd": k, "flash_tc_dkv": k, "flash_tc_dq": k,
+            "route_pallas": k, "route_xla": 0})
+    res = {"batch": BERT_BATCH, "seq": BERT_SEQ, "layers": layers,
+           "padded_rows": BERT_BATCH // 2, "padded_tokens": BERT_SEQ // 4,
+           **runs, "profile_graphed_step": prof,
+           "route_check": bert_route_check()}
+    for kind in ("bench", "fit"):
+        g, e = res[f"{kind}_graphed"], res[f"{kind}_eager"]
+        res[f"{kind}_bit_equal_losses"] = g["losses"] == e["losses"]
+    log("bert", **res)
+    for kind in ("bench", "fit"):
+        g, e = res[f"{kind}_graphed"], res[f"{kind}_eager"]
+        if not all(math.isfinite(v) for v in g["losses"] + e["losses"]):
+            raise AssertionError(f"bert: non-finite {kind} losses")
+        if not close_losses(g["losses"], e["losses"], BERT_LOSS_RTOL):
+            raise AssertionError(f"bert: {kind} graphed losses {g['losses']}"
+                                 f" vs eager {e['losses']}")
+    if res["fit_graphed"]["captures"] != 1:
+        raise AssertionError(f"bert: fit captured "
+                             f"{res['fit_graphed']['captures']} times")
     return res
 
 
@@ -5398,26 +6147,30 @@ def main(argv=None) -> int:
     report["kernel_scale_shift"] = ss_t = scale_shift_kernel_phase(
         np.random.RandomState(6), flush)
     del flush
-    torch.cuda.empty_cache()
+    free_cuda()
     # the training drive's batch comes from its own seed, so its loss
     # trajectory does not depend on what the phases before it drew
     report["train"] = train = train_phase(np.random.RandomState(0))
-    torch.cuda.empty_cache()
+    free_cuda()
     report["train_bf16"] = train_bf16 = train_phase(
         np.random.RandomState(0), "bfloat16", "train_bf16")
-    torch.cuda.empty_cache()
+    free_cuda()
     report["train_parity"] = train_parity_phase(rng)
-    torch.cuda.empty_cache()
+    free_cuda()
     # its own seed, so the phases after it see the draws of before
     report["train_parity_bf16"] = train_parity_bf16_phase(
         np.random.RandomState(7))
-    torch.cuda.empty_cache()
+    free_cuda()
     report["custom_op"] = custom = custom_op_phase()
     report["lenet"] = lenet_phase()
-    torch.cuda.empty_cache()
+    free_cuda()
     # its own seed, so the phases after it see the draws of before
     report["fit"] = fit = fit_phase(np.random.RandomState(10))
-    torch.cuda.empty_cache()
+    free_cuda()
+    report["resnet"] = resnet_phase()
+    free_cuda()
+    report["bert"] = bert = bert_phase()
+    free_cuda()
 
     t0 = time.perf_counter()
     model = GPTModel(**GPT2_SMALL, device="cuda", seed=1234)
@@ -5426,46 +6179,46 @@ def main(argv=None) -> int:
     prompts = [rng.randint(1, GPT2_SMALL["vocab_size"], (n,)).astype(
         np.int32) for n in PROMPT_LENS]
     report["e2e"] = e2e = e2e_phase(model, prompts)
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_int8_static"], export = e2e_int8_static_phase(
         model, prompts, rng, e2e)
     st = report["e2e_int8_static"]
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_int8_dynamic"] = e2e_int8_dynamic_phase(model, prompts[:4])
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_split"] = split = e2e_split_phase(
         model, prompts, export, e2e["step_ms"]["p50"])
     report["e2e_spec"] = e2e_spec_phase(model, spec_prompts(rng))
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_mesh"] = mesh = e2e_mesh_phase(model, rng, export)
-    torch.cuda.empty_cache()
+    free_cuda()
     # both draw from their own seeds, so the phases after them see the
     # draws of before
     report["e2e_prefix"] = prefix = e2e_prefix_phase(model, export)
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_tiers"] = tiers = e2e_tiers_phase(model, export)
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_snapshot"] = snap = e2e_snapshot_phase(model, prompts,
                                                        export)
-    torch.cuda.empty_cache()
+    free_cuda()
     report["sync_free"] = sync_free_phase(model, prompts, export)
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_frontend"] = front = e2e_frontend_phase(
         model, prompts, export,
         [np.asarray(x, np.int32) for x in e2e["streams"]],
         [np.asarray(x, np.int32) for x in st["streams"]])
-    torch.cuda.empty_cache()
+    free_cuda()
     report["e2e_profile"] = e2e_profile_phase(
         model, prompts, [np.asarray(x, np.int32) for x in e2e["streams"]])
-    torch.cuda.empty_cache()
+    free_cuda()
     # its own seed, as row t's phase
     report["e2e_beam"] = beam = e2e_beam_phase(model,
                                                np.random.RandomState(9))
     del model
-    torch.cuda.empty_cache()
+    free_cuda()
     # its own seed, as row t's phase
     report["e2e_wide"] = wide = e2e_wide_phase(np.random.RandomState(8))
-    torch.cuda.empty_cache()
+    free_cuda()
     report["seq_layers"] = seq = seq_layers_phase()
     seq_launches = {
         "fwd": {"transformer_forward": seq["transformer"]["launches"][
@@ -5547,6 +6300,8 @@ def main(argv=None) -> int:
                launches_seq_layers=seq_launches[kname],
                launches_fit={mode: fit[mode][f"flash_f32tc_{kname}"]
                              for mode in ("graphed", "eager")},
+               launches_bert_route_check=bert["route_check"]["launches"][
+                   f"flash_f32tc_{kname}"],
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],
@@ -5561,6 +6316,10 @@ def main(argv=None) -> int:
                flash_t[f"{kname}/train/bfloat16"],
                case="B8 H12 S1024 D64 causal, bfloat16",
                design=FLASH_TC_DESIGN[kname],
+               launches_bert={mode: bert[mode][f"flash_tc_{kname}"]
+                              for mode in ("bench_graphed", "bench_eager",
+                                           "fit_graphed", "fit_eager")},
+               bert_base_s128=flash_t[f"{kname}/bert_base_s128/bfloat16"],
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()
                                     if c.endswith("bfloat16")},

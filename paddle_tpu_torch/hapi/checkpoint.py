@@ -3,7 +3,7 @@ checkpoints — twin of ``paddle_tpu/hapi/checkpoint.py``.
 
 One capture covers everything an exact resume needs:
 
-- the network's weights and the optimizer's ``state_dict`` (its
+- the network's weights and buffers and the optimizer's ``state_dict`` (its
   accumulators, ``step_count`` and the LR scheduler), read to the host;
 - the port's device generators (``framework.random``), numpy's global
   stream (the samplers' shuffles) and ``py_random``;
@@ -15,8 +15,9 @@ One capture covers everything an exact resume needs:
 
 The port keeps no functional state tree: the parameters stay in the
 network and are updated in place, so there is one layout (the JAX
-package's "eager" one).  A restore copies into the live parameters and
-accumulators in place, so a captured train step keeps its addresses.
+package's "eager" one).  A restore copies into the live parameters,
+buffers and accumulators in place, so a captured train step keeps its
+addresses.
 
 :class:`TrainCheckpointer` drives an :class:`~paddle_tpu_torch.io.
 checkpoint.CheckpointStore` with a double-buffered background writer:
@@ -63,8 +64,9 @@ def _to_host(v):
 
 
 def network_state(network) -> Dict[str, torch.Tensor]:
-    """``{name: torch tensor}`` of a port ``nn.Layer`` (its parameters)
-    or a ``torch.nn.Module`` (its ``state_dict``)."""
+    """``{name: torch tensor}`` of a port ``nn.Layer`` (its parameters
+    and persistable buffers, restored in place like them) or a
+    ``torch.nn.Module`` (its ``state_dict``)."""
     if isinstance(network, torch.nn.Module):
         return dict(network.state_dict(keep_vars=True))
     return {k: v._value for k, v in network.state_dict().items()}

@@ -12,13 +12,16 @@ the JAX package, and may return a Tensor or a torch tensor.
 ``prepare(accelerate=True)`` (the default) builds the JAX package's fast
 path: one train step — forward, loss, ``torch.autograd.grad``, the
 optimizer's clip and update — as ``profiled_graph("hapi/train_step",
-...)``, one CUDA graph per input signature, its parameters and
-optimizer state donated (bound by address).  On the host before each
-call the optimizer writes its learning rate and step count into its
-device scalars, so a running LR scheduler changes no signature and the
-step captures once.  On the CPU the same function runs as written.
-``accelerate=False`` steps eagerly: ``loss.backward(); opt.step();
-opt.clear_grad()``.  Both paths apply the optimizer's eager semantics
+...)``, one CUDA graph per input signature, its parameters, the
+network's buffers (a batch norm's running statistics, which each replay
+updates in place) and the optimizer state donated (bound by address).
+On the host before each call the optimizer writes its learning rate and
+step count into its device scalars, so a running LR scheduler changes
+no signature and the step captures once.  On the CPU the same function
+runs as written.  ``accelerate=False`` steps eagerly: ``loss.backward();
+opt.step(); opt.clear_grad()``.  ``evaluate`` and ``predict`` run the
+network in eval mode (a batch norm on its running statistics).  Both
+paths apply the optimizer's eager semantics
 (the scheduler, ``grad_clip``, ``L1Decay`` and ``L2Decay``), which the
 JAX package's own fused step does not (ROADMAP "Known facts about the
 reference"); on the card they give the same bits.  Every step reads its
@@ -174,7 +177,8 @@ class Model:
     # --- the train step -------------------------------------------------------
     def _build_train_step(self):
         """The graphed step over the optimizer's trainable parameters,
-        their accumulators and its device scalars (all donated)."""
+        the network's buffers, the accumulators and the optimizer's
+        device scalars (all donated: the step updates them in place)."""
         from ..profiler.jit_cost import profiled_graph
 
         opt = self._optimizer
@@ -191,8 +195,9 @@ class Model:
             opt._apply_gradients(list(zip(params, grads)))
             return loss.detach(), outs[0].detach()
 
+        buffers = [_value(b) for b in self.network.buffers()]
         self._train_params = params
-        self._train_state = list(params) + accs + [lr_t, step_t]
+        self._train_state = list(params) + accs + buffers + [lr_t, step_t]
         self._graph = profiled_graph("hapi/train_step", train_step,
                                      donate_argnums=(0,))
 

@@ -1,7 +1,7 @@
 """paddle_tpu_torch.nn — the paddle layer API (twins of ``paddle_tpu/nn``
 under the same names): ``Layer`` and the initializers; ``Linear``,
-``Flatten``, ``Identity``, ``Embedding``, ``Dropout``, ``LayerNorm``,
-``Conv2D``, ``MaxPool2D``, ``ReLU``; the containers ``Sequential``,
+``Flatten``, ``Identity``, ``Embedding``, ``Dropout``; the activation,
+convolution, norm and pooling layers; the containers ``Sequential``,
 ``LayerList``, ``ParameterList`` and ``LayerDict``; the recurrent layers
 of ``nn.rnn``; the transformer stack of ``nn.transformer``; and the
 decoding loops of ``nn.decode`` (beam search, ``dynamic_decode``, greedy);
@@ -10,14 +10,18 @@ the loss layers of ``nn.loss_layers`` and the gradient clips of
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
-from .activation_layers import ReLU  # noqa: F401
+from . import activation_layers as _activation_layers
+from . import conv_layers as _conv_layers
+from . import norm_layers as _norm_layers
+from . import pool_layers as _pool_layers
+from .activation_layers import *  # noqa: F401,F403
 from .clip_grad import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                         ClipGradByValue)
 from .common_layers import (  # noqa: F401
     Dropout, Embedding, Flatten, Identity, Linear)
 from .container import (LayerDict, LayerList, ParameterList,  # noqa: F401
                         Sequential)
-from .conv_layers import Conv2D  # noqa: F401
+from .conv_layers import *  # noqa: F401,F403
 from .decode import (BeamSearchDecoder, beam_search_decode,  # noqa: F401
                      beam_search_step, dynamic_decode, gather_tree,
                      greedy_search_decode)
@@ -27,8 +31,8 @@ from .loss_layers import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
                           HingeEmbeddingLoss, KLDivLoss, L1Loss,
                           MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
                           TripletMarginLoss)
-from .norm_layers import LayerNorm  # noqa: F401
-from .pool_layers import MaxPool2D  # noqa: F401
+from .norm_layers import *  # noqa: F401,F403
+from .pool_layers import *  # noqa: F401,F403
 from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
                   RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
@@ -36,8 +40,8 @@ from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
-           "LayerNorm", "Sequential", "LayerList", "ParameterList",
-           "LayerDict", "Conv2D", "MaxPool2D", "ReLU", "RNNCellBase",
+           "Sequential", "LayerList", "ParameterList",
+           "LayerDict", "RNNCellBase",
            "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN", "BiRNN",
            "SimpleRNN", "GRU", "LSTM", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder",
@@ -48,4 +52,6 @@ __all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
            "ClipGradByGlobalNorm", "CrossEntropyLoss", "MSELoss", "L1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "SmoothL1Loss", "MarginRankingLoss", "CTCLoss",
-           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss"]
+           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss"] + \
+    (_activation_layers.__all__ + _conv_layers.__all__ + _norm_layers.__all__
+     + _pool_layers.__all__)

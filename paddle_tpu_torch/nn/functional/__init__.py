@@ -1,7 +1,7 @@
-"""paddle_tpu_torch.nn.functional — the functionals the GPT serving and
-training slices, the dygraph core, the sequence layers and the losses of
-``nn/loss_layers.py`` run, twins of
-``paddle_tpu/nn/functional``.
+"""paddle_tpu_torch.nn.functional — twins of ``paddle_tpu/nn/functional``:
+the activations, ``linear``, ``dropout`` and ``embedding``, the
+convolutions, the losses, the norms and the pools, under the JAX
+package's names.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
 variance) are the serving path's ``_gelu`` and ``_ln``; they dispatch as
@@ -12,61 +12,23 @@ JAX package re-exports them.
 """
 from __future__ import annotations
 
-import torch
+from . import activation as _activation
+from . import conv as _conv
+from . import loss as _loss
+from . import norm as _norm
+from . import pooling as _pooling
+from .activation import *  # noqa: F401,F403
+from .common import dropout, embedding, linear  # noqa: F401
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
 
-from ...text.generation import _ln
-from .activation import gelu, log_softmax, relu, sigmoid, softmax, tanh
-from .common import dropout, embedding, linear
-from .conv import conv2d
-from .loss import (binary_cross_entropy,  # noqa: F401
-                   binary_cross_entropy_with_logits, cosine_embedding_loss,
-                   cross_entropy, ctc_loss, dice_loss, hinge_embedding_loss,
-                   kl_div, l1_loss, log_loss, margin_ranking_loss, mse_loss,
-                   nll_loss, npair_loss, sigmoid_focal_loss, smooth_l1_loss,
-                   softmax_with_cross_entropy, square_error_cost,
-                   triplet_margin_loss)
-from .pooling import max_pool2d
-
-__all__ = ["gelu", "layer_norm", "cross_entropy", "softmax_with_cross_entropy",
-           "nll_loss", "mse_loss", "l1_loss", "smooth_l1_loss",
-           "square_error_cost", "binary_cross_entropy",
-           "binary_cross_entropy_with_logits", "kl_div",
-           "margin_ranking_loss", "hinge_embedding_loss",
-           "cosine_embedding_loss", "triplet_margin_loss", "npair_loss",
-           "log_loss", "ctc_loss", "dice_loss", "sigmoid_focal_loss",
-           "linear", "dropout",
-           "embedding", "conv2d", "max_pool2d", "relu", "sigmoid", "tanh",
-           "softmax", "log_softmax", "scaled_dot_product_attention",
-           "flash_attention", "paged_attention"]
-
-
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
-               name=None):
-    """LayerNorm over the trailing axes ``normalized_shape`` names, with
-    f32 statistics and population variance, cast back to x's dtype."""
-    from ...ops._helpers import to_tensor_like
-    from ...ops.dispatch import apply
-
-    shape = ((normalized_shape,) if isinstance(normalized_shape, int)
-             else tuple(normalized_shape))
-    if tuple(x.shape[len(x.shape) - len(shape):]) != shape:
-        from ...framework.errors import InvalidArgumentError
-
-        raise InvalidArgumentError(
-            f"layer_norm over {shape} of a {tuple(x.shape)} input: the "
-            "normalized shape must be the input's trailing axes")
-    dims = tuple(range(-len(shape), 0))
-    has_w, has_b = weight is not None, bias is not None
-
-    def f(v, *wb):
-        return _ln(v, wb[0] if has_w else 1.0, wb[-1] if has_b else 0.0,
-                   epsilon, dims)
-
-    wb = [t for t in (weight, bias) if t is not None]
-    if isinstance(x, torch.Tensor):
-        return f(x, *wb)
-    return apply("layer_norm", f, to_tensor_like(x),
-                 *map(to_tensor_like, wb))
+__all__ = (list(_activation.__all__) + ["linear", "dropout", "embedding"]
+           + list(_conv.__all__) + list(_loss.__all__) + list(_norm.__all__)
+           + list(_pooling.__all__)
+           + ["scaled_dot_product_attention", "flash_attention",
+              "paged_attention"])
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -2,11 +2,15 @@
 base class over the port's ``Parameter``.
 
 Parameters and sublayers register by assignment (``self.w = Parameter``,
-``self.fc = Layer``) or by ``add_parameter``/``add_sublayer``;
-``named_parameters`` and ``state_dict`` use paddle's structured names
-(``"fc.0.weight"``), so a paddle_tpu ``state_dict`` loads unchanged.
-``set_state_dict`` copies into each parameter IN PLACE (the optimizer
-and the layer keep holding the same tensors); with
+``self.fc = Layer``) or by ``add_parameter``/``add_sublayer``; buffers
+(a ``BatchNorm``'s running ``_mean`` and ``_variance``) by
+``register_buffer``, after which assigning a Tensor to the name rebinds
+the buffer.  ``named_parameters``, ``named_buffers`` and ``state_dict``
+use paddle's structured names (``"fc.0.weight"``, ``"bn1._mean"``): the
+parameters first, then the persistable buffers, as in paddle_tpu, so a
+paddle_tpu ``state_dict`` loads unchanged.  ``set_state_dict`` copies
+into each parameter and buffer IN PLACE (the optimizer, the layer and a
+CUDA graph that captured them keep holding the same tensors); with
 :func:`state_from_numpy` it is the weight bridge from paddle_tpu::
 
     state = {k: np.asarray(v._value) for k, v in jax_layer.state_dict().items()}
@@ -45,6 +49,8 @@ class Layer:
         self._dtype = convert_dtype(dtype)
         self._parameters: "OrderedDict[str, Parameter]" = OrderedDict()
         self._sub_layers: "OrderedDict[str, Layer]" = OrderedDict()
+        self._buffers: "OrderedDict[str, Optional[Tensor]]" = OrderedDict()
+        self._non_persistable_buffer_names = set()
 
     # --- construction helpers -------------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
@@ -78,15 +84,31 @@ class Layer:
         self._sub_layers[str(name)] = sublayer
         return sublayer
 
+    def register_buffer(self, name: str, tensor, persistable=True):
+        """Register ``tensor`` (a Tensor, a torch tensor or None) as the
+        buffer ``name``: moved by ``to``, carried by ``state_dict`` unless
+        ``persistable`` is False, never trained."""
+        if isinstance(tensor, torch.Tensor):
+            tensor = Tensor(tensor)
+        self._buffers[name] = tensor
+        if persistable:
+            self._non_persistable_buffer_names.discard(name)
+        else:
+            self._non_persistable_buffer_names.add(name)
+        return tensor
+
     # --- attribute plumbing ---------------------------------------------
     def __setattr__(self, name, value):
         params = self.__dict__.get("_parameters")
         layers = self.__dict__.get("_sub_layers")
+        buffers = self.__dict__.get("_buffers")
         if isinstance(value, Parameter):
             if params is None:
                 raise RuntimeError(
                     "call Layer.__init__ before assigning parameters")
             params[name] = value
+            if buffers is not None:
+                buffers.pop(name, None)
         elif isinstance(value, Layer):
             if layers is None:
                 raise RuntimeError(
@@ -100,10 +122,15 @@ class Layer:
                 del params[name]
             if layers is not None and name in layers:
                 del layers[name]
+            if buffers is not None and name in buffers:
+                if isinstance(value, Tensor) or value is None:
+                    buffers[name] = value
+                    return
+                del buffers[name]
             object.__setattr__(self, name, value)
 
     def __getattr__(self, name):
-        for store in ("_parameters", "_sub_layers"):
+        for store in ("_parameters", "_sub_layers", "_buffers"):
             d = self.__dict__.get(store)
             if d is not None and name in d:
                 return d[name]
@@ -155,6 +182,21 @@ class Layer:
                 seen.add(id(p))
                 yield lp + ("." if lp else "") + name, p
 
+    def buffers(self, include_sublayers=True):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers)]
+
+    def named_buffers(self, prefix="", include_sublayers=True):
+        seen = set()
+        layers = (self.named_sublayers(prefix=prefix, include_self=True)
+                  if include_sublayers else [(prefix, self)])
+        for lp, layer in layers:
+            for name, b in layer._buffers.items():
+                if b is None or id(b) in seen:
+                    continue
+                seen.add(id(b))
+                yield lp + ("." if lp else "") + name, b
+
     # --- mode switches --------------------------------------------------
     def train(self):
         for layer in self.sublayers(include_self=True):
@@ -164,6 +206,27 @@ class Layer:
     def eval(self):
         for layer in self.sublayers(include_self=True):
             layer.training = False
+        return self
+
+    def to(self, device=None, dtype=None, blocking=None):
+        """Move every parameter and buffer to ``device`` and cast the
+        floating ones to ``dtype``.  Each gets a new torch tensor (a
+        parameter stays a trainable leaf): build the optimizer, and
+        capture any graph, after the move."""
+        from ..framework.place import to_device
+
+        dev = None if device is None else to_device(device)
+        dt = None if dtype is None else convert_dtype(dtype)
+        for t in self.parameters() + self.buffers():
+            v = t._value.detach()
+            if dt is not None and v.is_floating_point():
+                v = v.to(dt)
+            if dev is not None:
+                v = v.to(dev)
+            if v is not t._value:
+                t._value = v.requires_grad_(t._value.requires_grad)
+        if dt is not None:
+            self._dtype = dt
         return self
 
     # --- call -----------------------------------------------------------
@@ -176,17 +239,25 @@ class Layer:
     # --- state dict -----------------------------------------------------
     def state_dict(self, destination=None, include_sublayers=True,
                    structured_name_prefix="", use_hook=True):
-        """``{structured name: Parameter}`` in registration order (the
-        port's layers have no buffers yet)."""
+        """``{structured name: Parameter or buffer Tensor}``: the
+        parameters in registration order, then the persistable
+        buffers."""
         dest = OrderedDict() if destination is None else destination
         for name, p in self.named_parameters(
                 include_sublayers=include_sublayers):
             dest[structured_name_prefix + name] = p
+        skip = {(lp + "." if lp else "") + b
+                for lp, layer in self.named_sublayers(include_self=True)
+                for b in layer._non_persistable_buffer_names}
+        for name, b in self.named_buffers(
+                include_sublayers=include_sublayers):
+            if name not in skip:
+                dest[structured_name_prefix + name] = b
         return dest
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy each entry (a Tensor, a torch tensor or an array) into
-        the parameter of that name, in place, cast to its
+        the parameter or buffer of that name, in place, cast to its
         dtype; returns ``(missing, unexpected)`` names.  A shape
         mismatch raises ``ValueError``."""
         own = self.state_dict()

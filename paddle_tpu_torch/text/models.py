@@ -1,5 +1,20 @@
-"""GPT as a ``torch.nn.Module`` — twin of
-``paddle_tpu/text/models.py:125-195`` (``GPTDecoderLayer``,
+"""BERT on the paddle-API layers, and GPT as a ``torch.nn.Module`` —
+twins of ``paddle_tpu/text/models.py``.
+
+``BertEmbeddings``, ``BertModel``, ``BertForSequenceClassification``
+and ``BertForQuestionAnswering`` (``:23-122``) are port ``nn.Layer``s
+built, as in the JAX package, from ``nn.Embedding``, ``nn.LayerNorm``,
+``nn.Dropout``, ``nn.Linear`` and ``nn.TransformerEncoder`` of GELU
+``TransformerEncoderLayer``s, with the same ``state_dict`` names
+(``bert.embeddings.word_embeddings.weight``,
+``bert.encoder.layers.{i}.self_attn.q_proj.weight``, ...), so the weight
+bridge carries the JAX package's weights across unchanged.  A ``[B, S]``
+validity mask passes to the attention as it is, which takes it as its
+kv mask: on the card at S >= 128 every encoder layer's attention runs
+the flash kernels (``ops/attention.py``).  The JAX package's tensor
+parallel partition specs are not ported (ROADMAP queue 1 item 11).
+
+GPT — twin of ``paddle_tpu/text/models.py:125-195`` (``GPTDecoderLayer``,
 ``GPTModel`` with ``generate``) and of the self-attention path of
 ``paddle_tpu/nn/transformer.py`` ``MultiHeadAttention``.
 
@@ -41,11 +56,102 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import nn as pnn
 from .. import resolve_device
 from ..amp.auto_cast import amp_state, cast_inputs, should_cast
 from ..nn import functional as F
 
-__all__ = ["GPTModel", "load_numpy_state", "numpy_state"]
+__all__ = ["BertEmbeddings", "BertModel", "BertForSequenceClassification",
+           "BertForQuestionAnswering", "GPTModel", "load_numpy_state",
+           "numpy_state"]
+
+class BertEmbeddings(pnn.Layer):
+    def __init__(self, vocab_size, hidden_size, max_position_embeddings=512,
+                 type_vocab_size=2, dropout=0.1):
+        super().__init__()
+        self.word_embeddings = pnn.Embedding(vocab_size, hidden_size)
+        self.position_embeddings = pnn.Embedding(max_position_embeddings,
+                                                 hidden_size)
+        self.token_type_embeddings = pnn.Embedding(type_vocab_size,
+                                                   hidden_size)
+        self.layer_norm = pnn.LayerNorm(hidden_size)
+        self.dropout = pnn.Dropout(dropout)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        from ..ops.creation import zeros_like
+        from ..tensor import Tensor
+
+        if position_ids is None:
+            position_ids = Tensor(torch.arange(
+                input_ids.shape[1], device=input_ids.place))
+        if token_type_ids is None:
+            token_type_ids = zeros_like(input_ids, dtype="int64")
+        emb = (self.word_embeddings(input_ids)
+               + self.position_embeddings(position_ids)
+               + self.token_type_embeddings(token_type_ids))
+        return self.dropout(self.layer_norm(emb))
+
+
+class BertModel(pnn.Layer):
+    """The BERT encoder (bert-base by default): embeddings, the
+    post-LN encoder stack, and a tanh pooler over the first token.
+    Returns ``(sequence output [B, S, H], pooled [B, H])``."""
+
+    def __init__(self, vocab_size=30522, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, hidden_dropout_prob=0.1,
+                 attention_probs_dropout_prob=0.1,
+                 max_position_embeddings=512, type_vocab_size=2):
+        super().__init__()
+        self.embeddings = BertEmbeddings(vocab_size, hidden_size,
+                                         max_position_embeddings,
+                                         type_vocab_size, hidden_dropout_prob)
+        enc_layer = pnn.TransformerEncoderLayer(
+            hidden_size, num_attention_heads, intermediate_size,
+            dropout=hidden_dropout_prob, activation="gelu",
+            attn_dropout=attention_probs_dropout_prob)
+        self.encoder = pnn.TransformerEncoder(enc_layer, num_hidden_layers)
+        self.pooler = pnn.Linear(hidden_size, hidden_size)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        # the [B, S] validity mask goes to the attention unchanged: it
+        # routes it to the flash kernels as their kv mask
+        x = self.embeddings(input_ids, token_type_ids)
+        x = self.encoder(x, src_mask=attention_mask)
+        pooled = F.tanh(self.pooler(x[:, 0]))
+        return x, pooled
+
+
+class BertForSequenceClassification(pnn.Layer):
+    def __init__(self, bert: BertModel = None, num_classes=2, dropout=0.1,
+                 **bert_kwargs):
+        super().__init__()
+        self.bert = bert or BertModel(**bert_kwargs)
+        hidden = self.bert.pooler.weight.shape[0]
+        self.dropout = pnn.Dropout(dropout)
+        self.classifier = pnn.Linear(hidden, num_classes)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
+class BertForQuestionAnswering(pnn.Layer):
+    """The SQuAD head: start and end logits ``[B, S]`` each."""
+
+    def __init__(self, bert: BertModel = None, **bert_kwargs):
+        super().__init__()
+        self.bert = bert or BertModel(**bert_kwargs)
+        hidden = self.bert.pooler.weight.shape[0]
+        self.classifier = pnn.Linear(hidden, 2)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        from ..ops.manipulation import split
+
+        seq, _ = self.bert(input_ids, token_type_ids, attention_mask)
+        start, end = split(self.classifier(seq), 2, axis=-1)
+        return start.squeeze(-1), end.squeeze(-1)
+
 
 _LINEARS = ("attn.q_proj", "attn.k_proj", "attn.v_proj", "attn.out_proj",
             "fc1", "fc2")

@@ -2252,3 +2252,133 @@ def test_prefetched_graphed_step_does_not_sync():
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert np.isfinite(float(loss))
+
+
+# --------------------------------------------------------------------------
+# the conv nets and BERT (ResNet, batch norm, NHWC, the bench-form step)
+# --------------------------------------------------------------------------
+def test_flash_kernels_match_plain_versions_at_bert_base_shape():
+    """#5-#7 at ``bench.py``'s BERT-base shape: B 32, H 12, S 128, D 64,
+    not causal, a kv mask padding some rows, dropout 0.1, bf16."""
+    B, H, S, D, p, seed = 32, 12, 128, 64, 0.1, 7
+    q, k, v, g, mask = _flash_case(11, B, H, S, D, torch.bfloat16, True)
+    scale = 1.0 / np.sqrt(D)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    ref_o, ref_lse = fa.flash_fwd_ref(qf, kf, vf, mask, seed, scale, False,
+                                      p)
+    delta = (gf * ref_o).sum(-1).reshape(B * H, S, 1)
+    fa.FLASH_TC_STATS.update(fwd=0, dkv=0, dq=0)
+    o, lse = fa._flash_fwd_bhsd(q, k, v, mask, seed, scale, False, p)
+    dk, dv = fa._flash_dkv_bhsd(q, k, v, g, ref_lse, delta, mask, seed,
+                                scale, False, p)
+    dq = fa._flash_dq_bhsd(q, k, v, g, ref_lse, delta, mask, seed, scale,
+                           False, p)
+    torch.cuda.synchronize()
+    assert fa.FLASH_TC_STATS == {"fwd": 1, "dkv": 1, "dq": 1}
+    rdk, rdv = fa.flash_dkv_ref(qf, kf, vf, gf, ref_lse, delta, mask, seed,
+                                scale, False, p)
+    rdq = fa.flash_dq_ref(qf, kf, vf, gf, ref_lse, delta, mask, seed, scale,
+                          False, p)
+    for name, got, want in (("o", o, ref_o), ("dk", dk, rdk),
+                            ("dv", dv, rdv), ("dq", dq, rdq)):
+        _close(got, want, TOL[torch.bfloat16], name,
+               chip_smoke.FLASH_REL_L2[torch.bfloat16])
+    _close(lse, ref_lse, 1e-4, "lse")
+
+
+def _copy_kernels(fn):
+    """Names of the device kernels ``fn`` launches that copy or
+    transpose memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and chip_smoke.conv_family(e.key) == "copies"]
+
+
+def test_nhwc_conv_bn_relu_pool_block_makes_no_copy_kernels():
+    """A channel-last Conv2D -> BatchNorm2D(act="relu") -> MaxPool2D on a
+    contiguous [N, H, W, C] input, forward and backward with a
+    contiguous [N, H, W, C] gradient, in bf16 as under AMP (the conv's
+    input and weight bf16, the norm's parameters and statistics f32):
+    cuDNN, the norm and the pool read the channels_last views as they
+    are, and the norm writes bf16 from its last op — not one copy,
+    cast or transpose kernel.  (In f32 cuDNN transposes NHWC to NCHW
+    itself, ``nhwcToNchwKernel``: the f32 path is best run NCHW.)"""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+
+    pt.set_device("cuda")
+    pt.seed(0)
+    block = nn.Sequential(nn.Conv2D(64, 64, 3, padding=1, bias_attr=False,
+                                    data_format="NHWC"),
+                          nn.BatchNorm2D(64, data_format="NHWC", act="relu"),
+                          nn.MaxPool2D(3, 2, 1, data_format="NHWC"))
+    w = block[0].weight
+    w._value = w._value.detach().to(torch.bfloat16).requires_grad_(True)
+    assert w._value.is_contiguous(memory_format=torch.channels_last)
+    x = pt.to_tensor(np.random.RandomState(0).randn(8, 56, 56, 64).astype(
+        np.float32), dtype="bfloat16", stop_gradient=False)
+    g = torch.randn(8, 28, 28, 64, device="cuda").to(torch.bfloat16)
+
+    def step():
+        out = block(x)
+        assert out.shape == [8, 28, 28, 64]
+        out._value.backward(g)
+
+    step()                                  # warm-up: cuDNN's plans
+    assert _copy_kernels(step) == []
+    assert x.grad is not None and block[0].weight.grad is not None
+
+
+def _resnet18_bench(graphed, remat=False, steps=2):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    pt.set_device("cuda")
+    pt.seed(0)
+    model = resnet18(num_classes=10, data_format="NHWC", remat=remat)
+    step, state = chip_smoke.build_step(
+        model, nn.CrossEntropyLoss(),
+        Momentum(0.1, 0.9, parameters=model.parameters()), amp_dtype=None,
+        graphed=graphed)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 64, 64, 3).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, (4,)).astype(np.int64)).cuda()
+    losses = [float(step(state, x, y)) for _ in range(steps)]
+    return model, losses
+
+
+def test_graphed_resnet18_step_equals_the_eager_step_deterministically():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed, gl = _resnet18_bench(True, steps=3)
+        eager, el = _resnet18_bench(False, steps=3)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert gl == el
+    for (name, a), (_, b) in zip(graphed.state_dict().items(),
+                                 eager.state_dict().items()):
+        assert torch.equal(a._value, b._value), name
+
+
+def test_remat_updates_the_running_statistics_once_on_the_card():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, pl = _resnet18_bench(False, steps=1)
+        remat, rl = _resnet18_bench(False, remat=True, steps=1)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert pl == rl
+    for (name, a), (_, b) in zip(plain.named_buffers(),
+                                 remat.named_buffers()):
+        torch.testing.assert_close(b._value, a._value, rtol=1e-6, atol=1e-7,
+                                   msg=name)

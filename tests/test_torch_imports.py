@@ -140,7 +140,21 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.hapi.callbacks",
                 "paddle_tpu_torch.hapi.summary",
                 "paddle_tpu_torch.hapi.model",
-                "paddle_tpu_torch.hapi.checkpoint"):
+                "paddle_tpu_torch.hapi.checkpoint",
+                "paddle_tpu_torch.jit",
+                "paddle_tpu_torch.jit.functional",
+                "paddle_tpu_torch.ops.fused_norm",
+                "paddle_tpu_torch.nn.functional.norm",
+                "paddle_tpu_torch.nn.functional.conv",
+                "paddle_tpu_torch.nn.functional.pooling",
+                "paddle_tpu_torch.nn.conv_layers",
+                "paddle_tpu_torch.nn.pool_layers",
+                "paddle_tpu_torch.nn.activation_layers",
+                "paddle_tpu_torch.vision.models",
+                "paddle_tpu_torch.vision.models.resnet",
+                "paddle_tpu_torch.vision.models.vgg",
+                "paddle_tpu_torch.vision.models.mobilenet",
+                "paddle_tpu_torch.text.models"):
         assert mod in _modules()
 
 
