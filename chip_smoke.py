@@ -1358,8 +1358,11 @@ def flash_keep_reference(kv_mask, H, S, seed, dropout_p):
 
 # flash kernels vs their plain versions: f32 sums over up to 1024 keys
 # or queries in another order (1e-4); bf16 outputs rounded to 8 mantissa
-# bits (2e-2) — both times max(1, the largest reference value)
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bits (2e-2); fp16 to 11 (4e-3, a fifth of bf16's: the bodies round P
+# and dS to fp16 where the bf16 ones round them to bf16, 2^-12 against
+# 2^-9 relative) — all times max(1, the largest reference value)
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+             torch.float16: 4e-3}
 # bf16 outputs also in relative L2 norm over the whole tensor
 # (flash_rel_l2), where the long causal rows (small |o| under a max-abs
 # limit set by row 0's |v|) cannot hide: the bf16 roundings of P, dS and
@@ -1374,7 +1377,8 @@ FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # it leaves 2.4 times the room the card needed at a single key (exact dK
 # and dQ of 0, rounding noise against the floor below: at most 8.2e-5 at
 # D 256) and 100 times that of every other case (at most 1.7e-6)
-FLASH_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
+FLASH_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 2e-4,
+                torch.float16: 2e-3}
 # the rms that stands in for the reference's where that is smaller: a
 # gradient whose exact value is 0 (dk and dq at a single key) is rounding
 # noise in both versions; every other reference of the card tests has an
@@ -1404,6 +1408,9 @@ FLASH_TC_DESIGN = {
                 "registers as the A operands of S and dP; dS rounded to "
                 "bf16 in registers as the A operand of dS K, K by "
                 "ldmatrix.trans"}
+# the fp16 bodies: the same template in fp16
+FLASH_FP16_DESIGN = {k: v.replace("bf16", "fp16")
+                     for k, v in FLASH_TC_DESIGN.items()}
 # the f32 bodies (namespace f32tc of flash_attention.cu)
 _F32TC = ("3xTF32 on mma.sync m16n8k8 tf32 (each f32 operand split into a "
           "TF32 big part and a TF32 residual where its fragment is formed; "
@@ -1494,16 +1501,20 @@ def _flash_check(tag, name, got, want, tol, rel_l2=None):
 
 def flash_kernel_phase(rng, flush) -> dict:
     """Bodies #5, #6 and #7 against their plain versions on the card in
-    f32 and bf16 at FLASH_CASES, the dropout bits of all three read back
-    exactly at the BERT shape, and each kernel timed at the training
-    shape beside its bound, its plain version and PyTorch's SDPA
-    (forward; its autograd backward for the pair)."""
+    f32 and bf16 at FLASH_CASES and in fp16 at the FLASH_TIMED shapes
+    (the GPT and BERT training shapes), the dropout bits of all three
+    read back exactly at the BERT shape, and each kernel timed at the
+    FLASH_TIMED shapes beside its bound, its plain version and PyTorch's
+    SDPA in the same dtype (forward; its autograd backward for the
+    pair)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     errs, timings = {}, {}
     reset_flash_counts()
     for name, B, H, S, D, causal, masked, p in FLASH_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32, torch.bfloat16) + (
+            (torch.float16,) if name in FLASH_TIMED else ())
+        for dtype in dtypes:
             tag = f"{name}/{str(dtype).split('.')[-1]}"
             q, k, v, g, mask = flash_inputs(rng, B, H, S, D, masked, dtype)
             scale = 1.0 / math.sqrt(D)
@@ -1582,20 +1593,23 @@ def flash_kernel_phase(rng, flush) -> dict:
 
     # the bf16 calls above ran on the tensor cores, and so did the f32
     # ones (one launch of each body per case's check, the rest timing
-    # runs)
+    # runs) and the fp16 ones (the FLASH_TIMED shapes)
     counts = read_flash_counts()
     log("kernel_flash_launches", **counts)
     if min(counts[f"flash_{body}_{k}"] for body in ("tc", "f32tc")
-           for k in ("fwd", "dkv", "dq")) < len(FLASH_CASES):
+           for k in ("fwd", "dkv", "dq")) < len(FLASH_CASES) or min(
+               counts[f"flash_fp16_{k}"] for k in ("fwd", "dkv", "dq")) \
+            < len(FLASH_TIMED):
         raise AssertionError(f"kernel_flash: tensor-core launches {counts}, "
-                             f"expected at least {len(FLASH_CASES)} of each")
+                             f"expected at least {len(FLASH_CASES)} of each "
+                             f"(fp16: {len(FLASH_TIMED)})")
 
     # (b)'s dropout bits, exactly, from every kernel in f32 and bf16
     _, B, H, S, D, _, _, p = FLASH_CASES[1]
     _, _, _, _, mask = flash_inputs(rng, B, H, S, D, True, torch.float32)
     want = flash_keep_reference(mask, H, S, FLASH_SEED, p)
     exact = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         bits = flash_keep_bits(mask, H, S, D, FLASH_SEED, p, dtype)
         exact[str(dtype).split(".")[-1]] = {
             name: bool(torch.equal(got, want)) for name, got in bits.items()}
@@ -1605,7 +1619,8 @@ def flash_kernel_phase(rng, flush) -> dict:
         raise AssertionError(f"flash dropout bits differ from _keep_mask: "
                              f"{exact}")
     return {"max_abs_err": errs, "bits_exact": exact["float32"],
-            "bits_exact_bf16": exact["bfloat16"], "launches": counts,
+            "bits_exact_bf16": exact["bfloat16"],
+            "bits_exact_fp16": exact["float16"], "launches": counts,
             **timings}
 
 
@@ -1625,11 +1640,12 @@ GRAD_TOL, GRAD_FLOOR, LOSS_RTOL = 1e-4, 1e-6, 1e-5
 def reset_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
     from paddle_tpu_torch.ops.flash_attention import (FLASH_F32TC_STATS,
+                                                      FLASH_FP16_STATS,
                                                       FLASH_ROUTE_STATS,
                                                       FLASH_TC_STATS)
 
     for stats in (ROUTE_STATS, FLASH_ROUTE_STATS, FLASH_TC_STATS,
-                  FLASH_F32TC_STATS):
+                  FLASH_FP16_STATS, FLASH_F32TC_STATS):
         for key in stats:
             stats[key] = 0
 
@@ -1637,11 +1653,13 @@ def reset_flash_counts():
 def read_flash_counts():
     from paddle_tpu_torch.ops.attention import ROUTE_STATS
     from paddle_tpu_torch.ops.flash_attention import (FLASH_F32TC_STATS,
+                                                      FLASH_FP16_STATS,
                                                       FLASH_ROUTE_STATS,
                                                       FLASH_TC_STATS)
 
     return ({f"flash_{k}": v for k, v in FLASH_ROUTE_STATS.items()}
             | {f"flash_tc_{k}": v for k, v in FLASH_TC_STATS.items()}
+            | {f"flash_fp16_{k}": v for k, v in FLASH_FP16_STATS.items()}
             | {f"flash_f32tc_{k}": v for k, v in FLASH_F32TC_STATS.items()}
             | {f"route_{k}": v for k, v in ROUTE_STATS.items()})
 
@@ -5090,16 +5108,22 @@ FIT_STEPS = FIT_SEQS // FIT_BATCH * FIT_EPOCHS
 FIT_RESUME_LAYERS, FIT_KILL_AT, FIT_CKPT_INTERVAL = 2, 4, 2
 
 
-def fit_run(ids, layers, accelerate, **fit_kw):
+def fit_run(ids, layers, accelerate, amp_level=None, **fit_kw):
     """``Model.fit`` of a seeded GPT-2-small-width GPT (``layers`` deep,
     f32) on ``ids`` [FIT_SEQS, S + 1]: ``TensorDataset`` -> ``DataLoader(
     batch 8, shuffle, drop_last)`` for FIT_EPOCHS epochs (staged by
     ``prefetch_to_device``), ``AdamW(LinearWarmup(CosineAnnealingDecay(
     6e-4, T_max=6), 2, 0.0, 6e-4), weight_decay=0.1,
     grad_clip=ClipGradByGlobalNorm(1.0))``, ``CrossEntropyLoss``, token
-    ``Accuracy`` and the ``LRScheduler(by_step=True)`` callback.  Returns
-    (model, net, per-step losses, per-step host ms, per-step LRs)."""
-    from paddle_tpu_torch import Model, callbacks, io, metric, nn, optimizer
+    ``Accuracy`` and the ``LRScheduler(by_step=True)`` callback.  With
+    ``amp_level`` ("O1" or "O2") the fit runs under ``auto_cast(level=,
+    dtype="bfloat16")``, and at O2 the GPT and the optimizer are first
+    ``amp.decorate``d (bf16 weights).  Returns (model, net, per-step
+    losses, per-step host ms, per-step LRs)."""
+    from contextlib import nullcontext
+
+    from paddle_tpu_torch import (Model, amp, callbacks, io, metric, nn,
+                                  optimizer)
     from paddle_tpu_torch.optimizer import lr as sched
     from paddle_tpu_torch.text.models import GPTModel
 
@@ -5111,6 +5135,9 @@ def fit_run(ids, layers, accelerate, **fit_kw):
                            2, 0.0, TRAIN_LR),
         parameters=list(net.parameters()), weight_decay=TRAIN_WD,
         grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    if amp_level == "O2":
+        amp.decorate(models=net, optimizers=opt, level="O2",
+                     dtype="bfloat16")
     model = Model(net)
     model.prepare(opt, nn.CrossEntropyLoss(), metric.Accuracy(),
                   accelerate=accelerate)
@@ -5130,9 +5157,11 @@ def fit_run(ids, layers, accelerate, **fit_kw):
     loader = io.DataLoader(io.TensorDataset([ids[:, :-1], ids[:, 1:]]),
                            batch_size=FIT_BATCH, shuffle=True,
                            drop_last=True)
-    model.fit(loader, epochs=FIT_EPOCHS, verbose=0,
-              callbacks=[Record(), callbacks.LRScheduler(by_step=True)],
-              **fit_kw)
+    with (amp.auto_cast(level=amp_level, dtype="bfloat16") if amp_level
+          else nullcontext()):
+        model.fit(loader, epochs=FIT_EPOCHS, verbose=0,
+                  callbacks=[Record(), callbacks.LRScheduler(by_step=True)],
+                  **fit_kw)
     return model, net, losses, step_ms, lrs
 
 
@@ -5602,13 +5631,18 @@ def bench_run(make_model, make_opt, inputs, steps, graphed,
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
-def fit_bench_run(make_model, make_opt, wrap, arrays, batch, accelerate):
+def fit_bench_run(make_model, make_opt, wrap, arrays, batch, accelerate,
+                  plan=None, **fit_kw):
     """``Model.fit`` for one epoch over ``DataLoader(TensorDataset(
     arrays), batch, no shuffle)`` (staged by ``prefetch_to_device``) of a
-    fresh seeded model wrapped by ``wrap``; each step ends in its loss
-    read.  Returns (model, result)."""
+    fresh seeded model wrapped by ``wrap``, under the chaos ``plan`` if
+    given, ``fit_kw`` passed on (``anomaly=``, checkpoints); each step
+    ends in its loss read.  Returns (model, result)."""
+    from contextlib import nullcontext
+
     from paddle_tpu_torch import Model, callbacks, io, nn
     from paddle_tpu_torch.profiler.jit_cost import compile_budget
+    from paddle_tpu_torch.testing import chaos
 
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -5628,8 +5662,10 @@ def fit_bench_run(make_model, make_opt, wrap, arrays, batch, accelerate):
 
     loader = io.DataLoader(io.TensorDataset(arrays), batch_size=batch,
                            shuffle=False, drop_last=True)
-    with compile_budget(None, names=("hapi/train_step",)) as cb:
-        model.fit(loader, epochs=1, verbose=0, callbacks=[Record()])
+    with compile_budget(None, names=("hapi/train_step",)) as cb, \
+            (chaos.running(plan) if plan is not None else nullcontext()):
+        model.fit(loader, epochs=1, verbose=0, callbacks=[Record()],
+                  **fit_kw)
     torch.cuda.synchronize()
     return model, {"losses": losses, **_steady(ms),
                    "captures": cb.compiles().get("hapi/train_step", 0),
@@ -5639,7 +5675,7 @@ def fit_bench_run(make_model, make_opt, wrap, arrays, batch, accelerate):
 def autocast_wrapper(split_mask=False):
     """``wrap(net)``: a port ``nn.Layer`` running ``net`` under
     ``auto_cast(dtype="bfloat16")`` as ``bench.py``'s step does (hapi's
-    ``amp_configs`` is not ported: ROADMAP item 16); with
+    ``amp_configs`` is ignored, as in the JAX package); with
     ``split_mask`` its input is ``[B, 2, S]``, token ids and the
     validity mask, for BERT."""
     from paddle_tpu_torch import amp, nn
@@ -6057,6 +6093,408 @@ def bert_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# numerical self-healing and mixed precision: fit(anomaly=), GradScaler,
+# decorate / O2
+# --------------------------------------------------------------------------
+ANOMALY_BATCHES = 7
+ANOMALY_SKIP = 3                   # the batch a chaos nan_grad poisons
+ANOMALY_CORRUPT_AT = 4             # the train.step visit corrupt_param hits
+ANOMALY_CKPT_INTERVAL = 2
+ANOMALY_LEAF = "net.layer3.0.conv2.weight"
+
+
+def _train_state(model) -> dict:
+    """Copies of a hapi Model's parameters, buffers and optimizer
+    accumulators (``opt/param_{i}_{kind}``), by name."""
+    out = state_snapshot(model.network)
+    out.update({f"opt/{k}": v for k, v in
+                model._optimizer.state_dict().items() if torch.is_tensor(v)})
+    return out
+
+
+def _bit_equal(a, b):
+    """The first name whose tensor differs (None: every tensor equal)."""
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))[0]
+    return next((k for k in a if not torch.equal(a[k], b[k])), None)
+
+
+def anomaly_phase() -> dict:
+    """ResNet-50 at the ``resnet`` phase's settings (NHWC, bf16 autocast,
+    ``Momentum(0.1, 0.9)``, B 128 × 224², ANOMALY_BATCHES batches from
+    ``RandomState(0)``) through a graphed ``Model.fit(anomaly=...)`` with
+    ``cudnn.deterministic`` on (restored after):
+    (a) a chaos ``nan_grad`` at batch ANOMALY_SKIP under a skip-only
+    policy skips exactly one step, and the parameters, running
+    statistics and Momentum's velocities then equal, bit for bit, a
+    guarded fit over the same batches without that batch; one capture;
+    (b) a ``corrupt_param`` of ANOMALY_LEAF (train.step visit
+    ANOMALY_CORRUPT_AT) is named by the audit (the flight recorder's
+    ``train.corruption`` target), the fit rolls back to the newest
+    verified checkpoint (every ANOMALY_CKPT_INTERVAL steps) and ends bit-
+    equal to the same fit without the fault; still one capture;
+    (c) the guarded step p50 against an unguarded fit's, the discard (the
+    pre-step copy copied back) and the rollback's restore in ms, and the
+    audit's ms (median of 5 on the trained model)."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.monitor import stat_get
+    from paddle_tpu_torch.hapi import AnomalyPolicy, Model, ParameterAudit
+    from paddle_tpu_torch.hapi import checkpoint as hckpt
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.profiler.flight_recorder import recorder
+    from paddle_tpu_torch.testing import chaos
+    from paddle_tpu_torch.vision.models import resnet50
+
+    pt.set_device(DEVICE)
+    rng = np.random.RandomState(0)
+    n = RESNET_BATCH * ANOMALY_BATCHES
+    x_np = rng.randn(n, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+    y_np = rng.randint(0, 1000, (n,)).astype(np.int64)
+    keep = np.ones(n, bool)
+    keep[ANOMALY_SKIP * RESNET_BATCH:(ANOMALY_SKIP + 1) * RESNET_BATCH] = 0
+    make = seeded(resnet50, num_classes=1000, data_format="NHWC")
+
+    def opt(m):
+        return Momentum(0.1, 0.9, parameters=m.parameters())
+
+    def run(arrays, **kw):
+        model, res = fit_bench_run(make, opt, autocast_wrapper(), arrays,
+                                   RESNET_BATCH, True, **kw)
+        state = _train_state(model)
+        return model, res, state
+
+    skip_only = AnomalyPolicy(rollback_after=None, spike_window=0)
+    timed = {"discard": [], "restore": []}
+    real_discard, real_restore = Model._discard_step, \
+        hckpt.restore_train_state
+
+    def discard(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_discard(self)
+        torch.cuda.synchronize()
+        timed["discard"].append((time.perf_counter() - t0) * 1e3)
+
+    def restore(model, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_restore(model, state)
+        torch.cuda.synchronize()
+        timed["restore"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    Model._discard_step = discard
+    hckpt.restore_train_state = restore
+    try:
+        model, plain, _ = run([x_np, y_np])
+        del model
+        skipped0 = stat_get("train.anomaly.skipped_steps")
+        plan = chaos.ChaosPlan([chaos.Fault(
+            "train.step", at=ANOMALY_SKIP + 1, action=chaos.NAN_GRAD)])
+        model, skip, skip_state = run([x_np, y_np], plan=plan,
+                                      anomaly=skip_only)
+        skip["skipped_steps"] = stat_get(
+            "train.anomaly.skipped_steps") - skipped0
+        skip["fired"] = plan.fired_log()
+        skip["discard_ms"] = list(timed["discard"])
+        del model
+        _, clean, clean_state = run([x_np[keep], y_np[keep]],
+                                    anomaly=skip_only)
+        skip_diff = _bit_equal(skip_state, clean_state)
+        del skip_state, clean_state
+        free_cuda()
+        pol = AnomalyPolicy(rollback_after=10, rollback_window=32,
+                            rollback_budget=2, audit_interval=2,
+                            spike_window=0)
+        ckpt = dict(checkpoint_interval=ANOMALY_CKPT_INTERVAL,
+                    checkpoint_async=False)
+        with tempfile.TemporaryDirectory() as d:
+            rb0 = stat_get("train.anomaly.rollbacks")
+            recorder.reset()
+            plan = chaos.ChaosPlan([chaos.Fault(
+                "train.step", at=ANOMALY_CORRUPT_AT,
+                action=chaos.CORRUPT_PARAM, leaf=ANOMALY_LEAF)])
+            model, rb, rb_state = run([x_np, y_np], plan=plan, anomaly=pol,
+                                      checkpoint_dir=f"{d}/faulted", **ckpt)
+            rb["rollbacks"] = stat_get("train.anomaly.rollbacks") - rb0
+            trans = recorder.build_bundle("anomaly")["transitions"]
+            rb["corruption_named"] = [t["target"] for t in trans
+                                      if t["kind"] == "train.corruption"]
+            del model
+            model, ref, ref_state = run([x_np, y_np], anomaly=pol,
+                                        checkpoint_dir=f"{d}/clean", **ckpt)
+        rb_diff = _bit_equal(rb_state, ref_state)
+        del rb_state, ref_state
+        audit_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ParameterAudit().corrupted_leaf(model)
+            audit_ms.append((time.perf_counter() - t0) * 1e3)
+        del model
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        Model._discard_step = real_discard
+        hckpt.restore_train_state = real_restore
+    del x_np, y_np
+    free_cuda()
+    res = {"batch": RESNET_BATCH, "size": RESNET_SIZE, "layout": "NHWC",
+           "batches": ANOMALY_BATCHES, "skip_batch": ANOMALY_SKIP,
+           "corrupt_leaf": ANOMALY_LEAF, "unguarded": plain,
+           "skip": skip, "clean_minus_batch": clean,
+           "skip_first_difference": skip_diff, "rollback": rb,
+           "rollback_reference": ref, "rollback_first_difference": rb_diff,
+           "guarded_step_ms_p50": clean["step_ms_p50"],
+           "unguarded_step_ms_p50": plain["step_ms_p50"],
+           "guard_overhead_ms": clean["step_ms_p50"] - plain["step_ms_p50"],
+           "discard_ms": timed["discard"], "restore_ms": timed["restore"],
+           "audit_ms_p50": float(np.median(audit_ms)), "audit_ms": audit_ms}
+    log("anomaly", **res)
+    if skip["skipped_steps"] != 1 or len(skip["fired"]) != 1 \
+            or len(skip["discard_ms"]) != 1:
+        raise AssertionError(f"anomaly: the nan_grad fit skipped "
+                             f"{skip['skipped_steps']} steps: {skip['fired']}")
+    if skip_diff is not None:
+        raise AssertionError(f"anomaly: the skip run differs from the run "
+                             f"without batch {ANOMALY_SKIP} at {skip_diff}")
+    if rb["rollbacks"] != 1 or rb["corruption_named"][:1] != [ANOMALY_LEAF] \
+            or len(timed["restore"]) != 1:
+        raise AssertionError(f"anomaly: rollback {rb['rollbacks']}, audit "
+                             f"named {rb['corruption_named']}")
+    if rb_diff is not None:
+        raise AssertionError(f"anomaly: the rolled-back fit differs from "
+                             f"the clean one at {rb_diff}")
+    for name, r in (("unguarded", plain), ("skip", skip), ("clean", clean),
+                    ("rollback", rb), ("reference", ref)):
+        if r["captures"] != 1:
+            raise AssertionError(f"anomaly: the {name} fit captured "
+                                 f"{r['captures']} times")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"anomaly: {name} logged non-finite "
+                                 f"losses {r['losses']}")
+    return res
+
+
+AMP_FP16_STEPS = 6
+AMP_OVERFLOW_STEPS, AMP_OVERFLOW_SCALE = 10, 2.0 ** 24
+# fp16 against bf16 autocast, the same BERT steps from the same weights
+# and dropout draws: the products round to 11 significant bits in one and
+# 8 in the other, so a loss of ~0.7 moves by a few bf16 ulps (2^-8
+# relative each) over 6 AdamW steps at 5e-5; 2e-2 relative holds that,
+# and fails a step that went wrong (a skipped or doubled update moves the
+# loss by the step's whole change)
+AMP_FP16_LOSS_RTOL = 2e-2
+
+
+def amp_loop(dtype, scaler, steps, inputs, until_finite=False):
+    """The bare dygraph loop on a seeded ``BertForSequenceClassification``
+    (bert-base, ``AdamW(5e-5)``): each step ``auto_cast(dtype=dtype)``
+    forward, ``scaler.scale(loss).backward(); scaler.step(opt);
+    scaler.update(); opt.clear_grad()``, counted under
+    ``set_sync_debug_mode("warn")``.  Per step: the loss, the scale it
+    ran at, whether the scaler found an inf, whether every parameter kept
+    its bits, the fp16-body launches of #5-#7 and the host syncs.
+    ``until_finite``: stop after the first step the scaler found
+    finite."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    ids, mask, y = (pt.Tensor(t) for t in inputs)
+    pt.set_device(DEVICE)
+    model = seeded(BertForSequenceClassification, num_classes=2)()
+    opt = AdamW(5e-5, parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+    params = [p._value for p in model.parameters()]
+    pt.seed(1)
+    out, ms = [], []
+    for _ in range(steps):
+        before = [p.detach().clone() for p in params]
+        scale = scaler.get_loss_scaling()
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with amp.auto_cast(dtype=dtype):
+                    loss = loss_fn(model(ids, None, mask), y)
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+                scaler.update()
+                opt.clear_grad()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        lossf = float(loss)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_flash_counts()
+        found_inf = bool(scaler._found_inf) if scaler.is_enable() else False
+        out.append({
+            "loss": lossf, "scale": scale, "found_inf": found_inf,
+            "params_unchanged": all(torch.equal(b, p)
+                                    for b, p in zip(before, params)),
+            "flash_fp16": {k: counts[f"flash_fp16_{k}"]
+                           for k in ("fwd", "dkv", "dq")},
+            "flash_tc": {k: counts[f"flash_tc_{k}"]
+                         for k in ("fwd", "dkv", "dq")},
+            "host_syncs": sum("synchroniz" in str(w.message) for w in seen)})
+        del before
+        if until_finite and not found_inf:
+            break
+    del model, opt, params
+    free_cuda()
+    return out, _steady(ms)
+
+
+def amp_fp16_phase() -> dict:
+    """BERT-base, B 32 × S 128 (``bert_inputs`` from ``RandomState(0)``),
+    under ``auto_cast(dtype="float16")`` with ``GradScaler`` in the bare
+    dygraph loop, AMP_FP16_STEPS steps: every step launches #5-#7 12
+    times each on the fp16 bodies (no ``TypeError``), none skipped, the
+    losses within AMP_FP16_LOSS_RTOL of the same loop under bf16 autocast
+    (the scaler off); then from ``init_loss_scaling=2**24``: the first
+    steps overflow, each skipped with every parameter bit-unchanged and
+    the scale halved, until the first finite step (at most
+    AMP_OVERFLOW_STEPS).  The host syncs a step are counted (the
+    scaler's one read included)."""
+    from paddle_tpu_torch.amp import GradScaler
+
+    rng = np.random.RandomState(0)
+    inputs = tuple(torch.from_numpy(a).to(DEVICE)
+                   for a in bert_inputs(rng, BERT_BATCH))
+    fp16, fp16_ms = amp_loop("float16", GradScaler(), AMP_FP16_STEPS,
+                             inputs)
+    bf16, bf16_ms = amp_loop("bfloat16", GradScaler(enable=False),
+                             AMP_FP16_STEPS, inputs)
+    over, _ = amp_loop("float16",
+                       GradScaler(init_loss_scaling=AMP_OVERFLOW_SCALE),
+                       AMP_OVERFLOW_STEPS, inputs, until_finite=True)
+    layers = 12
+    res = {"batch": BERT_BATCH, "seq": BERT_SEQ, "steps": fp16,
+           "step_ms": fp16_ms, "bf16_steps": bf16, "bf16_step_ms": bf16_ms,
+           "overflow_steps": over,
+           "host_syncs_per_step": [s["host_syncs"] for s in fp16],
+           "skipped": sum(s["found_inf"] for s in fp16),
+           "overflow_skipped": sum(s["found_inf"] for s in over),
+           "launches": {f"flash_fp16_{k}": sum(s["flash_fp16"][k]
+                                                for s in fp16)
+                        for k in ("fwd", "dkv", "dq")}}
+    log("amp_fp16", **res)
+    want = {"fwd": layers, "dkv": layers, "dq": layers}
+    for s in fp16 + over:
+        if s["flash_fp16"] != want or any(s["flash_tc"].values()):
+            raise AssertionError(f"amp_fp16: a step launched {s}, expected "
+                                 f"{want} fp16-body launches")
+    if any(s["found_inf"] != s["params_unchanged"] for s in fp16 + over) \
+            or all(s["found_inf"] for s in fp16):
+        raise AssertionError(f"amp_fp16: a step skipped without an "
+                             f"overflow, or updated with one: {fp16}")
+    if not close_losses([s["loss"] for s in fp16],
+                        [s["loss"] for s in bf16], AMP_FP16_LOSS_RTOL):
+        raise AssertionError(f"amp_fp16: fp16 losses "
+                             f"{[s['loss'] for s in fp16]} vs bf16 "
+                             f"{[s['loss'] for s in bf16]}")
+    if len(over) < 2 or not all(s["found_inf"] for s in over[:-1]) \
+            or over[-1]["found_inf"]:
+        raise AssertionError(f"amp_fp16: the overflow run did not start "
+                             f"skipping and end finite: {over}")
+    for a, b in zip(fp16 + over, fp16[1:] + [None] + over[1:]):
+        if b is None:
+            continue
+        want_scale = a["scale"] * (0.5 if a["found_inf"] else 1.0)
+        if b["scale"] != want_scale:
+            raise AssertionError(f"amp_fp16: scale {a['scale']} -> "
+                                 f"{b['scale']} after found_inf "
+                                 f"{a['found_inf']}")
+    if not all(math.isfinite(s["loss"]) for s in fp16 + bf16 + over):
+        raise AssertionError("amp_fp16: a non-finite loss")
+    return res
+
+
+# O2 (bf16 weights, no master copy) against O1 (f32 master weights, bf16
+# products), the same 6 fit steps of GPT-2-small from the same weights: at
+# a loss of ~10.8 the two differ by the weights' bf16 rounding (2^-9
+# relative) and its effect on 6 AdamW updates of up to 6e-4; 2e-2
+# relative holds that and fails a step that skipped its update or ran in
+# another precision than asked
+O2_LOSS_RTOL = 2e-2
+
+
+def o2_phase(fit) -> dict:
+    """GPT-2-small at the ``fit`` phase's widths, data and schedule (12
+    layers, B 8 × S 1024, FIT_STEPS steps, the ids of
+    ``RandomState(10)``), ``decorate(level="O2", dtype="bfloat16")`` then
+    a graphed ``Model.fit`` under ``auto_cast(level="O2")``, and the same
+    fit at O1 (f32 weights): one capture each; every parameter and AdamW
+    moment bf16 after O2; #5-#7 on the bf16 bodies, 12 a step; losses
+    finite and O2 within O2_LOSS_RTOL of O1; step p50 and peak memory
+    beside the ``fit`` phase's f32 figures."""
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+
+    ids = np.random.RandomState(10).randint(
+        0, GPT2_SMALL["vocab_size"], (FIT_SEQS, TRAIN_SEQ + 1)).astype(
+            np.int64)
+    runs = {}
+    for level in ("O2", "O1"):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        with compile_budget(None, names=("hapi/train_step",)) as cb:
+            model, net, losses, step_ms, _ = fit_run(ids, 12, True,
+                                                     amp_level=level)
+        torch.cuda.synchronize()
+        counts = read_flash_counts()
+        r = {"losses": losses, **_steady(step_ms),
+             "tokens_per_s": FIT_BATCH * TRAIN_SEQ / (
+                 np.percentile(step_ms[1:], 50) / 1e3),
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "captures": cb.compiles().get("hapi/train_step", 0),
+             "param_dtypes": sorted({str(p.dtype)
+                                     for p in net.parameters()}),
+             "moment_dtypes": sorted({
+                 str(v.dtype) for v in model._optimizer.state_dict()
+                 .values() if torch.is_tensor(v)}), **counts}
+        runs[level] = r
+        del model, net
+    free_cuda()
+    o2, o1 = runs["O2"], runs["O1"]
+    res = {"layers": 12, "batch": FIT_BATCH, "seq": TRAIN_SEQ,
+           "steps": FIT_STEPS, "O2": o2, "O1": o1,
+           "fit_f32_step_ms_p50": fit["graphed"]["step_ms_p50"],
+           "fit_f32_max_memory_allocated":
+               fit["graphed"]["max_memory_allocated"]}
+    log("o2", **res)
+    n = 12 * FIT_STEPS
+    for level, r in runs.items():
+        expect_counts(f"o2_{level}", r, {
+            "flash_tc_fwd": n, "flash_tc_dkv": n, "flash_tc_dq": n,
+            "flash_ref": 0, "flash_f32tc_fwd": 0, "flash_fp16_fwd": 0})
+        if r["captures"] != 1:
+            raise AssertionError(f"o2: {level} captured {r['captures']} "
+                                 f"times")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"o2: {level} losses {r['losses']}")
+    if o2["param_dtypes"] != ["torch.bfloat16"] or \
+            o2["moment_dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"o2: parameters {o2['param_dtypes']}, "
+                             f"moments {o2['moment_dtypes']}")
+    if o1["param_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"o2: O1 parameters {o1['param_dtypes']}")
+    if not close_losses(o2["losses"], o1["losses"], O2_LOSS_RTOL):
+        raise AssertionError(f"o2: O2 losses {o2['losses']} vs O1 "
+                             f"{o1['losses']}")
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -6171,6 +6609,16 @@ def main(argv=None) -> int:
     free_cuda()
     report["bert"] = bert = bert_phase()
     free_cuda()
+    new_phase_s = {}
+    for name, phase in (("anomaly", anomaly_phase),
+                        ("amp_fp16", amp_fp16_phase),
+                        ("o2", lambda: o2_phase(fit))):
+        t0 = time.perf_counter()
+        report[name] = phase()
+        new_phase_s[name] = time.perf_counter() - t0
+        free_cuda()
+    log("phase_seconds", **new_phase_s, total=sum(new_phase_s.values()))
+    amp16 = report["amp_fp16"]
 
     t0 = time.perf_counter()
     model = GPTModel(**GPT2_SMALL, device="cuda", seed=1234)
@@ -6324,6 +6772,19 @@ def main(argv=None) -> int:
                                     flash_t["max_abs_err"].items()
                                     if c.endswith("bfloat16")},
                dropout_bits_exact=flash_t["bits_exact_bf16"][kname])
+        for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))] + [
+        record(f"flash_attention_{kname}_fp16_tc", flash_src,
+               f"{flash_tpu}:{line}", amp16["launches"][f"flash_fp16_{kname}"],
+               flash_t[f"{kname}/train/float16"],
+               case="B8 H12 S1024 D64 causal, float16",
+               design=FLASH_FP16_DESIGN[kname],
+               launches_is="BERT-base B32 x S128 under auto_cast(float16) "
+                           "with GradScaler, the amp_fp16 phase's main run",
+               bert_base_s128=flash_t[f"{kname}/bert_base_s128/float16"],
+               max_abs_err_by_case={c: e[kname] for c, e in
+                                    flash_t["max_abs_err"].items()
+                                    if c.endswith("float16")},
+               dropout_bits_exact=flash_t["bits_exact_fp16"][kname])
         for kname, line in (("fwd", 289), ("dkv", 332), ("dq", 377))] + [
         record("paged_attention",
                "paddle_tpu_torch/ops/csrc/paged_decode.cu",

@@ -1,7 +1,9 @@
-"""Automatic mixed precision — twin of ``paddle_tpu/amp`` (``auto_cast``
-and its op lists)."""
+"""Automatic mixed precision — twin of ``paddle_tpu/amp``: ``auto_cast``
+and its op lists, ``decorate`` (level O2) and the fp16 loss scalers
+``AmpScaler`` / ``GradScaler``."""
 from .auto_cast import (amp_guard, auto_cast, black_list,  # noqa: F401
-                        should_cast, white_list)
+                        decorate, should_cast, white_list)
+from .grad_scaler import AmpScaler, GradScaler  # noqa: F401
 
 __all__ = ["auto_cast", "amp_guard", "white_list", "black_list",
-           "should_cast"]
+           "should_cast", "decorate", "AmpScaler", "GradScaler"]

@@ -1,8 +1,12 @@
-"""auto_cast — twin of ``paddle_tpu/amp/auto_cast.py``: the same op
-white and black lists (copied verbatim, so an op name casts the same way
-in both packages) and the same ``should_cast`` rule.  ``cast_inputs``
-applies it to an op's floating inputs: ``ops.dispatch.apply``, the
-attention ops and ``GPTModel``'s linear layers all cast through it."""
+"""auto_cast and decorate — twin of ``paddle_tpu/amp/auto_cast.py``: the
+same op white and black lists (copied verbatim, so an op name casts the
+same way in both packages) and the same ``should_cast`` rule.
+``cast_inputs`` applies it to an op's floating inputs:
+``ops.dispatch.apply``, the attention ops and ``GPTModel``'s layers all
+cast through it.  ``decorate(level="O2")`` casts the models' parameters
+and buffers to the low dtype, as the JAX package's does: there are no
+master weights (an optimizer's accumulators are ``zeros_like`` the
+parameter, its update computed in f32 and cast back)."""
 from __future__ import annotations
 
 import threading
@@ -13,7 +17,7 @@ import torch
 from ..framework.dtype import convert_dtype
 
 __all__ = ["white_list", "black_list", "auto_cast", "amp_guard",
-           "amp_state", "should_cast", "cast_inputs"]
+           "amp_state", "should_cast", "cast_inputs", "decorate"]
 
 # the op lists of paddle_tpu/amp/auto_cast.py:12-30 (reference fp16_lists.py)
 white_list = {
@@ -106,3 +110,41 @@ def cast_inputs(op_name: str, *tensors):
         return tensors
     return tuple(t.to(dtype) if isinstance(t, torch.Tensor)
                  and t.is_floating_point() else t for t in tensors)
+
+
+def _repoint(optimizer):
+    """Point ``optimizer`` at its parameters' current tensors.  A port
+    ``Layer.to(dtype=)`` gives each parameter a new torch tensor, which an
+    optimizer built before it would not see (the JAX package rewrites
+    ``_value`` of the same objects and needs no such step); accumulators
+    made already move to the new tensor's key, as they are."""
+    objs = getattr(optimizer, "_param_objs", None)
+    if objs is None:
+        return
+    old = optimizer._parameters or []
+    new = [p._value if hasattr(p, "_value") else p for p in objs]
+    for store in optimizer._accumulators.values():
+        for o, n in zip(old, new):
+            if o is not n and id(o) in store:
+                store[id(n)] = store.pop(id(o))
+    optimizer._parameters = new
+
+
+def decorate(models=None, optimizers=None, level="O1", dtype="bfloat16",
+             master_weight=None, save_dtype=None, **kw):
+    """Level O2: cast every model's floating parameters and buffers to
+    ``dtype`` (a port ``Layer`` or a ``torch.nn.Module``) and re-point
+    each optimizer given at the cast parameters; O1 changes nothing.
+    Returns ``models``, or ``(models, optimizers)`` when optimizers are
+    given — the JAX package's return."""
+    if level == "O2" and models is not None:
+        items = models if isinstance(models, (list, tuple)) else [models]
+        for m in items:
+            m.to(dtype=convert_dtype(dtype))
+        opts = (optimizers if isinstance(optimizers, (list, tuple))
+                else [optimizers] if optimizers is not None else [])
+        for opt in opts:
+            _repoint(opt)
+    if optimizers is None:
+        return models
+    return models, optimizers

@@ -1,7 +1,8 @@
 """paddle_tpu_torch.hapi — the high-level training API, twin of
-``paddle_tpu/hapi`` (``hapi/anomaly.py`` is not ported: ROADMAP queue 1
-item 16)."""
+``paddle_tpu/hapi``."""
 from . import callbacks  # noqa: F401
+from .anomaly import (AnomalyPolicy, AnomalyRuntime,  # noqa: F401
+                      LossSpikeDetector, ParameterAudit)
 from .callbacks import (Callback, EarlyStopping, LRScheduler,  # noqa: F401
                         ModelCheckpoint, ProgBarLogger, ReduceLROnPlateau,
                         VisualDL)
@@ -12,5 +13,7 @@ from .summary import flops, summary  # noqa: F401
 
 __all__ = ["callbacks", "Callback", "EarlyStopping", "LRScheduler",
            "ModelCheckpoint", "ProgBarLogger", "ReduceLROnPlateau",
-           "VisualDL", "TrainCheckpointer", "capture_train_state",
-           "restore_train_state", "Model", "flops", "summary"]
+           "VisualDL", "AnomalyPolicy", "AnomalyRuntime",
+           "LossSpikeDetector", "ParameterAudit", "TrainCheckpointer",
+           "capture_train_state", "restore_train_state", "Model", "flops",
+           "summary"]

@@ -33,12 +33,26 @@ checkpoint is the one before the next batch's fetch, as without
 prefetching, so a resume is bit-exact also for datasets that draw from
 numpy's stream.
 
+``fit(anomaly=)`` turns on numerical self-healing (``hapi/anomaly.py``):
+the graphed step is captured in its guarded form, which first copies
+everything it updates in place (parameters, accumulators, buffers) into
+a pre-step copy and also returns ``isfinite(loss) & isfinite(global grad
+norm)``, computed in the graph and read with the loss in one host read.
+A skipped step (non-finite, or a loss spike under ``spike_action=
+"skip"``) is discarded by copying the pre-step copy back in place — the
+JAX package keeps its undonated pre-step state instead — and rewinds the
+port's generator, numpy's stream and ``py_random``.  The eager path's
+guard is one device reduction and one read; its non-finite step never
+runs the optimizer.
+
+``prepare(amp_configs=)`` is accepted and ignored, in both packages: the
+precision is set by ``amp.auto_cast`` around ``fit`` and by
+``amp.decorate``.
+
 Not ported (each raises ``InvalidArgumentError`` naming its ROADMAP
 queue 1 item): static-graph mode (``StaticGraphAdapter``, item 13);
-``amp_configs`` (item 16; the JAX package accepts and ignores it);
-``fit(anomaly=)`` (item 16, ``hapi/anomaly.py``); ``update=False``
-(gradient accumulation) on the graphed path — it runs with
-``accelerate=False``.
+``update=False`` (gradient accumulation) on the graphed path — it runs
+with ``accelerate=False``.
 """
 from __future__ import annotations
 
@@ -76,6 +90,25 @@ def _batch_size_of(x):
 
 def _value(x):
     return x._value if isinstance(x, Tensor) else x
+
+
+def _guard_values(loss, grads) -> torch.Tensor:
+    """``[loss, global grad norm, ok]`` (f32, on the loss's device) with
+    ``ok = isfinite(loss) & isfinite(grad norm)``: the norm over every
+    gradient there is, each squared and summed in f32, as the JAX
+    package's guard."""
+    gs = [g for g in grads if g is not None]
+    sq = (torch.stack([g.float().square().sum() for g in gs]).sum()
+          if gs else torch.zeros((), device=loss.device))
+    gn = torch.sqrt(sq)
+    ok = torch.isfinite(loss) & torch.isfinite(gn)
+    return torch.stack([loss.detach().float(), gn, ok.float()])
+
+
+def _read_guard(guard: torch.Tensor) -> dict:
+    """The guard vector read to the host (the step's one read)."""
+    loss, gn, ok = guard.tolist()
+    return {"ok": ok == 1.0, "loss": loss, "grad_norm": gn}
 
 
 class StaticGraphAdapter:
@@ -126,17 +159,24 @@ class Model:
         self._metrics: List[Metric] = []
         self._accelerate = True
         self._graph = None
+        self._graph_guarded = False
         self._train_state = None
         self._train_params = None
         self.stop_training = False
+        # numerical self-healing: with fit(anomaly=) the step runs
+        # guarded; _last_guard is its verdict {"ok", "loss", "grad_norm"},
+        # _backup the graphed step's pre-step copy (None when unguarded)
+        self._anomaly_guard = False
+        self._last_guard = None
+        self._backup = None
+        self._pre_scalars = None    # (step count, LR) before the step
+        self._lr_written = None     # the LR the last step wrote
 
     # --- prepare -----------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, accelerate=True):
-        if amp_configs is not None:
-            raise InvalidArgumentError(
-                "prepare(amp_configs=) is not ported yet (ROADMAP queue 1 "
-                "item 16: amp/grad_scaler.py, decorate, level O2)")
+        """``amp_configs`` is accepted and ignored, as the JAX package
+        does."""
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -175,10 +215,13 @@ class Model:
         return _value(loss).float()
 
     # --- the train step -------------------------------------------------------
-    def _build_train_step(self):
+    def _build_train_step(self, guarded: bool = False):
         """The graphed step over the optimizer's trainable parameters,
         the network's buffers, the accumulators and the optimizer's
-        device scalars (all donated: the step updates them in place)."""
+        device scalars (all donated: the step updates them in place).
+        ``guarded``: the step first copies the parameters, accumulators
+        and buffers into ``_backup`` (a skip copies them back) and also
+        returns ``[loss, grad norm, ok]`` for the host's one read."""
         from ..profiler.jit_cost import profiled_graph
 
         opt = self._optimizer
@@ -187,41 +230,95 @@ class Model:
         lr_t, step_t = opt._scalars()
         accs = [opt._accumulators[kind][id(p)]
                 for kind in opt._acc_kinds() for p in params]
+        buffers = [_value(b) for b in self.network.buffers()]
+        kept = list(params) + accs + buffers
+        backup = ([torch.empty_like(t) for t in kept] if guarded
+                  else None)
 
         def train_step(state, x, y):
+            if guarded:
+                with torch.no_grad():
+                    torch._foreach_copy_(backup, kept)
             outs = self._forward(x)
             loss = self._loss_value(outs, y)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
+            if guarded:
+                verdict = _guard_values(loss, grads)
             opt._apply_gradients(list(zip(params, grads)))
+            if guarded:
+                return loss.detach(), outs[0].detach(), verdict
             return loss.detach(), outs[0].detach()
 
-        buffers = [_value(b) for b in self.network.buffers()]
         self._train_params = params
-        self._train_state = list(params) + accs + buffers + [lr_t, step_t]
+        self._train_state = kept + [lr_t, step_t]
+        self._backup = backup
+        self._graph_guarded = guarded
         self._graph = profiled_graph("hapi/train_step", train_step,
                                      donate_argnums=(0,))
 
     def _run_train_step(self, x, y, update=True):
         """One training step on device tensors; returns ``(loss, first
-        output)`` as device tensors, nothing read back (a graphed step's
-        are its static outputs: the next step overwrites them)."""
+        output, guard)`` as device tensors, nothing read back (a graphed
+        step's are its static outputs: the next step overwrites them).
+        ``guard`` is the ``[loss, grad norm, ok]`` vector of a graphed
+        guarded step, else None; an eager guarded step reads it itself
+        (``guard`` is then its host dict) and runs the optimizer only
+        when it is finite."""
         self.network.train()
+        guarded = self._anomaly_guard
+        opt = self._optimizer
         if self._accelerate:
             if not update:
                 raise InvalidArgumentError(
                     "train_batch(update=False) (gradient accumulation) "
                     "needs prepare(accelerate=False)")
-            if self._graph is None:
-                self._build_train_step()
-            self._optimizer._prepare_step()
-            return self._graph(self._train_state, x, y)
+            if self._graph is None or self._graph_guarded != guarded:
+                self._build_train_step(guarded)
+            self._pre_scalars = (opt._step_count, self._lr_written)
+            opt._prepare_step()
+            self._lr_written = opt.get_lr()
+            out = self._graph(self._train_state, x, y)
+            return out if guarded else out + (None,)
         outs = self._forward(x)
         loss = self._loss_value(outs, y)
         loss.backward()
+        guard = None
+        if guarded:
+            guard = _read_guard(_guard_values(
+                loss, [p.grad for p in opt._param_list()]))
+            if not guard["ok"]:
+                # the optimizer never runs: the parameters are untouched
+                opt.clear_grad()
+                return loss.detach(), outs[0].detach(), guard
         if update:
-            self._optimizer.step()
-            self._optimizer.clear_grad()
-        return loss.detach(), outs[0].detach()
+            opt.step()
+            opt.clear_grad()
+        return loss.detach(), outs[0].detach(), guard
+
+    def _can_discard(self) -> bool:
+        """Whether the last step's update can be taken back (the graphed
+        guarded step keeps a pre-step copy)."""
+        return self._accelerate and self._backup is not None
+
+    @torch.no_grad()
+    def _discard_step(self):
+        """Take the last guarded step's update back: the pre-step copy
+        into the parameters, accumulators and buffers in place (their
+        addresses stay the graph's), the step count and the LR scalars as
+        they were.  An eager step has nothing to take back: its
+        non-finite update never ran."""
+        if not self._can_discard():
+            return
+        kept = self._train_state[:len(self._backup)]
+        torch._foreach_copy_(kept, self._backup)
+        opt = self._optimizer
+        count, lr = self._pre_scalars
+        opt._step_count = count
+        lr_t, step_t = opt._scalars()
+        step_t.fill_(float(count))
+        if lr is not None:
+            lr_t.fill_(lr)
+        self._lr_written = lr
 
     # --- single-batch API ----------------------------------------------------
     def train_batch(self, inputs, labels=None, update=True):
@@ -230,9 +327,19 @@ class Model:
         x = self._as_input(inputs[0])
         y = self._as_input(labels[0]) if labels and labels[0] is not None \
             else None
-        loss, out = self._run_train_step(x, y, update)
+        loss, out, guard = self._run_train_step(x, y, update)
+        if guard is None:
+            self._last_guard = None
+            lossf = float(loss)
+        else:
+            self._last_guard = (guard if isinstance(guard, dict)
+                                else _read_guard(guard))
+            lossf = self._last_guard["loss"]
+            if not self._last_guard["ok"]:
+                # a poisoned step never reaches the metrics
+                return [lossf]
         metrics_out = self._update_metrics(out, y)
-        return [float(loss)] + metrics_out
+        return [lossf] + metrics_out
 
     def _update_metrics(self, out, y):
         res = []
@@ -291,7 +398,12 @@ class Model:
           fetch (the ``loader.next`` chaos site) or train step is retried
           with exponential backoff, the generators restored first; a
           ``FatalError`` (a ``train.step`` chaos ``kill``) is not.
-        - ``anomaly``: not ported (ROADMAP queue 1 item 16).
+        - ``anomaly``: True or an ``AnomalyPolicy`` turns on numerical
+          self-healing (``hapi/anomaly.py``): the guarded step, skip-step
+          on a non-finite loss or gradient norm, the loss-spike
+          detector, the parameter audit, and rollback to the newest
+          verified checkpoint (``checkpoint_dir`` needed when rollback
+          is armed), bounded by a budget past which ``FatalError``.
         """
         from ..framework.errors import FatalError
         from ..framework.monitor import stat_add
@@ -299,11 +411,8 @@ class Model:
         from ..io.dataloader import prefetch_to_device
         from ..io.dataset import Dataset
         from ..testing.chaos import KILL, chaos_site
+        from .anomaly import _RollbackRequested
 
-        if anomaly:
-            raise InvalidArgumentError(
-                "fit(anomaly=) is not ported yet (ROADMAP queue 1 item 16: "
-                "hapi/anomaly.py, a branch-free device guard in the graph)")
         if isinstance(train_data, Dataset):
             train_loader = DataLoader(train_data, batch_size=batch_size,
                                       shuffle=shuffle, drop_last=drop_last,
@@ -338,6 +447,7 @@ class Model:
             else:
                 resume_pos = TrainCheckpointer(
                     resume, async_write=False).resume(self)
+        anomaly_rt = self._anomaly_runtime(anomaly, ckpt)
 
         staged = self._device().type == "cuda"
         steps = None
@@ -355,87 +465,49 @@ class Model:
         trained_any = False
         logs = {}
         try:
-            for epoch in range(start_epoch, epochs):
+            epoch = start_epoch
+            while epoch < epochs:
                 skip_batches = 0
                 if resume_pos is not None and epoch == start_epoch:
-                    # replay the epoch permutation the interrupted run
-                    # drew, then (below) skip what it trained and rejoin
-                    # its streams before the first batch left to train
+                    # replay the epoch permutation the interrupted (or
+                    # rolled back) run drew, then (below) skip what it
+                    # trained and rejoin its streams before the first
+                    # batch left to train
                     np.random.set_state(resume_pos["np_state_epoch_start"])
                     if resume_pos.get("py_state_epoch_start") is not None:
                         py_random.setstate(
                             resume_pos["py_state_epoch_start"])
                     skip_batches = resume_pos["next_batch"]
-                with RecordEvent("hapi/fit.epoch", epoch=epoch):
-                    cbks.on_epoch_begin(epoch)
-                    for m in self._metrics:
-                        m.reset()
-                    logs = {}
-                    np_epoch_start = np.random.get_state()
-                    py_epoch_start = py_random.getstate()
-                    raw = iter(train_loader)
-                    for _ in range(skip_batches):
-                        if self._fetch_with_retry(
-                                raw, step_retries, step_retry_backoff_s,
-                                chaos_site, stat_add) is None:
-                            break
-                    if skip_batches:
-                        np.random.set_state(resume_pos["np_random"])
-                        if resume_pos.get("py_random") is not None:
-                            py_random.setstate(resume_pos["py_random"])
-                    tracked = _Tracked(raw, skip_batches)
-                    it = (prefetch_to_device(tracked, device=self._device())
-                          if staged else tracked)
-                    step = skip_batches
-                    while num_iters is None or step < num_iters:
-                        batch = self._fetch_with_retry(
-                            it, step_retries, step_retry_backoff_s,
-                            chaos_site, stat_add)
-                        if batch is None:
-                            break
-                        cbks.on_batch_begin("train", step, logs)
-                        x = batch[0]
-                        y = batch[1] if len(batch) > 1 else None
-                        t0 = _time.perf_counter()
-                        with RecordEvent("hapi/train_batch"):
-                            outs = self._step_with_retry(
-                                x, y, step_retries, step_retry_backoff_s,
-                                chaos_site, stat_add, KILL, FatalError)
-                        histogram_observe(
-                            "hapi.train_batch_ms",
-                            (_time.perf_counter() - t0) * 1e3)
-                        global_step += 1
-                        trained_any = True
-                        logs = {"loss": outs[0],
-                                "batch_size": _batch_size_of(x)}
-                        for name, val in zip(self._metric_names(),
-                                             outs[1:]):
-                            logs[name] = val
-                        cbks.on_batch_end("train", step, logs)
-                        step += 1
-                        if ckpt is not None:
-                            ckpt.note_step(global_step)
-                            if ckpt.due(global_step):
-                                np_mid, py_mid = tracked.state_before(step)
-                                ckpt.snapshot(
-                                    self, global_step=global_step,
-                                    epoch=epoch, next_batch=step,
-                                    np_state_epoch_start=np_epoch_start,
-                                    py_state_epoch_start=py_epoch_start,
-                                    np_random=np_mid, py_random=py_mid)
-                        if self.stop_training:
-                            break
-                    if eval_loader is not None \
-                            and (epoch + 1) % eval_freq == 0:
-                        eval_logs = self.evaluate(eval_loader, verbose=0,
-                                                  _inside_fit=True)
-                        logs.update({f"eval_{k}": v
-                                     for k, v in eval_logs.items()})
-                    cbks.on_epoch_end(epoch, logs)
+                try:
+                    with RecordEvent("hapi/fit.epoch", epoch=epoch):
+                        logs, global_step, trained = self._fit_epoch(
+                            epoch, train_loader, skip_batches, resume_pos,
+                            staged, prefetch_to_device, cbks, ckpt,
+                            anomaly_rt, num_iters, global_step,
+                            step_retries, step_retry_backoff_s, chaos_site,
+                            stat_add, KILL, FatalError)
+                        trained_any = trained_any or trained
+                        if eval_loader is not None \
+                                and (epoch + 1) % eval_freq == 0:
+                            eval_logs = self.evaluate(
+                                eval_loader, verbose=0, _inside_fit=True)
+                            logs.update({f"eval_{k}": v
+                                         for k, v in eval_logs.items()})
+                        cbks.on_epoch_end(epoch, logs)
+                except _RollbackRequested as rb:
+                    # restore the newest verified checkpoint and re-enter
+                    # at its position; the poisoned set passes over the
+                    # batches that did the damage
+                    resume_pos = anomaly_rt.perform_rollback(self,
+                                                             rb.reason)
+                    global_step = resume_pos["global_step"]
+                    start_epoch = epoch = resume_pos["epoch"]
+                    continue
                 if save_dir and (epoch + 1) % save_freq == 0:
                     self.save(f"{save_dir}/{epoch}")
                 if self.stop_training:
                     break
+                epoch += 1
             if ckpt is not None and (trained_any or resume_pos is None):
                 # terminal checkpoint at (epochs, 0): resuming with the
                 # same budget is a no-op, a larger one continues
@@ -444,6 +516,14 @@ class Model:
                               np_state_epoch_start=np.random.get_state(),
                               py_state_epoch_start=py_random.getstate())
         finally:
+            # guard mode is per fit: disarm it and drop the guarded
+            # step with its pre-step copy
+            self._anomaly_guard = False
+            self._last_guard = None
+            if self._graph_guarded:
+                self._graph = None
+                self._graph_guarded = False
+            self._backup = None
             if ckpt is not None:
                 import sys as _sys
 
@@ -459,6 +539,122 @@ class Model:
         if save_dir:
             self.save(f"{save_dir}/final")
         return self
+
+    def _anomaly_runtime(self, anomaly, ckpt):
+        """The fit's ``AnomalyRuntime`` (None without ``anomaly``), with
+        the JAX package's checks of the policy against the fit."""
+        if not anomaly:
+            self._anomaly_guard = False
+            return None
+        from .anomaly import AnomalyPolicy, AnomalyRuntime
+
+        if anomaly is not True and not isinstance(anomaly, AnomalyPolicy):
+            raise InvalidArgumentError(
+                f"anomaly must be True or an AnomalyPolicy, got {anomaly!r}")
+        policy = (anomaly if isinstance(anomaly, AnomalyPolicy)
+                  else AnomalyPolicy())
+        if policy.rollback_after is not None and ckpt is None:
+            raise InvalidArgumentError(
+                "AnomalyPolicy with rollback armed (rollback_after is not "
+                "None) needs checkpoint_dir= — rollback restores from the "
+                "TrainCheckpointer's store; pass AnomalyPolicy("
+                "rollback_after=None) for skip-only operation")
+        if not self._accelerate and policy.spike_window > 0 \
+                and policy.spike_action == "skip":
+            # the eager update has run when the spike is seen
+            raise InvalidArgumentError(
+                "spike_action='skip' needs the accelerated (graphed) train "
+                "path; with accelerate=False use spike_action='tolerate' "
+                "or spike_window=0")
+        self._anomaly_guard = True
+        return AnomalyRuntime(policy, checkpointer=ckpt)
+
+    def _fit_epoch(self, epoch, train_loader, skip_batches, resume_pos,
+                   staged, prefetch_to_device, cbks, ckpt, anomaly_rt,
+                   num_iters, global_step, step_retries, backoff_s,
+                   chaos_site, stat_add, KILL, FatalError):
+        """One epoch of ``fit``; returns ``(logs, global step, trained
+        any)``."""
+        cbks.on_epoch_begin(epoch)
+        for m in self._metrics:
+            m.reset()
+        logs = {}
+        trained = False
+        np_epoch_start = np.random.get_state()
+        py_epoch_start = py_random.getstate()
+        raw = iter(train_loader)
+        for _ in range(skip_batches):
+            if self._fetch_with_retry(raw, step_retries, backoff_s,
+                                      chaos_site, stat_add) is None:
+                break
+        if skip_batches:
+            np.random.set_state(resume_pos["np_random"])
+            if resume_pos.get("py_random") is not None:
+                py_random.setstate(resume_pos["py_random"])
+        tracked = _Tracked(raw, skip_batches)
+        it = (prefetch_to_device(tracked, device=self._device())
+              if staged else tracked)
+        step = skip_batches
+        while num_iters is None or step < num_iters:
+            batch = self._fetch_with_retry(it, step_retries, backoff_s,
+                                           chaos_site, stat_add)
+            if batch is None:
+                break
+            if anomaly_rt is not None \
+                    and (epoch, step) in anomaly_rt.poisoned:
+                # a batch whose damage caused the rollback: passed over
+                # for good (its skip rewound the streams, so the replay
+                # stays exact past it)
+                step += 1
+                continue
+            cbks.on_batch_begin("train", step, logs)
+            x = batch[0]
+            y = batch[1] if len(batch) > 1 else None
+            t0 = _time.perf_counter()
+            with RecordEvent("hapi/train_batch"):
+                outs = self._step_with_retry(
+                    x, y, step_retries, backoff_s, chaos_site, stat_add,
+                    KILL, FatalError, runtime=anomaly_rt, epoch=epoch,
+                    batch=step, global_step=global_step)
+            histogram_observe("hapi.train_batch_ms",
+                              (_time.perf_counter() - t0) * 1e3)
+            if outs is None:
+                # skipped: the step never happened.  The callbacks keep
+                # their begin/end pairing (logs are the last batch's)
+                # and the audit still ticks: a corrupted parameter makes
+                # every step skip, and the audit must name it
+                cbks.on_batch_end("train", step, logs)
+                anomaly_rt.maybe_audit(self, global_step=global_step,
+                                       epoch=epoch, batch=step)
+                step += 1
+                continue
+            global_step += 1
+            trained = True
+            logs = {"loss": outs[0], "batch_size": _batch_size_of(x)}
+            for name, val in zip(self._metric_names(), outs[1:]):
+                logs[name] = val
+            cbks.on_batch_end("train", step, logs)
+            step += 1
+            snapped = False
+            if ckpt is not None:
+                ckpt.note_step(global_step)
+                if ckpt.due(global_step):
+                    np_mid, py_mid = tracked.state_before(step)
+                    ckpt.snapshot(
+                        self, global_step=global_step, epoch=epoch,
+                        next_batch=step, np_state_epoch_start=np_epoch_start,
+                        py_state_epoch_start=py_epoch_start,
+                        np_random=np_mid, py_random=py_mid)
+                    snapped = True
+            if anomaly_rt is not None:
+                # the audit's cadence: every N trained steps, and right
+                # after a committed checkpoint
+                anomaly_rt.maybe_audit(self, global_step=global_step,
+                                       epoch=epoch, batch=step - 1,
+                                       force=snapped)
+            if self.stop_training:
+                break
+        return logs, global_step, trained
 
     def _fetch_with_retry(self, it, retries, backoff_s, chaos_site,
                           stat_add):
@@ -489,23 +685,38 @@ class Model:
             return None
 
     def _step_with_retry(self, x, y, retries, backoff_s, chaos_site,
-                         stat_add, KILL, FatalError):
+                         stat_add, KILL, FatalError, runtime=None,
+                         epoch=0, batch=0, global_step=0):
         """One train step through the ``train.step`` chaos site; a
         transient failure retries after restoring the generators (so a
         retried step draws the same numbers); a chaos ``kill`` raises
-        ``FatalError`` (never retried) and dumps the flight recorder."""
+        ``FatalError`` (never retried) and dumps the flight recorder.
+        The numeric actions poison a copy of the batch (``nan_loss``,
+        ``nan_grad``) or a named parameter (``corrupt_param``).  With
+        ``runtime`` (an ``AnomalyRuntime``) the guard's verdict applies
+        here: a skip returns None after rewinding the port's generator,
+        numpy's stream and ``py_random`` to their state before the
+        step, so the next batch draws what it would have drawn had this
+        one never come."""
         from ..profiler.flight_recorder import recorder as _flight
+        from ..testing.chaos import CORRUPT_PARAM, NAN_GRAD, NAN_LOSS
 
         attempt = 0
         while True:
             rng_state = get_rng_state()
             np_state = np.random.get_state()
             py_state = py_random.getstate()
+            xin = x
             try:
                 fault = chaos_site("train.step")
-                if fault is not None and fault.action == KILL:
-                    raise FatalError(fault.message)
-                return self.train_batch([x], [y])
+                if fault is not None:
+                    if fault.action == KILL:
+                        raise FatalError(fault.message)
+                    if fault.action in (NAN_LOSS, NAN_GRAD):
+                        xin = self._poison_batch(fault.action, x, NAN_LOSS)
+                    elif fault.action == CORRUPT_PARAM:
+                        self._corrupt_param(fault)
+                outs = self.train_batch([xin], [y])
             except (KeyboardInterrupt, SystemExit):
                 raise
             except FatalError as e:
@@ -523,6 +734,55 @@ class Model:
                 _flight.on_transition("train.retry", "train.step",
                                       f"{type(e).__name__}: {e}")
                 _time.sleep(backoff_s * (2 ** (attempt - 1)))
+                continue
+            # the policy applies outside the retry block: a rollback
+            # request must propagate, never be retried
+            if runtime is None or self._last_guard is None:
+                return outs
+            verdict = runtime.on_step_outcome(
+                self, outs, epoch=epoch, batch=batch,
+                global_step=global_step)
+            if verdict == "skip":
+                set_rng_state(rng_state)
+                np.random.set_state(np_state)
+                py_random.setstate(py_state)
+                return None
+            return outs
+
+    def _poison_batch(self, action, x, NAN_LOSS):
+        """Chaos ``nan_loss`` / ``nan_grad``: a poisoned copy of the batch
+        input (NaN, or the dtype's largest finite value), on the
+        network's device; the staged batch itself is not touched."""
+        v = self._as_input(x)
+        if not v.is_floating_point():
+            raise InvalidArgumentError(
+                f"chaos {action} needs a floating-point input batch to "
+                f"poison, got dtype {v.dtype}")
+        fill = float("nan") if action == NAN_LOSS \
+            else torch.finfo(v.dtype).max
+        return torch.full_like(v, fill)
+
+    @torch.no_grad()
+    def _corrupt_param(self, fault):
+        """Chaos ``corrupt_param``: set one element of the parameter
+        ``fault.leaf`` names (row-major index ``fault.element_index``,
+        the JAX package's) to NaN, in place on its device and outside
+        any graph; it persists until a rollback restores a clean
+        checkpoint (a skip does not heal it: its pre-step copy is
+        already corrupt)."""
+        from ..profiler.flight_recorder import recorder as _flight
+
+        leaf = fault.leaf
+        target = dict(self.network.named_parameters()).get(leaf)
+        if target is None:
+            raise InvalidArgumentError(
+                f"corrupt_param leaf {leaf!r} not found among the "
+                "network's named parameters")
+        t = _value(target)
+        idx = fault.element_index(t.numel() or 1)
+        t[np.unravel_index(idx, tuple(t.shape))] = float("nan")
+        _flight.on_transition("chaos.corrupt_param", leaf,
+                              f"element {idx} set non-finite")
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, num_iters=None,

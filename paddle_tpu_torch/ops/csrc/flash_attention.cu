@@ -7,7 +7,8 @@
 //   ptt_flash_dkv_*  <- _flash_dkv_bhsd (body _bwd_dkv_kernel)
 //   ptt_flash_dq_*   <- _flash_dq_bhsd  (body _bwd_dq_kernel)
 //
-// What they compute, on q [BH, Sq, D], k and v [BH, Sk, D] (f32 or bf16,
+// What they compute, on q [BH, Sq, D], k and v [BH, Sk, D] (f32, bf16 or
+// fp16,
 // row-major), a kv validity mask [B, Sk] f32 (b = bh / H) and a seed
 // (a launch argument, or a uint32 the kernels read from device memory
 // when seed_ptr is not null, so a captured graph's replays each take the
@@ -143,12 +144,24 @@
 // mantissa bits, as the outputs already have) stays inside the card
 // tests' bf16 tolerance, tests/test_torch_flash_tc_numerics.py shows it
 // on the CPU.
+//
+// fp16 (the same three bodies): the tc kernels are templates on their
+// 16-bit element type T, so fp16 runs the bf16 design line for line with
+// mma.sync m16n8k16 ...f32.f16.f16.f32 (f32 accumulators), P' and dS
+// packed by __floats2half2_rn, the same tiles, ring and ldmatrix.  fp16
+// keeps 11 significant bits to bf16's 8 but only 5 exponent bits: a P'
+// (at most 1 / (1 - p)) always fits, a dS or an output past 65504 rounds
+// to inf.  Under loss scaling that inf is the overflow a GradScaler
+// detects: it skips the step and lowers the scale.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -180,15 +193,20 @@ __device__ __forceinline__ bool keep_bit(const Params& p, uint32_t bh,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward, dK/dV and dQ on the tensor cores (mma.sync m16n8k16)
+// bf16 and fp16 forward, dK/dV and dQ on the tensor cores (mma.sync
+// m16n8k16), templates on the element type T
 // ---------------------------------------------------------------------------
 namespace tc {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+// every tile element is 16 bits, bf16 or fp16
+constexpr size_t kElt = 2;
+static_assert(sizeof(bf16) == kElt && sizeof(f16) == kElt, "16-bit");
 
-// element offset of (row r, column c) in a [rows][DT] bf16 tile whose
+// element offset of (row r, column c) in a [rows][DT] 16-bit tile whose
 // 16-byte chunks are XOR-swizzled by the row's low three bits: the eight
 // rows one ldmatrix phase reads land in eight different bank groups
 template <int DT>
@@ -224,14 +242,14 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* ptr) {
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* ptr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(ptr))
       : "memory");
 }
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* ptr) {
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* ptr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -240,36 +258,63 @@ __device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* ptr) {
       : "memory");
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+// c (16x8 f32) += a (16x16 T, row) * b (16x8 T, col), T bf16 or fp16
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, f16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    static_assert(std::is_same<T, bf16>::value, "bf16 or fp16");
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-// two f32 rounded to bf16 in one register, the lower column in the low half
+// two f32 rounded to T (to nearest even) in one register, the lower
+// column in the low half
+template <typename T>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<T, f16>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// rows [r0, r0 + R) of a row-major [n, D] bf16 matrix into a swizzled
+// a 16-bit zero of type T
+template <typename T>
+__device__ __forceinline__ T zero() {
+  if constexpr (std::is_same<T, f16>::value) {
+    return __float2half(0.f);
+  } else {
+    return __float2bfloat16(0.f);
+  }
+}
+
+// rows [r0, r0 + R) of a row-major [n, D] T matrix into a swizzled
 // [R][DT] tile, rows past n and columns past D zero.  vec (D a multiple of
 // 8, every pointer 16-byte aligned): one 16-byte cp.async per chunk;
 // otherwise element by element, synchronously
-template <int R, int DT>
-__device__ __forceinline__ void load_tile(bf16* dst,
-                                          const bf16* __restrict__ src,
+template <int R, int DT, typename T>
+__device__ __forceinline__ void load_tile(T* dst,
+                                          const T* __restrict__ src,
                                           int r0, int n, int D, bool vec) {
   if (vec) {
     // thread i copies chunk i % CH of rows i / CH + RP u
     constexpr int CH = DT / 8, RP = kThreads / CH;
     static_assert(kThreads % CH == 0 && R % RP == 0, "tile split");
     const int c = (threadIdx.x % CH) * 8, rr = threadIdx.x / CH;
-    const bf16* g = src + (size_t)(r0 + rr) * D + c;
+    const T* g = src + (size_t)(r0 + rr) * D + c;
 #pragma unroll
     for (int u = 0; u < R / RP; ++u) {
       const int r = rr + u * RP;
@@ -281,7 +326,7 @@ __device__ __forceinline__ void load_tile(bf16* dst,
       const int r = i / DT, c = i % DT;
       dst[swz<DT>(r, c)] = (r0 + r < n && c < D)
                                ? src[(size_t)(r0 + r) * D + c]
-                               : __float2bfloat16(0.f);
+                               : zero<T>();
     }
   }
 }
@@ -300,9 +345,9 @@ __device__ __forceinline__ void load_vec(float* dst,
 // a warp's 16 staged rows [tr0, tr0 + 16), columns [c0, c0 + W), to rows
 // [gr0, gr0 + 16) of a row-major [n, D] matrix (rows past n and columns
 // past D are not written)
-template <int DT, int W>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           const bf16* tile, int tr0,
+template <int DT, int W, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const T* tile, int tr0,
                                            int gr0, int n, int D, int c0,
                                            bool vec) {
   const int lane = threadIdx.x & 31;
@@ -324,13 +369,14 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
 }
 
 // row g of a fragment pair in the low two values, row g + 8 in the high
-__device__ __forceinline__ void stage2(bf16* tile, int off0, int off1,
+template <typename T>
+__device__ __forceinline__ void stage2(T* tile, int off0, int off1,
                                        const float (&c)[4], float mul0,
                                        float mul1) {
-  *reinterpret_cast<__nv_bfloat162*>(tile + off0) =
-      __floats2bfloat162_rn(c[0] * mul0, c[1] * mul0);
-  *reinterpret_cast<__nv_bfloat162*>(tile + off1) =
-      __floats2bfloat162_rn(c[2] * mul1, c[3] * mul1);
+  *reinterpret_cast<uint32_t*>(tile + off0) =
+      pack<T>(c[0] * mul0, c[1] * mul0);
+  *reinterpret_cast<uint32_t*>(tile + off1) =
+      pack<T>(c[2] * mul1, c[3] * mul1);
 }
 
 // ---------------------------------------------------------------------------
@@ -347,23 +393,23 @@ struct FwdCfg {
   static constexpr int kStages = 3;         // the K/V ring
   static constexpr bool kQReg = DT <= 128;  // Q's fragments in registers
   static constexpr size_t smem =
-      sizeof(bf16) * (BQ * DT + 2 * kStages * BK * DT) +
+      kElt * (BQ * DT + 2 * kStages * BK * DT) +
       sizeof(float) * kStages * BK;
 };
 
-template <int DT, bool kDrop>
+template <typename T, int DT, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const float* __restrict__ mask,
-                  bf16* __restrict__ o, float* __restrict__ lse, Params p,
+    fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ mask,
+                  T* __restrict__ o, float* __restrict__ lse, Params p,
                   int vec) {
   using C = FwdCfg<DT, kDrop>;
   constexpr int MT = C::MT, BQ = C::BQ, BK = C::BK, NS = C::kStages;
   constexpr int NT = BK / 8, KD = DT / 16, ND = DT / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][DT]
-  bf16* Ks = Qs + BQ * DT;                        // [NS][BK][DT]
-  bf16* Vs = Ks + NS * BK * DT;                   // [NS][BK][DT]
+  T* Qs = reinterpret_cast<T*>(tc_smem);  // [BQ][DT]
+  T* Ks = Qs + BQ * DT;                        // [NS][BK][DT]
+  T* Vs = Ks + NS * BK * DT;                   // [NS][BK][DT]
   float* Ms = reinterpret_cast<float*>(Vs + NS * BK * DT);  // [NS][BK]
   // the last query tiles (under causal masking the longest) first
   const int nqt = (p.Sq + BQ - 1) / BQ, BH = gridDim.x / nqt;
@@ -371,9 +417,9 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * BQ;
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16 * MT;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + (size_t)bh * p.Sq * p.D;
-  const bf16* kb = k + (size_t)bh * p.Sk * p.D;
-  const bf16* vb = v + (size_t)bh * p.Sk * p.D;
+  const T* qb = q + (size_t)bh * p.Sq * p.D;
+  const T* kb = k + (size_t)bh * p.Sk * p.D;
+  const T* vb = v + (size_t)bh * p.Sk * p.D;
   const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
   int nkt = (p.Sk + BK - 1) / BK;
   if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
@@ -413,8 +459,8 @@ __global__ void __launch_bounds__(kThreads)
     // tiles before it compute
     if (kt + NS - 1 < nkt) load_kv(kt + NS - 1);
     cp_commit();
-    const bf16* Kt = Ks + st * BK * DT;
-    const bf16* Vt = Vs + st * BK * DT;
+    const T* Kt = Ks + st * BK * DT;
+    const T* Vt = Vs + st * BK * DT;
     const float* Mt = Ms + st * BK;
     const int k0 = kt * BK;
     if constexpr (C::kQReg) {
@@ -458,8 +504,8 @@ __global__ void __launch_bounds__(kThreads)
                              kk * 16 + ((lane >> 3) & 1) * 8));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma(s[mt][j], a[mt], b[0], b[1]);
-          mma(s[mt][j + 1], a[mt], b[2], b[3]);
+          mma<T>(s[mt][j], a[mt], b[0], b[1]);
+          mma<T>(s[mt][j + 1], a[mt], b[2], b[3]);
         }
       }
     }
@@ -499,7 +545,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // online softmax; a row's values live in the four lanes of a quad.
-    // P' (dropped, rounded to bf16) goes from the S accumulators straight
+    // P' (dropped, rounded to T) goes from the S accumulators straight
     // into the A fragments of P'V: keys 16 kk .. 16 kk + 15 are s[2 kk],
     // s[2 kk + 1]
     uint32_t pf[MT][NT / 2][4];
@@ -542,8 +588,8 @@ __global__ void __launch_bounds__(kThreads)
             pe[e] = keep_bit(p, bh, row, col) ? pr * p.keep_scale : 0.f;
           }
         }
-        pf[mt][j >> 1][(j & 1) * 2] = pack(pe[0], pe[1]);
-        pf[mt][j >> 1][(j & 1) * 2 + 1] = pack(pe[2], pe[3]);
+        pf[mt][j >> 1][(j & 1) * 2] = pack<T>(pe[0], pe[1]);
+        pf[mt][j >> 1][(j & 1) * 2 + 1] = pack<T>(pe[2], pe[3]);
       }
     }
     // O += P' V; V's fragments by ldmatrix.trans from its [key][d] tile
@@ -556,8 +602,8 @@ __global__ void __launch_bounds__(kThreads)
                                n * 8 + (lane >> 4) * 8));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma(acc[mt][n], pf[mt][kk], b[0], b[1]);
-          mma(acc[mt][n + 1], pf[mt][kk], b[2], b[3]);
+          mma<T>(acc[mt][n], pf[mt][kk], b[0], b[1]);
+          mma<T>(acc[mt][n + 1], pf[mt][kk], b[2], b[3]);
         }
       }
     }
@@ -605,26 +651,26 @@ struct DkvCfg {
   static constexpr int DO = DT < 128 ? DT : 128;  // output columns a block
   static constexpr int kStages = 3;  // the Q, dO, lse, delta ring
   static constexpr size_t smem =
-      sizeof(bf16) * (2 * BK * DT + 2 * kStages * BQ * DT) +
+      kElt * (2 * BK * DT + 2 * kStages * BQ * DT) +
       sizeof(float) * (BK + 2 * kStages * BQ);
 };
 
-template <int DT, bool kDrop>
+template <typename T, int DT, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  const float* __restrict__ mask, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, Params p, int vec) {
+                  const float* __restrict__ mask, T* __restrict__ dk,
+                  T* __restrict__ dv, Params p, int vec) {
   using C = DkvCfg<DT>;
   constexpr int BK = C::BK, BQ = C::BQ, DO = C::DO, NS = C::kStages;
   constexpr int NQ = BQ / 8, KD = DT / 16, NO = DO / 8;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);  // [BK][DT]
-  bf16* Vs = Ks + BK * DT;                        // [BK][DT]
-  bf16* Qs = Vs + BK * DT;                        // [NS][BQ][DT]
-  bf16* Os = Qs + NS * BQ * DT;                   // [NS][BQ][DT], dO
+  T* Ks = reinterpret_cast<T*>(tc_smem);  // [BK][DT]
+  T* Vs = Ks + BK * DT;                        // [BK][DT]
+  T* Qs = Vs + BK * DT;                        // [NS][BQ][DT]
+  T* Os = Qs + NS * BQ * DT;                   // [NS][BQ][DT], dO
   float* Ms = reinterpret_cast<float*>(Os + NS * BQ * DT);  // [BK]
   float* Ls = Ms + BK;                                      // [NS][BQ]
   float* Dl = Ls + NS * BQ;                                 // [NS][BQ]
@@ -635,8 +681,8 @@ __global__ void __launch_bounds__(kThreads)
   const int d0 = blockIdx.y * DO;
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + (size_t)bh * p.Sq * p.D;
-  const bf16* ob = dout + (size_t)bh * p.Sq * p.D;
+  const T* qb = q + (size_t)bh * p.Sq * p.D;
+  const T* ob = dout + (size_t)bh * p.Sq * p.D;
   const float* lb = lse + (size_t)bh * p.Sq;
   const float* db = delta + (size_t)bh * p.Sq;
   const size_t koff = (size_t)bh * p.Sk * p.D;
@@ -676,8 +722,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();    // ... for every thread, and tile i - 1 is done
     if (i + NS - 1 < nvis) load_q(i + NS - 1);  // into tile i - 1's stage
     cp_commit();
-    const bf16* Qt = Qs + st * BQ * DT;
-    const bf16* Ot = Os + st * BQ * DT;
+    const T* Qt = Qs + st * BQ * DT;
+    const T* Ot = Os + st * BQ * DT;
     const float* Lt = Ls + st * BQ;
     const float* Dt = Dl + st * BQ;
     const int q0 = (qt0 + i) * BQ;
@@ -702,15 +748,15 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t bq[4], bo[4];
         ldsm(bq, Qt + boff);
         ldsm(bo, Ot + boff);
-        mma(s[j], ak, bq[0], bq[1]);
-        mma(s[j + 1], ak, bq[2], bq[3]);
-        mma(dp[j], av, bo[0], bo[1]);
-        mma(dp[j + 1], av, bo[2], bo[3]);
+        mma<T>(s[j], ak, bq[0], bq[1]);
+        mma<T>(s[j + 1], ak, bq[2], bq[3]);
+        mma<T>(dp[j], av, bo[0], bo[1]);
+        mma<T>(dp[j + 1], av, bo[2], bo[3]);
       }
     }
 
     // P = exp(S scale - lse) and dS = P (dP' - delta) in f32; P' and dS
-    // rounded to bf16 straight into the A fragments of the next products
+    // rounded to T straight into the A fragments of the next products
     const float mk[2] = {Ms[wr + g], Ms[wr + g + 8]};
     uint32_t pa[NQ / 2][4], da[NQ / 2][4];
 #pragma unroll
@@ -737,10 +783,10 @@ __global__ void __launch_bounds__(kThreads)
         }
         ds[e] = pr * (dpn - ((e & 1) ? dl.y : dl.x));
       }
-      pa[j >> 1][(j & 1) * 2] = pack(pv[0], pv[1]);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack(pv[2], pv[3]);
-      da[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      da[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+      pa[j >> 1][(j & 1) * 2] = pack<T>(pv[0], pv[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack<T>(pv[2], pv[3]);
+      da[j >> 1][(j & 1) * 2] = pack<T>(ds[0], ds[1]);
+      da[j >> 1][(j & 1) * 2 + 1] = pack<T>(ds[2], ds[3]);
     }
 
     // dV += P'^T dO and dK += dS^T Q over this block's columns; dO's and
@@ -754,10 +800,10 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t bo[4], bq[4];
         ldsm_t(bo, Ot + boff);
         ldsm_t(bq, Qt + boff);
-        mma(adv[n], pa[kq], bo[0], bo[1]);
-        mma(adv[n + 1], pa[kq], bo[2], bo[3]);
-        mma(adk[n], da[kq], bq[0], bq[1]);
-        mma(adk[n + 1], da[kq], bq[2], bq[3]);
+        mma<T>(adv[n], pa[kq], bo[0], bo[1]);
+        mma<T>(adv[n + 1], pa[kq], bo[2], bo[3]);
+        mma<T>(adk[n], da[kq], bq[0], bq[1]);
+        mma<T>(adk[n + 1], da[kq], bq[2], bq[3]);
       }
     }
   }
@@ -792,27 +838,27 @@ struct DqCfg {
   static constexpr int kStages = 3;               // the K, V, mask ring
   static constexpr bool kQReg = DT <= 128;  // Q, dO fragments in registers
   static constexpr size_t smem =
-      sizeof(bf16) * (2 * BQ * DT + 2 * kStages * BK * DT) +
+      kElt * (2 * BQ * DT + 2 * kStages * BK * DT) +
       sizeof(float) * kStages * BK;
 };
 
-template <int DT, bool kDrop>
+template <typename T, int DT, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ mask, bf16* __restrict__ dq,
+                 const float* __restrict__ mask, T* __restrict__ dq,
                  Params p, int vec) {
   using C = DqCfg<DT>;
   constexpr int BQ = C::BQ, BK = C::BK, DO = C::DO, NS = C::kStages;
   constexpr int NT = BK / 8, KD = DT / 16, NO = DO / 8;
   constexpr int KR = C::kQReg ? KD : 1;
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][DT]
-  bf16* Os = Qs + BQ * DT;                        // [BQ][DT], dO
-  bf16* Ks = Os + BQ * DT;                        // [NS][BK][DT]
-  bf16* Vs = Ks + NS * BK * DT;                   // [NS][BK][DT]
+  T* Qs = reinterpret_cast<T*>(tc_smem);  // [BQ][DT]
+  T* Os = Qs + BQ * DT;                        // [BQ][DT], dO
+  T* Ks = Os + BQ * DT;                        // [NS][BK][DT]
+  T* Vs = Ks + NS * BK * DT;                   // [NS][BK][DT]
   float* Ms = reinterpret_cast<float*>(Vs + NS * BK * DT);  // [NS][BK]
   // the last query tiles (under causal masking the longest) first
   const int nqt = (p.Sq + BQ - 1) / BQ, BH = gridDim.x / nqt;
@@ -822,8 +868,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
   const int g = lane >> 2, t = lane & 3;
   const size_t qoff = (size_t)bh * p.Sq * p.D;
-  const bf16* kb = k + (size_t)bh * p.Sk * p.D;
-  const bf16* vb = v + (size_t)bh * p.Sk * p.D;
+  const T* kb = k + (size_t)bh * p.Sk * p.D;
+  const T* vb = v + (size_t)bh * p.Sk * p.D;
   const float* mb = mask + (size_t)(bh / p.H) * p.Sk;
   int nkt = (p.Sk + BK - 1) / BK;
   if (p.causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);  // k0 <= last row
@@ -864,8 +910,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();    // ... for every thread, and tile kt - 1 is done
     if (kt + NS - 1 < nkt) load_kv(kt + NS - 1);  // into tile kt - 1's stage
     cp_commit();
-    const bf16* Kt = Ks + st * BK * DT;
-    const bf16* Vt = Vs + st * BK * DT;
+    const T* Kt = Ks + st * BK * DT;
+    const T* Vt = Vs + st * BK * DT;
     const float* Mt = Ms + st * BK;
     const int k0 = kt * BK;
     if constexpr (C::kQReg) {
@@ -908,10 +954,10 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t bk[4], bv[4];
         ldsm(bk, Kt + boff);
         ldsm(bv, Vt + boff);
-        mma(s[j], aq, bk[0], bk[1]);
-        mma(s[j + 1], aq, bk[2], bk[3]);
-        mma(dp[j], ao, bv[0], bv[1]);
-        mma(dp[j + 1], ao, bv[2], bv[3]);
+        mma<T>(s[j], aq, bk[0], bk[1]);
+        mma<T>(s[j + 1], aq, bk[2], bk[3]);
+        mma<T>(dp[j], ao, bv[0], bv[1]);
+        mma<T>(dp[j + 1], ao, bv[2], bv[3]);
       }
     }
 
@@ -946,7 +992,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // P = exp(S scale - lse) and dS = P (dP' - delta) in f32, rounded to
-    // bf16 straight into the A fragments of dS K: keys 16 kk .. 16 kk + 15
+    // T straight into the A fragments of dS K: keys 16 kk .. 16 kk + 15
     // are s[2 kk], s[2 kk + 1]
     uint32_t da[NT / 2][4];
 #pragma unroll
@@ -963,8 +1009,8 @@ __global__ void __launch_bounds__(kThreads)
         }
         ds[e] = pr * (dpn - dl[e >> 1]);
       }
-      da[j >> 1][(j & 1) * 2] = pack(ds[0], ds[1]);
-      da[j >> 1][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+      da[j >> 1][(j & 1) * 2] = pack<T>(ds[0], ds[1]);
+      da[j >> 1][(j & 1) * 2 + 1] = pack<T>(ds[2], ds[3]);
     }
 
     // dQ += dS K over this block's columns; K's fragments by
@@ -976,8 +1022,8 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t b[4];
         ldsm_t(b, Kt + swz<DT>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
                                d0 + n * 8 + (lane >> 4) * 8));
-        mma(acc[n], da[kk], b[0], b[1]);
-        mma(acc[n + 1], da[kk], b[2], b[3]);
+        mma<T>(acc[n], da[kk], b[0], b[1]);
+        mma<T>(acc[n + 1], da[kk], b[2], b[3]);
       }
     }
   }
@@ -1848,71 +1894,73 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
-template <int DT, bool kDrop>
+template <typename T, int DT, bool kDrop>
 int launch_fwd_tc(const void* q, const void* k, const void* v,
                   const void* mask, void* o, void* lse, int BH,
                   const Params& p, int vec, cudaStream_t st) {
   using C = tc::FwdCfg<DT, kDrop>;
   const long long blocks = (long long)BH * ((p.Sq + C::BQ - 1) / C::BQ);
-  auto kern = tc::fwd_tc_kernel<DT, kDrop>;
+  auto kern = tc::fwd_tc_kernel<T, DT, kDrop>;
   const int rc = prepare(kern, C::smem, blocks);
   if (rc) return rc;
   kern<<<(unsigned)blocks, tc::kThreads, C::smem, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const float*>(mask),
-      static_cast<tc::bf16*>(o), static_cast<float*>(lse), p, vec);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(mask),
+      static_cast<T*>(o), static_cast<float*>(lse), p, vec);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
+template <typename T, int DT>
 int launch_fwd_tc(const void* q, const void* k, const void* v,
                   const void* mask, void* o, void* lse, int BH,
                   const Params& p, int vec, cudaStream_t st) {
   return p.dropout
-             ? launch_fwd_tc<DT, true>(q, k, v, mask, o, lse, BH, p, vec, st)
-             : launch_fwd_tc<DT, false>(q, k, v, mask, o, lse, BH, p, vec,
-                                        st);
+             ? launch_fwd_tc<T, DT, true>(q, k, v, mask, o, lse, BH, p, vec,
+                                          st)
+             : launch_fwd_tc<T, DT, false>(q, k, v, mask, o, lse, BH, p,
+                                           vec, st);
 }
 
-template <int DT>
+template <typename T, int DT>
 int launch_dkv_tc(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   const void* mask, void* dk, void* dv, int BH,
                   const Params& p, int vec, cudaStream_t st) {
   using C = tc::DkvCfg<DT>;
   const long long blocks = (long long)BH * ((p.Sk + C::BK - 1) / C::BK);
-  auto kern = p.dropout ? tc::dkv_tc_kernel<DT, true>
-                        : tc::dkv_tc_kernel<DT, false>;
+  auto kern = p.dropout ? tc::dkv_tc_kernel<T, DT, true>
+                        : tc::dkv_tc_kernel<T, DT, false>;
   const int rc = prepare(kern, C::smem, blocks);
   if (rc) return rc;
   kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<tc::bf16*>(dk),
-      static_cast<tc::bf16*>(dv), p, vec);
+      static_cast<const float*>(mask), static_cast<T*>(dk),
+      static_cast<T*>(dv), p, vec);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
+template <typename T, int DT>
 int launch_dq_tc(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  const void* mask, void* dqo, int BH, const Params& p,
                  int vec, cudaStream_t st) {
   using C = tc::DqCfg<DT>;
   const long long blocks = (long long)BH * ((p.Sq + C::BQ - 1) / C::BQ);
-  auto kern = p.dropout ? tc::dq_tc_kernel<DT, true>
-                        : tc::dq_tc_kernel<DT, false>;
+  auto kern = p.dropout ? tc::dq_tc_kernel<T, DT, true>
+                        : tc::dq_tc_kernel<T, DT, false>;
   const int rc = prepare(kern, C::smem, blocks);
   if (rc) return rc;
   kern<<<dim3((unsigned)blocks, DT / C::DO), tc::kThreads, C::smem, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<tc::bf16*>(dqo), p, vec);
+      static_cast<const float*>(mask), static_cast<T*>(dqo), p, vec);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int fwd_tc(const void* q, const void* k, const void* v, const void* mask,
            void* o, void* lse, int BH, int H, int Sq, int Sk, int D,
            float scale, int causal, int dropout, float keep_scale,
@@ -1925,12 +1973,13 @@ int fwd_tc(const void* q, const void* k, const void* v, const void* mask,
                   aligned16(v) && aligned16(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_fwd_tc<64>(q, k, v, mask, o, lse, BH, p, vec, st);
+    return launch_fwd_tc<T, 64>(q, k, v, mask, o, lse, BH, p, vec, st);
   if (D <= 128)
-    return launch_fwd_tc<128>(q, k, v, mask, o, lse, BH, p, vec, st);
-  return launch_fwd_tc<256>(q, k, v, mask, o, lse, BH, p, vec, st);
+    return launch_fwd_tc<T, 128>(q, k, v, mask, o, lse, BH, p, vec, st);
+  return launch_fwd_tc<T, 256>(q, k, v, mask, o, lse, BH, p, vec, st);
 }
 
+template <typename T>
 int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* mask, void* dk,
            void* dv, int BH, int H, int Sq, int Sk, int D, float scale,
@@ -1945,15 +1994,16 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   aligned16(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_dkv_tc<64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, p,
+    return launch_dkv_tc<T, 64>(q, k, v, dout, lse, delta, mask, dk, dv, BH, p,
                              vec, st);
   if (D <= 128)
-    return launch_dkv_tc<128>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
+    return launch_dkv_tc<T, 128>(q, k, v, dout, lse, delta, mask, dk, dv, BH,
                               p, vec, st);
-  return launch_dkv_tc<256>(q, k, v, dout, lse, delta, mask, dk, dv, BH, p,
+  return launch_dkv_tc<T, 256>(q, k, v, dout, lse, delta, mask, dk, dv, BH, p,
                             vec, st);
 }
 
+template <typename T>
 int dq_tc(const void* q, const void* k, const void* v, const void* dout,
           const void* lse, const void* delta, const void* mask, void* dqo,
           int BH, int H, int Sq, int Sk, int D, float scale, int causal,
@@ -1968,12 +2018,12 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
                   aligned16(v) && aligned16(dout) && aligned16(dqo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_dq_tc<64>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
+    return launch_dq_tc<T, 64>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
                             st);
   if (D <= 128)
-    return launch_dq_tc<128>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
+    return launch_dq_tc<T, 128>(q, k, v, dout, lse, delta, mask, dqo, BH, p,
                              vec, st);
-  return launch_dq_tc<256>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
+  return launch_dq_tc<T, 256>(q, k, v, dout, lse, delta, mask, dqo, BH, p, vec,
                            st);
 }
 
@@ -2141,17 +2191,17 @@ extern "C" int ptt_flash_dq_f32(const void* q, const void* k, const void* v,
                   stream);
 }
 
-// bf16: all three bodies on the tensor cores
+// bf16 and fp16: all three bodies on the tensor cores, one template
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, const void* mask, void* o,
                                   void* lse, int BH, int H, int Sq, int Sk,
                                   int D, float scale, int causal,
                                   int dropout, float keep_scale,
                                   unsigned thresh, unsigned seed,
-                                  const void* seed_ptr,
-                                  void* stream) {
-  return fwd_tc(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale, causal,
-                dropout, keep_scale, thresh, seed, seed_ptr, stream);
+                                  const void* seed_ptr, void* stream) {
+  return fwd_tc<tc::bf16>(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale,
+                      causal, dropout, keep_scale, thresh, seed, seed_ptr,
+                      stream);
 }
 extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* dout,
@@ -2162,9 +2212,9 @@ extern "C" int ptt_flash_dkv_bf16(const void* q, const void* k,
                                   float keep_scale, unsigned thresh,
                                   unsigned seed, const void* seed_ptr,
                                   void* stream) {
-  return dkv_tc(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq, Sk, D,
-                scale, causal, dropout, keep_scale, thresh, seed, seed_ptr,
-                stream);
+  return dkv_tc<tc::bf16>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq,
+                      Sk, D, scale, causal, dropout, keep_scale, thresh,
+                      seed, seed_ptr, stream);
 }
 extern "C" int ptt_flash_dq_bf16(const void* q, const void* k,
                                  const void* v, const void* dout,
@@ -2173,8 +2223,44 @@ extern "C" int ptt_flash_dq_bf16(const void* q, const void* k,
                                  int Sq, int Sk, int D, float scale,
                                  int causal, int dropout, float keep_scale,
                                  unsigned thresh, unsigned seed,
-                                 const void* seed_ptr,
-                                 void* stream) {
-  return dq_tc(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk, D, scale,
-               causal, dropout, keep_scale, thresh, seed, seed_ptr, stream);
+                                 const void* seed_ptr, void* stream) {
+  return dq_tc<tc::bf16>(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk,
+                     D, scale, causal, dropout, keep_scale, thresh, seed,
+                     seed_ptr, stream);
+}
+extern "C" int ptt_flash_fwd_f16(const void* q, const void* k,
+                                  const void* v, const void* mask, void* o,
+                                  void* lse, int BH, int H, int Sq, int Sk,
+                                  int D, float scale, int causal,
+                                  int dropout, float keep_scale,
+                                  unsigned thresh, unsigned seed,
+                                  const void* seed_ptr, void* stream) {
+  return fwd_tc<tc::f16>(q, k, v, mask, o, lse, BH, H, Sq, Sk, D, scale,
+                      causal, dropout, keep_scale, thresh, seed, seed_ptr,
+                      stream);
+}
+extern "C" int ptt_flash_dkv_f16(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  const void* mask, void* dk, void* dv,
+                                  int BH, int H, int Sq, int Sk, int D,
+                                  float scale, int causal, int dropout,
+                                  float keep_scale, unsigned thresh,
+                                  unsigned seed, const void* seed_ptr,
+                                  void* stream) {
+  return dkv_tc<tc::f16>(q, k, v, dout, lse, delta, mask, dk, dv, BH, H, Sq,
+                      Sk, D, scale, causal, dropout, keep_scale, thresh,
+                      seed, seed_ptr, stream);
+}
+extern "C" int ptt_flash_dq_f16(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const void* lse, const void* delta,
+                                 const void* mask, void* dqo, int BH, int H,
+                                 int Sq, int Sk, int D, float scale,
+                                 int causal, int dropout, float keep_scale,
+                                 unsigned thresh, unsigned seed,
+                                 const void* seed_ptr, void* stream) {
+  return dq_tc<tc::f16>(q, k, v, dout, lse, delta, mask, dqo, BH, H, Sq, Sk,
+                     D, scale, causal, dropout, keep_scale, thresh, seed,
+                     seed_ptr, stream);
 }

@@ -44,6 +44,11 @@ bf16 bodies, which run on the tensor cores: the forward, dK/dV and dQ
 (``"fwd"``, ``"dkv"``, ``"dq"``).  In bf16 those round P and dS to bf16
 before their second product, so they match the plain version (which
 keeps them in f32) within the bf16 tolerance, not to f32 rounding.
+``FLASH_FP16_STATS`` counts the launches of the fp16 bodies
+(``"fwd"``, ``"dkv"``, ``"dq"``): the bf16 bodies' template instanced on
+fp16, tensor cores with f32 accumulators, P and dS rounded to fp16
+(11 significant bits, 5 exponent bits: a dS past 65504 becomes inf,
+which a ``GradScaler`` sees as an overflow).
 ``FLASH_F32TC_STATS`` counts the launches of the f32 bodies
 (``"fwd"``, ``"dkv"``, ``"dq"``), which run on the tensor cores in
 3xTF32: each f32 operand is split into a TF32 part and a TF32 residual
@@ -62,7 +67,7 @@ import torch
 from ..profiler.jit_cost import count_launch
 
 __all__ = ["NEG_INF", "FLASH_ROUTE_STATS", "FLASH_TC_STATS",
-           "FLASH_F32TC_STATS", "MAX_HEAD_DIM",
+           "FLASH_FP16_STATS", "FLASH_F32TC_STATS", "MAX_HEAD_DIM",
            "_keep_mask",
            "flash_fwd_ref", "flash_dkv_ref", "flash_dq_ref",
            "flash_fwd_cuda", "flash_dkv_cuda", "flash_dq_cuda",
@@ -74,6 +79,8 @@ NEG_INF = -1e30
 FLASH_ROUTE_STATS = {"fwd": 0, "dkv": 0, "dq": 0, "ref": 0}
 # launches of the tensor-core bodies (bf16 forward, dK/dV and dQ)
 FLASH_TC_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
+# launches of the fp16 bodies (the same tensor-core template in fp16)
+FLASH_FP16_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
 # launches of the f32 bodies (tensor cores, 3xTF32)
 FLASH_F32TC_STATS = {"fwd": 0, "dkv": 0, "dq": 0}
 
@@ -215,7 +222,12 @@ def flash_dq_ref(q, k, v, g, lse, delta, mask, seed, scale, causal,
 # --------------------------------------------------------------------------
 # the CUDA kernels
 # --------------------------------------------------------------------------
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
+# the per-dtype launch counters besides FLASH_ROUTE_STATS
+_DTYPE_STATS = {torch.float32: FLASH_F32TC_STATS,
+                torch.bfloat16: FLASH_TC_STATS,
+                torch.float16: FLASH_FP16_STATS}
 _BOUND = {}
 
 
@@ -254,8 +266,8 @@ def _check(q, k, v, mask, g=None, lse=None, delta=None):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash attention kernels take float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"flash attention kernels take float32, bfloat16 "
+                        f"or float16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -317,8 +329,7 @@ def _launch(name, dtype, ptrs, dims, scale, causal, dropout_p, seed):
             f"flash attention {name} kernel launch failed: CUDA error {rc} "
             f"(B={B}, H={H}, Sq={Sq}, Sk={Sk}, D={D}, {dtype})")
     count_launch(FLASH_ROUTE_STATS, name)
-    count_launch(FLASH_TC_STATS if dtype == torch.bfloat16
-                 else FLASH_F32TC_STATS, name)
+    count_launch(_DTYPE_STATS[dtype], name)
 
 
 def flash_fwd_cuda(q, k, v, mask, seed, scale, causal, dropout_p):

@@ -1,5 +1,6 @@
 """Deterministic chaos injection — the plan machinery of
-``paddle_tpu/testing/chaos.py`` that the ported serving stack calls.
+``paddle_tpu/testing/chaos.py`` that the ported serving stack and the
+hapi train loop call.
 
 A :class:`ChaosPlan` is a SCHEDULE of faults, not a probability: each
 :class:`Fault` names an instrumented *site* and the evaluation index at
@@ -46,6 +47,21 @@ Instrumented sites in this package
 ``http.request``      ``POST /generate`` intake — ``http_error`` answers
                       with the fault's ``status`` before touching the
                       frontend.  Key: request path.
+``train.step``        hapi ``fit``, before each train step — ``raise``
+                      a transient step failure (retried), ``delay`` a
+                      straggler step, ``kill`` a process death
+                      (``FatalError``, never retried); the numeric
+                      actions ``nan_loss`` (the step sees a copy of the
+                      batch filled with NaN: the loss is non-finite),
+                      ``nan_grad`` (a copy filled with the dtype's
+                      largest finite value: the gradient norm
+                      overflows) and ``corrupt_param`` (one element of
+                      the parameter ``Fault(leaf=...)`` names, chosen
+                      by :meth:`Fault.element_index`, set to NaN in
+                      place on the device — the silent data corruption
+                      the anomaly audit exists to catch).  Key: none.
+``loader.next``       hapi ``fit``, before each batch fetch —
+                      ``raise`` / ``delay`` a flaky or slow loader.
 ``ckpt.write``        ``framework_io.atomic_write_bytes``, the commit
                       path under every checkpoint (the CheckpointStore,
                       persisted serving snapshots) — ``raise`` at key
@@ -68,15 +84,22 @@ from ..framework.concurrency import OrderedLock
 
 __all__ = ["Fault", "ChaosPlan", "install", "uninstall", "running",
            "chaos_site", "DENY", "RAISE", "DELAY", "KILL", "HTTP_ERROR",
-           "NAN_LOGITS"]
+           "NAN_LOSS", "NAN_GRAD", "CORRUPT_PARAM", "NAN_LOGITS"]
 
 DENY = "deny"
 RAISE = "raise"
 DELAY = "delay"
 KILL = "kill"
 HTTP_ERROR = "http_error"
+# numeric faults, returned to the caller like deny / kill: the train step
+# poisons its batch (nan_loss, nan_grad) or a named parameter
+# (corrupt_param), the serving engine a lane's KV page (nan_logits)
+NAN_LOSS = "nan_loss"
+NAN_GRAD = "nan_grad"
+CORRUPT_PARAM = "corrupt_param"
 NAN_LOGITS = "nan_logits"
-_ACTIONS = frozenset({DENY, RAISE, DELAY, KILL, HTTP_ERROR, NAN_LOGITS})
+_ACTIONS = frozenset({DENY, RAISE, DELAY, KILL, HTTP_ERROR, NAN_LOSS,
+                      NAN_GRAD, CORRUPT_PARAM, NAN_LOGITS})
 
 
 class Fault:
@@ -87,17 +110,21 @@ class Fault:
     fault's clock."""
 
     __slots__ = ("site", "at", "action", "match", "count", "delay_s",
-                 "status", "message", "seen", "remaining")
+                 "status", "message", "leaf", "seen", "remaining")
 
     def __init__(self, site: str, at: int, action: str,
                  match: Optional[str] = None, count: int = 1,
                  delay_s: float = 0.0, status: int = 500,
-                 message: str = ""):
+                 message: str = "", leaf: str = ""):
         if action not in _ACTIONS:
             raise ValueError(f"unknown chaos action {action!r}; one of "
                              f"{sorted(_ACTIONS)}")
         if at < 1:
             raise ValueError("at is a 1-based evaluation index (>= 1)")
+        if action == CORRUPT_PARAM and not leaf:
+            raise ValueError(
+                "corrupt_param needs leaf= (the parameter whose element "
+                "is set non-finite)")
         self.site = str(site)
         self.at = int(at)
         self.action = action
@@ -106,8 +133,17 @@ class Fault:
         self.delay_s = float(delay_s)
         self.status = int(status)         # HTTP_ERROR's answer
         self.message = message or f"chaos[{site}@{at}:{action}]"
+        self.leaf = str(leaf)
         self.seen = 0              # matching evaluations so far
         self.remaining = self.count
+
+    def element_index(self, size: int) -> int:
+        """The flat element ``corrupt_param`` flips: CRC32 of
+        ``"{leaf}:{at}"`` modulo ``size`` — the JAX package's choice, so
+        both packages poison the same element."""
+        import zlib
+
+        return zlib.crc32(f"{self.leaf}:{self.at}".encode()) % max(size, 1)
 
     def exception(self):
         from ..framework.errors import InternalError

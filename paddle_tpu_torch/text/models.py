@@ -44,9 +44,13 @@ LayerNorm returns its input's, residual adds promote bf16 + f32 to f32
 and the loss (``cross_entropy``, black list) reads the logits in f32.
 The parameters, their gradients and the optimizer state stay f32.
 With ``auto_cast`` off every layer runs as before, in the parameters'
-dtype.  Level O1 only: under O2 the JAX package's ``apply`` casts every
-op off the black list (GELU, LayerNorm, the adds too), which this
-forward does not do, so it raises there.
+dtype.  Under level O2 the JAX package's ``apply`` casts every op off the
+black list: so does this forward — the embeddings' lookup and their add,
+the layer norms (f32 statistics, output in the low dtype), GELU, the
+residual adds, the linear layers, attention and the head — while
+``cross_entropy`` (black list) reads the logits in f32.  With
+``amp.decorate(level="O2")`` the parameters themselves are in the low
+dtype (no master weights, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ from torch import nn
 
 from .. import nn as pnn
 from .. import resolve_device
-from ..amp.auto_cast import amp_state, cast_inputs, should_cast
+from ..amp.auto_cast import cast_inputs, should_cast
 from ..nn import functional as F
 
 __all__ = ["BertEmbeddings", "BertModel", "BertForSequenceClassification",
@@ -199,14 +203,23 @@ class GPTDecoderLayer(nn.Module):
         """Pre-LN block: ``x + attn(ln1(x))``, then
         ``x + fc2(gelu(fc1(ln2(x))))``."""
         h = _layer_norm(self.ln1, x)
-        x = x + self.attn(h, attn_mask=mask,
-                          is_causal=causal and mask is None)
+        x = _add(x, self.attn(h, attn_mask=mask,
+                              is_causal=causal and mask is None))
         h = _layer_norm(self.ln2, x)
-        return x + _linear(self.fc2, F.gelu(_linear(self.fc1, h)))
+        h = F.gelu(*cast_inputs("gelu", _linear(self.fc1, h)))
+        return _add(x, _linear(self.fc2, h))
+
+
+def _add(a, b):
+    """``a + b`` as the JAX package's ``Tensor.__add__`` op: under level
+    O2 both operands in the AMP dtype."""
+    a, b = cast_inputs("__add__", a, b)
+    return a + b
 
 
 def _layer_norm(ln: nn.LayerNorm, x):
-    return F.layer_norm(x, x.shape[-1], ln.weight, ln.bias, ln.eps)
+    x, w, b = cast_inputs("layer_norm", x, ln.weight, ln.bias)
+    return F.layer_norm(x, x.shape[-1], w, b, ln.eps)
 
 
 def _linear(lin: nn.Linear, x):
@@ -268,15 +281,14 @@ class GPTModel(nn.Module):
         """Full-sequence causal logits ``[B, S, vocab]`` for ``input_ids``
         ``[B, S]``: ``wte + wpe``, the causal layers, ``ln_f`` and the
         head tied to ``wte``."""
-        state = amp_state()
-        if state.enabled and state.level == "O2":
-            raise NotImplementedError(
-                "GPTModel casts as auto_cast level O1 does; level O2 (every "
-                "op off the black list in low precision) is not ported")
         ids = torch.as_tensor(input_ids, device=self.device).long()
         S = ids.shape[1]
         pos = torch.arange(S, device=self.device)
-        x = self.wte(ids) + self.wpe(pos)
+        # the lookups as the JAX package's "lookup_table_v2" op: under O2
+        # the table, so the rows, in the AMP dtype
+        (tok,) = cast_inputs("lookup_table_v2", self.wte(ids))
+        (posv,) = cast_inputs("lookup_table_v2", self.wpe(pos))
+        x = _add(tok, posv)
         # causal masking rides the attention op (is_causal: the flash
         # route), never a materialized S x S mask
         for layer in self.layers:

@@ -312,10 +312,17 @@ def test_forward_without_autocast_is_unchanged(route, weights, batch):
 
 
 def test_autocast_level_o2_is_refused(weights, batch):
-    """GPTModel casts as level O1 does; under O2 (every op off the black
-    list in low precision, as the JAX package's ``apply`` does) it raises
-    instead of running a mix the reference does not run."""
+    """Under O2 GPTModel refuses O1's mix: it casts every op off the black
+    list to bf16, as the JAX package's ``apply`` does (the layer norms,
+    GELU and the residual adds too), so its logits are bf16 and differ
+    from O1's, whose adds and norms stay f32.  Parity with the JAX
+    package's O2 forward is ``tests/test_torch_amp_o2.py``'s."""
     m = _port_model(weights)
-    with pytest.raises(NotImplementedError, match="O2"):
-        with amp.auto_cast(dtype="bfloat16", level="O2"):
-            m(torch.from_numpy(batch[0]))
+    x = torch.from_numpy(batch[0])
+    with amp.auto_cast(dtype="bfloat16", level="O2"):
+        o2 = m(x)
+    with amp.auto_cast(dtype="bfloat16"):
+        o1 = m(x)
+    assert o2.dtype == o1.dtype == torch.bfloat16
+    assert torch.isfinite(o2.float()).all()
+    assert not torch.equal(o2, o1)

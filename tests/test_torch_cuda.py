@@ -17,17 +17,18 @@ multiply before or after the dot) and 2e-2 in bf16 (the kernel rounds its
 f32 result to bf16, 8 mantissa bits).  The
 weight-only int8 matmul: 1e-4 absolute and relative in f32 (f32 sums
 over K <= 3072 in another order), 1e-2 in bf16.  The flash attention
-kernels: 1e-4 in f32 and 2e-2 in bf16, times max(1, the largest
-reference value) (f32 sums over up to 1024 keys or queries in another
+kernels: 1e-4 in f32, 2e-2 in bf16 and 4e-3 in fp16, times max(1, the
+largest reference value) (f32 sums over up to 1024 keys or queries in another
 order, the f32 bodies in 3xTF32 on the tensor cores, about 2^-21 of a
 product; in bf16 the outputs are rounded to 8 mantissa bits, and the
 three bodies, which run on the tensor cores, also round P and dS to bf16
 before their second product, where the plain version keeps them in f32
 — ``tests/test_torch_flash_tc_numerics.py`` shows on the CPU that this
-fits the limit); besides, each whole output within
+fits the limit; the fp16 bodies do the same in fp16, 11 significant bits,
+``tests/test_torch_flash_fp16.py``); besides, each whole output within
 ``chip_smoke.FLASH_REL_L2`` of its plain version in relative L2 norm: in
 bf16 1e-2 (the roundings land at 1.8e-3 to 2.8e-3 in the CPU emulation,
-a dropped key tile at 0.18), in f32 2e-4 (3xTF32 lands at most at 1.9e-6
+a dropped key tile at 0.18), in fp16 2e-3, in f32 2e-4 (3xTF32 lands at most at 1.9e-6
 in the CPU emulation, one-pass TF32 at 3.6e-4 and more,
 ``tests/test_torch_flash_f32tc_numerics.py``); lse 1e-4; their dropout
 bits must equal
@@ -47,7 +48,7 @@ from paddle_tpu_torch.ops import scale_shift as ss
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 # head dims past 128, the D 256 instances of the paged kernels (DC 8): a
 # multiple of 16 (int8 rows in 16-byte loads), one that is not (D 200:
 # byte by byte), and the widest
@@ -946,8 +947,9 @@ def _close(got, want, tol, what, rel_l2=None):
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("S", [1, 100, 1000, 1024])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_flash_kernels_match_plain_versions(dtype, causal, S, D, variant):
     B, H = 2, 3
     masked = variant == "mask_dropout"
@@ -1015,8 +1017,9 @@ def _flash_all(q, k, v, g, mask, seed, scale, causal, p, lse, delta):
     return o, lse_out, dk, dv, dq
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("Sq,Sk,D,causal",
                          [(1000, 1000, 100, True), (333, 1000, 100, False),
                           (300, 700, 64, False), (700, 300, 64, True),
@@ -1062,7 +1065,8 @@ def test_flash_kernels_unaligned_rows_and_unequal_lengths(Sq, Sk, D, causal,
     pytest.param(0.0, torch.bfloat16, id="0.0"),
     pytest.param(0.1, torch.bfloat16, id="0.1"),
     pytest.param(0.0, torch.float32, id="f32-0.0"),
-    pytest.param(0.1, torch.float32, id="f32-0.1")])
+    pytest.param(0.1, torch.float32, id="f32-0.1"),
+    pytest.param(0.1, torch.float16, id="f16-0.1")])
 def test_bf16_flash_kernels_are_deterministic(p, dtype):
     """Two launches of each bf16 body on the same inputs give the same
     bits (no atomics, a fixed order of sums); so do the f32 bodies (the
@@ -1082,23 +1086,27 @@ def test_bf16_flash_kernels_are_deterministic(p, dtype):
 
 def test_flash_tc_stats_count_the_tensor_core_launches():
     """FLASH_TC_STATS counts one launch of each bf16 body (forward, dK/dV
-    and dQ) and FLASH_F32TC_STATS one of each f32 body (3xTF32 on the
-    tensor cores); each dtype leaves the other's counts alone, and
-    FLASH_ROUTE_STATS counts every launch as before."""
+    and dQ), FLASH_FP16_STATS one of each fp16 body and
+    FLASH_F32TC_STATS one of each f32 body (3xTF32 on the tensor cores);
+    each dtype leaves the others' counts alone, and FLASH_ROUTE_STATS
+    counts every launch as before."""
     B, H, S, D = 1, 2, 128, 64
-    for dtype, tc in ((torch.float32, 0), (torch.bfloat16, 1)):
+    counters = {torch.float32: fa.FLASH_F32TC_STATS,
+                torch.bfloat16: fa.FLASH_TC_STATS,
+                torch.float16: fa.FLASH_FP16_STATS}
+    for dtype in counters:
         q, k, v, g, mask = _flash_case(3, B, H, S, D, dtype, False)
         lse = torch.zeros(B * H, S, 1, device="cuda")
         fa.FLASH_ROUTE_STATS.update(fwd=0, dkv=0, dq=0, ref=0)
-        fa.FLASH_TC_STATS.update(fwd=0, dkv=0, dq=0)
-        fa.FLASH_F32TC_STATS.update(fwd=0, dkv=0, dq=0)
+        for c in counters.values():
+            c.update(fwd=0, dkv=0, dq=0)
         _flash_all(q, k, v, g, mask, 0, 0.125, True, 0.0, lse, lse)
         torch.cuda.synchronize()
         assert fa.FLASH_ROUTE_STATS == {"fwd": 1, "dkv": 1, "dq": 1,
                                         "ref": 0}
-        assert fa.FLASH_TC_STATS == {"fwd": tc, "dkv": tc, "dq": tc}
-        assert fa.FLASH_F32TC_STATS == {"fwd": 1 - tc, "dkv": 1 - tc,
-                                        "dq": 1 - tc}
+        for other, c in counters.items():
+            n = int(other == dtype)
+            assert c == {"fwd": n, "dkv": n, "dq": n}, (dtype, other)
 
 
 def test_flash_autograd_on_the_card_matches_the_plain_route():
@@ -1162,8 +1170,8 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         big = torch.zeros(1, 2, 8, 260, device="cuda")
         fa.flash_fwd_cuda(big, big, big, mask, *args)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        h = q.half()
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        h = q.double()
         fa.flash_fwd_cuda(h, h, h, mask, *args)
     with pytest.raises(ValueError, match="mask"):
         fa.flash_fwd_cuda(q, q, q, mask[:, :4].contiguous(), *args)
@@ -2248,7 +2256,7 @@ def test_prefetched_graphed_step_does_not_sync():
         torch.cuda.set_sync_debug_mode("error")
         try:
             x, y = next(it)
-            loss, _ = model._run_train_step(x._value, y._value)
+            loss, _, _ = model._run_train_step(x._value, y._value)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert np.isfinite(float(loss))
@@ -2382,3 +2390,104 @@ def test_remat_updates_the_running_statistics_once_on_the_card():
                                  remat.named_buffers()):
         torch.testing.assert_close(b._value, a._value, rtol=1e-6, atol=1e-7,
                                    msg=name)
+
+
+# --- numerical self-healing and loss scaling ---------------------------------
+_MLP_BATCH, _MLP_BATCHES = 4, 10
+
+
+def _guarded_mlp_fit(x, y, plan=None):
+    """``Model.fit(anomaly=skip-only)`` of an MLP with dropout (8 -> 32,
+    ``Dropout(0.3)``, ReLU, 32 -> 1; Adam) on the card, graphed, from
+    ``pt.seed(7)``: (state, captures of hapi/train_step)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import Model, io, nn, optimizer
+    from paddle_tpu_torch.hapi import AnomalyPolicy
+    from paddle_tpu_torch.profiler.jit_cost import compile_budget
+    from paddle_tpu_torch.testing import chaos
+
+    pt.set_device("cuda")
+    pt.seed(7)
+    net = nn.Sequential(nn.Linear(8, 32), nn.Dropout(0.3), nn.ReLU(),
+                        nn.Linear(32, 1))
+    model = Model(net)
+    model.prepare(optimizer.Adam(1e-2, parameters=net.parameters()),
+                  nn.MSELoss())
+    with compile_budget(None, names=("hapi/train_step",)) as cb, \
+            chaos.running(plan or chaos.ChaosPlan([])):
+        model.fit(io.TensorDataset([x, y]), batch_size=_MLP_BATCH,
+                  shuffle=False, verbose=0,
+                  anomaly=AnomalyPolicy(rollback_after=None,
+                                        spike_window=0))
+    state = {k: v._value.detach().clone()
+             for k, v in net.state_dict().items()}
+    state.update({f"opt/{k}": v for k, v in
+                  model._optimizer.state_dict().items()
+                  if torch.is_tensor(v)})
+    return state, cb.compiles().get("hapi/train_step", 0)
+
+
+@pytest.mark.parametrize("action", ["nan_loss", "nan_grad"])
+def test_graphed_guarded_skip_equals_the_run_without_the_batch(action):
+    """A chaos ``nan_loss`` / ``nan_grad`` at batch K of a graphed guarded
+    fit with dropout: the step is discarded in place (the pre-step copy)
+    and the port's generator rewound between replays, so the parameters
+    and Adam's moments equal, bit for bit, the fit over the same batches
+    without batch K — the masks after K are the ones drawn had K never
+    come.  One capture in both."""
+    from paddle_tpu_torch.testing import chaos
+
+    K = 3
+    rng = np.random.RandomState(0)
+    x = rng.randn(_MLP_BATCH * _MLP_BATCHES, 8).astype(np.float32)
+    y = (x @ rng.randn(8, 1)).astype(np.float32)
+    plan = chaos.ChaosPlan([chaos.Fault("train.step", at=K + 1,
+                                        action=action)])
+    skipped, n_skip = _guarded_mlp_fit(x, y, plan)
+    keep = np.ones(len(x), bool)
+    keep[K * _MLP_BATCH:(K + 1) * _MLP_BATCH] = False
+    clean, n_clean = _guarded_mlp_fit(x[keep], y[keep])
+    assert n_skip == n_clean == 1
+    assert plan.fired_log() and skipped.keys() == clean.keys()
+    for k in clean:
+        assert torch.equal(skipped[k], clean[k]), k
+
+
+def test_grad_scaler_step_reads_the_host_once():
+    """``GradScaler.step`` unscales every gradient and reduces their
+    finiteness on the card, then reads one flag: one host sync under
+    ``set_sync_debug_mode`` (``update`` none), whatever the number of
+    parameters."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.amp import GradScaler
+
+    pt.set_device("cuda")
+    pt.seed(1)
+    net = nn.Sequential(*[nn.Linear(16, 16) for _ in range(6)])
+    opt = optimizer.AdamW(1e-3, parameters=net.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 10)
+    x = pt.to_tensor(np.ones((4, 16), np.float32))
+    for poison in (False, True):
+        scaler.scale(net(x).sum()).backward()
+        if poison:
+            net[2].weight._value.grad.view(-1)[3] = float("inf")
+        torch.cuda.synchronize()
+        before = [p._value.detach().clone() for p in net.parameters()]
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                scaler.step(opt)
+                scaler.update()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in seen]
+        opt.clear_grad()
+        moved = [not torch.equal(b, p._value)
+                 for b, p in zip(before, net.parameters())]
+        assert all(moved) if not poison else not any(moved)
+    assert scaler.get_loss_scaling() == 2.0 ** 9

@@ -417,15 +417,24 @@ def test_checkpointed_fit_resumes_bit_equal(gpt_weights, tokens, tmp_path):
 
 
 def test_unported_options_raise():
+    """What is still not ported raises; ``amp_configs`` is accepted and
+    ignored (as in the JAX package) and ``fit(anomaly=)`` runs, checked
+    against the JAX package's own rule: rollback armed needs a
+    ``checkpoint_dir``."""
     net = tnn.Linear(2, 2)
     model = pt.Model(net)
-    with pytest.raises(InvalidArgumentError, match="item 16"):
-        model.prepare(topt.SGD(0.1, parameters=net.parameters()),
-                      tnn.MSELoss(), amp_configs={"level": "O1"})
-    model.prepare(topt.SGD(0.1, parameters=net.parameters()), tnn.MSELoss())
-    with pytest.raises(InvalidArgumentError, match="item 16"):
-        model.fit(tio.TensorDataset([np.zeros((2, 2), np.float32)] * 2),
-                  anomaly=True, verbose=0)
+    model.prepare(topt.SGD(0.1, parameters=net.parameters()),
+                  tnn.MSELoss(), amp_configs={"level": "O1"})
+    jnet = jnn.Linear(2, 2)
+    jmodel = paddle.Model(jnet)
+    jmodel.prepare(jopt.SGD(0.1, parameters=jnet.parameters()),
+                   jnn.MSELoss(), amp_configs={"level": "O1"})
+    data = [np.zeros((2, 2), np.float32)] * 2
+    for pkg, m, io in (("torch", model, tio), ("jax", jmodel, jio)):
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            m.fit(io.TensorDataset(data), anomaly=True, verbose=0)
+    model.fit(tio.TensorDataset(data), batch_size=2, verbose=0,
+              anomaly=pt.hapi.AnomalyPolicy(rollback_after=None))
     with pytest.raises(InvalidArgumentError, match="accelerate=False"):
         model.train_batch([np.zeros((2, 2), np.float32)],
                           [np.zeros((2, 2), np.float32)], update=False)
