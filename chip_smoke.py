@@ -319,6 +319,29 @@ Phases, one result line each (or more):
    share, kernels by family); then a 2-layer f32 classifier's loss and
    gradients on the flash route (3xTF32 bodies) against the plain
    attention route on the card.
+33-35. anomaly, amp_fp16, o2: ResNet-50's guarded graphed fit (a skip and
+   a rollback, each bit-equal to its clean run), BERT-base in fp16 with
+   ``GradScaler``, GPT-2-small's fit under O2 against O1.
+36. eager_api: ``import paddle_tpu_torch as paddle`` on the card.  The
+   default place is the card (``paddle.zeros([2, 3]).place``,
+   ``get_device() == "gpu:0"``); every op the top level exports runs
+   once on the card and equals the same call under
+   ``set_device("cpu")`` (exact, 1e-6, or 1e-5 / 1e-4 for the special
+   functions and the linear algebra; the decompositions by their
+   invariants; the random ops by their mean and spread), with the ops
+   that synchronised the host listed (``set_sync_debug_mode("warn")``
+   on a second call, the first having loaded their kernels);
+   ``paddle.weight_only_matmul`` at GPT-2-small's fc1 (x [8, 768] f32 and
+   bf16, int8 w [768, 3072]) launches #4 twice and its plain version
+   never, within QMM_TOL of ``quantized_matmul_ref``; a 3-layer MLP
+   regression written in the top-level API (``ParamAttr`` learning-rate
+   scale and ``L2Decay``, ``ClipGradByGlobalNorm`` with one
+   ``need_clip=False`` weight) runs 20 ``opt.minimize(loss)`` steps with
+   and without ``clear_grad``, each arm's losses within 1e-5 relative of
+   the CPU's, and its ``state_dict`` comes back from ``paddle.save`` /
+   ``paddle.load`` bit-exact on the card; the host microseconds a call
+   of ``paddle.add`` / ``paddle.matmul`` beside ``torch.add`` /
+   ``torch.matmul`` (median of 1000).
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -2010,6 +2033,40 @@ def logit_gap(model, prompt, stream, k, quant=None):
     return float(top[0] - top[1])
 
 
+def logit_gap_int8_dynamic(model, prompt, stream, k, weights=None):
+    """Top-2 logit gap at generated position k of the spec-off
+    int8_dynamic engine's computation, teacher-forced through prompt +
+    stream[:k] (``ENGINE``'s pages and chunks, ``weights`` as the
+    engine's weight-only int8 export): the paged core with dynamic
+    per-page scales, fed as the engine feeds a lane — prompt[:-1] in
+    ``chunk_schedule`` prefill chunks, then one decode row a position —
+    so each page's scale grows, and its content is requantized, in the
+    engine's order.  The dense ring has no dynamic int8 mode, so
+    ``logit_gap`` cannot stand for it."""
+    from paddle_tpu_torch.text.generation import _make_gpt_paged_core
+    from paddle_tpu_torch.utils.bucketing import chunk_schedule
+
+    chunk, page = ENGINE["prefill_chunk"], ENGINE["page_size"]
+    ids = np.concatenate([prompt, stream[:k]]).astype(np.int64)
+    n = int(prompt.size)
+    M = -(-ids.size // page)
+    core, init_pages = _make_gpt_paged_core(
+        model, page, M, kv_cache_dtype="int8", weight_quant=weights)
+    kv = init_pages(M + 1)                          # page 0: the trash page
+    dev = model.device
+    table = torch.arange(1, M + 1, dtype=torch.int32, device=dev)[None]
+    spans = [(off, min(off + size, n - 1))
+             for off, size in chunk_schedule(n - 1, chunk)]
+    spans += [(p, p + 1) for p in range(n - 1, ids.size)]
+    logits = None
+    for s0, e0 in spans:
+        tok = torch.as_tensor(ids[s0:e0], device=dev)
+        pos = torch.arange(s0, e0, device=dev)
+        logits, kv = core(tok, pos, table, kv, qgroup=e0 - s0)
+    top = torch.topk(logits[-1].float(), 2).values
+    return float(top[0] - top[1])
+
+
 def reset_counts():
     from paddle_tpu_torch.ops.paged_attention import PAGED_ROUTE_STATS
     from paddle_tpu_torch.ops.quantized_matmul import (QMM_FORM_STATS,
@@ -2229,12 +2286,15 @@ def reference_streams(model, prompts, quant=None):
 
 
 def check_streams(phase, model, prompts, streams, quant=None, want=None,
-                  int8=None):
+                  int8=None, gap_fn=None):
     """Every stream against the port's dense generate (int8 per
     ``quant``) on the card, or against ``want``; a divergence is allowed
-    only at a near tie of the dense reference's top-2 logits, teacher-
-    forced through the prompt and the common prefix (the int8 limit when
-    ``int8``, default: when ``quant`` is given)."""
+    only at a near tie of the reference's top-2 logits, teacher-forced
+    through the prompt and the common prefix (the int8 limit when
+    ``int8``, default: when ``quant`` is given).  The reference is the
+    dense model (int8 per ``quant``), or ``gap_fn(prompt, stream, k)``
+    where the streams' int8 kind has no dense form (int8_dynamic:
+    ``logit_gap_int8_dynamic``)."""
     if want is None:
         want = reference_streams(model, prompts, quant)
     if int8 is None:
@@ -2247,7 +2307,8 @@ def check_streams(phase, model, prompts, streams, quant=None, want=None,
         diff = np.nonzero(got != ref)[0]
         if diff.size:
             k = int(diff[0])
-            gap = logit_gap(model, p, ref, k, quant)
+            gap = (gap_fn(p, ref, k) if gap_fn is not None
+                   else logit_gap(model, p, ref, k, quant))
             case = {"request": i, "prompt_len": int(p.size), "position": k,
                     "engine": int(got[k]), "reference": int(ref[k]),
                     "top2_gap": gap, "gap_limit": gap_limit}
@@ -2541,8 +2602,12 @@ def e2e_spec_phase(model, prompts, device="cuda") -> dict:
         if bad:
             raise AssertionError(f"e2e_spec/{name}: {bad}; spec {spec}, "
                                  f"programs {calls}")
-        near = check_streams(f"e2e_spec/{name}", model, prompts, streams,
-                             want=want, int8=int8)
+        # the uncalibrated int8 arm's gap on its own kind of reference:
+        # the spec-off int8_dynamic computation
+        near = check_streams(
+            f"e2e_spec/{name}", model, prompts, streams, want=want, int8=int8,
+            gap_fn=(lambda p, ref, k: logit_gap_int8_dynamic(
+                model, p, ref, k)) if int8 else None)
         res = summary(eng, prompts, wall, calls["ragged_step"], counts,
                       near)
         res.update(programs=calls, spec={k: spec[k] for k in (
@@ -3436,8 +3501,19 @@ def e2e_snapshot_phase(model, prompts, export, device="cuda") -> dict:
             "attention_ref": 0, "qmm_cuda": 6 * att if int8 else 0,
             "qmm_ref": 0, **NO_STATS})
         q = export if name == "int8_static" else None
+        gap_fn = None
+        if name == "int8_dynamic":
+            # read on the uninterrupted int8_dynamic computation (the
+            # engine's own weight export), not on the f32 model
+            from paddle_tpu_torch.slim import quantize_gpt_weights
+
+            wq = quantize_gpt_weights(model)
+
+            def gap_fn(p, ref, k):
+                return logit_gap_int8_dynamic(model, p, ref, k, weights=wq)
         near = check_streams(f"e2e_snapshot/{name}", model, prompts,
-                             streams, quant=q, want=want, int8=int8)
+                             streams, quant=q, want=want, int8=int8,
+                             gap_fn=gap_fn)
         if name != "int8_dynamic":
             near += check_streams(
                 f"e2e_snapshot/{name}/generate", model, prompts, streams,
@@ -6495,6 +6571,596 @@ def o2_phase(fit) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 36: the eager framework's public surface
+# --------------------------------------------------------------------------
+EAGER_EXACT = "exact"
+EAGER_F32 = (1e-6, 1e-6)
+# the special functions and the linear algebra: other polynomial
+# approximations and other orders of summation (LAPACK / cuSOLVER)
+EAGER_SPECIAL = (1e-5, 1e-5)
+EAGER_LINALG = (1e-4, 1e-5)
+EAGER_RANDOM_N = 20000
+EAGER_MLP_STEPS = 20
+EAGER_MLP_RTOL = 1e-5
+EAGER_HOST_CALLS = 1000
+
+
+class _EagerInputs:
+    """The phase's seeded inputs as one device's tensors."""
+
+    def __init__(self, P, arrays, device):
+        for k, v in arrays.items():
+            setattr(self, k, P.to_tensor(v, place=device))
+
+
+def eager_arrays():
+    r = np.random.RandomState(36)
+
+    def u(shape, lo=-2.0, hi=2.0):
+        return r.uniform(lo, hi, shape).astype(np.float32)
+
+    A = u((6, 6), -1, 1)
+    return {
+        "X": u((8, 16)), "Y": u((8, 16)), "POS": u((8, 16), 0.1, 3.0),
+        "UNIT": u((8, 16), -0.9, 0.9), "BIG": u((8, 16), 1.1, 4.0),
+        "I": r.randint(-9, 10, (8, 16)).astype(np.int32),
+        "J": r.randint(1, 7, (8, 16)).astype(np.int32),
+        "B": r.rand(8, 16) > 0.5, "C": r.rand(8, 16) > 0.3,
+        "V": u((16,)), "W": u((16,)), "V3": u((4, 3)), "U3": u((4, 3)),
+        "A": A, "SPD": (A @ A.T + 6 * np.eye(6)).astype(np.float32),
+        "TRI": (np.triu(A) + 3 * np.eye(6)).astype(np.float32),
+        "CHOL": np.linalg.cholesky(A @ A.T + 6 * np.eye(6)).astype(
+            np.float32),
+        "RHS": u((6, 3)), "TALL": u((10, 4)), "Y10": u((10, 2)),
+        "X3": u((2, 8, 16)),
+        "TIES": np.array([[3, 1, 3, 2, 3, 1], [0, 5, 5, -1, 0, 5]],
+                         np.float32),
+        "MODES": np.array([[1, 2, 2, 3, 3, 1], [4, 4, 4, 0, 0, 0]],
+                          np.int32),
+        "U": np.array([3, 1, 3, 2, 1, 1, 5, 2], np.int32),
+        "SORTED": np.sort(u((32,))), "IDX3": np.array([5, 0, 2], np.int32),
+        "ROWS": r.randint(0, 16, (8, 4)).astype(np.int32),
+        "ND": np.array([[0, 1], [7, 15], [3, 3]], np.int32),
+        "NANS": np.array([[1.0, np.nan, np.inf], [-np.inf, 0.5, np.nan]],
+                         np.float32),
+        "P": np.full((EAGER_RANDOM_N,), 0.3, np.float32),
+        "LAM": np.full((EAGER_RANDOM_N,), 2.5, np.float32),
+        "PROBS": np.array([0.1, 0.2, 0.7], np.float32),
+        "Z": np.zeros((EAGER_RANDOM_N,), np.float32),
+        "CPLX": u((4, 3, 2)),
+    }
+
+
+def _eager_calls():
+    """``{op name: (call(P, a), tolerance)}`` for every op the slice
+    exports (``a``: the inputs on the device the call runs on).  The
+    decompositions are compared by their invariants (``key``)."""
+    unary = {n: "X" for n in (
+        "exp", "expm1", "square", "abs", "sign", "neg", "floor", "ceil",
+        "round", "trunc", "frac", "sin", "cos", "atan", "sinh", "cosh",
+        "tanh", "asinh", "erf", "sigmoid", "angle", "conj", "real", "imag",
+        "deg2rad", "rad2deg", "stanh")}
+    unary.update({n: "POS" for n in ("log", "log2", "log10", "log1p", "sqrt",
+                                     "rsqrt", "reciprocal", "digamma",
+                                     "lgamma")})
+    unary.update({n: "UNIT" for n in ("tan", "asin", "acos", "atanh",
+                                      "erfinv")})
+    unary.update({"acosh": "BIG", "isfinite": "NANS", "isinf": "NANS",
+                  "isnan": "NANS", "nan_to_num": "NANS",
+                  "logical_not": "B", "bitwise_not": "I"})
+    calls = {}
+    for n, src in unary.items():
+        tol = (EAGER_SPECIAL if n in ("digamma", "lgamma", "erfinv", "tan")
+               else EAGER_EXACT if src in ("B", "I", "NANS") or n in (
+                   "abs", "sign", "neg", "floor", "ceil", "round", "trunc",
+                   "conj", "real", "imag", "angle") else EAGER_F32)
+        calls[n] = (lambda P, a, n=n, src=src: getattr(P, n)(
+            getattr(a, src)), tol)
+    binary = {n: ("X", "Y", EAGER_F32) for n in (
+        "add", "subtract", "multiply", "atan2", "hypot", "logaddexp",
+        "isclose", "allclose", "kron", "inner", "outer")}
+    binary.update({n: ("X", "Y", EAGER_EXACT) for n in (
+        "maximum", "minimum", "fmax", "fmin", "heaviside", "nextafter",
+        "copysign", "greater_than", "less_than", "equal_all")})
+    binary.update({n: ("I", "J", EAGER_EXACT) for n in (
+        "gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor", "equal",
+        "not_equal", "greater_equal", "less_equal", "floor_divide", "mod",
+        "remainder", "floor_mod")})
+    binary.update({n: ("B", "C", EAGER_EXACT) for n in (
+        "logical_and", "logical_or", "logical_xor")})
+    binary.update({"divide": ("X", "POS", EAGER_F32),
+                   "pow": ("POS", "Y", EAGER_F32)})
+    for n, (s1, s2, tol) in binary.items():
+        calls[n] = (lambda P, a, n=n, s1=s1, s2=s2: getattr(P, n)(
+            getattr(a, s1), getattr(a, s2)), tol)
+    for n in ("sum", "mean", "prod", "logsumexp", "var", "std", "median",
+              "nanmean", "nansum"):
+        calls[n] = (lambda P, a, n=n: getattr(P, n)(a.X, axis=1), EAGER_F32)
+    for n in ("max", "min", "amax", "amin"):
+        calls[n] = (lambda P, a, n=n: getattr(P, n)(a.X, axis=0),
+                    EAGER_EXACT)
+    for n in ("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+              "reduce_prod"):
+        calls[n] = (lambda P, a, n=n: getattr(P, n)(a.X, dim=1), EAGER_F32)
+    for n in ("elementwise_add", "elementwise_sub", "elementwise_mul"):
+        calls[n] = (lambda P, a, n=n: getattr(P, n)(a.X, a.Y), EAGER_F32)
+    for n in ("elementwise_div", "elementwise_pow", "elementwise_mod",
+              "elementwise_floordiv"):
+        calls[n] = (lambda P, a, n=n: getattr(P, n)(a.POS, a.POS * 0.3 + 1),
+                    EAGER_F32)
+    E, F, L, S = EAGER_EXACT, EAGER_F32, EAGER_LINALG, EAGER_SPECIAL
+    calls.update({
+        # math
+        "scale": (lambda P, a: P.scale(a.X, 2.0, 1.0), F),
+        "increment": (lambda P, a: P.increment(a.X.clone(), 2.0), F),
+        "clip": (lambda P, a: P.clip(a.X, -0.5, 0.7), E),
+        "lerp": (lambda P, a: P.lerp(a.X, a.Y, 0.3), F),
+        "multiplex": (lambda P, a: P.multiplex(
+            [a.X, a.Y], P.cast(a.J[:, :1] % 2, "int32")), E),
+        "all": (lambda P, a: P.all(a.B, axis=1), E),
+        "any": (lambda P, a: P.any(a.B, axis=0), E),
+        "quantile": (lambda P, a: P.quantile(a.X, 0.3, axis=1), F),
+        "cumsum": (lambda P, a: P.cumsum(a.X, axis=1), F),
+        "cumprod": (lambda P, a: P.cumprod(a.UNIT, dim=1), F),
+        "cummax": (lambda P, a: P.cummax(a.TIES, axis=1), E),
+        "cummin": (lambda P, a: P.cummin(a.TIES, axis=1), E),
+        "logcumsumexp": (lambda P, a: P.logcumsumexp(a.X, axis=1), F),
+        "add_n": (lambda P, a: P.add_n([a.X, a.Y, a.POS]), F),
+        "count_nonzero": (lambda P, a: P.count_nonzero(a.I, axis=1), E),
+        "diff": (lambda P, a: P.diff(a.X, axis=1), F),
+        "trace": (lambda P, a: P.trace(a.A), F),
+        # creation
+        "to_tensor": (lambda P, a: P.to_tensor([[1.5, 2.0], [3.0, 4.0]]), E),
+        "zeros": (lambda P, a: P.zeros([2, 3]), E),
+        "ones": (lambda P, a: P.ones([2, 3], "int32"), E),
+        "full": (lambda P, a: P.full([2, 2], 1.5), E),
+        "zeros_like": (lambda P, a: P.zeros_like(a.X), E),
+        "ones_like": (lambda P, a: P.ones_like(a.I), E),
+        "full_like": (lambda P, a: P.full_like(a.X, 3.0), E),
+        "empty": (lambda P, a: P.empty([2, 1]), E),
+        "empty_like": (lambda P, a: P.empty_like(a.X), E),
+        "arange": (lambda P, a: P.arange(0.0, 1.0, 0.125), E),
+        "linspace": (lambda P, a: P.linspace(0.0, 1.0, 7), F),
+        "logspace": (lambda P, a: P.logspace(0.0, 2.0, 5), F),
+        "eye": (lambda P, a: P.eye(3, 4), E),
+        "diag": (lambda P, a: P.diag(a.V, 1), E),
+        "diagflat": (lambda P, a: P.diagflat(a.V3), E),
+        "tril": (lambda P, a: P.tril(a.A, 1), E),
+        "triu": (lambda P, a: P.triu(a.A, -1), E),
+        "meshgrid": (lambda P, a: P.meshgrid(a.V, a.W), E),
+        "assign": (lambda P, a: P.assign(a.X), E),
+        "clone": (lambda P, a: P.clone(a.X), E),
+        "numel": (lambda P, a: P.numel(a.X3), E),
+        "create_parameter": (lambda P, a: P.create_parameter(
+            [2, 3], "float32", default_initializer=P.nn.initializer.Constant(
+                0.5)), E),
+        "fill_constant": (lambda P, a: P.fill_constant([2, 2], "int64", 7),
+                          E),
+        # manipulation
+        "reshape": (lambda P, a: P.reshape(a.X, [4, 32]), E),
+        "reshape_": (lambda P, a: P.reshape_(a.X.clone(), [32, 4]), E),
+        "transpose": (lambda P, a: P.transpose(a.X3, [2, 0, 1]), E),
+        "transpose_": (lambda P, a: P.transpose_(a.X, [1, 0]), E),
+        "t": (lambda P, a: P.t(a.X), E),
+        "moveaxis": (lambda P, a: P.moveaxis(a.X3, 0, 2), E),
+        "swapaxes": (lambda P, a: P.swapaxes(a.X3, 0, 2), E),
+        "concat": (lambda P, a: P.concat([a.X, a.Y], axis=1), E),
+        "stack": (lambda P, a: P.stack([a.X, a.Y]), E),
+        "unstack": (lambda P, a: P.unstack(a.X3), E),
+        "split": (lambda P, a: P.split(a.X, [3, -1], axis=1), E),
+        "chunk": (lambda P, a: P.chunk(a.X, 4, axis=0), E),
+        "squeeze": (lambda P, a: P.squeeze(a.X3[:1], 0), E),
+        "squeeze_": (lambda P, a: P.squeeze_(a.X3[:1].clone(), 0), E),
+        "unsqueeze": (lambda P, a: P.unsqueeze(a.X, [0, 2]), E),
+        "unsqueeze_": (lambda P, a: P.unsqueeze_(a.X.clone(), 1), E),
+        "flatten": (lambda P, a: P.flatten(a.X3, 1), E),
+        "gather": (lambda P, a: P.gather(a.X, a.IDX3), E),
+        "gather_nd": (lambda P, a: P.gather_nd(a.X, a.ND), E),
+        "take_along_axis": (lambda P, a: P.take_along_axis(a.X, a.ROWS, 1),
+                            E),
+        "put_along_axis": (lambda P, a: P.put_along_axis(
+            a.X, a.ROWS[:, :1], a.Y[:, :1], 1), E),
+        "scatter": (lambda P, a: P.scatter(a.X, a.IDX3, a.Y[:3]), E),
+        "scatter_": (lambda P, a: P.scatter_(a.X.clone(), a.IDX3, a.Y[:3]),
+                     E),
+        "scatter_nd_add": (lambda P, a: P.scatter_nd_add(
+            a.X, a.ND, a.V[:3]), F),
+        "scatter_nd": (lambda P, a: P.scatter_nd(a.ND, a.V[:3], [8, 16]), F),
+        "index_select": (lambda P, a: P.index_select(a.X, a.IDX3, 1), E),
+        "index_sample": (lambda P, a: P.index_sample(a.X, a.ROWS), E),
+        "take": (lambda P, a: P.take(a.X, a.IDX3, mode="clip"), E),
+        "expand": (lambda P, a: P.expand(a.X[:1], [3, 16]), E),
+        "expand_as": (lambda P, a: P.expand_as(a.X[:1], a.X), E),
+        "broadcast_to": (lambda P, a: P.broadcast_to(a.X[:, :1], [8, 16]),
+                         E),
+        "broadcast_tensors": (lambda P, a: P.broadcast_tensors(
+            [a.X[:1], a.X[:, :1]]), E),
+        "broadcast_shape": (lambda P, a: P.to_tensor(P.broadcast_shape(
+            [8, 1], [1, 16])), E),
+        "tile": (lambda P, a: P.tile(a.X, [2, 1]), E),
+        "roll": (lambda P, a: P.roll(a.X, 3, 1), E),
+        "flip": (lambda P, a: P.flip(a.X3, [0, 2]), E),
+        "rot90": (lambda P, a: P.rot90(a.X), E),
+        "slice": (lambda P, a: P.slice(a.X3, [1, 2], [1, -5], [6, 100]), E),
+        "strided_slice": (lambda P, a: P.strided_slice(
+            a.X3, [1, 2], [7, 15], [0, 0], [-2, -3]), E),
+        "pad": (lambda P, a: P.pad(a.X3[None], [1, 2, 0, 1],
+                                   mode="reflect"), E),
+        "repeat_interleave": (lambda P, a: P.repeat_interleave(a.X, 2, 1),
+                              E),
+        "unbind": (lambda P, a: P.unbind(a.X3, 1), E),
+        "unique": (lambda P, a: P.unique(a.U, return_index=True,
+                                         return_inverse=True,
+                                         return_counts=True), E),
+        "unique_consecutive": (lambda P, a: P.unique_consecutive(
+            a.U, return_inverse=True, return_counts=True), E),
+        "as_complex": (lambda P, a: P.as_real(P.as_complex(a.CPLX)), E),
+        "as_real": (lambda P, a: P.as_real(P.as_complex(a.CPLX)), E),
+        "crop": (lambda P, a: P.crop(a.X3, [1, 3, 4], [1, 2, 3]), E),
+        "crop_tensor": (lambda P, a: P.crop_tensor(a.X, [2, -1], [1, 1]),
+                        E),
+        "shard_index": (lambda P, a: P.shard_index(
+            P.abs(a.I) * 2, 20, 2, 1), E),
+        "tensordot": (lambda P, a: P.tensordot(a.X3, a.X, [[1, 2], [0, 1]]),
+                      F),
+        # logic and search
+        "is_empty": (lambda P, a: P.is_empty(a.X), E),
+        "is_tensor": (lambda P, a: P.to_tensor(P.is_tensor(a.X)), E),
+        "where": (lambda P, a: P.where(a.B, a.X, a.Y), E),
+        "cond": (lambda P, a: P.cond(P.greater_than(P.sum(a.X), 0.0),
+                                     lambda: a.X, lambda: a.Y), E),
+        "argmax": (lambda P, a: P.argmax(a.X, axis=1), E),
+        "argmin": (lambda P, a: P.argmin(a.TIES, axis=1), E),
+        "argsort": (lambda P, a: P.argsort(a.TIES, descending=True), E),
+        "sort": (lambda P, a: P.sort(a.X, axis=0, descending=True), E),
+        "topk": (lambda P, a: P.topk(a.TIES, 3), E),
+        "kthvalue": (lambda P, a: P.kthvalue(a.TIES, 2), E),
+        "mode": (lambda P, a: P.mode(a.MODES), E),
+        "nonzero": (lambda P, a: P.nonzero(a.I), E),
+        "masked_select": (lambda P, a: P.masked_select(a.X, a.B), E),
+        "masked_fill": (lambda P, a: P.masked_fill(a.X, a.B, -7.0), E),
+        "searchsorted": (lambda P, a: P.searchsorted(a.SORTED, a.X), E),
+        "bucketize": (lambda P, a: P.bucketize(a.X, a.SORTED, right=True), E),
+        "index_put": (lambda P, a: P.index_put(
+            a.X, (a.IDX3, a.IDX3), a.V[:3], accumulate=True), F),
+        # linear algebra
+        "matmul": (lambda P, a: P.matmul(a.X, a.Y, transpose_y=True), L),
+        "mm": (lambda P, a: P.mm(a.A, a.SPD), L),
+        "bmm": (lambda P, a: P.bmm(a.X3, P.transpose(a.X3, [0, 2, 1])), L),
+        "dot": (lambda P, a: P.dot(a.X, a.Y), L),
+        "mv": (lambda P, a: P.mv(a.X, a.V), L),
+        "addmm": (lambda P, a: P.addmm(a.A, a.A, a.SPD, 0.5, 2.0), L),
+        "matmul_with_flatten": (lambda P, a: P.matmul_with_flatten(
+            a.X3, P.transpose(a.X, [1, 0]), 2), L),
+        "norm": (lambda P, a: P.norm(a.X, p=3, axis=1), L),
+        "dist": (lambda P, a: P.dist(a.X, a.Y), L),
+        "cross": (lambda P, a: P.cross(a.V3, a.U3), L),
+        "cholesky": (lambda P, a: P.cholesky(a.SPD), L),
+        "cholesky_solve": (lambda P, a: P.cholesky_solve(a.RHS, a.CHOL), L),
+        "triangular_solve": (lambda P, a: P.triangular_solve(a.TRI, a.RHS),
+                             L),
+        "inverse": (lambda P, a: P.inverse(a.SPD), L),
+        "pinv": (lambda P, a: P.pinv(a.TALL), L),
+        "solve": (lambda P, a: P.solve(a.SPD, a.RHS), L),
+        "lstsq": (lambda P, a: P.lstsq(a.TALL, a.Y10)[0], L),
+        "det": (lambda P, a: P.det(a.SPD), (1e-4, 1e-3)),
+        "slogdet": (lambda P, a: P.slogdet(a.A), L),
+        "svd": (lambda P, a: P.svd(a.TALL)[1], L),
+        "qr": (lambda P, a: P.abs(P.diag(P.qr(a.TALL)[1])), L),
+        "eig": (lambda P, a: P.sort(P.abs(P.eig(a.A)[0])), L),
+        "eigh": (lambda P, a: P.eigh(a.SPD)[0], L),
+        "eigvals": (lambda P, a: P.sort(P.abs(P.eigvals(a.A))), L),
+        "eigvalsh": (lambda P, a: P.eigvalsh(a.SPD), L),
+        "matrix_rank": (lambda P, a: P.matrix_rank(a.A), E),
+        "matrix_power": (lambda P, a: P.matrix_power(a.A, 3), L),
+        "multi_dot": (lambda P, a: P.multi_dot([a.A, a.SPD, a.RHS]), L),
+        "histogram": (lambda P, a: P.histogram(a.X, 8, -2, 2), E),
+        "bincount": (lambda P, a: P.bincount(a.J[0]), E),
+        "corrcoef": (lambda P, a: P.corrcoef(a.V3), L),
+        "cov": (lambda P, a: P.cov(a.X), L),
+        "einsum": (lambda P, a: P.einsum("bij,kj->bik", a.X3, a.X), L),
+        # compat
+        "cast": (lambda P, a: P.cast(a.X, "int32"), E),
+        "rank": (lambda P, a: P.rank(a.X3), E),
+        "shape": (lambda P, a: P.shape(a.X3), E),
+        "has_inf": (lambda P, a: P.has_inf(a.NANS), E),
+        "has_nan": (lambda P, a: P.has_nan(a.X), E),
+        "tanh_": (lambda P, a: P.tanh_(a.X.clone()), F),
+    })
+    return calls
+
+
+EAGER_RANDOM = {
+    "rand": lambda P, a: P.rand([EAGER_RANDOM_N]),
+    "randn": lambda P, a: P.randn([EAGER_RANDOM_N]),
+    "standard_normal": lambda P, a: P.standard_normal([EAGER_RANDOM_N]),
+    "uniform": lambda P, a: P.uniform([EAGER_RANDOM_N], min=-2.0, max=5.0),
+    "normal": lambda P, a: P.normal(1.5, 0.5, [EAGER_RANDOM_N]),
+    "randint": lambda P, a: P.randint(-3, 9, [EAGER_RANDOM_N]),
+    "randint_like": lambda P, a: P.randint_like(a.Z, 0, 10),
+    "randperm": lambda P, a: P.randperm(EAGER_RANDOM_N),
+    "multinomial": lambda P, a: P.multinomial(a.PROBS, EAGER_RANDOM_N,
+                                              replacement=True),
+    "bernoulli": lambda P, a: P.bernoulli(a.P),
+    "poisson": lambda P, a: P.poisson(a.LAM),
+    "uniform_": lambda P, a: P.uniform_(a.Z.clone(), -1.0, 3.0),
+    "normal_": lambda P, a: P.normal_(a.Z.clone(), 2.0, 3.0),
+    "exponential_": lambda P, a: P.exponential_(a.Z.clone(), 2.0),
+}
+
+
+def _eager_numpy(out):
+    if isinstance(out, (tuple, list)):
+        return [_eager_numpy(o) for o in out]
+    v = getattr(out, "_value", out)
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def _eager_close(name, got, want, tol):
+    """The card's result against the CPU's: the same structure, shapes
+    and dtypes; equal values, or within ``tol = (rtol, atol)``."""
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"eager_api/{name}: structure differs")
+        return max([_eager_close(name, g, w, tol)
+                    for g, w in zip(got, want)] + [0.0])
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise AssertionError(f"eager_api/{name}: {g.shape} {g.dtype} on the "
+                             f"card, {w.shape} {w.dtype} on the CPU")
+    if tol == EAGER_EXACT:
+        if not np.array_equal(g, w, equal_nan=g.dtype.kind in "fc"):
+            raise AssertionError(f"eager_api/{name}: not equal to the CPU")
+        return 0.0
+    np.testing.assert_allclose(g, w, rtol=tol[0], atol=tol[1],
+                               equal_nan=True, err_msg=f"eager_api/{name}")
+    diff = np.abs(g.astype(np.complex128) - w.astype(np.complex128))
+    return float(np.nanmax(np.where(np.isfinite(diff), diff, 0.0))
+                 if diff.size else 0.0)
+
+
+def _synced(fn):
+    """``fn()`` and whether it synchronised the host with the card
+    (``torch.cuda.set_sync_debug_mode("warn")``'s warnings)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, any("synchroniz" in str(w.message) for w in seen)
+
+
+def eager_mlp(P, device, arrays, clear_grad):
+    """The 3-layer MLP regression in the top-level API only: the
+    weights and data (made by ``paddle.randn`` on the card) moved to
+    ``device``, 20 steps of ``opt.minimize(loss)`` with or without
+    ``clear_grad``; returns (losses, the model's state_dict)."""
+    P.set_device(device)
+    t = {k: P.to_tensor(v, place=device) for k, v in arrays.items()}
+    w1 = P.create_parameter([16, 32], "float32")
+    w1.set_value(t["w1"])
+    lin = P.nn.Linear(32, 32, weight_attr=P.ParamAttr(
+        learning_rate=0.5, regularizer=P.regularizer.L2Decay(1e-3)))
+    lin.weight.set_value(t["w2"])
+    lin.bias.set_value(t["b2"])
+    w3 = P.create_parameter([32, 4], "float32",
+                            attr=P.ParamAttr(need_clip=False))
+    w3.set_value(t["w3"])
+    params = [w1] + lin.parameters() + [w3]
+    opt = P.optimizer.Momentum(0.02, 0.9, parameters=params,
+                               grad_clip=P.nn.ClipGradByGlobalNorm(1.0))
+    losses = []
+    for _ in range(EAGER_MLP_STEPS):
+        h = P.tanh(P.matmul(t["x"], w1))
+        h = P.tanh(lin(h))
+        err = P.matmul(h, w3) - t["y"]
+        loss = P.mean(err * err)
+        opt.minimize(loss)
+        if clear_grad:
+            opt.clear_grad()
+        losses.append(float(loss))
+    state = {"w1": w1, "w3": w3, **{f"lin.{k}": v for k, v in
+                                    lin.state_dict().items()}}
+    return losses, state
+
+
+def _host_us(fn, n=EAGER_HOST_CALLS):
+    """Median host microseconds of one call (no sync: the dispatch)."""
+    for _ in range(20):
+        fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ts) * 1e6)
+
+
+# exported names that are no tensor op (types, state and print helpers)
+EAGER_NOT_OPS = ("VarBase", "LoDTensor", "LoDTensorArray", "flops",
+                 "get_cuda_rng_state", "set_cuda_rng_state",
+                 "get_cudnn_version", "set_printoptions",
+                 "monkey_patch_math_varbase", "monkey_patch_variable")
+
+
+def eager_op_names():
+    """Every op name the slice exports at the top level."""
+    from paddle_tpu_torch import compat
+    from paddle_tpu_torch.ops import (creation, linalg, logic, manipulation,
+                                      math as ops_math, random_ops, search)
+
+    names = set()
+    for mod in (creation, ops_math, manipulation, logic, search, linalg,
+                random_ops, compat):
+        names |= set(mod.__all__)
+    return names - set(EAGER_NOT_OPS)
+
+
+def eager_api_phase() -> dict:
+    """Phase 36: ``import paddle_tpu_torch as paddle`` on the card."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.ops.quantized_matmul import (QMM_ROUTE_STATS,
+                                                       quantized_matmul_ref)
+
+    t_phase = time.perf_counter()
+    prev = place._DEFAULT["device"]
+    place._DEFAULT["device"] = None                 # the default: the card
+    res = {}
+    try:
+        z = paddle.zeros([2, 3])
+        if z.place.type != "cuda" or paddle.get_device() != "gpu:0":
+            raise AssertionError(f"eager_api: default place {z.place}, "
+                                 f"get_device {paddle.get_device()}")
+        res["default_place"] = {"zeros_place": str(z.place),
+                                "get_device": paddle.get_device()}
+        arrays = eager_arrays()
+        cpu_in = _EagerInputs(paddle, arrays, "cpu")
+        gpu_in = _EagerInputs(paddle, arrays, "gpu")
+        torch.cuda.synchronize()
+        calls = _eager_calls()
+        uncovered = eager_op_names() - set(calls) - set(EAGER_RANDOM) - {
+            "weight_only_matmul"}
+        if uncovered:
+            raise AssertionError(f"eager_api: no card call for "
+                                 f"{sorted(uncovered)}")
+        synced, errs = [], {}
+        # the first switch of the sync debug mode warns by itself
+        _synced(lambda: None)
+        for name, (call, tol) in sorted(calls.items()):
+            paddle.set_device("gpu")
+            # a first call loads its kernels' modules and the libraries'
+            # handles (a one-time sync); the second is the one read
+            call(paddle, gpu_in)
+            out, sync = _synced(lambda: call(paddle, gpu_in))
+            got = _eager_numpy(out)
+            paddle.set_device("cpu")
+            want = _eager_numpy(call(paddle, cpu_in))
+            errs[name] = _eager_close(name, got, want, tol)
+            if sync:
+                synced.append(name)
+        random_stats = {}
+        for name, call in sorted(EAGER_RANDOM.items()):
+            paddle.set_device("gpu")
+            call(paddle, gpu_in)
+            paddle.seed(36)
+            out, sync = _synced(lambda: call(paddle, gpu_in))
+            got = _eager_numpy(out).astype(np.float64)
+            paddle.set_device("cpu")
+            paddle.seed(36)
+            want = _eager_numpy(call(paddle, cpu_in)).astype(np.float64)
+            se = want.std() / math.sqrt(want.size)
+            if (got.shape != want.shape
+                    or abs(got.mean() - want.mean()) > 5 * math.sqrt(2) * se
+                    + 1e-6 or abs(got.std() - want.std())
+                    > 0.03 * want.std() + 1e-6):
+                raise AssertionError(
+                    f"eager_api/{name}: card mean {got.mean()} std "
+                    f"{got.std()} against the CPU's {want.mean()} "
+                    f"{want.std()}")
+            random_stats[name] = {"mean": got.mean(), "cpu_mean": want.mean(),
+                                  "std": got.std(), "cpu_std": want.std()}
+            if sync:
+                synced.append(name)
+        res.update(ops_compared=len(errs) + len(random_stats),
+                   max_abs_err=errs, random=random_stats,
+                   synced=sorted(synced), n_synced=len(synced))
+        paddle.set_device("gpu")
+
+        # weight_only_matmul at GPT-2-small's fc1: kernel #4, never plain
+        r = np.random.RandomState(4)
+        wq = torch.as_tensor(r.randint(-127, 128, (768, 3072)).astype(
+            np.int8), device="cuda")
+        ws = torch.as_tensor(r.uniform(0.001, 0.02, (3072,)).astype(
+            np.float32), device="cuda")
+        x32 = torch.as_tensor(r.uniform(-1, 1, (8, 768)).astype(np.float32),
+                              device="cuda")
+        qmm = {}
+        for key in QMM_ROUTE_STATS:
+            QMM_ROUTE_STATS[key] = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            out = paddle.weight_only_matmul(paddle.Tensor(x),
+                                            paddle.Tensor(wq),
+                                            paddle.Tensor(ws))
+            torch.cuda.synchronize()
+            ref = quantized_matmul_ref(x, wq, ws)
+            err = float((out._value.float() - ref.float()).abs().max())
+            if err > QMM_TOL[dtype] or out.dtype != dtype:
+                raise AssertionError(f"eager_api/weight_only_matmul {dtype}:"
+                                     f" max abs err {err}")
+            qmm[str(dtype)] = {"max_abs_err": err}
+        launches = dict(QMM_ROUTE_STATS)
+        if launches != {"cuda": 2, "ref": 0}:
+            raise AssertionError(f"eager_api/weight_only_matmul: launches "
+                                 f"{launches}")
+        res["weight_only_matmul"] = {"shape": "x [8, 768], w [768, 3072]",
+                                     **qmm, "launches": launches}
+
+        # the MLP in the top-level API, with and without clear_grad
+        paddle.seed(21)
+        init = {"x": paddle.randn([64, 16]), "y": paddle.randn([64, 4]),
+                "w1": paddle.randn([16, 32]) * 0.3,
+                "w2": paddle.randn([32, 32]) * 0.2,
+                "b2": paddle.zeros([32]), "w3": paddle.randn([32, 4]) * 0.3}
+        init = {k: v.numpy() for k, v in init.items()}
+        mlp = {}
+        for clear in (True, False):
+            arm = "clear_grad" if clear else "no_clear_grad"
+            card, state = eager_mlp(paddle, "gpu", init, clear)
+            cpu, _ = eager_mlp(paddle, "cpu", init, clear)
+            paddle.set_device("gpu")
+            rel = max(abs(a - b) / max(abs(b), 1e-12)
+                      for a, b in zip(card, cpu))
+            # without clear_grad the gradients accumulate (M1), so only
+            # the arm that clears them is held to a falling loss
+            if rel > EAGER_MLP_RTOL or (clear and not card[-1] < card[0]):
+                raise AssertionError(f"eager_api/mlp/{arm}: losses {card} "
+                                     f"against the CPU's {cpu}")
+            mlp[arm] = {"first_loss": card[0], "last_loss": card[-1],
+                        "max_rel_diff_to_cpu": rel}
+            if clear:
+                with tempfile.TemporaryDirectory() as d:
+                    path = os.path.join(d, "mlp.pdparams")
+                    paddle.save(state, path)
+                    back = paddle.load(path)
+                same = all(
+                    back[k].place.type == "cuda" and torch.equal(
+                        back[k]._value, v._value) for k, v in state.items())
+                if not same:
+                    raise AssertionError("eager_api: load is not bit-exact "
+                                         "on the card")
+                mlp["save_load_bit_exact_on_card"] = same
+        res["mlp"] = mlp
+
+        # the dispatch layer's host cost beside torch's own call
+        a, b = paddle.randn([1024]), paddle.randn([1024])
+        m = paddle.randn([64, 64])
+        av, bv, mv = a._value, b._value, m._value
+        res["host_us_per_call"] = {
+            "paddle.add[1024]": _host_us(lambda: paddle.add(a, b)),
+            "torch.add[1024]": _host_us(lambda: torch.add(av, bv)),
+            "paddle.matmul[64,64]": _host_us(lambda: paddle.matmul(m, m)),
+            "torch.matmul[64,64]": _host_us(lambda: torch.matmul(mv, mv)),
+            "calls": EAGER_HOST_CALLS, "clock": "host, median"}
+    finally:
+        place._DEFAULT["device"] = prev
+    res["seconds"] = time.perf_counter() - t_phase
+    log("eager_api", **res)
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -6612,7 +7278,8 @@ def main(argv=None) -> int:
     new_phase_s = {}
     for name, phase in (("anomaly", anomaly_phase),
                         ("amp_fp16", amp_fp16_phase),
-                        ("o2", lambda: o2_phase(fit))):
+                        ("o2", lambda: o2_phase(fit)),
+                        ("eager_api", eager_api_phase)):
         t0 = time.perf_counter()
         report[name] = phase()
         new_phase_s[name] = time.perf_counter() - t0
@@ -6738,6 +7405,8 @@ def main(argv=None) -> int:
                launches_frontend_disaggregated=front["disaggregated_int8"][
                    "launches"]["qmm_cuda"],
                launches_e2e_beam=beam["int8"]["qmm_cuda"],
+               launches_eager_api=report["eager_api"]["weight_only_matmul"][
+                   "launches"]["cuda"],
                cases=qmm_t),
     ] + [
         record(f"flash_attention_{kname}", flash_src, f"{flash_tpu}:{line}",

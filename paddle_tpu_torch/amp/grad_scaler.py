@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..tensor import Tensor
+from ..tensor import Tensor, graph_consumed
 
 __all__ = ["AmpScaler", "GradScaler"]
 
@@ -89,16 +89,12 @@ class AmpScaler:
         return found
 
     def minimize(self, optimizer, scaled_loss):
-        """``scaled_loss.backward()`` unless it already ran (every
-        gradient is still None: the rule of ``Optimizer.minimize``), then
-        ``step`` and ``update``."""
-        loss = scaled_loss._value if isinstance(scaled_loss,
-                                                Tensor) else scaled_loss
-        graph_alive = (isinstance(loss, torch.Tensor)
-                       and loss.grad_fn is not None
-                       and not _grads(optimizer))
-        if graph_alive:
-            scaled_loss.backward()
+        """``scaled_loss.backward()`` while its graph has not been
+        consumed (the rule of ``Optimizer.minimize``), then ``step`` and
+        ``update``."""
+        if not graph_consumed(scaled_loss):
+            (scaled_loss if isinstance(scaled_loss, Tensor)
+             else Tensor(scaled_loss)).backward()
         self.step(optimizer)
         self.update()
 

@@ -4,8 +4,11 @@
 The on-disk payload is the JAX package's: a pickled nested dict whose
 tensors are numpy arrays (``{"__tensor__": True, "data": ndarray, ...}``),
 so a file or a ``CheckpointStore`` slot written by either package loads
-in the other.  Tensors are copied to the host when they are serialised
-and come back as CPU tensors (or numpy arrays with ``return_numpy``).
+in the other.  Tensors are copied to the host when they are serialised.
+``load`` puts them on the default place (the card unless
+``set_device`` named the CPU), as the reference's ``Tensor(data)`` lands
+on its default device, or returns numpy arrays with ``return_numpy``;
+``deserialize_bytes`` (``CheckpointStore``'s reader) gives CPU tensors.
 
 Crash consistency: ``save`` commits through ``atomic_write_bytes`` —
 write to a temp file in the same directory, flush + fsync, then
@@ -54,19 +57,26 @@ def _to_serializable(obj):
     return obj
 
 
-def _from_serializable(obj, return_numpy=False):
+def _from_serializable(obj, return_numpy=False, device=None):
+    """The payload tree with its tensors rebuilt on ``device`` (None:
+    the CPU)."""
     if isinstance(obj, dict):
         if obj.get("__tensor__"):
             if return_numpy:
                 return obj["data"]
             cls = Parameter if obj.get("is_param") else Tensor
-            t = cls(torch.from_numpy(np.array(obj["data"])))
+            v = torch.from_numpy(np.array(obj["data"]))
+            if device is not None:
+                v = v.to(device)
+            t = cls(v)
             t.stop_gradient = obj.get("stop_gradient", True)
             t.name = obj.get("name")
             return t
-        return {k: _from_serializable(v, return_numpy) for k, v in obj.items()}
+        return {k: _from_serializable(v, return_numpy, device)
+                for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_from_serializable(v, return_numpy) for v in obj)
+        return type(obj)(_from_serializable(v, return_numpy, device)
+                         for v in obj)
     return obj
 
 
@@ -132,6 +142,11 @@ def save(obj: Any, path: str, protocol: int = _PROTOCOL, **configs):
 
 
 def load(path: str, return_numpy: bool = False, **configs):
+    """What ``save`` wrote, its tensors on the default place (numpy
+    arrays with ``return_numpy``)."""
+    from .framework.place import to_device
+
     with open(path, "rb") as f:
         raw = pickle.load(f)
-    return _from_serializable(raw, return_numpy=return_numpy)
+    dev = None if return_numpy else to_device(None)
+    return _from_serializable(raw, return_numpy=return_numpy, device=dev)

@@ -23,7 +23,6 @@ from ...framework.errors import InvalidArgumentError
 from ...ops._helpers import to_tensor_like
 from ...ops.dispatch import apply
 from ...ops.fused_norm import _per_channel, bn_train_fused, fold_scale_shift
-from ...text.generation import _ln
 
 __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
            "local_response_norm", "normalize"]
@@ -92,6 +91,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
         raise InvalidArgumentError(
             f"layer_norm over {shape} of a {tuple(x.shape)} input: the "
             "normalized shape must be the input's trailing axes")
+    from ...text.generation import _ln
+
     dims = tuple(range(-len(shape), 0))
     has_w, has_b = weight is not None, bias is not None
 

@@ -25,11 +25,37 @@ import numpy as np
 import torch
 
 from ..framework.dtype import convert_dtype
-from ..framework.errors import InvalidArgumentError
 from ..framework.place import default_device
 from ..tensor import Parameter, Tensor
 
-__all__ = ["Layer", "state_from_numpy"]
+__all__ = ["Layer", "state_from_numpy", "make_parameter"]
+
+
+def make_parameter(shape, dtype, attr=None, is_bias=False,
+                   default_initializer=None, name=None):
+    """A new Parameter on the default place, set up as the reference's
+    ``Layer.create_parameter`` sets one up: ``attr`` (a ``ParamAttr``, a
+    name or an initializer) gives its name, initializer (before
+    ``default_initializer``; else zeros for a bias and XavierNormal
+    otherwise), ``trainable``, learning-rate scale, regularizer and
+    ``need_clip``."""
+    from ..param_attr import ParamAttr
+    from . import initializer as init
+
+    attr = ParamAttr._to_attr(attr)
+    p = Parameter(torch.zeros(tuple(int(s) for s in shape), dtype=dtype,
+                              device=default_device()),
+                  name=attr.name if attr.name is not None else name,
+                  trainable=attr.trainable)
+    initializer = attr.initializer or default_initializer
+    if initializer is None:
+        initializer = init.Constant(0.0) if is_bias else init.XavierNormal()
+    initializer(p)
+    p.optimize_attr["learning_rate"] = attr.learning_rate
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    p.do_model_average = attr.do_model_average
+    return p
 
 
 def state_from_numpy(state: dict, device=None) -> "OrderedDict":
@@ -55,26 +81,13 @@ class Layer:
     # --- construction helpers -------------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None) -> Optional[Parameter]:
-        """A new Parameter on the default place, filled by
-        ``default_initializer`` or else by paddle's default (zeros for a
-        bias, XavierNormal otherwise).  ``attr=False`` means no
-        parameter; other ``ParamAttr`` settings are not ported (ROADMAP
-        queue 1 item 8)."""
-        from . import initializer as init
-
+        """A new Parameter on the default place (:func:`make_parameter`:
+        ``attr`` is a ``ParamAttr``); ``attr=False`` means none."""
         if attr is False:
             return None
-        if attr is not None:
-            raise InvalidArgumentError(
-                "ParamAttr is not ported yet (ROADMAP queue 1 item 8)")
         dtype = convert_dtype(dtype) if dtype is not None else self._dtype
-        p = Parameter(torch.zeros(tuple(int(s) for s in shape), dtype=dtype,
-                                  device=default_device()))
-        initializer = default_initializer
-        if initializer is None:
-            initializer = init.Constant(0.0) if is_bias else init.XavierNormal()
-        initializer(p)
-        return p
+        return make_parameter(shape, dtype, attr, is_bias,
+                              default_initializer)
 
     def add_parameter(self, name: str, parameter: Optional[Parameter]):
         self._parameters[name] = parameter

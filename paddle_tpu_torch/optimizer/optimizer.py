@@ -43,10 +43,21 @@ keyed by position.  ``set_state_dict`` accepts it with tensors or numpy
 arrays (the JAX package's ``state_dict()`` read out with ``np.asarray``)
 and copies into the live accumulators in place.
 
+A ``Parameter``'s own settings (``ParamAttr``) hold on every path, as
+in the reference's eager step (``paddle_tpu/optimizer/optimizer.py:
+220-243``): ``optimize_attr["learning_rate"]`` scales the learning rate,
+its ``regularizer`` takes the place of the optimizer's, and
+``need_clip=False`` keeps its gradient out of the clip.  Each update
+finds a tensor's Parameter through ``_param_objs`` at that call, so the
+settings follow a parameter re-pointed after the optimizer was built
+(``amp.decorate`` O2, ``hapi.Model.prepare``), and ``fused_step`` finds
+them for a dict of the live tensors.  ``minimize`` runs the backward only while the loss's
+graph has not been consumed (``tensor.graph_consumed``), the
+reference's rule.
+
 Not ported (each raises ``InvalidArgumentError`` naming ROADMAP queue 1
 item 8): ``lazy_mode`` and sparse gradients (``sparse_grad.py``),
-``apply_decay_param_fun`` and ``lr_ratio``, and a parameter's own
-``optimize_attr`` or ``regularizer`` (``ParamAttr``).
+``apply_decay_param_fun`` and ``lr_ratio``.
 """
 from __future__ import annotations
 
@@ -57,8 +68,9 @@ import numpy as np
 import torch
 
 from ..framework.errors import InvalidArgumentError
+from ..framework.flags import flag_value
 from ..regularizer import L1Decay, L2Decay
-from ..tensor import Tensor
+from ..tensor import Tensor, graph_consumed
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
@@ -103,10 +115,6 @@ class Optimizer:
         self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
                     else float(learning_rate))
         self._param_objs = None if parameters is None else list(parameters)
-        for obj in self._param_objs or ():
-            for attr in ("optimize_attr", "regularizer"):
-                if getattr(obj, attr, None) is not None:
-                    _unported(f"a parameter's own {attr} (ParamAttr)")
         self._parameters = (None if parameters is None else
                             [_value(p) for p in self._param_objs])
         self._grad_clip = grad_clip
@@ -231,8 +239,18 @@ class Optimizer:
     set_dict = set_state_dict
 
     # --- the update ----------------------------------------------------
-    def _regularize(self, p, g):
-        reg = self._regularization
+    def _owners(self):
+        """Each Parameter (or bare tensor) by the id of its current torch
+        tensor, read from the parameter objects at each call: ``amp.
+        decorate`` and ``hapi.Model.prepare`` re-point ``_parameters``
+        after the optimizer is built."""
+        return {id(_value(o)): o for o in self._param_objs or ()}
+
+    def _regularize(self, p, g, reg=None):
+        """``g`` plus the decay of ``reg`` (the parameter's own
+        regularizer), else of the optimizer's."""
+        if reg is None:
+            reg = self._regularization
         if isinstance(reg, L2Decay):
             return g + reg.coeff * p
         if isinstance(reg, L1Decay):
@@ -244,9 +262,9 @@ class Optimizer:
             return params_grads
         return [(p, _value(g)) for p, g in self._grad_clip(params_grads)]
 
-    def _update(self, p, g, accs, lr, step):
-        """The rule for one parameter (a hook: ``Lamb`` passes its
-        per-parameter decay)."""
+    def _update(self, p, g, accs, lr, step, owner=None):
+        """The rule for one parameter, ``owner`` its Parameter (a hook:
+        ``Lamb`` passes its per-parameter decay)."""
         return self._rule(p, g, accs, lr, step)
 
     def _new_step(self):
@@ -269,15 +287,25 @@ class Optimizer:
         accumulators).  The one pipeline of ``step()``, the graphed hapi
         step and ``fused_step``."""
         self._new_step()
-        for i, (p, g) in enumerate(self._clip(list(params_grads))):
+        pairs = list(params_grads)
+        owner_of = self._owners()
+        owners = [owner_of.get(id(p), p) for p, _ in pairs]
+        clipped = self._clip([(o, g) for o, (_, g) in zip(owners, pairs)])
+        for i, ((p, _), owner, (_, g)) in enumerate(zip(pairs, owners,
+                                                         clipped)):
             if g is None:
                 continue
             if g.is_sparse:
                 _unported("a sparse gradient (sparse_grad.py)")
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
-            g = self._regularize(p, g)
-            yield (i,) + tuple(self._update(p, g, accs_of(i, p), lr, step))
+            g = self._regularize(p, g, getattr(owner, "regularizer", None))
+            scale = float(getattr(owner, "optimize_attr", {}).get(
+                "learning_rate", 1.0))
+            p_lr = lr if scale == 1.0 else self._per_step(
+                ("lr", scale), lambda: lr * scale)
+            yield (i,) + tuple(self._update(p, g, accs_of(i, p), p_lr,
+                                            step, owner))
 
     @torch.no_grad()
     def _apply_gradients(self, params_grads):
@@ -307,6 +335,19 @@ class Optimizer:
             self._step_impl()
 
     def _step_impl(self):
+        if flag_value("enable_unused_var_check"):
+            owner_of = self._owners()
+            unused = [getattr(owner_of.get(id(p)), "name", None)
+                      or f"param_{i}"
+                      for i, p in enumerate(self._param_list())
+                      if p.grad is None and p.requires_grad]
+            if unused:
+                import warnings
+
+                warnings.warn(
+                    f"{len(unused)} trainable parameter(s) received no "
+                    f"gradient this step (first few: {unused[:5]}); they "
+                    "are not reached by the loss graph", stacklevel=3)
         params = [p for p in self._param_list()
                   if p.grad is not None and p.requires_grad]
         self._prepare_step()
@@ -322,12 +363,14 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """The dygraph ``minimize``: run ``loss.backward()`` unless the
-        gradients are already there (``loss.backward(); opt.minimize(
-        loss)``), then ``step()``; returns ``(None, [(param, grad)])``."""
+        """The dygraph ``minimize``: run ``loss.backward()`` while the
+        loss's graph has not been consumed (so after ``loss.backward();
+        opt.minimize(loss)`` it does not run twice, and gradients left by
+        an earlier step accumulate, as the reference's do), then
+        ``step()``; returns ``(None, [(param, grad)])``."""
         params = self._param_list()
-        if all(p.grad is None for p in params):
-            _value(loss).backward()
+        if not graph_consumed(loss):
+            (loss if isinstance(loss, Tensor) else Tensor(loss)).backward()
         self.step()
         return None, [(p, p.grad) for p in params]
 
@@ -464,7 +507,7 @@ class AdamW(Adam):
 
     def _rule(self, p, g, accs, lr, step):
         """Decoupled decay ``p ← p·(1 − lr·wd)`` first, then Adam."""
-        keep = self._per_step("keep", lambda: 1 - lr * self._wd)
+        keep = self._per_step(("keep", id(lr)), lambda: 1 - lr * self._wd)
         decayed = (p.float() * keep).to(p.dtype)
         return super()._rule(decayed, g, accs, lr, step)
 
@@ -484,7 +527,8 @@ class Adamax(Optimizer):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m = b1 * accs["moment"] + (1 - b1) * g
         u = torch.maximum(b2 * accs["inf_norm"], torch.abs(g))
-        lr_t = self._per_step("lr_t", lambda: lr / (1 - b1 ** step))
+        lr_t = self._per_step(("lr_t", id(lr)),
+                              lambda: lr / (1 - b1 ** step))
         return p - lr_t * m / (u + eps), {"moment": m, "inf_norm": u}
 
 
@@ -551,12 +595,12 @@ class Lamb(Optimizer):
     def _acc_kinds(self):
         return ["moment1", "moment2"]
 
-    def _update(self, p, g, accs, lr, step):
+    def _update(self, p, g, accs, lr, step, owner=None):
         wd = self._wd
         if self._exclude_fn is not None:
-            objs = dict(zip(map(id, self._param_list()),
-                            self._param_objs or ()))
-            if self._exclude_fn(objs.get(id(p), p)):
+            if owner is None:
+                owner = self._owners().get(id(p), p)
+            if self._exclude_fn(owner):
                 wd = 0.0
         return self._rule(p, g, accs, lr, step, wd)
 
@@ -573,7 +617,7 @@ class Lamb(Optimizer):
         r_norm = torch.linalg.vector_norm(r)
         ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
-        lr32 = self._per_step("lr32", lambda: _f32(lr))
+        lr32 = self._per_step(("lr32", id(lr)), lambda: _f32(lr))
         new_p = (pf - lr32 * ratio * r).to(p.dtype)
         return new_p, {"moment1": m, "moment2": v}
 
@@ -602,7 +646,7 @@ class Lars(Momentum):
             self._lars_coeff * w_norm
             / (g_norm + self._lars_wd * w_norm + self._lars_eps),
             torch.ones_like(w_norm))
-        lr32 = self._per_step("lr32", lambda: _f32(lr))
+        lr32 = self._per_step(("lr32", id(lr)), lambda: _f32(lr))
         new_v = self._momentum * accs["velocity"] + lr32 * local_lr * (
             gf + self._lars_wd * pf)
         return (pf - new_v).to(p.dtype), {"velocity": new_v}

@@ -11,10 +11,26 @@ output carries its ``grad_fn``.  Paddle's semantics on top:
   until ``clear_grad``, which sets them to None; a non-leaf keeps its
   grad only after ``retain_grads()``;
 - ``shape`` is a list; ``dtype`` is the torch dtype (``str`` of it ends
-  in the paddle name, ``"torch.bfloat16"``).
+  in the paddle name, ``"torch.bfloat16"``);
+- ``backward()`` consumes the graph of the tensor it runs from (unless
+  ``retain_graph``), and ``Optimizer.minimize`` runs the backward only
+  while it has not been consumed: the reference's rule, for which a
+  torch ``grad_fn`` (set until the tensor dies) cannot stand;
+- ``__setitem__`` and the in-place method forms (``add_``, ``scale_``,
+  ...) adopt an out-of-place result as the reference's ``_replace_from``
+  does: where an autograd graph was recorded the tensor takes the new
+  value and its graph, else the value is copied into the tensor's own
+  storage, so a parameter keeps the storage its optimizer and CUDA
+  graphs hold.  On a leaf that requires grad (a trainable parameter)
+  such an op raises while grad is recorded, as torch and paddle do:
+  adopting the result would leave the optimizer with a tensor the model
+  no longer uses.  Under ``no_grad`` it writes the leaf in place.
 
 Every operator goes through ``ops.dispatch.apply`` under paddle_tpu's op
-names, so AMP, the NaN/Inf sweep and the operator error prefix apply."""
+names, so AMP, the NaN/Inf sweep and the operator error prefix apply.
+The method forms of the top-level ops (``x.exp()``, ``x.topk(2)``) are
+attached by the package's ``__init__``, as the reference's
+``_patch_tensor_methods`` attaches them."""
 from __future__ import annotations
 
 from typing import Optional
@@ -23,8 +39,27 @@ import numpy as np
 import torch
 
 from .framework.dtype import convert_dtype, is_floating
+from .framework.errors import InvalidArgumentError
 
-__all__ = ["Tensor", "Parameter", "to_tensor"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "graph_consumed"]
+
+# set on a torch tensor whose graph a backward has freed
+_CONSUMED = "_paddle_graph_consumed"
+
+
+def graph_consumed(value) -> bool:
+    """Whether a backward has freed the graph behind ``value`` (a torch
+    tensor or a Tensor): the reference's "the loss's grad node has no
+    vjp left" (``paddle_tpu/optimizer/optimizer.py:289-292``)."""
+    v = value._value if isinstance(value, Tensor) else value
+    return v.grad_fn is None or getattr(v, _CONSUMED, False)
+
+
+def _mark_consumed(values, retain_graph):
+    if not retain_graph:
+        for v in values:
+            if v.grad_fn is not None:
+                setattr(v, _CONSUMED, True)
 
 
 class Tensor:
@@ -88,6 +123,27 @@ class Tensor:
             return None
         return None if v.grad is None else Tensor(v.grad)
 
+    @grad.setter
+    def grad(self, g):
+        self._value.grad = None if g is None else _unwrap(g)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return self._value
+
+    @property
+    def inplace_version(self) -> int:
+        return self._value._version
+
+    def numel(self) -> int:
+        return self.size
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def rank(self) -> int:
+        return self.ndim
+
     # --- host interop -------------------------------------------------
     def numpy(self):
         """A copy of the value as a numpy array (bf16 as float32): later
@@ -102,8 +158,24 @@ class Tensor:
     def item(self, *args):
         return self.numpy().item(*args)
 
+    def tolist(self):
+        return self.numpy().tolist()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
     def __float__(self):
         return float(self.item())
+
+    def __int__(self):
+        return int(self.item())
+
+    def __bool__(self):
+        return bool(self.numpy())
+
+    def __index__(self):
+        return int(self.item())
 
     def __len__(self):
         if self.ndim == 0:
@@ -122,6 +194,23 @@ class Tensor:
         cidx = _clean_index(idx)
         return apply("slice", lambda v: v[cidx], self)
 
+    def __setitem__(self, idx, value):
+        """``x[idx] = value`` as the reference's: an out-of-place
+        "set_value" op whose result the tensor adopts."""
+        from .ops.dispatch import apply
+
+        cidx = _clean_index(idx)
+        if not isinstance(value, Tensor):
+            value = Tensor(torch.as_tensor(np.asarray(value),
+                                           device=self._value.device))
+
+        def f(x, v):
+            out = x.clone()
+            out[cidx] = v.to(dtype=x.dtype, device=x.device)
+            return out
+
+        self._replace_from(apply("set_value", f, self, value))
+
     # --- autograd -----------------------------------------------------
     def backward(self, grad_tensor=None, retain_graph: bool = False):
         """Accumulate d(self)/d(leaf) into every leaf that requires grad
@@ -133,6 +222,17 @@ class Tensor:
                     else torch.as_tensor(grad_tensor,
                                          device=self._value.device))
         torch.autograd.backward(self._value, grad, retain_graph=retain_graph)
+        _mark_consumed([self._value], retain_graph)
+
+    def register_hook(self, hook):
+        """Call ``hook(grad)`` (a Tensor) when this tensor's gradient is
+        computed; a Tensor it returns replaces the gradient.  Returns a
+        handle whose ``remove()`` drops the hook."""
+        def torch_hook(g):
+            out = hook(Tensor(g))
+            return None if out is None else _unwrap(out)
+
+        return self._value.register_hook(torch_hook)
 
     def retain_grads(self):
         self._value.retain_grad()
@@ -140,8 +240,89 @@ class Tensor:
     def clear_grad(self):
         self._value.grad = None
 
+    clear_gradient = clear_grad
+
     def detach(self) -> "Tensor":
         return Tensor(self._value.detach())
+
+    def detach_(self):
+        self._value = self._value.detach()
+        return self
+
+    def clone(self) -> "Tensor":
+        from .ops.dispatch import apply
+
+        return apply("clone", lambda v: v.clone(), self)
+
+    # --- mutation -----------------------------------------------------
+    def set_value(self, value):
+        """Write ``value`` (same shape; cast to this dtype and device)
+        into the tensor, outside autograd.  A leaf is written in place,
+        so a parameter keeps the storage its optimizer holds."""
+        v = _unwrap(value)
+        if not isinstance(v, torch.Tensor):
+            v = torch.as_tensor(np.asarray(v))
+        cur = self._value
+        if tuple(v.shape) != tuple(cur.shape):
+            raise ValueError(f"set_value shape mismatch: {tuple(v.shape)} "
+                             f"vs {tuple(cur.shape)}")
+        v = v.detach().to(dtype=cur.dtype, device=cur.device)
+        if cur.grad_fn is None:
+            with torch.no_grad():
+                cur.copy_(v)
+        else:
+            self._value = v.clone()
+        return self
+
+    def _replace_from(self, other: "Tensor"):
+        """Adopt an in-place op's out-of-place result: its value and
+        graph where it recorded one, else its value copied into this
+        tensor's storage (same shape, dtype and device)."""
+        v, cur = other._value, self._value
+        if v.grad_fn is not None and cur.is_leaf and cur.requires_grad:
+            raise InvalidArgumentError(
+                "an in-place op on a leaf tensor that requires grad (a "
+                "trainable parameter) while grad is recorded; run it "
+                "under paddle.no_grad()")
+        if (v.grad_fn is None and cur.grad_fn is None
+                and v.shape == cur.shape and v.dtype == cur.dtype
+                and v.device == cur.device):
+            with torch.no_grad():
+                cur.copy_(v)
+        else:
+            self._value = v
+        return self
+
+    # --- movement -----------------------------------------------------
+    def cpu(self) -> "Tensor":
+        return Tensor(self._value.cpu())
+
+    def to(self, place_or_dtype) -> "Tensor":
+        """A copy on a place (a ``Place``, a place string or a torch
+        device) or in a dtype."""
+        from .framework.place import Place, to_device
+
+        x = place_or_dtype
+        if isinstance(x, (Place, torch.device)) or (
+                isinstance(x, str) and x.split(":")[0].lower()
+                in ("cpu", "gpu", "cuda", "tpu", "xpu")):
+            return Tensor(self._value.to(to_device(x)))
+        return self.astype(x)
+
+    def pin_memory(self) -> "Tensor":
+        """The tensor in page-locked host memory (itself without a card
+        or when it lies on one)."""
+        v = self._value
+        if v.device.type == "cpu" and torch.cuda.is_available():
+            return Tensor(v.pin_memory())
+        return self
+
+    def contiguous(self) -> "Tensor":
+        v = self._value
+        return self if v.is_contiguous() else Tensor(v.contiguous())
+
+    def is_contiguous(self) -> bool:
+        return self._value.is_contiguous()
 
     # --- ops ----------------------------------------------------------
     def astype(self, dtype) -> "Tensor":
@@ -152,49 +333,6 @@ class Tensor:
 
     cast = astype
 
-    def reshape(self, shape, name=None) -> "Tensor":
-        from .ops.manipulation import reshape
-
-        return reshape(self, shape)
-
-    def transpose(self, perm=None, name=None) -> "Tensor":
-        from .ops.manipulation import transpose
-
-        return transpose(self, perm)
-
-    def t(self, name=None) -> "Tensor":
-        """The transpose of a tensor of at most 2 axes (paddle.t)."""
-        from .ops.dispatch import apply
-
-        if self.ndim > 2:
-            raise ValueError("paddle.t only supports ndim <= 2")
-        return apply("t", lambda v: v.t(), self)
-
-    def squeeze(self, axis=None, name=None) -> "Tensor":
-        from .ops.manipulation import squeeze
-
-        return squeeze(self, axis)
-
-    def unsqueeze(self, axis, name=None) -> "Tensor":
-        from .ops.manipulation import unsqueeze
-
-        return unsqueeze(self, axis)
-
-    def sum(self, axis=None, dtype=None, keepdim=False, name=None):
-        from .ops.dispatch import apply
-
-        dims = _dims(axis)
-        d = convert_dtype(dtype) if dtype is not None else None
-        return apply("reduce_sum", lambda v: torch.sum(
-            v, dim=dims, keepdim=keepdim, dtype=d), self)
-
-    def mean(self, axis=None, keepdim=False, name=None):
-        from .ops.dispatch import apply
-
-        dims = _dims(axis)
-        return apply("reduce_mean", lambda v: torch.mean(
-            v, dim=dims, keepdim=keepdim), self)
-
     def __repr__(self):
         grad_info = "" if self.stop_gradient else ", stop_gradient=False"
         return (f"Tensor(shape={self.shape}, dtype={self.dtype}, "
@@ -204,17 +342,15 @@ class Tensor:
     __str__ = __repr__
 
 
+def _unwrap(x):
+    return x._value if isinstance(x, Tensor) else x
+
+
 def _clean_index(idx):
     """An index with its Tensors unwrapped to their torch values."""
     if isinstance(idx, tuple):
         return tuple(_clean_index(i) for i in idx)
     return idx._value if isinstance(idx, Tensor) else idx
-
-
-def _dims(axis):
-    if axis is None:
-        return ()
-    return (axis,) if isinstance(axis, int) else tuple(axis)
 
 
 def _binary(name, fn, reverse=False):
@@ -242,6 +378,8 @@ for _op, _fn in {
     "__sub__": torch.sub,
     "__mul__": torch.mul,
     "__truediv__": torch.true_divide,
+    "__floordiv__": torch.floor_divide,
+    "__mod__": torch.remainder,
     "__pow__": torch.pow,
     "__matmul__": torch.matmul,
 }.items():
@@ -250,13 +388,19 @@ for _op, _fn in {
     setattr(Tensor, _rop, _binary(_rop.strip("_"), _fn, reverse=True))
 
 Tensor.__neg__ = _unary("neg", torch.neg)
+Tensor.__abs__ = _unary("abs", torch.abs)
+Tensor.__invert__ = _unary("invert", torch.logical_not)
 
 
 class Parameter(Tensor):
     """A trainable leaf (paddle's ParamBase): ``stop_gradient`` is
-    ``not trainable``."""
+    ``not trainable``.  ``optimize_attr["learning_rate"]`` scales the
+    optimizer's learning rate for it, ``regularizer`` (when set) takes
+    the place of the optimizer's, and ``need_clip=False`` keeps its
+    gradient out of the clips, as ``ParamAttr`` sets them."""
 
-    __slots__ = ("trainable",)
+    __slots__ = ("trainable", "optimize_attr", "regularizer", "need_clip",
+                 "do_model_average")
 
     def __init__(self, value, name=None, trainable=True):
         if isinstance(value, Tensor):
@@ -264,6 +408,10 @@ class Parameter(Tensor):
         super().__init__(torch.as_tensor(value).detach(),
                          stop_gradient=not trainable, name=name)
         self.trainable = trainable
+        self.optimize_attr = {"learning_rate": 1.0}
+        self.regularizer = None
+        self.need_clip = True
+        self.do_model_average = True
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:

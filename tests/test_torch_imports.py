@@ -158,7 +158,18 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.vision.models.resnet",
                 "paddle_tpu_torch.vision.models.vgg",
                 "paddle_tpu_torch.vision.models.mobilenet",
-                "paddle_tpu_torch.text.models"):
+                "paddle_tpu_torch.text.models",
+                "paddle_tpu_torch.compat",
+                "paddle_tpu_torch.param_attr",
+                "paddle_tpu_torch.framework.dtype",
+                "paddle_tpu_torch.ops.math",
+                "paddle_tpu_torch.ops.linalg",
+                "paddle_tpu_torch.ops.logic",
+                "paddle_tpu_torch.ops.search",
+                "paddle_tpu_torch.ops.random_ops",
+                "paddle_tpu_torch.utils.unique_name",
+                "paddle_tpu_torch.text",
+                "paddle_tpu_torch.vision"):
         assert mod in _modules()
 
 
