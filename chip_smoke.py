@@ -342,6 +342,34 @@ Phases, one result line each (or more):
    ``paddle.load`` bit-exact on the card; the host microseconds a call
    of ``paddle.add`` / ``paddle.matmul`` beside ``torch.add`` /
    ``torch.matmul`` (median of 1000).
+37. eager_nn: the rest of the eager ``nn`` surface on the card.  The
+   six comparisons give bool tensors on the card, the in-place version
+   guard raises there, ``autograd.run_backward`` equals ``backward``.
+   ``nn.Embedding(50257, 768, sparse=True)`` -> mean over S ->
+   ``nn.Linear(768, 2)`` -> ``CrossEntropyLoss`` on B 8 x S 1024 ids from
+   a seeded Zipf(1.1) clipped to the vocabulary, 10 steps of
+   ``Adam(lazy_mode=True)``: the gradient an ``IndexedSlices`` of 8192
+   rows whose ``get_tensor_from_selected_rows`` equals the dense arm's
+   gradient within 1e-6 relative plus the rounding bound of a sum of an
+   entry's n terms in another order (2 (n - 1) 2^-24 sum |terms|, up to
+   n = 2300 duplicates of one id); step 1's touched rows within 1e-5
+   relative (1e-7 absolute) of the dense arm's (``sparse=False``), the
+   untouched rows bit-unchanged; the 10 losses and the final table
+   within 1e-5 relative (the table also 1e-6 absolute, 1e-3 of the
+   learning rate) of the same program under ``set_device("cpu")``;
+   one step's peak device memory, sparse against dense (lower by at
+   least the dense gradient's 154.4 MB), whether a sparse step syncs the
+   host, each arm's step ms.  Then, forward and backward, each against
+   its CPU call at the CPU tests' tolerances: ``interpolate`` bilinear
+   x2 (``align_corners`` False and True) and nearest x2 on [8, 256, 64,
+   64], bilinear 1/2 on [8, 3, 448, 448], bicubic x2 on [8, 3, 112,
+   112]; ``pad`` reflect, replicate and circular by 1 on [8, 64, 112,
+   112]; ``pixel_shuffle`` r 2 on [8, 256, 64, 64] and
+   ``pixel_unshuffle`` back; ``affine_grid`` + ``grid_sample`` on [8,
+   64, 64, 64] (theta's gradient, 262,144 products an entry, within
+   1e-4); ``unfold`` 3x3 pad 1 on [8, 64, 56, 56] and ``fold`` back;
+   ``one_hot`` of [8, 1024] ids into 1000 classes; the ops that
+   synchronised the host listed.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -6866,6 +6894,11 @@ def _eager_calls():
         "shape": (lambda P, a: P.shape(a.X3), E),
         "has_inf": (lambda P, a: P.has_inf(a.NANS), E),
         "has_nan": (lambda P, a: P.has_nan(a.X), E),
+        # a row-sparse gradient of rows ROWS[0] (duplicates summed)
+        "get_tensor_from_selected_rows": (
+            lambda P, a: P.get_tensor_from_selected_rows(
+                P.sparse_grad.IndexedSlices(a.ROWS._value[0].long(),
+                                            a.X._value[:4], (16, 16))), F),
         "tanh_": (lambda P, a: P.tanh_(a.X.clone()), F),
     })
     return calls
@@ -7161,6 +7194,388 @@ def eager_api_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 37: the rest of the eager nn surface
+# --------------------------------------------------------------------------
+NN_VOCAB, NN_DIM, NN_B, NN_S = 50257, 768, 8, 1024
+NN_STEPS = 10
+NN_EXACT = "exact"
+NN_F32 = (1e-6, 1e-6)
+NN_ALIGN = (1e-5, 1e-5)
+# a gradient that reduces a whole batch of products into each entry
+NN_REDUCED = (1e-4, 1e-6)
+NN_DENSE_GRAD_MB = NN_VOCAB * NN_DIM * 4 / 1e6
+
+
+def nn_bag(P, device, table, head_w, head_b, sparse):
+    """Embedding(50257, 768) -> mean over S -> Linear(768, 2), the
+    weights copied in on ``device``."""
+    P.set_device(device)
+
+    class Bag(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = P.nn.Embedding(NN_VOCAB, NN_DIM, sparse=sparse)
+            self.head = P.nn.Linear(NN_DIM, 2)
+
+        def forward(self, ids):
+            return self.head(self.emb(ids).mean(axis=1))
+
+    net = Bag()
+    net.emb.weight.set_value(table)
+    net.head.weight.set_value(head_w)
+    net.head.bias.set_value(head_b)
+    return net
+
+
+def nn_zipf_batch():
+    r = np.random.RandomState(37)
+    ids = np.minimum(r.zipf(1.1, (NN_B, NN_S)), NN_VOCAB) - 1
+    return ids.astype(np.int64), r.randint(0, 2, (NN_B,)).astype(np.int64)
+
+
+def nn_train(P, device, init, sparse, ids, y, probe=None):
+    """10 steps of ``Adam(lazy_mode=True)``; returns the losses, the
+    final table, each step's host ms (after a sync), and what ``probe``
+    saw at step 1 (before the update)."""
+    net = nn_bag(P, device, *init, sparse=sparse)
+    opt = P.optimizer.Adam(1e-3, parameters=net.parameters(),
+                           lazy_mode=True)
+    loss_fn = P.nn.CrossEntropyLoss()
+    tid, ty = P.to_tensor(ids, place=device), P.to_tensor(y, place=device)
+    losses, ms, seen = [], [], None
+    for i in range(NN_STEPS):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(net(tid), ty)
+        loss.backward()
+        if i == 0 and probe is not None:
+            seen = probe(net)
+        opt.step()
+        opt.clear_grad()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0 and probe is not None:
+            seen["table_after_1"] = net.emb.weight.numpy()
+    return losses, net.emb.weight.numpy(), ms, seen
+
+
+def nn_step_peak(P, init, sparse, ids, y):
+    """Peak device bytes of one training step after a warm one (the
+    accumulators made), and whether the step synchronised the host."""
+    net = nn_bag(P, "gpu", *init, sparse=sparse)
+    opt = P.optimizer.Adam(1e-3, parameters=net.parameters(),
+                           lazy_mode=True)
+    loss_fn = P.nn.CrossEntropyLoss()
+    tid, ty = P.to_tensor(ids, place="gpu"), P.to_tensor(y, place="gpu")
+
+    def step():
+        loss = loss_fn(net(tid), ty)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, sync = _synced(step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del net, opt
+    return {"peak_mb": peak / 1e6, "over_resident_mb": (peak - base) / 1e6,
+            "synced": sync}
+
+
+def nn_sparse_embedding(P) -> dict:
+    """The sparse arm against the dense arm and its own CPU run."""
+    g = torch.Generator().manual_seed(37)
+    table = (torch.randn(NN_VOCAB, NN_DIM, generator=g) * 0.02).numpy()
+    head_w = (torch.randn(NN_DIM, 2, generator=g) * 0.05).numpy()
+    head_b = np.zeros((2,), np.float32)
+    init = (table, head_w, head_b)
+    ids, y = nn_zipf_batch()
+    touched = np.unique(ids)
+    untouched = np.setdiff1d(np.arange(NN_VOCAB), touched)
+
+    def probe_sparse(net):
+        g = net.emb.weight.grad
+        if not isinstance(g, P.sparse_grad.IndexedSlices) \
+                or g.values.shape[0] != NN_B * NN_S:
+            raise AssertionError(f"eager_nn: the sparse gradient is {g!r}")
+        # each entry's summed magnitude, in f64: the scale of the
+        # rounding of a sum of its terms in any order
+        mag = torch.zeros(g.dense_shape, dtype=torch.float64).index_add_(
+            0, g.rows.cpu(), g.values.detach().cpu().double().abs())
+        return {"grad": P.get_tensor_from_selected_rows(g).numpy(),
+                "n_rows": int(g.values.shape[0]), "magnitude": mag.numpy()}
+
+    def probe_dense(net):
+        return {"grad": net.emb.weight.grad.numpy()}
+
+    s_loss, s_table, s_ms, s_seen = nn_train(P, "gpu", init, True, ids, y,
+                                             probe_sparse)
+    d_loss, _, d_ms, d_seen = nn_train(P, "gpu", init, False, ids, y,
+                                       probe_dense)
+    c_loss, c_table, _, _ = nn_train(P, "cpu", init, True, ids, y)
+    P.set_device("gpu")
+    res = {"ids": f"[{NN_B}, {NN_S}] Zipf(1.1) over {NN_VOCAB}",
+           "distinct_ids": int(touched.size), "grad_rows": s_seen["n_rows"]}
+    # step 1: the touched rows as the dense arm's, the others untouched
+    s1 = s_seen["table_after_1"]
+    d1 = d_seen["table_after_1"]
+    np.testing.assert_allclose(s1[touched], d1[touched], rtol=1e-5,
+                               atol=1e-7, err_msg="eager_nn: step 1 rows")
+    if not np.array_equal(s1[untouched], table[untouched]):
+        raise AssertionError("eager_nn: an untouched row moved")
+    # the two sum each entry's n terms in another order: beside 1e-6
+    # relative, the bound of recursive summation, 2 (n - 1) u sum|terms|
+    n_terms = np.bincount(ids.ravel(), minlength=NN_VOCAB)[:, None]
+    bound = 2 * np.maximum(n_terms - 1, 0) * 2.0 ** -24 * s_seen["magnitude"]
+    sg, dg = s_seen["grad"], d_seen["grad"]
+    over = np.abs(sg - dg) > 1e-6 * np.abs(dg) + bound
+    if over.any():
+        raise AssertionError(
+            f"eager_nn: get_tensor_from_selected_rows differs from the dense "
+            f"gradient at {int(over.sum())} entries (max abs "
+            f"{float(np.abs(sg - dg).max())})")
+    np.testing.assert_allclose(s_loss, c_loss, rtol=1e-5,
+                               err_msg="eager_nn: losses against the CPU")
+    # beside 1e-5 relative, 1e-3 of the learning rate: an Adam step moves
+    # an entry by at most lr, in the direction m / sqrt(v), which turns
+    # with the gradient's summation order where a gradient cancels to
+    # near zero (2.4e-7 at 20 of 38.6M entries on the card)
+    np.testing.assert_allclose(s_table, c_table, rtol=1e-5, atol=1e-6,
+                               err_msg="eager_nn: table against the CPU")
+    if not s_loss[-1] < s_loss[0]:
+        raise AssertionError(f"eager_nn: loss did not fall: {s_loss}")
+    res.update(
+        step1_max_abs_diff_to_dense=float(np.abs(
+            s1[touched] - d1[touched]).max()),
+        grad_max_abs_diff_to_dense=float(np.abs(sg - dg).max()),
+        grad_max_rel_diff_to_dense=float(
+            (np.abs(sg - dg) / np.maximum(np.abs(dg), 1e-30)).max()),
+        grad_max_terms_an_entry=int(n_terms.max()),
+        losses=s_loss, max_rel_loss_diff_to_cpu=max(
+            abs(a - b) / abs(b) for a, b in zip(s_loss, c_loss)),
+        table_max_abs_diff_to_cpu=float(np.abs(s_table - c_table).max()),
+        dense_losses=d_loss,
+        step_ms={"sparse_p50": float(np.median(s_ms)),
+                 "dense_p50": float(np.median(d_ms)),
+                 "clock": "host, after a sync, median of 10"})
+    free_cuda()
+    sparse_peak = nn_step_peak(P, init, True, ids, y)
+    free_cuda()
+    dense_peak = nn_step_peak(P, init, False, ids, y)
+    free_cuda()
+    saved = dense_peak["peak_mb"] - sparse_peak["peak_mb"]
+    res["memory"] = {"sparse": sparse_peak, "dense": dense_peak,
+                     "saved_mb": saved,
+                     "dense_grad_mb": NN_DENSE_GRAD_MB}
+    if saved < NN_DENSE_GRAD_MB:
+        raise AssertionError(f"eager_nn: a sparse step saves {saved} MB, "
+                             f"less than the dense gradient's "
+                             f"{NN_DENSE_GRAD_MB}")
+    res["sparse_step_synced"] = sparse_peak["synced"]
+    return res
+
+
+def _nn_functional_cases():
+    """``{name: (call(F, *tensors), arrays, tol, grad_tol)}`` at the
+    shapes users run them at."""
+    r = np.random.RandomState(370)
+
+    def u(*shape):
+        return r.standard_normal(shape).astype(np.float32)
+
+    fpn, img448 = u(8, 256, 64, 64), u(8, 3, 448, 448)
+    img112, feat = u(8, 3, 112, 112), u(8, 64, 112, 112)
+    x64, x56 = u(8, 64, 64, 64), u(8, 64, 56, 56)
+    theta = (np.tile(np.array([[0.9, 0.1, 0.05], [-0.1, 0.9, -0.05]],
+                              np.float32), (8, 1, 1))
+             + 0.05 * u(8, 2, 3))
+    cols = u(8, 64 * 9, 56 * 56)
+    ids = r.randint(0, 1000, (8, 1024)).astype(np.int64)
+    return {
+        "interpolate_bilinear_x2": (
+            lambda F, x: F.interpolate(x, scale_factor=2, mode="bilinear"),
+            [fpn], NN_F32, NN_F32),
+        "interpolate_bilinear_x2_align": (
+            lambda F, x: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                       align_corners=True),
+            [fpn], NN_ALIGN, NN_ALIGN),
+        "interpolate_nearest_x2": (
+            lambda F, x: F.interpolate(x, scale_factor=2), [fpn], NN_EXACT,
+            NN_F32),
+        "interpolate_bilinear_half": (
+            lambda F, x: F.interpolate(x, size=[224, 224], mode="bilinear"),
+            [img448], NN_F32, NN_F32),
+        "interpolate_bicubic_x2": (
+            lambda F, x: F.interpolate(x, scale_factor=2, mode="bicubic"),
+            [img112], NN_F32, NN_F32),
+        "pad_reflect": (lambda F, x: F.pad(x, [1, 1, 1, 1], "reflect"),
+                        [feat], NN_EXACT, NN_F32),
+        "pad_replicate": (lambda F, x: F.pad(x, [1, 1, 1, 1], "replicate"),
+                          [feat], NN_EXACT, NN_F32),
+        "pad_circular": (lambda F, x: F.pad(x, [1, 1, 1, 1], "circular"),
+                         [feat], NN_EXACT, NN_F32),
+        "pixel_shuffle": (lambda F, x: F.pixel_shuffle(x, 2), [fpn],
+                          NN_EXACT, NN_EXACT),
+        "pixel_unshuffle": (
+            lambda F, x: F.pixel_unshuffle(F.pixel_shuffle(x, 2), 2), [fpn],
+            NN_EXACT, NN_EXACT),
+        # theta's gradient sums 262,144 products an entry
+        "affine_grid_grid_sample": (
+            lambda F, x, t: F.grid_sample(
+                x, F.affine_grid(t, [8, 64, 64, 64], align_corners=False),
+                align_corners=False), [x64, theta], NN_F32,
+            [NN_F32, NN_REDUCED]),
+        "unfold_3x3": (lambda F, x: F.unfold(x, 3, paddings=1), [x56],
+                       NN_EXACT, NN_F32),
+        "fold_3x3": (lambda F, c: F.fold(c, [56, 56], 3, paddings=1),
+                     [cols], NN_EXACT, NN_EXACT),
+        "one_hot": (lambda F, i: F.one_hot(i, 1000), [ids], NN_EXACT,
+                    NN_EXACT),
+    }
+
+
+def _nn_inputs(P, device, arrays):
+    P.set_device(device)
+    return [P.to_tensor(a, place=device, stop_gradient=a.dtype.kind != "f")
+            for a in arrays]
+
+
+def _nn_run(P, fn, xs):
+    """The call's output and, for float inputs, the gradients of a fixed
+    weighted sum of it (its weight made on the device, no host copy)."""
+    out = fn(P.nn.functional, *xs)
+    grads = []
+    if not all(x.stop_gradient for x in xs):
+        # integer arithmetic: the same weights on either device
+        n = out.size
+        w = ((torch.remainder(torch.arange(n, device=out.place), 7) - 3)
+             .float() * 0.25).reshape(out.shape)
+        (out * P.Tensor(w)).sum().backward()
+        grads = [x.grad for x in xs if not x.stop_gradient]
+    return [out] + grads
+
+
+def _nn_close(name, got, want, tol):
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"eager_nn/{name}: {got.shape} {got.dtype} on "
+                             f"the card, {want.shape} {want.dtype} on the "
+                             "CPU")
+    if tol == NN_EXACT:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"eager_nn/{name}: not equal to the CPU")
+    else:
+        np.testing.assert_allclose(got, want, rtol=tol[0], atol=tol[1],
+                                   err_msg=f"eager_nn/{name}")
+    return float(np.abs(got.astype(np.float64) - want).max()) \
+        if got.size else 0.0
+
+
+def nn_functionals(P) -> dict:
+    errs, synced, ms, failed = {}, [], {}, {}
+    for name, (fn, arrays, tol, gtol) in sorted(
+            _nn_functional_cases().items()):
+        _nn_run(P, fn, _nn_inputs(P, "gpu", arrays))    # loads the kernels
+        xs = _nn_inputs(P, "gpu", arrays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, sync = _synced(lambda: _nn_run(P, fn, xs))
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        got = [o.numpy() for o in outs]
+        want = [o.numpy() for o in _nn_run(P, fn, _nn_inputs(P, "cpu",
+                                                             arrays))]
+        tols = [tol] + (gtol if isinstance(gtol, list)
+                        else [gtol] * (len(got) - 1))
+        try:
+            errs[name] = max(_nn_close(name, g, w, t)
+                             for g, w, t in zip(got, want, tols))
+        except AssertionError as e:
+            failed[name] = str(e)[:400]
+        if sync:
+            synced.append(name)
+        P.set_device("gpu")
+        del xs, outs
+        free_cuda()
+    if failed:
+        raise AssertionError(f"eager_nn: the card differs from the CPU: "
+                             f"{failed}")
+    return {"max_abs_err": errs, "synced": synced,
+            "forward_backward_ms": ms,
+            "clock": "host, forward + backward, after a sync, one call"}
+
+
+def nn_tape(P) -> dict:
+    a = P.to_tensor(np.array([1, 2, 3], np.int64), place="gpu")
+    b = P.to_tensor(np.array([1, 0, 3], np.int64), place="gpu")
+    cmp = {"eq": a == b, "ne": a != b, "lt": a < b, "le": a <= b,
+           "gt": a > b, "ge": a >= b}
+    want = {"eq": [True, False, True], "ne": [False, True, False],
+            "lt": [False, False, False], "le": [True, False, True],
+            "gt": [False, True, False], "ge": [True, True, True]}
+    for k, t in cmp.items():
+        if t.place.type != "cuda" or t.dtype != torch.bool \
+                or t.numpy().tolist() != want[k]:
+            raise AssertionError(f"eager_nn/tape: {k} gave {t!r}")
+    x = P.to_tensor(np.array([1.0, 2.0], np.float32), place="gpu",
+                    stop_gradient=False)
+    y = x * 2
+    z = y.exp()
+    y.add_(y)
+    try:
+        z.sum().backward()
+        raise AssertionError("eager_nn/tape: the in-place guard did not "
+                             "raise")
+    except RuntimeError as e:
+        if "in-place" not in str(e):
+            raise
+    x.clear_grad()
+    w = P.to_tensor(np.array([0.5, -1.5], np.float32), place="gpu",
+                    stop_gradient=False)
+    loss = ((x * w).exp() * w).sum()
+    P.autograd.run_backward([loss], retain_graph=True)
+    g1 = (x.grad.numpy(), w.grad.numpy())
+    x.clear_grad()
+    w.clear_grad()
+    loss.backward()
+    if not (np.array_equal(x.grad.numpy(), g1[0])
+            and np.array_equal(w.grad.numpy(), g1[1])):
+        raise AssertionError("eager_nn/tape: run_backward differs from "
+                             "backward")
+    return {"comparisons_on_card": sorted(cmp), "inplace_guard_raised": True,
+            "run_backward_equals_backward": True}
+
+
+def eager_nn_phase() -> dict:
+    """Phase 37: the rest of the eager ``nn`` surface on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+
+    t_phase = time.perf_counter()
+    prev = place._DEFAULT["device"]
+    place._DEFAULT["device"] = None                 # the default: the card
+    res = {}
+    try:
+        _synced(lambda: None)
+        res["tape"] = nn_tape(paddle)
+        res["sparse_embedding"] = nn_sparse_embedding(paddle)
+        free_cuda()
+        res["functionals"] = nn_functionals(paddle)
+    finally:
+        place._DEFAULT["device"] = prev
+    res["seconds"] = time.perf_counter() - t_phase
+    log("eager_nn", **res)
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -7279,7 +7694,8 @@ def main(argv=None) -> int:
     for name, phase in (("anomaly", anomaly_phase),
                         ("amp_fp16", amp_fp16_phase),
                         ("o2", lambda: o2_phase(fit)),
-                        ("eager_api", eager_api_phase)):
+                        ("eager_api", eager_api_phase),
+                        ("eager_nn", eager_nn_phase)):
         t0 = time.perf_counter()
         report[name] = phase()
         new_phase_s[name] = time.perf_counter() - t0

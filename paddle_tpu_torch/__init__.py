@@ -83,8 +83,8 @@ from .compat import (  # noqa: E402,F401
     LoDTensor, LoDTensorArray, VarBase, addmm, cast, crop_tensor,
     elementwise_add, elementwise_div, elementwise_floordiv, elementwise_mod,
     elementwise_mul, elementwise_pow, elementwise_sub, fill_constant, flops,
-    get_cuda_rng_state, get_cudnn_version, has_inf, has_nan,
-    monkey_patch_math_varbase, monkey_patch_variable, mv, rank, reduce_max,
+    get_cuda_rng_state, get_cudnn_version, get_tensor_from_selected_rows,
+    has_inf, has_nan, monkey_patch_math_varbase, monkey_patch_variable, mv, rank, reduce_max,
     reduce_mean, reduce_min, reduce_prod, reduce_sum, scatter_,
     set_cuda_rng_state, set_printoptions, shape, tanh_)
 

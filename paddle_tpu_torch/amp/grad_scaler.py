@@ -16,7 +16,8 @@ The reference reads ``isfinite`` back once per parameter; here the
 gradients are unscaled on their device (``g.float() * (1 / scale)``,
 written back in the gradient's dtype) and one reduction over all of them
 gives one flag, which ``step`` reads to the host once: a ``step()`` costs
-one host read whatever the number of parameters.
+one host read whatever the number of parameters.  A row-sparse gradient
+has its values unscaled (reference ``amp/grad_scaler.py:52-66``).
 """
 from __future__ import annotations
 
@@ -73,6 +74,8 @@ class AmpScaler:
         inv = 1.0 / self._scale
         finite = []
         for g in _grads(optimizer):
+            if g.is_sparse:   # a row-sparse gradient: its values
+                g = g._values()
             u = g.float() * inv
             finite.append(torch.isfinite(u).all())
             g.copy_(u)

@@ -3,9 +3,10 @@ thin implementations over the ported ops in fluid's argument spellings
 (``dim`` / ``keep_dim``, ``elementwise_*``'s mid-axis broadcast), the
 legacy type names and the CUDA helpers.
 
-The static-mode names (``enable_dygraph``, ``disable_dygraph``,
-``in_dygraph_mode``, ``create_global_var``) and
-``get_tensor_from_selected_rows`` wait (ROADMAP item 13 and step E2).
+``get_tensor_from_selected_rows`` densifies a row-sparse gradient
+(``IndexedSlices``).  The static-mode names (``enable_dygraph``,
+``disable_dygraph``, ``in_dygraph_mode``, ``create_global_var``) wait
+(ROADMAP item 13).
 ``flops`` counts the multiply-adds of the matmuls and convolutions of
 one forward (``torch.utils.flop_counter``), where the reference asks
 XLA's cost model of the compiled forward, which also counts the
@@ -25,7 +26,8 @@ __all__ = ["cast", "mv", "addmm", "rank", "shape", "has_inf", "has_nan",
            "elementwise_floordiv", "elementwise_mul", "set_printoptions",
            "get_cuda_rng_state", "set_cuda_rng_state", "get_cudnn_version",
            "VarBase", "LoDTensor", "LoDTensorArray",
-           "monkey_patch_math_varbase", "monkey_patch_variable", "flops"]
+           "monkey_patch_math_varbase", "monkey_patch_variable", "flops",
+           "get_tensor_from_selected_rows"]
 
 
 def _t(x):
@@ -208,6 +210,16 @@ LoDTensor = Tensor
 
 class LoDTensorArray(list):
     """fluid's LoDTensorArray: a list of tensors."""
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """A row-sparse gradient (``IndexedSlices``) as its dense Tensor; any
+    other value as a Tensor."""
+    from .sparse_grad import IndexedSlices
+
+    if isinstance(x, IndexedSlices):
+        return Tensor(x.to_dense())
+    return _t(x)
 
 
 def monkey_patch_math_varbase():

@@ -1,9 +1,11 @@
 """Framework primitives of the port — copies of the ``paddle_tpu.framework``
 surface, not imports of it: dtypes, places, flags, typed errors, the
 stat registry, named locks and the seeded generators, re-exported here
-as the JAX package's ``framework/__init__.py`` re-exports them.
-(``init.py``, ``op_version.py``, ``Generator`` and ``rng_scope`` wait
-for ROADMAP step E2.)"""
+as the JAX package's ``framework/__init__.py`` re-exports them, with the
+process init (``init.py``) and the op version registry
+(``op_version.py``).  (``Generator`` and ``rng_scope`` wait for ROADMAP
+step E3.)"""
+from . import _globals  # noqa: F401
 from .dtype import (  # noqa: F401
     bfloat16,
     bool_,
@@ -35,6 +37,11 @@ from .errors import (  # noqa: F401
     enforce_eq,
 )
 from .flags import define_flag, flag_value, get_flags, set_flags  # noqa: F401
+# the module stays reachable as framework.init: its `init` function is
+# not re-exported over it
+from .init import (init_devices, init_signal_handlers,  # noqa: F401
+                   register_shutdown_hook)
+from .op_version import op_version_registry  # noqa: F401
 from .monitor import (stat_add, stat_get, stat_registry,  # noqa: F401
                       stat_reset)
 from .place import (  # noqa: F401

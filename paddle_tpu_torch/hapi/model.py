@@ -45,6 +45,13 @@ port's generator, numpy's stream and ``py_random``.  The eager path's
 guard is one device reduction and one read; its non-finite step never
 runs the optimizer.
 
+A sparse embedding (``Embedding(sparse=True)``) takes a dense gradient
+and the dense update in the graphed step, as in the JAX package, whose
+accelerated step differentiates the functional forward outside its tape
+(``jax.value_and_grad``), where the lookup's sparse gradient never
+forms; ``accelerate=False`` steps it row-sparse, as the JAX package's
+eager step does.
+
 ``prepare(amp_configs=)`` is accepted and ignored, in both packages: the
 precision is set by ``amp.auto_cast`` around ``fit`` and by
 ``amp.decorate``.
@@ -66,6 +73,7 @@ from ..framework.errors import InvalidArgumentError
 from ..framework.monitor import histogram_observe
 from ..framework.random import get_rng_state, py_random, set_rng_state
 from ..metric.metrics import Metric
+from ..sparse_grad import dense_grads
 from ..tensor import Tensor
 from ..utils.profiler import RecordEvent
 from .callbacks import CallbackList
@@ -239,7 +247,8 @@ class Model:
             if guarded:
                 with torch.no_grad():
                     torch._foreach_copy_(backup, kept)
-            outs = self._forward(x)
+            with dense_grads():
+                outs = self._forward(x)
             loss = self._loss_value(outs, y)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             if guarded:

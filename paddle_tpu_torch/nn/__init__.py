@@ -1,12 +1,20 @@
 """paddle_tpu_torch.nn — the paddle layer API (twins of ``paddle_tpu/nn``
-under the same names): ``Layer`` and the initializers; ``Linear``,
-``Flatten``, ``Identity``, ``Embedding``, ``Dropout``; the activation,
-convolution, norm and pooling layers; the containers ``Sequential``,
-``LayerList``, ``ParameterList`` and ``LayerDict``; the recurrent layers
-of ``nn.rnn``; the transformer stack of ``nn.transformer``; and the
-decoding loops of ``nn.decode`` (beam search, ``dynamic_decode``, greedy);
-the loss layers of ``nn.loss_layers`` and the gradient clips of
-``nn.clip_grad``.
+under the same names): ``Layer`` and the initializers; the common layers
+of ``nn.common_layers`` (``Linear``, ``Embedding``, the dropouts,
+``Upsample``, the pads and shuffles, ``Bilinear``, ``Fold``, ...); the
+activation, convolution, norm and pooling layers; the containers
+``Sequential``, ``LayerList``, ``ParameterList`` and ``LayerDict``; the
+recurrent layers of ``nn.rnn``; the transformer stack of
+``nn.transformer``; the decoding loops of ``nn.decode`` (beam search,
+``dynamic_decode``, greedy; ``Decoder`` is ``BeamSearchDecoder``, its
+reference's only concrete form); the loss layers of ``nn.loss_layers``,
+the gradient clips of ``nn.clip_grad`` and ``nn.layers_extra``
+(``PairwiseDistance``, ``HSigmoidLoss``, ``NCELoss``, ``TreeConv``,
+``ctc_greedy_decoder``, ``DynamicRNN`` / ``StaticRNN``).  The functional
+submodules are re-exported under the reference's names: ``common``
+(``nn.functional``), ``conv``, ``extension``, ``loss``, ``norm`` and
+``weight_norm_hook`` (``norm``).  ``cond``, ``while_loop``, ``Input``,
+``crf_decoding`` and ``vision`` wait for ROADMAP item 13.
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -17,8 +25,8 @@ from . import pool_layers as _pool_layers
 from .activation_layers import *  # noqa: F401,F403
 from .clip_grad import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                         ClipGradByValue)
-from .common_layers import (  # noqa: F401
-    Dropout, Embedding, Flatten, Identity, Linear)
+from . import common_layers as _common_layers
+from .common_layers import *  # noqa: F401,F403
 from .container import (LayerDict, LayerList, ParameterList,  # noqa: F401
                         Sequential)
 from .conv_layers import *  # noqa: F401,F403
@@ -38,9 +46,15 @@ from .rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
+from .layers_extra import (DynamicRNN, HSigmoidLoss, NCELoss,  # noqa: F401
+                           PairwiseDistance, StaticRNN, TreeConv,
+                           ctc_greedy_decoder)
+from .decode import BeamSearchDecoder as Decoder  # noqa: F401
+from . import functional as common  # noqa: F401
+from .functional import conv, extension, loss, norm  # noqa: F401
+weight_norm_hook = norm
 
-__all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
-           "Sequential", "LayerList", "ParameterList",
+__all__ = ["Layer", "Sequential", "LayerList", "ParameterList",
            "LayerDict", "RNNCellBase",
            "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN", "BiRNN",
            "SimpleRNN", "GRU", "LSTM", "MultiHeadAttention",
@@ -52,6 +66,8 @@ __all__ = ["Layer", "Linear", "Flatten", "Identity", "Embedding", "Dropout",
            "ClipGradByGlobalNorm", "CrossEntropyLoss", "MSELoss", "L1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "SmoothL1Loss", "MarginRankingLoss", "CTCLoss",
-           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss"] + \
-    (_activation_layers.__all__ + _conv_layers.__all__ + _norm_layers.__all__
-     + _pool_layers.__all__)
+           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",
+           "PairwiseDistance", "HSigmoidLoss", "NCELoss", "TreeConv",
+           "ctc_greedy_decoder", "DynamicRNN", "StaticRNN", "Decoder"] + \
+    (_common_layers.__all__ + _activation_layers.__all__
+     + _conv_layers.__all__ + _norm_layers.__all__ + _pool_layers.__all__)

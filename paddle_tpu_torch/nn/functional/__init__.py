@@ -1,7 +1,10 @@
 """paddle_tpu_torch.nn.functional — twins of ``paddle_tpu/nn/functional``:
-the activations, ``linear``, ``dropout`` and ``embedding``, the
-convolutions, the losses, the norms and the pools, under the JAX
-package's names.
+the activations, the common functionals (``linear``, the dropouts,
+``embedding``, ``pad``, ``interpolate``, the shuffles, ``unfold`` /
+``fold``, the sampling grids, ...), the convolutions, the losses, the
+norms and the pools, under the JAX package's names; of the fluid surface
+(``extension.py``) only ``hsigmoid_loss`` and ``nce``, with ``erf`` and
+``gather_tree``.
 
 ``gelu`` (exact erf) and ``layer_norm`` (f32 statistics, population
 variance) are the serving path's ``_gelu`` and ``_ln``; they dispatch as
@@ -13,21 +16,26 @@ JAX package re-exports them.
 from __future__ import annotations
 
 from . import activation as _activation
+from . import common as _common
 from . import conv as _conv
 from . import loss as _loss
 from . import norm as _norm
 from . import pooling as _pooling
+from ...ops.math import erf  # noqa: F401
+from ..decode import gather_tree  # noqa: F401
 from .activation import *  # noqa: F401,F403
-from .common import dropout, embedding, linear  # noqa: F401
+from .common import *  # noqa: F401,F403
 from .conv import *  # noqa: F401,F403
+from .extension import hsigmoid_loss, nce  # noqa: F401
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
 
-__all__ = (list(_activation.__all__) + ["linear", "dropout", "embedding"]
+__all__ = (list(_activation.__all__) + list(_common.__all__)
            + list(_conv.__all__) + list(_loss.__all__) + list(_norm.__all__)
            + list(_pooling.__all__)
-           + ["scaled_dot_product_attention", "flash_attention",
+           + ["hsigmoid_loss", "nce", "erf", "gather_tree",
+              "scaled_dot_product_attention", "flash_attention",
               "paged_attention"])
 
 

@@ -8,7 +8,9 @@ Parameters and sublayers register by assignment (``self.w = Parameter``,
 the buffer.  ``named_parameters``, ``named_buffers`` and ``state_dict``
 use paddle's structured names (``"fc.0.weight"``, ``"bn1._mean"``): the
 parameters first, then the persistable buffers, as in paddle_tpu, so a
-paddle_tpu ``state_dict`` loads unchanged.  ``set_state_dict`` copies
+paddle_tpu ``state_dict`` loads unchanged.  Forward pre- and post-hooks
+(``register_forward_pre_hook`` / ``register_forward_post_hook``) run
+around ``forward`` in ``__call__``, as in the reference.  ``set_state_dict`` copies
 into each parameter and buffer IN PLACE (the optimizer, the layer and a
 CUDA graph that captured them keep holding the same tensors); with
 :func:`state_from_numpy` it is the weight bridge from paddle_tpu::
@@ -26,9 +28,23 @@ import torch
 
 from ..framework.dtype import convert_dtype
 from ..framework.place import default_device
-from ..tensor import Parameter, Tensor
+from ..tensor import Parameter, Tensor, preserve_saved
 
 __all__ = ["Layer", "state_from_numpy", "make_parameter"]
+
+
+class HookRemoveHelper:
+    """The handle of a forward hook: ``remove()`` drops it."""
+
+    _next_id = 0
+
+    def __init__(self, hooks):
+        self._hooks = hooks
+        HookRemoveHelper._next_id += 1
+        self._id = HookRemoveHelper._next_id
+
+    def remove(self):
+        self._hooks.pop(self._id, None)
 
 
 def make_parameter(shape, dtype, attr=None, is_bias=False,
@@ -77,6 +93,9 @@ class Layer:
         self._sub_layers: "OrderedDict[str, Layer]" = OrderedDict()
         self._buffers: "OrderedDict[str, Optional[Tensor]]" = OrderedDict()
         self._non_persistable_buffer_names = set()
+        self._forward_pre_hooks = OrderedDict()
+        self._forward_post_hooks = OrderedDict()
+        self._name_scope = name_scope or type(self).__name__.lower()
 
     # --- construction helpers -------------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
@@ -242,12 +261,53 @@ class Layer:
             self._dtype = dt
         return self
 
+    def apply(self, fn):
+        """Call ``fn`` on every sublayer and this layer."""
+        for layer in self.sublayers(include_self=True):
+            fn(layer)
+        return self
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    def float(self):
+        return self.to(dtype="float32")
+
+    def bfloat16(self):
+        return self.to(dtype="bfloat16")
+
+    # --- hooks ----------------------------------------------------------
+    def register_forward_pre_hook(self, hook):
+        """``hook(layer, inputs)`` before ``forward``; what it returns
+        (a tuple, or one input) replaces the inputs."""
+        helper = HookRemoveHelper(self._forward_pre_hooks)
+        self._forward_pre_hooks[helper._id] = hook
+        return helper
+
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, output)`` after ``forward``; what it
+        returns replaces the output."""
+        helper = HookRemoveHelper(self._forward_post_hooks)
+        self._forward_post_hooks[helper._id] = hook
+        return helper
+
     # --- call -----------------------------------------------------------
     def forward(self, *inputs, **kwargs):
         raise NotImplementedError
 
     def __call__(self, *inputs, **kwargs):
-        return self.forward(*inputs, **kwargs)
+        pre = self.__dict__.get("_forward_pre_hooks")
+        post = self.__dict__.get("_forward_post_hooks")
+        for hook in list(pre.values()) if pre else ():
+            res = hook(self, inputs)
+            if res is not None:
+                inputs = res if isinstance(res, tuple) else (res,)
+        out = self.forward(*inputs, **kwargs)
+        for hook in list(post.values()) if post else ():
+            res = hook(self, inputs, out)
+            if res is not None:
+                out = res
+        return out
 
     # --- state dict -----------------------------------------------------
     def state_dict(self, destination=None, include_sublayers=True,
@@ -288,9 +348,21 @@ class Layer:
                 raise ValueError(
                     f"shape mismatch for {k}: checkpoint "
                     f"{tuple(src.shape)} vs model {tuple(target.shape)}")
+            preserve_saved(target)
             with torch.no_grad():
                 target.copy_(src.to(target.dtype))
+            own[k]._inplace_version += 1
         return missing, unexpected
+
+    load_dict = set_state_dict
+    set_dict = set_state_dict
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.clear_grad()
+
+    def full_name(self):
+        return self._name_scope
 
     def extra_repr(self):
         return ""

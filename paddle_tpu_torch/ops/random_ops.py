@@ -15,7 +15,7 @@ import torch
 from ..framework import dtype as _dt
 from ..framework.place import default_device
 from ..framework.random import generator
-from ..tensor import Tensor
+from ..tensor import Tensor, preserve_saved
 from ._helpers import norm_shape, resolve_dtype, to_tensor_like, value_of
 
 __all__ = ["rand", "randn", "uniform", "uniform_", "normal", "normal_",
@@ -54,8 +54,10 @@ def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0,
 def uniform_(x, min=-1.0, max=1.0, seed=0, name=None):
     x = to_tensor_like(x)
     v = x._value
+    preserve_saved(v)
     with torch.no_grad():
         v.uniform_(min, max, generator=_gen(v.device, seed))
+    x._inplace_version += 1
     return x
 
 
@@ -80,8 +82,10 @@ def normal(mean=0.0, std=1.0, shape=None, name=None) -> Tensor:
 def normal_(x, mean=0.0, std=1.0, name=None):
     x = to_tensor_like(x)
     v = x._value
+    preserve_saved(v)
     with torch.no_grad():
         v.normal_(mean, std, generator=_gen(v.device))
+    x._inplace_version += 1
     return x
 
 
@@ -142,6 +146,8 @@ def poisson(x, name=None) -> Tensor:
 def exponential_(x, lam=1.0, name=None):
     x = to_tensor_like(x)
     v = x._value
+    preserve_saved(v)
     with torch.no_grad():
         v.exponential_(lam, generator=_gen(v.device))
+    x._inplace_version += 1
     return x

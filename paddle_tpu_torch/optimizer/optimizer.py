@@ -55,9 +55,23 @@ them for a dict of the live tensors.  ``minimize`` runs the backward only while 
 graph has not been consumed (``tensor.graph_consumed``), the
 reference's rule.
 
-Not ported (each raises ``InvalidArgumentError`` naming ROADMAP queue 1
-item 8): ``lazy_mode`` and sparse gradients (``sparse_grad.py``),
-``apply_decay_param_fun`` and ``lr_ratio``.
+A row-sparse gradient (``embedding(sparse=True)``: a sparse COO tensor
+in the parameter's ``grad``) takes the reference's row-wise path
+(``paddle_tpu/optimizer/optimizer.py:215-260``) in ``step()``: the rule
+(``_sparse_rule``, the reference's ``_rule``) runs on the gathered
+touched rows of the parameter and its accumulators
+(``sparse_grad.rowwise_update``), with the parameter's learning-rate
+scale, without regularization and outside the global clip.  Adam's
+``lazy_mode`` is accepted and, as in the JAX package, read by nothing: a
+row-sparse gradient takes the row-wise path whatever it says.
+``AdamW(apply_decay_param_fun=)`` decides the decay by the Parameter's
+``name`` on the dense path; the row-wise path decays the touched rows
+always, as the reference's ``_rule`` does.  ``fused_step`` takes dense
+gradients, as the reference's does, and ``Lookahead`` refuses a sparse
+one (its reference syncs every row of the table every k steps).
+
+Not ported (raises ``InvalidArgumentError``): ``AdamW(lr_ratio=)``, which
+the JAX package accepts and never reads.
 """
 from __future__ import annotations
 
@@ -70,7 +84,7 @@ import torch
 from ..framework.errors import InvalidArgumentError
 from ..framework.flags import flag_value
 from ..regularizer import L1Decay, L2Decay
-from ..tensor import Tensor, graph_consumed
+from ..tensor import Tensor, graph_consumed, preserve_saved
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
@@ -81,7 +95,8 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
 
 def _unported(what: str):
     raise InvalidArgumentError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 8)")
+        f"{what} is not supported: the JAX package accepts it and never "
+        "reads it (ROADMAP \"Known facts about the reference\")")
 
 
 def _value(t):
@@ -296,7 +311,10 @@ class Optimizer:
             if g is None:
                 continue
             if g.is_sparse:
-                _unported("a sparse gradient (sparse_grad.py)")
+                raise InvalidArgumentError(
+                    "a row-sparse gradient takes step() (the row-wise "
+                    "update); fused_step takes dense gradients, as the "
+                    "reference's does")
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
             g = self._regularize(p, g, getattr(owner, "regularizer", None))
@@ -311,19 +329,45 @@ class Optimizer:
     def _apply_gradients(self, params_grads):
         """:meth:`_updates` in place, with the device scalars
         (``_prepare_step`` wrote them): the body ``step()`` and the
-        graphed hapi step share."""
+        graphed hapi step share.  The row-sparse gradients take
+        :meth:`_sparse_update` first, outside the clip."""
         lr, step = self._scalars()
         kinds = self._acc_kinds()
-        pairs = list(params_grads)
+        pairs = []
+        for p, g in params_grads:
+            if g is not None and g.is_sparse:
+                preserve_saved(p)
+                self._sparse_update(p, g, lr, step)
+            else:
+                pairs.append((p, g))
 
         def accs_of(i, p):
             return {k: self._acc(k, p) for k in kinds}
 
         for i, new_p, new_accs in self._updates(pairs, accs_of, lr, step):
             p = pairs[i][0]
+            preserve_saved(p)
             p.copy_(new_p)
             for k in kinds:
                 self._acc(k, p).copy_(new_accs[k])
+
+    def _sparse_update(self, p, g, lr, step):
+        """The row-wise update of ``p`` by the sparse COO gradient ``g``:
+        ``_sparse_rule`` on the touched rows, the parameter's
+        learning-rate scale applied, no regularizer."""
+        from ..sparse_grad import IndexedSlices, rowwise_update
+
+        self._new_step()
+        owner = self._owners().get(id(p), p)
+        scale = float(getattr(owner, "optimize_attr", {}).get(
+            "learning_rate", 1.0))
+        accs = {k: self._acc(k, p) for k in self._acc_kinds()}
+        rowwise_update(self._sparse_rule, p, IndexedSlices.from_coo(g), accs,
+                       lr if scale == 1.0 else lr * scale, step)
+
+    def _sparse_rule(self, p, g, accs, lr, step):
+        """The rule the row-wise path runs: the reference's ``_rule``."""
+        return self._rule(p, g, accs, lr, step)
 
     @torch.no_grad()
     def step(self):
@@ -352,6 +396,11 @@ class Optimizer:
                   if p.grad is not None and p.requires_grad]
         self._prepare_step()
         self._apply_gradients([(p, p.grad) for p in params])
+        owner_of = self._owners()
+        for p in params:
+            owner = owner_of.get(id(p))
+            if isinstance(owner, Tensor):
+                owner._inplace_version += 1
 
     def clear_grad(self, set_to_zero=True):
         """Drop every parameter's gradient (``grad = None``, as the JAX
@@ -469,11 +518,10 @@ class Adam(Optimizer):
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None):
-        if lazy_mode:
-            _unported("lazy_mode (row-sparse updates, sparse_grad.py)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lazy_mode = lazy_mode
         self._multi_precision = multi_precision
 
     def _acc_kinds(self):
@@ -496,14 +544,20 @@ class AdamW(Adam):
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None):
-        if apply_decay_param_fun is not None:
-            _unported("apply_decay_param_fun (keyed on paddle's parameter "
-                      "names)")
         if lr_ratio is not None:
-            _unported("lr_ratio (per-parameter learning rates)")
+            _unported("AdamW(lr_ratio=)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision, name)
         self._wd = float(weight_decay)
+        self._apply_decay_fn = apply_decay_param_fun
+
+    def _update(self, p, g, accs, lr, step, owner=None):
+        """Adam without the decay for a parameter whose ``name``
+        ``apply_decay_param_fun`` turns down."""
+        fn = self._apply_decay_fn
+        if fn is not None and not fn(getattr(owner, "name", None)):
+            return Adam._rule(self, p, g, accs, lr, step)
+        return self._rule(p, g, accs, lr, step)
 
     def _rule(self, p, g, accs, lr, step):
         """Decoupled decay ``p ← p·(1 − lr·wd)`` first, then Adam."""
@@ -636,6 +690,11 @@ class Lars(Momentum):
         self._lars_coeff = lars_coeff
         self._lars_wd = lars_weight_decay
         self._lars_eps = epsilon
+
+    def _sparse_rule(self, p, g, accs, lr, step):
+        """The row-wise path runs plain Momentum, the reference's
+        ``_rule`` for Lars."""
+        return Momentum._rule(self, p, g, accs, lr, step)
 
     def _rule(self, p, g, accs, lr, step):
         pf, gf = p.float(), g.float()
@@ -889,6 +948,11 @@ class Lookahead(Optimizer):
     def _prepare_step(self):
         super()._prepare_step()
         self.inner_optimizer._step_count = self._step_count
+
+    def _sparse_update(self, p, g, lr, step):
+        raise InvalidArgumentError(
+            "Lookahead over a row-sparse gradient is not ported: its "
+            "reference moves every row of the table every k steps")
 
     def _new_step(self):
         super()._new_step()

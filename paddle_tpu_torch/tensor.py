@@ -26,6 +26,25 @@ output carries its ``grad_fn``.  Paddle's semantics on top:
   adopting the result would leave the optimizer with a tensor the model
   no longer uses.  Under ``no_grad`` it writes the leaf in place.
 
+The reference's in-place version guard (``paddle_tpu/autograd/tape.py:
+84-100``): every Tensor counts its in-place writes (``inplace_version``:
+the in-place aliases, ``set_value``, ``__setitem__``, ``_replace_from``,
+an optimizer's update); ``ops.dispatch.apply`` notes the version of each
+non-leaf input of an op it records, and the backward raises
+``RuntimeError`` when it reaches that op after such an input was written.
+The op whose result a tensor adopts refreshes its own note.  A leaf is
+exempt, as there: a leaf written in place after an op saved it (an
+``optimizer.step()`` or ``set_value`` between the forward and the
+backward) hands that op the value it saved (``preserve_saved``), as the
+JAX package's immutable arrays do.
+
+The comparison operators are elementwise (a bool Tensor, dispatched as
+"eq", "lt", ...), as in the reference, and ``__hash__`` is
+identity: compare Tensors by ``is`` or ``id()``, never with ``==`` or
+``in``.  A row-sparse gradient (``embedding(sparse=True)``) lies in the
+torch tensor's ``grad`` as a sparse COO tensor; ``grad`` reads it as an
+``IndexedSlices`` (``sparse_grad.py``).
+
 Every operator goes through ``ops.dispatch.apply`` under paddle_tpu's op
 names, so AMP, the NaN/Inf sweep and the operator error prefix apply.
 The method forms of the top-level ops (``x.exp()``, ``x.topk(2)``) are
@@ -33,6 +52,7 @@ attached by the package's ``__init__``, as the reference's
 ``_patch_tensor_methods`` attaches them."""
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -41,10 +61,62 @@ import torch
 from .framework.dtype import convert_dtype, is_floating
 from .framework.errors import InvalidArgumentError
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "graph_consumed"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "graph_consumed",
+           "preserve_saved"]
 
 # set on a torch tensor whose graph a backward has freed
 _CONSUMED = "_paddle_graph_consumed"
+# set on a torch leaf: the saved copies (``_SavedLeaf``) ops hold of it
+_SAVED = "_paddle_saved"
+
+
+class _SavedLeaf:
+    """What an op saved of a leaf: its value, until the leaf is written
+    in place, then a copy of the value it had."""
+
+    __slots__ = ("value", "__weakref__")
+
+    def __init__(self, value):
+        self.value = value
+
+
+def pack_saved(t):
+    """``saved_tensors_hooks`` pack: a leaf as a ``_SavedLeaf`` the leaf
+    lists (so a later in-place write can hand it the old value); any
+    other tensor detached (torch re-attaches its history on unpack) with
+    its version, which unpacking checks as torch's own saving does."""
+    if t.grad_fn is None:
+        box = _SavedLeaf(t.detach())
+        boxes = getattr(t, _SAVED, None)
+        if boxes is None:
+            boxes = weakref.WeakSet()
+            setattr(t, _SAVED, boxes)
+        boxes.add(box)
+        return box
+    return t.detach(), t._version
+
+
+def unpack_saved(packed):
+    if isinstance(packed, _SavedLeaf):
+        return packed.value
+    v, version = packed
+    if v._version != version:
+        raise RuntimeError(
+            "one of the variables needed for gradient computation has been "
+            f"modified by an inplace operation: it is at version "
+            f"{v._version}; expected version {version} instead")
+    return v
+
+
+def preserve_saved(v: torch.Tensor):
+    """Before ``v`` (a leaf) is written in place: the ops that saved it
+    get a copy of its current value."""
+    boxes = getattr(v, _SAVED, None)
+    if boxes:
+        snap = v.detach().clone()
+        for box in list(boxes):
+            box.value = snap
+        boxes.clear()
 
 
 def graph_consumed(value) -> bool:
@@ -63,7 +135,7 @@ def _mark_consumed(values, retain_graph):
 
 
 class Tensor:
-    __slots__ = ("_value", "name", "__weakref__")
+    __slots__ = ("_value", "name", "_inplace_version", "__weakref__")
 
     def __init__(self, value, stop_gradient: bool = True,
                  name: Optional[str] = None):
@@ -72,6 +144,7 @@ class Tensor:
         elif not isinstance(value, torch.Tensor):
             value = torch.as_tensor(np.asarray(value))
         self._value = value
+        self._inplace_version = 0
         if not stop_gradient:
             self.stop_gradient = False
         self.name = name
@@ -117,14 +190,24 @@ class Tensor:
         return self._value.grad_fn is None
 
     @property
-    def grad(self) -> Optional["Tensor"]:
+    def grad(self):
+        """The gradient: a Tensor, an ``IndexedSlices`` for a row-sparse
+        one, or None."""
         v = self._value
-        if not (v.is_leaf or v.retains_grad):
+        if not (v.is_leaf or v.retains_grad) or v.grad is None:
             return None
-        return None if v.grad is None else Tensor(v.grad)
+        if v.grad.is_sparse:
+            from .sparse_grad import IndexedSlices
+
+            return IndexedSlices.from_coo(v.grad)
+        return Tensor(v.grad)
 
     @grad.setter
     def grad(self, g):
+        from .sparse_grad import IndexedSlices
+
+        if isinstance(g, IndexedSlices):
+            g = g.to_coo()
         self._value.grad = None if g is None else _unwrap(g)
 
     @property
@@ -133,7 +216,8 @@ class Tensor:
 
     @property
     def inplace_version(self) -> int:
-        return self._value._version
+        """The count of in-place writes to this Tensor."""
+        return self._inplace_version
 
     def numel(self) -> int:
         return self.size
@@ -268,10 +352,12 @@ class Tensor:
                              f"vs {tuple(cur.shape)}")
         v = v.detach().to(dtype=cur.dtype, device=cur.device)
         if cur.grad_fn is None:
+            preserve_saved(cur)
             with torch.no_grad():
                 cur.copy_(v)
         else:
             self._value = v.clone()
+        self._inplace_version += 1
         return self
 
     def _replace_from(self, other: "Tensor"):
@@ -287,10 +373,17 @@ class Tensor:
         if (v.grad_fn is None and cur.grad_fn is None
                 and v.shape == cur.shape and v.dtype == cur.dtype
                 and v.device == cur.device):
+            preserve_saved(cur)
             with torch.no_grad():
                 cur.copy_(v)
         else:
             self._value = v
+        self._inplace_version += 1
+        # the op adopted here noted this tensor's version before the
+        # bump: its own note is refreshed, only later writes trip it
+        for note in getattr(v, "_paddle_notes", ()):
+            if note[0]() is self:
+                note[1] = self._inplace_version
         return self
 
     # --- movement -----------------------------------------------------
@@ -387,6 +480,17 @@ for _op, _fn in {
     _rop = "__r" + _op[2:]
     setattr(Tensor, _rop, _binary(_rop.strip("_"), _fn, reverse=True))
 
+for _op, _fn in {
+    "__eq__": torch.eq,
+    "__ne__": torch.ne,
+    "__lt__": torch.lt,
+    "__le__": torch.le,
+    "__gt__": torch.gt,
+    "__ge__": torch.ge,
+}.items():
+    setattr(Tensor, _op, _binary(_op.strip("_"), _fn))
+
+Tensor.__hash__ = object.__hash__
 Tensor.__neg__ = _unary("neg", torch.neg)
 Tensor.__abs__ = _unary("abs", torch.abs)
 Tensor.__invert__ = _unary("invert", torch.logical_not)
@@ -397,14 +501,21 @@ class Parameter(Tensor):
     ``not trainable``.  ``optimize_attr["learning_rate"]`` scales the
     optimizer's learning rate for it, ``regularizer`` (when set) takes
     the place of the optimizer's, and ``need_clip=False`` keeps its
-    gradient out of the clips, as ``ParamAttr`` sets them."""
+    gradient out of the clips, as ``ParamAttr`` sets them.  A Parameter
+    made without a name is named ``generated_tensor_{n}``, as the
+    reference names it (its counter also counts the unnamed Tensors the
+    ops make; this one counts the Parameters only)."""
 
     __slots__ = ("trainable", "optimize_attr", "regularizer", "need_clip",
                  "do_model_average")
+    _name_counter = 0
 
     def __init__(self, value, name=None, trainable=True):
         if isinstance(value, Tensor):
             value = value._value
+        if name is None:
+            Parameter._name_counter += 1
+            name = f"generated_tensor_{Parameter._name_counter}"
         super().__init__(torch.as_tensor(value).detach(),
                          stop_gradient=not trainable, name=name)
         self.trainable = trainable

@@ -1,8 +1,7 @@
 """paddle_tpu_torch.utils — twin of ``paddle_tpu.utils``: the custom-op
 API (``register_op``), ``unique_name``, the profiler helpers,
-``run_check`` (a product on the card), ``try_import``, ``deprecated``
-and ``require_version``.  ``OpLastCheckpointChecker`` waits for
-``framework/op_version.py`` (ROADMAP step E2)."""
+``run_check`` (a product on the card), ``try_import``, ``deprecated``,
+``require_version`` and ``OpLastCheckpointChecker``."""
 from . import profiler, unique_name  # noqa: F401
 from .custom_op import (CustomOp, get_op, register_op,  # noqa: F401
                         registered_ops, unregister_op)
@@ -11,7 +10,7 @@ from .profiler import profiler as get_profiler  # noqa: F401
 __all__ = ["CustomOp", "register_op", "get_op", "registered_ops",
            "unregister_op", "unique_name", "profiler", "get_profiler",
            "ProfilerOptions", "deprecated", "run_check", "try_import",
-           "require_version"]
+           "require_version", "OpLastCheckpointChecker"]
 
 
 def deprecated(update_to="", since="", reason=""):
@@ -81,3 +80,20 @@ def require_version(min_version, max_version=None):
     if max_version is not None and parse(max_version) < cur:
         raise Exception(
             f"installed version {__version__} > allowed {max_version}")
+
+
+class OpLastCheckpointChecker:
+    """Queries the op version checkpoints (``framework/op_version.py``).
+    ``get_op_attrs`` reads a ``get_op_version`` the module does not
+    define, so it returns ``[]`` for every op, as the JAX package's
+    does."""
+
+    def __init__(self):
+        from ..framework import op_version
+
+        self._registry = op_version
+
+    def get_op_attrs(self, op_name):
+        info = (self._registry.get_op_version(op_name)
+                if hasattr(self._registry, "get_op_version") else None)
+        return info or []

@@ -152,10 +152,21 @@ def test_common_layers(name):
 
 
 def test_embedding_padding_row_and_sparse_refusal():
+    """The padding row starts at zero; ``sparse=True`` is no longer
+    refused: the same rows, a row-sparse gradient
+    (``tests/test_torch_sparse_grad.py`` holds it against the JAX
+    package)."""
+    from paddle_tpu_torch.sparse_grad import IndexedSlices
+
     _, tl = _build(lambda m: m.Embedding(5, 3, padding_idx=1))
     assert not tl.weight.numpy()[1].any()
-    with pytest.raises(InvalidArgumentError, match="item 8"):
-        tnn.Embedding(5, 3, sparse=True)(pt.to_tensor(np.asarray([1])))
+    sp = tnn.Embedding(5, 3, sparse=True)
+    sp.weight.set_value(tl.weight.numpy())
+    ids = pt.to_tensor(np.asarray([1, 4, 4]))
+    out = sp(ids)
+    np.testing.assert_array_equal(out.numpy(), tl.weight.numpy()[[1, 4, 4]])
+    out.sum().backward()
+    assert isinstance(sp.weight.grad, IndexedSlices)
 
 
 def test_dropout_eval_and_downscale_modes():

@@ -254,20 +254,18 @@ def test_optimizer_state_dict_keys_and_round_trip(name):
 
 
 def test_optimizer_rejects_what_is_not_ported():
-    """``lazy_mode`` and ``apply_decay_param_fun`` still raise, naming
-    ROADMAP item 8; ``grad_clip`` and an LR scheduler are ported now and
-    match the JAX package's eager step (1e-7, as SGD above)."""
+    """``AdamW(lr_ratio=)``, which the JAX package accepts and never
+    reads, raises (``lazy_mode`` and ``apply_decay_param_fun`` are ported:
+    ``tests/test_torch_sparse_grad.py``); ``grad_clip`` and an LR
+    scheduler match the JAX package's eager step (1e-7, as SGD above)."""
     from paddle_tpu.nn import ClipGradByNorm as JClip
     from paddle_tpu.optimizer.lr import StepDecay as JStep
     from paddle_tpu_torch.nn import ClipGradByNorm as TClip
     from paddle_tpu_torch.optimizer.lr import StepDecay as TStep
 
     ps = [torch.nn.Parameter(torch.zeros(2))]
-    for make in (lambda: topt.AdamW(parameters=ps,
-                                    apply_decay_param_fun=lambda n: True),
-                 lambda: topt.Adam(parameters=ps, lazy_mode=True)):
-        with pytest.raises(ValueError, match="item 8"):
-            make()
+    with pytest.raises(ValueError, match="lr_ratio"):
+        topt.AdamW(parameters=ps, lr_ratio=lambda p: 1.0)
     for make_j, make_t in (
             (lambda p: jopt.SGD(0.1, parameters=p, grad_clip=JClip(0.5)),
              lambda p: topt.SGD(0.1, parameters=p, grad_clip=TClip(0.5))),
