@@ -370,6 +370,36 @@ Phases, one result line each (or more):
    1e-4); ``unfold`` 3x3 pad 1 on [8, 64, 56, 56] and ``fold`` back;
    ``one_hot`` of [8, 1024] ids into 1000 classes; the ops that
    synchronised the host listed.
+38. declarative: the declarative half on the card.  (a)
+   ``jit.to_static(BertForSequenceClassification())`` at bert-base
+   widths, B 32 x S 128 with ``bert_inputs``' padding mask, bf16
+   autocast, ``AdamW(5e-5)``, DECL_STEPS steps of the bare loop beside
+   the same eager loop from the same seed and weights: #5/#6/#7 12 times
+   each a step on the bf16 bodies in both, the losses within
+   BERT_LOSS_RTOL (bit-equality reported), one signature, each loop's
+   step p50.  (b) ``jit.save`` of a seeded bert-base classifier in eval
+   mode at an ``InputSpec`` of batch 32 (ids, token types, mask), traced
+   once on the CPU and once on the card, served by ``create_predictor``
+   in a fresh process (no model class, no JAX): batch 32 and a padded
+   batch 8 from each artifact, #5 12 times a call on the 3xTF32 body and
+   no plain-route call, the logits within DECL_SERVE_TOL of the eager
+   model on the card, latency p50 a batch; the card-saved artifact also
+   on the CPU.  (c) static LeNet: a Program with ``Adam.minimize`` built
+   on the card, DECL_LENET_STEPS steps through ``Executor`` on the
+   synthetic MNIST, the first 5 losses within 1e-4 of the same Program
+   on the CPU; hapi's static adapter (``enable_static``) ``fit`` over
+   DECL_FIT_BATCHES batches and ``evaluate`` on the card against the
+   CPU.  (d) ``decl_control_flow`` (a tensor ``if`` and ``while``)
+   through ``to_static`` equal to the CPU's.  (e) the kernel entries as
+   operators in saved programs: a layer that calls
+   ``weight_only_matmul`` and a registered ``scale_shift`` op, saved by
+   ``jit.save`` on the CPU and loaded on the card, launches #4 and t
+   there (no plain-version call), its output against the eager layer;
+   a static bert-base program of DECL_TRAIN_LAYERS layers (B 4 x S 128,
+   no dropout, f32) saved by ``save_train`` and reloaded on the card
+   trains through the attention operator: #5 twice a layer a step (the
+   forward and the backward's recompute), #6 and #7 once, its losses
+   within DECL_TRAIN_RTOL of the Executor's from the same state.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -6763,6 +6793,8 @@ def _eager_calls():
         "create_parameter": (lambda P, a: P.create_parameter(
             [2, 3], "float32", default_initializer=P.nn.initializer.Constant(
                 0.5)), E),
+        "create_global_var": (lambda P, a: P.create_global_var(
+            [2, 3], 1.5, "float32"), E),
         "fill_constant": (lambda P, a: P.fill_constant([2, 2], "int64", 7),
                           E),
         # manipulation
@@ -7022,7 +7054,8 @@ def _host_us(fn, n=EAGER_HOST_CALLS):
 EAGER_NOT_OPS = ("VarBase", "LoDTensor", "LoDTensorArray", "flops",
                  "get_cuda_rng_state", "set_cuda_rng_state",
                  "get_cudnn_version", "set_printoptions",
-                 "monkey_patch_math_varbase", "monkey_patch_variable")
+                 "monkey_patch_math_varbase", "monkey_patch_variable",
+                 "enable_dygraph", "disable_dygraph", "in_dygraph_mode")
 
 
 def eager_op_names():
@@ -7576,6 +7609,499 @@ def eager_nn_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 38: the declarative half — to_static, jit.save + create_predictor,
+# static Program / Executor, hapi's static adapter, dy2static control flow
+# --------------------------------------------------------------------------
+DECL_STEPS = 6
+DECL_SERVE_BATCHES = (32, 8)        # the exported bucket, and a padded one
+DECL_SERVE_REPS = 5
+DECL_LENET_STEPS = 20
+DECL_FIT_BATCHES = 4
+# the served logits against the eager model's: the same flash (3xTF32)
+# and cuBLAS kernels on the same inputs, so they are expected equal; held
+# to 1e-4 of the logits' largest magnitude
+DECL_SERVE_TOL = 1e-4
+DECL_TRAIN_LAYERS = 2
+DECL_TRAIN_BATCH = 4
+DECL_TRAIN_STEPS = 3
+# the reloaded train step against the Executor's replay: the same kernels
+# (the recompute gives the forward's o and lse again), the make_fx graph's
+# aten ops against the eager ones
+DECL_TRAIN_RTOL = 1e-4
+
+DECL_PREDICTOR = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.ops.attention import ROUTE_STATS
+from paddle_tpu_torch.ops.flash_attention import (FLASH_F32TC_STATS,
+                                                  FLASH_ROUTE_STATS)
+args = json.loads(sys.argv[2])
+feeds = [np.load(os.path.join(args["dir"], f + ".npy"))
+         for f in ("ids", "types", "mask")]
+stats = (ROUTE_STATS, FLASH_ROUTE_STATS, FLASH_F32TC_STATS)
+out = {"modules": sorted({m.split(".")[0] for m in sys.modules})}
+for tag, prefix in args["artifacts"].items():
+    p = inference.create_predictor(inference.Config(prefix))
+    res = {}
+    for n in args["batches"]:
+        ms = []
+        for s in stats:
+            for k in s:
+                s[k] = 0
+        for _ in range(args["reps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, = p.run([f[:n] for f in feeds])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        np.save(os.path.join(args["dir"], f"{tag}_{n}.npy"), o)
+        res[str(n)] = {"ms": ms, "route": dict(ROUTE_STATS),
+                       "flash": dict(FLASH_ROUTE_STATS),
+                       "flash_f32tc": dict(FLASH_F32TC_STATS)}
+    out[tag] = res
+cfg = inference.Config(args["artifacts"]["card_saved"])
+cfg.disable_gpu()
+n = args["batches"][-1]
+o, = inference.create_predictor(cfg).run([f[:n] for f in feeds])
+np.save(os.path.join(args["dir"], "card_saved_on_cpu.npy"), o)
+print(json.dumps(out))
+'''
+
+
+def decl_control_flow(x):
+    """Phase 38 (d): a tensor ``if`` and a tensor ``while`` that the
+    dy2static pass converts."""
+    if x.sum() > 0:
+        y = x * 2.0
+    else:
+        y = -x
+    while y.sum() < 100.0:
+        y = y + 1.0
+    return y
+
+
+def decl_to_static_train(inputs, static) -> dict:
+    """The bare bf16 autocast loop on a seeded bert-base
+    ``BertForSequenceClassification`` (``AdamW(5e-5)``, dropout as
+    built, the draws from ``seed(1)``), the model wrapped by
+    ``jit.to_static`` when ``static``: DECL_STEPS steps, each one's loss,
+    host ms (synced) and flash launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, jit, nn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    ids, mask, y = (pt.Tensor(t) for t in inputs)
+    model = seeded(BertForSequenceClassification, num_classes=2)()
+    if static:
+        model = jit.to_static(model)
+    opt = AdamW(5e-5, parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+    pt.seed(1)
+    losses, ms, launches = [], [], []
+    for _ in range(DECL_STEPS):
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp.auto_cast(dtype="bfloat16"):
+            loss = loss_fn(model(ids, None, mask), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_flash_counts())
+    res = {"losses": losses, **_steady(ms), "launches": launches}
+    if static:
+        res["signatures"] = len(model.forward.concrete_programs)
+    del model, opt
+    free_cuda()
+    return res
+
+
+def decl_serve(inputs) -> dict:
+    """``jit.save`` of a seeded bert-base classifier in eval mode at an
+    ``InputSpec`` of batch 32 (ids, token types, mask), once traced on
+    the CPU and once on the card, then ``create_predictor`` on each in a
+    fresh process (``DECL_PREDICTOR``: no model class, no JAX), batches
+    of 32 and a padded 8, against the eager model on the card."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    ids, types, mask = inputs
+    specs = [InputSpec([DECL_SERVE_BATCHES[0], BERT_SEQ], "int64", name=n)
+             for n in ("input_ids", "token_type_ids", "attention_mask")]
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        def build():
+            pt.seed(0)
+            m = BertForSequenceClassification(num_classes=2)
+            m.eval()
+            return m
+
+        model = _on_device("cpu", build)
+        t0 = time.perf_counter()
+        jit.save(model, os.path.join(d, "cpu_saved"), input_spec=specs)
+        res["save_cpu_s"] = time.perf_counter() - t0
+        model.to(DEVICE)
+        t0 = time.perf_counter()
+        jit.save(model, os.path.join(d, "card_saved"), input_spec=specs)
+        res["save_card_s"] = time.perf_counter() - t0
+        want = {}
+        with torch.no_grad():
+            for n in DECL_SERVE_BATCHES:
+                want[n] = model(*(pt.Tensor(torch.from_numpy(a[:n]).to(
+                    DEVICE)) for a in (ids, types, mask))).numpy()
+        del model
+        free_cuda()
+        for name, a in (("ids", ids), ("types", types), ("mask", mask)):
+            np.save(os.path.join(d, name + ".npy"), a)
+        arg = json.dumps({"dir": d, "batches": list(DECL_SERVE_BATCHES),
+                          "reps": DECL_SERVE_REPS, "artifacts": {
+                              t: os.path.join(d, t)
+                              for t in ("cpu_saved", "card_saved")}})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", DECL_PREDICTOR,
+             os.path.dirname(os.path.abspath(__file__)), arg],
+            capture_output=True, text=True, timeout=600)
+        res["subprocess_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"declarative: the predictor process "
+                                 f"failed: {proc.stderr[-3000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["foreign_modules"] = [m for m in sub.pop("modules")
+                                  if m in ("jax", "jaxlib", "paddle_tpu")]
+        for tag, runs in sub.items():
+            for n in DECL_SERVE_BATCHES:
+                r = runs[str(n)]
+                got = np.load(os.path.join(d, f"{tag}_{n}.npy"))
+                err = float(np.max(np.abs(got - want[n])))
+                res[f"{tag}/{n}"] = {
+                    "shape": list(got.shape), "max_abs_err": err,
+                    "scale": float(np.max(np.abs(want[n]))),
+                    "latency_ms_p50": float(np.percentile(r["ms"][1:], 50)),
+                    "latency_ms": r["ms"], "route": r["route"],
+                    "flash": r["flash"], "flash_f32tc": r["flash_f32tc"]}
+        n = DECL_SERVE_BATCHES[-1]
+        got = np.load(os.path.join(d, "card_saved_on_cpu.npy"))
+        res["card_saved_on_cpu"] = {
+            "batch": n, "max_abs_err": float(np.max(np.abs(got - want[n])))}
+    return res
+
+
+def decl_static_lenet() -> dict:
+    """Static-mode LeNet: a Program (``Adam(1e-3)`` minimize) built on
+    the card and run DECL_LENET_STEPS steps through ``Executor`` on the
+    synthetic MNIST batches of LENET_BATCH, the first LENET_PARITY_STEPS
+    losses against the same Program on the CPU from the same weights;
+    then hapi's static adapter: ``Model.fit`` (``enable_static``) over
+    DECL_FIT_BATCHES batches and ``evaluate`` on the card and the
+    CPU."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn.layer import state_from_numpy
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    ds = MNIST(mode="train")
+    batches = [ds.batch(i * LENET_BATCH, LENET_BATCH)
+               for i in range(DECL_LENET_STEPS)]
+    pt.seed(0)
+    state = {k: v.numpy() for k, v in
+             _on_device("cpu", LeNet).state_dict().items()}
+
+    def program_run(device, n):
+        def build():
+            main = static.Program()
+            with static.program_guard(main):
+                x = static.data("x", [LENET_BATCH, 1, 28, 28], "float32")
+                y = static.data("y", [LENET_BATCH, 1], "int64")
+                net = LeNet()
+                net.set_state_dict(state_from_numpy(state, device))
+                loss = F.cross_entropy(net(x), y)
+                optimizer.Adam(1e-3,
+                               parameters=net.parameters()).minimize(loss)
+            return main, loss
+
+        main, loss = _on_device(device, build)
+        exe = static.Executor(device)
+        losses, ms = [], []
+        for x, y in batches[:n]:
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed={"x": x, "y": y},
+                                        fetch_list=[loss])[0]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    def fit_run(device):
+        def run():
+            pt.enable_static()
+            try:
+                net = LeNet()
+                net.set_state_dict(state_from_numpy(state, device))
+                model = Model(
+                    net, [static.InputSpec([None, 1, 28, 28], "float32",
+                                           "img")],
+                    [static.InputSpec([None, 1], "int64", "lbl")])
+                model.prepare(optimizer.Adam(1e-3,
+                                             parameters=net.parameters()),
+                              loss=F.cross_entropy)
+                model.fit(MNIST(mode="train"), batch_size=LENET_BATCH,
+                          epochs=1, num_iters=DECL_FIT_BATCHES,
+                          shuffle=False, verbose=0)
+                logs = model.evaluate(MNIST(mode="test"),
+                                      batch_size=LENET_BATCH, num_iters=2,
+                                      verbose=0)
+                return float(np.asarray(logs["loss"]).ravel()[0]), \
+                    model._adapter._exe._device.type
+            finally:
+                pt.disable_static()
+
+        return _on_device(device, run)
+
+    losses, ms = program_run(DEVICE, DECL_LENET_STEPS)
+    cpu_losses, _ = program_run("cpu", LENET_PARITY_STEPS)
+    rel = float(np.max(np.abs(np.subtract(losses[:LENET_PARITY_STEPS],
+                                          cpu_losses))
+                       / np.abs(cpu_losses)))
+    fit_loss, fit_dev = fit_run(DEVICE)
+    fit_cpu_loss, _ = fit_run("cpu")
+    return {"losses": losses, "cpu_losses": cpu_losses,
+            "max_rel_diff_vs_cpu": rel, "step_ms_p50": float(
+                np.percentile(ms[1:], 50)), "first_step_ms": ms[0],
+            "fit_eval_loss": fit_loss, "fit_eval_loss_cpu": fit_cpu_loss,
+            "fit_device": fit_dev}
+
+
+def decl_saved_ops() -> dict:
+    """Phase 38 (e): the kernel entries as operators in saved programs
+    (module docstring)."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import jit, nn, optimizer, static
+    from paddle_tpu_torch.ops import quantized_matmul as qmm
+    from paddle_tpu_torch.ops import scale_shift as ss
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+    from paddle_tpu_torch.utils import register_op
+
+    class QuantLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            rng = np.random.RandomState(0)
+            self.fc = nn.Linear(768, 768)
+            self.register_buffer("wq", pt.to_tensor(
+                rng.randint(-127, 128, (768, 3072)).astype(np.int8)))
+            self.register_buffer("ws", pt.to_tensor(
+                (rng.rand(3072) * 0.01).astype(np.float32)))
+            self.register_buffer("scale", pt.to_tensor(np.float32([1.5])))
+            self.register_buffer("shift", pt.to_tensor(np.float32([0.25])))
+            self.op = register_op("decl_scale_shift", ss.scale_shift,
+                                  vjp=ss.scale_shift_vjp, exist_ok=True)
+
+        def forward(self, x):
+            h = pt.weight_only_matmul(self.fc(x), self.wq, self.ws)
+            return self.op(h, self.scale, self.shift)
+
+    res = {}
+    x = np.random.RandomState(1).randn(8, 128, 768).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        def save_on_cpu():
+            pt.seed(0)
+            layer = QuantLayer()
+            layer.eval()
+            jit.save(layer, os.path.join(d, "quant"), input_spec=[
+                static.InputSpec(list(x.shape), "float32")])
+            return layer(pt.to_tensor(x)).numpy()
+
+        want = _on_device("cpu", save_on_cpu)
+        loaded = jit.load(os.path.join(d, "quant"), device=DEVICE)
+        targets = [str(n.target) for n in loaded.program().graph.nodes]
+        stats = (qmm.QMM_ROUTE_STATS, ss.SCALE_SHIFT_ROUTE_STATS)
+        for st in stats:
+            for k in st:
+                st[k] = 0
+        got = loaded(x).numpy()
+        res["quant_artifact"] = {
+            "ops": sorted({t for t in targets if "paddle_tpu_torch" in t}),
+            "qmm": dict(stats[0]), "scale_shift": dict(stats[1]),
+            "max_abs_err": float(np.max(np.abs(got - want))),
+            "scale": float(np.max(np.abs(want)))}
+
+        B, S, L = DECL_TRAIN_BATCH, BERT_SEQ, DECL_TRAIN_LAYERS
+        rng = np.random.RandomState(2)
+        feeds = [{"ids": rng.randint(0, 30522, (B, S)).astype(np.int64),
+                  "labels": rng.randint(0, 2, (B,)).astype(np.int64)}
+                 for _ in range(DECL_TRAIN_STEPS + 1)]
+        pt.seed(0)
+        main = static.Program()
+        with static.program_guard(main):
+            ids = static.data("ids", [B, S], "int64")
+            labels = static.data("labels", [B], "int64")
+            net = BertForSequenceClassification(
+                num_classes=2, num_hidden_layers=L, dropout=0.0,
+                hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+            loss = F.cross_entropy(net(ids), labels)
+            optimizer.Adam(1e-4, parameters=net.parameters()).minimize(loss)
+        exe = static.Executor(DEVICE)
+        exe.run(main, feed=feeds[0], fetch_list=[loss])
+        t0 = time.perf_counter()
+        main.save_train(os.path.join(d, "bert"), fetch_list=[loss])
+        res["save_train_s"] = time.perf_counter() - t0
+        trained = static.load_train_program(os.path.join(d, "bert"),
+                                            device=DEVICE)
+        want_l, got_l, launches = [], [], []
+        for fd in feeds[1:]:
+            want_l.append(float(exe.run(main, feed=fd,
+                                        fetch_list=[loss])[0]))
+            reset_flash_counts()
+            got_l.append(float(trained.run(fd)[0]))
+            launches.append(read_flash_counts())
+        res["train_program"] = {"layers": L, "batch": B, "seq": S,
+                                "losses": got_l, "executor_losses": want_l,
+                                "launches": launches}
+    del exe, main, trained
+    free_cuda()
+    return res
+
+
+def declarative_phase() -> dict:
+    """Phase 38: the declarative half on the card (module docstring)."""
+    import paddle_tpu_torch as pt
+
+    from paddle_tpu_torch.framework import place
+
+    t_phase = time.perf_counter()
+    prev = place._DEFAULT["device"]
+    pt.set_device(DEVICE)
+    try:
+        res = _declarative_runs(t_phase)
+    finally:
+        place._DEFAULT["device"] = prev
+    log("declarative", **res)
+    _check_declarative(res)
+    return res
+
+
+def _declarative_runs(t_phase) -> dict:
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.profiler.jit_cost import compile_ledger
+
+    rng = np.random.RandomState(0)
+    ids, mask, y = bert_inputs(rng, BERT_BATCH)
+    inputs = tuple(torch.from_numpy(a).to(DEVICE) for a in (ids, mask, y))
+    before = compile_ledger.total("jit/to_static")
+    eager = decl_to_static_train(inputs, False)
+    conv = decl_to_static_train(inputs, True)
+    layers = 12
+    want = {"flash_fwd": layers, "flash_dkv": layers, "flash_dq": layers,
+            "flash_tc_fwd": layers, "flash_tc_dkv": layers,
+            "flash_tc_dq": layers, "flash_ref": 0, "route_pallas": layers,
+            "route_xla": 0}
+    for tag, run in (("eager", eager), ("to_static", conv)):
+        for step, counts in enumerate(run["launches"]):
+            expect_counts(f"declarative/{tag}/step{step}", counts, want)
+    train = {"eager": eager, "to_static": conv,
+             "bit_equal_losses": eager["losses"] == conv["losses"],
+             "to_static_compiles": compile_ledger.total("jit/to_static")
+             - before}
+
+    types = np.zeros_like(ids)
+    serve = decl_serve((ids, types, mask))
+    lenet = decl_static_lenet()
+    saved_ops = decl_saved_ops()
+
+    xs = [np.asarray(v, np.float32) for v in
+          ([1.0, 2.0, 3.0], [-4.0, 1.0, -2.0], [50.0, 60.0, 1.0])]
+    f = jit.to_static(decl_control_flow)
+    card = [f(pt.to_tensor(x)).numpy() for x in xs]
+    cpu = _on_device("cpu", lambda: [f(pt.to_tensor(x)).numpy()
+                                     for x in xs])
+    flow = {"card": [c.tolist() for c in card],
+            "equal_cpu": all(np.array_equal(a, b)
+                             for a, b in zip(card, cpu))}
+    return {"batch": BERT_BATCH, "seq": BERT_SEQ, "layers": layers,
+            "to_static_train": train, "serve": serve, "static_lenet": lenet,
+            "control_flow": flow, "saved_ops": saved_ops,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _check_declarative(res):
+    layers = res["layers"]
+    train, serve = res["to_static_train"], res["serve"]
+    lenet, flow = res["static_lenet"], res["control_flow"]
+    eager, conv = train["eager"], train["to_static"]
+    if not all(math.isfinite(v) for v in eager["losses"] + conv["losses"]):
+        raise AssertionError("declarative: non-finite to_static losses")
+    if not close_losses(conv["losses"], eager["losses"], BERT_LOSS_RTOL):
+        raise AssertionError(f"declarative: to_static losses "
+                             f"{conv['losses']} vs eager {eager['losses']}")
+    if conv["signatures"] != 1 or train["to_static_compiles"] != 1:
+        raise AssertionError(f"declarative: to_static made "
+                             f"{conv['signatures']} signatures")
+    if serve["foreign_modules"]:
+        raise AssertionError(f"declarative: the predictor process imported "
+                             f"{serve['foreign_modules']}")
+    for tag in ("cpu_saved", "card_saved"):
+        for n in DECL_SERVE_BATCHES:
+            r = serve[f"{tag}/{n}"]
+            calls = DECL_SERVE_REPS
+            if r["flash"]["fwd"] != layers * calls or r["flash"]["ref"] \
+                    or r["route"]["xla"] or r["flash_f32tc"]["fwd"] \
+                    != layers * calls:
+                raise AssertionError(f"declarative: {tag} batch {n} did not "
+                                     f"launch #5 at every layer: {r}")
+            if r["shape"] != [n, 2] or not r["max_abs_err"] <= \
+                    DECL_SERVE_TOL * max(1.0, r["scale"]):
+                raise AssertionError(f"declarative: {tag} batch {n} served "
+                                     f"{r} against the eager model")
+    if not serve["card_saved_on_cpu"]["max_abs_err"] <= 1e-3:
+        raise AssertionError(f"declarative: the card-saved artifact on the "
+                             f"CPU: {serve['card_saved_on_cpu']}")
+    if not lenet["max_rel_diff_vs_cpu"] <= TRAIN_CPU_RTOL or not \
+            np.mean(lenet["losses"][-5:]) < np.mean(lenet["losses"][:5]):
+        raise AssertionError(f"declarative: static LeNet {lenet}")
+    if lenet["fit_device"] != "cuda" or not abs(
+            lenet["fit_eval_loss"] - lenet["fit_eval_loss_cpu"]) <= \
+            TRAIN_CPU_RTOL * abs(lenet["fit_eval_loss_cpu"]):
+        raise AssertionError(f"declarative: hapi static fit {lenet}")
+    if not flow["equal_cpu"]:
+        raise AssertionError(f"declarative: converted control flow {flow}")
+    quant = res["saved_ops"]["quant_artifact"]
+    if quant["qmm"] != {"cuda": 1, "ref": 0} or \
+            quant["scale_shift"] != {"cuda": 1, "ref": 0} or not \
+            quant["max_abs_err"] <= 1e-3 * max(1.0, quant["scale"]):
+        raise AssertionError(f"declarative: the CPU-saved artifact did not "
+                             f"run #4 and t on the card: {quant}")
+    tp = res["saved_ops"]["train_program"]
+    L = tp["layers"]
+    for step, counts in enumerate(tp["launches"]):
+        expect_counts(f"declarative/train_program/step{step}", counts, {
+            "flash_fwd": 2 * L, "flash_dkv": L, "flash_dq": L,
+            "flash_f32tc_fwd": 2 * L, "flash_ref": 0, "route_pallas": L,
+            "route_xla": 0})
+    if not close_losses(tp["losses"], tp["executor_losses"],
+                        DECL_TRAIN_RTOL):
+        raise AssertionError(f"declarative: the reloaded train program "
+                             f"{tp['losses']} vs the Executor "
+                             f"{tp['executor_losses']}")
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -7695,7 +8221,8 @@ def main(argv=None) -> int:
                         ("amp_fp16", amp_fp16_phase),
                         ("o2", lambda: o2_phase(fit)),
                         ("eager_api", eager_api_phase),
-                        ("eager_nn", eager_nn_phase)):
+                        ("eager_nn", eager_nn_phase),
+                        ("declarative", declarative_phase)):
         t0 = time.perf_counter()
         report[name] = phase()
         new_phase_s[name] = time.perf_counter() - t0
@@ -7837,6 +8364,10 @@ def main(argv=None) -> int:
                    f"flash_f32tc_{kname}"],
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
+               launches_predictor={
+                   k: v["flash_f32tc"][kname]
+                   for k, v in report["declarative"]["serve"].items()
+                   if isinstance(v, dict) and "flash_f32tc" in v},
                bfloat16=dict(flash_t[f"{kname}/train/bfloat16"],
                              launches_train_bf16=train_bf16[
                                  f"flash_{kname}"]),
@@ -7853,6 +8384,9 @@ def main(argv=None) -> int:
                               for mode in ("bench_graphed", "bench_eager",
                                            "fit_graphed", "fit_eager")},
                bert_base_s128=flash_t[f"{kname}/bert_base_s128/bfloat16"],
+               launches_to_static=sum(
+                   c[f"flash_tc_{kname}"] for c in report["declarative"][
+                       "to_static_train"]["to_static"]["launches"]),
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()
                                     if c.endswith("bfloat16")},

@@ -13,9 +13,12 @@ and random ops, ``paddle.weight_only_matmul`` on the int8 matmul
 kernel), ``Tensor`` with the method form of every op, ``no_grad`` and
 ``grad``, ``save`` / ``load``, ``ParamAttr``, the fluid-era names of
 ``compat``, and the subpackages (``nn``, ``optimizer``, ``amp``, ``io``,
-``text``, ``vision``, ``Model``, ...).  The static-graph names
-(``to_static``, ``enable_static``, ``data``, ...) and ``DataParallel``
-wait for ROADMAP items 13 and 11.
+``text``, ``vision``, ``Model``, ...).  The declarative half is here
+too: ``static`` (Program / Executor), ``jit`` (``to_static``, ``save``,
+``load``), ``inference`` (``create_predictor``) and ``onnx``, with the
+top-level ``data``, ``to_static``, ``enable_static`` /
+``disable_static`` and ``in_dynamic_mode``.  ``DataParallel`` waits for
+ROADMAP item 11.
 
 Device policy: entry points run on the default place, which is the CUDA
 card; without one they raise instead of falling back to the CPU.
@@ -76,11 +79,14 @@ from .framework_io import load, save  # noqa: E402,F401
 # subpackages
 from . import amp, autograd, distributed, inference, io, jit  # noqa: E402,F401
 from . import metric, nn, optimizer, profiler, regularizer  # noqa: E402,F401
-from . import slim, text, utils, vision  # noqa: E402,F401
+from . import onnx, slim, static, text, utils, vision  # noqa: E402,F401
+from .static import data  # noqa: E402,F401
+from .jit import to_static  # noqa: E402,F401
 from .hapi import Model, callbacks, summary  # noqa: E402,F401
 from .param_attr import ParamAttr  # noqa: E402,F401
 from .compat import (  # noqa: E402,F401
-    LoDTensor, LoDTensorArray, VarBase, addmm, cast, crop_tensor,
+    LoDTensor, LoDTensorArray, VarBase, addmm, cast, create_global_var,
+    crop_tensor, disable_dygraph, enable_dygraph, in_dygraph_mode,
     elementwise_add, elementwise_div, elementwise_floordiv, elementwise_mod,
     elementwise_mul, elementwise_pow, elementwise_sub, fill_constant, flops,
     get_cuda_rng_state, get_cudnn_version, get_tensor_from_selected_rows,
@@ -91,6 +97,23 @@ from .compat import (  # noqa: E402,F401
 
 def is_grad_enabled_():  # the reference's private alias
     return is_grad_enabled()
+
+
+# the mode switches: dygraph (eager) is the default; enable_static makes
+# hapi's Model.prepare take the static-graph adapter (static/_mode.py)
+from .static import _mode as _static_mode  # noqa: E402
+
+
+def in_dynamic_mode() -> bool:
+    return not _static_mode.static_mode_enabled()
+
+
+def enable_static():
+    _static_mode.enable_static()
+
+
+def disable_static():
+    _static_mode.disable_static()
 
 
 def _patch_tensor_methods():

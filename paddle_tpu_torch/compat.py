@@ -5,8 +5,9 @@ legacy type names and the CUDA helpers.
 
 ``get_tensor_from_selected_rows`` densifies a row-sparse gradient
 (``IndexedSlices``).  The static-mode names (``enable_dygraph``,
-``disable_dygraph``, ``in_dygraph_mode``, ``create_global_var``) wait
-(ROADMAP item 13).
+``disable_dygraph``, ``in_dygraph_mode``) flip ``static/_mode.py``'s
+switch; ``create_global_var`` makes a persistent non-parameter
+Tensor.
 ``flops`` counts the multiply-adds of the matmuls and convolutions of
 one forward (``torch.utils.flop_counter``), where the reference asks
 XLA's cost model of the compiled forward, which also counts the
@@ -27,7 +28,8 @@ __all__ = ["cast", "mv", "addmm", "rank", "shape", "has_inf", "has_nan",
            "get_cuda_rng_state", "set_cuda_rng_state", "get_cudnn_version",
            "VarBase", "LoDTensor", "LoDTensorArray",
            "monkey_patch_math_varbase", "monkey_patch_variable", "flops",
-           "get_tensor_from_selected_rows"]
+           "get_tensor_from_selected_rows", "enable_dygraph",
+           "disable_dygraph", "in_dygraph_mode", "create_global_var"]
 
 
 def _t(x):
@@ -103,6 +105,40 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     if out is not None:
         return out._replace_from(res)
     return res
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """fluid layers.create_global_var: a persistent (non-parameter)
+    Tensor filled with ``value`` (``persistable`` and ``force_cpu`` are
+    accepted: every Tensor persists while referenced)."""
+    from .ops import creation
+
+    t = creation.full(shape, value, dtype=dtype)
+    t.stop_gradient = True
+    if name:
+        t.name = name
+    return t
+
+
+def enable_dygraph(place=None):
+    """Leave static mode (dygraph is the default)."""
+    from .static import _mode
+
+    _mode.disable_static()
+
+
+def disable_dygraph():
+    """Enter static mode (``paddle.enable_static``)."""
+    from .static import _mode
+
+    _mode.enable_static()
+
+
+def in_dygraph_mode():
+    from .static import _mode
+
+    return not _mode.static_mode_enabled()
 
 
 def crop_tensor(x, shape=None, offsets=None, name=None):

@@ -56,10 +56,15 @@ eager step does.
 precision is set by ``amp.auto_cast`` around ``fit`` and by
 ``amp.decorate``.
 
-Not ported (each raises ``InvalidArgumentError`` naming its ROADMAP
-queue 1 item): static-graph mode (``StaticGraphAdapter``, item 13);
-``update=False`` (gradient accumulation) on the graphed path — it runs
-with ``accelerate=False``.
+Static-graph mode: with ``paddle.enable_static()`` on, ``prepare``
+selects :class:`StaticGraphAdapter` (the JAX package's ``:194-197``),
+and ``train_batch`` / ``eval_batch`` / ``predict_batch`` — so ``fit``,
+``evaluate`` and ``predict`` — run recorded Programs through
+``static.Executor``.
+
+Not ported (raises ``InvalidArgumentError``): ``update=False``
+(gradient accumulation) on the graphed path — it runs with
+``accelerate=False``.
 """
 from __future__ import annotations
 
@@ -120,12 +125,119 @@ def _read_guard(guard: torch.Tensor) -> dict:
 
 
 class StaticGraphAdapter:
-    """The JAX package's static-graph execution path: not ported."""
+    """The static-graph execution path (reference hapi/model.py:224;
+    ``paddle_tpu/hapi/model.py:43-160``): records a train, an eval and a
+    predict Program from the network, the loss and
+    ``optimizer.minimize`` — each once, on the first batch of its mode —
+    and runs every batch through ``static.Executor`` on the network's
+    device.  ``fit`` / ``evaluate`` / ``predict`` run their usual loops;
+    only the per-batch engine differs.
 
-    def __init__(self, model):
-        raise InvalidArgumentError(
-            "hapi's static-graph mode (StaticGraphAdapter) is not ported "
-            "yet (ROADMAP queue 1 item 13)")
+    ``Model.prepare`` selects it while ``paddle.enable_static()`` is on;
+    it needs ``Model(network, inputs=[InputSpec...], labels=[InputSpec
+    ...])``, as the reference does, so the feeds are known when the
+    programs are built."""
+
+    def __init__(self, model: "Model"):
+        from .. import static as _static
+
+        self.model = model
+        if not model._inputs:
+            raise ValueError(
+                "static mode requires Model(network, inputs=[InputSpec], "
+                "labels=[InputSpec]) so the feed layout is known at "
+                "program-build time (reference hapi/model.py:224)")
+        self._static = _static
+        self._exe = _static.Executor(model._device())
+        self._progs = {}
+        self._fetches = {}
+
+    def _build(self, mode):
+        """Record the program of ``mode`` once (reference
+        _make_program)."""
+        if mode in self._progs:
+            return
+        from ..static.program import feed_placeholder
+
+        st, model = self._static, self.model
+        dev = model._device()
+        prog = st.Program()
+        with st.program_guard(prog):
+            ins = [feed_placeholder(s.name or f"input_{i}", s.shape,
+                                    s.dtype, dev)
+                   for i, s in enumerate(_to_list(model._inputs))]
+            outs = _to_list(model.network(*ins))
+            fetches = list(outs)
+            if mode != "predict" and model._loss is not None:
+                labels = [feed_placeholder(s.name or f"label_{i}", s.shape,
+                                           s.dtype, dev)
+                          for i, s in enumerate(_to_list(model._labels))]
+                loss = model._loss(*outs, *labels)
+                fetches = [loss] + fetches
+                if mode == "train":
+                    model._optimizer.minimize(loss)
+        self._progs[mode] = prog
+        self._fetches[mode] = fetches
+
+    def _feed_dict(self, inputs, labels, mode):
+        def host(v):
+            v = _value(v)
+            return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
+
+        model = self.model
+        feed = {}
+        for i, (spec, v) in enumerate(zip(_to_list(model._inputs), inputs)):
+            feed[spec.name or f"input_{i}"] = host(v)
+        if mode != "predict":
+            for i, (spec, v) in enumerate(zip(_to_list(model._labels),
+                                              labels)):
+                feed[spec.name or f"label_{i}"] = host(v)
+        return feed
+
+    def _run(self, mode, inputs, labels):
+        return self._exe.run(self._progs[mode],
+                             feed=self._feed_dict(inputs, labels, mode),
+                             fetch_list=self._fetches[mode])
+
+    def _metrics(self, out, y):
+        y = _value(y)
+        y = y.detach().cpu() if isinstance(y, torch.Tensor) \
+            else torch.from_numpy(np.asarray(y))
+        return self.model._update_metrics(torch.from_numpy(out), y)
+
+    def train_batch(self, inputs, labels=None, update=True):
+        if not update:
+            raise ValueError(
+                "update=False (gradient accumulation) is not supported in "
+                "static mode — the train program records the optimizer "
+                "update; use dygraph mode")
+        self.model.network.train()
+        self._build("train")
+        res = self._run("train", inputs, labels)
+        return [float(res[0])] + self._metrics(res[1], labels[0])
+
+    def eval_batch(self, inputs, labels=None):
+        self.model.network.eval()
+        labeled = bool(labels) and labels[0] is not None
+        mode = "eval" if (labeled and self.model._loss is not None) \
+            else "predict"
+        self._build(mode)
+        res = self._run(mode, inputs, labels)
+        out = []
+        if labeled:
+            if mode == "eval":
+                out.append(float(res[0]))
+            # metrics update for ANY labeled batch, loss or not — the
+            # dynamic path's contract
+            out += self._metrics(res[1] if mode == "eval" else res[0],
+                                 labels[0])
+        return out
+
+    def predict_batch(self, inputs):
+        self.model.network.eval()
+        self._build("predict")
+        return [self._run("predict", inputs, None)[0]]
 
 
 class _Tracked:
@@ -179,6 +291,7 @@ class Model:
         self._backup = None
         self._pre_scalars = None    # (step count, LR) before the step
         self._lr_written = None     # the LR the last step wrote
+        self._adapter = None        # StaticGraphAdapter in static mode
 
     # --- prepare -----------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -194,6 +307,10 @@ class Model:
             optimizer._param_objs = list(self.parameters())
             optimizer._parameters = [_value(p) for p in
                                      optimizer._param_objs]
+        from .. import in_dynamic_mode
+
+        self._adapter = None if in_dynamic_mode() else \
+            StaticGraphAdapter(self)
         return self
 
     # --- network plumbing ---------------------------------------------------
@@ -333,6 +450,8 @@ class Model:
     def train_batch(self, inputs, labels=None, update=True):
         inputs = _to_list(inputs)
         labels = _to_list(labels)
+        if self._adapter is not None:
+            return self._adapter.train_batch(inputs, labels, update)
         x = self._as_input(inputs[0])
         y = self._as_input(labels[0]) if labels and labels[0] is not None \
             else None
@@ -365,6 +484,8 @@ class Model:
     def eval_batch(self, inputs, labels=None):
         inputs = _to_list(inputs)
         labels = _to_list(labels)
+        if self._adapter is not None:
+            return self._adapter.eval_batch(inputs, labels)
         outs = self._eval_outputs(self._as_input(inputs[0]))
         res = []
         if labels and labels[0] is not None:
@@ -377,6 +498,8 @@ class Model:
 
     def predict_batch(self, inputs):
         inputs = _to_list(inputs)
+        if self._adapter is not None:
+            return self._adapter.predict_batch(inputs)
         out = self._eval_outputs(self._as_input(inputs[0]))[0]
         return [out.float().cpu().numpy() if out.is_floating_point()
                 else out.cpu().numpy()]

@@ -29,7 +29,7 @@ import torch
 
 from ..tensor import Tensor
 
-__all__ = ["get_state", "functional_call", "tree_unwrap"]
+__all__ = ["get_state", "functional_call", "tree_unwrap", "tree_wrap"]
 
 
 def tree_unwrap(obj):
@@ -40,6 +40,17 @@ def tree_unwrap(obj):
         return type(obj)(tree_unwrap(o) for o in obj)
     if isinstance(obj, dict):
         return {k: tree_unwrap(v) for k, v in obj.items()}
+    return obj
+
+
+def tree_wrap(obj):
+    """``obj`` with every torch tensor wrapped as a Tensor."""
+    if isinstance(obj, torch.Tensor):
+        return Tensor(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(tree_wrap(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: tree_wrap(v) for k, v in obj.items()}
     return obj
 
 

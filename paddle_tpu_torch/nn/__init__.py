@@ -13,8 +13,9 @@ the gradient clips of ``nn.clip_grad`` and ``nn.layers_extra``
 ``ctc_greedy_decoder``, ``DynamicRNN`` / ``StaticRNN``).  The functional
 submodules are re-exported under the reference's names: ``common``
 (``nn.functional``), ``conv``, ``extension``, ``loss``, ``norm`` and
-``weight_norm_hook`` (``norm``).  ``cond``, ``while_loop``, ``Input``,
-``crf_decoding`` and ``vision`` wait for ROADMAP item 13.
+``weight_norm_hook`` (``norm``); ``cond`` and ``while_loop`` are
+``jit.control_flow``'s, ``Input`` is ``InputSpec``.  ``crf_decoding``
+and ``vision`` wait for ROADMAP item 13.
 """
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -50,6 +51,8 @@ from .layers_extra import (DynamicRNN, HSigmoidLoss, NCELoss,  # noqa: F401
                            PairwiseDistance, StaticRNN, TreeConv,
                            ctc_greedy_decoder)
 from .decode import BeamSearchDecoder as Decoder  # noqa: F401
+from ..jit.control_flow import cond, while_loop  # noqa: F401
+from ..jit.to_static import InputSpec as Input  # noqa: F401
 from . import functional as common  # noqa: F401
 from .functional import conv, extension, loss, norm  # noqa: F401
 weight_norm_hook = norm

@@ -42,19 +42,42 @@ __all__ = (list(_activation.__all__) + list(_common.__all__)
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
+    """``ops/attention.py``'s entry; port Tensors dispatch as
+    "scaled_dot_product_attention", plain torch tensors (the
+    torch-module models) call it directly."""
     from ...ops.attention import scaled_dot_product_attention as _sdpa
 
-    return _sdpa(query, key, value, attn_mask=attn_mask,
-                 dropout_p=dropout_p, is_causal=is_causal,
-                 training=training)
+    def f(q, k, v, *mask):
+        return _sdpa(q, k, v, attn_mask=mask[0] if mask else None,
+                     dropout_p=dropout_p, is_causal=is_causal,
+                     training=training)
+
+    return _attention_entry("scaled_dot_product_attention", f, query, key,
+                            value, attn_mask)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, name=None):
+    """``ops/attention.py``'s flash entry, dispatched as
+    "flash_attention" on port Tensors."""
     from ...ops.attention import flash_attention as _fa
 
-    return _fa(query, key, value, dropout=dropout, causal=causal,
-               return_softmax=return_softmax)
+    def f(q, k, v):
+        return _fa(q, k, v, dropout=dropout, causal=causal)
+
+    out = _attention_entry("flash_attention", f, query, key, value, None)
+    return (out, None) if return_softmax else out
+
+
+def _attention_entry(name, f, query, key, value, mask):
+    import torch
+
+    from ...ops.dispatch import apply
+
+    masks = [] if mask is None else [mask]
+    if isinstance(query, torch.Tensor):
+        return f(query, key, value, *masks)
+    return apply(name, f, query, key, value, *masks)
 
 
 def paged_attention(query, key_pages, value_pages, page_tables, seq_lens,

@@ -67,7 +67,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     """Zero each element with probability ``p`` (one draw along the axes
     not in ``axis``, when given) and scale the kept ones by ``1/(1-p)``
     (``mode="upscale_in_train"``); ``"downscale_in_infer"`` keeps them
-    as they are and scales by ``1-p`` in eval mode instead."""
+    as they are and scales by ``1-p`` in eval mode instead.  The bits are
+    drawn inside the op from the port's generator, so in a static
+    Program every ``Executor.run`` draws anew (the JAX package feeds a
+    refreshed key slot for that, ``paddle_tpu/nn/functional/common.py:
+    77-85``)."""
     x = to_tensor_like(x)
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:

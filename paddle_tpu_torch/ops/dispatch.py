@@ -21,7 +21,12 @@ refresh the note of the op whose result it adopts.
 
 The JAX dispatcher's fallback for ops that run but cannot be linearized
 is not ported: it exists for JAX's tracing, and torch autograd has no
-such case."""
+such case.
+
+While a static Program is being built (``static.program_guard``), ``apply``
+hands the op to the Program, which records it and runs it once on
+placeholders (the JAX package's recording hook, ``paddle_tpu/ops/
+dispatch.py:42-49,163-171``)."""
 from __future__ import annotations
 
 import weakref
@@ -86,10 +91,29 @@ def _note_versions(name, args, flat):
         o._paddle_notes = notes
 
 
+_RECORDER = []
+
+
+def _recording_program():
+    """The static Program being built, if any (``static/program.py`` —
+    TraceOp's OpDesc-append analog, tracer.cc:205)."""
+    if not _RECORDER:
+        from ..static.program import _active_recorder
+
+        _RECORDER.append(_active_recorder)
+    return _RECORDER[0]()
+
+
 def apply(name, fn, *args, **kwargs):
     """Run ``fn(*values, **kwargs)`` eagerly; returns a Tensor, or a
-    tuple/list of Tensors mirroring ``fn``'s flat output."""
+    tuple/list of Tensors mirroring ``fn``'s flat output.  While a
+    static Program is being built the op is recorded into it instead,
+    run once on placeholders (``Program.record``)."""
     from ..tensor import Tensor, pack_saved, unpack_saved
+
+    recorder = _recording_program()
+    if recorder is not None:
+        return recorder.record(name, fn, args, kwargs)
 
     cast = iter(cast_inputs(name, *(a._value for a in args
                                      if isinstance(a, Tensor))))

@@ -13,7 +13,12 @@ directly) port one for one:
   each launches its hand-written kernel (``csrc/flash_attention.cu``), on
   a CPU tensor it runs its plain PyTorch version
   (:func:`flash_fwd_ref`, :func:`flash_dkv_ref`, :func:`flash_dq_ref`).
-  There is no other branch and no fallback on the card.
+  There is no other branch and no fallback on the card.  Each is a
+  ``torch.library`` operator (``paddle_tpu_torch::flash_fwd``,
+  ``flash_dkv``, ``flash_dq``) with a fake function: a tensor with no
+  data (a static Program's placeholder, a ``torch.export`` trace, the
+  meta device) gets its shapes and launches nothing, and an exported
+  program keeps the op, which picks its route where the program runs.
 - :func:`_flash_bwd_bhsd` — ``delta = rowsum(dO ⊙ O)`` as a torch
   expression outside the kernels (the JAX package leaves it to XLA), then
   the two backward kernels.
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -380,26 +386,46 @@ def flash_dq_cuda(q, k, v, g, lse, delta, mask, seed, scale, causal,
 # --------------------------------------------------------------------------
 # the routing entries, under the JAX package's names
 # --------------------------------------------------------------------------
-def _flash_fwd_bhsd(q, k, v, mask, seed, scale, causal, dropout_p,
-                    block_q=None, block_k=None):
-    """(o [B, H, Sq, D], lse [B·H, Sq, 1] f32).  A CUDA tensor launches
-    the forward kernel; a CPU tensor runs the plain version.
-    ``block_q``/``block_k`` are accepted for the JAX signature and
-    ignored."""
+# Each is a torch.library operator: the dispatcher picks the CUDA kernel or
+# the plain version by the device of the tensors it gets, a tensor with no
+# data (a fake tensor of a static Program being built or of a torch.export
+# trace, a meta tensor) gets its shapes from the op's fake function and
+# launches nothing, and an exported program carries the op, so its route is
+# chosen where the program runs.  The seed travels as (tensor or None, int).
+def _seed_schema(seed):
+    if isinstance(seed, torch.Tensor):
+        return seed, 0
+    return None, _seed_int(seed)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], seed_t: Optional[torch.Tensor],
+                  seed_i: int, scale: float, causal: bool,
+                  dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    seed = seed_i if seed_t is None else seed_t
     if q.is_cuda:
-        B, _, _, _ = q.shape
-        m = _mask2d(mask, B, k.shape[2], q.device).contiguous()
+        m = _mask2d(mask, q.shape[0], k.shape[2], q.device).contiguous()
         return flash_fwd_cuda(q, k, v, m, seed, scale, causal, dropout_p)
     count_launch(FLASH_ROUTE_STATS, "ref")
     return flash_fwd_ref(q, k, v, mask, seed, scale, causal, dropout_p)
 
 
-def _flash_dkv_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
-                    dropout_p, block_q=None, block_k=None):
-    """dK, dV of one (q set, kv chunk) pair for the given GLOBAL per-row
-    ``lse`` and ``delta``: summed over every visiting q set they give the
-    exact global gradients (``Sq`` and ``Sk`` may differ, as ring
-    attention calls it with ``causal=False``)."""
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, mask, seed_t, seed_i, scale, causal,
+                    dropout_p):
+    B, H, Sq, _ = q.shape
+    return (q.new_empty((B, H, Sq, v.shape[-1])),
+            q.new_empty((B * H, Sq, 1), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  mask: Optional[torch.Tensor], seed_t: Optional[torch.Tensor],
+                  seed_i: int, scale: float, causal: bool,
+                  dropout_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    seed = seed_i if seed_t is None else seed_t
     if q.is_cuda:
         m = _mask2d(mask, q.shape[0], k.shape[2], q.device).contiguous()
         return flash_dkv_cuda(q, k, v, g, lse, delta, m, seed, scale,
@@ -409,10 +435,19 @@ def _flash_dkv_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
                          dropout_p)
 
 
-def _flash_dq_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
-                   dropout_p, block_q=None, block_k=None):
-    """dQ of the local queries against one kv chunk (global lse and
-    delta)."""
+@_flash_dkv_op.register_fake
+def _flash_dkv_fake(q, k, v, g, lse, delta, mask, seed_t, seed_i, scale,
+                    causal, dropout_p):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 mask: Optional[torch.Tensor], seed_t: Optional[torch.Tensor],
+                 seed_i: int, scale: float, causal: bool,
+                 dropout_p: float) -> torch.Tensor:
+    seed = seed_i if seed_t is None else seed_t
     if q.is_cuda:
         m = _mask2d(mask, q.shape[0], k.shape[2], q.device).contiguous()
         return flash_dq_cuda(q, k, v, g, lse, delta, m, seed, scale, causal,
@@ -420,6 +455,40 @@ def _flash_dq_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
     count_launch(FLASH_ROUTE_STATS, "ref")
     return flash_dq_ref(q, k, v, g, lse, delta, mask, seed, scale, causal,
                         dropout_p)
+
+
+@_flash_dq_op.register_fake
+def _flash_dq_fake(q, k, v, g, lse, delta, mask, seed_t, seed_i, scale,
+                   causal, dropout_p):
+    return q.new_empty(q.shape)
+
+
+def _flash_fwd_bhsd(q, k, v, mask, seed, scale, causal, dropout_p,
+                    block_q=None, block_k=None):
+    """(o [B, H, Sq, D], lse [B·H, Sq, 1] f32).  A CUDA tensor launches
+    the forward kernel; a CPU tensor runs the plain version.
+    ``block_q``/``block_k`` are accepted for the JAX signature and
+    ignored."""
+    return _flash_fwd_op(q, k, v, mask, *_seed_schema(seed), float(scale),
+                         bool(causal), float(dropout_p))
+
+
+def _flash_dkv_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
+                    dropout_p, block_q=None, block_k=None):
+    """dK, dV of one (q set, kv chunk) pair for the given GLOBAL per-row
+    ``lse`` and ``delta``: summed over every visiting q set they give the
+    exact global gradients (``Sq`` and ``Sk`` may differ, as ring
+    attention calls it with ``causal=False``)."""
+    return _flash_dkv_op(q, k, v, g, lse, delta, mask, *_seed_schema(seed),
+                         float(scale), bool(causal), float(dropout_p))
+
+
+def _flash_dq_bhsd(q, k, v, g, lse, delta, mask, seed, scale, causal,
+                   dropout_p, block_q=None, block_k=None):
+    """dQ of the local queries against one kv chunk (global lse and
+    delta)."""
+    return _flash_dq_op(q, k, v, g, lse, delta, mask, *_seed_schema(seed),
+                        float(scale), bool(causal), float(dropout_p))
 
 
 def _flash_bwd_bhsd(q, k, v, o, lse, g, mask, seed, scale, causal,

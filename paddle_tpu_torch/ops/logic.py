@@ -1,7 +1,6 @@
 """Comparison and logical ops — twin of ``paddle_tpu/ops/logic.py``.
 
-``cond`` runs one branch eagerly (reading the predicate back); its
-traced form waits with ``jit.to_static`` (ROADMAP item 13)."""
+``cond`` is ``jit.control_flow.cond``."""
 from __future__ import annotations
 
 import torch
@@ -63,7 +62,10 @@ def where(condition, x=None, y=None, name=None):
 
 
 def cond(pred, true_fn, false_fn, name=None):
-    """Run ``true_fn()`` or ``false_fn()`` as the predicate (read back to
-    the host) says."""
-    p = to_tensor_like(pred)
-    return true_fn() if bool(p) else false_fn()
+    """``jit.control_flow.cond``: ``true_fn()`` or ``false_fn()`` as the
+    one-element predicate, read to the host once, says (also inside
+    ``jit.to_static``); ``torch.cond`` under ``torch.export``; refused
+    while a static Program records (use ``traced_cond`` there)."""
+    from ..jit import control_flow
+
+    return control_flow.cond(to_tensor_like(pred), true_fn, false_fn)

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -375,6 +376,27 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, seq_lens,
     return out
 
 
+@torch.library.custom_op("paddle_tpu_torch::paged_attention", mutates_args=())
+def _paged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              page_tables: torch.Tensor, seq_lens: torch.Tensor,
+              k_scales: Optional[torch.Tensor],
+              v_scales: Optional[torch.Tensor],
+              fused_dequant: int) -> torch.Tensor:
+    if q.is_cuda:
+        return paged_attention_cuda(q, k_pages, v_pages, page_tables,
+                                    seq_lens, k_scales, v_scales,
+                                    fused_dequant)
+    count_launch(PAGED_ROUTE_STATS, "ref")
+    return paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
+                               k_scales, v_scales)
+
+
+@_paged_op.register_fake
+def _paged_fake(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
+                v_scales, fused_dequant):
+    return q.new_empty(q.shape)
+
+
 def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
                     k_scales=None, v_scales=None,
                     fused_dequant: int = FUSED_DEQUANT):
@@ -385,15 +407,12 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
     row); k_scales, v_scales [N, H] f32 iff the pools are int8.  Returns
     [B, H, D] in q's dtype; softmax scale 1/sqrt(D) applied inside.
 
-    A CUDA tensor launches the kernel (``fused_dequant`` picks the int8
-    body's dequant placement); a CPU tensor runs the plain version."""
-    if q.is_cuda:
-        return paged_attention_cuda(q, k_pages, v_pages, page_tables,
-                                    seq_lens, k_scales, v_scales,
-                                    fused_dequant)
-    count_launch(PAGED_ROUTE_STATS, "ref")
-    return paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
-                               k_scales, v_scales)
+    The operator ``paddle_tpu_torch::paged_attention``: a CUDA tensor
+    launches the kernel (``fused_dequant`` picks the int8 body's dequant
+    placement); a CPU tensor runs the plain version; a tensor with no
+    data gets the shape from the op's fake function."""
+    return _paged_op(q, k_pages, v_pages, page_tables, seq_lens, k_scales,
+                     v_scales, int(fused_dequant))
 
 
 def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
@@ -457,6 +476,28 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, row_lens,
     return out
 
 
+@torch.library.custom_op("paddle_tpu_torch::ragged_paged_attention",
+                         mutates_args=())
+def _ragged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               page_tables: torch.Tensor, row_lens: torch.Tensor,
+               k_scales: Optional[torch.Tensor],
+               v_scales: Optional[torch.Tensor],
+               fused_dequant: int) -> torch.Tensor:
+    if q.is_cuda:
+        return ragged_paged_attention_cuda(q, k_pages, v_pages,
+                                           page_tables, row_lens, k_scales,
+                                           v_scales, fused_dequant)
+    count_launch(PAGED_ROUTE_STATS, "ref")
+    return ragged_paged_attention_ref(q, k_pages, v_pages, page_tables,
+                                      row_lens, k_scales, v_scales)
+
+
+@_ragged_op.register_fake
+def _ragged_fake(q, k_pages, v_pages, page_tables, row_lens, k_scales,
+                 v_scales, fused_dequant):
+    return q.new_empty(q.shape)
+
+
 def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens,
                            k_scales=None, v_scales=None,
                            fused_dequant: int = FUSED_DEQUANT):
@@ -469,14 +510,11 @@ def ragged_paged_attention(q, k_pages, v_pages, page_tables, row_lens,
 
     A CUDA tensor launches the kernel (``fused_dequant`` picks the int8
     body's dequant placement); a CPU tensor runs the plain version.
-    Softmax scale 1/sqrt(D) is applied inside."""
-    if q.is_cuda:
-        return ragged_paged_attention_cuda(q, k_pages, v_pages,
-                                           page_tables, row_lens, k_scales,
-                                           v_scales, fused_dequant)
-    count_launch(PAGED_ROUTE_STATS, "ref")
-    return ragged_paged_attention_ref(q, k_pages, v_pages, page_tables,
-                                      row_lens, k_scales, v_scales)
+    Softmax scale 1/sqrt(D) is applied inside.  The operator
+    ``paddle_tpu_torch::ragged_paged_attention``: a tensor with no data
+    gets the shape from its fake function."""
+    return _ragged_op(q, k_pages, v_pages, page_tables, row_lens, k_scales,
+                      v_scales, int(fused_dequant))
 
 
 def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
@@ -556,6 +594,31 @@ def ragged_paged_attention_stats_cuda(q, k_pages, v_pages, page_tables,
     return out, lse
 
 
+@torch.library.custom_op("paddle_tpu_torch::ragged_paged_attention_stats",
+                         mutates_args=())
+def _ragged_stats_op(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_tables: torch.Tensor,
+                     row_lens: torch.Tensor, page_ok: torch.Tensor,
+                     k_scales: Optional[torch.Tensor],
+                     v_scales: Optional[torch.Tensor],
+                     fused_dequant: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.is_cuda:
+        return ragged_paged_attention_stats_cuda(
+            q, k_pages, v_pages, page_tables, row_lens, page_ok, k_scales,
+            v_scales, fused_dequant)
+    count_launch(PAGED_ROUTE_STATS, "ref_stats")
+    return ragged_paged_attention_stats_ref(q, k_pages, v_pages, page_tables,
+                                            row_lens, page_ok, k_scales,
+                                            v_scales)
+
+
+@_ragged_stats_op.register_fake
+def _ragged_stats_fake(q, k_pages, v_pages, page_tables, row_lens, page_ok,
+                       k_scales, v_scales, fused_dequant):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:-1],
+                                             dtype=torch.float32)
+
+
 def ragged_paged_attention_stats(q, k_pages, v_pages, page_tables, row_lens,
                                  page_ok, k_scales=None, v_scales=None,
                                  fused_dequant: int = FUSED_DEQUANT):
@@ -565,13 +628,9 @@ def ragged_paged_attention_stats(q, k_pages, v_pages, page_tables, row_lens,
     ``(o [G, Qb, H, D], lse [G, Qb, H] f32)``, the shard's partial stats
     for the cross-shard lse merge.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain
-    version."""
-    if q.is_cuda:
-        return ragged_paged_attention_stats_cuda(
-            q, k_pages, v_pages, page_tables, row_lens, page_ok, k_scales,
-            v_scales, fused_dequant)
-    count_launch(PAGED_ROUTE_STATS, "ref_stats")
-    return ragged_paged_attention_stats_ref(q, k_pages, v_pages, page_tables,
-                                            row_lens, page_ok, k_scales,
-                                            v_scales)
+    The operator ``paddle_tpu_torch::ragged_paged_attention_stats``: a
+    CUDA tensor launches the kernel; a CPU tensor runs the plain
+    version; a tensor with no data gets the shapes from its fake
+    function."""
+    return _ragged_stats_op(q, k_pages, v_pages, page_tables, row_lens,
+                            page_ok, k_scales, v_scales, int(fused_dequant))

@@ -164,17 +164,51 @@ def quantized_matmul_cuda(x, w_q, w_scale):
     return out
 
 
+@torch.library.custom_op("paddle_tpu_torch::quantized_matmul",
+                         mutates_args=())
+def _qmm_op(x: torch.Tensor, w_q: torch.Tensor,
+            w_scale: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return quantized_matmul_cuda(x.contiguous(), w_q, w_scale)
+    count_launch(QMM_ROUTE_STATS, "ref")
+    return quantized_matmul_ref(x, w_q, w_scale)
+
+
+@_qmm_op.register_fake
+def _qmm_fake(x, w_q, w_scale):
+    return x.new_empty((x.shape[0], w_q.shape[1]))
+
+
+def _qmm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _qmm_backward(ctx, g):
+    # the plain version's gradients: dx = g · (w_q ⊙ w_scale)ᵀ and
+    # dscale = Σ_rows g ⊙ (x · w_q); w_q is integer and gets none
+    x, w_q, w_scale = ctx.saved_tensors
+    dx = dscale = None
+    if ctx.needs_input_grad[0]:
+        w = w_q.float() * w_scale.float()[None, :]
+        dx = (g.float() @ w.t()).to(x.dtype)
+    if ctx.needs_input_grad[2]:
+        dscale = ((x.float() @ w_q.float()) * g.float()).sum(0).to(
+            w_scale.dtype)
+    return dx, None, dscale
+
+
+_qmm_op.register_autograd(_qmm_backward, setup_context=_qmm_setup)
+
+
 def quantized_matmul(x, w_q, w_scale):
     """Routing entry (the serving transformer core calls this).
 
     x [..., K] activations, w_q [K, N] int8, w_scale [N] f32; returns
-    [..., N] in x's dtype.  A CUDA tensor launches the kernel; a CPU
-    tensor runs the plain version."""
+    [..., N] in x's dtype.  The operator
+    ``paddle_tpu_torch::quantized_matmul``: a CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version, a tensor with no data
+    gets the shape from the op's fake function (so an exported program
+    keeps the op and picks its route where it runs)."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        out = quantized_matmul_cuda(x2.contiguous(), w_q, w_scale)
-    else:
-        count_launch(QMM_ROUTE_STATS, "ref")
-        out = quantized_matmul_ref(x2, w_q, w_scale)
+    out = _qmm_op(x.reshape(-1, x.shape[-1]), w_q, w_scale)
     return out.reshape(*lead, w_q.shape[1])

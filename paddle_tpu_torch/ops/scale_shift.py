@@ -104,14 +104,40 @@ def scale_shift_cuda(x, scale, shift):
     return out
 
 
-def scale_shift(x, scale, shift):
-    """Routing entry: ``x * scale[0] + shift[0]`` in x's dtype.  A CUDA
-    tensor launches the kernel; a CPU tensor runs the plain version."""
+@torch.library.custom_op("paddle_tpu_torch::scale_shift", mutates_args=())
+def _scale_shift_op(x: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return scale_shift_cuda(x, scale, shift)
     _check(x, scale, shift)
     SCALE_SHIFT_ROUTE_STATS["ref"] += 1
     return scale_shift_ref(x, scale, shift)
+
+
+@_scale_shift_op.register_fake
+def _scale_shift_fake(x, scale, shift):
+    _check(x, scale, shift)
+    return x.new_empty(x.shape)
+
+
+def _scale_shift_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _scale_shift_backward(ctx, g):
+    return scale_shift_vjp(g, *ctx.saved_tensors)
+
+
+_scale_shift_op.register_autograd(_scale_shift_backward,
+                                  setup_context=_scale_shift_setup)
+
+
+def scale_shift(x, scale, shift):
+    """Routing entry: ``x * scale[0] + shift[0]`` in x's dtype, the
+    operator ``paddle_tpu_torch::scale_shift``.  A CUDA tensor launches
+    the kernel; a CPU tensor runs the plain version; a tensor with no
+    data gets the shape from the op's fake function."""
+    return _scale_shift_op(x, scale, shift)
 
 
 def scale_shift_vjp(ct, x, scale, shift):

@@ -416,12 +416,93 @@ class Optimizer:
         loss's graph has not been consumed (so after ``loss.backward();
         opt.minimize(loss)`` it does not run twice, and gradients left by
         an earlier step accumulate, as the reference's do), then
-        ``step()``; returns ``(None, [(param, grad)])``."""
+        ``step()``; returns ``(None, [(param, grad)])``.  While a static
+        Program records, it records the backward and the update instead
+        (:meth:`_static_step`)."""
+        from ..ops.dispatch import _recording_program
+
+        prog = _recording_program()
+        if prog is not None:
+            return self._static_step(prog, loss)
         params = self._param_list()
         if not graph_consumed(loss):
             (loss if isinstance(loss, Tensor) else Tensor(loss)).backward()
         self.step()
         return None, [(p, p.grad) for p in params]
+
+    # --- static-graph path ------------------------------------------------
+    def _static_step(self, prog, loss):
+        """Record the backward and the parameter update into the static
+        Program ``prog`` (reference: optimizer.minimize appends the
+        backward and update OpDescs, fluid/optimizer.py; the JAX
+        package's ``_static_step``): ``append_backward`` over the
+        trainable parameters, then ONE update op — clip, regularizers
+        and the rule, as ``step()`` — whose outputs the Program copies
+        into the parameters and accumulators after each replay
+        (``note_param_update`` / ``note_state``).  The step count and the
+        learning rate ride as Program state: the count an int32 counter
+        the program increments, the rate refreshed from ``get_lr()`` at
+        every run, so Adam's bias correction advances and a scheduler
+        applies without rebuilding the program."""
+        from ..ops.dispatch import apply
+        from ..static.compat import append_backward
+
+        owner_of = self._owners()
+        owners = []
+        for p in self._param_list():
+            owner = owner_of.get(id(p))
+            if not isinstance(owner, Tensor):
+                raise InvalidArgumentError(
+                    "static-mode minimize needs the Layer's Parameters "
+                    "(optimizer(parameters=layer.parameters())), not bare "
+                    "tensors")
+            if p.requires_grad:
+                owners.append(owner)
+        pairs = append_backward(loss, owners)
+        slots = self.__dict__.setdefault("_static_slots", {})
+        if id(prog) not in slots:
+            dev = owners[0]._value.device
+            step_t = Tensor(torch.zeros((), dtype=torch.int32, device=dev))
+            new_step = apply("increment_step", lambda v: v + 1, step_t)
+            prog.note_state(step_t, updated=new_step)
+            lr_t = Tensor(torch.tensor(self.get_lr(), dtype=torch.float64,
+                                       device=dev))
+            prog.note_state(lr_t, refresh=lambda: torch.tensor(
+                self.get_lr(), dtype=torch.float64, device=dev),
+                spec=("lr", self._lr))
+            slots[id(prog)] = (lr_t, new_step, prog)
+        lr_t, new_step, _ = slots[id(prog)]
+        self._step_count += 1
+        kinds = self._acc_kinds()
+        self._ensure_state([o._value for o, _ in pairs])
+        accs = [Tensor(self._acc(k, o._value)) for o, _ in pairs
+                for k in kinds]
+        n, nk = len(pairs), len(kinds)
+
+        def upd(lrv, sv, *vals):
+            ps, gs, av = vals[:n], vals[n:2 * n], vals[2 * n:]
+            new_p, new_a = list(ps), list(av)
+
+            def accs_of(i, p):
+                return {k: av[i * nk + j] for j, k in enumerate(kinds)}
+
+            with torch.no_grad():
+                for i, np_, na in self._updates(
+                        list(zip(ps, gs)), accs_of, lrv,
+                        sv.to(torch.float64)):
+                    new_p[i] = np_
+                    for j, k in enumerate(kinds):
+                        new_a[i * nk + j] = na[k]
+            return tuple(new_p) + tuple(new_a)
+
+        outs = apply(f"{type(self).__name__.lower()}_update", upd, lr_t,
+                     new_step, *[o for o, _ in pairs],
+                     *[g for _, g in pairs], *accs)
+        for (o, _), new in zip(pairs, outs[:n]):
+            prog.note_param_update(o, new)
+        for t, new in zip(accs, outs[n:]):
+            prog.note_state(t, updated=new)
+        return None, pairs
 
     # --- functional path -------------------------------------------------
     def init_opt_state(self, params: Dict[str, torch.Tensor]):

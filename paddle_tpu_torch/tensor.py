@@ -249,16 +249,51 @@ class Tensor:
         a = self.numpy()
         return a.astype(dtype) if dtype is not None else a
 
+    def _check_scalar_coercion(self, what):
+        """Loud dy2static (reference program_translator.py:233): inside
+        ``jit.to_static`` and while a static Program records, a Tensor's
+        value may not become a Python scalar — Python would branch on it
+        once and bake that branch (or a placeholder's number) in.  The
+        dy2static pass converts what it can onto ``jit.control_flow``;
+        what is left raises here, as a traced value does in the JAX
+        package."""
+        from .framework.export_compat import capturing, is_placeholder
+        from .ops.dispatch import _recording_program
+
+        recording = _recording_program() is not None
+        if capturing() or (is_placeholder(self._value) and not recording):
+            raise TypeError(
+                f"cannot convert a traced Tensor to a Python {what} inside "
+                "to_static/jit capture: data-dependent Python control flow "
+                "would specialize to one branch. Use "
+                "paddle_tpu_torch.jit.control_flow.cond / while_loop, or "
+                "move the condition to a non-tensor value.")
+        if recording or is_placeholder(self._value):
+            raise TypeError(
+                f"cannot convert a Tensor to a Python {what} while a "
+                "static Program is recording: the build-time placeholder "
+                "has no value to bake into the program (`if`/`while` "
+                "would record a single branch; scalar coercion a stale "
+                "number — reference dy2static rewrites these into "
+                "conditional_block/while ops). Use "
+                "paddle_tpu_torch.jit.control_flow.traced_cond / "
+                "while_loop with explicit operands, or compute the value "
+                "outside program capture.")
+
     def __float__(self):
+        self._check_scalar_coercion("float")
         return float(self.item())
 
     def __int__(self):
+        self._check_scalar_coercion("int")
         return int(self.item())
 
     def __bool__(self):
+        self._check_scalar_coercion("bool")
         return bool(self.numpy())
 
     def __index__(self):
+        self._check_scalar_coercion("index")
         return int(self.item())
 
     def __len__(self):

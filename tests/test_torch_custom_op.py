@@ -21,8 +21,8 @@ port, on the CPU:
   ``check_nan_inf`` sweep, the AMP lists, the operator error prefix and a
   CUDA place without a card.
 
-``test_trains_static`` has no twin yet: it needs ``static/`` (ROADMAP
-queue 1 item 13).
+``test_trains_static``'s twin is ``tests/test_torch_static.py``'s
+``test_custom_op_trains_static``.
 """
 import numpy as np
 import pytest

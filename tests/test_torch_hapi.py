@@ -417,7 +417,7 @@ def test_checkpointed_fit_resumes_bit_equal(gpt_weights, tokens, tmp_path):
 
 
 def test_unported_options_raise():
-    """What is still not ported raises; ``amp_configs`` is accepted and
+    """What is not supported raises; ``amp_configs`` is accepted and
     ignored (as in the JAX package) and ``fit(anomaly=)`` runs, checked
     against the JAX package's own rule: rollback armed needs a
     ``checkpoint_dir``."""
@@ -440,7 +440,8 @@ def test_unported_options_raise():
                           [np.zeros((2, 2), np.float32)], update=False)
     from paddle_tpu_torch.hapi.model import StaticGraphAdapter
 
-    with pytest.raises(InvalidArgumentError, match="item 13"):
+    # ported since: without InputSpecs it refuses, as the JAX package's
+    with pytest.raises(ValueError, match="InputSpec"):
         StaticGraphAdapter(model)
 
 

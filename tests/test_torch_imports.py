@@ -23,7 +23,8 @@ def _sources():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 15
     # chip_smoke.py and the card-only tests run where JAX is not installed
-    return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
+                    ROOT / "tests/test_torch_cuda_declarative.py"]
 
 
 def _modules():
@@ -175,7 +176,21 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.nn.layers_extra",
                 "paddle_tpu_torch.framework._globals",
                 "paddle_tpu_torch.framework.init",
-                "paddle_tpu_torch.framework.op_version"):
+                "paddle_tpu_torch.framework.op_version",
+                "paddle_tpu_torch.framework.export_compat",
+                "paddle_tpu_torch.static",
+                "paddle_tpu_torch.static._mode",
+                "paddle_tpu_torch.static.program",
+                "paddle_tpu_torch.static.nn",
+                "paddle_tpu_torch.static.compat",
+                "paddle_tpu_torch.static.debugging",
+                "paddle_tpu_torch.jit.control_flow",
+                "paddle_tpu_torch.jit.dy2static",
+                "paddle_tpu_torch.jit.to_static",
+                "paddle_tpu_torch.jit.save_load",
+                "paddle_tpu_torch.inference.predictor",
+                "paddle_tpu_torch.onnx",
+                "paddle_tpu_torch.onnx.export"):
         assert mod in _modules()
 
 
