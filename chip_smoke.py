@@ -400,6 +400,29 @@ Phases, one result line each (or more):
    trains through the attention operator: #5 twice a layer a step (the
    forward and the backward's recompute), #6 and #7 once, its losses
    within DECL_TRAIN_RTOL of the Executor's from the same state.
+39. distributed: collective training on slots of cuda:0
+   (``distributed/``), f32 with TF32 off unless named.  (a)
+   ``make_sharded_train_step`` on bert-base (``bench.py:374-405``'s B 32
+   x S 128, ``bert_inputs``' padding mask, ``AdamW(5e-5)``, dropout 0)
+   at dp 2 x mp 2 on 4 slots (6 heads a slot) against the same step on
+   one slot from the same weights, DIST_STEPS steps: losses within
+   DIST_LOSS_RTOL, every parameter within DIST_PARAM_ATOL, #5/#6/#7 12 x
+   4 each a step on the 3xTF32 bodies (12 on one slot), none plain; step
+   p50 and each slot's bytes.  (b) ring attention (H 12, D 64, causal, B
+   2 x S 2048) over sp 2 x dp 2 and sp 4 in f32 and bf16: output and
+   dq/dk/dv against ``flash_attention_bshd`` over the whole sequence on
+   one slot and against the plain ring, within FLASH_TOL and
+   FLASH_REL_L2; #5/#6/#7 n(n+1)/2 per ring of n, none plain; then
+   ``_dryrun_sequence_parallel``'s three steps at this width, the loss
+   falling.  (c) ``make_hybrid_step`` on 8 slots (dp 2 x pp 2 x mp 2) at
+   vocab 50304, d_model 768, d_ff 3072: DIST_HYBRID_STEPS losses within
+   DIST_HYBRID_RTOL of ``hybrid_reference`` (f64), falling, the ZeRO
+   state split over dp.  (d) ``pipeline_train_step`` (1F1B) at pp 4, d
+   768, B 32, micro-batches of 4: the loss and every gradient within
+   DIST_1F1B_RTOL of the stages in sequence.  (e) two trainers on
+   cuda:0 started by ``python -m paddle_tpu_torch.distributed.launch``
+   on this script's ``--localsgd-child``: the eager host backend,
+   LocalSGD at k 1 within 2e-5 of full-batch SGD in each.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -8102,6 +8125,542 @@ def _check_declarative(res):
                              f"{tp['executor_losses']}")
 
 
+# --------------------------------------------------------------------------
+# phase 39: collective training on one card's slots (distributed/)
+# --------------------------------------------------------------------------
+# bert-base with bench.py's settings but no dropout: the parity with the
+# one-slot step needs the same dropout draws, and each slot draws its own
+DIST_BERT = dict(num_classes=2, vocab_size=30522, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512,
+                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 dropout=0.0)
+DIST_BERT_BATCH = 32
+DIST_STEPS = 4
+DIST_LR = 5e-5
+# f32 (TF32 off) losses of the sharded step against the one-slot step:
+# the mp partial sums and the dp mean change only the summation order
+DIST_LOSS_RTOL = 1e-5
+# parameters after DIST_STEPS AdamW steps: Adam moves a weight whose
+# gradient is rounding noise (the attention's k bias: exactly 0 in exact
+# arithmetic, as softmax is shift-invariant) by up to about lr a step, so
+# the bound is DIST_STEPS * lr; every other weight is reported apart
+DIST_PARAM_ATOL = DIST_STEPS * DIST_LR
+DIST_RING = dict(B=2, S=2048, H=12, D=64)
+DIST_RING_MESHES = (("sp2_dp2", {"sp": 2, "dp": 2}), ("sp4", {"sp": 4}))
+# the JAX entry's toy step takes lr 1e-2; at d_model 768 / d_ff 3072 an
+# Adam step of 1e-2 moves all 2.4M entries of a stage's matrices by that
+# much and the loss diverges (5.4 -> 1636 on the card); 1e-5 falls
+DIST_HYBRID = dict(vocab=50304, d_model=768, d_ff=3072, n_classes=4, seq=8,
+                   micro_batch=1, lr=1e-5)
+DIST_HYBRID_STEPS = 3
+DIST_HYBRID_RTOL = 2e-4            # tests/test_hybrid_step.py:79
+DIST_1F1B = dict(pp=4, d=768, B=32, mbs=4)
+DIST_1F1B_RTOL = 1e-5
+
+
+def _slot_bytes(state, mesh) -> dict:
+    """Bytes each slot holds of a sharded step's state (parameters,
+    optimizer state, buffers): a tensor that slots on one card share is
+    counted for each of them, and once in ``distinct``."""
+    per = [0] * mesh.size
+    seen = {}
+    groups = [state["params"], state["buffers"],
+              *state["opt"].values()]
+    for d in groups:
+        for sa in d.values():
+            for i, t in enumerate(sa.shards):
+                b = t.numel() * t.element_size()
+                per[i] += b
+                seen[id(t)] = b
+    return {"per_slot": per, "distinct": sum(seen.values())}
+
+
+def dist_bert_arm() -> dict:
+    """(a) ``make_sharded_train_step`` on bert-base at dp 2 x mp 2 (4
+    slots of cuda:0, 6 heads a slot) against the same step on one slot,
+    from the same weights: DIST_STEPS AdamW steps, f32."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.parallel import make_sharded_train_step
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    pt.set_device(DEVICE)
+    ids, mask, y = bert_inputs(np.random.RandomState(0), DIST_BERT_BATCH)
+    pt.seed(0)
+    model = BertForSequenceClassification(**DIST_BERT)
+    loss_fn = nn.CrossEntropyLoss()
+    runs, finals = {}, {}
+    prev = dmesh.force_device_count(4)
+    try:
+        for tag, axes in (("one_slot", {"dp": 1}),
+                          ("dp2_mp2", {"dp": 2, "mp": 2})):
+            mesh = dmesh.init_mesh(axes)
+            opt = optimizer.AdamW(DIST_LR, parameters=model.parameters())
+            torch.cuda.reset_peak_memory_stats()
+            step, state = make_sharded_train_step(
+                model, lambda o, t: loss_fn(o, t), opt, mesh=mesh)
+            losses, ms, launches = [], [], []
+            for _ in range(DIST_STEPS):
+                reset_flash_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, (ids, None, mask), y)
+                losses.append(float(loss))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(read_flash_counts())
+            runs[tag] = {"losses": losses, "step_ms": ms,
+                         "step_ms_p50": float(np.median(ms[1:])),
+                         "slots": mesh.size,
+                         "slot_bytes": _slot_bytes(state, mesh),
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "launches_per_step": launches}
+            finals[tag] = {n: sa.global_tensor().detach()
+                           for n, sa in state["params"].items()}
+            del step, state
+            free_cuda()
+    finally:
+        dmesh.force_device_count(prev)
+    layers = DIST_BERT["num_hidden_layers"]
+    for tag, n_slots in (("one_slot", 1), ("dp2_mp2", 4)):
+        k = layers * n_slots
+        for i, c in enumerate(runs[tag]["launches_per_step"]):
+            expect_counts(f"distributed_bert_{tag}_step{i}", c, {
+                "flash_fwd": k, "flash_dkv": k, "flash_dq": k,
+                "flash_ref": 0, "flash_f32tc_fwd": k,
+                "flash_f32tc_dkv": k, "flash_f32tc_dq": k})
+    a, b = finals["one_slot"], finals["dp2_mp2"]
+    diffs = {n: float((a[n] - b[n]).abs().max()) for n in a}
+    worst = max(diffs, key=diffs.get)
+    others = {n: d for n, d in diffs.items() if "k_proj.bias" not in n}
+    res = {"batch": DIST_BERT_BATCH, "seq": BERT_SEQ, "steps": DIST_STEPS,
+           **runs, "loss_rtol": DIST_LOSS_RTOL,
+           "param_max_abs_diff": diffs[worst], "param_worst": worst,
+           "param_max_abs_diff_but_k_bias": max(others.values()),
+           "param_atol": DIST_PARAM_ATOL,
+           "heads_per_slot": DIST_BERT["num_attention_heads"] // 2}
+    if not close_losses(runs["dp2_mp2"]["losses"], runs["one_slot"]["losses"],
+                        DIST_LOSS_RTOL):
+        raise AssertionError(f"distributed bert: dp2 x mp2 losses "
+                             f"{runs['dp2_mp2']['losses']} vs one slot "
+                             f"{runs['one_slot']['losses']}")
+    if not diffs[worst] <= DIST_PARAM_ATOL:
+        raise AssertionError(f"distributed bert: {worst} differs by "
+                             f"{diffs[worst]} from the one-slot step")
+    return res
+
+
+def _ring_inputs(dtype, seed):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    B, S, H, D = (DIST_RING[k] for k in ("B", "S", "H", "D"))
+    return [torch.randn((B, S, H, D), generator=g, device=DEVICE).to(dtype)
+            for _ in range(4)]
+
+
+def _attn_grads(fn, q, k, v, cot):
+    """``fn``'s output and (dq, dk, dv) for the cotangent ``cot``, with
+    the wall time of the forward and backward (synchronized)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, grad_outputs=cot)
+    torch.cuda.synchronize()
+    return out.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+
+def _close(tag, name, got, want, dtype) -> dict:
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    limit = FLASH_TOL[dtype] * max(1.0, float(want.abs().max()))
+    rel = flash_rel_l2(got, want)
+    ok = math.isfinite(err) and err <= limit and rel <= FLASH_REL_L2[dtype]
+    if not ok:
+        raise AssertionError(f"distributed ring {tag}: {name} max_abs_err "
+                             f"{err} (limit {limit}), relative L2 {rel} "
+                             f"(limit {FLASH_REL_L2[dtype]})")
+    return {"max_abs_err": err, "rel_l2": rel}
+
+
+def dist_ring_arm() -> dict:
+    """(b) ring attention at GPT-2-small's attention width (H 12, D 64,
+    causal, S 2048, B 2) over sp 2 x dp 2 and sp 4, f32 and bf16: output
+    and dq/dk/dv against ``flash_attention_bshd`` over the whole sequence
+    on one slot and against the plain ring; #5-#7 launches per ring; then
+    ``_dryrun_sequence_parallel``'s three training steps at this width."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.ring_attention import (
+        ring_attention, sequence_parallel_attention)
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_bshd
+
+    res = {}
+    prev = dmesh.force_device_count(4)
+    try:
+        for dtype, dname in ((torch.float32, "float32"),
+                             (torch.bfloat16, "bfloat16")):
+            q, k, v, cot = _ring_inputs(dtype, 39)
+            _attn_grads(lambda a, b, c: flash_attention_bshd(
+                a, b, c, causal=True), q, k, v, cot)      # warm-up
+            ref_o, ref_g, ref_ms = _attn_grads(
+                lambda a, b, c: flash_attention_bshd(a, b, c, causal=True),
+                q, k, v, cot)
+            for tag, axes in DIST_RING_MESHES:
+                mesh = dmesh.init_mesh(axes)
+                sp = axes["sp"]
+                rings = mesh.size // sp
+                def ring(a, b, c):
+                    return sequence_parallel_attention(
+                        a, b, c, mesh=mesh, axis_name="sp", causal=True)
+
+                _attn_grads(ring, q, k, v, cot)           # warm-up
+                reset_flash_counts()
+                o, g, ms = _attn_grads(ring, q, k, v, cot)
+                counts = read_flash_counts()
+                per_ring = sp * (sp + 1) // 2
+                expect_counts(f"distributed_ring_{tag}_{dname}", counts, {
+                    "flash_fwd": rings * per_ring,
+                    "flash_dkv": rings * per_ring,
+                    "flash_dq": rings * per_ring, "flash_ref": 0})
+                spec = dmesh.PartitionSpec(None, "sp", None, None)
+                plain = dmesh.shard_map(
+                    lambda a, b, c: ring_attention(a, b, c, "sp", True,
+                                                   use_flash=False),
+                    mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)
+                _attn_grads(plain, q, k, v, cot)          # warm-up
+                po, pg, pms = _attn_grads(plain, q, k, v, cot)
+                case = f"{tag}/{dname}"
+                res[case] = {
+                    "rings": rings, "slots": mesh.size, "ms": ms,
+                    "plain_ring_ms": pms, "one_slot_flash_ms": ref_ms,
+                    "launches": counts,
+                    "launches_per_ring": {kk: counts[f"flash_{kk}"] // rings
+                                          for kk in ("fwd", "dkv", "dq")},
+                    "vs_one_slot": {
+                        "out": _close(case, "out", o, ref_o, dtype),
+                        **{n: _close(case, n, a, b, dtype)
+                           for n, a, b in zip(("dq", "dk", "dv"), g, ref_g)}},
+                    "vs_plain_ring": {
+                        "out": _close(case, "out/plain", o, po, dtype),
+                        **{n: _close(case, f"{n}/plain", a, b, dtype)
+                           for n, a, b in zip(("dq", "dk", "dv"), g, pg)}}}
+                del o, g, po, pg
+            free_cuda()
+        res["train"] = dist_ring_train()
+    finally:
+        dmesh.force_device_count(prev)
+    return res
+
+
+def dist_ring_train() -> dict:
+    """``_dryrun_sequence_parallel`` (``__graft_entry__.py:154-200``) at
+    DIST_RING's width over dp 2 x sp 2, f32: q = x @ w, ring attention
+    of (q, x, x), MSE to a target, three steps of w -= 0.1 g."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.ring_attention import (
+        sequence_parallel_attention)
+
+    mesh = dmesh.init_mesh({"dp": 2, "sp": 2})
+    B, S, H, D = (DIST_RING[k] for k in ("B", "S", "H", "D"))
+    rng = np.random.RandomState(0)
+    w = torch.tensor(rng.randn(D, D).astype(np.float32) * 0.1, device=DEVICE)
+    x = torch.tensor(rng.randn(B, S, H, D).astype(np.float32), device=DEVICE)
+    tgt = torch.tensor(rng.randn(B, S, H, D).astype(np.float32),
+                       device=DEVICE)
+    losses = []
+    reset_flash_counts()
+    for _ in range(3):
+        wl = w.detach().requires_grad_(True)
+        out = sequence_parallel_attention(x @ wl, x, x, mesh=mesh,
+                                          axis_name="sp", causal=True)
+        loss = torch.mean((out - tgt) ** 2)
+        (g,) = torch.autograd.grad(loss, [wl])
+        w = w - 0.1 * g
+        losses.append(float(loss))
+    res = {"losses": losses, "launches": read_flash_counts()}
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"distributed ring train: losses {losses}")
+    return res
+
+
+def hybrid_reference(params0, x, y, steps, lr):
+    """``tests/test_hybrid_step.py``'s one-device reference in torch, f64:
+    the stages in sequence, plain bias-corrected Adam."""
+    p = {k: torch.as_tensor(v, dtype=torch.float64, device=DEVICE)
+         for k, v in params0.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    s = {k: torch.zeros_like(v) for k, v in p.items()}
+    xt = torch.as_tensor(x, device=DEVICE).long()
+    yt = torch.as_tensor(y, device=DEVICE).long()
+    losses = []
+    for t in range(1, steps + 1):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        h = leaves["emb"][xt]
+        for st in range(leaves["w1"].shape[0]):
+            a = torch.nn.functional.gelu(
+                torch.einsum("btd,df->btf", h, leaves["w1"][st])
+                + leaves["b1"][st], approximate="tanh")
+            h = h + torch.einsum("btf,fd->btd", a, leaves["w2"][st]) \
+                + leaves["b2"][st]
+        logits = h.mean(dim=1) @ leaves["head"]
+        loss = torch.mean(torch.logsumexp(logits, dim=-1)
+                          - logits.gather(-1, yt[:, None])[:, 0])
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            for (k, _), g in zip(leaves.items(), grads):
+                m[k] = 0.9 * m[k] + 0.1 * g
+                s[k] = 0.999 * s[k] + 0.001 * g * g
+                p[k] = p[k] - lr * (m[k] / (1 - 0.9 ** t)) / (
+                    torch.sqrt(s[k] / (1 - 0.999 ** t)) + 1e-8)
+        losses.append(float(loss))
+    return losses
+
+
+def dist_hybrid_arm() -> dict:
+    """(c) ``make_hybrid_step`` on 8 slots (dp 2 x pp 2 x mp 2) at vocab
+    50304, d_model 768, d_ff 3072: DIST_HYBRID_STEPS steps, each loss
+    against :func:`hybrid_reference` from the same weights."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.hybrid_step import make_hybrid_step
+
+    prev = dmesh.force_device_count(8)
+    try:
+        mesh = dmesh.init_mesh({"dp": 2, "pp": 2, "mp": 2})
+        step, state = make_hybrid_step(mesh, seed=0, **DIST_HYBRID)
+        params0 = {k: sa.numpy() for k, sa in state[0].items()}
+        rng = np.random.RandomState(1)
+        x = rng.randint(0, DIST_HYBRID["vocab"],
+                        (4, DIST_HYBRID["seq"])).astype(np.int64)
+        y = rng.randint(0, DIST_HYBRID["n_classes"], (4,)).astype(np.int64)
+        losses, ms = [], []
+        for _ in range(DIST_HYBRID_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        zm = state[1]["m"]["emb"]
+        del step, state
+    finally:
+        dmesh.force_device_count(prev)
+    ref = hybrid_reference(params0, x, y, DIST_HYBRID_STEPS,
+                           DIST_HYBRID["lr"])
+    res = {"losses": losses, "reference_losses": ref, "step_ms": ms,
+           "rtol": DIST_HYBRID_RTOL, "zero_m_emb_shape": list(zm.shape)}
+    if not close_losses(losses, ref, DIST_HYBRID_RTOL):
+        raise AssertionError(f"distributed hybrid: losses {losses} vs the "
+                             f"reference {ref}")
+    if not losses[-1] < losses[0] or zm.shape[-2] != 2:
+        raise AssertionError(f"distributed hybrid: losses {losses}, ZeRO "
+                             f"state {zm.shape}")
+    return res
+
+
+def dist_1f1b_arm() -> dict:
+    """(d) ``pipeline_train_step`` (interleaved 1F1B) at pp 4 on 4 slots,
+    d 768, B 32, micro-batches of 4: loss and gradients against the
+    stages run in sequence on one slot."""
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.pipeline import (
+        build_1f1b_schedule, pipeline_train_step, schedule_peak_in_flight,
+        stack_stage_params)
+
+    pp, d, B, mbs = (DIST_1F1B[k] for k in ("pp", "d", "B", "mbs"))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(41)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEVICE) * scale
+
+    stages = [{"w": randn(d, d, scale=d ** -0.5)} for _ in range(pp)]
+    head = {"w": randn(8, d, scale=8 ** -0.5)}
+    x, y = randn(B, 8), randn(B, d)
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"])
+
+    def head_fn(hp, xb):
+        return xb @ hp["w"]
+
+    def loss_fn(out, tgt):
+        return ((out - tgt) ** 2).sum()
+
+    prev = dmesh.force_device_count(pp)
+    try:
+        mesh = dmesh.init_mesh({"pp": pp})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g_st, g_hp = pipeline_train_step(
+            mesh, stage_fn, stack_stage_params(stages), x, y, mbs, loss_fn,
+            head_fn=head_fn, head_params=head)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dmesh.force_device_count(prev)
+    leaves = [s["w"].clone().requires_grad_(True) for s in stages]
+    hw = head["w"].clone().requires_grad_(True)
+    M = B // mbs
+    total = 0.0
+    for j in range(M):
+        h = x[j * mbs:(j + 1) * mbs] @ hw
+        for w in leaves:
+            h = torch.tanh(h @ w)
+        total = total + loss_fn(h, y[j * mbs:(j + 1) * mbs])
+    total = total / M
+    ref = torch.autograd.grad(total, leaves + [hw])
+    errs = {}
+    for name, got, want in ([(f"stage{i}", g_st["w"][i], ref[i])
+                             for i in range(pp)]
+                            + [("head", g_hp["w"], ref[-1])]):
+        err = float((got - want).abs().max())
+        limit = DIST_1F1B_RTOL * max(1.0, float(want.abs().max()))
+        errs[name] = err
+        if not err <= limit:
+            raise AssertionError(f"distributed 1f1b: {name} gradient "
+                                 f"max_abs_err {err} (limit {limit})")
+    f_tab, b_tab = build_1f1b_schedule(M, pp)
+    res = {"loss": float(loss), "reference_loss": float(total), "ms": ms,
+           "grad_max_abs_err": errs, "ticks": int(f_tab.shape[0]),
+           "peak_in_flight": schedule_peak_in_flight(f_tab, b_tab)}
+    if not abs(res["loss"] - res["reference_loss"]) <= \
+            DIST_1F1B_RTOL * abs(res["reference_loss"]):
+        raise AssertionError(f"distributed 1f1b: loss {res['loss']} vs "
+                             f"{res['reference_loss']}")
+    return res
+
+
+def _localsgd_data(n_batches, B=16, seed=0):
+    """``tests/test_localsgd.py``'s batches."""
+    rng = np.random.RandomState(seed)
+    w = rng.randn(6, 1).astype(np.float32)
+    out = []
+    for _ in range(n_batches):
+        xv = rng.randn(B, 6).astype(np.float32)
+        out.append((xv, (xv @ w).astype(np.float32)))
+    return out
+
+
+def localsgd_child(out_dir) -> int:
+    """One trainer of arm (e), started by ``distributed.launch``: its half
+    of each batch, an SGD step, the parameters averaged over the trainers
+    through the host backend after every step (LocalSGD at k 1), and the
+    full-batch SGD step beside it; writes ``rank{r}.json``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.nn import functional as F
+
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pt.set_device(DEVICE)
+    pt.seed(0)
+    model = nn.Linear(6, 1)
+    pt.seed(0)
+    ref = nn.Linear(6, 1)
+    opt = optimizer.SGD(0.1, parameters=model.parameters())
+    ref_opt = optimizer.SGD(0.1, parameters=ref.parameters())
+    half = 16 // world
+    errs = []
+    for xv, yv in _localsgd_data(6):
+        part = slice(rank * half, (rank + 1) * half)
+        loss = F.mse_loss(model(pt.to_tensor(xv[part])),
+                          pt.to_tensor(yv[part]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        with pt.no_grad():
+            for p in model.parameters():
+                dist.all_reduce(p, op=dist.ReduceOp.AVG)
+        full = F.mse_loss(ref(pt.to_tensor(xv)), pt.to_tensor(yv))
+        full.backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+        errs.append(max(float((p._value - q._value).abs().max())
+                        for p, q in zip(model.parameters(),
+                                        ref.parameters())))
+    total = dist.all_reduce(pt.to_tensor(np.float32(rank + 1)))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": world, "max_abs_err": max(errs),
+                   "sum": float(total._value),
+                   "device": str(model.weight._value.device),
+                   "endpoint": os.environ.get("PADDLE_CURRENT_ENDPOINT")}, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dist_launch_arm() -> dict:
+    """(e) two trainer processes on cuda:0, started by the port's
+    ``distributed.launch`` on this script's ``--localsgd-child``: the
+    eager host-backend path; each must end within 2e-5 of full-batch
+    SGD (``tests/test_localsgd.py:36``)."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    env = dict(os.environ, PADDLE_DIST_BACKEND="gloo",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("PADDLE_TRAINER_ENDPOINTS", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ID"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node=2", f"--started_port={_free_port()}",
+         f"--gloo_port={_free_port()}", "--log_dir",
+         os.path.join(out, "logs"), os.path.abspath(__file__),
+         "--localsgd-child", out],
+        env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    logs = ""
+    logdir = os.path.join(out, "logs")
+    if os.path.isdir(logdir):
+        for name in sorted(os.listdir(logdir)):
+            with open(os.path.join(logdir, name)) as f:
+                logs += f"\n--- {name}\n{f.read()[-3000:]}"
+    if r.returncode != 0:
+        raise AssertionError(f"distributed launch: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}{logs}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    res = {"ranks": ranks, "wall_s": wall}
+    ok = (all(o["world"] == 2 and o["sum"] == 3.0 and o["max_abs_err"] <= 2e-5
+              and o["device"].startswith("cuda") for o in ranks)
+          and ranks[0]["endpoint"] != ranks[1]["endpoint"])
+    if not ok:
+        raise AssertionError(f"distributed launch: {ranks}")
+    return res
+
+
+def distributed_phase() -> dict:
+    """Phase 39: arms (a)-(e) (the module docstring)."""
+    res = {}
+    for name, arm in (("bert", dist_bert_arm), ("ring", dist_ring_arm),
+                      ("hybrid", dist_hybrid_arm), ("pipeline_1f1b",
+                                                    dist_1f1b_arm),
+                      ("launch_localsgd", dist_launch_arm)):
+        t0 = time.perf_counter()
+        res[name] = arm()
+        res[name]["seconds"] = time.perf_counter() - t0
+        log("distributed", arm=name, **res[name])
+        free_cuda()
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -8140,11 +8699,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every phase's result to this JSON file")
+    ap.add_argument("--localsgd-child", default=None, metavar="DIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.localsgd_child:
+        return localsgd_child(args.localsgd_child)
 
     # f32 parity: no TF32 anywhere (matmuls and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8222,13 +8785,15 @@ def main(argv=None) -> int:
                         ("o2", lambda: o2_phase(fit)),
                         ("eager_api", eager_api_phase),
                         ("eager_nn", eager_nn_phase),
-                        ("declarative", declarative_phase)):
+                        ("declarative", declarative_phase),
+                        ("distributed", distributed_phase)):
         t0 = time.perf_counter()
         report[name] = phase()
         new_phase_s[name] = time.perf_counter() - t0
         free_cuda()
     log("phase_seconds", **new_phase_s, total=sum(new_phase_s.values()))
     amp16 = report["amp_fp16"]
+    dist = report["distributed"]
 
     t0 = time.perf_counter()
     model = GPTModel(**GPT2_SMALL, device="cuda", seed=1234)
@@ -8362,6 +8927,14 @@ def main(argv=None) -> int:
                              for mode in ("graphed", "eager")},
                launches_bert_route_check=bert["route_check"]["launches"][
                    f"flash_f32tc_{kname}"],
+               launches_distributed={
+                   "bert_dp2_mp2_a_step": dist["bert"]["dp2_mp2"][
+                       "launches_per_step"][-1][f"flash_f32tc_{kname}"],
+                   "ring": {c: r["launches"][f"flash_f32tc_{kname}"]
+                            for c, r in dist["ring"].items()
+                            if c.endswith("float32")},
+                   "ring_train": dist["ring"]["train"]["launches"][
+                       f"flash_f32tc_{kname}"]},
                bound_cuda_core_ms=flash_t[f"{kname}/train/float32"][
                    "bound_cuda_core_ms"],
                launches_predictor={
@@ -8383,6 +8956,10 @@ def main(argv=None) -> int:
                launches_bert={mode: bert[mode][f"flash_tc_{kname}"]
                               for mode in ("bench_graphed", "bench_eager",
                                            "fit_graphed", "fit_eager")},
+               launches_distributed_ring={
+                   c: r["launches"][f"flash_tc_{kname}"]
+                   for c, r in dist["ring"].items()
+                   if c.endswith("bfloat16")},
                bert_base_s128=flash_t[f"{kname}/bert_base_s128/bfloat16"],
                launches_to_static=sum(
                    c[f"flash_tc_{kname}"] for c in report["declarative"][

@@ -17,8 +17,8 @@ kernel), ``Tensor`` with the method form of every op, ``no_grad`` and
 too: ``static`` (Program / Executor), ``jit`` (``to_static``, ``save``,
 ``load``), ``inference`` (``create_predictor``) and ``onnx``, with the
 top-level ``data``, ``to_static``, ``enable_static`` /
-``disable_static`` and ``in_dynamic_mode``.  ``DataParallel`` waits for
-ROADMAP item 11.
+``disable_static`` and ``in_dynamic_mode``, and ``DataParallel``
+(``distributed/parallel.py``).
 
 Device policy: entry points run on the default place, which is the CUDA
 card; without one they raise instead of falling back to the CPU.
@@ -84,6 +84,7 @@ from .static import data  # noqa: E402,F401
 from .jit import to_static  # noqa: E402,F401
 from .hapi import Model, callbacks, summary  # noqa: E402,F401
 from .param_attr import ParamAttr  # noqa: E402,F401
+from .distributed.parallel import DataParallel  # noqa: E402,F401
 from .compat import (  # noqa: E402,F401
     LoDTensor, LoDTensorArray, VarBase, addmm, cast, create_global_var,
     crop_tensor, disable_dygraph, enable_dygraph, in_dygraph_mode,

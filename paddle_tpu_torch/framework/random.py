@@ -12,18 +12,35 @@ generators through a training checkpoint."""
 from __future__ import annotations
 
 import random as _stdlib_random
+import threading
+from contextlib import contextmanager
 from typing import Dict
 
 import numpy as np
 import torch
 
 __all__ = ["seed", "generator", "py_random", "get_rng_state",
-           "set_rng_state"]
+           "set_rng_state", "slot_generators"]
 
 py_random = _stdlib_random.Random()
 
 _STATE: Dict[str, object] = {"seed": None}
 _GENERATORS: Dict[str, torch.Generator] = {}
+# a shard_map body's own generators ({device: generator}), per thread
+_SLOT = threading.local()
+
+
+@contextmanager
+def slot_generators(gens: Dict[str, torch.Generator]):
+    """Inside, :func:`generator` of a device in ``gens`` (keyed by
+    ``str(device)``) returns that generator on this thread: each slot of
+    a mesh draws from its own stream (``distributed/mesh.py``)."""
+    prev = getattr(_SLOT, "gens", None)
+    _SLOT.gens = gens
+    try:
+        yield
+    finally:
+        _SLOT.gens = prev
 
 
 def generator(device="cpu") -> torch.Generator:
@@ -36,6 +53,9 @@ def generator(device="cpu") -> torch.Generator:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = str(dev)
+    own = getattr(_SLOT, "gens", None)
+    if own is not None and key in own:
+        return own[key]
     gen = _GENERATORS.get(key)
     if gen is None:
         gen = torch.Generator(device=dev)

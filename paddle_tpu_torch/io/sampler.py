@@ -5,7 +5,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..framework.errors import InvalidArgumentError
 
 __all__ = ["Sampler", "SequenceSampler", "RandomSampler",
            "SubsetRandomSampler", "WeightedRandomSampler", "BatchSampler",
@@ -108,17 +107,17 @@ class BatchSampler(Sampler):
 
 class DistributedBatchSampler(BatchSampler):
     """Per-rank shard sampler: pads to equal length across ranks so every
-    rank runs the same step count.  ``num_replicas`` and ``rank`` are
-    required: the port has no ``distributed.get_rank`` yet (ROADMAP
-    queue 1 item 11)."""
+    rank runs the same step count.  ``num_replicas`` and ``rank`` default
+    to ``distributed.get_world_size()`` and ``get_rank()``."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
-        if num_replicas is None or rank is None:
-            raise InvalidArgumentError(
-                "DistributedBatchSampler needs num_replicas= and rank=: "
-                "the port's distributed environment (get_rank, "
-                "get_world_size) is not ported yet (ROADMAP queue 1 item 11)")
+        from ..distributed.env import get_rank, get_world_size
+
+        if num_replicas is None:
+            num_replicas = get_world_size()
+        if rank is None:
+            rank = get_rank()
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.nranks = int(num_replicas)

@@ -11,7 +11,8 @@ variance) are the serving path's ``_gelu`` and ``_ln``; they dispatch as
 "gelu" and "layer_norm" on a port ``Tensor``, and on a plain torch
 tensor (the torch-module ``GPTModel``) return one.  The attention
 entries are ``ops/attention.py``'s (flash and paged), re-exported as the
-JAX package re-exports them.
+JAX package re-exports them, and ``distributed/ring_attention.py``'s
+``ring_attention``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ __all__ = (list(_activation.__all__) + list(_common.__all__)
            + list(_pooling.__all__)
            + ["hsigmoid_loss", "nce", "erf", "gather_tree",
               "scaled_dot_product_attention", "flash_attention",
-              "paged_attention"])
+              "paged_attention", "ring_attention"])
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -54,6 +55,22 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     return _attention_entry("scaled_dot_product_attention", f, query, key,
                             value, attn_mask)
+
+
+def ring_attention(query, key, value, axis_name="sp", causal=False,
+                   name=None):
+    """Context-parallel attention over a mesh axis (the sequence sharded
+    over ``axis_name`` of the installed mesh; ``distributed/
+    ring_attention.py``): global ``[B, S, H, D]`` in and out."""
+    from ...distributed.ring_attention import sequence_parallel_attention
+    from ...ops._helpers import to_tensor_like
+    from ...tensor import Tensor
+
+    q = to_tensor_like(query)
+    out = sequence_parallel_attention(q._value, to_tensor_like(key)._value,
+                                      to_tensor_like(value)._value,
+                                      axis_name=axis_name, causal=causal)
+    return Tensor(out)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

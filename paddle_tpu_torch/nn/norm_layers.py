@@ -101,8 +101,10 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Batch norm whose statistics span every process of the job.  In one
-    process it is ``BatchNorm``; across processes the statistics'
+    """Batch norm whose statistics span the whole batch.  Inside
+    ``distributed.make_sharded_train_step`` it (as every batch norm
+    there) takes them over every data slot of the mesh; alone in one
+    process it is ``BatchNorm``.  Across processes the statistics'
     all-reduce is not ported (ROADMAP queue 1 item 11), so it raises
     there instead of normalizing with one process's batch."""
 

@@ -542,7 +542,7 @@ class Parameter(Tensor):
     ops make; this one counts the Parameters only)."""
 
     __slots__ = ("trainable", "optimize_attr", "regularizer", "need_clip",
-                 "do_model_average")
+                 "do_model_average", "partition_spec")
     _name_counter = 0
 
     def __init__(self, value, name=None, trainable=True):
@@ -558,6 +558,9 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.do_model_average = True
+        # the mesh axis each dim is sharded over in a sharded train step
+        # (None: replicated), as ``paddle_tpu``'s ``partition_spec``
+        self.partition_spec = None
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:

@@ -11,8 +11,9 @@ built, as in the JAX package, from ``nn.Embedding``, ``nn.LayerNorm``,
 bridge carries the JAX package's weights across unchanged.  A ``[B, S]``
 validity mask passes to the attention as it is, which takes it as its
 kv mask: on the card at S >= 128 every encoder layer's attention runs
-the flash kernels (``ops/attention.py``).  The JAX package's tensor
-parallel partition specs are not ported (ROADMAP queue 1 item 11).
+the flash kernels (``ops/attention.py``).  The parameters carry the JAX
+package's tensor parallel partition specs (``_annotate_tp``), which
+``distributed.make_sharded_train_step`` shards by.
 
 GPT — twin of ``paddle_tpu/text/models.py:125-195`` (``GPTDecoderLayer``,
 ``GPTModel`` with ``generate``) and of the self-attention path of
@@ -80,6 +81,8 @@ class BertEmbeddings(pnn.Layer):
                                                    hidden_size)
         self.layer_norm = pnn.LayerNorm(hidden_size)
         self.dropout = pnn.Dropout(dropout)
+        # shard the vocab table rows over mp
+        self.word_embeddings.weight.partition_spec = ("mp", None)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         from ..ops.creation import zeros_like
@@ -116,6 +119,22 @@ class BertModel(pnn.Layer):
             attn_dropout=attention_probs_dropout_prob)
         self.encoder = pnn.TransformerEncoder(enc_layer, num_hidden_layers)
         self.pooler = pnn.Linear(hidden_size, hidden_size)
+        self._annotate_tp()
+
+    def _annotate_tp(self):
+        """Megatron-style partition specs (``paddle_tpu/text/models.py:
+        67-80``): QKV and FFN-in column parallel, the attention output and
+        FFN-out row parallel.  Metadata: ``distributed.
+        make_sharded_train_step`` shards by them over an ``mp`` axis."""
+        for layer in self.encoder.layers:
+            attn = layer.self_attn
+            for proj in (attn.q_proj, attn.k_proj, attn.v_proj):
+                proj.weight.partition_spec = (None, "mp")
+                proj.bias.partition_spec = ("mp",)
+            attn.out_proj.weight.partition_spec = ("mp", None)
+            layer.linear1.weight.partition_spec = (None, "mp")
+            layer.linear1.bias.partition_spec = ("mp",)
+            layer.linear2.weight.partition_spec = ("mp", None)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         # the [B, S] validity mask goes to the attention unchanged: it

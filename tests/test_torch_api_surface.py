@@ -25,11 +25,9 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-RESOLVED_FLOOR = 2725
+RESOLVED_FLOOR = 2799
 
 WAITING = {
-    # item 11: distributed training
-    "DataParallel": "item 11",
     # item 13: the fluid arrays (nn/functional/extension.py)
     **{n: "item 13" for n in (
         "create_array", "array_read", "array_write", "array_length")},
@@ -40,9 +38,6 @@ WAITING = {
     "vision.image_load": "item 13", "vision.get_image_backend": "item 13",
     "vision.set_image_backend": "item 13", "vision.ops": "item 13",
     "vision.transforms": "item 13",
-    # item 11: distributed attention
-    "nn.functional.ring_attention": "item 11",
-    "distributed.sequence_parallel_attention": "item 11",
     # item 13: the fluid CRF layer (nn/functional/extension.py)
     "nn.crf_decoding": "item 13",
     # item 13: the fluid functional surface (nn/functional/extension.py,

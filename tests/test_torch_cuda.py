@@ -2541,3 +2541,51 @@ def test_graphed_fit_with_param_attr_equals_the_eager_fit():
     assert len(gl) == 6 and str(gl) == str(el), (gl, el)
     assert all(torch.equal(a, b) for a, b in zip(gw, ew))
     assert torch.equal(gw[1], torch.zeros_like(gw[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_ring_on_slots_matches_the_plain_ring(dtype, causal):
+    """Ring attention over sp 4 slots of cuda:0 at S_local 128: the flash
+    ring (#5-#7 per visible chunk pair, no plain-route call) against the
+    plain einsum ring on the same shards, output and dq/dk/dv, within the
+    flash kernels' tolerance."""
+    import functools
+
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed.ring_attention import ring_attention
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    q, k, v, cot = (torch.randn((2, 512, 4, 64), generator=g,
+                                device="cuda").to(dtype) for _ in range(4))
+    prev = dmesh.force_device_count(4)
+    try:
+        mesh = dmesh.init_mesh({"sp": 4})
+        spec = dmesh.P(None, "sp", None, None)
+        runs = {}
+        for flash in (True, False):
+            for c in fa.FLASH_ROUTE_STATS:
+                fa.FLASH_ROUTE_STATS[c] = 0
+            fn = dmesh.shard_map(
+                functools.partial(ring_attention, axis_name="sp",
+                                  causal=causal, use_flash=flash),
+                mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            grads = torch.autograd.grad(out, leaves, grad_outputs=cot)
+            torch.cuda.synchronize()
+            runs[flash] = ([out.detach()] + list(grads),
+                           dict(fa.FLASH_ROUTE_STATS))
+    finally:
+        dmesh.force_device_count(prev)
+    pairs = 10 if causal else 16
+    assert runs[True][1] == {"fwd": pairs, "dkv": pairs, "dq": pairs,
+                             "ref": 0}
+    for got, want in zip(runs[True][0], runs[False][0]):
+        want = want.float()
+        err = float((got.float() - want).abs().max())
+        assert err <= TOL[dtype] * max(1.0, float(want.abs().max()))
+        assert chip_smoke.flash_rel_l2(got, want) <= \
+            chip_smoke.FLASH_REL_L2[dtype]

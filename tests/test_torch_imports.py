@@ -2,7 +2,7 @@
 smoke script ``chip_smoke.py`` and not the card-only tests
 ``tests/test_torch_cuda.py`` import JAX or any module of the
 JAX package ``paddle_tpu`` (its ``distributed`` package included: the
-port's single-controller mesh is its own copy) — checked statically (an AST scan of every
+port's mesh, collectives and parallel training are its own copies) — checked statically (an AST scan of every
 import statement) and at run time (a fresh interpreter imports every
 module and inspects ``sys.modules``)."""
 import ast
@@ -85,6 +85,19 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.text.generation",
                 "paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.mesh",
+                "paddle_tpu_torch.distributed.lax",
+                "paddle_tpu_torch.distributed.env",
+                "paddle_tpu_torch.distributed.gloo",
+                "paddle_tpu_torch.distributed.collective",
+                "paddle_tpu_torch.distributed.parallel_layers",
+                "paddle_tpu_torch.distributed.parallel",
+                "paddle_tpu_torch.distributed.zero",
+                "paddle_tpu_torch.distributed.ring_attention",
+                "paddle_tpu_torch.distributed.pipeline",
+                "paddle_tpu_torch.distributed.hybrid_step",
+                "paddle_tpu_torch.distributed.spawn",
+                "paddle_tpu_torch.distributed.launch",
+                "paddle_tpu_torch.distributed.entry",
                 "paddle_tpu_torch.tensor",
                 "paddle_tpu_torch.autograd",
                 "paddle_tpu_torch.amp.auto_cast",

@@ -16,7 +16,6 @@ import torch
 import paddle_tpu.io as jio
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.io as tio
-from paddle_tpu_torch.framework.errors import InvalidArgumentError
 
 N = 37
 
@@ -158,8 +157,11 @@ def test_distributed_sampler_needs_its_rank():
                                     shuffle=True)
     j.set_epoch(3)
     assert list(s) == list(j)
-    with pytest.raises(InvalidArgumentError, match="item 11"):
-        tio.DistributedBatchSampler(Squares(), 4)
+    # without num_replicas / rank: the environment's, as in the JAX
+    # package (one process: every sample on rank 0)
+    s1, j1 = (io.DistributedBatchSampler(Squares(), 4) for io in (tio, jio))
+    assert (s1.nranks, s1.local_rank) == (j1.nranks, j1.local_rank) == (1, 0)
+    assert list(s1) == list(j1)
 
 
 LOADERS = {
