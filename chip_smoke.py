@@ -423,6 +423,44 @@ Phases, one result line each (or more):
    cuda:0 started by ``python -m paddle_tpu_torch.distributed.launch``
    on this script's ``--localsgd-child``: the eager host backend,
    LocalSGD at k 1 within 2e-5 of full-batch SGD in each.
+40. fleet_ps: fleet and the parameter server (``distributed/fleet``,
+   ``distributed/ps``, ``io/multislot.py``, ``io/native_feed.py``).  (a)
+   CTR at PaddleRec ``models/rank/dnn``'s widths on synthetic Criteo-
+   layout records from a seed (13 dense features, 26 slots of one
+   Zipf-skewed id hashed into 1,000,001, labels from a planted logistic
+   rule): CTR_RECORDS records in CTR_FILES files written by
+   ``write_multislot_file``, ``InMemoryDataset`` (load, local_shuffle),
+   ``train_from_dataset`` with 2 hogwild workers over
+   ``fleet.sparse_embedding(dim 9, adagrad, cache_rows=1 << 18)`` and a
+   fc 512-256-128-32 tower of port ``nn.Linear``s at batch 512: the loss
+   below the labels' base-rate entropy, the native feed built, the
+   witness clean; the first CTR_PARITY_BATCHES batches in one sync
+   thread on the card and on the CPU, the table zero-initialised on
+   its sgd rule under a logistic head (CTR_PARITY_FC), leave tables
+   no row of which is further apart than
+   CTR_PARITY_REL of the table's largest element (the comment there
+   says why); examples/s, step p50 /
+   p95, the cache hit rate, host pull / push ms a step, host syncs a
+   step (torch's sync debug count), host table rows, peak memory.  (b) 2 ``PSServer``
+   processes on the host (no CUDA context) and 2 trainers on the card
+   started by ``distributed.launch`` on this script's ``--ps-child``,
+   geo k PS_K_STEPS at (a)'s widths, PS_STEPS steps each: both losses
+   fall, rank 0 reads rank 1's rows; the wall seconds.  (c) bert-base B
+   32 x S 128 under bf16 ``auto_cast`` through ``fleet.init
+   (is_collective)``, ``distributed_model``, ``distributed_optimizer
+   (AdamW)``: gradient merge k 2 over 4 micro-steps against plain AdamW
+   on the gradients averaged by hand (losses within FLEET_GM_LOSS_RTOL,
+   parameters within FLEET_GM_PARAM_ATOL), #5-#7 12 times a micro-step
+   on the bf16 bodies and none plain; ``RecomputeSequential`` over the
+   encoder layers against the plain backward (#5 twice a layer, the
+   gradients within FLEET_RECOMPUTE_REL_L2); DGC at sparsity 0.999: kept
+   plus residual equals the accumulated gradient exactly, the sparsify
+   pass under ``set_sync_debug_mode("error")``.  (d)
+   ``ShardingOptimizer`` over dp 4 on 4 slots of the card: bert-base's
+   AdamW accumulators split 4 ways where dim 0 divides, replicated
+   where not.  (e) ``Executor.train_from_dataset`` on a recorded Program
+   fed by an ``InMemoryDataset``: its losses equal the eager loop's on
+   the same batches within 1e-5.
 
 Every failure raises (nonzero exit).  The last three lines of standard
 output are the card's name and power limit, the kernel record (with each
@@ -436,6 +474,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -7012,8 +7051,9 @@ def _eager_close(name, got, want, tol):
 
 
 def _synced(fn):
-    """``fn()`` and whether it synchronised the host with the card
-    (``torch.cuda.set_sync_debug_mode("warn")``'s warnings)."""
+    """``fn()`` and the number of times it synchronised the host with the
+    card (``torch.cuda.set_sync_debug_mode("warn")``'s warnings, one a
+    sync)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as seen:
@@ -7023,7 +7063,7 @@ def _synced(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, any("synchroniz" in str(w.message) for w in seen)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
 
 
 def eager_mlp(P, device, arrays, clear_grad):
@@ -7344,7 +7384,7 @@ def nn_step_peak(P, init, sparse, ids, y):
     peak = torch.cuda.max_memory_allocated()
     del net, opt
     return {"peak_mb": peak / 1e6, "over_resident_mb": (peak - base) / 1e6,
-            "synced": sync}
+            "synced": sync > 0}
 
 
 def nn_sparse_embedding(P) -> dict:
@@ -8661,6 +8701,753 @@ def distributed_phase() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 40: fleet and the parameter server on the card (distributed/fleet,
+# distributed/ps, io/multislot.py, io/native_feed.py)
+# --------------------------------------------------------------------------
+# PaddleRec models/rank/dnn on Criteo: 26 categorical slots of one id each
+# hashed into 1,000,001 ids, embedding dim 9, the 13 dense features as one
+# dense slot, fc 512-256-128-32, batch 512
+CTR_VOCAB = 1_000_001
+CTR_DIM = 9
+CTR_SPARSE = 26
+CTR_DENSE = 13
+CTR_FC = (512, 256, 128, 32)
+CTR_BATCH = 512
+CTR_RECORDS = 131_072
+CTR_FILES = 4
+CTR_CACHE_ROWS = 1 << 18
+CTR_THREADS = 2
+CTR_EMB_LR = 0.05                 # adagrad on the table
+CTR_DENSE_LR = 0.1                # SGD on the tower
+CTR_ZIPF = 1.2
+CTR_PARITY_BATCHES = 32
+# the table after the same CTR_PARITY_BATCHES one-thread sync steps on the
+# card and on the CPU, its rows made zero (so a row is its movement) and
+# updated by the sgd rule, under a logistic head (CTR_PARITY_FC = ()).
+# The dense sums (TF32 off) run in another order on each device, and the
+# gather's backward sums duplicate ids with atomics on the card, so the
+# gradients part at rounding.  A ReLU tower turns that into more: a unit
+# whose input is within rounding of 0 is on for one device and off for
+# the other, which reroutes that example's gradient, and the trained
+# tower carries the change into every later step (runs on an H100 of
+# the dnn tower: rows 2.3e-10 apart in one run, 9.0e-6 of 1.2e-3 in
+# another).  Adagrad's step lr * g / (sqrt(g2) + eps) does the same
+# where a hot id's gradient cancels (rows 0.058 and 0.086 apart).  The
+# logistic head and sgd are smooth, so the two devices part at rounding
+# only.  The rules' arithmetic is host numpy, the same on both devices
+# (held against the JAX package on the CPU), so this holds the card's
+# path (cache, gather, row-gradient hook, pushes) to the CPU's: a fault
+# there (a stale or wrong row, a lost push) moves a row by a step's
+# size or more.  So each row is held on its own: no element of it may
+# be further apart than 1e-4 of the largest element of the CPU's table;
+# an aggregate over 65,740 rows would let a few wrong rows through.  The
+# hogwild drive trains the dnn tower
+CTR_PARITY_REL = 1e-4
+CTR_PARITY_FC = ()
+PS_STEPS = 50                      # arm (b): steps of each trainer
+PS_K_STEPS = 4
+FLEET_BERT_MICRO = 4               # arm (c): gradient merge micro-steps
+FLEET_GM_K = 2
+# bf16 losses of the merged run against plain AdamW on the averaged
+# gradients: the same kernels, but the word-embedding gradient is summed
+# with atomics, so the two runs part at rounding, and AdamW moves a
+# weight whose gradient is rounding noise by up to lr a step
+FLEET_GM_LOSS_RTOL = 2e-3
+FLEET_GM_PARAM_ATOL = 2 * (FLEET_BERT_MICRO // FLEET_GM_K) * DIST_LR
+# gradients of the recomputed backward against the plain one: relative L2
+FLEET_RECOMPUTE_REL_L2 = 1e-2
+FLEET_DGC_SPARSITY = 0.999
+STATIC_DS_RECORDS = 4096
+
+
+def _ctr_slots():
+    from paddle_tpu_torch.io.multislot import Slot
+
+    return ([Slot("label", "float32", is_dense=True, dim=1),
+             Slot("dense", "float32", is_dense=True, dim=CTR_DENSE)]
+            + [Slot(f"C{i + 1}", "int64") for i in range(CTR_SPARSE)])
+
+
+def _ctr_ids(rng, n):
+    """[n, CTR_SPARSE] hashed ids: a Zipf rank within each slot's range,
+    scrambled over the id space."""
+    span = (CTR_VOCAB - 1) // CTR_SPARSE
+    rank = np.minimum(rng.zipf(CTR_ZIPF, (n, CTR_SPARSE)), span) - 1
+    local = rank + np.arange(CTR_SPARSE)[None, :] * span
+    return (local * 2654435761) % CTR_VOCAB
+
+
+def ctr_records(seed, n, id_offset=0):
+    """n synthetic Criteo-layout records: ids, dense features and labels
+    from a planted logistic rule over hidden per-id weights and the dense
+    features (so a model can learn them)."""
+    rng = np.random.RandomState(seed)
+    hidden = np.random.RandomState(1234).randn(CTR_VOCAB).astype(
+        np.float32) * 0.6
+    w_dense = np.random.RandomState(1235).randn(CTR_DENSE).astype(
+        np.float32) * 0.5
+    ids = (_ctr_ids(rng, n) + id_offset) % CTR_VOCAB
+    dense = np.log1p(rng.exponential(2.0, (n, CTR_DENSE))).astype(
+        np.float32)
+    logit = hidden[ids].sum(1) + (dense - 1.0) @ w_dense - 0.8
+    label = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return ids, dense, label
+
+
+def _write_ctr_file(args):
+    """Write one multislot file of CTR records (a worker process)."""
+    from paddle_tpu_torch.io.multislot import write_multislot_file
+
+    path, seed, n = args
+    ids, dense, label = ctr_records(seed, n)
+    dense_s = np.char.mod("%.4f", dense).tolist()
+    ids_l = ids.tolist()
+    rows = ({"label": [int(label[i])], "dense": dense_s[i],
+             **{f"C{j + 1}": [ids_l[i][j]] for j in range(CTR_SPARSE)}}
+            for i in range(n))
+    write_multislot_file(path, rows, _ctr_slots())
+    return path
+
+
+def write_ctr_files(out_dir, seed=0):
+    """CTR_FILES files of CTR_RECORDS / CTR_FILES records each, written
+    in parallel processes."""
+    import concurrent.futures
+    import multiprocessing
+
+    per = CTR_RECORDS // CTR_FILES
+    jobs = [(os.path.join(out_dir, f"part-{i}.txt"), seed + i, per)
+            for i in range(CTR_FILES)]
+    with concurrent.futures.ProcessPoolExecutor(
+            CTR_FILES, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(_write_ctr_file, jobs))
+
+
+class CTRTower:
+    """The dense tower of PaddleRec's dnn: [26 x 9 embeddings, 13 dense]
+    -> fc 512-256-128-32 (ReLU) -> 1 logit, port ``nn.Linear``s; with
+    ``fc=()`` one ``Linear``, a logistic regression."""
+
+    def __init__(self, seed, fc=CTR_FC):
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch import nn
+
+        pt.seed(seed)
+        dims = (CTR_SPARSE * CTR_DIM + CTR_DENSE,) + tuple(fc) + (1,)
+        self.layers = [nn.Linear(a, b) for a, b in zip(dims, dims[1:])]
+
+    def parameters(self):
+        return [p for lin in self.layers for p in lin.parameters()]
+
+    def __call__(self, x):
+        from paddle_tpu_torch.nn import functional as F
+
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+def ctr_step_fn(emb, tower, opt, device, times=None):
+    """One CTR training step on a multislot batch: returns the loss (a
+    host float: the step's sync).  Hogwild workers run it with no lock:
+    the trainer makes the tower's shared gradients safe to clear."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+
+    def step(batch):
+        t0 = time.perf_counter()
+        ids = np.concatenate([batch[f"C{i + 1}"]
+                              for i in range(CTR_SPARSE)], axis=1)
+        e = emb(ids).reshape([ids.shape[0], CTR_SPARSE * CTR_DIM])
+        x = pt.concat([e, pt.to_tensor(batch["dense"], place=device)],
+                      axis=1)
+        loss = F.binary_cross_entropy_with_logits(
+            tower(x), pt.to_tensor(batch["label"], place=device))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        out = float(loss.numpy())
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+        return out
+
+    return step
+
+
+def ctr_model(device, name, cache=True, strategy=None, rule="adagrad",
+              initializer="uniform", fc=CTR_FC):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(strategy=strategy)
+    emb = fleet.sparse_embedding(name, CTR_DIM, rule=rule,
+                                 lr=CTR_EMB_LR, device=device,
+                                 cache_rows=CTR_CACHE_ROWS if cache else 0,
+                                 initializer=initializer)
+    tower = CTRTower(seed=3, fc=fc)
+    if device == "cpu":        # the same weights, moved
+        for p in tower.parameters():
+            p._value = p._value.detach().cpu().requires_grad_()
+    opt = optimizer.SGD(CTR_DENSE_LR, parameters=tower.parameters())
+    return emb, tower, opt
+
+
+def base_entropy(labels) -> float:
+    p = float(np.mean(labels))
+    return -(p * math.log(p) + (1 - p) * math.log(1 - p))
+
+
+def ctr_parity(batches, fc=CTR_PARITY_FC):
+    """One-thread sync parity: ``batches`` on the card and on the CPU,
+    the table zero-initialised on the sgd rule, the touched rows of the
+    two host tables compared row by row against CTR_PARITY_REL of the
+    CPU table's largest element; and the host syncs of one steady step
+    on the card."""
+    from paddle_tpu_torch.distributed.ps import runtime
+
+    tables, losses, syncs = {}, {}, None
+    for tag, dev in (("card", DEVICE), ("cpu", "cpu")):
+        runtime.reset()
+        emb, tower, opt = ctr_model(dev, f"parity_{tag}", rule="sgd",
+                                    initializer="zeros", fc=fc)
+        step = ctr_step_fn(emb, tower, opt, dev)
+        got = losses[tag] = [step(batches[0])]
+        if tag == "card":       # the syncs of one steady step
+            torch.cuda.synchronize()
+            syncs = _synced(lambda: got.append(step(batches[1])))[1]
+        got += [step(b) for b in batches[len(got):]]
+        tables[tag] = emb.table.table.state_dict()
+    runtime.reset()
+    a, b = tables["card"], tables["cpu"]
+    oa, ob = np.argsort(a["ids"]), np.argsort(b["ids"])
+    if not np.array_equal(a["ids"][oa], b["ids"][ob]):
+        raise AssertionError("fleet_ps ctr: the card's and the CPU's "
+                             "tables touched other ids")
+    ra, rb = a["rows"][oa], b["rows"][ob]
+    row_diff = np.abs(ra - rb).max(axis=1)
+    bound = CTR_PARITY_REL * float(np.abs(rb).max())
+    return {"fc": list(fc),
+            "rows_max_abs_diff": float(row_diff.max()),
+            "rows_max_abs": float(np.abs(rb).max()),
+            "rel_l2": float(np.linalg.norm(ra - rb)
+                            / max(np.linalg.norm(rb), 1e-30)),
+            "row_bound": bound,
+            "rows_over_bound": int((row_diff > bound).sum()),
+            "touched_rows": int(len(ra)),
+            "losses_last3": {k: v[-3:] for k, v in losses.items()}}, syncs
+
+
+def fleet_ctr_arm(work) -> dict:
+    """(a) CTR over the parameter server at PaddleRec dnn's widths."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import runtime
+    from paddle_tpu_torch.framework import concurrency as cc
+    from paddle_tpu_torch.io import native_feed
+
+    t0 = time.perf_counter()
+    native_feed.load_library()
+    build = dict(native_feed.build_log)
+    paths = write_ctr_files(work)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = fleet.InMemoryDataset()
+    ds.set_slots(_ctr_slots())
+    ds.set_filelist(paths)
+    ds.set_batch_size(CTR_BATCH)
+    ds.set_thread(CTR_THREADS)
+    ds.load_into_memory()
+    ds.set_shuffle_seed(7)
+    ds.local_shuffle()
+    load_s = time.perf_counter() - t0
+    labels = np.concatenate([r.slots["label"] for r in ds._records])
+    entropy = base_entropy(labels)
+
+    first = list(itertools.islice(ds.iter_batches(0, 1),
+                                  CTR_PARITY_BATCHES))
+    parity, syncs = ctr_parity(first)
+    parity_ok = parity["rows_over_bound"] == 0 and parity["row_bound"] > 0
+
+    # the drive: two hogwild workers over the whole dataset
+    emb, tower, opt = ctr_model(DEVICE, "ctr")
+    times = []
+    step = ctr_step_fn(emb, tower, opt, DEVICE, times)
+    torch.cuda.reset_peak_memory_stats()
+    with cc.witness(raise_on_violation=False):
+        t0 = time.perf_counter()
+        out = fleet.train_from_dataset(ds, step, thread_num=CTR_THREADS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        violations = [v.format() for v in cc.violations()]
+    n = out["batches"]
+    per = [w for w in out["per_worker_losses"]]
+    tail = [x for w in per for x in w[-16:]]
+    head = [x for w in per for x in w[:16]]
+    res = {"records": CTR_RECORDS, "files": CTR_FILES, "vocab": CTR_VOCAB,
+           "dim": CTR_DIM, "fc": CTR_FC, "batch": CTR_BATCH,
+           "threads": CTR_THREADS, "native_build": build,
+           "write_s": write_s, "load_s": load_s, "train_s": wall,
+           "batches": n, "examples_per_s": CTR_RECORDS / wall,
+           "step_ms_p50": float(np.percentile(times, 50) * 1e3),
+           "step_ms_p95": float(np.percentile(times, 95) * 1e3),
+           "loss_first16": float(np.mean(head)),
+           "loss_last16": float(np.mean(tail)),
+           "base_rate_entropy": entropy,
+           "label_rate": float(labels.mean()),
+           "cache_hit_rate": emb.table.hit_rate,
+           "cached_rows": emb.table.cached_rows,
+           "host_table_rows": emb.table.size,
+           "host_pull_ms_per_step": emb.stats["pull_s"] / n * 1e3,
+           "host_push_ms_per_step": emb.stats["push_s"] / n * 1e3,
+           "host_syncs_per_step": syncs,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "witness_violations": violations,
+           "parity_batches": CTR_PARITY_BATCHES,
+           "parity": parity,
+           "parity_rule": "sgd", "parity_init": "zeros",
+           "parity_row_limit": CTR_PARITY_REL}
+    runtime.reset()
+    if not (build.get("path") and os.path.exists(build["path"])):
+        raise AssertionError(f"fleet_ps ctr: native feed not built {build}")
+    if n != CTR_RECORDS // CTR_BATCH:
+        raise AssertionError(f"fleet_ps ctr: {n} batches")
+    if not res["loss_last16"] < entropy:
+        raise AssertionError(f"fleet_ps ctr: loss {res['loss_last16']} not "
+                             f"below the base-rate entropy {entropy}")
+    if not parity_ok:
+        raise AssertionError(f"fleet_ps ctr: card vs CPU table {parity}")
+    if violations:
+        raise AssertionError(f"fleet_ps ctr: witness {violations}")
+    return res
+
+
+def ps_child(mode, out_dir) -> int:
+    """Arm (b)'s processes: ``server`` (host only, no CUDA context) or
+    ``trainer`` (started by ``distributed.launch``; CTR at arm (a)'s
+    widths on the card in geo mode, PS_STEPS steps on ids of its own half
+    of the id space)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import runtime
+
+    if mode == "server":
+        fleet.init(fleet.PaddleCloudRoleMaker())
+        fleet.init_server()
+        fleet.run_server()
+        sid = os.environ["PADDLE_PSERVER_ID"]
+        with open(os.path.join(out_dir, f"server{sid}.json"), "w") as f:
+            json.dump({"cuda_initialized": torch.cuda.is_initialized()}, f)
+        return 0
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    pt.set_device(DEVICE)
+    strategy = fleet.DistributedStrategy()
+    strategy.a_sync = True
+    strategy.a_sync_configs.k_steps = PS_K_STEPS
+    fleet.init(fleet.PaddleCloudRoleMaker(), strategy=strategy)
+    fleet.init_worker()
+    emb, tower, opt = ctr_model(DEVICE, "ctr", cache=False,
+                                strategy=strategy)
+    step = ctr_step_fn(emb, tower, opt, DEVICE)
+    ids, dense, label = ctr_records(100 + rank, PS_STEPS * CTR_BATCH,
+                                    id_offset=rank * (CTR_VOCAB // 2))
+    losses = []
+    for i in range(PS_STEPS):
+        sl = slice(i * CTR_BATCH, (i + 1) * CTR_BATCH)
+        batch = {"dense": dense[sl], "label": label[sl, None],
+                 **{f"C{j + 1}": ids[sl, j:j + 1]
+                    for j in range(CTR_SPARSE)}}
+        losses.append(step(batch))
+        emb.step()
+    fleet.stop_worker()
+    dist.collective.barrier()
+    res = {"rank": rank, "losses": losses,
+           "device": str(tower.parameters()[0]._value.device)}
+    if rank == 0:
+        other, _, _ = ctr_records(101, CTR_BATCH,
+                                  id_offset=CTR_VOCAB // 2)
+        rows = runtime.get_client().pull_sparse("ctr", np.unique(other),
+                                                create=False)
+        res["other_rows_nonzero"] = float((np.abs(rows).sum(1) > 0).mean())
+        res["table_size"] = runtime.get_client().table_size("ctr")
+    dist.collective.barrier()
+    if rank == 0:
+        runtime.shutdown_servers()
+    with open(os.path.join(out_dir, f"trainer{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.gloo.shutdown()
+    return 0
+
+
+def fleet_ps_service_arm(work) -> dict:
+    """(b) 2 PSServer processes on the host, 2 trainers on the card
+    started by ``distributed.launch`` (geo, k PS_K_STEPS)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    servers = ",".join(f"127.0.0.1:{_free_port()}" for _ in range(2))
+    env = dict(os.environ, PADDLE_PSERVERS_IP_PORT_LIST=servers,
+               PADDLE_DIST_BACKEND="gloo",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    for k in ("PADDLE_TRAINER_ENDPOINTS", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ID"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, me, "--ps-child", "server", work],
+        env=dict(env, TRAINING_ROLE="PSERVER", PADDLE_PSERVER_ID=str(i)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node=2", f"--started_port={_free_port()}",
+             f"--gloo_port={_free_port()}", "--log_dir",
+             os.path.join(work, "logs"), me, "--ps-child", "trainer", work],
+            env=dict(env, TRAINING_ROLE="TRAINER"), cwd=root,
+            capture_output=True, text=True, timeout=600)
+        logs = ""
+        logdir = os.path.join(work, "logs")
+        if os.path.isdir(logdir):
+            for name in sorted(os.listdir(logdir)):
+                with open(os.path.join(logdir, name)) as f:
+                    logs += f"\n--- {name}\n{f.read()[-3000:]}"
+        if r.returncode != 0:
+            raise AssertionError(f"fleet_ps service: launch rc "
+                                 f"{r.returncode}\n{r.stderr[-2000:]}{logs}")
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            if p.returncode != 0:
+                raise AssertionError(f"fleet_ps service: server rc "
+                                     f"{p.returncode}\n{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    ranks, srv = [], []
+    for i in range(2):
+        with open(os.path.join(work, f"trainer{i}.json")) as f:
+            ranks.append(json.load(f))
+        with open(os.path.join(work, f"server{i}.json")) as f:
+            srv.append(json.load(f))
+    res = {"wall_s": wall, "steps": PS_STEPS, "k_steps": PS_K_STEPS,
+           "servers": srv,
+           "trainers": [{"rank": t["rank"], "device": t["device"],
+                         "loss_first10": float(np.mean(t["losses"][:10])),
+                         "loss_last10": float(np.mean(t["losses"][-10:]))}
+                        for t in ranks],
+           "rank0_reads_rank1_rows_nonzero": ranks[0]["other_rows_nonzero"],
+           "table_size": ranks[0]["table_size"]}
+    for t in res["trainers"]:
+        if not (t["loss_last10"] < t["loss_first10"]
+                and t["device"].startswith(DEVICE)):
+            raise AssertionError(f"fleet_ps service: trainer {t}")
+    if not ranks[0]["other_rows_nonzero"] > 0.9:
+        raise AssertionError(f"fleet_ps service: rank 0 read rank 1's rows "
+                             f"{ranks[0]['other_rows_nonzero']}")
+    if any(s["cuda_initialized"] for s in srv):
+        raise AssertionError("fleet_ps service: a server made a CUDA context")
+    return res
+
+
+def _bert_loss(model, ids, mask, y):
+    from paddle_tpu_torch.nn import functional as F
+
+    with amp_context("bfloat16"):
+        logits = model(ids, None, mask)
+    return F.cross_entropy(logits.astype("float32"), y)
+
+
+def _bert_params(model):
+    return {n: p._value.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def fleet_collective_arm() -> dict:
+    """(c) bert-base B 32 x S 128, bf16 under auto_cast: fleet.init
+    (collective), distributed_model, distributed_optimizer(AdamW) with
+    gradient merge, RecomputeSequential, DGC."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        DGCOptimizer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.distributed.fleet.recompute import \
+        RecomputeSequential
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    pt.set_device(DEVICE)
+    n = BERT_BATCH * FLEET_BERT_MICRO
+    ids_np, mask_np, y_np = bert_inputs(np.random.RandomState(3), n)
+    micro = [tuple(pt.to_tensor(a[i * BERT_BATCH:(i + 1) * BERT_BATCH])
+                   for a in (ids_np, mask_np, y_np))
+             for i in range(FLEET_BERT_MICRO)]
+    make = seeded(BertForSequenceClassification, **DIST_BERT)
+    layers = DIST_BERT["num_hidden_layers"]
+    res = {}
+
+    # gradient merge through the facade against plain AdamW on the
+    # gradients averaged by hand
+    strategy = fleet.DistributedStrategy()
+    strategy.gradient_merge = True
+    strategy.gradient_merge_configs.k_steps = FLEET_GM_K
+    strategy.gradient_merge_configs.avg = True
+    fleet.init(is_collective=True, strategy=strategy)
+    model = fleet.distributed_model(make())
+    opt = fleet.distributed_optimizer(
+        optimizer.AdamW(DIST_LR, parameters=model.parameters()))
+    gm_losses, launches = [], []
+    for ids, mask, y in micro:
+        reset_flash_counts()
+        loss = _bert_loss(model, ids, mask, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        gm_losses.append(float(loss.numpy()))
+        launches.append(read_flash_counts())
+    gm_params = _bert_params(model)
+    del model, opt
+    free_cuda()
+    ref = make()
+    ref_opt = optimizer.AdamW(DIST_LR, parameters=ref.parameters())
+    ref_losses = []
+    for i, (ids, mask, y) in enumerate(micro):
+        loss = _bert_loss(ref, ids, mask, y)
+        loss.backward()
+        ref_losses.append(float(loss.numpy()))
+        if (i + 1) % FLEET_GM_K == 0:
+            with torch.no_grad():
+                for p in ref.parameters():
+                    if p._value.grad is not None:
+                        p._value.grad.mul_(1.0 / FLEET_GM_K)
+            ref_opt.step()
+            ref_opt.clear_grad()
+    diffs = {k: float((v - gm_params[k]).abs().max())
+             for k, v in _bert_params(ref).items()}
+    worst = max(diffs, key=diffs.get)
+    res["gradient_merge"] = {
+        "losses": gm_losses, "plain_losses": ref_losses,
+        "param_max_abs_diff": diffs[worst], "param_worst": worst,
+        "param_atol": FLEET_GM_PARAM_ATOL,
+        "loss_rtol": FLEET_GM_LOSS_RTOL, "launches_per_micro_step": launches}
+    for i, c in enumerate(launches):
+        expect_counts(f"fleet_ps_gm_micro{i}", c, {
+            "flash_fwd": layers, "flash_dkv": layers, "flash_dq": layers,
+            "flash_ref": 0, "flash_tc_fwd": layers, "flash_tc_dkv": layers,
+            "flash_tc_dq": layers})
+    if not close_losses(gm_losses, ref_losses, FLEET_GM_LOSS_RTOL):
+        raise AssertionError(f"fleet_ps gradient merge: {gm_losses} vs "
+                             f"{ref_losses}")
+    if not diffs[worst] <= FLEET_GM_PARAM_ATOL:
+        raise AssertionError(f"fleet_ps gradient merge: {worst} differs by "
+                             f"{diffs[worst]}")
+
+    # RecomputeSequential over the encoder layers against the plain
+    # backward (no padding mask: the sequential hands each layer x only)
+    ids, _, y = micro[0]
+    grads, counts = {}, {}
+    for tag in ("plain", "recompute"):
+        reset_flash_counts()
+        bert = ref.bert
+        with amp_context("bfloat16"):
+            x = bert.embeddings(ids)
+            stack = nn.Sequential(*bert.encoder.layers)
+            x = stack(x) if tag == "plain" else RecomputeSequential(stack)(x)
+            logits = ref.classifier(F.tanh(bert.pooler(x[:, 0])))
+        F.cross_entropy(logits.astype("float32"), y).backward()
+        counts[tag] = read_flash_counts()
+        grads[tag] = {n: p._value.grad.float().clone()
+                      for n, p in ref.named_parameters()
+                      if p._value.grad is not None}
+        ref_opt.clear_grad()
+    rel = {n: float((grads["recompute"][n] - g).norm()
+                    / max(float(g.norm()), 1e-12))
+           for n, g in grads["plain"].items()}
+    worst = max(rel, key=rel.get)
+    res["recompute"] = {"launches": counts, "grad_rel_l2_max": rel[worst],
+                        "grad_worst": worst,
+                        "rel_l2_limit": FLEET_RECOMPUTE_REL_L2}
+    expect_counts("fleet_ps_recompute", counts["recompute"], {
+        "flash_fwd": 2 * layers, "flash_dkv": layers, "flash_dq": layers,
+        "flash_ref": 0, "flash_tc_fwd": 2 * layers})
+    expect_counts("fleet_ps_plain_backward", counts["plain"], {
+        "flash_fwd": layers, "flash_dkv": layers, "flash_dq": layers,
+        "flash_ref": 0})
+    if set(grads["plain"]) != set(grads["recompute"]) or \
+            rel[worst] > FLEET_RECOMPUTE_REL_L2:
+        raise AssertionError(f"fleet_ps recompute: {worst} {rel[worst]}")
+
+    # DGC: kept + residual = the accumulated gradient, no host sync
+    dgc = DGCOptimizer(optimizer.AdamW(DIST_LR, parameters=ref.parameters()),
+                       sparsity=FLEET_DGC_SPARSITY)
+    owners = dgc.inner._owners()
+    worst_err, kept_frac, step_syncs = 0.0, [], []
+    for ids, mask, y in micro[:2]:
+        _bert_loss(ref, ids, mask, y).backward()
+        params = [p for p in dgc.inner._param_list() if p.grad is not None]
+        acc = [p.grad + dgc._residual.get(owners[id(p)].name,
+                                          torch.zeros_like(p.grad))
+               for p in params]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pairs = [dgc.sparsify(p.grad, dgc._residual.get(
+                owners[id(p)].name, torch.zeros_like(p.grad)))
+                for p in params]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for p, a, (kept, r) in zip(params, acc, pairs):
+            worst_err = max(worst_err, float((kept + r - a).abs().max()))
+            kept_frac.append(float((kept != 0).float().mean()))
+        # the whole step (the sparsify pass, then AdamW): no sync either
+        step_syncs.append(_synced(dgc.step)[1])
+        dgc.clear_grad()
+    res["dgc"] = {"sparsity": FLEET_DGC_SPARSITY,
+                  "kept_plus_residual_max_abs_err": worst_err,
+                  "kept_fraction_mean": float(np.mean(kept_frac)),
+                  "syncs_in_whole_step": step_syncs}
+    if worst_err != 0.0:
+        raise AssertionError(f"fleet_ps dgc: kept + residual off by "
+                             f"{worst_err}")
+    if any(step_syncs):
+        raise AssertionError(f"fleet_ps dgc: the step synced the host "
+                             f"{step_syncs} times")
+    del ref, ref_opt, dgc
+    free_cuda()
+    return res
+
+
+def fleet_sharding_arm() -> dict:
+    """(d) ShardingOptimizer over dp 4 on 4 slots of the card: bert-base's
+    AdamW accumulators split over dp where dim 0 divides."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+
+    model = seeded(BertForSequenceClassification, **DIST_BERT)()
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    fleet.init(is_collective=True, strategy=strategy)
+    prev = dmesh.force_device_count(4)
+    try:
+        dmesh.init_mesh({"dp": 4})
+        opt = fleet.distributed_optimizer(
+            optimizer.AdamW(DIST_LR, parameters=model.parameters()))
+        state = opt.init_opt_state({n: p._value for n, p in
+                                    model.named_parameters()})
+        split = replicated = 0
+        bad = []
+        slot_bytes = [0, 0, 0, 0]
+        for kind, accs in state.items():
+            for name, sa in accs.items():
+                d0 = sa.shape[0] if len(sa.shape) else 1
+                want = ("dp",) if len(sa.shape) and d0 % 4 == 0 else ()
+                shard0 = tuple(sa.shards[0].shape)
+                ok = (tuple(sa.spec) == want and len(sa.shards) == 4
+                      and all(s.device.type == DEVICE for s in sa.shards)
+                      and (shard0[0] == d0 // 4 if want else
+                           shard0 == tuple(sa.shape)))
+                if not ok:
+                    bad.append((kind, name, tuple(sa.spec), sa.shape))
+                split += bool(want)
+                replicated += not want
+                for i, s in enumerate(sa.shards):
+                    slot_bytes[i] += s.numel() * s.element_size()
+    finally:
+        dmesh.force_device_count(prev)
+    res = {"accumulators_split": split, "accumulators_replicated":
+           replicated, "slot_bytes": slot_bytes}
+    if bad or not split or not replicated:
+        raise AssertionError(f"fleet_ps sharding: {bad[:5]} {res}")
+    del model, opt, state
+    free_cuda()
+    return res
+
+
+def fleet_static_arm(work) -> dict:
+    """(e) Executor.train_from_dataset on a recorded Program (the dense
+    features' linear regression of the label, SGD) fed by an
+    InMemoryDataset, against the port's eager loop on the same batches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer, static
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.io.multislot import Slot, write_multislot_file
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import state_from_numpy
+
+    pt.set_device(DEVICE)
+    _, dense, label = ctr_records(77, STATIC_DS_RECORDS)
+    slots = [Slot("dense", "float32", is_dense=True, dim=CTR_DENSE),
+             Slot("label", "float32", is_dense=True, dim=1)]
+    path = os.path.join(work, "static.txt")
+    write_multislot_file(path, ({"dense": d, "label": [lab]} for d, lab in
+                                zip(np.char.mod("%.4f", dense).tolist(),
+                                    label.tolist())), slots)
+    ds = fleet.InMemoryDataset()
+    ds.set_slots(slots)
+    ds.set_filelist([path])
+    ds.set_batch_size(CTR_BATCH)
+    ds.load_into_memory()
+    pt.seed(5)
+    lin = nn.Linear(CTR_DENSE, 1)
+    state = {k: v.numpy() for k, v in lin.state_dict().items()}
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("dense", [CTR_BATCH, CTR_DENSE], "float32")
+        y = static.data("label", [CTR_BATCH, 1], "float32")
+        loss = F.mse_loss(lin(x), y)
+        optimizer.SGD(0.05, parameters=lin.parameters()).minimize(loss)
+    got = static.Executor().train_from_dataset(main, ds,
+                                               fetch_list=[loss])["losses"]
+    pt.seed(5)
+    eager = nn.Linear(CTR_DENSE, 1)
+    eager.set_state_dict(state_from_numpy(state, DEVICE))
+    opt = optimizer.SGD(0.05, parameters=eager.parameters())
+    want = []
+    for b in ds.iter_batches():
+        out = F.mse_loss(eager(pt.to_tensor(b["dense"])),
+                         pt.to_tensor(b["label"]))
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        want.append(float(out.numpy()))
+    res = {"batches": len(got), "losses_first3": got[:3],
+           "losses_last3": got[-3:],
+           "max_abs_diff": float(np.max(np.abs(np.subtract(got, want))))}
+    if len(got) != len(want) or not close_losses(got, want, 1e-5):
+        raise AssertionError(f"fleet_ps static: {got} vs {want}")
+    return res
+
+
+def fleet_ps_phase() -> dict:
+    """Phase 40: arms (a)-(e) (the module docstring)."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    res = {}
+    try:
+        for name, arm in (("ctr", lambda: fleet_ctr_arm(work)),
+                          ("ps_service",
+                           lambda: fleet_ps_service_arm(work)),
+                          ("collective", fleet_collective_arm),
+                          ("sharding", fleet_sharding_arm),
+                          ("static_dataset", lambda: fleet_static_arm(work))):
+            t0 = time.perf_counter()
+            res[name] = arm()
+            res[name]["seconds"] = time.perf_counter() - t0
+            log("fleet_ps", arm=name, **res[name])
+            free_cuda()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 # the prefill form's layout, shared by #1 / #1q (Qb >= 16) and the stats
 # kernel
 PREFILL_FORM = ("prefill form: a block of 16 rows of a (lane, head), 8 warps "
@@ -8701,13 +9488,20 @@ def main(argv=None) -> int:
                     help="also write every phase's result to this JSON file")
     ap.add_argument("--localsgd-child", default=None, metavar="DIR",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--ps-child", nargs=2, default=None,
+                    metavar=("MODE", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ps_child and args.ps_child[0] == "server":
+        # a PS server holds host memory only: no CUDA call at all
+        return ps_child(*args.ps_child)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     if args.localsgd_child:
         return localsgd_child(args.localsgd_child)
+    if args.ps_child:
+        return ps_child(*args.ps_child)
 
     # f32 parity: no TF32 anywhere (matmuls and cuDNN)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8786,7 +9580,8 @@ def main(argv=None) -> int:
                         ("eager_api", eager_api_phase),
                         ("eager_nn", eager_nn_phase),
                         ("declarative", declarative_phase),
-                        ("distributed", distributed_phase)):
+                        ("distributed", distributed_phase),
+                        ("fleet_ps", fleet_ps_phase)):
         t0 = time.perf_counter()
         report[name] = phase()
         new_phase_s[name] = time.perf_counter() - t0
@@ -8794,6 +9589,7 @@ def main(argv=None) -> int:
     log("phase_seconds", **new_phase_s, total=sum(new_phase_s.values()))
     amp16 = report["amp_fp16"]
     dist = report["distributed"]
+    fleet = report["fleet_ps"]
 
     t0 = time.perf_counter()
     model = GPTModel(**GPT2_SMALL, device="cuda", seed=1234)
@@ -8964,6 +9760,12 @@ def main(argv=None) -> int:
                launches_to_static=sum(
                    c[f"flash_tc_{kname}"] for c in report["declarative"][
                        "to_static_train"]["to_static"]["launches"]),
+               launches_fleet_ps={
+                   "gradient_merge_micro_step": fleet["collective"][
+                       "gradient_merge"]["launches_per_micro_step"][-1][
+                       f"flash_tc_{kname}"],
+                   "recompute_backward": fleet["collective"]["recompute"][
+                       "launches"]["recompute"][f"flash_tc_{kname}"]},
                max_abs_err_by_case={c: e[kname] for c, e in
                                     flash_t["max_abs_err"].items()
                                     if c.endswith("bfloat16")},

@@ -4,9 +4,12 @@ collectives, meshes and parallel training on one process's device mesh
 serving mesh; ``lax.py``: the collectives of a ``shard_map`` body), with
 the eager host backend (``gloo.py``) between trainer processes.
 
-``fleet`` and ``ps`` are not ported yet (ROADMAP step F.3).
+``fleet`` (the facade, the strategy stack, the datasets and the
+dataset trainer) and ``ps`` (the sparse table, its communicator, the
+PS service and the device cache) are the parameter-server and fleet
+halves.
 """
-from . import launch  # noqa: F401
+from . import fleet, launch, ps  # noqa: F401
 from .collective import (  # noqa: F401
     Group,
     ReduceOp,

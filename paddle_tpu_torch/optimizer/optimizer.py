@@ -84,7 +84,8 @@ import torch
 from ..framework.errors import InvalidArgumentError
 from ..framework.flags import flag_value
 from ..regularizer import L1Decay, L2Decay
-from ..tensor import Tensor, graph_consumed, preserve_saved
+from ..tensor import (Tensor, drop_grad, gradients_shared, graph_consumed,
+                      preserve_saved)
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
@@ -171,8 +172,10 @@ class Optimizer:
         if self._lr_t is None:
             params = self._param_list()
             dev = params[0].device if params else torch.device("cpu")
-            self._lr_t = torch.zeros((), dtype=torch.float64, device=dev)
+            # the step first: a hogwild thread that finds _lr_t set
+            # reads both
             self._step_t = torch.zeros((), dtype=torch.float64, device=dev)
+            self._lr_t = torch.zeros((), dtype=torch.float64, device=dev)
         return self._lr_t, self._step_t
 
     def _prepare_step(self):
@@ -344,10 +347,12 @@ class Optimizer:
         def accs_of(i, p):
             return {k: self._acc(k, p) for k in kinds}
 
+        # hogwild threads: past the version counter (shared_gradients)
+        shared = gradients_shared()
         for i, new_p, new_accs in self._updates(pairs, accs_of, lr, step):
             p = pairs[i][0]
             preserve_saved(p)
-            p.copy_(new_p)
+            (p.data if shared else p).copy_(new_p)
             for k in kinds:
                 self._acc(k, p).copy_(new_accs[k])
 
@@ -404,9 +409,10 @@ class Optimizer:
 
     def clear_grad(self, set_to_zero=True):
         """Drop every parameter's gradient (``grad = None``, as the JAX
-        package's ``clear_grad``)."""
+        package's ``clear_grad``; zeroed in place while hogwild threads
+        share them, ``tensor.shared_gradients``)."""
         for p in self._param_list():
-            p.grad = None
+            drop_grad(p)
 
     clear_gradients = clear_grad
 

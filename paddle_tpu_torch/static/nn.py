@@ -240,5 +240,18 @@ nce = _unported("nce", "nn/functional/extension.py")
 spectral_norm = _unported("spectral_norm", "nn/functional/extension.py")
 crf_decoding = _unported("crf_decoding", "nn/functional/extension.py")
 multi_box_head = _unported("multi_box_head", "nn/functional/extension.py")
-sparse_embedding = _unported("sparse_embedding",
-                             "the parameter-server embedding (item 11)")
+
+
+def sparse_embedding(input, size, padding_idx=None, is_test=False,
+                     entry=None, param_attr=None, dtype="float32",
+                     name=None, table=None):
+    """static.nn.sparse_embedding — twin of ``paddle_tpu/static/nn.py``
+    ``sparse_embedding`` (reference: the PS-backed large-scale
+    embedding): a ``distributed.ps.SparseEmbedding`` of width
+    ``size[1]`` over ``table`` (a new ``SparseTable`` when None) applied
+    to ``input``.  It reads the ids' values, so it runs eagerly; while a
+    Program records it raises, as every op that reads a value there."""
+    from ..distributed.ps.embedding import SparseEmbedding
+
+    emb = SparseEmbedding(size[1], name=name or "sparse_emb", table=table)
+    return emb(input)

@@ -782,15 +782,50 @@ class Executor:
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100,
                            fetch_handler=None):
-        """The dataset-driven trainer (reference train_from_dataset →
-        trainer.h:98 MultiTrainer) belongs to fleet: not ported."""
-        _item_11("Executor.train_from_dataset (fleet's MultiTrainer)")
+        """Dataset-driven training loop — twin of
+        ``paddle_tpu/static/program.py`` ``train_from_dataset``
+        (reference fluid/executor.py train_from_dataset → trainer.h:98
+        MultiTrainer + hogwild workers): each dataset batch is fed into
+        ``self.run(program, ...)`` by ``fleet``'s ``MultiTrainer``.
+        Returns its result (``batches``, ``losses`` = the first fetch of
+        each batch, ``per_worker_losses``, ``seconds``)."""
+        from ..distributed.fleet.trainer import MultiTrainer
+
+        if dataset is None:
+            raise ValueError("dataset is required")
+        fetch_list = list(fetch_list or [])
+        names = [f if isinstance(f, str) else getattr(f, "name", None)
+                 for f in fetch_list]
+
+        def train_func(batch):
+            out = self.run(program=program, feed=batch,
+                           fetch_list=fetch_list, scope=scope)
+            if debug and out and fetch_info:
+                print(" ".join(f"{i}={np.asarray(v).ravel()[:4]}"
+                               for i, v in zip(fetch_info, out)))
+            return out[0] if out else None
+
+        handler = fetch_handler
+        if handler is None and fetch_info and print_period:
+            def handler(worker_id, batches, loss):
+                print(f"worker {worker_id} batch {batches} "
+                      f"{names[0] if names else 'loss'}={loss}")
+
+        return MultiTrainer(
+            dataset, train_func, thread_num=thread or None,
+            fetch_period=print_period if handler else 0,
+            fetch_handler=handler).run()
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100,
                            fetch_handler=None):
-        _item_11("Executor.infer_from_dataset (fleet's MultiTrainer)")
+        """Inference twin (fluid/executor.py:1526) — the same loop; the
+        caller's program simply has no optimizer ops."""
+        return self.train_from_dataset(
+            program=program, dataset=dataset, scope=scope, thread=thread,
+            debug=debug, fetch_list=fetch_list, fetch_info=fetch_info,
+            print_period=print_period, fetch_handler=fetch_handler)
 
     def close(self):
         pass

@@ -8,7 +8,8 @@ output carries its ``grad_fn``.  Paddle's semantics on top:
 - ``stop_gradient`` (default True) is the inverse of ``requires_grad``;
   setting it True on an op's output cuts the graph there (detach);
 - ``grad`` is a Tensor or None; grads accumulate over backward calls
-  until ``clear_grad``, which sets them to None; a non-leaf keeps its
+  until ``clear_grad``, which sets them to None (zeroes them while
+  hogwild threads share them, ``shared_gradients``); a non-leaf keeps its
   grad only after ``retain_grads()``;
 - ``shape`` is a list; ``dtype`` is the torch dtype (``str`` of it ends
   in the paddle name, ``"torch.bfloat16"``);
@@ -52,6 +53,8 @@ attached by the package's ``__init__``, as the reference's
 ``_patch_tensor_methods`` attaches them."""
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 from typing import Optional
 
@@ -62,12 +65,15 @@ from .framework.dtype import convert_dtype, is_floating
 from .framework.errors import InvalidArgumentError
 
 __all__ = ["Tensor", "Parameter", "to_tensor", "graph_consumed",
-           "preserve_saved"]
+           "preserve_saved", "shared_gradients", "gradients_shared",
+           "drop_grad"]
 
 # set on a torch tensor whose graph a backward has freed
 _CONSUMED = "_paddle_graph_consumed"
 # set on a torch leaf: the saved copies (``_SavedLeaf``) ops hold of it
 _SAVED = "_paddle_saved"
+# guards those sets: hogwild threads save and write one leaf at once
+_SAVED_LOCK = threading.Lock()
 
 
 class _SavedLeaf:
@@ -87,11 +93,12 @@ def pack_saved(t):
     its version, which unpacking checks as torch's own saving does."""
     if t.grad_fn is None:
         box = _SavedLeaf(t.detach())
-        boxes = getattr(t, _SAVED, None)
-        if boxes is None:
-            boxes = weakref.WeakSet()
-            setattr(t, _SAVED, boxes)
-        boxes.add(box)
+        with _SAVED_LOCK:
+            boxes = getattr(t, _SAVED, None)
+            if boxes is None:
+                boxes = weakref.WeakSet()
+                setattr(t, _SAVED, boxes)
+            boxes.add(box)
         return box
     return t.detach(), t._version
 
@@ -111,12 +118,55 @@ def unpack_saved(packed):
 def preserve_saved(v: torch.Tensor):
     """Before ``v`` (a leaf) is written in place: the ops that saved it
     get a copy of its current value."""
-    boxes = getattr(v, _SAVED, None)
-    if boxes:
-        snap = v.detach().clone()
-        for box in list(boxes):
-            box.value = snap
+    with _SAVED_LOCK:
+        boxes = getattr(v, _SAVED, None)
+        if not boxes:
+            return
+        held = list(boxes)
         boxes.clear()
+    snap = v.detach().clone()
+    for box in held:
+        box.value = snap
+
+
+# the runs in progress whose threads share gradients (``shared_gradients``)
+_SHARED_GRAD_RUNS = [0]
+_SHARED_GRAD_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def shared_gradients():
+    """While several threads train the same parameters at once (hogwild
+    workers): ``clear_grad`` zeroes a gradient in place (paddle's
+    ``set_to_zero``) instead of dropping it, and an optimizer writes a
+    parameter through ``.data``, past its version counter.  torch's
+    accumulation into a gradient that another thread sets to None fails,
+    and so does an op's saving of a parameter whose version another
+    thread bumps meanwhile; a zeroed gradient only loses part of the
+    other thread's update, which hogwild allows, and the ops that saved
+    the parameter still get its old value (``preserve_saved``)."""
+    with _SHARED_GRAD_LOCK:
+        _SHARED_GRAD_RUNS[0] += 1
+    try:
+        yield
+    finally:
+        with _SHARED_GRAD_LOCK:
+            _SHARED_GRAD_RUNS[0] -= 1
+
+
+def gradients_shared() -> bool:
+    """Whether a ``shared_gradients`` run is in progress."""
+    return _SHARED_GRAD_RUNS[0] > 0
+
+
+def drop_grad(v: torch.Tensor):
+    """``clear_grad`` of the torch leaf ``v``: ``grad = None``, or, inside
+    ``shared_gradients``, a dense gradient zeroed in place."""
+    g = v.grad
+    if _SHARED_GRAD_RUNS[0] and g is not None and not g.is_sparse:
+        g.zero_()
+    else:
+        v.grad = None
 
 
 def graph_consumed(value) -> bool:
@@ -357,7 +407,7 @@ class Tensor:
         self._value.retain_grad()
 
     def clear_grad(self):
-        self._value.grad = None
+        drop_grad(self._value)
 
     clear_gradient = clear_grad
 

@@ -20,19 +20,22 @@ hundred products per output, in another order on each backend.
 Differences by design, checked on the port alone: ``ceil_mode=True``
 raises, ``divisor_override`` divides (the JAX package ignores both).
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
+from paddle_tpu.tensor import Tensor as JTensor
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu_torch.framework.errors import InvalidArgumentError
 from paddle_tpu_torch import nn as tnn
 from torch_layer_parity import FWD, GRAD, as_np
-from torch_layer_parity import build as _build
-from torch_layer_parity import compare as _compare
+from paddle_tpu.jit.functional import functional_call as jax_call
+from paddle_tpu.jit.functional import get_state as jax_state
+from torch_layer_parity import build
 from torch_layer_parity import one_torch_thread_on_the_cpu
 from torch_layer_parity import rand as _x
 
@@ -42,26 +45,95 @@ def _cpu_one_thread():
     yield from one_torch_thread_on_the_cpu()
 
 
-def _both(fn, arrays, grad=True):
+def _jax_outputs(fn):
+    """``fn(F, *arrays)`` of the JAX package as a function of arrays."""
+    def outs(*vals):
+        o = fn(JF, *[JTensor(v) for v in vals])
+        return [x._value for x in (o if isinstance(o, tuple) else [o])]
+    return outs
+
+
+def _both(fn, arrays, grad=True, jit=True):
     """``fn(F, *tensors)`` in both packages on the same arrays: the
     outputs within FWD and, for float inputs, the gradients of the same
-    weighted sum within GRAD."""
-    jx = [paddle.to_tensor(a, stop_gradient=not grad) for a in arrays]
+    weighted sum within GRAD.  With ``jit`` the JAX side runs under
+    ``jax.jit`` (``jax.grad`` for the gradients): op by op, the JAX
+    package compiles each op and each op's backward on its own, which
+    was most of this file's time.  ``jit=False`` keeps its eager tape,
+    for an op that ``jax.grad`` cannot trace (the max pool's mask)."""
     tx = [pt.to_tensor(a, stop_gradient=not grad) for a in arrays]
-    jo, to = fn(JF, *jx), fn(TF, *tx)
-    jo = list(jo) if isinstance(jo, tuple) else [jo]
+    if jit:
+        outs = _jax_outputs(fn)
+        jo = [np.asarray(j) for j in jax.jit(outs)(*arrays)]
+    else:
+        jx = [paddle.to_tensor(a, stop_gradient=not grad) for a in arrays]
+        jo = fn(JF, *jx)
+        jo = list(jo) if isinstance(jo, tuple) else [jo]
+    to = fn(TF, *tx)
     to = list(to) if isinstance(to, tuple) else [to]
     for j, t in zip(jo, to):
-        assert j.shape == t.shape
-        np.testing.assert_allclose(as_np(t), as_np(j), **FWD)
+        assert tuple(j.shape) == tuple(t.shape)
+        np.testing.assert_allclose(as_np(t), np.asarray(j), **FWD)
     if not grad:
         return to
     w = _x(*jo[0].shape, seed=99)
-    (jo[0] * paddle.to_tensor(w)).sum().backward()
+    if jit:
+        jgrads = jax.jit(jax.grad(lambda *v: (outs(*v)[0] * w).sum(),
+                                  argnums=tuple(range(len(arrays)))))(
+            *arrays)
+    else:
+        (jo[0] * paddle.to_tensor(w)).sum().backward()
+        jgrads = [j.grad.numpy() for j in jx]
     (to[0] * pt.to_tensor(w)).sum().backward()
-    for j, t in zip(jx, tx):
-        np.testing.assert_allclose(as_np(t.grad), as_np(j.grad), **GRAD)
+    for j, t in zip(jgrads, tx):
+        np.testing.assert_allclose(as_np(t.grad), np.asarray(j), **GRAD)
     return to
+
+
+def _build(factory):
+    """``torch_layer_parity.build`` with the JAX layer built under XLA's
+    optimizations off (``jax_disable_most_optimizations``): its
+    initializers compile once per weight shape, in about half the time;
+    the weights may differ in the last bit from an optimized build's, and
+    both packages run the same weights (the port's are copied from
+    them).  Every forward and gradient compiles with the optimizations
+    on."""
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        return build(factory)
+    finally:
+        jax.config.update("jax_disable_most_optimizations", prev)
+
+
+def _compare(jl, tl, inputs):
+    """``torch_layer_parity.compare`` for a layer of one float input and
+    one output, with the JAX side under ``jax.jit`` (``functional_call``
+    and ``jax.grad``): the forward within FWD, then the gradients of the
+    same weighted sum (``compare``'s weights) for the input and every
+    parameter within GRAD."""
+    params, buffers = jax_state(jl)
+
+    def out_of(p, x):
+        out, _ = jax_call(jl, p, buffers, (x,))
+        return out
+
+    x = inputs[0]
+    jo = np.asarray(jax.jit(out_of)(params, x))
+    tx = pt.to_tensor(x, stop_gradient=False)
+    to = tl(tx)
+    assert tuple(jo.shape) == tuple(to.shape)
+    np.testing.assert_allclose(as_np(to), jo, **FWD)
+    w = np.random.RandomState(7).randn(*jo.shape).astype(np.float32)
+    gp, gx = jax.jit(jax.grad(lambda p, xv: (out_of(p, xv) * w).sum(),
+                              argnums=(0, 1)))(params, x)
+    (to * pt.to_tensor(w)).sum().backward()
+    np.testing.assert_allclose(as_np(tx.grad), np.asarray(gx), **GRAD)
+    tp = tl.state_dict()
+    for name in params:
+        np.testing.assert_allclose(as_np(tp[name].grad),
+                                   np.asarray(gp[name]), err_msg=name,
+                                   **GRAD)
 
 
 def _cl(shape):
@@ -177,7 +249,8 @@ def test_deformable_conv_matches_jax(modulated):
         return F.deformable_conv(xx, oo, mm[0] if mm else None, ww, bb,
                                  padding=1, deformable_groups=2, groups=2)
 
-    _both(fn, [x, offset, w, b] + ([mask] if modulated else []))
+    # eager: its compiled form takes longer to build than the eager ops
+    _both(fn, [x, offset, w, b] + ([mask] if modulated else []), jit=False)
 
 
 # --- pools --------------------------------------------------------------------
@@ -248,7 +321,8 @@ def test_pools_match_jax(case, layout):
 def test_max_pool2d_mask_and_unpool_match_jax(padding):
     x = _x(2, 3, 6, 7, seed=14)
     out = _both(lambda F, xx: F.max_pool2d(xx, 2, 2, padding,
-                                           return_mask=True), [x])
+                                           return_mask=True), [x],
+                jit=False)
     assert out[1].dtype == torch.int32
     if padding == 0:
         j_out, j_idx = JF.max_pool2d(paddle.to_tensor(x), 2, 2,

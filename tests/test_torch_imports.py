@@ -98,6 +98,26 @@ def test_importing_every_module_loads_no_jax():
                 "paddle_tpu_torch.distributed.spawn",
                 "paddle_tpu_torch.distributed.launch",
                 "paddle_tpu_torch.distributed.entry",
+                "paddle_tpu_torch.distributed.fleet",
+                "paddle_tpu_torch.distributed.fleet.dataset",
+                "paddle_tpu_torch.distributed.fleet.fleet_base",
+                "paddle_tpu_torch.distributed.fleet.meta_optimizers",
+                "paddle_tpu_torch.distributed.fleet.metrics",
+                "paddle_tpu_torch.distributed.fleet.recompute",
+                "paddle_tpu_torch.distributed.fleet.role_maker",
+                "paddle_tpu_torch.distributed.fleet.sharding",
+                "paddle_tpu_torch.distributed.fleet.strategy",
+                "paddle_tpu_torch.distributed.fleet.trainer",
+                "paddle_tpu_torch.distributed.fleet.utils",
+                "paddle_tpu_torch.distributed.ps",
+                "paddle_tpu_torch.distributed.ps.communicator",
+                "paddle_tpu_torch.distributed.ps.device_cache",
+                "paddle_tpu_torch.distributed.ps.embedding",
+                "paddle_tpu_torch.distributed.ps.runtime",
+                "paddle_tpu_torch.distributed.ps.service",
+                "paddle_tpu_torch.distributed.ps.table",
+                "paddle_tpu_torch.io.multislot",
+                "paddle_tpu_torch.io.native_feed",
                 "paddle_tpu_torch.tensor",
                 "paddle_tpu_torch.autograd",
                 "paddle_tpu_torch.amp.auto_cast",

@@ -30,12 +30,17 @@ The emulation does what the kernels do, in torch on the CPU:
 Inputs are built with numpy from a seed and held to 2e-5, as in
 ``tests/test_torch_stats_tiling.py`` (the same exact softmax summed in
 another order over at most 1024 positions).  The emulation lives here
-only: no path of the package runs it.
+only: no path of the package runs it.  The XLA references and the
+Pallas kernels run under ``jax.jit``: op by op, the JAX package compiles
+each of their ops once per shape, which was most of their time.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas_ops.paged_attention import (
@@ -45,6 +50,8 @@ from paddle_tpu_torch.ops import paged_attention as pa
 from test_torch_stats_tiling import State
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+RPA_XLA = jax.jit(ragged_paged_attention_xla)
+PA_XLA = jax.jit(paged_attention_xla)
 NEG_INF = pa.NEG_INF
 PREFILL_ROWS = pa.STATS_PREFILL_ROWS
 DECODE_TILE = 32
@@ -212,7 +219,7 @@ def test_emulation_matches_jax_xla_reference(Qb, D, quantized, fused):
                       P=4, M=256)
     got = emulate(*args, fused=fused).numpy()
     np.testing.assert_allclose(
-        got, np.asarray(ragged_paged_attention_xla(*_jnp(args))), **TOL)
+        got, np.asarray(RPA_XLA(*_jnp(args))), **TOL)
     # and the port's plain version, which the card tests hold the kernel
     # against
     np.testing.assert_allclose(
@@ -228,9 +235,9 @@ def test_emulation_matches_pallas_kernel_interpret(Qb, D, quantized,
     cluster."""
     args = lanes_case(np.random.RandomState(50 + Qb), quantized, Qb, D,
                       P=16, M=12)
-    want = ragged_paged_attention_kernel(
-        *_jnp(args), interpret=True,
-        fused_dequant=fused if quantized else None)
+    want = jax.jit(functools.partial(
+        ragged_paged_attention_kernel, interpret=True,
+        fused_dequant=fused if quantized else None))(*_jnp(args))
     np.testing.assert_allclose(emulate(*args, fused=fused).numpy(),
                                np.asarray(want), **TOL)
 
@@ -256,9 +263,10 @@ def test_per_row_emulation_matches_jax(D, quantized, fused):
                      ROW_LENS)
     got = emulate_rows(*args, fused=fused).numpy()
     np.testing.assert_allclose(
-        got, np.asarray(paged_attention_xla(*_jnp(args))), **TOL)
-    want = paged_attention_kernel(*_jnp(args), interpret=True,
-                                  fused_dequant=fused if quantized else None)
+        got, np.asarray(PA_XLA(*_jnp(args))), **TOL)
+    want = jax.jit(functools.partial(
+        paged_attention_kernel, interpret=True,
+        fused_dequant=fused if quantized else None))(*_jnp(args))
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
     assert (got[0] == 0).all()            # an empty row: exact zeros
 
@@ -282,7 +290,7 @@ def test_nan_k_scale_reaches_exactly_its_readers(Qb, fused):
     o = emulate(*args, fused=fused)
     bad = ~torch.isfinite(o).all(-1).numpy()
     np.testing.assert_array_equal(bad, readers)
-    want = np.asarray(ragged_paged_attention_xla(*_jnp(args)))
+    want = np.asarray(RPA_XLA(*_jnp(args)))
     np.testing.assert_array_equal(~np.isfinite(want).all(-1), readers)
     fin = ~readers
     np.testing.assert_allclose(o.numpy()[fin], want[fin], **TOL)
@@ -331,4 +339,4 @@ def test_every_cluster_layout_matches_jax(Qb, layout):
                       M=64, lane_lens=[1024, 0, 1, 300, 777, 33])
     np.testing.assert_allclose(
         emulate(*args, layout=layout).numpy(),
-        np.asarray(ragged_paged_attention_xla(*_jnp(args))), **TOL)
+        np.asarray(RPA_XLA(*_jnp(args))), **TOL)

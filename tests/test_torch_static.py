@@ -474,15 +474,36 @@ class TestStaticSurface:
                                    lin.weight.grad.numpy(), rtol=1e-5)
         np.testing.assert_allclose(fetched[-1], xt.grad.numpy(), rtol=1e-5)
 
-    def test_item_11_refusals(self):
+    def test_item_11_refusals(self, tmp_path):
+        """``with_data_parallel`` over several devices still raises; the
+        dataset-driven Executor calls run (fleet's ``MultiTrainer``; held
+        against the JAX package in ``tests/test_torch_dataset_trainer.py``)."""
+        from paddle_tpu_torch.distributed.fleet import InMemoryDataset
+        from paddle_tpu_torch.io.multislot import Slot, write_multislot_file
+
         main = tstatic.Program()
         with pytest.raises(InvalidArgumentError, match="item 11"):
             tstatic.CompiledProgram(main).with_data_parallel(
                 places=tstatic.cpu_places(2))
-        with pytest.raises(InvalidArgumentError, match="item 11"):
-            tstatic.Executor().train_from_dataset(main, dataset=object())
-        with pytest.raises(InvalidArgumentError, match="item 11"):
-            tstatic.Executor().infer_from_dataset(main, dataset=object())
+        slots = [Slot("v", "float32", is_dense=True, dim=2)]
+        path = str(tmp_path / "d.txt")
+        write_multislot_file(path, [{"v": [i, 1.0]} for i in range(4)],
+                             slots)
+        ds = InMemoryDataset()
+        ds.set_slots(slots)
+        ds.set_filelist([path])
+        ds.set_batch_size(2)
+        ds.load_into_memory()
+        prog = tstatic.Program()
+        with tstatic.program_guard(prog):
+            v = tstatic.data("v", [2, 2], "float32")
+            s = v.sum()
+        for run in (tstatic.Executor().train_from_dataset,
+                    tstatic.Executor().infer_from_dataset):
+            out = run(prog, dataset=ds, fetch_list=[s])
+            assert out["batches"] == 2 and out["losses"] == [3.0, 7.0]
+        with pytest.raises(ValueError, match="dataset is required"):
+            tstatic.Executor().train_from_dataset(main)
         # one device: a CompiledProgram runs as its program
         with tstatic.program_guard(main):
             x = tstatic.data("x", [2], "float32")

@@ -33,7 +33,19 @@ a tenth of that; the loss 1e-5; each parameter after the step within 1e-4 of
 ``lr · max|grad|`` around its value (the gradients themselves agree to
 rounding); the running statistics 1e-5 (their batch part is a tenth of
 the batch statistic).
+
+The JAX side runs under ``jax.jit`` (``functional_call``, as
+``bench.py`` runs it), one compiled program per architecture and mode:
+op by op, the JAX package compiles every op of a deep model once per
+shape, which was most of this file's time.  The JAX models are built
+with XLA's optimizations off (``jax_disable_most_optimizations``): their
+initializers compile once per weight shape, in half the time; the
+weights they draw may differ in the last bit from an optimized build's,
+and both packages run the same weights (the port's are copied from
+them).  Every forward and step compiles with the optimizations on.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,12 +87,62 @@ def _carry(jmodel, tmodel):
     assert missing == [] and unexpected == []
 
 
+# (name, kwargs) of each JAX model _pair built, by id: the key of its
+# architecture's compiled programs
+_ARCH = {}
+# (architecture, what) -> (template model, jitted function): models of one
+# architecture share the compiled program (``functional_call`` binds the
+# values it is given into the template)
+_JITTED = {}
+
+
+@contextlib.contextmanager
+def _unoptimized_compiles():
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", prev)
+
+
 def _pair(name, seed=0, **kw):
     paddle.seed(seed)
-    jm = getattr(jmodels, name)(**kw)
+    with _unoptimized_compiles():
+        jm = getattr(jmodels, name)(**kw)
     tm = getattr(tmodels, name)(**kw)
     _carry(jm, tm)
+    _ARCH[id(jm)] = (jm, (name, tuple(sorted(kw.items()))))
     return jm, tm
+
+
+def _jitted(jm, what, make):
+    """The jitted ``make(template)`` for jm's architecture."""
+    key = (_ARCH[id(jm)][1], what)
+    if key not in _JITTED:
+        _JITTED[key] = (jm, jax.jit(make(jm)))
+    return _JITTED[key][1]
+
+
+def _jax_forward(jm, x):
+    """``jm(x)`` of the JAX model in its current mode, compiled: the
+    output; in training mode the updated running statistics are written
+    back into jm's buffers, as the eager call does."""
+    training = jm.training
+
+    def make(template):
+        def fwd(params, buffers, xv):
+            return jax_call(template, params, buffers, (xv,),
+                            training=training)
+        return fwd
+
+    params, buffers = jax_state(jm)
+    out, new_bufs = _jitted(jm, ("forward", training), make)(
+        params, buffers, jnp.asarray(x))
+    if training:
+        for name, b in jm.named_buffers():
+            b._value = new_bufs[name]
+    return np.asarray(out)
 
 
 def _images(fmt, n=4, size=64, seed=1):
@@ -97,14 +159,19 @@ def _jax_bench_step(jm, x, y):
     opt = jopt.Momentum(LR, MOMENTUM, parameters=jm.parameters())
     loss_fn = jnn.CrossEntropyLoss()
 
-    def loss_of(p):
-        out, new_bufs = jax_call(jm, p, buffers, (jnp.asarray(x),),
-                                 training=True)
-        loss = loss_fn(JTensor(out), JTensor(jnp.asarray(y)))
-        return loss._value.astype(jnp.float32), new_bufs
+    def make(template):
+        def step(p, bufs, xv, yv):
+            def loss_of(p):
+                out, new_bufs = jax_call(template, p, bufs, (xv,),
+                                         training=True)
+                loss = loss_fn(JTensor(out), JTensor(yv))
+                return loss._value.astype(jnp.float32), new_bufs
 
-    (loss, new_bufs), grads = jax.value_and_grad(loss_of, has_aux=True)(
-        params)
+            return jax.value_and_grad(loss_of, has_aux=True)(p)
+        return step
+
+    (loss, new_bufs), grads = _jitted(jm, "step", make)(
+        params, buffers, jnp.asarray(x), jnp.asarray(y))
     new_params, _ = opt.fused_step(params, grads, opt.init_opt_state(params),
                                    jnp.asarray(1, jnp.int32))
     return float(loss), new_params, new_bufs, grads
@@ -159,8 +226,7 @@ def test_resnet18_step_matches_jax(fmt, remat):
     tm.eval()
     xe, _ = _images(fmt, seed=2)
     np.testing.assert_allclose(tm(pt.to_tensor(xe)).numpy(),
-                               np.asarray(jm(paddle.to_tensor(xe))._value),
-                               **DEEP)
+                               _jax_forward(jm, xe), **DEEP)
 
 
 @pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
@@ -168,7 +234,7 @@ def test_resnet50_forward_matches_jax(fmt):
     jm, tm = _pair("resnet50", num_classes=10, data_format=fmt)
     x, _ = _images(fmt)
     np.testing.assert_allclose(tm(pt.to_tensor(x)).numpy(),
-                               np.asarray(jm(paddle.to_tensor(x))._value),
+                               _jax_forward(jm, x),
                                **DEEP50)
     # a tenth of each batch statistic: a tenth of the forward's spread
     for (name, jb), (_, tb) in zip(jm.named_buffers(), tm.named_buffers()):
@@ -212,7 +278,7 @@ def test_vgg_and_mobilenet_forward_match_jax(case):
     jm, tm = _pair(name, **kw)
     x, _ = _images("NCHW")
     np.testing.assert_allclose(tm(pt.to_tensor(x)).numpy(),
-                               np.asarray(jm(paddle.to_tensor(x))._value),
+                               _jax_forward(jm, x),
                                **DEEP)
     for (bn, jb), (_, tb) in zip(jm.named_buffers(), tm.named_buffers()):
         np.testing.assert_allclose(tb.numpy(), np.asarray(jb._value),
@@ -220,7 +286,7 @@ def test_vgg_and_mobilenet_forward_match_jax(case):
     jm.eval()
     tm.eval()
     np.testing.assert_allclose(tm(pt.to_tensor(x)).numpy(),
-                               np.asarray(jm(paddle.to_tensor(x))._value),
+                               _jax_forward(jm, x),
                                **DEEP)
 
 
@@ -230,7 +296,7 @@ def test_mobilenet_v2_classifier_eval_matches_jax():
     tm.eval()
     x, _ = _images("NCHW")
     np.testing.assert_allclose(tm(pt.to_tensor(x)).numpy(),
-                               np.asarray(jm(paddle.to_tensor(x))._value),
+                               _jax_forward(jm, x),
                                **DEEP)
 
 
@@ -254,7 +320,9 @@ def _bn_net(nn):
 def _fit(pkg, io, nn, opt_mod, state, accelerate, x, y, **fit_kw):
     paddle.seed(0)
     pt.seed(0)
-    net = _bn_net(nn)
+    with (_unoptimized_compiles() if pkg is paddle
+          else contextlib.nullcontext()):
+        net = _bn_net(nn)
     if state is None:
         state = {k: np.asarray(v.numpy()) for k, v in
                  net.state_dict().items()}
